@@ -1,0 +1,16 @@
+"""Clustering API of the PyTorch port: ``fit()`` over the registered
+algorithms.
+
+    from repro_torch.api import fit
+    res = fit(x, k=25)                  # SOCCER on the card
+    res.centers, res.rounds, res.uplink_points, res.cost(x)
+"""
+from repro_torch.api.registry import (get_algorithm, list_algorithms,
+                                      register_algorithm)
+from repro_torch.api.result import ClusterResult, uplink_bytes
+from repro_torch.api.facade import fit
+from repro_torch.api import algorithms as _algorithms  # noqa: F401 (registers
+                                                       # the drivers)
+
+__all__ = ["ClusterResult", "fit", "get_algorithm", "list_algorithms",
+           "register_algorithm", "uplink_bytes"]

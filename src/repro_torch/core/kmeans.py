@@ -1,0 +1,73 @@
+"""Centralized weighted k-means black box A (the port of
+``repro.core.kmeans``).
+
+Weighted k-means++ seeding (Gumbel-max categorical D²-sampling, one
+``update_min_dist`` launch per new center) followed by weighted Lloyd
+iterations (one ``fused_assign_reduce`` launch per iteration plus one for
+the final cost), so the same kernels serve the machines and the
+coordinator. Zero-weight rows are padding and never selected; empty
+clusters keep their previous center.
+
+PyTorch runs eagerly: the reference's ``lax.scan`` loops are Python loops
+here, and no value is read back to the host inside them, so a fit on the
+card queues its launches without waiting.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+def _categorical(gen: torch.Generator, p: torch.Tensor) -> torch.Tensor:
+    """(1,) index drawn ∝ p (p >= 0, not necessarily normalized), by the
+    Gumbel-max trick with the explicit generator."""
+    logp = torch.where(p > 0, torch.log(torch.clamp(p, min=1e-38)),
+                       -torch.inf)
+    u = torch.rand(p.shape, generator=gen, device=p.device)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-38)))
+    return torch.argmax(logp + gumbel).reshape(1)
+
+
+def kmeans_plusplus(gen: torch.Generator, x: torch.Tensor, w: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    """Weighted D²-seeding. Returns (k, d) float32 initial centers.
+
+    Each seeding step is one fused sweep of ``x`` (``ops.update_min_dist``)
+    that lowers the running min-d2 against the newly chosen center and
+    totals the weighted mass for the next draw: k - 1 launches in all.
+    """
+    n, d = x.shape
+    centers = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    centers[0] = torch.index_select(x, 0, _categorical(gen, w))[0]
+    d2min = torch.full((n,), torch.inf, dtype=torch.float32, device=x.device)
+    for i in range(1, k):
+        d2min, mass = ops.update_min_dist(x, w, centers[i - 1:i], d2min)
+        # all-zero mass (every point on a center) -> fall back to uniform w
+        p = torch.where(mass > 0, w * d2min, w)
+        centers[i] = torch.index_select(x, 0, _categorical(gen, p))[0]
+    return centers
+
+
+def lloyd(x: torch.Tensor, w: torch.Tensor, centers: torch.Tensor,
+          iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted Lloyd. Returns ((k, d) float32 centers, () final cost).
+
+    Each iteration, and the final cost, is one fused assign+reduce sweep
+    of ``x`` (``ops.fused_assign_reduce``).
+    """
+    c = centers.to(torch.float32)
+    for _ in range(iters):
+        sums, counts, _ = ops.fused_assign_reduce(x, w, c)
+        c = torch.where(counts[:, None] > 0,
+                        sums / torch.clamp(counts[:, None], min=1e-30), c)
+    _, _, cost = ops.fused_assign_reduce(x, w, c)
+    return c, cost
+
+
+def kmeans(gen: torch.Generator, x: torch.Tensor, w: torch.Tensor, k: int,
+           iters: int = 25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A(S, k): weighted k-means++ + Lloyd. Returns ((k, d) centers, cost)."""
+    return lloyd(x, w, kmeans_plusplus(gen, x, w, k), iters)

@@ -1,0 +1,115 @@
+"""Exact-size distributed sampling with static shapes.
+
+The port of ``repro.core.sampling`` for SOCCER's main path. The paper
+samples each point with probability α = η/N and fixes |P1| = |P2| = α·N
+exactly "to reduce variance". The same three steps:
+
+1. ``apportion`` — largest-remainder apportionment splits the global
+   budget across machines proportionally to their live counts
+   (deterministic; float32 arithmetic equal to the reference's).
+2. per-machine Gumbel top-k draws ``c_j`` live points uniformly without
+   replacement (static cap, dynamic count).
+3. ``comm.gather_ragged`` — machine j's ``c_j`` drawn rows land at offset
+   ``sum(c[:j])`` of the global ``(rows, d)`` buffer.
+
+Sampled points carry Horvitz–Thompson weights ``w_i · n_j / c_j``. The
+random bits come from an explicit ``torch.Generator`` on the data's
+device; they are not the JAX package's threefry bits, so a test holds a
+sampled step to the reference's outcomes, not to its draws.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def apportion(counts: torch.Tensor, total: int) -> torch.Tensor:
+    """Largest-remainder apportionment of ``total`` across machines.
+
+    Args:
+      counts: (m,) int32 live-point counts per machine.
+      total: global sample budget (static).
+
+    Returns:
+      (m,) int32 with  c_j <= counts_j  and  sum(c) == min(total, sum(counts))
+      up to float-rounding slack of a few units (weight-0 padding absorbs it).
+    """
+    m = counts.shape[0]
+    cf = counts.to(torch.float32)
+    n = torch.sum(cf)
+    total_eff = torch.clamp(n, max=float(total))
+    quota = torch.where(n > 0, total_eff * cf / torch.clamp(n, min=1.0),
+                        0.0)
+    base = torch.minimum(torch.floor(quota), cf)
+    r = total_eff - torch.sum(base)                      # leftover budget
+    frac = quota - base
+    eligible = base < cf
+    # rank machines by fractional part (eligible first, ties by id)
+    order = torch.argsort(torch.where(eligible, -frac, torch.inf),
+                          stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(m, device=counts.device)
+    add = (rank.to(torch.float32) < r) & eligible
+    c = base + add.to(torch.float32)
+    return torch.minimum(c, cf).to(torch.int32)
+
+
+def exclusive_cumsum(c: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(c, 0, dtype=c.dtype) - c
+
+
+def sample_local(gen: torch.Generator, alive: torch.Tensor, c: torch.Tensor,
+                 cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Draw ``c[j]`` live points of each machine uniformly without
+    replacement (Gumbel top-k), all machines at once.
+
+    Args:
+      gen: generator on ``alive``'s device.
+      alive: (m, p) bool.
+      c: (m,) int32 draw counts, each <= that machine's live count.
+      cap: static upper bound on c (buffer width).
+
+    Returns:
+      idx: (m, cap) int64 point indices (the first ``c[j]`` are the draw).
+      take: (m, cap) bool — ``arange(cap) < c[j]``.
+    """
+    m, p = alive.shape
+    g = torch.rand((m, p), generator=gen, device=alive.device)
+    g = g * (1.0 - 1e-7) + 1e-7                      # uniform in [1e-7, 1)
+    scores = torch.where(alive, g, -1.0)
+    _, idx = torch.topk(scores, min(cap, p), dim=1)
+    if cap > p:  # degenerate tiny-machine case
+        idx = torch.nn.functional.pad(idx, (0, cap - p))
+    slot = torch.arange(cap, dtype=torch.int32, device=alive.device)
+    return idx, slot[None, :] < c[:, None]
+
+
+def draw_global_sample(comm, gen: torch.Generator, x: torch.Tensor,
+                       w: torch.Tensor, alive: torch.Tensor,
+                       n_vec_resp: torch.Tensor, total: int, cap: int):
+    """Exact-size global uniform sample with HT weights.
+
+    Args:
+      x: (m, p, d); w: (m, p) data weights; alive: (m, p).
+      n_vec_resp: (m,) live counts of responding machines.
+      total: global sample size (static, e.g. η); cap: per-machine buffer.
+
+    Returns:
+      (total, d) points and (total,) float32 weights, replicated; the
+      realized draw count (a () int32 tensor).
+    """
+    ids = comm.machine_ids(x.device)
+    c_vec = apportion(n_vec_resp, total)
+    my_c = c_vec[ids]
+    idx, take = sample_local(gen, alive, my_c, cap)
+    pts = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    # buffer rows beyond the draw are never uploaded (the ragged gather
+    # drops them); row 0 stands in for them, as in the reference
+    pts = torch.where(take[..., None], pts, pts[:, :1])
+    out = comm.gather_ragged(pts, c_vec, total)
+    w_pt = torch.gather(w, 1, idx)
+    n_local = torch.sum(alive, dim=1).to(torch.float32)
+    ht = n_local / torch.clamp(my_c.to(torch.float32), min=1.0)
+    wts = comm.gather_ragged(w_pt * ht[:, None], c_vec, total, meta=True)
+    return out, wts, torch.sum(c_vec, dtype=torch.int32)

@@ -1,0 +1,61 @@
+"""Synthetic datasets mirroring the paper's §8 experiments.
+
+The PyTorch port's own numpy copy of the generators its main path needs
+from ``repro.data.synthetic``: the same seed gives bit-identical arrays
+in both packages. k-spherical-Gaussian mixtures in R^dim with Zipf(γ)
+component weights (the paper: dim=15, σ=0.001, γ=1.5, means uniform in
+the unit cube).
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Tuple
+
+import numpy as np
+
+from repro_torch.configs.soccer_paper import GaussianMixtureSpec
+
+
+def gaussian_mixture(spec: GaussianMixtureSpec
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Returns (x (n, dim) f32, labels (n,) i32, means (k, dim) f32)."""
+    rng = np.random.default_rng(spec.seed)
+    means = rng.uniform(0.0, 1.0, size=(spec.k, spec.dim)).astype(np.float32)
+    weights = np.arange(1, spec.k + 1, dtype=np.float64) ** (-spec.zipf_gamma)
+    weights /= weights.sum()
+    labels = rng.choice(spec.k, size=spec.n, p=weights).astype(np.int32)
+    x = means[labels] + rng.normal(
+        0.0, spec.sigma, size=(spec.n, spec.dim)).astype(np.float32)
+    return x.astype(np.float32), labels, means
+
+
+def shard_points(x: np.ndarray, m: int, seed: int = 0,
+                 shuffle: bool = True, return_weights: bool = False):
+    """Partition (n, d) -> (m, ceil(n/m), d); no point is ever dropped.
+
+    When ``m`` does not divide ``n``, the last ``m*p - n`` slots are
+    padded with duplicates of randomly chosen points (and a warning is
+    issued). Callers that need exact mass pass ``return_weights=True``
+    and get ``(parts, w)`` where the duplicate padding rows carry
+    weight 0.
+    """
+    n = x.shape[0]
+    p = -(-n // m)
+    pad = m * p - n
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n)
+    if shuffle:
+        rng.shuffle(idx)
+    if pad:
+        warnings.warn(
+            f"shard_points: n={n} not divisible by m={m}; padding the last "
+            f"shard with {pad} duplicate point(s) (weight 0 when "
+            f"return_weights=True)", stacklevel=2)
+        idx = np.concatenate([idx, rng.choice(idx, size=pad, replace=False)])
+    parts = x[idx].reshape(m, p, x.shape[1])
+    if not return_weights:
+        return parts
+    w = np.ones((m * p,), np.float32)
+    if pad:
+        w[n:] = 0.0
+    return parts, w.reshape(m, p)

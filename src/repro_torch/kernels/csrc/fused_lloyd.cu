@@ -1,0 +1,246 @@
+// One-sweep fused clustering kernels: remove_below, update_min_dist and
+// fused_assign_reduce. Each reads the points once and keeps the (n,)
+// distances and assignments out of device memory where the reference
+// does (repro/kernels/fused_lloyd.py).
+//
+// Blocks run in parallel and in no order on the card, so nothing is
+// accumulated across blocks the way the Pallas kernels accumulate across
+// grid steps under @pl.when(i == 0). Float sums across blocks go through
+// per-block partials and a second, fixed-order pass (reduce_rows_kernel):
+// no float atomics, so Lloyd's centers, and through them SOCCER's removal
+// set and n_hist, are the same bits on every run. The only atomics are
+// the integer survivor counts of remove_below, which are exact in any
+// order.
+#include "common.cuh"
+
+namespace rt {
+
+// ---------------------------------------------------------------- removal
+// Replaces repro/kernels/fused_lloyd.py::remove_below_pallas (pallas_call
+// at fused_lloyd.py:305).
+//
+// Bound: on the main path it sweeps all m·p = 10 M points (600 MB of
+// float32) against k_plus = 103 centers at d = 15: ~33 GFLOP of float32
+// FMAs against 0.6 GB, about 50 flop/byte, so it is bound by float32
+// operations (~0.5 ms at 67 TFLOP/s) rather than by the 0.2 ms the bytes
+// need. Design: the min_dist sweep (common.cuh) over a grid of (point
+// block, machine); the threshold v is read through a device pointer, so
+// the host never waits for it; each block counts its survivors with
+// __syncthreads_count and adds them to its machine's int32 count with one
+// atomicAdd. The (m, p) distance array never exists.
+template <typename T, int DR>
+__global__ void __launch_bounds__(kThreads)
+    remove_below_kernel(const T* __restrict__ x, long long p, int d,
+                        const float* __restrict__ c,
+                        const uint8_t* __restrict__ cv, int k, int kt,
+                        const float* __restrict__ v,
+                        const uint8_t* __restrict__ alive,
+                        uint8_t* __restrict__ alive_new,
+                        int* __restrict__ live) {
+  extern __shared__ __align__(16) float smem[];
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = (long long)blockIdx.y * p + i;
+  const bool active = i < p;
+  const float vv = *v;
+  float best, x2;
+  int arg;
+  bool any_valid;
+  nearest<T, DR>(x + (active ? row : 0) * d, active, d, c, cv, k, kt, smem,
+                 best, arg, x2, any_valid);
+  int keep = 0;
+  if (active) {
+    keep = alive[row] && clamp0(best + x2) > vv;   // strict >, as ref.py
+    alive_new[row] = (uint8_t)keep;
+  }
+  const int n_keep = __syncthreads_count(keep);
+  if (threadIdx.x == 0 && n_keep) atomicAdd(live + blockIdx.y, n_keep);
+}
+
+// ------------------------------------------------------- D² seeding step
+// Replaces repro/kernels/fused_lloyd.py::update_min_dist_pallas
+// (pallas_call at fused_lloyd.py:370) and its big-n twin
+// update_min_dist_pipelined_pallas (fused_lloyd.py:467).
+//
+// Bound: one new center (kc = 1) against eta ~ 17 k to 81 k rows is
+// ~0.1 to 0.5 MB of traffic, which the card moves in well under a
+// microsecond, so each call is bound by its two launches; k-means++ makes
+// k_plus - 1 of them per seeding. Design: per point min(d2, cand) in one
+// pass with the per-block partial of sum w·d2_new written beside it, then
+// the fixed-order reduce_rows pass for the mass. "No valid center" is
+// decided from the mask itself (as fused_lloyd.py:342-346), and then d2
+// passes through bit for bit.
+template <typename T, int DR>
+__global__ void __launch_bounds__(kThreads)
+    update_min_dist_kernel(const T* __restrict__ x, long long n, int d,
+                           const float* __restrict__ w,
+                           const float* __restrict__ d2,
+                           const float* __restrict__ c,
+                           const uint8_t* __restrict__ cv, int k, int kt,
+                           float* __restrict__ d2_new,
+                           float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < n;
+  float best, x2;
+  int arg;
+  bool any_valid;
+  nearest<T, DR>(x + (active ? i : 0) * d, active, d, c, cv, k, kt, smem,
+                 best, arg, x2, any_valid);
+  float contrib = 0.f;
+  if (active) {
+    const float old = d2[i];
+    const float cand = clamp0(best + x2);
+    const float nw = (any_valid && cand < old) ? cand : old;
+    d2_new[i] = nw;
+    contrib = w[i] * nw;
+  }
+  const float s = block_sum(contrib);
+  if (threadIdx.x == 0) part[blockIdx.x] = s;
+}
+
+// ------------------------------------------------------------ Lloyd step
+// Replaces repro/kernels/fused_lloyd.py::fused_assign_reduce_pallas
+// (pallas_call at fused_lloyd.py:150) and its big-n twin
+// fused_assign_reduce_pipelined_pallas (fused_lloyd.py:234).
+//
+// Bound: 2·n·k·d float32 operations for the assignment plus 2·n·d for the
+// weighted sums, on n·d inputs: at eta ~ 17 k rows and k_plus = 103 it is
+// ~55 MFLOP, about 8 µs of float32 peak, so a call is bound by its two
+// launches and by filling the card (68 blocks of 256 points). Design:
+// phase 1 assigns one point per thread (common.cuh); phase 2 has thread q
+// own the (center, coordinate) pairs q, q + 256, ... and scan the block's
+// 256 assignments in point order, so every per-block sum is taken in one
+// fixed order; the (k, d) sums, (k,) counts and the cost go to per-block
+// partials laid out row-major over (k·d + k + 1, blocks), and
+// reduce_rows_kernel adds each row in block order. The (n,) assignment
+// never leaves shared memory.
+template <typename T, int DR>
+__global__ void __launch_bounds__(kThreads)
+    fused_assign_reduce_kernel(const T* __restrict__ x, long long n, int d,
+                               const float* __restrict__ w,
+                               const float* __restrict__ c,
+                               const uint8_t* __restrict__ cv, int k, int kt,
+                               float* __restrict__ part, long long nb) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int sa[kThreads];
+  __shared__ float sw[kThreads];
+  const long long base = (long long)blockIdx.x * blockDim.x;
+  const long long i = base + threadIdx.x;
+  const bool active = i < n;
+  float best, x2;
+  int arg;
+  bool any_valid;
+  nearest<T, DR>(x + (active ? i : 0) * d, active, d, c, cv, k, kt, smem,
+                 best, arg, x2, any_valid);
+  float cost = 0.f;
+  sa[threadIdx.x] = active ? arg : -1;
+  sw[threadIdx.x] = active ? w[i] : 0.f;
+  if (active) cost = sw[threadIdx.x] * clamp0(best + x2);
+  __syncthreads();
+
+  const int rows = (int)min((long long)blockDim.x, n - base);
+  const int kd = k * d;
+  for (int q = threadIdx.x; q < kd; q += blockDim.x) {
+    const int j = q / d;
+    const int dd = q - j * d;
+    float acc = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      if (sa[r] == j) acc = fmaf(sw[r], widen(x[(base + r) * d + dd]), acc);
+    }
+    part[(long long)q * nb + blockIdx.x] = acc;
+  }
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    float acc = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      if (sa[r] == j) acc += sw[r];
+    }
+    part[(long long)(kd + j) * nb + blockIdx.x] = acc;
+  }
+  const float s = block_sum(cost);
+  if (threadIdx.x == 0) part[(long long)(kd + k) * nb + blockIdx.x] = s;
+}
+
+// out[e] = sum_b part[e * nb + b], one block per row, in a fixed order.
+__global__ void __launch_bounds__(kThreads)
+    reduce_rows_kernel(const float* __restrict__ part, long long nb,
+                       float* __restrict__ out) {
+  const float* row = part + (long long)blockIdx.x * nb;
+  float acc = 0.f;
+  for (long long b = threadIdx.x; b < nb; b += blockDim.x) acc += row[b];
+  const float s = block_sum(acc);
+  if (threadIdx.x == 0) out[blockIdx.x] = s;
+}
+
+inline cudaError_t reduce_rows(const float* part, long long nb, long long rows,
+                               float* out, cudaStream_t stream) {
+  reduce_rows_kernel<<<(unsigned)rows, kThreads, 0, stream>>>(part, nb, out);
+  return cudaGetLastError();
+}
+
+inline long long blocks_for(long long n) {
+  return (n + kThreads - 1) / kThreads;
+}
+
+}  // namespace rt
+
+extern "C" int rt_remove_below(const void* x, int dtype, int m, long long p,
+                               int d, const float* c, const uint8_t* cv,
+                               int k, const float* v, const uint8_t* alive,
+                               uint8_t* alive_new, int* live, void* stream) {
+  using namespace rt;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(live, 0, sizeof(int) * (size_t)m, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    constexpr int DR = decltype(dr)::value;
+    const TileShape ts = tile_shape(d, DR, k);
+    if (m == 0 || p == 0) return cudaGetLastError();
+    const dim3 grid((unsigned)blocks_for(p), (unsigned)m);
+    return launch(remove_below_kernel<T, DR>, grid, ts.smem, s, (const T*)x,
+                  p, d, c, cv, k, ts.kt, v, alive, alive_new, live);
+  });
+}
+
+// part holds max(blocks_for(n), 1) floats.
+extern "C" int rt_update_min_dist(const void* x, int dtype, long long n,
+                                  int d, const float* w, const float* d2,
+                                  const float* c, const uint8_t* cv, int k,
+                                  float* d2_new, float* part, float* mass,
+                                  void* stream) {
+  using namespace rt;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long nb = blocks_for(n);
+  cudaError_t e = dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    constexpr int DR = decltype(dr)::value;
+    const TileShape ts = tile_shape(d, DR, k);
+    if (n == 0) return cudaGetLastError();
+    return launch(update_min_dist_kernel<T, DR>, dim3((unsigned)nb), ts.smem,
+                  s, (const T*)x, n, d, w, d2, c, cv, k, ts.kt, d2_new, part);
+  });
+  if (e != cudaSuccess) return (int)e;
+  return (int)reduce_rows(part, nb, 1, mass, s);
+}
+
+// part holds (k*d + k + 1) * max(blocks_for(n), 1) floats; out holds
+// k*d + k + 1: the (k, d) sums, the (k,) counts, then the cost.
+extern "C" int rt_fused_assign_reduce(const void* x, int dtype, long long n,
+                                      int d, const float* w, const float* c,
+                                      const uint8_t* cv, int k, float* part,
+                                      float* out, void* stream) {
+  using namespace rt;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long nb = blocks_for(n);
+  cudaError_t e = dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    constexpr int DR = decltype(dr)::value;
+    const TileShape ts = tile_shape(d, DR, k);
+    if (n == 0) return cudaGetLastError();
+    return launch(fused_assign_reduce_kernel<T, DR>, dim3((unsigned)nb),
+                  ts.smem, s, (const T*)x, n, d, w, c, cv, k, ts.kt, part,
+                  nb);
+  });
+  if (e != cudaSuccess) return (int)e;
+  return (int)reduce_rows(part, nb, (long long)k * d + k + 1, out, s);
+}

@@ -1,0 +1,59 @@
+"""The PyTorch port stands alone: nothing under ``src/repro_torch/`` and
+nothing in ``chip_smoke.py`` imports JAX or the JAX package ``repro``
+(only the tests import both)."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT))
+                                             for p in FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_has_its_modules():
+    names = {str(p.relative_to(ROOT / "src")) for p in FILES[:-1]}
+    for mod in ("repro_torch/api/facade.py", "repro_torch/core/soccer.py",
+                "repro_torch/kernels/ops.py", "repro_torch/data/sharding.py",
+                "repro_torch/configs/soccer_paper.py"):
+        assert mod in names
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.api, repro_torch.kernels.ops, "
+            "repro_torch.core.reduce; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad; print('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"

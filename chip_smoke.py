@@ -12,13 +12,17 @@ PyTorch built for CUDA. It
    points, d = 15, m = 8 machines), in float32, bfloat16 and float16, with
    invalid centers and zero weights, and times kernel, plain version and
    the closest PyTorch call (``torch.cdist``, which computes the whole
-   distance matrix rather than the same function);
+   distance matrix rather than the same function); then holds them
+   against their plain versions off the main path's shape too: d = 37
+   and d = 513 (the any-width kernel variant, several center tiles) and
+   k = 1024 at d = 15 (two tiles);
 4. runs one SOCCER round with CUDA's sync debug mode set to "error", so
    a device->host synchronization inside a round fails the run;
 5. runs ``repro_torch.api.fit`` on both Table 2 instances at n = 10 M and
    checks the paper's bounds and that every kernel was launched.
 
-It prints one JSON line of per-kernel numbers before the last line, and
+It prints one JSON line of per-kernel numbers before the last line
+(``launches`` sums both fits, ``launches_per_fit`` gives each), and
 ``{"ok": true, "device": {...}}`` last. Any failed check exits non-zero
 before that line. Without CUDA it exits non-zero at once.
 """
@@ -323,6 +327,49 @@ def kernel_phase(ops, ref, consts):
     return rows
 
 
+# (n, d, k) off the main path's shape: d = 37 and 513 run the any-width
+# variant (the row re-read from L1) with several center tiles (221 and 15
+# centers a tile), and k = 1024 at d = 15 takes two tiles of 512.
+WIDTH_SHAPES = ((20_000, 37, 300), (20_000, 513, 190), (20_000, 15, 1024))
+
+
+def width_phase(ops, ref, rows) -> None:
+    """Every kernel against its plain version at the WIDTH_SHAPES, with the
+    same tolerances as at the main path's shapes; the errors join each
+    kernel's max_abs_err in ``rows``."""
+    gen = torch.Generator("cuda").manual_seed(2)
+    for n, d, k in WIDTH_SHAPES:
+        x32 = torch.rand((n, d), generator=gen, device="cuda")
+        c = torch.rand((k, d), generator=gen, device="cuda")
+        cv = torch.rand(k, generator=gen, device="cuda") > 0.3
+        cv[0] = True
+        w = torch.rand(n, generator=gen, device="cuda")
+        w[: n // 5] = 0.0
+        d2_0 = torch.rand(n, generator=gen, device="cuda") * d
+        alive = torch.rand((2, n // 2), generator=gen, device="cuda") > 0.1
+        for dt in DTYPES:
+            x = x32.to(dt)
+            for mask in (None, cv):
+                errs = {
+                    "min_dist": check_min_dist(ops, ref, x, c, mask)[0],
+                    "update_min_dist": check_update_min_dist(
+                        ops, ref, x, w, c, d2_0, mask)[0],
+                    "fused_assign_reduce": check_fused(ops, ref, x, w, c,
+                                                       mask)[0]}
+                d2, _ = ref.min_dist_ref(x, c, mask)
+                v = torch.median(d2)
+                errs["remove_below"] = check_remove_below(
+                    ops, ref, x.reshape(2, n // 2, d), c, alive, v, mask)[0]
+                for name, err in errs.items():
+                    rows[name]["max_abs_err"] = max(
+                        rows[name]["max_abs_err"], err)
+                print(f"check widths n={n} d={d} k={k} {dt} mask="
+                      f"{mask is not None} max_abs_err="
+                      + " ".join(f"{nm}:{e:.3g}" for nm, e in errs.items()),
+                      flush=True)
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------------------------- main path
 
 def sync_phase(params_cls) -> None:
@@ -348,7 +395,7 @@ def sync_phase(params_cls) -> None:
           f"n_remaining={int(state.n_remaining)}", flush=True)
 
 
-def fit_phase(api, ops, KERNELS, k, eps):
+def fit_phase(api, KERNELS, k, eps):
     from repro_torch.configs.soccer_paper import GaussianMixtureSpec
     from repro_torch.core.metrics import centralized_cost
     from repro_torch.data.synthetic import gaussian_mixture
@@ -404,9 +451,7 @@ def main() -> None:
     from repro_torch import api
     from repro_torch.core.soccer import derive_constants
     from repro_torch.configs.soccer_paper import SoccerParams
-    from repro_torch.device import resolve_device
     from repro_torch.kernels import build, ops, ref
-    resolve_device("cuda")                 # full float32, no TF32
 
     secs = build.build_all()
     print(f"build: {len(build.SOURCES)} sources in {secs:.2f} s", flush=True)
@@ -415,15 +460,19 @@ def main() -> None:
     consts = [derive_constants(N_POINTS, p, SoccerParams(k=k, epsilon=e))
               for k, e in TABLE2]
     rows = kernel_phase(ops, ref, consts)
+    width_phase(ops, ref, rows)
     sync_phase(SoccerParams)
-    launches = {name: 0 for name in ops.KERNELS}
-    for k, eps in TABLE2:
-        for name, n in fit_phase(api, ops, ops.KERNELS, k, eps).items():
-            launches[name] += n
+    per_fit = {f"k{k}": fit_phase(api, ops.KERNELS, k, eps)
+               for k, eps in TABLE2}
 
-    line = {"kernels": [dict(name=name, route="cuda", source=SOURCES[name],
-                             replaces=REPLACES[name], launches=launches[name],
-                             **rows[name]) for name in ops.KERNELS]}
+    # launches: both Table 2 fits together, each counted from 0;
+    # launches_per_fit: each fit's own count
+    line = {"kernels": [dict(
+        name=name, route="cuda", source=SOURCES[name],
+        replaces=REPLACES[name],
+        launches=sum(c[name] for c in per_fit.values()),
+        launches_per_fit={fit: c[name] for fit, c in per_fit.items()},
+        **rows[name]) for name in ops.KERNELS]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@ import torch
 from repro_torch.api.registry import register_algorithm
 from repro_torch.api.result import ClusterResult, uplink_bytes
 from repro_torch.configs.soccer_paper import SoccerParams
-from repro_torch.core.soccer import run_soccer
+from repro_torch.core.soccer import RUN_KNOBS, run_soccer
 from repro_torch.device import DeviceLike
 
 _SOCCER_FIELDS = {f.name for f in dataclasses.fields(SoccerParams)}
@@ -34,12 +34,14 @@ def fit_soccer(x_parts, k: int, *, backend: str = "virtual",
                alive=None, seed: int = 0, eta_override: int = 0,
                device: DeviceLike = "cuda", **params) -> ClusterResult:
     """SOCCER (the paper's Algorithm 1) via the host driver."""
+    run_knobs = {n: params.pop(n) for n in RUN_KNOBS if n in params}
     _reject_unknown("soccer", params,
                     _SOCCER_FIELDS - {"k", "seed", "n_machines"})
     m, _, d = x_parts.shape
     sp = SoccerParams(k=k, seed=seed, n_machines=m, **params)
     res = run_soccer(x_parts, sp, backend=backend, generator=generator, w=w,
-                     alive=alive, eta_override=eta_override, device=device)
+                     alive=alive, eta_override=eta_override, device=device,
+                     **run_knobs)
     up = res.uplink[: res.rounds + 1]
     return ClusterResult(
         centers=res.centers, k=k, algo="soccer", backend="virtual",

@@ -32,30 +32,6 @@ def _as_parts(x: np.ndarray, w, m: int, seed: int, policy):
     return make_shards(x, w, m, policy=policy, seed=seed)
 
 
-def _not_ported(knob: str, item: str):
-    raise NotImplementedError(
-        f"fit({knob}) is not ported yet (ROADMAP Queue 1 {item})")
-
-
-def _check_main_path(backend, uplink_dtype, uplink_wire, uplink_mode,
-                     failure_plan, trace) -> None:
-    if backend == "mesh":
-        _not_ported("backend='mesh'", "item 17, the multi-device backend")
-    if backend not in (None, "virtual", "auto"):
-        raise ValueError(f"unknown backend {backend!r}: expected 'virtual', "
-                         f"'auto' or 'mesh'")
-    if uplink_dtype not in (None, "float32"):
-        _not_ported(f"uplink_dtype={uplink_dtype!r}", "item 11")
-    if uplink_wire not in (None, "auto", "values"):
-        _not_ported(f"uplink_wire={uplink_wire!r}", "item 11")
-    if uplink_mode not in (None, "points"):
-        _not_ported(f"uplink_mode={uplink_mode!r}", "item 12, coresets")
-    if failure_plan is not None:
-        _not_ported("failure_plan=...", "item 11")
-    if trace not in (None, False, "off"):
-        _not_ported(f"trace={trace!r}", "item 14, telemetry")
-
-
 def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
         m: Optional[int] = None, w=None,
         generator: Optional[torch.Generator] = None, seed: int = 0,
@@ -79,13 +55,12 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
       shard_policy: "shuffle" | "contiguous" | "sorted" | "imbalanced" or
         a callable (see ``repro_torch.data.sharding``).
       uplink_dtype, uplink_wire, uplink_mode, failure_plan, trace: the
-        reference's run-condition knobs; only their defaults run here.
+        reference's run-condition knobs, passed to the algorithm; only
+        their defaults run here.
       device: "cuda" (default; raises without CUDA) or "cpu", where the
         kernels' plain PyTorch versions run.
       **algo_params: algorithm-specific knobs (e.g. ``epsilon``).
     """
-    _check_main_path(backend, uplink_dtype, uplink_wire, uplink_mode,
-                     failure_plan, trace)
     dev = resolve_device(device)
     x = np.asarray(x)
     if x.ndim not in (2, 3):
@@ -105,11 +80,14 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
         "shuffle" if shuffle else "contiguous")
     parts, w_parts, alive_parts = _as_parts(x, w, m, seed, policy)
     driver = get_algorithm(algo)
+    if uplink_mode is not None:
+        algo_params["uplink_mode"] = uplink_mode
 
     t0 = time.perf_counter()
-    res = driver(parts, k, backend="virtual", generator=generator,
+    res = driver(parts, k, backend=backend, generator=generator,
                  w=w_parts, alive=alive_parts, seed=seed, device=dev,
-                 **algo_params)
+                 uplink_dtype=uplink_dtype, uplink_wire=uplink_wire,
+                 failure_plan=failure_plan, trace=trace, **algo_params)
     res.wall_time_s = time.perf_counter() - t0
     res.params = dict(k=k, m=m, seed=seed, device=str(dev), **algo_params)
     if shard_policy is not None:

@@ -59,25 +59,50 @@ def derive_constants(n: int, p_local: int, params: SoccerParams,
                            lloyd_iters=params.lloyd_iters)
 
 
-# SoccerParams knobs outside the main path -> their ROADMAP Queue 1 item
-_LATER_KNOBS = {
+# SoccerParams fields outside the main path -> (the value the port runs,
+# its ROADMAP Queue 1 item)
+_LATER_PARAMS = {
     "straggler_rate": (0.0, "item 11 (SOCCER knobs)"),
     "outlier_frac": (0.0, "item 11 (SOCCER knobs)"),
     "sharded_coordinator": (False, "item 9 (sharded_kmeans)"),
     "blackbox": ("kmeans", "item 10 (minibatch)"),
     "uplink_mode": ("points", "item 12 (coresets)"),
 }
+# The reference's run-condition options (``repro.api.fit``) -> (the values
+# the port runs, its ROADMAP Queue 1 item). ``fit`` passes them through.
+RUN_KNOBS = {
+    "backend": ((None, "virtual", "auto"),
+                "item 17 (the multi-device backend)"),
+    "uplink_dtype": ((None, "float32"), "item 11 (uplink compression)"),
+    "uplink_wire": ((None, "auto", "values"), "item 11 (uplink compression)"),
+    "failure_plan": ((None,), "item 11 (failure injection)"),
+    "trace": ((None, False, "off"), "item 14 (telemetry)"),
+}
 
 
-def check_main_path(params: SoccerParams) -> None:
-    """Raise NotImplementedError for a knob the port does not run yet."""
-    for name, (default, item) in _LATER_KNOBS.items():
+def _not_ported(what: str, runs, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
+                              f"{item}); the port runs {runs!r}")
+
+
+def check_main_path(params: SoccerParams, **run_knobs) -> None:
+    """Raise NotImplementedError for a knob the port does not run yet: a
+    ``SoccerParams`` field or one of ``RUN_KNOBS``."""
+    for name, (runs, item) in _LATER_PARAMS.items():
         value = getattr(params, name)
-        if value != default:
-            raise NotImplementedError(
-                f"SoccerParams.{name}={value!r} is not ported yet "
-                f"(ROADMAP Queue 1 {item}); the port runs {name}="
-                f"{default!r}")
+        if value != runs:
+            _not_ported(f"SoccerParams.{name}={value!r}", runs, item)
+    unknown = set(run_knobs) - set(RUN_KNOBS)
+    if unknown:
+        raise TypeError(f"unexpected option(s) {sorted(unknown)}")
+    backend = run_knobs.get("backend", "virtual")
+    if backend not in RUN_KNOBS["backend"][0] + ("mesh",):
+        raise ValueError(f"unknown backend {backend!r}: expected 'virtual', "
+                         f"'auto' or 'mesh'")
+    for name, value in run_knobs.items():
+        runs, item = RUN_KNOBS[name]
+        if value not in runs:
+            _not_ported(f"{name}={value!r}", runs, item)
 
 
 @dataclasses.dataclass
@@ -258,18 +283,16 @@ def stopping_rule(remaining: float, capacity: float, prev: float) -> bool:
 def run_soccer(x_parts, params: SoccerParams, *, backend: str = "virtual",
                generator: Optional[torch.Generator] = None,
                w=None, alive=None, eta_override: int = 0,
-               device: DeviceLike = "cuda") -> SoccerResult:
+               device: DeviceLike = "cuda", **run_knobs) -> SoccerResult:
     """The SOCCER host driver.
 
     ``x_parts`` is (m, p, d) points (numpy or a tensor), ``w``/``alive``
     optional (m, p) weights and mask. ``generator`` defaults to one on
-    ``device`` seeded with ``params.seed``.
+    ``device`` seeded with ``params.seed``. ``run_knobs`` are the
+    reference's other run-condition options (``RUN_KNOBS``); only the
+    values the port runs are accepted.
     """
-    check_main_path(params)
-    if backend not in ("virtual", "auto"):
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported yet (ROADMAP Queue 1 item "
-            f"17, the multi-device backend); the port runs 'virtual'")
+    check_main_path(params, backend=backend, **run_knobs)
     dev = resolve_device(device)
     m, p, _ = x_parts.shape
     comm = VirtualCluster(m)

@@ -2,11 +2,7 @@
 
 Entry points run on the card unless the caller asks for the CPU: the
 default ``device="cuda"`` raises when CUDA is missing instead of carrying
-on silently on the CPU. On the card, float32 matrix products and
-convolutions are pinned to full float32 (no TF32): the plain versions of
-the kernels take the cross term ``x @ c.T`` through ``torch.matmul``, and
-TF32's ~3 decimal digits would swamp the expanded distance form at the
-paper's σ = 0.001.
+on silently on the CPU.
 """
 from __future__ import annotations
 
@@ -27,8 +23,6 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
                 "repro_torch runs on the card by default but CUDA is not "
                 "available; pass device='cpu' to run the plain PyTorch "
                 "versions on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (expected cuda or cpu)")
     return dev

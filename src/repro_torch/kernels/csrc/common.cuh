@@ -162,11 +162,11 @@ inline TileShape tile_shape(int d, int dr, int k) {
 }
 
 // Calls f(T*{}, integral_constant<int, DR>{}) for the point dtype and the
-// register row length that covers d (16, 64, or 0 = any d).
+// register row length that covers d: 16 for the paper's d = 15, else 0
+// (any d).
 template <typename T, typename F>
 cudaError_t by_width(int d, F&& f) {
   if (d <= 16) return f((T*)nullptr, std::integral_constant<int, 16>());
-  if (d <= 64) return f((T*)nullptr, std::integral_constant<int, 64>());
   return f((T*)nullptr, std::integral_constant<int, 0>());
 }
 

@@ -6,7 +6,8 @@ i.e. through its plain PyTorch version, and is held against
 rows (k <= 1024) of the conformance grid in
 ``tests/test_kernel_conformance.py``, in float32, bfloat16 and float16,
 with that file's tolerances. The CUDA kernels themselves run only on the
-card: ``test_cuda_kernels_match_plain`` is marked ``cuda`` and skips here.
+card: ``tests/test_torch_cuda.py`` holds them against their plain versions
+there.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -254,28 +255,3 @@ def test_every_entry_point_covered():
                "update_min_dist"}
     assert public == set(ops.ENTRY_POINTS) == set(ops.KERNELS) == covered
 
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain():
-    """On the card: every kernel against its plain version (the full
-    check at the main path's shapes is chip_smoke.py)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; the kernels build only there")
-    g = torch.Generator("cuda").manual_seed(0)
-    x = torch.rand((3000, 15), device="cuda", generator=g)
-    c = torch.rand((103, 15), device="cuda", generator=g)
-    w = torch.rand(3000, device="cuda", generator=g)
-    d2, _ = ops.min_dist(x, c)
-    d2_p, _ = ops.ref.min_dist_ref(x, c)
-    torch.testing.assert_close(d2, d2_p, rtol=0, atol=1e-5)
-    s, n, cost = ops.fused_assign_reduce(x, w, c)
-    s_p, n_p, cost_p = ops.ref.fused_assign_reduce_ref(x, w, c)
-    torch.testing.assert_close(n, n_p, rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(cost, cost_p, rtol=1e-5, atol=1e-5)
-    u, mass = ops.update_min_dist(x, w, c[:1], d2 + 1.0)
-    u_p, mass_p = ops.ref.update_min_dist_ref(x, w, c[:1], d2 + 1.0)
-    torch.testing.assert_close(u, u_p, rtol=0, atol=1e-5)
-    alive = torch.ones((3, 1000), dtype=torch.bool, device="cuda")
-    a, live = ops.remove_below(x.reshape(3, 1000, 15), c, alive,
-                               torch.tensor(10.0, device="cuda"))
-    assert int(live.sum()) == 0 and not bool(a.any())

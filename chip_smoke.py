@@ -1,4 +1,5 @@
-"""Smoke test of the PyTorch port of SOCCER on one NVIDIA card.
+"""Smoke test of the PyTorch port of SOCCER and its baselines on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -6,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/``;
+2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/``
+   (one nvcc per source, all at once);
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes SOCCER's main path gives it (paper Table 2 rows 1 and 2, n = 10 M
    points, d = 15, m = 8 machines), in float32, bfloat16 and float16, with
@@ -16,13 +18,31 @@ PyTorch built for CUDA. It
    against their plain versions off the main path's shape too: d = 37
    and d = 513 (the any-width kernel variant, several center tiles) and
    k = 1024 at d = 15 (two tiles);
-4. runs one SOCCER round with CUDA's sync debug mode set to "error", so
-   a device->host synchronization inside a round fails the run;
-5. runs ``repro_torch.api.fit`` on both Table 2 instances at n = 10 M and
-   checks the paper's bounds and that every kernel was launched.
+4. holds both Lloyd kernels against their plain version at the
+   baselines' weighing shapes — the resident one at 1.25 M points x 831
+   centers (k-means‖ at k = 25), the chunked one (k > 1024) at 1.25 M x
+   3,081 (k-means‖ at k = 100; the TPU kernel's single-walk regime) and
+   65,536 x 173,256 (EIM11's clustering; its two-walk regime) and at
+   k = 1025 and 2100 — in the three dtypes, with invalid centers and zero
+   weights: every element of the sums and counts against an index_add
+   over min_dist's argmin, and against the plain version with a slack
+   for each center from the near-tie points it may gain or lose; checks
+   that a repeat call gives the same bits; times the weighing shapes;
+   holds min_dist at 173,256 centers; and times both Lloyd kernels on the
+   same inputs at SOCCER's coordinator shapes and at 1.25 M points x 4,
+   25, 831 and 1024 centers (to measure where ``ops.MAX_RESIDENT_K``
+   should split them);
+5. runs one SOCCER round, and k-means‖'s seeding rounds, with CUDA's sync
+   debug mode set to "error", so a device->host synchronization inside a
+   round fails the run;
+6. runs ``repro_torch.api.fit`` on five instances — SOCCER and k-means‖ on
+   both Table 2 rows at n = 10 M, EIM11 at n = 1 M, k = 25 (a cut of n:
+   EIM11's removal sweeps every point against a clustering that grows by
+   14,438 rows a round) — checks the paper's bounds and the reference
+   tests' claims, and that every kernel of each path was launched.
 
 It prints one JSON line of per-kernel numbers before the last line
-(``launches`` sums both fits, ``launches_per_fit`` gives each), and
+(``launches`` sums the five fits, ``launches_per_fit`` gives each), and
 ``{"ok": true, "device": {...}}`` last. Any failed check exits non-zero
 before that line. Without CUDA it exits non-zero at once.
 """
@@ -47,11 +67,45 @@ SOURCES = {"min_dist": "src/repro_torch/kernels/csrc/min_dist.cu",
            "remove_below": "src/repro_torch/kernels/csrc/fused_lloyd.cu",
            "update_min_dist": "src/repro_torch/kernels/csrc/fused_lloyd.cu",
            "fused_assign_reduce":
-               "src/repro_torch/kernels/csrc/fused_lloyd.cu"}
+               "src/repro_torch/kernels/csrc/fused_lloyd.cu",
+           "fused_assign_reduce_chunked":
+               "src/repro_torch/kernels/csrc/fused_chunked.cu"}
 REPLACES = {"min_dist": "src/repro/kernels/min_dist.py:61",
             "remove_below": "src/repro/kernels/fused_lloyd.py:279",
             "update_min_dist": "src/repro/kernels/fused_lloyd.py:352",
-            "fused_assign_reduce": "src/repro/kernels/fused_lloyd.py:138"}
+            "fused_assign_reduce": "src/repro/kernels/fused_lloyd.py:138",
+            "fused_assign_reduce_chunked":
+                "src/repro/kernels/fused_lloyd.py:562"}
+# The chunked kernel's two regimes, named by the TPU kernel each shape
+# reaches: its (kp, d) accumulators fit the 6 MiB budget or they do not
+# (repro/kernels/fused_lloyd.py:68, :586; kp is k rounded up to the
+# reference's center chunk, 1024 at d <= 128: repro/kernels/tuning.py:71).
+CHUNK_ACC_BUDGET = 6 * 2 ** 20
+CHUNK_K = 1024
+MAX_RESIDENT_K = 1024         # repro_torch.kernels.ops.MAX_RESIDENT_K
+REGIME_REPLACES = {"resident": "src/repro/kernels/fused_lloyd.py:138",
+                   "single_walk": "src/repro/kernels/fused_lloyd.py:562",
+                   "two_walk": "src/repro/kernels/fused_lloyd.py:673"}
+# (n, d, k) of the chunked checks: k-means‖'s weighing at k = 100 (one
+# machine's 1.25 M points, 1 + 5·616 rows), EIM11's clustering at n = 1 M
+# (12·14,438 rows) on a point subset, and the conformance grid's k.
+CHUNKED_SHAPES = ((1_250_000, DIM, 3_081), (65_536, DIM, 173_256),
+                  (20_000, DIM, 1025), (20_000, 33, 2100))
+# k-means‖ row 1's weighing (one machine's 1.25 M points, 1 + 5·166 rows)
+# reaches the resident kernel; it is held beside the chunked shapes.
+LLOYD_SHAPES = ((1_250_000, DIM, 831),) + CHUNKED_SHAPES
+# (n, k) at which both Lloyd kernels are timed on the same inputs: SOCCER's
+# coordinator calls at both Table 2 rows, k-means‖ row 1's weighing, the
+# resident limit at that n, and few centers at that n (where the chunked
+# kernel's atomics meet on few rows).
+DISPATCH_SHAPES = ((17_353, 103), (80_585, 190), (1_250_000, 831),
+                   (1_250_000, 1024), (1_250_000, 4), (1_250_000, 25))
+EIM11_N, EIM11_K = 1_000_000, 25
+# paths of each fit -> the kernels it must launch
+SOCCER_KERNELS = ("min_dist", "update_min_dist", "fused_assign_reduce",
+                  "remove_below")
+KMPAR_KERNELS = ("min_dist", "update_min_dist", "fused_assign_reduce")
+EIM11_KERNELS = KMPAR_KERNELS + ("fused_assign_reduce_chunked",)
 
 
 def fail(msg: str) -> None:
@@ -103,19 +157,6 @@ def d2_tol(x: torch.Tensor, c: torch.Tensor) -> float:
     return TOL_ULPS * EPS32 * max(scale, 1.0)
 
 
-def plain_top2(x, c, cv):
-    """Plain expanded-form d2 to the nearest and second-nearest valid
-    center (float32, no TF32)."""
-    xf, cf = x.float(), c.float()
-    d2 = (xf * xf).sum(-1)[:, None] - 2.0 * (xf @ cf.T) + (cf * cf).sum(-1)
-    if cv is not None:
-        d2 = torch.where(cv[None, :], d2, torch.inf)
-    top = torch.topk(d2, min(2, d2.shape[1]), dim=1, largest=False).values
-    second = top[:, 1] if top.shape[1] > 1 else torch.full_like(top[:, 0],
-                                                               torch.inf)
-    return top[:, 0], second
-
-
 def check_min_dist(ops, ref, x, c, cv):
     tol = d2_tol(x, c)
     d2_k, idx_k = ops.min_dist(x, c, cv)
@@ -148,29 +189,94 @@ def check_update_min_dist(ops, ref, x, w, c, d2, cv):
     return err, tol
 
 
-def check_fused(ops, ref, x, w, c, cv):
+FUSED_RTOL = 1e-5
+
+
+def check_fused(ops, ref, x, w, c, cv, repeat: bool = False):
+    """The Lloyd step (resident or chunked, by k) against two references,
+    element by element; ``repeat`` also checks that a second call gives
+    the same bits.
+
+    1. Its own assignment. Every kernel shares min_dist's distance code,
+       so it puts each point on ``ops.min_dist``'s argmin: the (k, d) sums
+       and (k,) counts must equal a float64 index_add over that argmin to
+       FUSED_RTOL of each element, with no tie allowance. This holds the
+       reduction itself (a sum sent to another row, a wrong fixed-point
+       shift) at every shape.
+    2. The plain version, whose assignment may differ from the kernel's at
+       near-ties. Each point assigned differently must be one (its d2 to
+       the kernel's center within 2·tol of the plain min, as in
+       check_min_dist), and its weight (times |x| for the sums) is allowed
+       on both of its centers and on no other; FUSED_RTOL covers the plain
+       version's float32 sums.
+
+    Returns the largest differences from the plain version (sums, counts,
+    cost), the cost's tolerance, and the number of points assigned
+    differently."""
     tol = d2_tol(x, c)
+    k, d = c.shape
     s_k, n_k, cost_k = ops.fused_assign_reduce(x, w, c, cv)
+    if repeat:
+        again = ops.fused_assign_reduce(x, w, c, cv)
+        check(all(torch.equal(a, b) for a, b in
+                  zip((s_k, n_k, cost_k), again)),
+              f"fused_assign_reduce k={k}: a repeat call gave other bits")
+    xd, wd = x.double(), w.double()
+    wx = wd[:, None] * xd
+    _, idx_k = ops.min_dist(x, c, cv)
+    a_k = idx_k.long()
+    s_own = torch.zeros((k, d), dtype=torch.float64,
+                        device=x.device).index_add_(0, a_k, wx)
+    n_own = torch.zeros(k, dtype=torch.float64,
+                        device=x.device).index_add_(0, a_k, wd)
+    for what, got, want in (("sums", s_k, s_own), ("counts", n_k, n_own)):
+        err = (got.double() - want).abs()
+        bad = err > FUSED_RTOL * want.abs() + 1e-6
+        check(not bool(bad.any()),
+              f"fused_assign_reduce k={k} {what}: {int(bad.sum())} elements "
+              f"off its own assignment's index_add by more than "
+              f"{FUSED_RTOL} of each (largest err {float(err.max())})")
+
     s_p, n_p, cost_p = ref.fused_assign_reduce_ref(x, w, c, cv)
-    best, second = plain_top2(x, c, cv)
-    amb = (second - best) <= tol          # may go to either center
-    wa = w[amb].float()
-    slack_n = float(wa.sum())
-    slack_s = float((wa * x[amb].float().abs().max(-1).values).sum())
-    rel = 1e-5
-    e_s = float((s_k - s_p).abs().max())
-    e_n = float((n_k - n_p).abs().max())
-    e_c = abs(float(cost_k) - float(cost_p))
-    t_s = rel * float(s_p.abs().max()) + 2 * slack_s
-    t_n = rel * float(n_p.abs().max()) + 2 * slack_n
-    t_c = rel * abs(float(cost_p)) + tol * float(w.sum())
-    check(e_s <= t_s, f"fused_assign_reduce sums err {e_s} > {t_s}")
-    check(e_n <= t_n, f"fused_assign_reduce counts err {e_n} > {t_n}")
-    check(e_c <= t_c, f"fused_assign_reduce cost err {e_c} > {t_c}")
+    d2_p, idx_p = ref.min_dist_ref(x, c, cv)
+    moved = (idx_k != idx_p).nonzero().squeeze(1)
+    slack_s = torch.zeros((k, d), dtype=torch.float64, device=x.device)
+    slack_n = torch.zeros(k, dtype=torch.float64, device=x.device)
+    if moved.numel():
+        xf, cf = x[moved].float(), c.float()[a_k[moved]]
+        real = torch.clamp((xf * xf).sum(-1) - 2.0 * (xf * cf).sum(-1)
+                           + (cf * cf).sum(-1), min=0.0)
+        gap = float((real - d2_p[moved]).abs().max())
+        check(gap <= 2 * tol, f"fused_assign_reduce k={k}: a point assigned "
+                              f"differently is {gap} from its min > {2 * tol}")
+        for a in (a_k[moved], idx_p[moved].long()):
+            slack_s.index_add_(0, a, wx[moved].abs())
+            slack_n.index_add_(0, a, wd[moved])
+    errs = {}
+    for what, got, want, slack in (("sums", s_k, s_p, slack_s),
+                                   ("counts", n_k, n_p, slack_n)):
+        err = (got.double() - want.double()).abs()
+        bad = err > FUSED_RTOL * want.double().abs() + slack + 1e-6
+        check(not bool(bad.any()),
+              f"fused_assign_reduce k={k} {what}: {int(bad.sum())} elements "
+              f"off the plain version beyond each center's tie slack "
+              f"(largest err {float(err.max())})")
+        errs[what] = float(err.max())
+    errs["cost"] = abs(float(cost_k) - float(cost_p))
+    t_c = FUSED_RTOL * abs(float(cost_p)) + tol * float(w.sum())
+    check(errs["cost"] <= t_c,
+          f"fused_assign_reduce cost err {errs['cost']} > {t_c}")
     if cv is not None:
         check(float(n_k[~cv].abs().sum()) == 0.0,
               "fused_assign_reduce gave mass to an invalid center")
-    return e_c, t_c
+    return errs, t_c, int(moved.numel())
+
+
+def fused_line(errs, t_c, moved) -> str:
+    return (f"sums_err={errs['sums']:.3g} counts_err={errs['counts']:.3g} "
+            f"cost_err={errs['cost']:.3g} (cost tol {t_c:.3g}; sums and "
+            f"counts within {FUSED_RTOL} of their own assignment, plain "
+            f"version within each center's tie slack) moved={moved}")
 
 
 def check_remove_below(ops, ref, x, c, alive, v, cv):
@@ -228,11 +334,10 @@ def kernel_phase(ops, ref, consts):
                 print(f"check update_min_dist n={eta} kc=1 {dt} mask="
                       f"{mask is not None} max_abs_err={err:.3g} "
                       f"tol={tol:.3g}")
-                err, tol = check_fused(ops, ref, x, w, c, mask)
-                note("fused_assign_reduce", err)
+                errs, t_c, moved = check_fused(ops, ref, x, w, c, mask)
+                note("fused_assign_reduce", max(errs.values()))
                 print(f"check fused_assign_reduce n={eta} k={kp} {dt} mask="
-                      f"{mask is not None} cost_abs_err={err:.3g} "
-                      f"tol={tol:.3g}")
+                      f"{mask is not None} " + fused_line(errs, t_c, moved))
             # all-invalid seeding block: an exact no-op on d2
             d2 = rand(eta)
             a, mass = ops.update_min_dist(x, w, c[:3], d2,
@@ -354,8 +459,8 @@ def width_phase(ops, ref, rows) -> None:
                     "min_dist": check_min_dist(ops, ref, x, c, mask)[0],
                     "update_min_dist": check_update_min_dist(
                         ops, ref, x, w, c, d2_0, mask)[0],
-                    "fused_assign_reduce": check_fused(ops, ref, x, w, c,
-                                                       mask)[0]}
+                    "fused_assign_reduce": max(check_fused(
+                        ops, ref, x, w, c, mask)[0].values())}
                 d2, _ = ref.min_dist_ref(x, c, mask)
                 v = torch.median(d2)
                 errs["remove_below"] = check_remove_below(
@@ -368,6 +473,131 @@ def width_phase(ops, ref, rows) -> None:
                       + " ".join(f"{nm}:{e:.3g}" for nm, e in errs.items()),
                       flush=True)
     torch.cuda.synchronize()
+
+
+def regime(k: int, d: int) -> str:
+    """The TPU kernel a (k, d) center set reaches: the resident one up to
+    MAX_RESIDENT_K centers; beyond, the single walk while its accumulators
+    fit the 6 MiB budget, else the two-walk fallback."""
+    if k <= MAX_RESIDENT_K:
+        return "resident"
+    kp = -(-k // CHUNK_K) * CHUNK_K
+    return ("single_walk" if kp * (d + 1) * 4 <= CHUNK_ACC_BUDGET
+            else "two_walk")
+
+
+def lloyd_phase(ops, ref, rows) -> None:
+    """Both Lloyd kernels against their plain version at LLOYD_SHAPES, in
+    three dtypes, with invalid centers and zero weights: the resident one
+    at k-means‖ row 1's weighing shape, the chunked one at CHUNKED_SHAPES;
+    a repeat call gives the same bits and all-zero weights give exact
+    zeros. min_dist is held at 173,256 centers on the same points. The
+    weighing shapes are timed in float32 with every center valid and unit
+    weights, as the weighing passes run."""
+    gen = torch.Generator("cuda").manual_seed(3)
+    row = rows.setdefault("fused_assign_reduce_chunked",
+                          {"max_abs_err": 0.0})
+    regimes = []
+    for n, d, k in LLOYD_SHAPES:
+        x32 = torch.rand((n, d), generator=gen, device="cuda")
+        c = torch.rand((k, d), generator=gen, device="cuda")
+        cv = torch.rand(k, generator=gen, device="cuda") > 0.3
+        cv[0] = True
+        w = torch.rand(n, generator=gen, device="cuda")
+        w[: n // 5] = 0.0
+        reg = regime(k, d)
+        name = ("fused_assign_reduce" if reg == "resident"
+                else "fused_assign_reduce_chunked")
+        shape_err = 0.0
+        for dt in DTYPES:
+            x = x32.to(dt)
+            for mask in (None, cv):
+                errs, t_c, moved = check_fused(ops, ref, x, w, c, mask,
+                                               repeat=True)
+                shape_err = max(shape_err, *errs.values())
+                print(f"check {name} n={n} d={d} k={k} ({reg}) {dt} "
+                      f"mask={mask is not None} "
+                      + fused_line(errs, t_c, moved)
+                      + " repeat=same bits", flush=True)
+            zero = ops.fused_assign_reduce(x, torch.zeros_like(w), c, cv)
+            check(all(float(t.abs().max()) == 0.0 for t in zero),
+                  f"{name} k={k} {dt}: zero weights")
+            del x
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], shape_err)
+        if k > 100_000:                  # min_dist at EIM11's clustering
+            for mask in (None, cv):
+                err, tol = check_min_dist(ops, ref, x32, c, mask)
+                rows["min_dist"]["max_abs_err"] = max(
+                    rows["min_dist"]["max_abs_err"], err)
+                print(f"check min_dist n={n} k={k} mask={mask is not None} "
+                      f"max_abs_err={err:.3g} tol={tol:.3g}", flush=True)
+        if n >= 65_536:                  # the weighing shapes
+            ones = torch.ones(n, device="cuda")
+            torch.cuda.empty_cache()
+            ms = timed_ms(lambda: ops.fused_assign_reduce(x32, ones, c))
+            plain_ms = timed_ms(lambda: ref.fused_assign_reduce_ref(
+                x32, ones, c), reps=5)
+            lib_ms = timed_ms(lambda: torch.cdist(x32, c), reps=5)
+            torch.cuda.empty_cache()
+            bnd, by = bound_ms(n * d * 4 + n * 4 + k * d * 4
+                               + (k * d + k + 1) * 4,
+                               2.0 * n * k * d + 2.0 * n * d)
+            print(f"time {name} n={n} k={k} ({reg}) "
+                  f"f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"torch.cdist {lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})",
+                  flush=True)
+            timing = dict(regime=reg, replaces=REGIME_REPLACES[reg],
+                          shape=f"n={n} d={d} k={k}", ms=ms,
+                          plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                          library_ms=None, yardstick="torch.cdist",
+                          yardstick_ms=lib_ms, max_abs_err=shape_err)
+            if reg == "resident":
+                rows[name]["weighing"] = timing
+            else:
+                regimes.append(timing)
+        del x32, c, cv, w
+    check({r["regime"] for r in regimes} == {"single_walk", "two_walk"},
+          "the chunked checks did not cover both regimes")
+    # the kernel's own line: the single-walk regime (k-means‖'s shape),
+    # both regimes beside it
+    main = regimes[0]
+    row.update({key: main[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "yardstick", "yardstick_ms", "shape")}, regimes=regimes)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def dispatch_phase(rows) -> None:
+    """Both Lloyd kernels on the same inputs at DISPATCH_SHAPES (float32,
+    every center valid, unit weights), by their wrappers, to measure where
+    ops.MAX_RESIDENT_K should split them. Their sums and counts must agree
+    to FUSED_RTOL of each element plus 1e-6, since both put each point on
+    the same center; the cost, to FUSED_RTOL."""
+    from repro_torch.kernels.fused_lloyd import (
+        fused_assign_reduce_chunked_cuda, fused_assign_reduce_cuda)
+    gen = torch.Generator("cuda").manual_seed(5)
+    out = []
+    for n, k in DISPATCH_SHAPES:
+        x = torch.rand((n, DIM), generator=gen, device="cuda")
+        c = torch.rand((k, DIM), generator=gen, device="cuda")
+        ones = torch.ones(n, device="cuda")
+        res = fused_assign_reduce_cuda(x, ones, c)
+        chk = fused_assign_reduce_chunked_cuda(x, ones, c)
+        for what, a, b in zip(("sums", "counts", "cost"), res, chk):
+            err = (a.double() - b.double()).abs()
+            check(bool((err <= FUSED_RTOL * b.double().abs() + 1e-6).all()),
+                  f"n={n} k={k}: resident and chunked {what} differ by "
+                  f"{float(err.max())}")
+        r_ms = timed_ms(lambda: fused_assign_reduce_cuda(x, ones, c))
+        c_ms = timed_ms(lambda: fused_assign_reduce_chunked_cuda(x, ones, c))
+        print(f"time lloyd n={n} k={k} f32: resident {r_ms:.4f} ms, "
+              f"chunked {c_ms:.4f} ms", flush=True)
+        out.append(dict(shape=f"n={n} d={DIM} k={k}", resident_ms=r_ms,
+                        chunked_ms=c_ms))
+        del x, c, ones, res, chk
+    rows["fused_assign_reduce"]["resident_vs_chunked"] = out
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------- main path
@@ -395,35 +625,92 @@ def sync_phase(params_cls) -> None:
           f"n_remaining={int(state.n_remaining)}", flush=True)
 
 
-def fit_phase(api, KERNELS, k, eps):
+def kmpar_sync_phase() -> None:
+    """k-means‖'s seeding — the weighted first choice and all five
+    oversampling rounds at k = 100 on 1 M points — under CUDA's sync debug
+    mode set to "error": the rounds read nothing back from the device."""
+    from repro_torch.core import kmeans_parallel as kpar
+    from repro_torch.core.comm import VirtualCluster
+    n, k, rounds = 1_000_000, 100, 5
+    gen = torch.Generator("cuda").manual_seed(4)
+    x = torch.rand((MACHINES, n // MACHINES, DIM), generator=gen,
+                   device="cuda")
+    w = torch.ones((MACHINES, n // MACHINES), device="cuda")
+    l, cap, rows = kpar.buffer_rows(k, rounds)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, valid, _, nsel, _, _ = kpar.oversample(
+            VirtualCluster(MACHINES), gen, x, w, rounds, l, cap, rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"sync: k-means‖ seeding ({rounds} rounds, k={k}, {rows} rows) at "
+          f"n={n} ran with no host sync; selected={nsel.tolist()} "
+          f"oversampled={int(valid.sum())}", flush=True)
+
+
+def mixture(n, k):
     from repro_torch.configs.soccer_paper import GaussianMixtureSpec
-    from repro_torch.core.metrics import centralized_cost
     from repro_torch.data.synthetic import gaussian_mixture
-    spec = GaussianMixtureSpec(n=N_POINTS, dim=DIM, k=k, sigma=0.001,
-                               zipf_gamma=1.5, seed=17)
-    x, _, means = gaussian_mixture(spec)
+    x, _, means = gaussian_mixture(GaussianMixtureSpec(
+        n=n, dim=DIM, k=k, sigma=0.001, zipf_gamma=1.5, seed=17))
+    return x, means
+
+
+def cost_of(x, centers) -> float:
+    from repro_torch.core.metrics import centralized_cost
+    xg = torch.from_numpy(x).cuda()
+    cost = float(centralized_cost(xg, torch.as_tensor(
+        np.asarray(centers, np.float32), device="cuda")))
+    del xg
+    return cost
+
+
+def run_fit(api, KERNELS, x, k, algo, expect, **kw):
+    """One ``fit`` with every launch count set to 0 just before it; fails
+    unless each kernel of ``expect`` was launched."""
     torch.cuda.synchronize()
     for kern in KERNELS.values():
         kern.launches = 0
     t0 = time.perf_counter()
-    res = api.fit(x, k, algo="soccer", m=MACHINES, epsilon=eps, delta=0.1,
-                  seed=0)
+    res = api.fit(x, k, algo=algo, m=MACHINES, seed=0, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: kern.launches for name, kern in KERNELS.items()}
+    missing = [name for name in expect if counts[name] == 0]
+    check(not missing, f"fit {algo} k={k}: kernels of its path were not "
+                       f"launched: {missing} ({counts})")
+    check(np.isfinite(res.centers).all() and res.centers.shape[1] == DIM,
+          f"fit {algo} k={k}: centers not finite (c, d)")
+    check(int(np.sum(res.wire_bytes) + np.sum(res.wire_meta_bytes))
+          == res.wire_bytes_total, f"fit {algo}: wire bytes do not sum")
+    return res, wall, counts
+
+
+def report(algo, k, n, res, wall, ratio, counts, extra="") -> None:
+    print(f"fit {algo} k={k} n={n}: rounds={res.rounds} "
+          f"uplink={res.uplink_points.tolist()} "
+          f"wire_bytes_total={res.wire_bytes_total} wall_s={wall:.3f} "
+          f"cost/means_cost={ratio:.4f}{extra} launches={counts}",
+          flush=True)
+
+
+def table2_phase(api, KERNELS, k, eps, per_fit) -> None:
+    """SOCCER and k-means‖ on one Table 2 row at n = 10 M."""
+    from repro_torch.core.kmeans_parallel import buffer_rows
+    x, means = mixture(N_POINTS, k)
+    ref = cost_of(x, means)
+
+    res, wall, counts = run_fit(api, KERNELS, x, k, "soccer", SOCCER_KERNELS,
+                                epsilon=eps, delta=0.1)
+    per_fit[f"soccer_k{k}"] = counts
     const = res.extra["const"]
-    xg = torch.from_numpy(x).cuda()
-    cost = float(centralized_cost(xg, torch.from_numpy(res.centers).cuda()))
-    ref = float(centralized_cost(xg, torch.from_numpy(means).cuda()))
-    del xg
+    cost = cost_of(x, res.centers)
+    report("soccer", k, N_POINTS, res, wall, cost / ref, counts,
+           f" eta={const.eta} k_plus={const.k_plus} "
+           f"n_hist={res.n_hist.tolist()} |C_out|={res.centers.shape[0]}")
     up = res.uplink_points
-    print(f"fit k={k} eps={eps} n={N_POINTS}: rounds={res.rounds} "
-          f"eta={const.eta} k_plus={const.k_plus} n_hist={res.n_hist.tolist()}"
-          f" uplink={up.tolist()} wire_bytes_total={res.wire_bytes_total} "
-          f"|C_out|={res.centers.shape[0]} wall_s={wall:.3f} "
-          f"cost/means_cost={cost / ref:.4f} launches={counts}")
-    check(all(v > 0 for v in counts.values()),
-          f"a kernel was not launched on the main path: {counts}")
     ns = res.n_hist[: res.rounds + 1]
     check(all(ns[i + 1] < ns[i] for i in range(res.rounds)),
           f"n_hist not strictly decreasing: {ns.tolist()}")
@@ -431,10 +718,55 @@ def fit_phase(api, KERNELS, k, eps):
           "|C_out| > I*k_plus + k")
     check(all(up[r] <= 2 * const.eta + MACHINES for r in range(res.rounds)),
           "per-round uplink > 2*eta + m")
-    check(np.isfinite(res.centers).all() and res.centers.shape[1] == DIM,
-          "centers not finite (c, d)")
     check(cost <= 3.0 * ref, f"cost {cost} > 3x mixture means' cost {ref}")
-    return counts
+
+    rounds = 5
+    _, cap, rows = buffer_rows(k, rounds)
+    expect = KMPAR_KERNELS + (("fused_assign_reduce_chunked",)
+                              if rows > MAX_RESIDENT_K else ())
+    kres, kwall, kcounts = run_fit(api, KERNELS, x, k, "kmeans_parallel",
+                                   expect, rounds=rounds)
+    per_fit[f"kmeans_parallel_k{k}"] = kcounts
+    over = kres.extra["oversampled"].shape[0]
+    kcost = cost_of(x, kres.centers)
+    report("kmeans_parallel", k, N_POINTS, kres, kwall, kcost / ref, kcounts,
+           f" (soccer {cost / ref:.4f}) rows={rows} |oversampled|={over}")
+    check(kres.rounds == rounds, f"k-means‖ ran {kres.rounds} rounds")
+    check(1 <= over <= 1 + rounds * cap,
+          f"|oversampled| = {over} > 1 + rounds*cap = {1 + rounds * cap}")
+    check(kres.centers.shape == (k, DIM), "k-means‖ centers not (k, d)")
+    del x
+
+
+def eim11_phase(api, KERNELS, per_fit) -> None:
+    """EIM11 at n = 1 M, k = 25 against the claims of
+    tests/test_baselines.py, with SOCCER on the same data for the
+    broadcast comparison."""
+    from repro_torch.core.eim11 import sample_sizes
+    n, k = EIM11_N, EIM11_K
+    x, means = mixture(n, k)
+    ref = cost_of(x, means)
+    soc, _, _ = run_fit(api, KERNELS, x, k, "soccer", SOCCER_KERNELS,
+                        epsilon=0.1, delta=0.1)
+    res, wall, counts = run_fit(api, KERNELS, x, k, "eim11", EIM11_KERNELS)
+    per_fit[f"eim11_k{k}"] = counts
+    s, rows = sample_sizes(MACHINES, n // MACHINES, k, 0.1, 0.1, 12)
+    cost = cost_of(x, res.centers)
+    nh = res.n_hist
+    fracs = [float(1 - nh[i + 1] / nh[i]) for i in range(len(nh) - 1)]
+    bcast = res.extra["broadcast_points"]
+    soc_bcast = soc.rounds * soc.extra["const"].k_plus
+    report("eim11", k, n, res, wall, cost / ref, counts,
+           f" s={s} rows={rows} n_hist={nh.tolist()} removed_frac="
+           f"{[round(f, 4) for f in fracs]} broadcast={bcast} "
+           f"(soccer I*k_plus={soc_bcast})")
+    check(res.rounds >= 2, f"EIM11 ran {res.rounds} rounds")
+    for f in fracs[:2]:
+        check(0.3 <= f <= 0.7, f"EIM11 removed {f:.3f} of a round, not ~half")
+    check(cost <= 6.0 * ref, f"EIM11 cost {cost} > 6x means' cost {ref}")
+    check(bcast > 20 * soc_bcast,
+          f"EIM11 broadcast {bcast} <= 20x SOCCER's {soc_bcast}")
+    check(res.centers.shape == (k, DIM), "EIM11 centers not (k, d)")
 
 
 def main() -> None:
@@ -461,11 +793,17 @@ def main() -> None:
               for k, e in TABLE2]
     rows = kernel_phase(ops, ref, consts)
     width_phase(ops, ref, rows)
+    check(ops.MAX_RESIDENT_K == MAX_RESIDENT_K, "MAX_RESIDENT_K moved")
+    lloyd_phase(ops, ref, rows)
+    dispatch_phase(rows)
     sync_phase(SoccerParams)
-    per_fit = {f"k{k}": fit_phase(api, ops.KERNELS, k, eps)
-               for k, eps in TABLE2}
+    kmpar_sync_phase()
+    per_fit = {}
+    for k, eps in TABLE2:
+        table2_phase(api, ops.KERNELS, k, eps, per_fit)
+    eim11_phase(api, ops.KERNELS, per_fit)
 
-    # launches: both Table 2 fits together, each counted from 0;
+    # launches: the five fits together, each counted from 0;
     # launches_per_fit: each fit's own count
     line = {"kernels": [dict(
         name=name, route="cuda", source=SOURCES[name],

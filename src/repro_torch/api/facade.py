@@ -3,6 +3,8 @@
     from repro_torch.api import fit
     res = fit(x, k=25, algo="soccer", epsilon=0.05)          # on the card
     res = fit(x, k=25, algo="soccer", device="cpu")          # plain PyTorch
+    res = fit(x, k=100, algo="kmeans_parallel", rounds=5)    # the baselines
+    res = fit(x, k=25, algo="eim11", epsilon=0.1)
     res.centers, res.rounds, res.uplink_points, res.cost(x)
 
 ``x`` is either flat ``(n, d)`` data (placed on ``m`` machines by

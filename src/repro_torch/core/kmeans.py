@@ -18,17 +18,14 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.sampling import gumbel_argmax
 from repro_torch.kernels import ops
 
 
-def _categorical(gen: torch.Generator, p: torch.Tensor) -> torch.Tensor:
-    """(1,) index drawn ∝ p (p >= 0, not necessarily normalized), by the
-    Gumbel-max trick with the explicit generator."""
-    logp = torch.where(p > 0, torch.log(torch.clamp(p, min=1e-38)),
-                       -torch.inf)
-    u = torch.rand(p.shape, generator=gen, device=p.device)
-    gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-38)))
-    return torch.argmax(logp + gumbel).reshape(1)
+def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Row ``i`` (a () index on the device) of ``x``, without reading the
+    index back to the host as ``x[i]`` would."""
+    return torch.index_select(x, 0, i.reshape(1))[0]
 
 
 def kmeans_plusplus(gen: torch.Generator, x: torch.Tensor, w: torch.Tensor,
@@ -41,13 +38,13 @@ def kmeans_plusplus(gen: torch.Generator, x: torch.Tensor, w: torch.Tensor,
     """
     n, d = x.shape
     centers = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-    centers[0] = torch.index_select(x, 0, _categorical(gen, w))[0]
+    centers[0] = _pick(x, gumbel_argmax(gen, w))
     d2min = torch.full((n,), torch.inf, dtype=torch.float32, device=x.device)
     for i in range(1, k):
         d2min, mass = ops.update_min_dist(x, w, centers[i - 1:i], d2min)
         # all-zero mass (every point on a center) -> fall back to uniform w
         p = torch.where(mass > 0, w * d2min, w)
-        centers[i] = torch.index_select(x, 0, _categorical(gen, p))[0]
+        centers[i] = _pick(x, gumbel_argmax(gen, p))
     return centers
 
 

@@ -16,12 +16,29 @@ Sampled points carry Horvitz–Thompson weights ``w_i · n_j / c_j``. The
 random bits come from an explicit ``torch.Generator`` on the data's
 device; they are not the JAX package's threefry bits, so a test holds a
 sampled step to the reference's outcomes, not to its draws.
+
+The baselines add ``scatter_at`` (k-means‖'s rank-positioned upload into a
+dense per-machine buffer, whose pad is recorded as wire), the two-stage
+``global_weighted_choice`` and ``quantize_uplink``.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from repro_torch.core.comm import record_wire
+
+
+def quantize_uplink(x: torch.Tensor, upload_dtype: str) -> torch.Tensor:
+    """Round an upload payload to the uplink precision. The port runs the
+    float32 uplink, which passes ``x`` through; the narrower precisions
+    wait for ROADMAP Queue 1 item 11 (uplink compression)."""
+    if upload_dtype == "float32":
+        return x
+    raise NotImplementedError(
+        f"uplink_dtype={upload_dtype!r} is not ported yet (ROADMAP Queue 1 "
+        f"item 11 (uplink compression)); the port runs 'float32'")
 
 
 def apportion(counts: torch.Tensor, total: int) -> torch.Tensor:
@@ -83,6 +100,70 @@ def sample_local(gen: torch.Generator, alive: torch.Tensor, c: torch.Tensor,
         idx = torch.nn.functional.pad(idx, (0, cap - p))
     slot = torch.arange(cap, dtype=torch.int32, device=alive.device)
     return idx, slot[None, :] < c[:, None]
+
+
+def scatter_at(comm, values: torch.Tensor, pos: torch.Tensor,
+               take: torch.Tensor, rows: int) -> torch.Tensor:
+    """Scatter machine-local rows at explicit global positions + psum.
+
+    Args:
+      values: (local_m, q, d); pos: (local_m, q) global row ids;
+      take: (local_m, q) bool. Rows with pos outside [0, rows) are dropped.
+
+    Returns:
+      (rows, d) replicated buffer; untouched slots are exactly zero.
+
+    Each machine's dense (rows, d) buffer is this path's wire, pad and
+    all, and is recorded as such (the ragged gathers are the padless
+    alternative).
+    """
+    m, q, d = values.shape
+    keep = take & (pos >= 0) & (pos < rows)
+    # dropped rows land, zeroed, on a spare row per machine, cut off below
+    slot = torch.where(keep, pos, rows).to(torch.long)
+    flat = (torch.arange(m, device=values.device)[:, None] * (rows + 1)
+            + slot).reshape(-1)
+    masked = (values * keep[..., None].to(values.dtype)).reshape(m * q, d)
+    local = torch.zeros((m * (rows + 1), d), dtype=values.dtype,
+                        device=values.device).index_add_(0, flat, masked)
+    local = local.reshape(m, rows + 1, d)[:, :rows]
+    record_wire(payload=m * rows * d * values.element_size() * comm._fan)
+    return comm._reduce(local)
+
+
+def global_weighted_choice(gen: torch.Generator, comm,
+                           weights: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Sample one point globally with probability ∝ weights (two-stage:
+    a machine by its weight mass, then a point of it by its weight).
+
+    Args:
+      weights: (local_m, p) nonneg, may be ragged-masked with zeros.
+      x: (local_m, p, d).
+
+    Returns:
+      (d,) the selected point, replicated. A zero weight is never chosen
+      (its Gumbel-max logit is -inf) unless every weight is zero.
+    """
+    mass_all = comm.all_machines(torch.sum(weights, dim=1))     # (m,)
+    mid = gumbel_argmax(gen, mass_all)                          # () machine
+    pidx = gumbel_argmax(gen, weights)                          # (local_m,)
+    ids = comm.machine_ids(x.device)
+    onehot = (ids == mid).to(x.dtype)
+    picked = torch.gather(x, 1, pidx[:, None, None].expand(-1, 1, x.shape[-1])
+                          )[:, 0, :]
+    return comm.psum(picked * onehot[:, None])
+
+
+def gumbel_argmax(gen: torch.Generator, p: torch.Tensor) -> torch.Tensor:
+    """Index along the last axis drawn ∝ ``p`` (>= 0, not necessarily
+    normalized), by the Gumbel-max trick with the explicit generator; a
+    zero ``p`` is never drawn unless all are zero."""
+    logp = torch.where(p > 0, torch.log(torch.clamp(p, min=1e-38)),
+                       -torch.inf)
+    u = torch.rand(p.shape, generator=gen, device=p.device)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-38)))
+    return torch.argmax(logp + gumbel, dim=-1)
 
 
 def draw_global_sample(comm, gen: torch.Generator, x: torch.Tensor,

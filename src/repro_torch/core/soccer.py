@@ -69,7 +69,8 @@ _LATER_PARAMS = {
     "uplink_mode": ("points", "item 12 (coresets)"),
 }
 # The reference's run-condition options (``repro.api.fit``) -> (the values
-# the port runs, its ROADMAP Queue 1 item). ``fit`` passes them through.
+# the port runs, its ROADMAP Queue 1 item). ``fit`` passes them through to
+# every driver, and each driver checks them with ``check_run_knobs``.
 RUN_KNOBS = {
     "backend": ((None, "virtual", "auto"),
                 "item 17 (the multi-device backend)"),
@@ -92,6 +93,13 @@ def check_main_path(params: SoccerParams, **run_knobs) -> None:
         value = getattr(params, name)
         if value != runs:
             _not_ported(f"SoccerParams.{name}={value!r}", runs, item)
+    check_run_knobs(**run_knobs)
+
+
+def check_run_knobs(**run_knobs) -> None:
+    """The one guard over ``RUN_KNOBS``, called by every driver (SOCCER,
+    k-means‖, EIM11): TypeError for an option the reference does not have,
+    NotImplementedError for a value the port does not run yet."""
     unknown = set(run_knobs) - set(RUN_KNOBS)
     if unknown:
         raise TypeError(f"unexpected option(s) {sorted(unknown)}")

@@ -1,9 +1,11 @@
-"""Where a SOCCER fit's time goes on the card.
+"""Where a fit's time goes on the card.
 
-    python -m repro_torch.fit_profile [--k 25] [--n 10000000]
+    python -m repro_torch.fit_profile [--algo soccer] [--k 25] [--n 10000000]
 
 Draws the paper's §8 mixture (d = 15, σ = 0.001, Zipf γ = 1.5, m = 8
-machines, ε = 0.05, δ = 0.1; Table 2 rows 1 and 2 are k = 25 and 100),
+machines; Table 2 rows 1 and 2 are k = 25 and 100) and fits it with
+``--algo``: SOCCER at ε = 0.05, δ = 0.1 (the paper's setting), k-means‖
+at its defaults (5 rounds, l = 2k) or EIM11 at ε = 0.1, δ = 0.1. It
 runs one warm-up fit, then for one more fit prints:
 
 * the host wall of the fit, and of its host-side shard placement alone
@@ -43,11 +45,18 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_fit(k: int, n: int, m: int = 8, top: int = 15) -> dict:
+# each algorithm's knobs in a profiled fit
+ALGO_PARAMS = {"soccer": dict(epsilon=0.05, delta=0.1),
+               "kmeans_parallel": {},
+               "eim11": dict(epsilon=0.1, delta=0.1)}
+
+
+def profile_fit(k: int, n: int, m: int = 8, top: int = 15,
+                algo: str = "soccer") -> dict:
     resolve_device("cuda")
     x, _, _ = gaussian_mixture(GaussianMixtureSpec(n=n, dim=15, k=k,
                                                    sigma=0.001, seed=17))
-    kw = dict(algo="soccer", m=m, epsilon=0.05, delta=0.1, seed=0)
+    kw = dict(algo=algo, m=m, seed=0, **ALGO_PARAMS[algo])
     api.fit(x, k, **kw)                                      # warm-up
     torch.cuda.synchronize()
 
@@ -64,7 +73,7 @@ def profile_fit(k: int, n: int, m: int = 8, top: int = 15) -> dict:
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    out = {"k": k, "n": n, "m": m, "rounds": res.rounds,
+    out = {"algo": algo, "k": k, "n": n, "m": m, "rounds": res.rounds,
            "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
            "host_shard_s": shard_s,
            "device_busy_s": busy_us / 1e6 if busy_us else None,
@@ -72,7 +81,7 @@ def profile_fit(k: int, n: int, m: int = 8, top: int = 15) -> dict:
            if busy_us else None,
            "top": [{"name": name[:90], "device_ms": us / 1e3, "calls": cnt}
                    for name, us, cnt in rows[:top]]}
-    print(f"fit k={k} n={n}: wall {wall_s:.3f} s, host shard placement "
+    print(f"fit {algo} k={k} n={n}: wall {wall_s:.3f} s, host shard placement "
           f"{shard_s:.3f} s, device busy "
           + (f"{busy_us / 1e6:.3f} s (idle share "
              f"{out['device_idle_share']:.3f})" if busy_us
@@ -87,8 +96,10 @@ def main() -> None:
     ap.add_argument("--k", type=int, action="append",
                     help="clusters (repeatable; default 25 and 100)")
     ap.add_argument("--n", type=int, default=10_000_000)
+    ap.add_argument("--algo", choices=sorted(ALGO_PARAMS), default="soccer")
     args = ap.parse_args()
-    results = [profile_fit(k, args.n) for k in (args.k or [25, 100])]
+    results = [profile_fit(k, args.n, algo=args.algo)
+               for k in (args.k or [25, 100])]
     print(json.dumps({"profiles": results}))
 
 

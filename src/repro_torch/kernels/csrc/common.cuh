@@ -12,9 +12,9 @@
 // cancellation error (a few percent of d2 at the paper's sigma = 0.001).
 //
 // Points arrive as float32, bfloat16 or float16 and are widened on load;
-// centers, weights and every accumulator are float32. Centers are tiny
-// (k <= 1024 rows on the main path), so the wrapper hands them over in
-// float32.
+// centers, weights and every float accumulator are float32. Centers are
+// few next to the points (at most 173,256 rows, EIM11's clustering), so
+// the wrapper hands them over in float32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -145,6 +145,28 @@ __device__ __forceinline__ float block_sum(float v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   }
   return v;
+}
+
+// out[e] = sum_b part[e * nb + b], one block per row, in a fixed order:
+// the second pass of every cross-block float sum.
+__global__ void __launch_bounds__(kThreads)
+    reduce_rows_kernel(const float* __restrict__ part, long long nb,
+                       float* __restrict__ out) {
+  const float* row = part + (long long)blockIdx.x * nb;
+  float acc = 0.f;
+  for (long long b = threadIdx.x; b < nb; b += blockDim.x) acc += row[b];
+  const float s = block_sum(acc);
+  if (threadIdx.x == 0) out[blockIdx.x] = s;
+}
+
+inline cudaError_t reduce_rows(const float* part, long long nb, long long rows,
+                               float* out, cudaStream_t stream) {
+  reduce_rows_kernel<<<(unsigned)rows, kThreads, 0, stream>>>(part, nb, out);
+  return cudaGetLastError();
+}
+
+inline long long blocks_for(long long n) {
+  return (n + kThreads - 1) / kThreads;
 }
 
 // Shared-memory tile shape for a given d and register row length DR.

@@ -160,27 +160,6 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) part[(long long)(kd + k) * nb + blockIdx.x] = s;
 }
 
-// out[e] = sum_b part[e * nb + b], one block per row, in a fixed order.
-__global__ void __launch_bounds__(kThreads)
-    reduce_rows_kernel(const float* __restrict__ part, long long nb,
-                       float* __restrict__ out) {
-  const float* row = part + (long long)blockIdx.x * nb;
-  float acc = 0.f;
-  for (long long b = threadIdx.x; b < nb; b += blockDim.x) acc += row[b];
-  const float s = block_sum(acc);
-  if (threadIdx.x == 0) out[blockIdx.x] = s;
-}
-
-inline cudaError_t reduce_rows(const float* part, long long nb, long long rows,
-                               float* out, cudaStream_t stream) {
-  reduce_rows_kernel<<<(unsigned)rows, kThreads, 0, stream>>>(part, nb, out);
-  return cudaGetLastError();
-}
-
-inline long long blocks_for(long long n) {
-  return (n + kThreads - 1) / kThreads;
-}
-
 }  // namespace rt
 
 extern "C" int rt_remove_below(const void* x, int dtype, int m, long long p,

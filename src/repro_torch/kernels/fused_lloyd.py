@@ -11,10 +11,15 @@ resident-center kernels of ``repro/kernels/fused_lloyd.py``:
   ``update_min_dist_pallas`` and its pipelined big-n twin);
 * ``fused_assign_reduce_cuda`` — one Lloyd step: assignment, weighted
   (k, d) sums, (k,) counts and the cost in one sweep (replaces
-  ``fused_assign_reduce_pallas`` and its pipelined big-n twin).
+  ``fused_assign_reduce_pallas`` and its pipelined big-n twin);
+* ``fused_assign_reduce_chunked_cuda`` — the same step for any number of
+  centers (``csrc/fused_chunked.cu``; replaces
+  ``fused_assign_reduce_chunked_pallas`` and its two-walk fallback
+  ``_fused_assign_reduce_chunked_twopass``).
 
 Float sums across blocks go through per-block partials reduced in a
-fixed order, so each call gives the same bits on every run. The plain
+fixed order, or, in the chunked kernel, through fixed-point integer
+accumulators, so each call gives the same bits on every run. The plain
 versions are in ``kernels/ref.py``; ``kernels/ops.py`` picks by device.
 """
 from __future__ import annotations
@@ -42,6 +47,9 @@ UPDATE_MIN_DIST = CudaKernel(
 FUSED_ASSIGN_REDUCE = CudaKernel(
     "fused_lloyd.cu", "rt_fused_assign_reduce",
     [_P, _I, _L, _I, _P, _P, _P, _I, _P, _P, _P])
+FUSED_ASSIGN_REDUCE_CHUNKED = CudaKernel(
+    "fused_chunked.cu", "rt_fused_assign_reduce_chunked",
+    [_P, _I, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P])
 
 
 def _blocks(n: int) -> int:
@@ -128,4 +136,36 @@ def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((rows,), dtype=torch.float32, device=x.device)
     FUSED_ASSIGN_REDUCE(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(cf),
                         ptr(cv), k, ptr(part), ptr(out), stream_of(x))
+    return out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k]
+
+
+def fused_assign_reduce_chunked_cuda(x: torch.Tensor, w: torch.Tensor,
+                                     c: torch.Tensor,
+                                     c_valid: Optional[torch.Tensor] = None
+                                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """``fused_assign_reduce_cuda`` for any number of centers: ((k, d)
+    weighted sums, (k,) weight counts, () weighted cost).
+
+    Scratch is (k, d + 1) int64 fixed-point accumulators and one float per
+    block of points, whatever k is; the sums are exact integer additions,
+    so a call gives the same bits on every run (``csrc/fused_chunked.cu``
+    says how the fixed-point scale is chosen). Finite inputs only.
+    """
+    if x.dim() != 2:
+        raise ValueError(f"fused_assign_reduce: points must be (n, d), got "
+                         f"{tuple(x.shape)}")
+    n, d = x.shape
+    wf = _vector("fused_assign_reduce", "w", w, n)
+    cf = centers_f32("fused_assign_reduce", c, d)
+    k = cf.shape[0]
+    cv = center_mask("fused_assign_reduce", c_valid, k)
+    check_on_card("fused_assign_reduce", x, w=wf, centers=cf, c_valid=cv)
+    bound = torch.empty((2,), dtype=torch.int32, device=x.device)
+    acc = torch.empty((k, d + 1), dtype=torch.int64, device=x.device)
+    part = torch.empty((_blocks(n),), dtype=torch.float32, device=x.device)
+    out = torch.empty((k * d + k + 1,), dtype=torch.float32, device=x.device)
+    FUSED_ASSIGN_REDUCE_CHUNKED(ptr(x), dtype_code(x), n, d, ptr(wf),
+                                ptr(cf), ptr(cv), k, ptr(bound), ptr(acc),
+                                ptr(part), ptr(out), stream_of(x))
     return out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k]

@@ -8,9 +8,11 @@ loop over d, so every feature width runs on the kernel.
 Entry points (``ENTRY_POINTS``; the CPU tests cover every one against the
 JAX package's oracles):
 
-* ``min_dist(x, c, c_valid)`` — (n,) min-d2 + argmin.
+* ``min_dist(x, c, c_valid)`` — (n,) min-d2 + argmin, any number of
+  centers.
 * ``fused_assign_reduce(x, w, c, c_valid)`` — one Lloyd step: (k, d)
-  weighted sums, (k,) counts and the weighted cost in one sweep of ``x``.
+  weighted sums, (k,) counts and the weighted cost in one sweep of ``x``;
+  beyond ``MAX_RESIDENT_K`` centers on the card, the chunked kernel.
 * ``remove_below(x, c, alive, v, c_valid)`` — SOCCER's removal over
   (m, p, d) shards: ``alive & (min-d2 > v)`` and per-machine live counts.
 * ``update_min_dist(x, w, c, d2, c_valid)`` — one D²-seeding step:
@@ -26,22 +28,26 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_lloyd import (FUSED_ASSIGN_REDUCE,
+                                             FUSED_ASSIGN_REDUCE_CHUNKED,
                                              REMOVE_BELOW, UPDATE_MIN_DIST,
+                                             fused_assign_reduce_chunked_cuda,
                                              fused_assign_reduce_cuda,
                                              remove_below_cuda,
                                              update_min_dist_cuda)
 from repro_torch.kernels.min_dist import MIN_DIST, min_dist_cuda
 
-# The resident-center kernels hold up to this many centers; the TPU
-# package switches to chunked-center kernels beyond it, which the port
-# has not ported yet.
+# The resident Lloyd kernel keeps per-block partials of every center, so
+# it serves up to this many centers; beyond it fused_assign_reduce runs
+# the chunked kernel. remove_below has no chunked kernel yet.
 MAX_RESIDENT_K = 1024
 
 ENTRY_POINTS = ("min_dist", "fused_assign_reduce", "remove_below",
                 "update_min_dist")
 
-# entry point -> its CUDA kernel (launch counts for chip_smoke.py)
+# CUDA kernel -> its wrapper's launch counter (for chip_smoke.py);
+# fused_assign_reduce has two, by the number of centers
 KERNELS = {"min_dist": MIN_DIST, "fused_assign_reduce": FUSED_ASSIGN_REDUCE,
+           "fused_assign_reduce_chunked": FUSED_ASSIGN_REDUCE_CHUNKED,
            "remove_below": REMOVE_BELOW, "update_min_dist": UPDATE_MIN_DIST}
 
 
@@ -51,15 +57,6 @@ def _on_card(x: torch.Tensor) -> bool:
     if x.device.type == "cuda":
         return True
     raise ValueError(f"unsupported device {x.device}: expected cpu or cuda")
-
-
-def _resident(name: str, c: torch.Tensor, chunked: str) -> None:
-    if c.shape[0] > MAX_RESIDENT_K:
-        raise NotImplementedError(
-            f"{name} with k={c.shape[0]} > {MAX_RESIDENT_K} centers needs "
-            f"the chunked-center kernel ({chunked} in "
-            f"repro/kernels/fused_lloyd.py), which is not ported yet "
-            f"(ROADMAP Queue 2)")
 
 
 def min_dist(x: torch.Tensor, c: torch.Tensor,
@@ -76,8 +73,8 @@ def fused_assign_reduce(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-sweep Lloyd step: ((k, d) sums, (k,) counts, () weighted cost)."""
     if _on_card(x):
-        _resident("fused_assign_reduce", c,
-                  "fused_assign_reduce_chunked_pallas")
+        if c.shape[0] > MAX_RESIDENT_K:
+            return fused_assign_reduce_chunked_cuda(x, w, c, c_valid)
         return fused_assign_reduce_cuda(x, w, c, c_valid)
     return ref.fused_assign_reduce_ref(x, w, c, c_valid)
 
@@ -87,7 +84,13 @@ def remove_below(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor, v,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused SOCCER removal: ((m, p) bool alive & min-d2 > v, (m,) counts)."""
     if _on_card(x):
-        _resident("remove_below", c, "remove_below_chunked_pallas")
+        if c.shape[0] > MAX_RESIDENT_K:
+            raise NotImplementedError(
+                f"remove_below with k={c.shape[0]} > {MAX_RESIDENT_K} "
+                f"centers needs the chunked-center kernel "
+                f"(remove_below_chunked_pallas in "
+                f"repro/kernels/fused_lloyd.py; PERF.md table row 9), which "
+                f"is not ported yet (ROADMAP Queue 2 item 7)")
         return remove_below_cuda(x, c, alive, v, c_valid)
     return ref.remove_below_ref(x, c, alive, v, c_valid)
 

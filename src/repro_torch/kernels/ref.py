@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels on SOCCER's main path.
+"""Plain PyTorch versions of the port's kernels.
 
 These are the semantics of record, as ``repro.kernels.ref`` is for the
 JAX package: the CPU tests hold them against the JAX oracles on the same
@@ -30,20 +30,40 @@ from typing import Optional, Tuple
 import torch
 
 
+# center-panel size; bounds the live (n, panel) distance matrix
+# (repro/kernels/ref.py:15: EIM11's clustering reaches 173 k rows)
+CHUNK_K = 4096
+
+
 def min_dist_ref(x: torch.Tensor, c: torch.Tensor,
                  c_valid: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n,) float32 min_j ||x_i - c_j||^2 over valid centers (>= 0) and
-    (n,) int32 argmin."""
+    (n,) int32 argmin.
+
+    The centers are walked in panels of ``CHUNK_K`` with a running (min,
+    argmin), as the reference's oracle does, so the (n, k) matrix never
+    exists; a later panel wins only if strictly nearer, so ties keep the
+    first index.
+    """
     xf = x.float()
     cf = c.float()
-    c2 = torch.sum(cf * cf, dim=-1)
-    d2 = -2.0 * (xf @ cf.T) + c2[None, :]
-    if c_valid is not None:
-        d2 = torch.where(c_valid[None, :], d2, torch.inf)
-    dmin, idx = torch.min(d2, dim=-1)
+    best = arg = None
+    for j0 in range(0, cf.shape[0], CHUNK_K):
+        cp = cf[j0:j0 + CHUNK_K]
+        d2 = -2.0 * (xf @ cp.T) + torch.sum(cp * cp, dim=-1)[None, :]
+        if c_valid is not None:
+            d2 = torch.where(c_valid[None, j0:j0 + CHUNK_K], d2, torch.inf)
+        dmin, loc = torch.min(d2, dim=-1)
+        del d2
+        if best is None:
+            best, arg = dmin, loc
+        else:
+            better = dmin < best
+            arg = torch.where(better, loc + j0, arg)
+            best = torch.where(better, dmin, best)
     x2 = torch.sum(xf * xf, dim=-1)
-    return torch.clamp(dmin + x2, min=0.0), idx.to(torch.int32)
+    return torch.clamp(best + x2, min=0.0), arg.to(torch.int32)
 
 
 def update_min_dist_ref(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
@@ -66,7 +86,10 @@ def fused_assign_reduce_ref(x: torch.Tensor, w: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """One Lloyd step: ((k, d) sum of w_i x_i per assigned center, (k,)
-    sum of w_i per center, () sum of w_i * min-d2_i — the cost of ``c``)."""
+    sum of w_i per center, () sum of w_i * min-d2_i — the cost of ``c``).
+
+    The plain version of both the resident and the chunked CUDA kernel:
+    the function does not depend on how many centers there are."""
     d2, assign = min_dist_ref(x, c, c_valid)
     k, d = c.shape
     wf = w.float()

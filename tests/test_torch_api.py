@@ -13,6 +13,12 @@ from repro_torch.configs.soccer_paper import GaussianMixtureSpec
 from repro_torch.core import soccer as tsoc
 from repro_torch.data.synthetic import gaussian_mixture
 
+# xdist runs one worker per core: with torch's default of one intra-op
+# thread per core in every worker, the pools contend and small ops run
+# several times slower
+torch.set_num_threads(1)
+
+
 
 @pytest.fixture(scope="module")
 def data():
@@ -120,11 +126,31 @@ def test_knobs_outside_the_slice_raise(data, kwargs, item):
         api.fit(x[:800], 3, device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(uplink_dtype="bfloat16"), "item 11"),
+    (dict(uplink_wire="codes"), "item 11"),
+    (dict(failure_plan=object()), "item 11"),
+    (dict(trace="rounds"), "item 14"),
+    (dict(backend="mesh"), "item 17"),
+], ids=["uplink_dtype", "uplink_wire", "failure_plan", "trace",
+        "backend_mesh"])
+@pytest.mark.parametrize("algo", ["kmeans_parallel", "eim11"])
+def test_baseline_run_knobs_raise(data, algo, kwargs, item):
+    """The baselines reject the run-condition options they do not run
+    through the same guard as SOCCER (core.soccer.check_run_knobs)."""
+    x, _ = data
+    with pytest.raises(NotImplementedError, match=item):
+        api.fit(x[:800], 3, algo=algo, device="cpu", **kwargs)
+
+
 def test_registry_and_validation(data):
     x, _ = data
-    assert api.list_algorithms() == ("soccer",)
+    assert api.list_algorithms() == ("eim11", "kmeans_parallel", "soccer")
     with pytest.raises(ValueError, match="unknown algorithm"):
-        api.fit(x[:800], 3, algo="kmeans_parallel", device="cpu")
+        api.fit(x[:800], 3, algo="lloyd", device="cpu")
+    for algo, bad in (("kmeans_parallel", "epsilon"), ("eim11", "rounds")):
+        with pytest.raises(TypeError, match="unexpected parameter"):
+            api.fit(x[:800], 3, algo=algo, device="cpu", **{bad: 1})
     with pytest.raises(TypeError, match="unexpected parameter"):
         api.fit(x[:800], 3, epsilonn=0.1, device="cpu")
     with pytest.raises(ValueError, match="backend"):

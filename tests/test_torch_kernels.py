@@ -2,12 +2,14 @@
 
 Every entry point of ``repro_torch.kernels.ops`` runs here on CPU tensors,
 i.e. through its plain PyTorch version, and is held against
-``repro.kernels.ref`` on the same numpy inputs over the resident-center
-rows (k <= 1024) of the conformance grid in
-``tests/test_kernel_conformance.py``, in float32, bfloat16 and float16,
-with that file's tolerances. The CUDA kernels themselves run only on the
-card: ``tests/test_torch_cuda.py`` holds them against their plain versions
-there.
+``repro.kernels.ref`` on the same numpy inputs over the rows of the
+conformance grid in ``tests/test_kernel_conformance.py`` (the resident
+ones, k <= 1024, and the chunked ones, k = 1025 and 2100), in float32,
+bfloat16 and float16, with that file's tolerances. The chunked shapes are
+also held against the reference's chunked Pallas kernel in interpret mode,
+in both its single-walk and its two-walk regime. The CUDA kernels
+themselves run only on the card: ``tests/test_torch_cuda.py`` holds them
+against their plain versions there.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,17 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels import fused_lloyd as tfused
 from repro_torch.kernels import min_dist as tmin
 
-# (name, n, d, k): the resident rows of the reference conformance grid
+# xdist runs one worker per core: with torch's default of one intra-op
+# thread per core in every worker, the pools contend and small ops run
+# several times slower
+torch.set_num_threads(1)
+
+
+# (name, n, d, k): the reference conformance grid, resident and chunked
+CHUNKED_SHAPES = [
+    ("k_over_max", 72, 9, 1025),
+    ("k_chunked_multi", 64, 33, 2100),
+]
 POINT_SHAPES = [
     ("tiny_subblock", 7, 3, 1),
     ("small_unaligned", 100, 8, 5),
@@ -29,7 +41,7 @@ POINT_SHAPES = [
     ("d_at_max", 48, 512, 6),
     ("d_over_max", 48, 513, 6),
     ("k_at_max", 72, 9, 1024),
-]
+] + CHUNKED_SHAPES
 IDS = [s[0] for s in POINT_SHAPES]
 MP_SHAPES = [("tiny", 2, 40, 7, 5), ("n_over_block", 3, 129, 16, 33),
              ("d_wide", 1, 40, 513, 5)]
@@ -100,6 +112,63 @@ def test_fused_assign_reduce_matches_reference(name, n, d, k, jdt, tdt):
                                    atol=tol)
         if cvt is not None:               # invalid centers receive no mass
             assert float(c_o[~cvt].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("budget", [None, 1], ids=["single_walk", "two_walk"])
+@pytest.mark.parametrize("name,n,d,k", CHUNKED_SHAPES,
+                         ids=[s[0] for s in CHUNKED_SHAPES])
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
+def test_chunked_plain_matches_chunked_pallas(name, n, d, k, jdt, tdt,
+                                              budget):
+    """The chunked CUDA kernel's plain version against the reference's
+    chunked Pallas kernel in interpret mode: its single walk with
+    walk-resident accumulators, and its two-walk fallback, forced by an
+    accumulator budget of one byte (test_kernel_conformance.py:357-373)."""
+    from repro.kernels.fused_lloyd import fused_assign_reduce_chunked_pallas
+    xj, wj, cj, vj, xt, wt, ct, vt = _data(n, d, k, jdt, tdt,
+                                           seed=5 * n + d + k)
+    tol, tight = _tols(jdt)
+    kw = {} if budget is None else {"acc_budget": budget}
+    for cvj, cvt in ((None, None), (vj, vt)):
+        s_r, c_r, cost_r = fused_assign_reduce_chunked_pallas(
+            xj, wj, cj, cvj, interpret=True, **kw)
+        s_o, c_o, cost_o = ops.fused_assign_reduce(xt, wt, ct, cvt)
+        np.testing.assert_allclose(s_o.numpy(), s_r, rtol=tol, atol=tol)
+        np.testing.assert_allclose(c_o.numpy(), c_r, rtol=tight, atol=tight)
+        np.testing.assert_allclose(float(cost_o), float(cost_r), rtol=tol,
+                                   atol=tol)
+        if cvt is not None:
+            assert float(c_o[~cvt].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all_valid", "mask"])
+def test_min_dist_walks_center_panels(masked):
+    """Beyond 4096 centers the plain min_dist walks center panels with a
+    running (min, argmin), as the reference's oracle does: the same d2, and
+    on exact ties across panels the first index."""
+    rng = np.random.default_rng(16)
+    n, d, k = 60, 6, 9000
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    c[[5000, 8500]] = c[10]                  # one center, in three panels
+    c[4096] = c[4095]                        # a tie across a panel edge
+    x[:5] = c[10]
+    x[5:8] = c[4095]
+    valid = rng.random(k) > 0.2
+    valid[[10, 4095, 4096, 5000, 8500]] = True
+    cv = valid if masked else None
+    d2_r, idx_r = jref.min_dist_ref(jnp.asarray(x), jnp.asarray(c),
+                                    None if cv is None else jnp.asarray(cv))
+    d2_o, idx_o = ops.min_dist(torch.from_numpy(x), torch.from_numpy(c),
+                               None if cv is None else torch.from_numpy(cv))
+    np.testing.assert_allclose(d2_o.numpy(), d2_r, rtol=2e-3, atol=2e-3)
+    assert idx_o[:5].tolist() == np.asarray(idx_r)[:5].tolist() == [10] * 5
+    assert idx_o[5:8].tolist() == np.asarray(idx_r)[5:8].tolist() == [4095] * 3
+    d2_at = ((torch.from_numpy(x) - torch.from_numpy(c)[idx_o.long()]) ** 2
+             ).sum(-1)
+    np.testing.assert_allclose(d2_at.numpy(), d2_r, rtol=2e-3, atol=2e-3)
+    if masked:
+        assert bool(torch.from_numpy(cv)[idx_o.long()].all())
 
 
 @pytest.mark.parametrize("name,n,d,k", POINT_SHAPES, ids=IDS)
@@ -209,10 +278,12 @@ def test_dispatch_rejects_other_devices():
     (tfused.update_min_dist_cuda, lambda x, c: (x, torch.ones(6), c,
                                                 torch.ones(6))),
     (tfused.fused_assign_reduce_cuda, lambda x, c: (x, torch.ones(6), c)),
+    (tfused.fused_assign_reduce_chunked_cuda,
+     lambda x, c: (x, torch.ones(6), c)),
     (tfused.remove_below_cuda, lambda x, c: (
         x.reshape(2, 3, 4), c, torch.ones((2, 3), dtype=torch.bool), 0.5)),
 ], ids=["min_dist", "update_min_dist", "fused_assign_reduce",
-        "remove_below"])
+        "fused_assign_reduce_chunked", "remove_below"])
 def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
     """A wrapper launches its kernel or raises: CPU tensors never reach a
     plain version through it, and no launch is counted."""
@@ -253,5 +324,8 @@ def test_every_entry_point_covered():
               and getattr(fn, "__module__", "") == ops.__name__}
     covered = {"min_dist", "fused_assign_reduce", "remove_below",
                "update_min_dist"}
-    assert public == set(ops.ENTRY_POINTS) == set(ops.KERNELS) == covered
+    assert public == set(ops.ENTRY_POINTS) == covered
+    # every kernel behind them has a launch counter; fused_assign_reduce
+    # has two kernels, by the number of centers
+    assert set(ops.KERNELS) == covered | {"fused_assign_reduce_chunked"}
 

@@ -13,6 +13,12 @@ from repro_torch.core import kmeans as tkm
 from repro_torch.core.metrics import centralized_cost
 from repro_torch.kernels import ops
 
+# xdist runs one worker per core: with torch's default of one intra-op
+# thread per core in every worker, the pools contend and small ops run
+# several times slower
+torch.set_num_threads(1)
+
+
 
 def _blobs(n=600, k=6, d=5, sigma=0.02, seed=0):
     rng = np.random.default_rng(seed)

@@ -29,6 +29,12 @@ from repro_torch.core import truncated_cost as ttc
 from repro_torch.data import sharding as tshard
 from repro_torch.data import synthetic as tsyn
 
+# xdist runs one worker per core: with torch's default of one intra-op
+# thread per core in every worker, the pools contend and small ops run
+# several times slower
+torch.set_num_threads(1)
+
+
 COUNT_CASES = [
     ([5, 5, 5, 5], 7), ([0, 0, 0], 4), ([10, 0, 3], 100), ([1, 2, 3], 6),
     ([1_250_000] * 8, 17353), ([1_250_000] * 8, 80585),
@@ -120,6 +126,84 @@ def test_gather_ragged_matches_reference():
         want = jcomm.VirtualCluster(3).gather_ragged(
             jnp.asarray(vals), jnp.asarray(counts), 4)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", ["unique", "duplicates"])
+def test_scatter_at_matches_reference(case):
+    """k-means‖'s rank-positioned upload: the same buffer as the
+    reference's, and the dense per-machine buffer recorded as wire."""
+    rng = np.random.default_rng(17)
+    m, q, d, rows = 3, 6, 4, 12
+    if case == "unique":
+        vals = rng.normal(size=(m, q, d)).astype(np.float32)
+        pos = rng.permutation(np.arange(-2, 16))[: m * q].reshape(m, q)
+    else:   # several rows on one slot: small integers add exactly
+        vals = rng.integers(-4, 5, size=(m, q, d)).astype(np.float32)
+        pos = rng.integers(0, rows + 3, size=(m, q))
+    pos = pos.astype(np.int32)
+    take = rng.random((m, q)) > 0.3
+    with jcomm.wire_tally() as tj:
+        want = jsamp.scatter_at(jcomm.VirtualCluster(m), jnp.asarray(vals),
+                                jnp.asarray(np.maximum(pos, 0)),
+                                jnp.asarray(take & (pos >= 0)), rows)
+    with tcomm.wire_tally() as tt:
+        got = tsamp.scatter_at(tcomm.VirtualCluster(m), torch.from_numpy(vals),
+                               torch.from_numpy(pos), torch.from_numpy(take),
+                               rows)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (tt.payload, tt.meta) == (tj.payload, tj.meta) == (
+        m * rows * d * 4, 0)
+
+
+@pytest.mark.parametrize("q", [0.0, 0.1, 0.5, 0.9, 1.0])
+def test_weighted_quantile_matches_reference(q):
+    """EIM11's threshold: exact against the reference, ties in d2 and
+    zero weights included (weights are small integers, so the running
+    sums are exact in either framework)."""
+    from repro.core.eim11 import _weighted_quantile
+    from repro_torch.core.eim11 import weighted_quantile
+    rng = np.random.default_rng(18)
+    d2 = rng.exponential(size=500).astype(np.float32)
+    d2[::9] = d2[3]
+    w = rng.integers(0, 4, size=500).astype(np.float32)
+    want = _weighted_quantile(jnp.asarray(d2), jnp.asarray(w), q)
+    got = weighted_quantile(torch.from_numpy(d2), torch.from_numpy(w), q)
+    assert float(got) == float(want)
+
+
+def test_global_weighted_choice_statistics():
+    """Two-stage draw ∝ weight: machine by mass, then point by weight.
+    Zero weights are never chosen, the frequencies follow the weights
+    within 5 standard errors, and the picked point is replicated."""
+    m, p, draws = 3, 8, 3000
+    rng = np.random.default_rng(19)
+    w = rng.random((m, p)).astype(np.float32)
+    w[rng.random((m, p)) < 0.3] = 0.0
+    w[2] = 0.0                                       # an empty machine
+    ids = np.arange(m * p, dtype=np.float32).reshape(m, p)
+    x = torch.from_numpy(np.stack([ids, -ids], axis=-1))   # (m, p, 2)
+    comm, gen = tcomm.VirtualCluster(m), torch.Generator().manual_seed(20)
+    wt = torch.from_numpy(w)
+    with tcomm.wire_tally() as t:
+        tsamp.global_weighted_choice(gen, comm, wt, x)
+    assert t.meta == 4 * m + 4 * m * 2 and t.payload == 0
+    counts = np.zeros(m * p)
+    for _ in range(draws):
+        pt = tsamp.global_weighted_choice(gen, comm, wt, x)
+        assert float(pt[1]) == -float(pt[0])
+        counts[int(pt[0])] += 1
+    prob = w.reshape(-1) / w.sum()
+    assert counts[prob == 0].sum() == 0, "picked a zero-weight point"
+    se = np.sqrt(draws * prob * (1 - prob))
+    assert np.all(np.abs(counts - draws * prob) <= 5 * se + 1)
+
+
+def test_quantize_uplink_runs_float32_only():
+    x = torch.rand(3, 4)
+    assert tsamp.quantize_uplink(x, "float32") is x
+    for dt in ("bfloat16", "float16", "int8"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tsamp.quantize_uplink(x, dt)
 
 
 def test_wire_tally_records_every_executed_call():

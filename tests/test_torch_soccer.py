@@ -29,6 +29,12 @@ from repro_torch.core.truncated_cost import removal_threshold
 from repro_torch.data.synthetic import gaussian_mixture, shard_points
 from repro_torch.kernels import ops, ref
 
+# xdist runs one worker per core: with torch's default of one intra-op
+# thread per core in every worker, the pools contend and small ops run
+# several times slower
+torch.set_num_threads(1)
+
+
 K, M = 8, 8
 # the port's cost over the reference's, on the same data: their random
 # streams differ, and k-means++ may land in another local optimum

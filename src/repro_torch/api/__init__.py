@@ -11,6 +11,9 @@ from repro_torch.api.result import ClusterResult, uplink_bytes
 from repro_torch.api.facade import fit
 from repro_torch.api import algorithms as _algorithms  # noqa: F401 (registers
                                                        # the drivers)
+from repro_torch.coresets import algorithms as _coreset_algorithms  # noqa: F401
+                                              # (registers coreset_kmeans)
+from repro_torch import robust as _robust  # noqa: F401 (registers kzmeans)
 
 __all__ = ["ClusterResult", "fit", "get_algorithm", "list_algorithms",
            "register_algorithm", "uplink_bytes"]

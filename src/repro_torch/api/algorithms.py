@@ -2,7 +2,9 @@
 
 The port registers SOCCER, the paper's Algorithm 1, and its two
 comparison baselines, k-means‖ and EIM11 (ROADMAP Queue 1 items 9-10),
-with the reference's signatures and defaults. Each driver adapts one core
+with the reference's signatures and defaults; ``coreset_kmeans`` and
+``kzmeans`` register from ``repro_torch.coresets`` and
+``repro_torch.robust``. Each driver adapts one core
 implementation to the registry contract and reports per-round uplink in
 points and bytes, the achieved wire bytes, and the raw core result under
 ``extra["raw"]``. The run-condition options ``fit`` passes on are checked
@@ -65,6 +67,10 @@ def fit_soccer(x_parts, k: int, *, backend: str = "virtual",
         v_hist=res.v_hist[: res.rounds],
         wire_bytes=res.wire_payload, wire_meta_bytes=res.wire_meta,
         extra={"const": res.const, "state": res.state, "raw": res})
+
+
+# fit(uplink_mode="coreset") routes through SoccerParams.uplink_mode
+fit_soccer.supports_uplink_mode = True
 
 
 @register_algorithm("kmeans_parallel")

@@ -5,6 +5,9 @@
     res = fit(x, k=25, algo="soccer", device="cpu")          # plain PyTorch
     res = fit(x, k=100, algo="kmeans_parallel", rounds=5)    # the baselines
     res = fit(x, k=25, algo="eim11", epsilon=0.1)
+    res = fit(x, k=25, algo="kzmeans", outlier_frac=0.02)    # robust tier
+    res = fit(x, k=25, algo="coreset_kmeans", coreset_size=16_384)
+    res = fit(x, k=25, uplink_mode="coreset")                 # SOCCER knob
     res.centers, res.rounds, res.uplink_points, res.cost(x)
 
 ``x`` is either flat ``(n, d)`` data (placed on ``m`` machines by
@@ -56,9 +59,12 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
       shuffle: ``shuffle=False`` is ``shard_policy="contiguous"``.
       shard_policy: "shuffle" | "contiguous" | "sorted" | "imbalanced" or
         a callable (see ``repro_torch.data.sharding``).
-      uplink_dtype, uplink_wire, uplink_mode, failure_plan, trace: the
-        reference's run-condition knobs, passed to the algorithm; only
-        their defaults run here.
+      uplink_mode: "points" or "coreset" (SOCCER's machine-side coreset
+        compression of each upload); algorithms registered with
+        ``supports_uplink_mode`` only.
+      uplink_dtype, uplink_wire, failure_plan, trace: the reference's
+        run-condition knobs, passed to the algorithm; only their defaults
+        run here.
       device: "cuda" (default; raises without CUDA) or "cpu", where the
         kernels' plain PyTorch versions run.
       **algo_params: algorithm-specific knobs (e.g. ``epsilon``).
@@ -83,6 +89,15 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
     parts, w_parts, alive_parts = _as_parts(x, w, m, seed, policy)
     driver = get_algorithm(algo)
     if uplink_mode is not None:
+        if uplink_mode not in ("points", "coreset"):
+            raise ValueError(
+                f"unknown uplink_mode {uplink_mode!r}: expected 'points' "
+                f"or 'coreset'")
+        if not getattr(driver, "supports_uplink_mode", False):
+            raise TypeError(
+                f"fit(algo={algo!r}) does not support uplink_mode — the "
+                f"algorithm has no compressible gather uplink; supported: "
+                f"algorithms registered with supports_uplink_mode")
         algo_params["uplink_mode"] = uplink_mode
 
     t0 = time.perf_counter()

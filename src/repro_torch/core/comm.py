@@ -6,8 +6,8 @@ every per-machine tensor (``(m, ...)``) on one device, as the reference's
 ``repro.core.comm.VirtualCluster`` does. It provides two raw collectives —
 ``_reduce`` (sum over machines) and ``_gather`` (per-machine blocks) —
 and ``_WireOps`` derives the recording wrappers the algorithms use:
-``psum``, ``all_machines`` and the length-prefixed ragged gather
-``gather_ragged``.
+``psum``, ``all_machines``, the fixed-width ``concat_machines`` and the
+length-prefixed ragged gather ``gather_ragged``.
 
 Wire accounting: the JAX package records bytes once, when a round is
 traced, and multiplies by the rounds it ran. PyTorch runs eagerly, so
@@ -120,6 +120,18 @@ class _WireOps:
     def all_machines(self, x: torch.Tensor) -> torch.Tensor:
         record_wire(meta=static_nbytes(x) * self._fan)
         return self._gather(x)
+
+    def concat_machines(self, x: torch.Tensor, *, meta: bool = False
+                        ) -> torch.Tensor:
+        """(local_m, t, ...) fixed-width blocks -> (m*t, ...) replicated.
+
+        ``meta=True`` charges the bytes to the metadata channel (weight
+        columns that ride alongside a payload, like the HT weights).
+        """
+        record_wire(**{"meta" if meta else "payload":
+                       static_nbytes(x) * self._fan})
+        g = self._gather(x)
+        return g.reshape((-1,) + tuple(g.shape[2:]))
 
     def _budget_counts(self, counts: torch.Tensor, cap: int, rows: int
                        ) -> torch.Tensor:

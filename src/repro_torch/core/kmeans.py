@@ -22,7 +22,7 @@ from repro_torch.core.sampling import gumbel_argmax
 from repro_torch.kernels import ops
 
 
-def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+def pick_row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """Row ``i`` (a () index on the device) of ``x``, without reading the
     index back to the host as ``x[i]`` would."""
     return torch.index_select(x, 0, i.reshape(1))[0]
@@ -38,13 +38,13 @@ def kmeans_plusplus(gen: torch.Generator, x: torch.Tensor, w: torch.Tensor,
     """
     n, d = x.shape
     centers = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-    centers[0] = _pick(x, gumbel_argmax(gen, w))
+    centers[0] = pick_row(x, gumbel_argmax(gen, w))
     d2min = torch.full((n,), torch.inf, dtype=torch.float32, device=x.device)
     for i in range(1, k):
         d2min, mass = ops.update_min_dist(x, w, centers[i - 1:i], d2min)
         # all-zero mass (every point on a center) -> fall back to uniform w
         p = torch.where(mass > 0, w * d2min, w)
-        centers[i] = _pick(x, gumbel_argmax(gen, p))
+        centers[i] = pick_row(x, gumbel_argmax(gen, p))
     return centers
 
 

@@ -19,7 +19,8 @@ sampled step to the reference's outcomes, not to its draws.
 
 The baselines add ``scatter_at`` (k-means‖'s rank-positioned upload into a
 dense per-machine buffer, whose pad is recorded as wire), the two-stage
-``global_weighted_choice`` and ``quantize_uplink``.
+``global_weighted_choice`` and ``quantize_uplink``; the coreset uplinks
+add ``gather_weighted``, the fixed-width weighted gather.
 """
 from __future__ import annotations
 
@@ -129,6 +130,36 @@ def scatter_at(comm, values: torch.Tensor, pos: torch.Tensor,
     local = local.reshape(m, rows + 1, d)[:, :rows]
     record_wire(payload=m * rows * d * values.element_size() * comm._fan)
     return comm._reduce(local)
+
+
+def gather_weighted(comm, pts: torch.Tensor, wts: torch.Tensor,
+                    upload_dtype: str = "float32", wire: str = "values"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-width weighted gather: per-machine summary blocks -> one
+    replicated weighted point set.
+
+    The coreset uplinks upload exactly ``t`` rows per machine (dead or
+    empty machines send weight-0 rows), so the gather is a plain
+    concatenation over machines, with no apportionment or offsets.
+
+    Args:
+      pts: (local_m, t, d) summary points.
+      wts: (local_m, t) summary weights (0 = padding row).
+      upload_dtype: payload precision; the points are quantized
+        machine-side (``quantize_uplink``), the weights ride the metadata
+        channel at full precision, like the HT weights.
+      wire: "values" (blocks move at storage width); the int8 "codes"
+        wire waits for ROADMAP Queue 1 item 11.
+
+    Returns:
+      ((m*t, d) points, (m*t,) float32 weights), both replicated.
+    """
+    if wire == "codes":
+        raise NotImplementedError(
+            "uplink_wire='codes' is not ported yet (ROADMAP Queue 1 item 11 "
+            "(uplink compression)); the port runs 'values'")
+    g_pts = comm.concat_machines(quantize_uplink(pts, upload_dtype))
+    return g_pts, comm.concat_machines(wts.to(torch.float32), meta=True)
 
 
 def global_weighted_choice(gen: torch.Generator, comm,

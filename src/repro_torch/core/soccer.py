@@ -1,8 +1,10 @@
 """SOCCER — Sampling, Optimal Clustering Cost Estimation, Removal (Alg. 1).
 
-The port of ``repro.core.soccer`` for the main path: gather coordinator,
-raw point uplink in float32, ``blackbox="kmeans"``, no stragglers, no
-outliers. One ``soccer_round`` is one communication round of the paper:
+The port of ``repro.core.soccer``: gather coordinator, float32 uplink,
+``blackbox="kmeans"``, no stragglers; raw points or machine-side coresets
+on the uplink (``uplink_mode``), and the robust knob ``outlier_frac``
+(truncated removal threshold, trimmed finalize). One ``soccer_round`` is
+one communication round of the paper:
 
   sample P1, P2 (exact-size, HT-weighted)  ->  ragged "upload"
   coordinator:  C_iter = A(P1, k_plus); v from the truncated cost on P2
@@ -27,7 +29,8 @@ from repro_torch.configs.soccer_paper import SoccerParams
 from repro_torch.core.comm import VirtualCluster, wire_tally
 from repro_torch.core.kmeans import kmeans
 from repro_torch.core.sampling import draw_global_sample
-from repro_torch.core.truncated_cost import removal_threshold
+from repro_torch.core.truncated_cost import removal_threshold, trim_top_mass
+from repro_torch.coresets.uplink import draw_coreset_sample
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
@@ -42,10 +45,16 @@ class SoccerConstants:
     max_rounds: int
     cap: int             # per-machine sample buffer width
     lloyd_iters: int
+    outlier_frac: float = 0.0   # (k, z) mass z = outlier_frac·N, untouched
+                                # by the removal threshold and trimmed
+                                # from the finalize fit
+    uplink_mode: str = "points"  # points | coreset
+    coreset_rows: int = 0       # per-machine coreset rows t
+    coreset_kb: int = 0         # machine-side bicriteria centers
 
 
 def derive_constants(n: int, p_local: int, params: SoccerParams,
-                     eta_override: int = 0) -> SoccerConstants:
+                     eta_override: int = 0, m: int = 0) -> SoccerConstants:
     log_term = math.log(1.1 * params.k / (params.delta * params.epsilon))
     d_k = 6.5 * log_term
     k_plus = int(math.ceil(params.k + 9.0 * log_term))
@@ -54,19 +63,31 @@ def derive_constants(n: int, p_local: int, params: SoccerParams,
     eta = min(eta, n)
     max_rounds = params.max_rounds or (
         int(math.ceil(1.0 / params.epsilon)) + 2)
+    m = m or params.n_machines
+    coreset_rows = coreset_kb = 0
+    if params.uplink_mode == "coreset":
+        # uplink budget in rows, decoupled from eta: by default enough rows
+        # for the k_plus-center black box and a 4x wire reduction
+        total_cs = params.coreset_size or max(4 * k_plus, eta // 4)
+        total_cs = min(total_cs, eta)
+        coreset_rows = max(1, min(-(-total_cs // max(m, 1)),
+                                  min(p_local, eta)))
+        coreset_kb = params.coreset_bicriteria or max(
+            1, min(params.k, coreset_rows))
     return SoccerConstants(k=params.k, k_plus=k_plus, d_k=d_k, eta=eta,
                            max_rounds=max_rounds, cap=min(p_local, eta),
-                           lloyd_iters=params.lloyd_iters)
+                           lloyd_iters=params.lloyd_iters,
+                           outlier_frac=params.outlier_frac,
+                           uplink_mode=params.uplink_mode,
+                           coreset_rows=coreset_rows, coreset_kb=coreset_kb)
 
 
-# SoccerParams fields outside the main path -> (the value the port runs,
-# its ROADMAP Queue 1 item)
+# SoccerParams fields outside what the port runs -> (the value the port
+# runs, its ROADMAP Queue 1 item)
 _LATER_PARAMS = {
     "straggler_rate": (0.0, "item 11 (SOCCER knobs)"),
-    "outlier_frac": (0.0, "item 11 (SOCCER knobs)"),
     "sharded_coordinator": (False, "item 9 (sharded_kmeans)"),
     "blackbox": ("kmeans", "item 10 (minibatch)"),
-    "uplink_mode": ("points", "item 12 (coresets)"),
 }
 # The reference's run-condition options (``repro.api.fit``) -> (the values
 # the port runs, its ROADMAP Queue 1 item). ``fit`` passes them through to
@@ -196,25 +217,55 @@ def _live_counts(comm: VirtualCluster, state: SoccerState):
     return alive_eff, n_vec, torch.sum(n_vec, dtype=torch.int32)
 
 
+def _draw_sample(comm: VirtualCluster, const: SoccerConstants,
+                 state: SoccerState, alive_eff: torch.Tensor,
+                 n_vec_resp: torch.Tensor):
+    """One exact-size global sample -> (points, weights, uplink_rows,
+    sample_real).
+
+    ``uplink_mode="points"``: the paper's raw upload of the eta-point
+    draw; uplink_rows == sample_real == the realized draw.
+    ``uplink_mode="coreset"``: each machine compresses its share of the
+    same draw to a sensitivity coreset before the upload
+    (``coresets.uplink``); uplink_rows shrinks to the m·t coreset rows,
+    while sample_real keeps the underlying draw size, which drives the
+    alpha = |P2|/N threshold scaling.
+    """
+    if const.uplink_mode == "coreset":
+        return draw_coreset_sample(comm, state.gen, state.x, state.w,
+                                   alive_eff, n_vec_resp, const.eta,
+                                   const.cap, const.coreset_rows,
+                                   const.coreset_kb)
+    pts, wts, real = draw_global_sample(comm, state.gen, state.x, state.w,
+                                        alive_eff, n_vec_resp, const.eta,
+                                        const.cap)
+    return pts, wts, real, real
+
+
+def _outlier_mass(const: SoccerConstants, n_total: torch.Tensor):
+    """z = outlier_frac·N population points (0 when the knob is off); a
+    float32 product on the device, no host value copied over."""
+    return n_total.to(torch.float32) * const.outlier_frac
+
+
 def soccer_round(state: SoccerState, comm: VirtualCluster,
                  const: SoccerConstants) -> SoccerState:
     alive_eff, n_vec, n_total = _live_counts(comm, state)
 
-    # --- upload P1, P2 (independent draws)
-    p1, w1, real1 = draw_global_sample(comm, state.gen, state.x, state.w,
-                                       alive_eff, n_vec, const.eta,
-                                       const.cap)
-    p2, w2, real2 = draw_global_sample(comm, state.gen, state.x, state.w,
-                                       alive_eff, n_vec, const.eta,
-                                       const.cap)
+    # --- upload P1, P2 (independent draws; in coreset mode each is
+    # compressed machine-side before the upload)
+    p1, w1, up1, _ = _draw_sample(comm, const, state, alive_eff, n_vec)
+    p2, w2, up2, real2 = _draw_sample(comm, const, state, alive_eff, n_vec)
     # --- coordinator: C_iter = A(P1, k_plus); threshold from P2. alpha is
     # P2's OWN realized sampling rate: the truncation mass L = l/alpha and
-    # the psi->population rescale both describe the P2 statistic.
+    # the psi->population rescale both describe the P2 statistic. The
+    # (k, z) mass must not inflate the threshold either.
     c_iter, _ = kmeans(state.gen, p1, w1, const.k_plus, const.lloyd_iters)
     d2_p2, _ = ops.min_dist(p2, c_iter)
     alpha = real2.to(torch.float32) / torch.clamp(
         n_total.to(torch.float32), min=1.0)
-    v = removal_threshold(d2_p2, w2, const.k, const.d_k, alpha)
+    v = removal_threshold(d2_p2, w2, const.k, const.d_k, alpha,
+                          outlier_mass=_outlier_mass(const, n_total))
 
     # --- broadcast (v, C_iter); the machines remove points in one fused
     # sweep: min-d2, threshold compare, mask update and live counts
@@ -226,7 +277,7 @@ def soccer_round(state: SoccerState, comm: VirtualCluster,
     state.centers_valid[i] = True
     state.v_hist[i] = v
     state.n_hist[i] = n_total
-    state.uplink[i] = real1 + real2
+    state.uplink[i] = up1 + up2
     state.alpha_hist[i] = alpha
     return dataclasses.replace(state, alive=alive_new, round_idx=i + 1,
                                n_remaining=n_rem)
@@ -234,11 +285,20 @@ def soccer_round(state: SoccerState, comm: VirtualCluster,
 
 def soccer_finalize(state: SoccerState, comm: VirtualCluster,
                     const: SoccerConstants) -> SoccerState:
-    """Gather the <= eta survivors and cluster them with A(V, k)."""
+    """Gather the <= eta survivors and cluster them with A(V, k).
+
+    With ``outlier_frac > 0`` (the paper's §9 robustness knob) the
+    finalize is one trimmed k-means step: a provisional A(V, k) fit, then
+    the top ``z = outlier_frac·N`` weight mass of the gathered survivors
+    (by distance to the provisional centers) is zeroed out of the HT
+    weights before the final fit.
+    """
     alive_eff, n_vec, n_total = _live_counts(comm, state)
-    v_pts, v_w, up = draw_global_sample(comm, state.gen, state.x, state.w,
-                                        alive_eff, n_vec, const.eta,
-                                        const.cap)
+    v_pts, v_w, up, _ = _draw_sample(comm, const, state, alive_eff, n_vec)
+    if const.outlier_frac > 0.0:
+        c_prov, _ = kmeans(state.gen, v_pts, v_w, const.k, const.lloyd_iters)
+        d2, _ = ops.min_dist(v_pts, c_prov)
+        v_w = trim_top_mass(d2, v_w, _outlier_mass(const, n_total))
     c_fin, _ = kmeans(state.gen, v_pts, v_w, const.k, const.lloyd_iters)
     i = state.round_idx
     state.centers[i] = 0.0
@@ -305,7 +365,7 @@ def run_soccer(x_parts, params: SoccerParams, *, backend: str = "virtual",
     m, p, _ = x_parts.shape
     comm = VirtualCluster(m)
     const = derive_constants(effective_n(m, p, w, alive), p, params,
-                             eta_override)
+                             eta_override, m=m)
     gen = (torch.Generator(dev).manual_seed(params.seed)
            if generator is None else generator)
     state = init_state(

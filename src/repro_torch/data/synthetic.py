@@ -4,7 +4,8 @@ The PyTorch port's own numpy copy of the generators its main path needs
 from ``repro.data.synthetic``: the same seed gives bit-identical arrays
 in both packages. k-spherical-Gaussian mixtures in R^dim with Zipf(γ)
 component weights (the paper: dim=15, σ=0.001, γ=1.5, means uniform in
-the unit cube).
+the unit cube), and ``contaminate``, the gross outliers the robust tier
+is measured on.
 """
 from __future__ import annotations
 
@@ -59,3 +60,39 @@ def shard_points(x: np.ndarray, m: int, seed: int = 0,
     if pad:
         w[n:] = 0.0
     return parts, w.reshape(m, p)
+
+
+def contaminate(x: np.ndarray, frac: float = 0.01, scale: float = 50.0,
+                seed: int = 7, geometry: str = "isotropic",
+                n_clumps: int = 3) -> Tuple[np.ndarray, np.ndarray]:
+    """Inject gross outliers: returns (x_contaminated, inlier_mask).
+
+    ``round(frac * n)`` outliers (at least one) at ``scale`` times the
+    data's RMS radius: drawn independently around the data mean
+    (``"isotropic"``), or gathered into ``n_clumps`` tight far clumps
+    (``"clustered"``), which look like small genuine clusters. They are
+    appended and the whole array is shuffled; ``inlier_mask`` marks the
+    original points.
+    """
+    if geometry not in ("isotropic", "clustered"):
+        raise ValueError(f"contaminate geometry must be 'isotropic' or "
+                         f"'clustered', got {geometry!r}")
+    rng = np.random.default_rng(seed)
+    n, d = x.shape
+    n_out = max(int(round(frac * n)), 1)
+    radius = float(np.sqrt(np.mean(np.sum(
+        (x - x.mean(axis=0)) ** 2, axis=1))))
+    r = scale * max(radius, 1e-6)
+    if geometry == "isotropic":
+        outliers = x.mean(axis=0) + rng.normal(0.0, r, size=(n_out, d))
+    else:
+        clumps = x.mean(axis=0) + rng.normal(
+            0.0, r, size=(min(n_clumps, n_out), d))
+        assign = rng.integers(0, clumps.shape[0], size=n_out)
+        # clump spread ~ the inlier RMS radius
+        outliers = clumps[assign] + rng.normal(
+            0.0, max(radius, 1e-6), size=(n_out, d))
+    x_all = np.concatenate([x, outliers.astype(np.float32)])
+    mask = np.concatenate([np.ones((n,), bool), np.zeros((n_out,), bool)])
+    order = rng.permutation(n + n_out)
+    return x_all[order], mask[order]

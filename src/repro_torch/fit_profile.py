@@ -5,8 +5,11 @@
 Draws the paper's §8 mixture (d = 15, σ = 0.001, Zipf γ = 1.5, m = 8
 machines; Table 2 rows 1 and 2 are k = 25 and 100) and fits it with
 ``--algo``: SOCCER at ε = 0.05, δ = 0.1 (the paper's setting), k-means‖
-at its defaults (5 rounds, l = 2k) or EIM11 at ε = 0.1, δ = 0.1. It
-runs one warm-up fit, then for one more fit prints:
+at its defaults (5 rounds, l = 2k), EIM11 at ε = 0.1, δ = 0.1,
+coreset_kmeans with a 16,384-row budget, or kzmeans at outlier_frac =
+0.02 with a 1,640,000-row budget on the mixture contaminated by 2% gross
+outliers (``data.synthetic.contaminate``, scale 50, seed 7). It runs one
+warm-up fit, then for one more fit prints:
 
 * the host wall of the fit, and of its host-side shard placement alone
   (``data.sharding.make_shards``, the same call the facade makes);
@@ -29,7 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import api
 from repro_torch.configs.soccer_paper import GaussianMixtureSpec
 from repro_torch.data.sharding import make_shards
-from repro_torch.data.synthetic import gaussian_mixture
+from repro_torch.data.synthetic import contaminate, gaussian_mixture
 from repro_torch.device import resolve_device
 
 
@@ -48,7 +51,11 @@ def _device_us(evt) -> float:
 # each algorithm's knobs in a profiled fit
 ALGO_PARAMS = {"soccer": dict(epsilon=0.05, delta=0.1),
                "kmeans_parallel": {},
-               "eim11": dict(epsilon=0.1, delta=0.1)}
+               "eim11": dict(epsilon=0.1, delta=0.1),
+               "coreset_kmeans": dict(coreset_size=16_384),
+               "kzmeans": dict(outlier_frac=0.02, coreset_size=1_640_000)}
+# algorithms profiled on contaminated data -> the outlier fraction
+CONTAMINATION = {"kzmeans": 0.02}
 
 
 def profile_fit(k: int, n: int, m: int = 8, top: int = 15,
@@ -56,6 +63,8 @@ def profile_fit(k: int, n: int, m: int = 8, top: int = 15,
     resolve_device("cuda")
     x, _, _ = gaussian_mixture(GaussianMixtureSpec(n=n, dim=15, k=k,
                                                    sigma=0.001, seed=17))
+    if algo in CONTAMINATION:
+        x, _ = contaminate(x, frac=CONTAMINATION[algo], scale=50.0, seed=7)
     kw = dict(algo=algo, m=m, seed=0, **ALGO_PARAMS[algo])
     api.fit(x, k, **kw)                                      # warm-up
     torch.cuda.synchronize()
@@ -73,7 +82,8 @@ def profile_fit(k: int, n: int, m: int = 8, top: int = 15,
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    out = {"algo": algo, "k": k, "n": n, "m": m, "rounds": res.rounds,
+    out = {"algo": algo, "k": k, "n": x.shape[0], "m": m,
+           "rounds": res.rounds,
            "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
            "host_shard_s": shard_s,
            "device_busy_s": busy_us / 1e6 if busy_us else None,
@@ -81,7 +91,7 @@ def profile_fit(k: int, n: int, m: int = 8, top: int = 15,
            if busy_us else None,
            "top": [{"name": name[:90], "device_ms": us / 1e3, "calls": cnt}
                    for name, us, cnt in rows[:top]]}
-    print(f"fit {algo} k={k} n={n}: wall {wall_s:.3f} s, host shard placement "
+    print(f"fit {algo} k={k} n={x.shape[0]}: wall {wall_s:.3f} s, host shard placement "
           f"{shard_s:.3f} s, device busy "
           + (f"{busy_us / 1e6:.3f} s (idle share "
              f"{out['device_idle_share']:.3f})" if busy_us

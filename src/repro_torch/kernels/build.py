@@ -28,9 +28,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("min_dist.cu", "fused_lloyd.cu", "fused_chunked.cu")
+SOURCES = ("min_dist.cu", "fused_lloyd.cu", "fused_chunked.cu", "lloyd.cu",
+           "sensitivity.cu", "truncated.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# points per block of every kernel (csrc/common.cuh: rt::kThreads)
+BLOCK_POINTS = 256
 
 # point dtype codes of the C interface (csrc/common.cuh: rt::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -171,3 +175,18 @@ def dtype_code(t: torch.Tensor) -> int:
     except KeyError:
         raise TypeError(f"points must be float32, bfloat16 or float16, got "
                         f"{t.dtype}") from None
+
+
+def blocks(n: int) -> int:
+    """Blocks of BLOCK_POINTS points over ``n`` (at least 1: scratch sized
+    by it is never empty)."""
+    return max(-(-n // BLOCK_POINTS), 1)
+
+
+def vector_f32(name: str, what: str, t: torch.Tensor, n: int
+               ) -> torch.Tensor:
+    """An (n,) per-point vector as the float32 the kernels read."""
+    if t.shape != (n,):
+        raise ValueError(f"{name}: {what} must be ({n},), got "
+                         f"{tuple(t.shape)}")
+    return t.to(torch.float32).contiguous()

@@ -169,6 +169,140 @@ inline long long blocks_for(long long n) {
   return (n + kThreads - 1) / kThreads;
 }
 
+// ------------------------------------------------ per-block center sums
+// One block's weighted (k, d) sums (when `sums`) and (k,) weight counts,
+// from its `rows` points' centers sa[] and weights sw[] in shared memory
+// (a center outside [0, k) adds nothing). Thread q owns the (center,
+// coordinate) pairs q, q + blockDim.x, ... and scans the block's points
+// in order, so every per-block sum is taken in one fixed order. The sums
+// go to part rows [0, k·d), the counts to rows [k·d, k·d + k) (to rows
+// [0, k) when !sums), each row nb floats long, one per block; the
+// fixed-order reduce_rows pass then adds each row in block order. Every
+// thread of the block must call this after sa[] and sw[] are written and
+// synchronized.
+template <typename T>
+__device__ __forceinline__ void center_partials(
+    const T* __restrict__ x, long long base, int rows, int d, int k,
+    const int* sa, const float* sw, bool sums, float* __restrict__ part,
+    long long nb) {
+  const int kd = sums ? k * d : 0;
+  for (int q = threadIdx.x; q < kd; q += blockDim.x) {
+    const int j = q / d;
+    const int dd = q - j * d;
+    float acc = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      if (sa[r] == j) acc = fmaf(sw[r], widen(x[(base + r) * d + dd]), acc);
+    }
+    part[(long long)q * nb + blockIdx.x] = acc;
+  }
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    float acc = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      if (sa[r] == j) acc += sw[r];
+    }
+    part[(long long)(kd + j) * nb + blockIdx.x] = acc;
+  }
+}
+
+// ------------------------------------------ fixed-point center sums
+// Exact sums for center sets too large for per-block partials, whose
+// scratch grows with k x blocks: each term w·x_q is formed exactly in
+// double, scaled by 2^s and rounded once to an int64, and added into its
+// center's (d + 1)-wide accumulator row with an integer atomicAdd; the
+// last column takes w at its own scale. s is the largest shift with
+// n·max|w|·max|x|·2^s < 2^62, so no center's sum can overflow. Integer
+// addition is exact and associative: the accumulators hold the same bits
+// whatever order the blocks run in. Each term's rounding error is at most
+// 2^-(s+1), i.e. about n·max|w|·max|x|·2^-63: far below float32's own
+// resolution of the sums. Zero-weight points add nothing (their terms are
+// exactly 0), so they skip the atomics.
+
+// bound[0] = max |w_i|, bound[1] = max |x_iq| over rows with w_i != 0, as
+// float bits (atomicMax on the bit patterns of non-negative floats is
+// exact in any order); the caller zeroes both. Finite inputs are assumed:
+// NaN is skipped by fmaxf, an infinity makes the shift meaningless.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bound_kernel(const T* __restrict__ x, long long n, int d,
+                 const float* __restrict__ w, unsigned* __restrict__ bound) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float mw = 0.f, mx = 0.f;
+  for (long long i = first; i < n; i += stride) mw = fmaxf(mw, fabsf(w[i]));
+  for (long long e = first; e < n * d; e += stride) {
+    if (w[e / d] != 0.f) mx = fmaxf(mx, fabsf(widen(x[e])));
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    mw = fmaxf(mw, __shfl_down_sync(0xffffffffu, mw, o));
+    mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, o));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(bound, __float_as_uint(mw));
+    atomicMax(bound + 1, __float_as_uint(mx));
+  }
+}
+
+// The largest s with b·2^s < 2^62 (0 when b == 0: every term is then 0).
+__device__ __forceinline__ int fixed_shift(double b) {
+  if (!(b > 0.0)) return 0;
+  int e;
+  frexp(b, &e);                                  // b < 2^e
+  return 62 - e;
+}
+
+struct Shifts {
+  int x;   // of the weighted coordinates w·x
+  int w;   // of the weights
+};
+
+__device__ __forceinline__ Shifts shifts(const unsigned* bound, long long n) {
+  const double mw = (double)__uint_as_float(bound[0]);
+  const double mx = (double)__uint_as_float(bound[1]);
+  return {fixed_shift((double)n * mw * mx), fixed_shift((double)n * mw)};
+}
+
+__device__ __forceinline__ unsigned long long to_fixed(double v, int s) {
+  return (unsigned long long)llrint(ldexp(v, s));   // two's complement
+}
+
+// Adds w·x and w of one point into its center's accumulator row.
+template <typename T>
+__device__ __forceinline__ void add_fixed(unsigned long long* row,
+                                          const T* __restrict__ xrow, int d,
+                                          float wi, Shifts s) {
+  for (int q = 0; q < d; ++q) {
+    atomicAdd(row + q, to_fixed((double)wi * (double)widen(xrow[q]), s.x));
+  }
+  atomicAdd(row + d, to_fixed((double)wi, s.w));
+}
+
+// out[j·d + q] = sums, out[k·d + j] = counts, from the fixed-point rows.
+__global__ void __launch_bounds__(kThreads)
+    fixed_finalize_kernel(const unsigned long long* __restrict__ acc,
+                          long long k, int d, long long n,
+                          const unsigned* __restrict__ bound,
+                          float* __restrict__ out) {
+  const Shifts s = shifts(bound, n);
+  const long long total = k * (d + 1);
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    const long long j = e / (d + 1);
+    const int q = (int)(e - j * (d + 1));
+    const double v = (double)(long long)acc[e];
+    if (q < d) {
+      out[j * d + q] = (float)ldexp(v, -s.x);
+    } else {
+      out[k * d + j] = (float)ldexp(v, -s.w);
+    }
+  }
+}
+
+// A grid-stride launch over `items`, at most 4096 blocks.
+inline unsigned grid_for(long long items) {
+  const long long b = blocks_for(items);
+  return (unsigned)(b < 1 ? 1 : (b > 4096 ? 4096 : b));
+}
+
 // Shared-memory tile shape for a given d and register row length DR.
 struct TileShape {
   int kt;
@@ -190,6 +324,17 @@ template <typename T, typename F>
 cudaError_t by_width(int d, F&& f) {
   if (d <= 16) return f((T*)nullptr, std::integral_constant<int, 16>());
   return f((T*)nullptr, std::integral_constant<int, 0>());
+}
+
+// Calls f(T*{}) for the point dtype alone (kernels with no center walk).
+template <typename F>
+cudaError_t by_dtype(int dtype, F&& f) {
+  switch (dtype) {
+    case kF32: return f((float*)nullptr);
+    case kBF16: return f((__nv_bfloat16*)nullptr);
+    case kF16: return f((__half*)nullptr);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename F>

@@ -21,26 +21,20 @@
 //
 // Design, fixed-point accumulation (chosen over a counting sort by center,
 // which needs an (n,) assignment, a scan and a placement pass, because it
-// is one sweep of x with scratch of (k, d + 1) int64 alone):
-//   1. bound_kernel: max |w| and max |x| over the weighted points, by
-//      atomicMax on the bit patterns of non-negative floats (exact in any
-//      order).
+// is one sweep of x with scratch of (k, d + 1) int64 alone; common.cuh
+// holds the fixed-point pieces, shared with lloyd_reduce beyond the
+// resident limit):
+//   1. bound_kernel: max |w| and max |x| over the weighted points.
 //   2. chunked_assign_reduce_kernel: the nearest valid center of each
 //      point (common.cuh: the center set streams through shared memory in
 //      tiles with a running (min, argmin), the walk the TPU kernel makes
-//      over center chunks). Each term w·x_q is formed exactly in double,
-//      scaled by 2^s and rounded once to an int64, and added into the
-//      point's (k, d + 1) accumulator row with an integer atomicAdd; the
-//      last column takes w at its own scale. s is the largest shift with
-//      n·max|w|·max|x|·2^s < 2^62, so no center's sum can overflow.
-//      Integer addition is exact and associative: the accumulators hold
-//      the same bits whatever order the blocks run in.
-//   3. chunked_finalize_kernel: acc·2^-s, converted to float32.
-// Each term's rounding error is at most 2^-(s+1), i.e. about
-// n·max|w|·max|x|·2^-63: far below float32's own resolution of the sums.
+//      over center chunks), then add_fixed: each term w·x_q scaled by 2^s
+//      to an int64 and added into the point's (k, d + 1) accumulator row
+//      with an integer atomicAdd — the same bits whatever order the
+//      blocks run in.
+//   3. fixed_finalize_kernel: acc·2^-s, converted to float32.
 // The cost keeps the per-block partials and the fixed-order reduce_rows
-// pass of the resident kernel (one float per block). Zero-weight points
-// add nothing (their terms are exactly 0), so they skip the atomics.
+// pass of the resident kernel (one float per block).
 //
 // Bound: the assignment is 2·n·k·d float32 operations on n·d inputs, at
 // thousands of operations per byte of points, so it is bound by float32
@@ -50,53 +44,6 @@
 #include "common.cuh"
 
 namespace rt {
-
-// bound[0] = max |w_i|, bound[1] = max |x_iq| over rows with w_i != 0, as
-// float bits; the caller zeroes both. Finite inputs are assumed: NaN is
-// skipped by fmaxf, an infinity makes the shift meaningless.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    bound_kernel(const T* __restrict__ x, long long n, int d,
-                 const float* __restrict__ w, unsigned* __restrict__ bound) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  float mw = 0.f, mx = 0.f;
-  for (long long i = first; i < n; i += stride) mw = fmaxf(mw, fabsf(w[i]));
-  for (long long e = first; e < n * d; e += stride) {
-    if (w[e / d] != 0.f) mx = fmaxf(mx, fabsf(widen(x[e])));
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    mw = fmaxf(mw, __shfl_down_sync(0xffffffffu, mw, o));
-    mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, o));
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicMax(bound, __float_as_uint(mw));
-    atomicMax(bound + 1, __float_as_uint(mx));
-  }
-}
-
-// The largest s with b·2^s < 2^62 (0 when b == 0: every term is then 0).
-__device__ __forceinline__ int fixed_shift(double b) {
-  if (!(b > 0.0)) return 0;
-  int e;
-  frexp(b, &e);                                  // b < 2^e
-  return 62 - e;
-}
-
-struct Shifts {
-  int x;   // of the weighted coordinates w·x
-  int w;   // of the weights
-};
-
-__device__ __forceinline__ Shifts shifts(const unsigned* bound, long long n) {
-  const double mw = (double)__uint_as_float(bound[0]);
-  const double mx = (double)__uint_as_float(bound[1]);
-  return {fixed_shift((double)n * mw * mx), fixed_shift((double)n * mw)};
-}
-
-__device__ __forceinline__ unsigned long long to_fixed(double v, int s) {
-  return (unsigned long long)llrint(ldexp(v, s));   // two's complement
-}
 
 template <typename T, int DR>
 __global__ void __launch_bounds__(kThreads)
@@ -121,42 +68,11 @@ __global__ void __launch_bounds__(kThreads)
     const float wi = w[i];
     cost = wi * clamp0(best + x2);
     if (wi != 0.f) {
-      const Shifts s = shifts(bound, n);
-      unsigned long long* row = acc + (long long)arg * (d + 1);
-      for (int q = 0; q < d; ++q) {
-        atomicAdd(row + q, to_fixed((double)wi * (double)widen(xrow[q]), s.x));
-      }
-      atomicAdd(row + d, to_fixed((double)wi, s.w));
+      add_fixed(acc + (long long)arg * (d + 1), xrow, d, wi, shifts(bound, n));
     }
   }
   const float s = block_sum(cost);
   if (threadIdx.x == 0) part[blockIdx.x] = s;
-}
-
-// out[j·d + q] = sums, out[k·d + j] = counts, from the fixed-point rows.
-__global__ void __launch_bounds__(kThreads)
-    chunked_finalize_kernel(const unsigned long long* __restrict__ acc,
-                            long long k, int d, long long n,
-                            const unsigned* __restrict__ bound,
-                            float* __restrict__ out) {
-  const Shifts s = shifts(bound, n);
-  const long long total = k * (d + 1);
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const long long j = e / (d + 1);
-    const int q = (int)(e - j * (d + 1));
-    const double v = (double)(long long)acc[e];
-    if (q < d) {
-      out[j * d + q] = (float)ldexp(v, -s.x);
-    } else {
-      out[k * d + j] = (float)ldexp(v, -s.w);
-    }
-  }
-}
-
-inline unsigned grid_for(long long items) {
-  const long long b = blocks_for(items);
-  return (unsigned)(b < 1 ? 1 : (b > 4096 ? 4096 : b));
 }
 
 }  // namespace rt
@@ -190,8 +106,8 @@ extern "C" int rt_fused_assign_reduce_chunked(
                   (const unsigned*)bound, acc, part);
   });
   if (e != cudaSuccess) return (int)e;
-  chunked_finalize_kernel<<<grid_for((long long)k * (d + 1)), kThreads, 0,
-                            s>>>(acc, k, d, n, bound, out);
+  fixed_finalize_kernel<<<grid_for((long long)k * (d + 1)), kThreads, 0,
+                          s>>>(acc, k, d, n, bound, out);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)reduce_rows(part, nb, 1, out + (long long)k * d + k, s);

@@ -109,11 +109,12 @@ __global__ void __launch_bounds__(kThreads)
 // launches and by filling the card (68 blocks of 256 points). Design:
 // phase 1 assigns one point per thread (common.cuh); phase 2 has thread q
 // own the (center, coordinate) pairs q, q + 256, ... and scan the block's
-// 256 assignments in point order, so every per-block sum is taken in one
-// fixed order; the (k, d) sums, (k,) counts and the cost go to per-block
-// partials laid out row-major over (k·d + k + 1, blocks), and
-// reduce_rows_kernel adds each row in block order. The (n,) assignment
-// never leaves shared memory.
+// 256 assignments in point order (common.cuh: center_partials, shared
+// with lloyd_reduce and sensitivity_scores), so every per-block sum is
+// taken in one fixed order; the (k, d) sums, (k,) counts and the cost go
+// to per-block partials laid out row-major over (k·d + k + 1, blocks),
+// and reduce_rows_kernel adds each row in block order. The (n,)
+// assignment never leaves shared memory.
 template <typename T, int DR>
 __global__ void __launch_bounds__(kThreads)
     fused_assign_reduce_kernel(const T* __restrict__ x, long long n, int d,
@@ -139,25 +140,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const int rows = (int)min((long long)blockDim.x, n - base);
-  const int kd = k * d;
-  for (int q = threadIdx.x; q < kd; q += blockDim.x) {
-    const int j = q / d;
-    const int dd = q - j * d;
-    float acc = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      if (sa[r] == j) acc = fmaf(sw[r], widen(x[(base + r) * d + dd]), acc);
-    }
-    part[(long long)q * nb + blockIdx.x] = acc;
-  }
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    float acc = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      if (sa[r] == j) acc += sw[r];
-    }
-    part[(long long)(kd + j) * nb + blockIdx.x] = acc;
-  }
+  center_partials(x, base, rows, d, k, sa, sw, true, part, nb);
   const float s = block_sum(cost);
-  if (threadIdx.x == 0) part[(long long)(kd + k) * nb + blockIdx.x] = s;
+  if (threadIdx.x == 0) part[(long long)(k * d + k) * nb + blockIdx.x] = s;
 }
 
 }  // namespace rt

@@ -29,14 +29,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import (CudaKernel, check_on_card,
-                                       dtype_code, ptr, stream_of)
+from repro_torch.kernels.build import (CudaKernel, blocks, check_on_card,
+                                       dtype_code, ptr, stream_of, vector_f32)
 from repro_torch.kernels.min_dist import center_mask, centers_f32
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-
-# points per block of every kernel here (csrc/common.cuh: rt::kThreads)
-BLOCK_POINTS = 256
 
 REMOVE_BELOW = CudaKernel(
     "fused_lloyd.cu", "rt_remove_below",
@@ -50,17 +47,6 @@ FUSED_ASSIGN_REDUCE = CudaKernel(
 FUSED_ASSIGN_REDUCE_CHUNKED = CudaKernel(
     "fused_chunked.cu", "rt_fused_assign_reduce_chunked",
     [_P, _I, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P])
-
-
-def _blocks(n: int) -> int:
-    return max(-(-n // BLOCK_POINTS), 1)
-
-
-def _vector(name: str, what: str, t: torch.Tensor, n: int) -> torch.Tensor:
-    if t.shape != (n,):
-        raise ValueError(f"{name}: {what} must be ({n},), got "
-                         f"{tuple(t.shape)}")
-    return t.to(torch.float32)
 
 
 def remove_below_cuda(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,
@@ -101,13 +87,13 @@ def update_min_dist_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"update_min_dist: points must be (n, d), got "
                          f"{tuple(x.shape)}")
     n, d = x.shape
-    wf = _vector("update_min_dist", "w", w, n)
-    d2f = _vector("update_min_dist", "d2", d2, n)
+    wf = vector_f32("update_min_dist", "w", w, n)
+    d2f = vector_f32("update_min_dist", "d2", d2, n)
     cf = centers_f32("update_min_dist", c, d)
     cv = center_mask("update_min_dist", c_valid, cf.shape[0])
     check_on_card("update_min_dist", x, w=wf, d2=d2f, centers=cf, c_valid=cv)
     d2_new = torch.empty((n,), dtype=torch.float32, device=x.device)
-    part = torch.empty((_blocks(n),), dtype=torch.float32, device=x.device)
+    part = torch.empty((blocks(n),), dtype=torch.float32, device=x.device)
     mass = torch.empty((), dtype=torch.float32, device=x.device)
     UPDATE_MIN_DIST(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(d2f), ptr(cf),
                     ptr(cv), cf.shape[0], ptr(d2_new), ptr(part), ptr(mass),
@@ -125,13 +111,13 @@ def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"fused_assign_reduce: points must be (n, d), got "
                          f"{tuple(x.shape)}")
     n, d = x.shape
-    wf = _vector("fused_assign_reduce", "w", w, n)
+    wf = vector_f32("fused_assign_reduce", "w", w, n)
     cf = centers_f32("fused_assign_reduce", c, d)
     k = cf.shape[0]
     cv = center_mask("fused_assign_reduce", c_valid, k)
     check_on_card("fused_assign_reduce", x, w=wf, centers=cf, c_valid=cv)
     rows = k * d + k + 1
-    part = torch.empty((rows * _blocks(n),), dtype=torch.float32,
+    part = torch.empty((rows * blocks(n),), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((rows,), dtype=torch.float32, device=x.device)
     FUSED_ASSIGN_REDUCE(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(cf),
@@ -156,14 +142,14 @@ def fused_assign_reduce_chunked_cuda(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"fused_assign_reduce: points must be (n, d), got "
                          f"{tuple(x.shape)}")
     n, d = x.shape
-    wf = _vector("fused_assign_reduce", "w", w, n)
+    wf = vector_f32("fused_assign_reduce", "w", w, n)
     cf = centers_f32("fused_assign_reduce", c, d)
     k = cf.shape[0]
     cv = center_mask("fused_assign_reduce", c_valid, k)
     check_on_card("fused_assign_reduce", x, w=wf, centers=cf, c_valid=cv)
     bound = torch.empty((2,), dtype=torch.int32, device=x.device)
     acc = torch.empty((k, d + 1), dtype=torch.int64, device=x.device)
-    part = torch.empty((_blocks(n),), dtype=torch.float32, device=x.device)
+    part = torch.empty((blocks(n),), dtype=torch.float32, device=x.device)
     out = torch.empty((k * d + k + 1,), dtype=torch.float32, device=x.device)
     FUSED_ASSIGN_REDUCE_CHUNKED(ptr(x), dtype_code(x), n, d, ptr(wf),
                                 ptr(cf), ptr(cv), k, ptr(bound), ptr(acc),

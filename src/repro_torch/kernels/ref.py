@@ -13,7 +13,11 @@ Semantics carried over from the reference (``repro/kernels/ref.py``):
   after it, then clamps at >= 0 (ref.py:72-73);
 * ``update_min_dist`` is an exact no-op on ``d2`` when no center is
   valid (+inf candidates);
-* ``remove_below`` keeps a point only if its min-d2 is strictly ``> v``.
+* ``remove_below`` keeps a point only if its min-d2 is strictly ``> v``;
+  ``truncated_cost`` keeps it below the threshold if ``<= v``, and a row
+  of weight 0 falls on neither side;
+* ``lloyd_reduce`` ignores an assignment outside [0, k), as the
+  reference's one-hot and segment sum do.
 
 Distances use the expanded form ``||x||^2 - 2 x.c + ||c||^2`` in float32,
 as the reference and the CUDA kernels do, never ``sum((x - c)^2)``: at
@@ -78,6 +82,88 @@ def update_min_dist_ref(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     cand, _ = min_dist_ref(x, c, c_valid)
     d2_new = torch.minimum(d2.float(), cand)
     return d2_new, torch.sum(w.float() * d2_new)
+
+
+def lloyd_reduce_ref(x: torch.Tensor, w: torch.Tensor, assign: torch.Tensor,
+                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted per-center accumulation for a given assignment: ((k, d)
+    sum of w_i x_i, (k,) sum of w_i per center).
+
+    Up to ``CHUNK_K`` centers a weighted (n, k) one-hot times ``x``, as the
+    reference's oracle (ref.py:226-231); beyond, a scatter-add with no
+    (n, k) one-hot."""
+    wf = w.float()
+    xf = x.float()
+    if k > CHUNK_K:
+        a = assign.long()
+        ok = (a >= 0) & (a < k)
+        a, wk = a[ok], wf[ok]
+        sums = torch.zeros((k, xf.shape[1]), dtype=torch.float32,
+                           device=x.device)
+        sums.index_add_(0, a, xf[ok] * wk[:, None])
+        counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
+        counts.index_add_(0, a, wk)
+        return sums, counts
+    onehot = (assign[:, None] == torch.arange(k, dtype=assign.dtype,
+                                              device=x.device)[None, :])
+    onehot = onehot.to(torch.float32) * wf[:, None]
+    return onehot.T @ xf, torch.sum(onehot, dim=0)
+
+
+def sensitivity_from_min(w: torch.Tensor, d2: torch.Tensor,
+                         assign: torch.Tensor, k: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """(scores, assign, mass, cost) from a finished min-distance pass: the
+    tail of the sensitivity pass, (n,)- and (k,)-sized only (no sweep of
+    the points). ``ops`` also runs it after the ``min_dist`` kernel for
+    center sets beyond the resident limit."""
+    wf = w.float()
+    scores = wf * d2.float()
+    mass = torch.zeros((k,), dtype=torch.float32, device=w.device)
+    mass.index_add_(0, assign.long(), wf)
+    return scores, assign.to(torch.int32), mass, torch.sum(scores)
+
+
+def sensitivity_scores_ref(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
+                           c_valid: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """The coreset sensitivity pass: ((n,) scores w_i·min-d2_i, (n,) int32
+    argmin, (k,) weight mass per center, () weighted cost of ``c``).
+
+    A point is assigned to a valid center whenever one exists, so invalid
+    centers get no mass. With none valid (outside the reference's
+    contract) every d2 is +inf, every point goes to center 0, which takes
+    the whole mass, and the scores are w·inf (NaN at w = 0)."""
+    d2, assign = min_dist_ref(x, c, c_valid)
+    return sensitivity_from_min(w, d2, assign, c.shape[0])
+
+
+def truncated_from_min(w: torch.Tensor, d2: torch.Tensor, v
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(kept cost, tail mass, tail cost) from a finished min-distance pass,
+    summed over the last axis: scalars for (n,) inputs, (m,) for (m, p)."""
+    wf = w.float()
+    s = torch.where(wf > 0, wf * d2.float(), 0.0)
+    below = d2 <= v
+    return (torch.sum(torch.where(below, s, 0.0), dim=-1),
+            torch.sum(torch.where(below, 0.0, wf), dim=-1),
+            torch.sum(torch.where(below, 0.0, s), dim=-1))
+
+
+def truncated_cost_ref(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor, v,
+                       c_valid: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The weighted cost of ``c`` split at the threshold ``v``: (kept cost
+    of the rows with min-d2 <= v, tail weight mass and tail cost of those
+    with min-d2 > v); rows of weight 0 fall on neither side.
+
+    ``x`` is (n, d) with (n,) ``w`` (scalars out), or (m, p, d) machine
+    shards with (m, p) ``w`` (one triple a machine, (m,) each)."""
+    d = x.shape[-1]
+    d2, _ = min_dist_ref(x.reshape(-1, d), c, c_valid)
+    return truncated_from_min(w, d2.reshape(w.shape), v)
 
 
 def fused_assign_reduce_ref(x: torch.Tensor, w: torch.Tensor,

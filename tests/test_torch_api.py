@@ -108,10 +108,10 @@ def test_fit_without_cuda_raises(monkeypatch, data):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(straggler_rate=0.1), "item 11"),
-    (dict(outlier_frac=0.05), "item 11"),
+    (dict(outlier_frac=0.05, blackbox="minibatch"), "item 10"),
     (dict(sharded_coordinator=True), "item 9"),
     (dict(blackbox="minibatch"), "item 10"),
-    (dict(uplink_mode="coreset"), "item 12"),
+    (dict(uplink_mode="coreset", uplink_wire="codes"), "item 11"),
     (dict(uplink_dtype="bfloat16"), "item 11"),
     (dict(uplink_wire="codes"), "item 11"),
     (dict(failure_plan=object()), "item 11"),
@@ -121,6 +121,10 @@ def test_fit_without_cuda_raises(monkeypatch, data):
         "blackbox", "uplink_mode", "uplink_dtype", "uplink_wire",
         "failure_plan", "trace", "backend_mesh"])
 def test_knobs_outside_the_slice_raise(data, kwargs, item):
+    """Each knob the port does not run raises, naming its ROADMAP item;
+    ``outlier_frac`` and ``uplink_mode`` run (see test_torch_kzmeans.py and
+    test_torch_coresets.py), so their cases pair them with a black box and
+    a wire that do not."""
     x, _ = data
     with pytest.raises(NotImplementedError, match=item):
         api.fit(x[:800], 3, device="cpu", **kwargs)
@@ -145,7 +149,8 @@ def test_baseline_run_knobs_raise(data, algo, kwargs, item):
 
 def test_registry_and_validation(data):
     x, _ = data
-    assert api.list_algorithms() == ("eim11", "kmeans_parallel", "soccer")
+    assert api.list_algorithms() == ("coreset_kmeans", "eim11",
+                                     "kmeans_parallel", "kzmeans", "soccer")
     with pytest.raises(ValueError, match="unknown algorithm"):
         api.fit(x[:800], 3, algo="lloyd", device="cpu")
     for algo, bad in (("kmeans_parallel", "epsilon"), ("eim11", "rounds")):

@@ -120,3 +120,166 @@ def test_cuda_chunked_fused_matches_plain(d, k, dt):
     assert all(torch.equal(a, b) for a, b in zip((s, cnt, cost), again))
     zero = ops.fused_assign_reduce(x, torch.zeros_like(w), c, cv)
     assert all(float(t.abs().max()) == 0.0 for t in zero)
+
+
+def _inputs(seed, n, d, k, dt):
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.rand((n, d), device="cuda", generator=g).to(dt)
+    c = torch.rand((k, d), device="cuda", generator=g)
+    cv = torch.rand(k, device="cuda", generator=g) > 0.3
+    cv[0] = True
+    w = torch.rand(n, device="cuda", generator=g)
+    w[: n // 5] = 0.0
+    return g, x, c, cv, w
+
+
+def _d2_tol(x, c):
+    xf = x.float()
+    return 32 * torch.finfo(torch.float32).eps * float(
+        (xf * xf).sum(-1).max() + (c * c).sum(-1).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("d,k", [(15, 25), (37, 300), (15, 1025)],
+                         ids=["kzmeans", "any_width", "fixed_point"])
+def test_cuda_lloyd_reduce_matches_plain(d, k, dt):
+    """lloyd_reduce against a float64 index_add over the same assignment
+    and against its plain version: per-block partials up to 1024 centers,
+    fixed-point accumulators beyond. Assignments outside [0, k) add
+    nothing, zero weights add nothing, a repeat call gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    n = 3000
+    g, x, _, _, w = _inputs(2, n, d, k, dt)
+    assign = torch.randint(-1, k + 1, (n,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    before = ops.KERNELS["lloyd_reduce"].launches
+    s, cnt = ops.lloyd_reduce(x, w, assign, k)
+    assert ops.KERNELS["lloyd_reduce"].launches == before + 1
+    ok = (assign >= 0) & (assign < k)
+    a = assign[ok].long()
+    wd, xd = w[ok].double(), x[ok].double()
+    s64 = torch.zeros((k, d), dtype=torch.float64, device="cuda"
+                      ).index_add_(0, a, wd[:, None] * xd)
+    n64 = torch.zeros(k, dtype=torch.float64, device="cuda"
+                      ).index_add_(0, a, wd)
+    torch.testing.assert_close(s.double(), s64, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(cnt.double(), n64, rtol=1e-5, atol=1e-5)
+    s_p, n_p = ref.lloyd_reduce_ref(x, w, assign, k)
+    torch.testing.assert_close(s, s_p, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(cnt, n_p, rtol=1e-5, atol=1e-4)
+    again = ops.lloyd_reduce(x, w, assign, k)
+    assert torch.equal(s, again[0]) and torch.equal(cnt, again[1])
+    zero = ops.lloyd_reduce(x, torch.zeros_like(w), assign, k)
+    assert all(float(t.abs().max()) == 0.0 for t in zero)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("d,k", [(15, 25), (37, 300), (15, 1024)],
+                         ids=["bicriteria", "any_width", "two_tiles"])
+def test_cuda_sensitivity_scores_matches_plain(d, k, dt):
+    """sensitivity_scores against min_dist's own d2 and argmin (the kernel
+    shares its distance code) and against its plain version; invalid
+    centers get no mass; a repeat call gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    _, x, c, cv, w = _inputs(3, 3000, d, k, dt)
+    tol = _d2_tol(x, c)
+    for mask in (None, cv):
+        before = ops.KERNELS["sensitivity_scores"].launches
+        sc, asg, mass, cost = ops.sensitivity_scores(x, w, c, mask)
+        assert ops.KERNELS["sensitivity_scores"].launches == before + 1
+        d2, idx = ops.min_dist(x, c, mask)
+        assert torch.equal(asg, idx)
+        assert torch.equal(sc, w * d2)
+        m64 = torch.zeros(k, dtype=torch.float64, device="cuda"
+                          ).index_add_(0, idx.long(), w.double())
+        torch.testing.assert_close(mass.double(), m64, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(cost.double(), (w.double() * d2).sum(),
+                                   rtol=1e-5, atol=1e-6)
+        sc_p, _, mass_p, cost_p = ref.sensitivity_scores_ref(x, w, c, mask)
+        torch.testing.assert_close(sc, sc_p, rtol=0, atol=tol)
+        torch.testing.assert_close(cost, cost_p, rtol=1e-5,
+                                   atol=tol * float(w.sum()))
+        torch.testing.assert_close(mass.sum(), mass_p.sum(), rtol=1e-5,
+                                   atol=1e-3)
+        if mask is not None:
+            assert float(mass[~mask].abs().sum()) == 0.0
+        again = ops.sensitivity_scores(x, w, c, mask)
+        assert all(torch.equal(a, b) for a, b in
+                   zip((sc, asg, mass, cost), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("d,k", [(15, 25), (37, 300), (15, 1111)],
+                         ids=["kzmeans", "any_width", "beyond_resident"])
+def test_cuda_truncated_cost_matches_plain(d, k, dt):
+    """truncated_cost over (m, p, d) shards, one triple a machine, against
+    sums over min_dist's own d2 (the kernel shares its distance code) with
+    v at the median, so both sides are populated; the (n, d) entry point
+    gives the one-machine triple; a repeat call gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    m, p = 3, 1000
+    _, x, c, cv, w = _inputs(4, m * p, d, k, dt)
+    tol = _d2_tol(x, c)
+    for mask in (None, cv):
+        d2, _ = ops.min_dist(x, c, mask)
+        v = torch.median(d2)
+        xs, ws = x.reshape(m, p, d), w.reshape(m, p)
+        kept, tmass, tcost = ops.truncated_cost(xs, ws, c, v, mask)
+        assert kept.shape == tmass.shape == tcost.shape == (m,)
+        dd, wd = d2.double().reshape(m, p), ws.double()
+        below = dd <= float(v)
+        s = torch.where(wd > 0, wd * dd, 0.0)
+        for got, want in ((kept, torch.where(below, s, 0.0).sum(1)),
+                          (tmass, torch.where(below, 0.0, wd).sum(1)),
+                          (tcost, torch.where(below, 0.0, s).sum(1))):
+            torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                                       atol=1e-6)
+        # the plain version may put points within tol of v on the other
+        # side; the total does not depend on the side
+        kp, mp, cp = ref.truncated_cost_ref(xs, ws, c, v, mask)
+        torch.testing.assert_close(kept + tcost, kp + cp, rtol=1e-5,
+                                   atol=tol * float(w.sum()))
+        one = ops.truncated_cost(x[:p], w[:p], c, v, mask)
+        assert all(t.shape == () for t in one)
+        torch.testing.assert_close(torch.stack(one),
+                                   torch.stack((kept[0], tmass[0],
+                                                tcost[0])),
+                                   rtol=1e-6, atol=1e-6)
+        again = ops.truncated_cost(xs, ws, c, v, mask)
+        assert all(torch.equal(a, b) for a, b in
+                   zip((kept, tmass, tcost), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=["f32", "bf16", "f16"])
+def test_cuda_remove_below_beyond_resident(dt):
+    """remove_below at 1,111 centers (SOCCER's k_plus at k = 1000), with
+    invalid centers: exactly ``alive & (d2 > v)`` on min_dist's own d2,
+    and against its plain version with flips only within tol of v."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    m, p, d, k = 2, 2000, 15, 1111
+    g, x, c, cv, _ = _inputs(5, m * p, d, k, dt)
+    tol = _d2_tol(x, c)
+    alive = torch.rand((m, p), device="cuda", generator=g) > 0.1
+    for mask in (None, cv):
+        d2, _ = ops.min_dist(x, c, mask)
+        v = torch.median(d2)
+        a, live = ops.remove_below(x.reshape(m, p, d), c, alive, v, mask)
+        assert torch.equal(a, alive & (d2.reshape(m, p) > v))
+        assert torch.equal(live, a.sum(1, dtype=torch.int32))
+        a_p, _ = ref.remove_below_ref(x.reshape(m, p, d), c, alive, v, mask)
+        d2_p, _ = ref.min_dist_ref(x, c, mask)
+        flips = (a != a_p).reshape(-1)
+        if bool(flips.any()):
+            assert float((d2_p[flips] - v).abs().max()) <= tol

@@ -42,13 +42,21 @@ def test_port_has_its_modules():
     names = {str(p.relative_to(ROOT / "src")) for p in FILES[:-1]}
     for mod in ("repro_torch/api/facade.py", "repro_torch/core/soccer.py",
                 "repro_torch/kernels/ops.py", "repro_torch/data/sharding.py",
-                "repro_torch/configs/soccer_paper.py"):
+                "repro_torch/configs/soccer_paper.py",
+                "repro_torch/kernels/lloyd.py",
+                "repro_torch/kernels/sensitivity.py",
+                "repro_torch/kernels/truncated.py",
+                "repro_torch/coresets/sensitivity.py",
+                "repro_torch/coresets/uplink.py",
+                "repro_torch/coresets/algorithms.py",
+                "repro_torch/robust/kzmeans.py"):
         assert mod in names
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.api, repro_torch.kernels.ops, "
-            "repro_torch.core.reduce; "
+            "repro_torch.core.reduce, repro_torch.coresets, "
+            "repro_torch.robust, repro_torch.fit_profile; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")

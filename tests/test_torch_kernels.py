@@ -7,7 +7,10 @@ conformance grid in ``tests/test_kernel_conformance.py`` (the resident
 ones, k <= 1024, and the chunked ones, k = 1025 and 2100), in float32,
 bfloat16 and float16, with that file's tolerances. The chunked shapes are
 also held against the reference's chunked Pallas kernel in interpret mode,
-in both its single-walk and its two-walk regime. The CUDA kernels
+in both its single-walk and its two-walk regime; ``lloyd_reduce`` and
+``remove_below`` beyond 1024 centers against the reference's
+``lloyd_reduce_pallas`` and ``remove_below_chunked_pallas`` likewise. The
+CUDA kernels
 themselves run only on the card: ``tests/test_torch_cuda.py`` holds them
 against their plain versions there.
 """
@@ -19,7 +22,10 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import fused_lloyd as tfused
+from repro_torch.kernels import lloyd as tlloyd
 from repro_torch.kernels import min_dist as tmin
+from repro_torch.kernels import sensitivity as tsens
+from repro_torch.kernels import truncated as ttrunc
 
 # xdist runs one worker per core: with torch's default of one intra-op
 # thread per core in every worker, the pools contend and small ops run
@@ -187,6 +193,170 @@ def test_update_min_dist_matches_reference(name, n, d, k, jdt, tdt):
         assert bool((d2_o <= torch.from_numpy(d2) + 1e-6).all())
 
 
+def _assign(n, k, seed):
+    """An (n,) int32 assignment over [0, k) with a few entries outside it
+    (-1 and k), which add nothing."""
+    a = np.random.default_rng(seed).integers(0, k, size=n).astype(np.int32)
+    a[1::17] = -1
+    a[2::19] = k
+    return a
+
+
+@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES, ids=IDS)
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
+def test_lloyd_reduce_matches_reference(name, n, d, k, jdt, tdt):
+    xj, wj, _, _, xt, wt, _, _ = _data(n, d, k, jdt, tdt, seed=6 * n + d + k)
+    a = _assign(n, k, seed=n + k)
+    tol, tight = _tols(jdt)
+    s_r, c_r = jref.lloyd_reduce_ref(xj, wj, jnp.asarray(a), k)
+    s_o, c_o = ops.lloyd_reduce(xt, wt, torch.from_numpy(a), k)
+    assert s_o.shape == (k, d) and c_o.shape == (k,)
+    assert s_o.dtype == c_o.dtype == torch.float32
+    np.testing.assert_allclose(s_o.numpy(), s_r, rtol=tol, atol=tol)
+    np.testing.assert_allclose(c_o.numpy(), c_r, rtol=tight, atol=tight)
+
+
+def test_lloyd_reduce_segment_sum_beyond_panel():
+    """Beyond 4096 centers the plain version scatter-adds, as the
+    reference's oracle switches to a segment sum (ref.py:219-225)."""
+    xj, wj, _, _, xt, wt, _, _ = _data(300, 6, 1, jnp.float32, torch.float32,
+                                       seed=12)
+    k = 5000
+    a = _assign(300, k, seed=13)
+    s_r, c_r = jref.lloyd_reduce_ref(xj, wj, jnp.asarray(a), k)
+    s_o, c_o = ops.lloyd_reduce(xt, wt, torch.from_numpy(a), k)
+    np.testing.assert_allclose(s_o.numpy(), s_r, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(c_o.numpy(), c_r, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
+def test_lloyd_plain_matches_lloyd_pallas(jdt, tdt):
+    """The lloyd_reduce kernel's plain version against the reference's
+    Pallas kernel in interpret mode (a ragged last block of points)."""
+    from repro.kernels.lloyd import lloyd_reduce_pallas
+    n, d, k = 300, 8, 5
+    xj, wj, _, _, xt, wt, _, _ = _data(n, d, k, jdt, tdt, seed=14)
+    a = _assign(n, k, seed=15)
+    tol, tight = _tols(jdt)
+    s_r, c_r = lloyd_reduce_pallas(xj, wj, jnp.asarray(a), k, interpret=True)
+    s_o, c_o = ops.lloyd_reduce(xt, wt, torch.from_numpy(a), k)
+    np.testing.assert_allclose(s_o.numpy(), s_r, rtol=tol, atol=tol)
+    np.testing.assert_allclose(c_o.numpy(), c_r, rtol=tight, atol=tight)
+
+
+@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES, ids=IDS)
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
+def test_sensitivity_scores_matches_reference(name, n, d, k, jdt, tdt):
+    xj, wj, cj, vj, xt, wt, ct, vt = _data(n, d, k, jdt, tdt,
+                                           seed=7 * n + d + k)
+    tol, tight = _tols(jdt)
+    for cvj, cvt in ((None, None), (vj, vt)):
+        sc_r, _, m_r, cost_r = jref.sensitivity_scores_ref(xj, wj, cj, cvj)
+        sc_o, a_o, m_o, cost_o = ops.sensitivity_scores(xt, wt, ct, cvt)
+        assert a_o.dtype == torch.int32 and sc_o.dtype == torch.float32
+        np.testing.assert_allclose(sc_o.numpy(), sc_r, rtol=tol, atol=tol)
+        np.testing.assert_allclose(float(cost_o), float(cost_r), rtol=tol,
+                                   atol=tol)
+        # argmin ties may break differently: the mass follows the port's
+        # own assignment, and its total is the reference's
+        np.testing.assert_allclose(
+            m_o.numpy(), np.bincount(a_o.numpy(), weights=wt.numpy(),
+                                     minlength=k), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(float(m_o.sum()), float(m_r.sum()),
+                                   rtol=tight, atol=tight)
+        if cvt is not None:               # invalid centers receive no mass
+            assert float(m_o[~cvt].abs().sum()) == 0.0
+
+
+def _threshold(d2: np.ndarray) -> float:
+    """A v strictly between two data d2 values near the median: the
+    frameworks sum the distance terms in different orders, so a v equal to
+    a point's d2 could move it across by one ulp."""
+    s = np.sort(d2)
+    return float(0.5 * (s[len(s) // 2] + s[len(s) // 2 + 1]))
+
+
+@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES, ids=IDS)
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
+def test_truncated_cost_matches_reference(name, n, d, k, jdt, tdt):
+    xj, wj, cj, vj, xt, wt, ct, vt = _data(n, d, k, jdt, tdt,
+                                           seed=8 * n + d + k)
+    tol, _ = _tols(jdt)
+    for cvj, cvt in ((None, None), (vj, vt)):
+        d2, _ = jref.min_dist_ref(xj, cj, cvj)
+        v = _threshold(np.asarray(d2))
+        for vv in (v, 0.0, float(np.max(d2)) + 1.0):
+            r = jref.truncated_cost_ref(xj, wj, cj, jnp.float32(vv), cvj)
+            o = ops.truncated_cost(xt, wt, ct, torch.tensor(vv), cvt)
+            assert all(t.shape == () for t in o)
+            np.testing.assert_allclose([float(t) for t in o],
+                                       [float(t) for t in r], rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.parametrize("name,m,p,d,k", MP_SHAPES, ids=MP_IDS)
+def test_truncated_cost_per_machine(name, m, p, d, k):
+    """(m, p, d) shards give one triple a machine, each the reference's
+    (n, d) triple of that machine's rows (kzmeans psums them)."""
+    xj, wj, cj, _, xt, wt, ct, _ = _data(m * p, d, k, jnp.float32,
+                                         torch.float32, seed=m + p + k)
+    d2, _ = jref.min_dist_ref(xj, cj)
+    v = _threshold(np.asarray(d2))
+    o = ops.truncated_cost(xt.reshape(m, p, d), wt.reshape(m, p), ct,
+                           torch.tensor(v))
+    assert all(t.shape == (m,) for t in o)
+    for j in range(m):
+        r = jref.truncated_cost_ref(xj[j * p:(j + 1) * p],
+                                    wj[j * p:(j + 1) * p], cj,
+                                    jnp.float32(v))
+        np.testing.assert_allclose([float(t[j]) for t in o],
+                                   [float(t) for t in r], rtol=2e-3,
+                                   atol=2e-3)
+
+
+def test_truncated_cost_sides():
+    """``<= v`` is kept (inclusive), ``> v`` is the tail, and a row of
+    weight 0 falls on neither side, wherever its distance lands."""
+    x = torch.tensor([[0.0, 0.0], [1.0, 0.0], [2.0, 0.0], [9.0, 0.0]])
+    w = torch.tensor([1.0, 2.0, 3.0, 0.0])
+    kept, tmass, tcost = ops.truncated_cost(x, w, torch.zeros((1, 2)),
+                                            torch.tensor(1.0))
+    assert (float(kept), float(tmass), float(tcost)) == (2.0, 3.0, 12.0)
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
+def test_remove_below_beyond_resident(jdt, tdt):
+    """remove_below at 1,100 centers (beyond the resident limit, as SOCCER's
+    k_plus at k = 1000) against the reference's chunked Pallas kernel in
+    interpret mode: the same removal set but for points whose d2 lies
+    within the tolerance of v, where the frameworks' summation orders may
+    decide differently."""
+    from repro.kernels.fused_lloyd import remove_below_chunked_pallas
+    m, p, d, k = 2, 60, 9, 1100
+    rng = np.random.default_rng(17)
+    xj, xt = _both(rng.normal(size=(m, p, d)).astype(np.float32), jdt, tdt)
+    cj, ct = _both(rng.normal(size=(k, d)).astype(np.float32), jdt, tdt)
+    valid = rng.random(k) > 0.3
+    valid[0] = True
+    alive = rng.random((m, p)) > 0.25
+    tol, _ = _tols(jdt)
+    for cvj, cvt in ((None, None), (jnp.asarray(valid),
+                                     torch.from_numpy(valid))):
+        d2, _ = jref.min_dist_ref(xj.reshape(m * p, d), cj, cvj)
+        d2 = np.asarray(d2).reshape(m, p)
+        v = float(np.median(d2))
+        a_r, l_r = remove_below_chunked_pallas(
+            xj, cj, jnp.asarray(alive), jnp.float32(v), cvj, interpret=True)
+        a_o, l_o = ops.remove_below(xt, ct, torch.from_numpy(alive),
+                                    torch.tensor(v), cvt)
+        flips = a_o.numpy() != np.asarray(a_r)
+        assert np.all(np.abs(d2[flips] - v) <= tol * max(1.0, abs(v)))
+        np.testing.assert_array_equal(l_o.numpy(),
+                                      a_o.numpy().sum(1).astype(np.int32))
+        assert abs(int(l_o.sum()) - int(np.asarray(l_r).sum())) \
+            <= int(flips.sum())
+
+
 @pytest.mark.parametrize("name,m,p,d,k", MP_SHAPES, ids=MP_IDS)
 @pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
 def test_remove_below_matches_reference(name, m, p, d, k, jdt, tdt):
@@ -251,6 +421,22 @@ def test_all_invalid_centers():
     np.testing.assert_allclose(float(mass_o), float((wt * d2).sum()),
                                rtol=1e-6)
 
+    # outside the reference's contract for these two (ops.py:213-215,
+    # 243-245); the port follows ref.py: +inf distances, all mass on
+    # center 0, every weighted row in the tail
+    sc, a, mass, cost = ops.sensitivity_scores(xt, wt, ct, none_t)
+    sc_r, a_r, mass_r, _ = jref.sensitivity_scores_ref(xj, wj, cj, none_j)
+    assert a.tolist() == np.asarray(a_r).tolist() == [0] * 90
+    np.testing.assert_array_equal(mass.numpy(), np.asarray(mass_r))
+    pos = wt > 0
+    assert bool(torch.isinf(sc[pos]).all()) and bool(
+        torch.isnan(sc[~pos]).all()) and bool(torch.isnan(cost))
+    assert np.array_equal(np.isnan(sc.numpy()), np.isnan(np.asarray(sc_r)))
+    kept, tmass, tcost = ops.truncated_cost(xt, wt, ct, torch.tensor(1e6),
+                                            none_t)
+    assert float(kept) == 0.0 and bool(torch.isinf(tcost))
+    np.testing.assert_allclose(float(tmass), float(wt.sum()), rtol=1e-6)
+
 
 def test_all_zero_weights():
     """All-zero weights: reductions and masses are exactly zero."""
@@ -263,6 +449,13 @@ def test_all_zero_weights():
     d2 = torch.rand(90, generator=torch.Generator().manual_seed(11))
     _, mass = ops.update_min_dist(xt, w0, ct[:3], d2)
     assert float(mass) == 0.0
+    a = torch.from_numpy(_assign(90, 40, seed=11))
+    assert all(float(t.abs().max()) == 0.0
+               for t in ops.lloyd_reduce(xt, w0, a, 40))
+    sc, _, m, cost = ops.sensitivity_scores(xt, w0, ct)
+    assert float(sc.abs().max()) == float(m.abs().max()) == float(cost) == 0
+    assert all(float(t) == 0.0 for t in ops.truncated_cost(
+        xt, w0, ct, torch.tensor(0.5)))
 
 
 # ---- dispatch ------------------------------------------------------------
@@ -282,14 +475,22 @@ def test_dispatch_rejects_other_devices():
      lambda x, c: (x, torch.ones(6), c)),
     (tfused.remove_below_cuda, lambda x, c: (
         x.reshape(2, 3, 4), c, torch.ones((2, 3), dtype=torch.bool), 0.5)),
+    (tlloyd.lloyd_reduce_cuda, lambda x, c: (
+        x, torch.ones(6), torch.zeros(6, dtype=torch.int32), 3)),
+    (tsens.sensitivity_scores_cuda, lambda x, c: (x, torch.ones(6), c)),
+    (ttrunc.truncated_cost_cuda, lambda x, c: (
+        x.reshape(2, 3, 4), torch.ones((2, 3)), c, 0.5)),
 ], ids=["min_dist", "update_min_dist", "fused_assign_reduce",
-        "fused_assign_reduce_chunked", "remove_below"])
+        "fused_assign_reduce_chunked", "remove_below", "lloyd_reduce",
+        "sensitivity_scores", "truncated_cost"])
 def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
     """A wrapper launches its kernel or raises: CPU tensors never reach a
     plain version through it, and no launch is counted."""
     before = {n: k.launches for n, k in ops.KERNELS.items()}
+    kw = ({"fixed_point": False} if wrapper is tlloyd.lloyd_reduce_cuda
+          else {})
     with pytest.raises(ValueError, match="CUDA"):
-        wrapper(*args(torch.zeros((6, 4)), torch.zeros((3, 4))))
+        wrapper(*args(torch.zeros((6, 4)), torch.zeros((3, 4))), **kw)
     assert before == {n: k.launches for n, k in ops.KERNELS.items()}
 
 
@@ -301,6 +502,13 @@ def test_wrappers_check_shapes():
                                  torch.ones((2, 4), dtype=torch.bool), 0.5)
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         build.dtype_code(torch.zeros(3, dtype=torch.float64))
+    with pytest.raises(ValueError, match="assign"):
+        tlloyd.lloyd_reduce_cuda(torch.zeros((6, 4)), torch.ones(6),
+                                 torch.zeros(5, dtype=torch.int32), 3,
+                                 fixed_point=False)
+    with pytest.raises(ValueError, match="w must be"):
+        ttrunc.truncated_cost_cuda(torch.zeros((2, 3, 4)), torch.ones(6),
+                                   torch.zeros((3, 4)), 0.5)
 
 
 def test_build_is_keyed_on_sources():
@@ -322,9 +530,13 @@ def test_every_entry_point_covered():
     public = {name for name, fn in vars(ops).items()
               if callable(fn) and not name.startswith("_")
               and getattr(fn, "__module__", "") == ops.__name__}
-    covered = {"min_dist", "fused_assign_reduce", "remove_below",
-               "update_min_dist"}
+    covered = {"min_dist", "lloyd_reduce", "fused_assign_reduce",
+               "remove_below", "update_min_dist", "sensitivity_scores",
+               "truncated_cost"}
     assert public == set(ops.ENTRY_POINTS) == covered
+    # the reference's seven, in its order
+    from repro.kernels import ops as jops
+    assert ops.ENTRY_POINTS == jops.ENTRY_POINTS
     # every kernel behind them has a launch counter; fused_assign_reduce
     # has two kernels, by the number of centers
     assert set(ops.KERNELS) == covered | {"fused_assign_reduce_chunked"}

@@ -18,20 +18,23 @@ PyTorch built for CUDA. It
    against their plain versions off the main path's shape too: d = 37
    and d = 513 (the any-width kernel variant, several center tiles) and
    k = 1024 at d = 15 (two tiles);
-4. holds both Lloyd kernels against their plain version at the
-   baselines' weighing shapes — the resident one at 1.25 M points x 831
-   centers (k-means‖ at k = 25), the chunked one (k > 1024) at 1.25 M x
-   3,081 (k-means‖ at k = 100; the TPU kernel's single-walk regime) and
-   65,536 x 173,256 (EIM11's clustering; its two-walk regime) and at
-   k = 1025 and 2100 — in the three dtypes, with invalid centers and zero
-   weights: every element of the sums and counts against an index_add
-   over min_dist's argmin, and against the plain version with a slack
-   for each center from the near-tie points it may gain or lose; checks
-   that a repeat call gives the same bits; times the weighing shapes;
-   holds min_dist at 173,256 centers; and times both Lloyd kernels on the
-   same inputs at SOCCER's coordinator shapes and at 1.25 M points x 4,
-   25, 831 and 1024 centers (to measure where ``ops.MAX_RESIDENT_K``
-   should split them);
+4. holds the one Lloyd kernel (``fused_assign_reduce``, every k) at the
+   baselines' weighing shapes — 1.25 M points x 831 centers (k-means‖ at
+   k = 25; the TPU's resident regime), 1.25 M x 3,081 (k-means‖ at
+   k = 100; its single-walk regime) and 65,536 x 173,256 (EIM11's
+   clustering; its two-walk regime), at k = 1025 and 2100, and at
+   SOCCER's coordinator shapes and 1.25 M points x 4, 25, 831 and 1024
+   centers — in the three dtypes, with invalid centers and zero weights:
+   its argmin equals min_dist's and its sums and counts equal the plain
+   fixed-point emulation (``ref.fixed_point_reduce_ref``) over that
+   argmin bit for bit, its cost is within FUSED_RTOL of a float64 sum,
+   a repeat call gives the same bits, and the sums hold against the
+   plain version with a slack for each center from the near-tie points it
+   may gain or lose; holds min_dist at 173,256 centers; and times every
+   shape beside its bound, the min_dist kernel on the same inputs and the
+   two kernels it replaced, with 2, 4 and 8 points a thread and with and
+   without the warp accumulators; it prints ``nvcc -Xptxas -v``'s
+   registers and spills of the kernel;
 5. holds the robust and coreset tier's kernels against their plain
    versions at that tier's shapes, in the three dtypes, with invalid
    centers and zero weights, with a same-bits repeat, and times them:
@@ -84,9 +87,7 @@ SOURCES = {"min_dist": "src/repro_torch/kernels/csrc/min_dist.cu",
            "remove_below": "src/repro_torch/kernels/csrc/fused_lloyd.cu",
            "update_min_dist": "src/repro_torch/kernels/csrc/fused_lloyd.cu",
            "fused_assign_reduce":
-               "src/repro_torch/kernels/csrc/fused_lloyd.cu",
-           "fused_assign_reduce_chunked":
-               "src/repro_torch/kernels/csrc/fused_chunked.cu",
+               "src/repro_torch/kernels/csrc/fused_assign.cu",
            "lloyd_reduce": "src/repro_torch/kernels/csrc/lloyd.cu",
            "sensitivity_scores":
                "src/repro_torch/kernels/csrc/sensitivity.cu",
@@ -95,37 +96,43 @@ REPLACES = {"min_dist": "src/repro/kernels/min_dist.py:61",
             "remove_below": "src/repro/kernels/fused_lloyd.py:279",
             "update_min_dist": "src/repro/kernels/fused_lloyd.py:352",
             "fused_assign_reduce": "src/repro/kernels/fused_lloyd.py:138",
-            "fused_assign_reduce_chunked":
-                "src/repro/kernels/fused_lloyd.py:562",
             "lloyd_reduce": "src/repro/kernels/lloyd.py:44",
             "sensitivity_scores": "src/repro/kernels/sensitivity.py:72",
             "truncated_cost": "src/repro/kernels/truncated.py:69"}
 # remove_below's kernel also replaces the chunked-center TPU kernel
 REMOVE_CHUNKED_REPLACES = "src/repro/kernels/fused_lloyd.py:757"
-# The chunked kernel's two regimes, named by the TPU kernel each shape
-# reaches: its (kp, d) accumulators fit the 6 MiB budget or they do not
-# (repro/kernels/fused_lloyd.py:68, :586; kp is k rounded up to the
-# reference's center chunk, 1024 at d <= 128: repro/kernels/tuning.py:71).
+# The three TPU kernels the one Lloyd kernel replaces, by the regime each
+# shape reaches on the TPU: resident centers up to 1024, beyond it center
+# chunks whose (kp, d) accumulators fit the 6 MiB budget or do not
+# (repro/kernels/ops.py's _MAX_PALLAS_K; repro/kernels/fused_lloyd.py:68,
+# :586; kp is k rounded up to the reference's center chunk, 1024 at
+# d <= 128: repro/kernels/tuning.py:71).
 CHUNK_ACC_BUDGET = 6 * 2 ** 20
 CHUNK_K = 1024
-MAX_RESIDENT_K = 1024         # repro_torch.kernels.ops.MAX_RESIDENT_K
+TPU_RESIDENT_K = 1024
 REGIME_REPLACES = {"resident": "src/repro/kernels/fused_lloyd.py:138",
                    "single_walk": "src/repro/kernels/fused_lloyd.py:562",
                    "two_walk": "src/repro/kernels/fused_lloyd.py:673"}
-# (n, d, k) of the chunked checks: k-means‖'s weighing at k = 100 (one
-# machine's 1.25 M points, 1 + 5·616 rows), EIM11's clustering at n = 1 M
-# (12·14,438 rows) on a point subset, and the conformance grid's k.
-CHUNKED_SHAPES = ((1_250_000, DIM, 3_081), (65_536, DIM, 173_256),
-                  (20_000, DIM, 1025), (20_000, 33, 2100))
-# k-means‖ row 1's weighing (one machine's 1.25 M points, 1 + 5·166 rows)
-# reaches the resident kernel; it is held beside the chunked shapes.
-LLOYD_SHAPES = ((1_250_000, DIM, 831),) + CHUNKED_SHAPES
-# (n, k) at which both Lloyd kernels are timed on the same inputs: SOCCER's
-# coordinator calls at both Table 2 rows, k-means‖ row 1's weighing, the
-# resident limit at that n, and few centers at that n (where the chunked
-# kernel's atomics meet on few rows).
+# (n, d, k) of the weighing checks: k-means‖ row 1's weighing (one
+# machine's 1.25 M points, 1 + 5·166 rows), row 2's at k = 100 (1 + 5·616
+# rows), EIM11's clustering at n = 1 M (12·14,438 rows) on a point subset,
+# and the conformance grid's k beyond 1024.
+LLOYD_SHAPES = ((1_250_000, DIM, 831), (1_250_000, DIM, 3_081),
+                (65_536, DIM, 173_256), (20_000, DIM, 1025), (20_000, 33, 2100))
+# (n, k) at d = 15 also held and timed with every launch shape: SOCCER's
+# coordinator calls at both Table 2 rows, k-means‖ row 1's weighing, 1024
+# centers at that n, and few centers at that n (where atomics meet on few
+# rows).
 DISPATCH_SHAPES = ((17_353, 103), (80_585, 190), (1_250_000, 831),
                    (1_250_000, 1024), (1_250_000, 4), (1_250_000, 25))
+# Float32 times, ms, of the two Lloyd kernels this one replaced, on the
+# same card model (PERF.md §6, this script before the redesign): the
+# resident kernel at k <= 1024 (its dispatch_phase; k-means‖'s 831 from
+# its lloyd_phase), the chunked one beyond
+BEFORE_MS = {(17_353, 103): 0.0967, (80_585, 190): 0.2411,
+           (1_250_000, 831): 10.3226, (1_250_000, 1024): 12.5924,
+           (1_250_000, 4): 0.1178, (1_250_000, 25): 0.3523,
+           (1_250_000, 3_081): 5.2671, (65_536, 173_256): 18.9260}
 EIM11_N, EIM11_K = 1_000_000, 25
 # The coreset and robust tier (ROADMAP Queue 1 items 11-13): the paper's §8
 # mixture at n = 10 M, k = 25, with 2% isotropic gross outliers at 50x the
@@ -148,13 +155,40 @@ LLOYD_PLAIN_RTOL = 1e-4
 SOCCER_KERNELS = ("min_dist", "update_min_dist", "fused_assign_reduce",
                   "remove_below")
 KMPAR_KERNELS = ("min_dist", "update_min_dist", "fused_assign_reduce")
-EIM11_KERNELS = KMPAR_KERNELS + ("fused_assign_reduce_chunked",)
+EIM11_KERNELS = KMPAR_KERNELS
 KZMEANS_KERNELS = ("min_dist", "update_min_dist", "sensitivity_scores",
                    "lloyd_reduce", "truncated_cost")
 CORESET_KERNELS = ("update_min_dist", "sensitivity_scores",
                    "fused_assign_reduce")
 SOCCER_CORESET_KERNELS = SOCCER_KERNELS + ("sensitivity_scores",)
-SOCCER_WIDE_KERNELS = SOCCER_KERNELS + ("fused_assign_reduce_chunked",)
+SOCCER_WIDE_KERNELS = SOCCER_KERNELS
+
+
+def print_ptxas(log: str) -> None:
+    """One line a variant of the Lloyd kernel from ``nvcc -Xptxas -v``:
+    (point type, register row length DR, points a thread P), registers,
+    spill stores and loads."""
+    import re
+    types = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN2rt19fused_assign_kernelI"
+                      r"(f|13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)E", line)
+        if m:
+            name = f"{types[m.group(1)]} DR={m.group(2)} P={m.group(3)}"
+            spills = "spills not reported"
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            print(f"ptxas fused_assign_kernel {name}: {m.group(1)} registers,"
+                  f" {spills}", flush=True)
+            name = None
 
 
 def fail(msg: str) -> None:
@@ -241,38 +275,64 @@ def check_update_min_dist(ops, ref, x, w, c, d2, cv):
 FUSED_RTOL = 1e-5
 
 
-def check_fused(ops, ref, x, w, c, cv, repeat: bool = False):
-    """The Lloyd step (resident or chunked, by k) against two references,
+def check_fused(ops, ref, x, w, c, cv, repeat: bool = False, **knobs):
+    """The Lloyd step (one kernel at every k) against three references,
     element by element; ``repeat`` also checks that a second call gives
-    the same bits.
+    the same bits; ``knobs`` (ppt, acc) go to the CUDA wrapper instead of
+    its defaults.
 
-    1. Its own assignment. Every kernel shares min_dist's distance code,
-       so it puts each point on ``ops.min_dist``'s argmin: the (k, d) sums
-       and (k,) counts must equal a float64 index_add over that argmin to
-       FUSED_RTOL of each element, with no tie allowance. This holds the
-       reduction itself (a sum sent to another row, a wrong fixed-point
-       shift) at every shape.
-    2. The plain version, whose assignment may differ from the kernel's at
-       near-ties. Each point assigned differently must be one (its d2 to
-       the kernel's center within 2·tol of the plain min, as in
-       check_min_dist), and its weight (times |x| for the sums) is allowed
-       on both of its centers and on no other; FUSED_RTOL covers the plain
-       version's float32 sums.
+    1. Exact. The kernel walks the centers with min_dist's arithmetic, so
+       its argmin (the wrapper's ``assign_out``) must equal
+       ``ops.min_dist``'s, and its sums and counts — integer fixed-point
+       sums, the same in any order — must equal
+       ``ref.fixed_point_reduce_ref`` over that argmin bit for bit; its
+       cost (a float32 sum in tile order) must be within FUSED_RTOL of a
+       float64 sum of w·d2 over min_dist's d2.
+    2. float64: the sums and counts within FUSED_RTOL of a float64
+       index_add over the same argmin (what the fixed-point rounding may
+       move).
+    3. The plain version, whose assignment may differ from the kernel's
+       at near-ties. Each point assigned differently must be
+       one (its d2 to the kernel's center within 2·tol of the plain min,
+       as in check_min_dist), and its weight (times |x| for the sums) is
+       allowed on both of its centers and on no other, and so is the plain
+       version's own float32 error, measured against a float64 index_add
+       over its own assignment (at 1.25 M points over 4 centers its
+       index_add errs by ~2e-5, beyond FUSED_RTOL).
 
     Returns the largest differences from the plain version (sums, counts,
     cost), the cost's tolerance, and the number of points assigned
     differently."""
+    from repro_torch.kernels.fused_lloyd import fused_assign_reduce_cuda
     tol = d2_tol(x, c)
     k, d = c.shape
-    s_k, n_k, cost_k = ops.fused_assign_reduce(x, w, c, cv)
+    if knobs:
+        s_k, n_k, cost_k = fused_assign_reduce_cuda(x, w, c, cv, **knobs)
+    else:
+        s_k, n_k, cost_k = ops.fused_assign_reduce(x, w, c, cv)
     if repeat:
-        again = ops.fused_assign_reduce(x, w, c, cv)
+        again = fused_assign_reduce_cuda(x, w, c, cv, **knobs)
         check(all(torch.equal(a, b) for a, b in
                   zip((s_k, n_k, cost_k), again)),
               f"fused_assign_reduce k={k}: a repeat call gave other bits")
+    d2_m, idx_k = ops.min_dist(x, c, cv)
+    own = torch.empty_like(idx_k)
+    fused_assign_reduce_cuda(x, w, c, cv, assign_out=own, **knobs)
+    check(torch.equal(own, idx_k),
+          f"fused_assign_reduce k={k}: its argmin differs from min_dist's "
+          f"at {int((own != idx_k).sum())} points")
+    s_e, n_e = ref.fixed_point_reduce_ref(x, w, idx_k, k)
+    for what, got, want in (("sums", s_k, s_e), ("counts", n_k, n_e)):
+        check(torch.equal(got, want),
+              f"fused_assign_reduce k={k} {what}: "
+              f"{int((got != want).sum())} elements differ from the "
+              f"fixed-point emulation over min_dist's argmin")
+    c64 = float((w.double() * d2_m.double()).sum())
+    check(abs(float(cost_k) - c64) <= FUSED_RTOL * abs(c64),
+          f"fused_assign_reduce k={k}: cost {float(cost_k)} vs float64 "
+          f"{c64}")
     xd, wd = x.double(), w.double()
     wx = wd[:, None] * xd
-    _, idx_k = ops.min_dist(x, c, cv)
     a_k = idx_k.long()
     s_own = torch.zeros((k, d), dtype=torch.float64,
                         device=x.device).index_add_(0, a_k, wx)
@@ -286,6 +346,9 @@ def check_fused(ops, ref, x, w, c, cv, repeat: bool = False):
               f"off its own assignment's index_add by more than "
               f"{FUSED_RTOL} of each (largest err {float(err.max())})")
 
+    if cv is not None:
+        check(float(n_k[~cv].abs().sum()) == 0.0,
+              "fused_assign_reduce gave mass to an invalid center")
     s_p, n_p, cost_p = ref.fused_assign_reduce_ref(x, w, c, cv)
     d2_p, idx_p = ref.min_dist_ref(x, c, cv)
     moved = (idx_k != idx_p).nonzero().squeeze(1)
@@ -301,11 +364,18 @@ def check_fused(ops, ref, x, w, c, cv, repeat: bool = False):
         for a in (a_k[moved], idx_p[moved].long()):
             slack_s.index_add_(0, a, wx[moved].abs())
             slack_n.index_add_(0, a, wd[moved])
+    a_p = idx_p.long()
+    s_own_p = torch.zeros((k, d), dtype=torch.float64,
+                          device=x.device).index_add_(0, a_p, wx)
+    n_own_p = torch.zeros(k, dtype=torch.float64,
+                          device=x.device).index_add_(0, a_p, wd)
     errs = {}
-    for what, got, want, slack in (("sums", s_k, s_p, slack_s),
-                                   ("counts", n_k, n_p, slack_n)):
+    for what, got, want, slack, exact in (
+            ("sums", s_k, s_p, slack_s, s_own_p),
+            ("counts", n_k, n_p, slack_n, n_own_p)):
+        own = (want.double() - exact).abs()     # the plain's float32 error
         err = (got.double() - want.double()).abs()
-        bad = err > FUSED_RTOL * want.double().abs() + slack + 1e-6
+        bad = err > FUSED_RTOL * want.double().abs() + slack + own + 1e-6
         check(not bool(bad.any()),
               f"fused_assign_reduce k={k} {what}: {int(bad.sum())} elements "
               f"off the plain version beyond each center's tie slack "
@@ -315,17 +385,15 @@ def check_fused(ops, ref, x, w, c, cv, repeat: bool = False):
     t_c = FUSED_RTOL * abs(float(cost_p)) + tol * float(w.sum())
     check(errs["cost"] <= t_c,
           f"fused_assign_reduce cost err {errs['cost']} > {t_c}")
-    if cv is not None:
-        check(float(n_k[~cv].abs().sum()) == 0.0,
-              "fused_assign_reduce gave mass to an invalid center")
     return errs, t_c, int(moved.numel())
 
 
 def fused_line(errs, t_c, moved) -> str:
     return (f"sums_err={errs['sums']:.3g} counts_err={errs['counts']:.3g} "
-            f"cost_err={errs['cost']:.3g} (cost tol {t_c:.3g}; sums and "
-            f"counts within {FUSED_RTOL} of their own assignment, plain "
-            f"version within each center's tie slack) moved={moved}")
+            f"cost_err={errs['cost']:.3g} (cost tol {t_c:.3g}; argmin = "
+            f"min_dist's, sums and counts = the fixed-point emulation bit "
+            f"for bit, plain version within each center's tie slack) "
+            f"moved={moved}")
 
 
 def check_remove_below(ops, ref, x, c, alive, v, cv):
@@ -526,26 +594,76 @@ def width_phase(ops, ref, rows) -> None:
 
 def regime(k: int, d: int) -> str:
     """The TPU kernel a (k, d) center set reaches: the resident one up to
-    MAX_RESIDENT_K centers; beyond, the single walk while its accumulators
+    TPU_RESIDENT_K centers; beyond, the single walk while its accumulators
     fit the 6 MiB budget, else the two-walk fallback."""
-    if k <= MAX_RESIDENT_K:
+    if k <= TPU_RESIDENT_K:
         return "resident"
     kp = -(-k // CHUNK_K) * CHUNK_K
     return ("single_walk" if kp * (d + 1) * 4 <= CHUNK_ACC_BUDGET
             else "two_walk")
 
 
+def lloyd_bound(n: int, d: int, k: int):
+    """The Lloyd step's bound: points, weights and centers read once, the
+    sums, counts and cost written once; 2·n·k·d + 2·n·d float32
+    operations."""
+    return bound_ms(n * d * 4 + n * 4 + k * d * 4 + (k * d + k + 1) * 4,
+                    2.0 * n * k * d + 2.0 * n * d)
+
+
+def time_lloyd(ops, x32, c, variants: bool):
+    """Float32 times at one shape, every center valid and unit weights, as
+    the weighing passes run: the kernel with its default launch shape
+    and, with ``variants``, with 2, 4 and 8 points a thread and with the
+    warp accumulators off (global atomics) where they would be on; the
+    min_dist kernel on the same inputs; the bound; the replaced kernels'
+    time (BEFORE_MS). Returns
+    the dict for the JSON line and prints one line."""
+    from repro_torch.kernels import fused_lloyd as fl
+    n, d = x32.shape
+    k = c.shape[0]
+    ones = torch.ones(n, device="cuda")
+    torch.cuda.empty_cache()
+    ms = timed_ms(lambda: ops.fused_assign_reduce(x32, ones, c))
+    md_ms = timed_ms(lambda: ops.min_dist(x32, c))
+    out = dict(shape=f"n={n} d={d} k={k}", ms=ms, min_dist_ms=md_ms,
+               ppt=fl.points_per_thread(k, d), acc=fl.acc_mode(k, d),
+               slices=fl.center_slices(n, k, fl._sm_count(x32.device),
+                                       fl.points_per_thread(k, d)))
+    if variants:
+        for ppt in (2, 4, 8):
+            out[f"ppt{ppt}_ms"] = timed_ms(
+                lambda: fl.fused_assign_reduce_cuda(x32, ones, c, ppt=ppt))
+        if fl.acc_mode(k, d) == "warp":
+            out["global_acc_ms"] = timed_ms(
+                lambda: fl.fused_assign_reduce_cuda(x32, ones, c,
+                                                    acc="global"))
+    bnd, by = lloyd_bound(n, d, k)
+    out.update(bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms)
+    before = BEFORE_MS.get((n, k))
+    if before is not None:
+        out["before_ms"] = before
+    extra = " ".join(f"{key}={val:.4f}" for key, val in out.items()
+                     if key.endswith("_ms") and key not in (
+                         "min_dist_ms", "bound_ms", "before_ms"))
+    print(f"time fused_assign_reduce n={n} k={k} ({regime(k, d)}) f32: "
+          f"kernel {ms:.4f} ms (ppt={out['ppt']} acc={out['acc']} "
+          f"slices={out['slices']}; {extra}), min_dist {md_ms:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)"
+          + (f", replaced kernel {before:.4f} ms ({before / ms:.2f}x)"
+             if before else ""),
+          flush=True)
+    return out
+
+
 def lloyd_phase(ops, ref, rows) -> None:
-    """Both Lloyd kernels against their plain version at LLOYD_SHAPES, in
-    three dtypes, with invalid centers and zero weights: the resident one
-    at k-means‖ row 1's weighing shape, the chunked one at CHUNKED_SHAPES;
-    a repeat call gives the same bits and all-zero weights give exact
-    zeros. min_dist is held at 173,256 centers on the same points. The
-    weighing shapes are timed in float32 with every center valid and unit
-    weights, as the weighing passes run."""
+    """The Lloyd kernel at LLOYD_SHAPES, in three dtypes, with invalid
+    centers and zero weights (check_fused, with a same-bits repeat;
+    all-zero weights give exact zeros); min_dist at 173,256 centers on the
+    same points; the weighing shapes timed (time_lloyd). The three TPU
+    regimes' timings go on the kernel's JSON row."""
     gen = torch.Generator("cuda").manual_seed(3)
-    row = rows.setdefault("fused_assign_reduce_chunked",
-                          {"max_abs_err": 0.0})
+    name = "fused_assign_reduce"
     regimes = []
     for n, d, k in LLOYD_SHAPES:
         x32 = torch.rand((n, d), generator=gen, device="cuda")
@@ -555,8 +673,6 @@ def lloyd_phase(ops, ref, rows) -> None:
         w = torch.rand(n, generator=gen, device="cuda")
         w[: n // 5] = 0.0
         reg = regime(k, d)
-        name = ("fused_assign_reduce" if reg == "resident"
-                else "fused_assign_reduce_chunked")
         shape_err = 0.0
         for dt in DTYPES:
             x = x32.to(dt)
@@ -582,70 +698,64 @@ def lloyd_phase(ops, ref, rows) -> None:
                       f"max_abs_err={err:.3g} tol={tol:.3g}", flush=True)
         if n >= 65_536:                  # the weighing shapes
             ones = torch.ones(n, device="cuda")
-            torch.cuda.empty_cache()
-            ms = timed_ms(lambda: ops.fused_assign_reduce(x32, ones, c))
             plain_ms = timed_ms(lambda: ref.fused_assign_reduce_ref(
                 x32, ones, c), reps=5)
             lib_ms = timed_ms(lambda: torch.cdist(x32, c), reps=5)
-            torch.cuda.empty_cache()
-            bnd, by = bound_ms(n * d * 4 + n * 4 + k * d * 4
-                               + (k * d + k + 1) * 4,
-                               2.0 * n * k * d + 2.0 * n * d)
-            print(f"time {name} n={n} k={k} ({reg}) "
-                  f"f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"torch.cdist {lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})",
-                  flush=True)
-            timing = dict(regime=reg, replaces=REGIME_REPLACES[reg],
-                          shape=f"n={n} d={d} k={k}", ms=ms,
-                          plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                          library_ms=None, yardstick="torch.cdist",
-                          yardstick_ms=lib_ms, max_abs_err=shape_err)
-            if reg == "resident":
-                rows[name]["weighing"] = timing
-            else:
-                regimes.append(timing)
+            timing = time_lloyd(ops, x32, c, variants=False)
+            timing.update(regime=reg, replaces=REGIME_REPLACES[reg],
+                          plain_ms=plain_ms, library_ms=None,
+                          yardstick="torch.cdist", yardstick_ms=lib_ms,
+                          max_abs_err=shape_err)
+            print(f"time {name} n={n} k={k} plain {plain_ms:.4f} ms, "
+                  f"torch.cdist {lib_ms:.4f} ms", flush=True)
+            regimes.append(timing)
+            del ones
         del x32, c, cv, w
-    check({r["regime"] for r in regimes} == {"single_walk", "two_walk"},
-          "the chunked checks did not cover both regimes")
-    # the kernel's own line: the single-walk regime (k-means‖'s shape),
-    # both regimes beside it
-    main = regimes[0]
-    row.update({key: main[key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "yardstick", "yardstick_ms", "shape")}, regimes=regimes)
+    check({r["regime"] for r in regimes} == set(REGIME_REPLACES),
+          "the Lloyd checks did not cover all three TPU regimes")
+    rows[name]["regimes"] = regimes
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
 
-def dispatch_phase(rows) -> None:
-    """Both Lloyd kernels on the same inputs at DISPATCH_SHAPES (float32,
-    every center valid, unit weights), by their wrappers, to measure where
-    ops.MAX_RESIDENT_K should split them. Their sums and counts must agree
-    to FUSED_RTOL of each element plus 1e-6, since both put each point on
-    the same center; the cost, to FUSED_RTOL."""
-    from repro_torch.kernels.fused_lloyd import (
-        fused_assign_reduce_chunked_cuda, fused_assign_reduce_cuda)
+def dispatch_phase(ops, ref, rows) -> None:
+    """The Lloyd kernel at DISPATCH_SHAPES (d = 15): held in three dtypes,
+    with and without the mask, with zero weights and a same-bits repeat
+    (check_fused), then timed with every launch shape (time_lloyd) beside
+    min_dist and the kernels it replaced. With few centers it is also
+    held with the warp accumulators off, at 8 points a thread."""
     gen = torch.Generator("cuda").manual_seed(5)
     out = []
     for n, k in DISPATCH_SHAPES:
-        x = torch.rand((n, DIM), generator=gen, device="cuda")
+        x32 = torch.rand((n, DIM), generator=gen, device="cuda")
         c = torch.rand((k, DIM), generator=gen, device="cuda")
-        ones = torch.ones(n, device="cuda")
-        res = fused_assign_reduce_cuda(x, ones, c)
-        chk = fused_assign_reduce_chunked_cuda(x, ones, c)
-        for what, a, b in zip(("sums", "counts", "cost"), res, chk):
-            err = (a.double() - b.double()).abs()
-            check(bool((err <= FUSED_RTOL * b.double().abs() + 1e-6).all()),
-                  f"n={n} k={k}: resident and chunked {what} differ by "
-                  f"{float(err.max())}")
-        r_ms = timed_ms(lambda: fused_assign_reduce_cuda(x, ones, c))
-        c_ms = timed_ms(lambda: fused_assign_reduce_chunked_cuda(x, ones, c))
-        print(f"time lloyd n={n} k={k} f32: resident {r_ms:.4f} ms, "
-              f"chunked {c_ms:.4f} ms", flush=True)
-        out.append(dict(shape=f"n={n} d={DIM} k={k}", resident_ms=r_ms,
-                        chunked_ms=c_ms))
-        del x, c, ones, res, chk
-    rows["fused_assign_reduce"]["resident_vs_chunked"] = out
+        cv = torch.rand(k, generator=gen, device="cuda") > 0.3
+        cv[0] = True
+        w = torch.rand(n, generator=gen, device="cuda")
+        w[: n // 5] = 0.0
+        for dt in DTYPES:
+            x = x32.to(dt)
+            for mask in (None, cv):
+                errs, t_c, moved = check_fused(ops, ref, x, w, c, mask,
+                                               repeat=True)
+                rows["fused_assign_reduce"]["max_abs_err"] = max(
+                    rows["fused_assign_reduce"]["max_abs_err"],
+                    *errs.values())
+            zero = ops.fused_assign_reduce(x, torch.zeros_like(w), c, cv)
+            check(all(float(t.abs().max()) == 0.0 for t in zero),
+                  f"fused_assign_reduce n={n} k={k} {dt}: zero weights")
+            del x
+        if k * (DIM + 1) <= 1024:
+            check_fused(ops, ref, x32, w, c, cv, repeat=True, ppt=8,
+                        acc="global")
+        print(f"check fused_assign_reduce n={n} k={k} (3 dtypes, mask "
+              f"and none, zero weights): argmin = min_dist's, sums and "
+              f"counts = the fixed-point emulation, repeat=same bits, "
+              f"plain version within the tie slack and its own float32 "
+              f"error", flush=True)
+        out.append(time_lloyd(ops, x32, c, variants=True))
+        del x32, c, cv, w
+    rows["fused_assign_reduce"]["dispatch"] = out
     torch.cuda.empty_cache()
 
 
@@ -695,7 +805,8 @@ def check_sensitivity(ops, ref, x, w, c, cv):
     and a float64 sum of the masses and cost, then against its plain
     version: scores within tol·w, the cost within FUSED_RTOL plus the d2
     slack, each mass within the weight of the near-tie points assigned
-    differently. A repeat call gives the same bits."""
+    differently plus the plain mass's own float32 error. A repeat call
+    gives the same bits."""
     tol = d2_tol(x, c)
     k = c.shape[0]
     out = ops.sensitivity_scores(x, w, c, cv)
@@ -732,8 +843,14 @@ def check_sensitivity(ops, ref, x, w, c, cv):
     slack = torch.zeros(k, dtype=torch.float64, device=x.device)
     for a in (asg[moved].long(), asg_p[moved].long()):
         slack.index_add_(0, a, wd[moved])
+    # the plain masses' own float32 error (an index_add whose atomic order
+    # changes from run to run), measured against float64 on its own
+    # assignment: the kernel is not held to it
+    own = (mass_p.double() - torch.zeros(
+        k, dtype=torch.float64, device=x.device).index_add_(
+            0, asg_p.long(), wd)).abs()
     m_err = (mass.double() - mass_p.double()).abs()
-    check(bool((m_err <= FUSED_RTOL * mass_p.double().abs() + slack
+    check(bool((m_err <= FUSED_RTOL * mass_p.double().abs() + slack + own
                 + 1e-6).all()),
           f"sensitivity_scores mass off the plain version beyond the tie "
           f"slack (largest {float(m_err.max())})")
@@ -1118,8 +1235,7 @@ def table2_phase(api, KERNELS, k, eps, per_fit):
 
     rounds = 5
     _, cap, rows = buffer_rows(k, rounds)
-    expect = KMPAR_KERNELS + (("fused_assign_reduce_chunked",)
-                              if rows > MAX_RESIDENT_K else ())
+    expect = KMPAR_KERNELS
     kres, kwall, kcounts = run_fit(api, KERNELS, x, k, "kmeans_parallel",
                                    expect, rounds=rounds)
     per_fit[f"kmeans_parallel_k{k}"] = kcounts
@@ -1307,7 +1423,7 @@ def wide_phase(api, KERNELS, per_fit) -> None:
            f" eta={const.eta} k_plus={const.k_plus} "
            f"n_hist={res.n_hist.tolist()} |C_out|={res.centers.shape[0]}")
     check_soccer_structure(res, k, f"soccer k={k}")
-    check(const.k_plus > MAX_RESIDENT_K and res.rounds >= 1,
+    check(const.k_plus > TPU_RESIDENT_K and res.rounds >= 1,
           f"soccer k={k}: k_plus {const.k_plus}, {res.rounds} rounds")
     # every round's C_iter (k_plus rows) went through remove_below
     check(counts["remove_below"] == res.rounds
@@ -1333,17 +1449,20 @@ def main() -> None:
     from repro_torch.configs.soccer_paper import SoccerParams
     from repro_torch.kernels import build, ops, ref
 
+    ptxas = build.start_ptxas_report("fused_assign.cu")
     secs = build.build_all()
     print(f"build: {len(build.SOURCES)} sources in {secs:.2f} s", flush=True)
+    log, _ = ptxas.communicate()
+    check(ptxas.returncode == 0, f"nvcc -Xptxas -v failed:\n{log}")
+    print_ptxas(log)
 
     p = N_POINTS // MACHINES
     consts = [derive_constants(N_POINTS, p, SoccerParams(k=k, epsilon=e))
               for k, e in TABLE2]
     rows = kernel_phase(ops, ref, consts)
     width_phase(ops, ref, rows)
-    check(ops.MAX_RESIDENT_K == MAX_RESIDENT_K, "MAX_RESIDENT_K moved")
     lloyd_phase(ops, ref, rows)
-    dispatch_phase(rows)
+    dispatch_phase(ops, ref, rows)
     tier_phase(ops, ref, rows)
     sync_phase(SoccerParams)
     tier_sync_phase(SoccerParams)

@@ -6,9 +6,8 @@ abstraction as SOCCER: per round every point is selected with probability
 min(1, l·w·d²(x,C)/φ(C)) (expected ``l`` selections, paper/MLLib default
 l = 2k), the selections are scattered into the replicated center buffer
 of ``1 + rounds·cap`` rows, and after ``rounds`` rounds the oversampled
-set is weighed by a full assignment pass (``metrics.assignment_counts``;
-beyond 1024 rows on the card that is the chunked CUDA kernel) and reduced
-to k with weighted k-means. k-means‖ has **no stopping mechanism** —
+set is weighed by a full assignment pass (``metrics.assignment_counts``,
+the Lloyd kernel) and reduced to k with weighted k-means. k-means‖ has **no stopping mechanism** —
 ``rounds`` is the hyper-parameter the paper criticizes.
 
 The reference runs all rounds as one ``lax.scan``; here they are a host

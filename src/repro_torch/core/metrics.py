@@ -33,9 +33,9 @@ def assignment_counts(comm, x: torch.Tensor, w: torch.Tensor,
                       centers: torch.Tensor,
                       centers_valid: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """Per-center total assigned weight of the full dataset (replicated).
-    Beyond 1024 centers on the card each machine's pass is the chunked
-    Lloyd kernel (the baselines' weighing of their oversampled sets)."""
+    """Per-center total assigned weight of the full dataset (replicated):
+    each machine's pass is one Lloyd step (the baselines' weighing of
+    their oversampled sets)."""
     local = torch.stack([
         ops.fused_assign_reduce(x[j], w[j], centers, centers_valid)[1]
         for j in range(x.shape[0])])                 # (m, k)

@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("min_dist.cu", "fused_lloyd.cu", "fused_chunked.cu", "lloyd.cu",
+SOURCES = ("min_dist.cu", "fused_lloyd.cu", "fused_assign.cu", "lloyd.cu",
            "sensitivity.cu", "truncated.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -101,6 +101,20 @@ def build_all(sources: Sequence[str] = SOURCES) -> float:
     if failed:
         raise RuntimeError("\n".join(failed))
     return time.perf_counter() - t0
+
+
+def start_ptxas_report(source: str) -> subprocess.Popen:
+    """Start one nvcc of ``source`` to a throw-away cubin with ``-Xptxas
+    -v``: its output names each kernel's registers, shared memory and
+    spills. Read it with ``communicate()``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                "-fPIC")]
+    out = BUILD_DIR / f"{Path(source).stem}-ptxas.cubin"
+    return subprocess.Popen([_nvcc(), *flags, "-cubin", "-Xptxas", "-v",
+                             "-o", str(out), str(CSRC / source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
 
 
 def load(source: str) -> ctypes.CDLL:

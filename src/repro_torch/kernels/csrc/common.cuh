@@ -1,8 +1,9 @@
 // Shared device code of the port's clustering kernels (sm_90a).
 //
 // Every kernel here answers "which valid center is nearest to this point"
-// for one point per thread, with the center set streamed through shared
-// memory in tiles. The distance is the expanded form the JAX reference
+// for one point per thread (nearest) or P points per thread
+// (nearest_blocked, the Lloyd step), with the center set streamed through
+// shared memory in tiles. The distance is the expanded form the JAX reference
 // uses (repro/kernels/ref.py:43 and :72):
 //
 //     d2 = max(min_j(||c_j||^2 - 2 x.c_j) + ||x||^2, 0)
@@ -26,7 +27,7 @@
 
 namespace rt {
 
-constexpr int kThreads = 256;        // points per block, one per thread
+constexpr int kThreads = 256;        // threads a block
 constexpr int kTileFloats = 8192;    // 32 KB of centers per shared tile
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
@@ -128,6 +129,137 @@ __device__ __forceinline__ void nearest(
   }
 }
 
+// ------------------------------------------- register-blocked center walk
+// nearest() for P points a thread: each center row read from shared
+// memory feeds P·DR FMAs instead of DR, and its validity and ||c||^2 are
+// read once for the P points. Per point the arithmetic is nearest()'s to
+// the bit: the same fmaf chain over q = 0 .. DR-1 (or 0 .. d-1), the same
+// t = fmaf(-2, dot, ||c||^2) with ||c||^2 from the same loop, a strict <
+// over ascending j, and (+inf, 0) with no valid center. So the argmin and
+// min-d2 equal the min_dist kernel's.
+//
+// Rows<T, DR, P> holds the thread's P points: their rows in registers
+// (DR > 0, zero-padded past d) or their row pointers (DR == 0, any d,
+// re-read from L1), and ||x||^2 computed as nearest() computes it. Point p
+// of the thread is row first + p·blockDim.x; a row past n is inactive and
+// reads row 0.
+template <typename T, int DR, int P>
+struct Rows {
+  static constexpr int kRegs = DR > 0 ? DR : 1;
+  const T* row[P];
+  long long idx[P];
+  bool active[P];
+  float xr[P][kRegs];
+  float x2[P];
+
+  __device__ __forceinline__ Rows(const T* __restrict__ x, long long n,
+                                  int d, long long first) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      idx[p] = first + (long long)p * blockDim.x;
+      active[p] = idx[p] < n;
+      row[p] = x + (active[p] ? idx[p] : 0) * d;
+      x2[p] = 0.f;
+      if (DR > 0) {
+#pragma unroll
+        for (int q = 0; q < kRegs; ++q) {
+          xr[p][q] = (active[p] && q < d) ? widen(row[p][q]) : 0.f;
+          x2[p] = fmaf(xr[p][q], xr[p][q], x2[p]);
+        }
+      } else if (active[p]) {
+        for (int q = 0; q < d; ++q) {
+          const float v = widen(row[p][q]);
+          x2[p] = fmaf(v, v, x2[p]);
+        }
+      }
+    }
+  }
+};
+
+// The nearest valid center among [j_lo, j_hi) of each of the thread's P
+// points (absolute indices in arg). Every thread of the block must call
+// this (it holds __syncthreads). The shared tile is nearest()'s: kt rows
+// of `stride` floats (DR, or d), then kt ||c||^2.
+//
+// An invalid center's ||c||^2 is +inf: its t is +inf (or NaN), never
+// < best, so it is never chosen, and a valid center's t is computed as
+// nearest() computes it: no validity array and no branch in the walk.
+template <typename T, int DR, int P>
+__device__ __forceinline__ void nearest_blocked(
+    const Rows<T, DR, P>& r, int d, const float* __restrict__ c,
+    const uint8_t* __restrict__ cv, int j_lo, int j_hi, int kt, float* smem,
+    float (&best)[P], int (&arg)[P]) {
+  const int stride = DR > 0 ? DR : d;
+  float* sc = smem;                            // (kt, stride) center rows
+  float* sc2 = sc + (size_t)kt * stride;       // (kt,) ||c||^2, or +inf
+  bool any_active = false;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    best[p] = INFINITY;
+    arg[p] = 0;
+    any_active |= r.active[p];
+  }
+  for (int t0 = j_lo; t0 < j_hi; t0 += kt) {
+    const int rows = min(kt, j_hi - t0);
+    __syncthreads();                           // last tile fully consumed
+    for (int e = threadIdx.x; e < rows * stride; e += blockDim.x) {
+      const int j = e / stride;
+      const int q = e - j * stride;
+      sc[e] = q < d ? c[(size_t)(t0 + j) * d + q] : 0.f;
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < rows; j += blockDim.x) {
+      float s = 0.f;
+      for (int q = 0; q < d; ++q) {
+        const float v = sc[(size_t)j * stride + q];
+        s = fmaf(v, v, s);
+      }
+      sc2[j] = (cv == nullptr || cv[t0 + j]) ? s : INFINITY;
+    }
+    __syncthreads();
+    if (!any_active) continue;
+#pragma unroll 4
+    for (int j = 0; j < rows; ++j) {
+      float dot[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) dot[p] = 0.f;
+      if (DR > 0) {
+        const float4* cr =
+            reinterpret_cast<const float4*>(sc + (size_t)j * stride);
+#pragma unroll
+        for (int q = 0; q < Rows<T, DR, P>::kRegs / 4; ++q) {
+          const float4 v = cr[q];
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            dot[p] = fmaf(r.xr[p][4 * q], v.x, dot[p]);
+            dot[p] = fmaf(r.xr[p][4 * q + 1], v.y, dot[p]);
+            dot[p] = fmaf(r.xr[p][4 * q + 2], v.z, dot[p]);
+            dot[p] = fmaf(r.xr[p][4 * q + 3], v.w, dot[p]);
+          }
+        }
+      } else {
+        const float* cr = sc + (size_t)j * stride;
+        for (int q = 0; q < d; ++q) {
+          const float v = cr[q];
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            dot[p] = fmaf(widen(r.row[p][q]), v, dot[p]);
+          }
+        }
+      }
+      const float c2 = sc2[j];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float t = fmaf(-2.f, dot[p], c2);
+        if (t < best[p]) {
+          best[p] = t;
+          arg[p] = t0 + j;
+        }
+      }
+    }
+  }
+}
+
 // Fixed-order block sum (warp shuffles, then one warp over the warp
 // partials): the same inputs give the same bits on every run. The result
 // is valid in thread 0.
@@ -205,8 +337,8 @@ __device__ __forceinline__ void center_partials(
 }
 
 // ------------------------------------------ fixed-point center sums
-// Exact sums for center sets too large for per-block partials, whose
-// scratch grows with k x blocks: each term w·x_q is formed exactly in
+// Exact sums at every k for the Lloyd step (fused_assign.cu), and for
+// lloyd_reduce beyond its per-block partials' limit: each term w·x_q is formed exactly in
 // double, scaled by 2^s and rounded once to an int64, and added into its
 // center's (d + 1)-wide accumulator row with an integer atomicAdd; the
 // last column takes w at its own scale. s is the largest shift with
@@ -225,21 +357,51 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     bound_kernel(const T* __restrict__ x, long long n, int d,
                  const float* __restrict__ w, unsigned* __restrict__ bound) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // Each block takes kThreads rows at a time: their weights are staged in
+  // shared memory, then their kThreads·d coordinates are read
+  // contiguously, one a thread at a time.
+  __shared__ float sw[kThreads];
   float mw = 0.f, mx = 0.f;
-  for (long long i = first; i < n; i += stride) mw = fmaxf(mw, fabsf(w[i]));
-  for (long long e = first; e < n * d; e += stride) {
-    if (w[e / d] != 0.f) mx = fmaxf(mx, fabsf(widen(x[e])));
+  for (long long r0 = (long long)blockIdx.x * kThreads; r0 < n;
+       r0 += (long long)gridDim.x * kThreads) {
+    const int rows = (int)min((long long)kThreads, n - r0);
+    __syncthreads();                           // sw free for reuse
+    if ((int)threadIdx.x < rows) {
+      sw[threadIdx.x] = w[r0 + threadIdx.x];
+      mw = fmaxf(mw, fabsf(sw[threadIdx.x]));
+    }
+    __syncthreads();
+    const T* xb = x + r0 * d;
+    for (int e = threadIdx.x; e < rows * d; e += kThreads) {
+      if (sw[e / d] != 0.f) mx = fmaxf(mx, fabsf(widen(xb[e])));
+    }
   }
+  // one atomicMax pair a block: atomics on one address serialize
+  __shared__ float smw[kThreads / 32], smx[kThreads / 32];
   for (int o = 16; o > 0; o >>= 1) {
     mw = fmaxf(mw, __shfl_down_sync(0xffffffffu, mw, o));
     mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, o));
   }
   if ((threadIdx.x & 31) == 0) {
+    smw[threadIdx.x >> 5] = mw;
+    smx[threadIdx.x >> 5] = mx;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < kThreads / 32; ++i) {
+      mw = fmaxf(mw, smw[i]);
+      mx = fmaxf(mx, smx[i]);
+    }
     atomicMax(bound, __float_as_uint(mw));
     atomicMax(bound + 1, __float_as_uint(mx));
   }
+}
+
+// Blocks of the bound pass over n rows: enough to read x at the memory's
+// rate, few enough that its two atomics a block stay cheap.
+inline unsigned bound_grid(long long n) {
+  const long long b = (n + kThreads - 1) / kThreads;
+  return (unsigned)(b < 1 ? 1 : (b > 1024 ? 1024 : b));
 }
 
 // The largest s with b·2^s < 2^62 (0 when b == 0: every term is then 0).
@@ -276,12 +438,65 @@ __device__ __forceinline__ void add_fixed(unsigned long long* row,
   atomicAdd(row + d, to_fixed((double)wi, s.w));
 }
 
-// out[j·d + q] = sums, out[k·d + j] = counts, from the fixed-point rows.
-__global__ void __launch_bounds__(kThreads)
-    fixed_finalize_kernel(const unsigned long long* __restrict__ acc,
-                          long long k, int d, long long n,
-                          const unsigned* __restrict__ bound,
-                          float* __restrict__ out) {
+// The warp's points grouped by center before they touch the accumulators.
+// Each lane brings one point's key (its center, or -1 for a point that
+// adds nothing); __match_any_sync finds the lanes of each key, and a tree
+// over each group's members in lane order (the member of rank r takes
+// rank r + o at step o) leaves the group's sums in its rank-0 lane, the
+// leader. Integer sums: any grouping gives the same bits. All 32 lanes
+// must construct it and call sum() together.
+struct WarpGroups {
+  static constexpr unsigned kFull = 0xffffffffu;
+  int steps;          // ceil(log2(largest group in the warp))
+  bool leader;
+  int src[5];
+  bool take[5];
+
+  __device__ __forceinline__ explicit WarpGroups(int key) {
+    const int lane = threadIdx.x & 31;
+    const unsigned grp = __match_any_sync(kFull, key);
+    const int rank = __popc(grp & ((1u << lane) - 1u));
+    const int size = __popc(grp);
+    leader = rank == 0 && key >= 0;
+    steps = 32 - __clz(__reduce_max_sync(kFull, (unsigned)size) - 1u);
+    unsigned above = lane == 31 ? 0u : grp & (kFull << (lane + 1));
+    int have = 1;                              // rank gap to above's lowest
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      const int o = 1 << s;
+      for (; have < o && above; ++have) above &= above - 1u;
+      take[s] = s < steps && (rank & (2 * o - 1)) == 0 && rank + o < size;
+      src[s] = take[s] ? __ffs(above) - 1 : lane;
+    }
+  }
+
+  // N columns at once: N independent shuffles a step.
+  template <int N>
+  __device__ __forceinline__ void sum(unsigned long long (&v)[N]) const {
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      if (s < steps) {                         // uniform over the warp
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const unsigned long long o = __shfl_sync(kFull, v[i], src[s]);
+          if (take[s]) v[i] += o;
+        }
+      }
+    }
+  }
+};
+
+// v·2^s rounded to the nearest int64, ties to even (llrint(ldexp(v, s))
+// for every finite term; scale = 2^s).
+__device__ __forceinline__ unsigned long long to_fixed_scaled(double v,
+                                                              double scale) {
+  return (unsigned long long)__double2ll_rn(v * scale);
+}
+
+// acc·2^-s as float32: out[j·d + q] = sums, out[k·d + j] = counts.
+__device__ __forceinline__ void fixed_finalize(
+    const unsigned long long* __restrict__ acc, long long k, int d,
+    long long n, const unsigned* __restrict__ bound, float* __restrict__ out) {
   const Shifts s = shifts(bound, n);
   const long long total = k * (d + 1);
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -295,6 +510,15 @@ __global__ void __launch_bounds__(kThreads)
       out[k * d + j] = (float)ldexp(v, -s.w);
     }
   }
+}
+
+// out[j·d + q] = sums, out[k·d + j] = counts, from the fixed-point rows.
+__global__ void __launch_bounds__(kThreads)
+    fixed_finalize_kernel(const unsigned long long* __restrict__ acc,
+                          long long k, int d, long long n,
+                          const unsigned* __restrict__ bound,
+                          float* __restrict__ out) {
+  fixed_finalize(acc, k, d, n, bound, out);
 }
 
 // A grid-stride launch over `items`, at most 4096 blocks.

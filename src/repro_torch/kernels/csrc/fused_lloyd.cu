@@ -1,16 +1,15 @@
-// One-sweep fused clustering kernels: remove_below, update_min_dist and
-// fused_assign_reduce. Each reads the points once and keeps the (n,)
-// distances and assignments out of device memory where the reference
-// does (repro/kernels/fused_lloyd.py).
+// One-sweep fused clustering kernels: remove_below and update_min_dist.
+// Each reads the points once and keeps the (n,) distances out of device
+// memory where the reference does (repro/kernels/fused_lloyd.py). The
+// Lloyd step of the same TPU file, fused_assign_reduce, is fused_assign.cu.
 //
 // Blocks run in parallel and in no order on the card, so nothing is
 // accumulated across blocks the way the Pallas kernels accumulate across
 // grid steps under @pl.when(i == 0). Float sums across blocks go through
 // per-block partials and a second, fixed-order pass (reduce_rows_kernel):
-// no float atomics, so Lloyd's centers, and through them SOCCER's removal
-// set and n_hist, are the same bits on every run. The only atomics are
-// the integer survivor counts of remove_below, which are exact in any
-// order.
+// no float atomics, so every call gives the same bits on every run. The
+// only atomics are the integer survivor counts of remove_below, which are
+// exact in any order.
 #include "common.cuh"
 
 namespace rt {
@@ -98,53 +97,6 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) part[blockIdx.x] = s;
 }
 
-// ------------------------------------------------------------ Lloyd step
-// Replaces repro/kernels/fused_lloyd.py::fused_assign_reduce_pallas
-// (pallas_call at fused_lloyd.py:150) and its big-n twin
-// fused_assign_reduce_pipelined_pallas (fused_lloyd.py:234).
-//
-// Bound: 2·n·k·d float32 operations for the assignment plus 2·n·d for the
-// weighted sums, on n·d inputs: at eta ~ 17 k rows and k_plus = 103 it is
-// ~55 MFLOP, about 8 µs of float32 peak, so a call is bound by its two
-// launches and by filling the card (68 blocks of 256 points). Design:
-// phase 1 assigns one point per thread (common.cuh); phase 2 has thread q
-// own the (center, coordinate) pairs q, q + 256, ... and scan the block's
-// 256 assignments in point order (common.cuh: center_partials, shared
-// with lloyd_reduce and sensitivity_scores), so every per-block sum is
-// taken in one fixed order; the (k, d) sums, (k,) counts and the cost go
-// to per-block partials laid out row-major over (k·d + k + 1, blocks),
-// and reduce_rows_kernel adds each row in block order. The (n,)
-// assignment never leaves shared memory.
-template <typename T, int DR>
-__global__ void __launch_bounds__(kThreads)
-    fused_assign_reduce_kernel(const T* __restrict__ x, long long n, int d,
-                               const float* __restrict__ w,
-                               const float* __restrict__ c,
-                               const uint8_t* __restrict__ cv, int k, int kt,
-                               float* __restrict__ part, long long nb) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int sa[kThreads];
-  __shared__ float sw[kThreads];
-  const long long base = (long long)blockIdx.x * blockDim.x;
-  const long long i = base + threadIdx.x;
-  const bool active = i < n;
-  float best, x2;
-  int arg;
-  bool any_valid;
-  nearest<T, DR>(x + (active ? i : 0) * d, active, d, c, cv, k, kt, smem,
-                 best, arg, x2, any_valid);
-  float cost = 0.f;
-  sa[threadIdx.x] = active ? arg : -1;
-  sw[threadIdx.x] = active ? w[i] : 0.f;
-  if (active) cost = sw[threadIdx.x] * clamp0(best + x2);
-  __syncthreads();
-
-  const int rows = (int)min((long long)blockDim.x, n - base);
-  center_partials(x, base, rows, d, k, sa, sw, true, part, nb);
-  const float s = block_sum(cost);
-  if (threadIdx.x == 0) part[(long long)(k * d + k) * nb + blockIdx.x] = s;
-}
-
 }  // namespace rt
 
 extern "C" int rt_remove_below(const void* x, int dtype, int m, long long p,
@@ -185,26 +137,4 @@ extern "C" int rt_update_min_dist(const void* x, int dtype, long long n,
   });
   if (e != cudaSuccess) return (int)e;
   return (int)reduce_rows(part, nb, 1, mass, s);
-}
-
-// part holds (k*d + k + 1) * max(blocks_for(n), 1) floats; out holds
-// k*d + k + 1: the (k, d) sums, the (k,) counts, then the cost.
-extern "C" int rt_fused_assign_reduce(const void* x, int dtype, long long n,
-                                      int d, const float* w, const float* c,
-                                      const uint8_t* cv, int k, float* part,
-                                      float* out, void* stream) {
-  using namespace rt;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const long long nb = blocks_for(n);
-  cudaError_t e = dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
-    using T = std::remove_pointer_t<decltype(tag)>;
-    constexpr int DR = decltype(dr)::value;
-    const TileShape ts = tile_shape(d, DR, k);
-    if (n == 0) return cudaGetLastError();
-    return launch(fused_assign_reduce_kernel<T, DR>, dim3((unsigned)nb),
-                  ts.smem, s, (const T*)x, n, d, w, c, cv, k, ts.kt, part,
-                  nb);
-  });
-  if (e != cudaSuccess) return (int)e;
-  return (int)reduce_rows(part, nb, (long long)k * d + k + 1, out, s);
 }

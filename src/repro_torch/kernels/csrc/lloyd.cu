@@ -14,9 +14,8 @@
 // bound by bytes (1.64 M rows at d = 15 on the kzmeans path: ~111 MB,
 // ~0.033 ms at 3.35 TB/s).
 //
-// Design: the reduce half of the resident Lloyd kernel (fused_lloyd.cu)
-// with the assignment read from memory. Up to the resident limit
-// (ops.MAX_RESIDENT_K), each block stages its points' centers and weights
+// Design: a reduce over the assignment read from memory. Up to
+// ops.MAX_RESIDENT_K centers, each block stages its points' centers and weights
 // in shared memory and writes per-block partials of the (k·d + k) sums
 // (common.cuh: center_partials), which the fixed-order reduce_rows pass
 // adds in block order: no atomics, the same bits on every run, and no
@@ -24,7 +23,7 @@
 // Beyond the limit the partials would need (k·d + k)·blocks floats, so the
 // sums go into (k, d + 1) fixed-point int64 accumulators instead
 // (common.cuh: bound_kernel, add_fixed, fixed_finalize_kernel; the scheme
-// of fused_chunked.cu), exact in any order. An assignment outside [0, k)
+// of fused_assign.cu), exact in any order. An assignment outside [0, k)
 // adds nothing, as the reference's one-hot and segment sum.
 #include "common.cuh"
 
@@ -96,7 +95,7 @@ extern "C" int rt_lloyd_reduce(const void* x, int dtype, long long n, int d,
   e = by_dtype(dtype, [&](auto tag) -> cudaError_t {
     using T = std::remove_pointer_t<decltype(tag)>;
     if (n == 0) return cudaGetLastError();
-    bound_kernel<T><<<grid_for(n * d), kThreads, 0, s>>>((const T*)x, n, d, w,
+    bound_kernel<T><<<bound_grid(n), kThreads, 0, s>>>((const T*)x, n, d, w,
                                                         bound);
     const cudaError_t e1 = cudaGetLastError();
     if (e1 != cudaSuccess) return e1;

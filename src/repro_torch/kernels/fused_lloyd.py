@@ -1,7 +1,7 @@
 """CUDA kernels: one-sweep fused clustering passes.
 
-Python wrappers over ``csrc/fused_lloyd.cu``, which replaces the
-resident-center kernels of ``repro/kernels/fused_lloyd.py``:
+Python wrappers over ``csrc/fused_lloyd.cu`` and ``csrc/fused_assign.cu``,
+which replace the kernels of ``repro/kernels/fused_lloyd.py``:
 
 * ``remove_below_cuda`` — SOCCER's removal over (m, p, d) shards: min-d2,
   the strict ``> v`` compare, the alive-mask update and per-machine live
@@ -9,16 +9,14 @@ resident-center kernels of ``repro/kernels/fused_lloyd.py``:
 * ``update_min_dist_cuda`` — one D²-seeding step: ``min(d2, d2(x, c))``
   and the weighted mass ``sum w·d2_new`` (replaces
   ``update_min_dist_pallas`` and its pipelined big-n twin);
-* ``fused_assign_reduce_cuda`` — one Lloyd step: assignment, weighted
-  (k, d) sums, (k,) counts and the cost in one sweep (replaces
-  ``fused_assign_reduce_pallas`` and its pipelined big-n twin);
-* ``fused_assign_reduce_chunked_cuda`` — the same step for any number of
-  centers (``csrc/fused_chunked.cu``; replaces
-  ``fused_assign_reduce_chunked_pallas`` and its two-walk fallback
-  ``_fused_assign_reduce_chunked_twopass``).
+* ``fused_assign_reduce_cuda`` — one Lloyd step at any number of centers:
+  assignment, weighted (k, d) sums, (k,) counts and the cost in one sweep
+  (``csrc/fused_assign.cu``; replaces ``fused_assign_reduce_pallas``, its
+  pipelined big-n twin, ``fused_assign_reduce_chunked_pallas`` and its
+  two-walk fallback ``_fused_assign_reduce_chunked_twopass``).
 
 Float sums across blocks go through per-block partials reduced in a
-fixed order, or, in the chunked kernel, through fixed-point integer
+fixed order, and the Lloyd step's sums through fixed-point integer
 accumulators, so each call gives the same bits on every run. The plain
 versions are in ``kernels/ref.py``; ``kernels/ops.py`` picks by device.
 """
@@ -29,8 +27,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import (CudaKernel, blocks, check_on_card,
-                                       dtype_code, ptr, stream_of, vector_f32)
+from repro_torch.kernels.build import (BLOCK_POINTS, CudaKernel, blocks,
+                                       check_on_card, dtype_code, ptr,
+                                       stream_of, vector_f32)
 from repro_torch.kernels.min_dist import center_mask, centers_f32
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -42,11 +41,80 @@ UPDATE_MIN_DIST = CudaKernel(
     "fused_lloyd.cu", "rt_update_min_dist",
     [_P, _I, _L, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P])
 FUSED_ASSIGN_REDUCE = CudaKernel(
-    "fused_lloyd.cu", "rt_fused_assign_reduce",
-    [_P, _I, _L, _I, _P, _P, _P, _I, _P, _P, _P])
-FUSED_ASSIGN_REDUCE_CHUNKED = CudaKernel(
-    "fused_chunked.cu", "rt_fused_assign_reduce_chunked",
-    [_P, _I, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P])
+    "fused_assign.cu", "rt_fused_assign_reduce",
+    [_P, _I, _L, _I, _P, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P, _P])
+
+# The Lloyd step's launch shape (csrc/fused_assign.cu says why): the
+# fewest centers a slice of the center axis takes; the point tiles below
+# which the center axis is split, a multiple of the SMs; the accumulator
+# entries (k·(d + 1)) up to which each warp keeps its sums in shared
+# memory (csrc/fused_assign.cu: AccMode).
+MIN_SLICE = 512
+FILL_PER_SM = 4
+WARP_ACC_ENTRIES = 1024
+ACC_MODES = {"global": 0, "warp": 1}
+
+_SMS: dict = {}
+
+
+def lloyd_tiles(n: int, ppt: int) -> int:
+    """Point tiles of BLOCK_POINTS·ppt points over ``n`` (at least 1)."""
+    return max(-(-n // (BLOCK_POINTS * ppt)), 1)
+
+
+def center_slices(n: int, k: int, sms: int, ppt: int) -> int:
+    """Slices of the center axis: 1 when the point tiles reach FILL_PER_SM
+    blocks an SM; else, from the fewest slices that do up to twice as
+    many, the count whose blocks fill their last wave of ``sms`` best,
+    each slice of at least MIN_SLICE centers (EIM11's 65,536 × 173,256 at
+    4 points a thread: 64 tiles, 10 slices)."""
+    tiles = lloyd_tiles(n, ppt)
+    want = FILL_PER_SM * sms
+    top = k // MIN_SLICE
+    if tiles >= want or top < 2:
+        return 1
+    lo = -(-want // tiles)
+    best, waste = 1, None
+    for s in range(min(lo, top), min(2 * lo, top) + 1):
+        blocks = tiles * s
+        w = -(-blocks // sms) * sms / blocks
+        if waste is None or w < waste - 1e-9:
+            best, waste = s, w
+    return best
+
+
+def acc_mode(k: int, d: int) -> str:
+    """Where the Lloyd step's group totals go: each warp's shared rows up
+    to WARP_ACC_ENTRIES entries, else the global accumulators."""
+    return "warp" if k * (d + 1) <= WARP_ACC_ENTRIES else "global"
+
+
+def points_per_thread(k: int, d: int) -> int:
+    """4 points a thread where the walk dominates (d <= 16, rows in
+    registers, beyond the warp accumulators), else 2: with few centers the
+    reduce dominates, and at d > 16 each point's row is re-read for every
+    center."""
+    return 4 if d <= 16 and acc_mode(k, d) == "global" else 2
+
+
+def scratch_bytes(n: int, d: int, k: int, ppt: int, slices: int) -> int:
+    """Bytes of the Lloyd step's one scratch buffer, laid out as
+    ``csrc/fused_assign.cu::scratch_layout``: (k, d + 1) int64
+    accumulators, the bound, the tile counters, the tile cost partials and,
+    with more than one slice, the (slices, n) per-slice (best, arg)."""
+    def r8(b):
+        return -(-b // 8) * 8
+    tiles = lloyd_tiles(n, ppt)
+    ws = r8(slices * n * 4) if slices > 1 else 0
+    return k * (d + 1) * 8 + 8 + 2 * r8(tiles * 4) + 2 * ws
+
+
+def _sm_count(device: torch.device) -> int:
+    key = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _SMS[key]
 
 
 def remove_below_cuda(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,
@@ -103,40 +171,22 @@ def update_min_dist_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
 
 def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,
                              c: torch.Tensor,
-                             c_valid: Optional[torch.Tensor] = None
+                             c_valid: Optional[torch.Tensor] = None, *,
+                             ppt: Optional[int] = None,
+                             acc: Optional[str] = None,
+                             assign_out: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """((k, d) weighted sums, (k,) weight counts, () weighted cost)."""
-    if x.dim() != 2:
-        raise ValueError(f"fused_assign_reduce: points must be (n, d), got "
-                         f"{tuple(x.shape)}")
-    n, d = x.shape
-    wf = vector_f32("fused_assign_reduce", "w", w, n)
-    cf = centers_f32("fused_assign_reduce", c, d)
-    k = cf.shape[0]
-    cv = center_mask("fused_assign_reduce", c_valid, k)
-    check_on_card("fused_assign_reduce", x, w=wf, centers=cf, c_valid=cv)
-    rows = k * d + k + 1
-    part = torch.empty((rows * blocks(n),), dtype=torch.float32,
-                       device=x.device)
-    out = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    FUSED_ASSIGN_REDUCE(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(cf),
-                        ptr(cv), k, ptr(part), ptr(out), stream_of(x))
-    return out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k]
+    """((k, d) weighted sums, (k,) weight counts, () weighted cost), at any
+    number of centers.
 
-
-def fused_assign_reduce_chunked_cuda(x: torch.Tensor, w: torch.Tensor,
-                                     c: torch.Tensor,
-                                     c_valid: Optional[torch.Tensor] = None
-                                     ) -> Tuple[torch.Tensor, torch.Tensor,
-                                                torch.Tensor]:
-    """``fused_assign_reduce_cuda`` for any number of centers: ((k, d)
-    weighted sums, (k,) weight counts, () weighted cost).
-
-    Scratch is (k, d + 1) int64 fixed-point accumulators and one float per
-    block of points, whatever k is; the sums are exact integer additions,
-    so a call gives the same bits on every run (``csrc/fused_chunked.cu``
-    says how the fixed-point scale is chosen). Finite inputs only.
+    The sums and counts are exact fixed-point integer sums rounded once to
+    float32 (``ref.fixed_point_reduce_ref`` reproduces them bit for bit
+    from the argmin), so a call gives the same bits on every run. Finite
+    inputs only. ``ppt`` (2, 4 or 8 points a thread; None:
+    ``points_per_thread``) and ``acc`` (a key of ACC_MODES; None:
+    ``acc_mode``) are tuning knobs. ``assign_out``, an (n,) int32 CUDA
+    tensor, receives the argmin, for checks.
     """
     if x.dim() != 2:
         raise ValueError(f"fused_assign_reduce: points must be (n, d), got "
@@ -146,12 +196,29 @@ def fused_assign_reduce_chunked_cuda(x: torch.Tensor, w: torch.Tensor,
     cf = centers_f32("fused_assign_reduce", c, d)
     k = cf.shape[0]
     cv = center_mask("fused_assign_reduce", c_valid, k)
-    check_on_card("fused_assign_reduce", x, w=wf, centers=cf, c_valid=cv)
-    bound = torch.empty((2,), dtype=torch.int32, device=x.device)
-    acc = torch.empty((k, d + 1), dtype=torch.int64, device=x.device)
-    part = torch.empty((blocks(n),), dtype=torch.float32, device=x.device)
+    check_on_card("fused_assign_reduce", x, w=wf, centers=cf, c_valid=cv,
+                  assign_out=assign_out)
+    if k == 0:
+        raise ValueError("fused_assign_reduce: no centers")
+    ppt = points_per_thread(k, d) if ppt is None else ppt
+    if ppt not in (2, 4, 8):
+        raise ValueError(f"fused_assign_reduce: ppt must be 2, 4 or 8, got "
+                         f"{ppt}")
+    if assign_out is not None and (assign_out.shape != (n,)
+                                   or assign_out.dtype != torch.int32):
+        raise ValueError(f"fused_assign_reduce: assign_out must be ({n},) "
+                         f"int32")
+    acc = acc_mode(k, d) if acc is None else acc
+    if acc not in ACC_MODES or (acc == "warp"
+                                and k * (d + 1) > WARP_ACC_ENTRIES):
+        raise ValueError(f"fused_assign_reduce: accumulators {acc!r} do "
+                         f"not take k·(d + 1) = {k * (d + 1)} entries")
+    slices = center_slices(n, k, _sm_count(x.device), ppt)
+    nbytes = scratch_bytes(n, d, k, ppt, slices)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
     out = torch.empty((k * d + k + 1,), dtype=torch.float32, device=x.device)
-    FUSED_ASSIGN_REDUCE_CHUNKED(ptr(x), dtype_code(x), n, d, ptr(wf),
-                                ptr(cf), ptr(cv), k, ptr(bound), ptr(acc),
-                                ptr(part), ptr(out), stream_of(x))
+    FUSED_ASSIGN_REDUCE(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(cf),
+                        ptr(cv), k, ppt, slices, ACC_MODES[acc],
+                        ptr(scratch), nbytes, ptr(assign_out), ptr(out),
+                        stream_of(x))
     return out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k]

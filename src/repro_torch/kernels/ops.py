@@ -12,7 +12,7 @@ JAX package's oracles):
   centers.
 * ``fused_assign_reduce(x, w, c, c_valid)`` — one Lloyd step: (k, d)
   weighted sums, (k,) counts and the weighted cost in one sweep of ``x``;
-  beyond ``MAX_RESIDENT_K`` centers on the card, the chunked kernel.
+  on the card one kernel at every number of centers.
 * ``remove_below(x, c, alive, v, c_valid)`` — SOCCER's removal over
   (m, p, d) shards: ``alive & (min-d2 > v)`` and per-machine live counts.
 * ``update_min_dist(x, w, c, d2, c_valid)`` — one D²-seeding step:
@@ -35,9 +35,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_lloyd import (FUSED_ASSIGN_REDUCE,
-                                             FUSED_ASSIGN_REDUCE_CHUNKED,
                                              REMOVE_BELOW, UPDATE_MIN_DIST,
-                                             fused_assign_reduce_chunked_cuda,
                                              fused_assign_reduce_cuda,
                                              remove_below_cuda,
                                              update_min_dist_cuda)
@@ -48,23 +46,22 @@ from repro_torch.kernels.sensitivity import (SENSITIVITY_SCORES,
 from repro_torch.kernels.truncated import (TRUNCATED_COST,
                                            truncated_cost_cuda)
 
-# The kernels that keep per-block partials of every center (the resident
-# Lloyd kernel, lloyd_reduce's partials branch, sensitivity_scores) serve
-# up to this many centers; beyond it fused_assign_reduce runs the chunked
-# kernel, lloyd_reduce its fixed-point branch and sensitivity_scores the
-# min_dist kernel with its (n,)-sized tail in PyTorch. remove_below,
-# min_dist, update_min_dist and truncated_cost stream the centers through
-# shared memory and keep nothing per center, so they serve any k.
+# The kernels that keep per-block partials of every center
+# (lloyd_reduce's partials branch, sensitivity_scores) serve up to this
+# many centers; beyond it lloyd_reduce runs its fixed-point branch and
+# sensitivity_scores the min_dist kernel with its (n,)-sized tail in
+# PyTorch. fused_assign_reduce has one kernel at every k (fixed-point
+# sums grouped by center), and remove_below, min_dist, update_min_dist and
+# truncated_cost stream the centers through shared memory and keep nothing
+# per center, so none of them reads this limit.
 MAX_RESIDENT_K = 1024
 
 ENTRY_POINTS = ("min_dist", "lloyd_reduce", "fused_assign_reduce",
                 "remove_below", "update_min_dist", "sensitivity_scores",
                 "truncated_cost")
 
-# CUDA kernel -> its wrapper's launch counter (for chip_smoke.py);
-# fused_assign_reduce has two, by the number of centers
+# CUDA kernel -> its wrapper's launch counter (for chip_smoke.py)
 KERNELS = {"min_dist": MIN_DIST, "fused_assign_reduce": FUSED_ASSIGN_REDUCE,
-           "fused_assign_reduce_chunked": FUSED_ASSIGN_REDUCE_CHUNKED,
            "remove_below": REMOVE_BELOW, "update_min_dist": UPDATE_MIN_DIST,
            "lloyd_reduce": LLOYD_REDUCE,
            "sensitivity_scores": SENSITIVITY_SCORES,
@@ -103,8 +100,6 @@ def fused_assign_reduce(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-sweep Lloyd step: ((k, d) sums, (k,) counts, () weighted cost)."""
     if _on_card(x):
-        if c.shape[0] > MAX_RESIDENT_K:
-            return fused_assign_reduce_chunked_cuda(x, w, c, c_valid)
         return fused_assign_reduce_cuda(x, w, c, c_valid)
     return ref.fused_assign_reduce_ref(x, w, c, c_valid)
 

@@ -29,6 +29,7 @@ thing.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -174,8 +175,8 @@ def fused_assign_reduce_ref(x: torch.Tensor, w: torch.Tensor,
     """One Lloyd step: ((k, d) sum of w_i x_i per assigned center, (k,)
     sum of w_i per center, () sum of w_i * min-d2_i — the cost of ``c``).
 
-    The plain version of both the resident and the chunked CUDA kernel:
-    the function does not depend on how many centers there are."""
+    The plain version of the CUDA kernel, which serves every number of
+    centers; the kernel's exact sums are ``fixed_point_reduce_ref``'s."""
     d2, assign = min_dist_ref(x, c, c_valid)
     k, d = c.shape
     wf = w.float()
@@ -185,6 +186,48 @@ def fused_assign_reduce_ref(x: torch.Tensor, w: torch.Tensor,
     counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
     counts.index_add_(0, a, wf)
     return sums, counts, torch.sum(wf * d2)
+
+
+def fixed_shift(b: float) -> int:
+    """The largest s with b·2^s < 2^62 (0 when b is not > 0), as
+    ``csrc/common.cuh::fixed_shift``."""
+    if not b > 0.0:
+        return 0
+    return 62 - math.frexp(b)[1]
+
+
+def fixed_point_reduce_ref(x: torch.Tensor, w: torch.Tensor,
+                           assign: torch.Tensor, k: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Lloyd kernel's own arithmetic for its ((k, d) sums, (k,)
+    counts), given the (n,) assignment: the exact oracle the card's
+    ``fused_assign_reduce`` matches bit for bit (``csrc/fused_assign.cu``).
+
+    max |w| over every row and max |x| over the rows with w != 0, in
+    float32; the shifts from ((double)n·max|w|)·max|x| and n·max|w| as
+    ``common.cuh::shifts``; each term w·x_q (exact in float64) scaled by
+    2^s and rounded half to even to an int64, as ``llrint``; an int64
+    ``index_add_`` (exact in any order); back through float64 and 2^-s to
+    float32. An assignment outside [0, k) adds nothing. A check's oracle,
+    never on the main path: it reads the bounds back to the host."""
+    n, d = x.shape
+    xf, wf = x.float(), w.float()
+    mw = float(wf.abs().max()) if n else 0.0
+    weighted = wf != 0
+    mx = float(xf[weighted].abs().max()) if bool(weighted.any()) else 0.0
+    sx = fixed_shift(float(n) * mw * mx)
+    sw = fixed_shift(float(n) * mw)
+    a = assign.long()
+    ok = (a >= 0) & (a < k)
+    a, wd = a[ok], wf[ok].double()
+    tx = torch.round(wd[:, None] * xf[ok].double() * 2.0 ** sx).long()
+    tw = torch.round(wd * 2.0 ** sw).long()
+    acc_x = torch.zeros((k, d), dtype=torch.int64,
+                        device=x.device).index_add_(0, a, tx)
+    acc_w = torch.zeros((k,), dtype=torch.int64,
+                        device=x.device).index_add_(0, a, tw)
+    return ((acc_x.double() * 2.0 ** -sx).float(),
+            (acc_w.double() * 2.0 ** -sw).float())
 
 
 def remove_below_ref(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,

@@ -76,50 +76,47 @@ def test_cuda_kernels_match_plain(d, k, dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
                                 torch.float16], ids=["f32", "bf16", "f16"])
-@pytest.mark.parametrize("d,k", [(9, 1025), (33, 2100), (15, 110_000)],
-                         ids=["k_over_max", "k_chunked_multi",
-                              "two_walk_regime"])
+@pytest.mark.parametrize("d,k", [(15, 4), (15, 25), (15, 103), (15, 1024),
+                                 (9, 1025), (33, 2100), (15, 110_000)],
+                         ids=["k4", "k25", "k103", "k1024", "k_over_max",
+                              "k_chunked_multi", "two_walk_regime"])
 def test_cuda_chunked_fused_matches_plain(d, k, dt):
-    """The chunked Lloyd kernel (k > 1024) against its plain version, on
-    both sides of the TPU kernel's 6 MiB accumulator split (110,000
-    centers at d = 15 is 6.7 MiB). Its argmin is min_dist's, so the sums
-    and counts are held to min_dist's own assignment; invalid centers get
-    no mass, zero weights add nothing, and a second call gives the same
-    bits (the sums are fixed-point integer additions)."""
+    """The one Lloyd kernel at every k, few centers (warp accumulators)
+    to far more than the 3,000 points' tiles can fill the card with (the
+    center axis split, 110,000 centers is the TPU's two-walk regime): its
+    argmin equals min_dist's, its sums and counts equal the fixed-point
+    emulation over that argmin bit for bit, its cost is within 1e-5 of a
+    float64 sum, invalid centers get no mass, zero weights add nothing,
+    and a second call gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels build only there")
+    from repro_torch.kernels.fused_lloyd import fused_assign_reduce_cuda
     g = torch.Generator("cuda").manual_seed(1)
     n = 3000
     x = torch.rand((n, d), device="cuda", generator=g).to(dt)
-    xf = x.float()
     c = torch.rand((k, d), device="cuda", generator=g)
     cv = torch.rand(k, device="cuda", generator=g) > 0.3
     cv[0] = True
     w = torch.rand(n, device="cuda", generator=g)
     w[: n // 5] = 0.0
-    before = ops.KERNELS["fused_assign_reduce_chunked"].launches
-    s, cnt, cost = ops.fused_assign_reduce(x, w, c, cv)
-    assert ops.KERNELS["fused_assign_reduce_chunked"].launches == before + 1
-    d2, idx = ops.min_dist(x, c, cv)
-    cnt_p = torch.zeros(k, device="cuda").index_add_(0, idx.long(), w)
-    s_p = torch.zeros((k, d), device="cuda").index_add_(0, idx.long(),
-                                                        w[:, None] * xf)
-    torch.testing.assert_close(cnt, cnt_p, rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(s, s_p, rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(cost, (w * d2).sum(), rtol=1e-5, atol=1e-5)
-    assert float(cnt[~cv].abs().sum()) == 0.0
-    # the plain version: the same function, its d2 within the expanded
-    # form's tolerance (see test_cuda_kernels_match_plain) at every point
-    tol = 32 * torch.finfo(torch.float32).eps * float(
-        (xf * xf).sum(-1).max() + (c * c).sum(-1).max())
-    _, cnt_r, cost_r = ref.fused_assign_reduce_ref(x, w, c, cv)
-    torch.testing.assert_close(cost, cost_r, rtol=1e-5,
-                               atol=tol * float(w.sum()))
-    torch.testing.assert_close(cnt.sum(), cnt_r.sum(), rtol=1e-5, atol=1e-3)
-    again = ops.fused_assign_reduce(x, w, c, cv)
-    assert all(torch.equal(a, b) for a, b in zip((s, cnt, cost), again))
-    zero = ops.fused_assign_reduce(x, torch.zeros_like(w), c, cv)
-    assert all(float(t.abs().max()) == 0.0 for t in zero)
+    for mask in (None, cv):
+        before = ops.KERNELS["fused_assign_reduce"].launches
+        s, cnt, cost = ops.fused_assign_reduce(x, w, c, mask)
+        assert ops.KERNELS["fused_assign_reduce"].launches == before + 1
+        d2, idx = ops.min_dist(x, c, mask)
+        own = torch.empty_like(idx)
+        fused_assign_reduce_cuda(x, w, c, mask, assign_out=own)
+        assert torch.equal(own, idx)
+        s_e, cnt_e = ref.fixed_point_reduce_ref(x, w, idx, k)
+        assert torch.equal(s, s_e) and torch.equal(cnt, cnt_e)
+        torch.testing.assert_close(cost.double(), (w.double() * d2).sum(),
+                                   rtol=1e-5, atol=0.0)
+        if mask is not None:
+            assert float(cnt[~mask].abs().sum()) == 0.0
+        again = ops.fused_assign_reduce(x, w, c, mask)
+        assert all(torch.equal(a, b) for a, b in zip((s, cnt, cost), again))
+        zero = ops.fused_assign_reduce(x, torch.zeros_like(w), c, mask)
+        assert all(float(t.abs().max()) == 0.0 for t in zero)
 
 
 def _inputs(seed, n, d, k, dt):

@@ -21,6 +21,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels import fused_lloyd as tfused
 from repro_torch.kernels import lloyd as tlloyd
 from repro_torch.kernels import min_dist as tmin
@@ -389,6 +390,123 @@ def test_remove_below_is_strict():
     assert a.tolist() == [[False, False, True]] and live.tolist() == [1]
 
 
+# ---- the Lloyd kernel's fixed-point sums --------------------------------
+#
+# On the card fused_assign_reduce adds each term w·x_q as an int64 at scale
+# 2^s; ref.fixed_point_reduce_ref is that arithmetic in PyTorch, the exact
+# oracle chip_smoke.py and tests/test_torch_cuda.py hold the kernel to.
+
+def _ht_rows(n, d, k, seed, jdt, tdt):
+    """SOCCER-like coordinator rows: a sample drawn from m machines of
+    skewed sizes, each row weighted by n_local / c_j (Horvitz-Thompson:
+    the machine's points over its sample count), so the weights span
+    orders of magnitude; sigma = 0.001 clusters in the unit cube."""
+    rng = np.random.default_rng(seed)
+    m = 8
+    local = np.round(1.25e6 * np.logspace(0, -3, m)).astype(np.int64)
+    share = rng.multinomial(n, np.full(m, 1 / m))     # rows a machine
+    w = np.concatenate([np.full(c, local[j] / max(c, 1), np.float32)
+                        for j, c in enumerate(share)])
+    means = rng.random((k, d)).astype(np.float32)
+    x = (means[rng.integers(0, k, n)]
+         + 1e-3 * rng.normal(size=(n, d))).astype(np.float32)
+    xj, xt = _both(x, jdt, tdt)
+    cj, ct = _both(means + 2e-3 * rng.normal(size=(k, d)).astype(np.float32),
+                   jdt, tdt)
+    return xj, jnp.asarray(w), cj, xt, torch.from_numpy(w), ct
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
+def test_fixed_point_sums_ignore_row_order(jdt, tdt):
+    """Integer sums are exact: any order of the rows gives the same bits."""
+    _, _, _, xt, wt, _ = _ht_rows(4000, 15, 30, 20, jdt, tdt)
+    a = torch.from_numpy(_assign(4000, 30, seed=21))
+    s, c = tref.fixed_point_reduce_ref(xt, wt, a, 30)
+    for seed in (22, 23):
+        p = torch.from_numpy(np.random.default_rng(seed).permutation(4000))
+        s2, c2 = tref.fixed_point_reduce_ref(xt[p], wt[p], a[p], 30)
+        assert torch.equal(s, s2) and torch.equal(c, c2)
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
+def test_fixed_point_sums_within_their_rounding(jdt, tdt):
+    """Each center's sum lies within n_j·2^-(s+1) (one rounding of each
+    of its n_j terms) plus float32's half ulp of a float64 index_add; the
+    shift is the largest with n·max|w|·max|x|·2^s < 2^62."""
+    n, d, k = 3000, 9, 12
+    _, _, _, xt, wt, _ = _ht_rows(n, d, k, 24, jdt, tdt)
+    wt[::7] = 0.0
+    a = torch.from_numpy(_assign(n, k, seed=25))
+    s, c = tref.fixed_point_reduce_ref(xt, wt, a, k)
+    mw = float(wt.abs().max())
+    mx = float(xt.float()[wt != 0].abs().max())
+    sx = tref.fixed_shift(n * mw * mx)
+    sw = tref.fixed_shift(n * mw)
+    assert 2.0 ** 61 <= n * mw * mx * 2.0 ** sx < 2.0 ** 62
+    assert 2.0 ** 61 <= n * mw * 2.0 ** sw < 2.0 ** 62
+    ok = (a >= 0) & (a < k)
+    al, wd = a[ok].long(), wt[ok].double()
+    s64 = torch.zeros((k, d), dtype=torch.float64).index_add_(
+        0, al, wd[:, None] * xt[ok].double()).numpy()
+    c64 = torch.zeros(k, dtype=torch.float64).index_add_(0, al, wd).numpy()
+    nj = np.bincount(al.numpy(), minlength=k).astype(np.float64)
+    half_ulp = lambda v: 0.5 * np.spacing(np.abs(v).astype(np.float32))
+    assert np.all(np.abs(s.double().numpy() - s64)
+                  <= nj[:, None] * 2.0 ** -(sx + 1) + half_ulp(s64) + 1e-30)
+    assert np.all(np.abs(c.double().numpy() - c64)
+                  <= nj * 2.0 ** -(sw + 1) + half_ulp(c64) + 1e-30)
+
+
+@pytest.mark.parametrize("k", [25, 103, 1024], ids=["k25", "k103", "k1024"])
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
+def test_fixed_point_sums_match_reference_under_ht_weights(k, jdt, tdt):
+    """Under SOCCER's skewed Horvitz-Thompson weights the fixed-point sums
+    over the reference's own assignment agree with the reference's
+    fused_assign_reduce oracle to _tols: the scale taken from max|w| keeps
+    the light rows' terms (weights ~1e3 times smaller) far above its
+    resolution."""
+    xj, wj, cj, xt, wt, ct = _ht_rows(2500, 15, k, 26 + k, jdt, tdt)
+    tol, tight = _tols(jdt)
+    s_r, c_r, _ = jref.fused_assign_reduce_ref(xj, wj, cj)
+    _, idx_r = jref.min_dist_ref(xj, cj)
+    s_o, c_o = tref.fixed_point_reduce_ref(
+        xt, wt, torch.from_numpy(np.asarray(idx_r).astype(np.int32)), k)
+    scale = float(np.max(np.asarray(c_r)))
+    np.testing.assert_allclose(s_o.numpy(), s_r, rtol=tol,
+                               atol=tol * scale)
+    np.testing.assert_allclose(c_o.numpy(), c_r, rtol=tight,
+                               atol=tight * scale)
+
+
+def test_lloyd_launch_shape_rules():
+    """The CUDA wrapper's launch shape, decided on the host: 4 points a
+    thread where the walk dominates, 2 with few centers or d > 16; warp
+    accumulators up to 1,024 entries; the center axis split only when the
+    point tiles cannot fill the card, into slices of >= 512 centers that
+    fill the last wave; one scratch buffer laid out as the kernel's."""
+    assert tfused.points_per_thread(831, 15) == 4
+    assert tfused.points_per_thread(25, 15) == 2
+    assert tfused.points_per_thread(831, 37) == 2
+    assert tfused.acc_mode(63, 15) == "warp"
+    assert tfused.acc_mode(65, 15) == "global"
+    # EIM11's clustering on 132 SMs: 64 tiles of 1,024 points, 10 slices
+    assert tfused.lloyd_tiles(65_536, 4) == 64
+    s = tfused.center_slices(65_536, 173_256, 132, 4)
+    assert s == 10 and 173_256 // s >= tfused.MIN_SLICE
+    # the weighing shapes and SOCCER's coordinator fill the card unsplit
+    assert tfused.center_slices(1_250_000, 831, 132, 4) == 1
+    assert tfused.center_slices(991_418, 1_111, 132, 4) == 1
+    # too few centers to split
+    assert tfused.center_slices(3_000, 1_000, 132, 4) == 1
+    assert tfused.center_slices(3_000, 2_100, 132, 4) == 4
+    for n, d, k, p, sl in ((65_536, 15, 173_256, 4, 10), (0, 15, 3, 2, 1),
+                           (3_000, 33, 2_100, 2, 4)):
+        tiles = tfused.lloyd_tiles(n, p)
+        ws = 2 * (-(-sl * n * 4 // 8) * 8) if sl > 1 else 0
+        assert tfused.scratch_bytes(n, d, k, p, sl) == (
+            k * (d + 1) * 8 + 8 + 2 * (-(-tiles * 4 // 8) * 8) + ws)
+
+
 # ---- degenerate cases --------------------------------------------------
 
 def test_all_invalid_centers():
@@ -471,8 +589,6 @@ def test_dispatch_rejects_other_devices():
     (tfused.update_min_dist_cuda, lambda x, c: (x, torch.ones(6), c,
                                                 torch.ones(6))),
     (tfused.fused_assign_reduce_cuda, lambda x, c: (x, torch.ones(6), c)),
-    (tfused.fused_assign_reduce_chunked_cuda,
-     lambda x, c: (x, torch.ones(6), c)),
     (tfused.remove_below_cuda, lambda x, c: (
         x.reshape(2, 3, 4), c, torch.ones((2, 3), dtype=torch.bool), 0.5)),
     (tlloyd.lloyd_reduce_cuda, lambda x, c: (
@@ -481,8 +597,8 @@ def test_dispatch_rejects_other_devices():
     (ttrunc.truncated_cost_cuda, lambda x, c: (
         x.reshape(2, 3, 4), torch.ones((2, 3)), c, 0.5)),
 ], ids=["min_dist", "update_min_dist", "fused_assign_reduce",
-        "fused_assign_reduce_chunked", "remove_below", "lloyd_reduce",
-        "sensitivity_scores", "truncated_cost"])
+        "remove_below", "lloyd_reduce", "sensitivity_scores",
+        "truncated_cost"])
 def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
     """A wrapper launches its kernel or raises: CPU tensors never reach a
     plain version through it, and no launch is counted."""
@@ -537,7 +653,7 @@ def test_every_entry_point_covered():
     # the reference's seven, in its order
     from repro.kernels import ops as jops
     assert ops.ENTRY_POINTS == jops.ENTRY_POINTS
-    # every kernel behind them has a launch counter; fused_assign_reduce
-    # has two kernels, by the number of centers
-    assert set(ops.KERNELS) == covered | {"fused_assign_reduce_chunked"}
+    # every kernel behind them has a launch counter, one kernel an entry
+    # point (fused_assign_reduce's serves every number of centers)
+    assert set(ops.KERNELS) == covered
 

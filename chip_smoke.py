@@ -31,10 +31,10 @@ PyTorch built for CUDA. It
    a repeat call gives the same bits, and the sums hold against the
    plain version with a slack for each center from the near-tie points it
    may gain or lose; holds min_dist at 173,256 centers; and times every
-   shape beside its bound, the min_dist kernel on the same inputs and the
-   two kernels it replaced, with 2, 4 and 8 points a thread and with and
-   without the warp accumulators; it prints ``nvcc -Xptxas -v``'s
-   registers and spills of the kernel;
+   shape beside its bound and the min_dist kernel on the same inputs,
+   and prints the recorded times of the two kernels it replaced beside
+   them; it prints ``nvcc -Xptxas -v``'s registers and spills of the
+   kernel, from the build's own log;
 5. holds the robust and coreset tier's kernels against their plain
    versions at that tier's shapes, in the three dtypes, with invalid
    centers and zero weights, with a same-bits repeat, and times them:
@@ -125,14 +125,15 @@ LLOYD_SHAPES = ((1_250_000, DIM, 831), (1_250_000, DIM, 3_081),
 # rows).
 DISPATCH_SHAPES = ((17_353, 103), (80_585, 190), (1_250_000, 831),
                    (1_250_000, 1024), (1_250_000, 4), (1_250_000, 25))
-# Float32 times, ms, of the two Lloyd kernels this one replaced, on the
-# same card model (PERF.md §6, this script before the redesign): the
-# resident kernel at k <= 1024 (its dispatch_phase; k-means‖'s 831 from
-# its lloyd_phase), the chunked one beyond
-BEFORE_MS = {(17_353, 103): 0.0967, (80_585, 190): 0.2411,
-           (1_250_000, 831): 10.3226, (1_250_000, 1024): 12.5924,
-           (1_250_000, 4): 0.1178, (1_250_000, 25): 0.3523,
-           (1_250_000, 3_081): 5.2671, (65_536, 173_256): 18.9260}
+# Float32 times, ms, of the two Lloyd kernels this one replaced, recorded
+# on the same card model (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W): the
+# resident kernel at k <= 1024, the chunked one beyond. Printed beside
+# this run's times on a line of their own, never in the JSON line, which
+# carries only this run's measurements.
+REPLACED_MS = {(17_353, 103): 0.0967, (80_585, 190): 0.2411,
+               (1_250_000, 831): 10.3226, (1_250_000, 1024): 12.5924,
+               (1_250_000, 4): 0.1178, (1_250_000, 25): 0.3523,
+               (1_250_000, 3_081): 5.2671, (65_536, 173_256): 18.9260}
 EIM11_N, EIM11_K = 1_000_000, 25
 # The coreset and robust tier (ROADMAP Queue 1 items 11-13): the paper's §8
 # mixture at n = 10 M, k = 25, with 2% isotropic gross outliers at 50x the
@@ -164,13 +165,13 @@ SOCCER_CORESET_KERNELS = SOCCER_KERNELS + ("sensitivity_scores",)
 SOCCER_WIDE_KERNELS = SOCCER_KERNELS
 
 
-def print_ptxas(log: str) -> None:
+def print_ptxas(log: str) -> int:
     """One line a variant of the Lloyd kernel from ``nvcc -Xptxas -v``:
     (point type, register row length DR, points a thread P), registers,
-    spill stores and loads."""
+    spill stores and loads. Returns the number of variants printed."""
     import re
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
-    name = None
+    name, printed = None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN2rt19fused_assign_kernelI"
                       r"(f|13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)E", line)
@@ -188,7 +189,8 @@ def print_ptxas(log: str) -> None:
         if m:
             print(f"ptxas fused_assign_kernel {name}: {m.group(1)} registers,"
                   f" {spills}", flush=True)
-            name = None
+            name, printed = None, printed + 1
+    return printed
 
 
 def fail(msg: str) -> None:
@@ -275,11 +277,10 @@ def check_update_min_dist(ops, ref, x, w, c, d2, cv):
 FUSED_RTOL = 1e-5
 
 
-def check_fused(ops, ref, x, w, c, cv, repeat: bool = False, **knobs):
+def check_fused(ops, ref, x, w, c, cv, repeat: bool = False):
     """The Lloyd step (one kernel at every k) against three references,
     element by element; ``repeat`` also checks that a second call gives
-    the same bits; ``knobs`` (ppt, acc) go to the CUDA wrapper instead of
-    its defaults.
+    the same bits.
 
     1. Exact. The kernel walks the centers with min_dist's arithmetic, so
        its argmin (the wrapper's ``assign_out``) must equal
@@ -294,30 +295,30 @@ def check_fused(ops, ref, x, w, c, cv, repeat: bool = False, **knobs):
     3. The plain version, whose assignment may differ from the kernel's
        at near-ties. Each point assigned differently must be
        one (its d2 to the kernel's center within 2·tol of the plain min,
-       as in check_min_dist), and its weight (times |x| for the sums) is
-       allowed on both of its centers and on no other, and so is the plain
-       version's own float32 error, measured against a float64 index_add
-       over its own assignment (at 1.25 M points over 4 centers its
-       index_add errs by ~2e-5, beyond FUSED_RTOL).
+       as in check_min_dist). The sums and counts are held within
+       FUSED_RTOL of a float64 index_add over the plain version's
+       assignment, with each such point's weight (times |x| for the sums)
+       allowed on both of its centers and on no other; the float64 sums
+       stand in for the plain version's float32 index_add, whose own
+       rounding (~2e-5 at 1.25 M points over 4 centers, in an atomic order
+       that changes from run to run) is not the kernel's to meet. The cost
+       is held to the plain version's own.
 
-    Returns the largest differences from the plain version (sums, counts,
-    cost), the cost's tolerance, and the number of points assigned
-    differently."""
+    Returns the largest differences from the plain version's outputs
+    (sums, counts, cost), the cost's tolerance, and the number of points
+    assigned differently."""
     from repro_torch.kernels.fused_lloyd import fused_assign_reduce_cuda
     tol = d2_tol(x, c)
     k, d = c.shape
-    if knobs:
-        s_k, n_k, cost_k = fused_assign_reduce_cuda(x, w, c, cv, **knobs)
-    else:
-        s_k, n_k, cost_k = ops.fused_assign_reduce(x, w, c, cv)
+    s_k, n_k, cost_k = ops.fused_assign_reduce(x, w, c, cv)
     if repeat:
-        again = fused_assign_reduce_cuda(x, w, c, cv, **knobs)
+        again = fused_assign_reduce_cuda(x, w, c, cv)
         check(all(torch.equal(a, b) for a, b in
                   zip((s_k, n_k, cost_k), again)),
               f"fused_assign_reduce k={k}: a repeat call gave other bits")
     d2_m, idx_k = ops.min_dist(x, c, cv)
     own = torch.empty_like(idx_k)
-    fused_assign_reduce_cuda(x, w, c, cv, assign_out=own, **knobs)
+    fused_assign_reduce_cuda(x, w, c, cv, assign_out=own)
     check(torch.equal(own, idx_k),
           f"fused_assign_reduce k={k}: its argmin differs from min_dist's "
           f"at {int((own != idx_k).sum())} points")
@@ -370,17 +371,16 @@ def check_fused(ops, ref, x, w, c, cv, repeat: bool = False, **knobs):
     n_own_p = torch.zeros(k, dtype=torch.float64,
                           device=x.device).index_add_(0, a_p, wd)
     errs = {}
-    for what, got, want, slack, exact in (
+    for what, got, plain, slack, exact in (
             ("sums", s_k, s_p, slack_s, s_own_p),
             ("counts", n_k, n_p, slack_n, n_own_p)):
-        own = (want.double() - exact).abs()     # the plain's float32 error
-        err = (got.double() - want.double()).abs()
-        bad = err > FUSED_RTOL * want.double().abs() + slack + own + 1e-6
+        err = (got.double() - exact).abs()
+        bad = err > FUSED_RTOL * exact.abs() + slack + 1e-6
         check(not bool(bad.any()),
               f"fused_assign_reduce k={k} {what}: {int(bad.sum())} elements "
-              f"off the plain version beyond each center's tie slack "
-              f"(largest err {float(err.max())})")
-        errs[what] = float(err.max())
+              f"off the plain version's assignment beyond each center's "
+              f"tie slack (largest err {float(err.max())})")
+        errs[what] = float((got.double() - plain.double()).abs().max())
     errs["cost"] = abs(float(cost_k) - float(cost_p))
     t_c = FUSED_RTOL * abs(float(cost_p)) + tol * float(w.sum())
     check(errs["cost"] <= t_c,
@@ -611,14 +611,12 @@ def lloyd_bound(n: int, d: int, k: int):
                     2.0 * n * k * d + 2.0 * n * d)
 
 
-def time_lloyd(ops, x32, c, variants: bool):
+def time_lloyd(ops, x32, c):
     """Float32 times at one shape, every center valid and unit weights, as
-    the weighing passes run: the kernel with its default launch shape
-    and, with ``variants``, with 2, 4 and 8 points a thread and with the
-    warp accumulators off (global atomics) where they would be on; the
-    min_dist kernel on the same inputs; the bound; the replaced kernels'
-    time (BEFORE_MS). Returns
-    the dict for the JSON line and prints one line."""
+    the weighing passes run: the kernel and the min_dist kernel on the
+    same inputs, beside the bound. Returns the dict for the JSON line and
+    prints one line, then the replaced kernels' recorded time
+    (REPLACED_MS) on a line of its own."""
     from repro_torch.kernels import fused_lloyd as fl
     n, d = x32.shape
     k = c.shape[0]
@@ -626,34 +624,21 @@ def time_lloyd(ops, x32, c, variants: bool):
     torch.cuda.empty_cache()
     ms = timed_ms(lambda: ops.fused_assign_reduce(x32, ones, c))
     md_ms = timed_ms(lambda: ops.min_dist(x32, c))
-    out = dict(shape=f"n={n} d={d} k={k}", ms=ms, min_dist_ms=md_ms,
-               ppt=fl.points_per_thread(k, d), acc=fl.acc_mode(k, d),
-               slices=fl.center_slices(n, k, fl._sm_count(x32.device),
-                                       fl.points_per_thread(k, d)))
-    if variants:
-        for ppt in (2, 4, 8):
-            out[f"ppt{ppt}_ms"] = timed_ms(
-                lambda: fl.fused_assign_reduce_cuda(x32, ones, c, ppt=ppt))
-        if fl.acc_mode(k, d) == "warp":
-            out["global_acc_ms"] = timed_ms(
-                lambda: fl.fused_assign_reduce_cuda(x32, ones, c,
-                                                    acc="global"))
+    ppt = fl.points_per_thread(k, d)
+    launch = (f"ppt={ppt} acc={fl.acc_mode(k, d)} slices="
+              f"{fl.center_slices(n, k, fl._sm_count(x32.device), ppt)}")
     bnd, by = lloyd_bound(n, d, k)
-    out.update(bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms)
-    before = BEFORE_MS.get((n, k))
-    if before is not None:
-        out["before_ms"] = before
-    extra = " ".join(f"{key}={val:.4f}" for key, val in out.items()
-                     if key.endswith("_ms") and key not in (
-                         "min_dist_ms", "bound_ms", "before_ms"))
     print(f"time fused_assign_reduce n={n} k={k} ({regime(k, d)}) f32: "
-          f"kernel {ms:.4f} ms (ppt={out['ppt']} acc={out['acc']} "
-          f"slices={out['slices']}; {extra}), min_dist {md_ms:.4f} ms, "
-          f"bound {bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)"
-          + (f", replaced kernel {before:.4f} ms ({before / ms:.2f}x)"
-             if before else ""),
-          flush=True)
-    return out
+          f"kernel {ms:.4f} ms ({launch}), min_dist {md_ms:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)", flush=True)
+    before = REPLACED_MS.get((n, k))
+    if before is not None:
+        print(f"recorded fused_assign_reduce n={n} k={k}: the replaced "
+              f"kernel's time {before:.4f} ms (PERF.md, not this run) is "
+              f"{before / ms:.2f}x this run's {ms:.4f} ms", flush=True)
+    return dict(shape=f"n={n} d={d} k={k}", launch=launch, ms=ms,
+                min_dist_ms=md_ms, bound_ms=bnd, bound_by=by,
+                share_of_bound=bnd / ms)
 
 
 def lloyd_phase(ops, ref, rows) -> None:
@@ -701,7 +686,7 @@ def lloyd_phase(ops, ref, rows) -> None:
             plain_ms = timed_ms(lambda: ref.fused_assign_reduce_ref(
                 x32, ones, c), reps=5)
             lib_ms = timed_ms(lambda: torch.cdist(x32, c), reps=5)
-            timing = time_lloyd(ops, x32, c, variants=False)
+            timing = time_lloyd(ops, x32, c)
             timing.update(regime=reg, replaces=REGIME_REPLACES[reg],
                           plain_ms=plain_ms, library_ms=None,
                           yardstick="torch.cdist", yardstick_ms=lib_ms,
@@ -721,9 +706,8 @@ def lloyd_phase(ops, ref, rows) -> None:
 def dispatch_phase(ops, ref, rows) -> None:
     """The Lloyd kernel at DISPATCH_SHAPES (d = 15): held in three dtypes,
     with and without the mask, with zero weights and a same-bits repeat
-    (check_fused), then timed with every launch shape (time_lloyd) beside
-    min_dist and the kernels it replaced. With few centers it is also
-    held with the warp accumulators off, at 8 points a thread."""
+    (check_fused), then timed (time_lloyd) beside min_dist and the
+    kernels it replaced."""
     gen = torch.Generator("cuda").manual_seed(5)
     out = []
     for n, k in DISPATCH_SHAPES:
@@ -745,15 +729,12 @@ def dispatch_phase(ops, ref, rows) -> None:
             check(all(float(t.abs().max()) == 0.0 for t in zero),
                   f"fused_assign_reduce n={n} k={k} {dt}: zero weights")
             del x
-        if k * (DIM + 1) <= 1024:
-            check_fused(ops, ref, x32, w, c, cv, repeat=True, ppt=8,
-                        acc="global")
         print(f"check fused_assign_reduce n={n} k={k} (3 dtypes, mask "
               f"and none, zero weights): argmin = min_dist's, sums and "
               f"counts = the fixed-point emulation, repeat=same bits, "
               f"plain version within the tie slack and its own float32 "
               f"error", flush=True)
-        out.append(time_lloyd(ops, x32, c, variants=True))
+        out.append(time_lloyd(ops, x32, c))
         del x32, c, cv, w
     rows["fused_assign_reduce"]["dispatch"] = out
     torch.cuda.empty_cache()
@@ -804,9 +785,10 @@ def check_sensitivity(ops, ref, x, w, c, cv):
     shares its distance code: the same assignment and scores bit for bit)
     and a float64 sum of the masses and cost, then against its plain
     version: scores within tol·w, the cost within FUSED_RTOL plus the d2
-    slack, each mass within the weight of the near-tie points assigned
-    differently plus the plain mass's own float32 error. A repeat call
-    gives the same bits."""
+    slack, each mass within FUSED_RTOL of a float64 sum over the plain
+    version's assignment plus the weight of the near-tie points assigned
+    differently (as in check_fused). A repeat call gives the same
+    bits."""
     tol = d2_tol(x, c)
     k = c.shape[0]
     out = ops.sensitivity_scores(x, w, c, cv)
@@ -843,18 +825,14 @@ def check_sensitivity(ops, ref, x, w, c, cv):
     slack = torch.zeros(k, dtype=torch.float64, device=x.device)
     for a in (asg[moved].long(), asg_p[moved].long()):
         slack.index_add_(0, a, wd[moved])
-    # the plain masses' own float32 error (an index_add whose atomic order
-    # changes from run to run), measured against float64 on its own
-    # assignment: the kernel is not held to it
-    own = (mass_p.double() - torch.zeros(
-        k, dtype=torch.float64, device=x.device).index_add_(
-            0, asg_p.long(), wd)).abs()
-    m_err = (mass.double() - mass_p.double()).abs()
-    check(bool((m_err <= FUSED_RTOL * mass_p.double().abs() + slack + own
-                + 1e-6).all()),
-          f"sensitivity_scores mass off the plain version beyond the tie "
-          f"slack (largest {float(m_err.max())})")
-    return max(s_err, c_err, float(m_err.max())), tol, int(moved.numel())
+    m64_p = torch.zeros(k, dtype=torch.float64, device=x.device
+                        ).index_add_(0, asg_p.long(), wd)
+    e = (mass.double() - m64_p).abs()
+    check(bool((e <= FUSED_RTOL * m64_p + slack + 1e-6).all()),
+          f"sensitivity_scores mass off the plain version's assignment "
+          f"beyond the tie slack (largest {float(e.max())})")
+    m_err = float((mass.double() - mass_p.double()).abs().max())
+    return max(s_err, c_err, m_err), tol, int(moved.numel())
 
 
 def check_truncated(ops, ref, x3, w2, c, cv, v):
@@ -1449,12 +1427,10 @@ def main() -> None:
     from repro_torch.configs.soccer_paper import SoccerParams
     from repro_torch.kernels import build, ops, ref
 
-    ptxas = build.start_ptxas_report("fused_assign.cu")
     secs = build.build_all()
     print(f"build: {len(build.SOURCES)} sources in {secs:.2f} s", flush=True)
-    log, _ = ptxas.communicate()
-    check(ptxas.returncode == 0, f"nvcc -Xptxas -v failed:\n{log}")
-    print_ptxas(log)
+    check(print_ptxas(build.build_log("fused_assign.cu")) > 0,
+          "the build's nvcc log names no fused_assign_kernel variant")
 
     p = N_POINTS // MACHINES
     consts = [derive_constants(N_POINTS, p, SoccerParams(k=k, epsilon=e))

@@ -5,7 +5,9 @@ into its own shared library with a plain C interface, loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds, not minutes.
 Libraries go into ``build/repro_torch/`` at the repository root (listed
 in ``.gitignore``), named by a hash of the sources and the flags, so an
-edited kernel is rebuilt and an unchanged one is loaded as it is.
+edited kernel is rebuilt and an unchanged one is loaded as it is. Each
+library's nvcc output (``-Xptxas -v``: every kernel's registers, shared
+memory and spills) is kept beside it, read by :func:`build_log`.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine with no ``nvcc`` and no card. A library is built the
@@ -31,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("min_dist.cu", "fused_lloyd.cu", "fused_assign.cu", "lloyd.cu",
            "sensitivity.cu", "truncated.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # points per block of every kernel (csrc/common.cuh: rt::kThreads)
 BLOCK_POINTS = 256
@@ -96,6 +98,7 @@ def build_all(sources: Sequence[str] = SOURCES) -> float:
                 tmp.unlink(missing_ok=True)
                 failed.append(f"nvcc failed on {s}:\n{log}")
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)   # atomic: a concurrent build sees
                                        # all of the library or none
     if failed:
@@ -103,18 +106,9 @@ def build_all(sources: Sequence[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def start_ptxas_report(source: str) -> subprocess.Popen:
-    """Start one nvcc of ``source`` to a throw-away cubin with ``-Xptxas
-    -v``: its output names each kernel's registers, shared memory and
-    spills. Read it with ``communicate()``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
-                                                "-fPIC")]
-    out = BUILD_DIR / f"{Path(source).stem}-ptxas.cubin"
-    return subprocess.Popen([_nvcc(), *flags, "-cubin", "-Xptxas", "-v",
-                             "-o", str(out), str(CSRC / source)],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+def build_log(source: str) -> str:
+    """nvcc's output from building the library of ``source``."""
+    return library_path(source).with_suffix(".log").read_text()
 
 
 def load(source: str) -> ctypes.CDLL:

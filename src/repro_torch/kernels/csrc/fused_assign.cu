@@ -23,7 +23,7 @@
 //
 // 1. The walk (common.cuh: nearest_blocked). Each thread owns P points
 //    (the wrapper's rule: 4 where the walk dominates, 2 with few centers
-//    or d > 16; 8 is accepted for measurement), so each center row read
+//    or d > 16; 8 measured no faster than 4), so each center row read
 //    from shared memory feeds P·16 FMAs, and its ||c||^2 is read once for
 //    the P points; an invalid center carries ||c||^2 = +inf, so the walk
 //    has no validity load and no branch. One point a thread spent about
@@ -61,6 +61,10 @@
 //    formed: the one extra read of x), the walk, and the finalize (fixed
 //    point to float32, and the fixed-order sum of the per-tile cost
 //    partials: one float a tile, the same bits every run).
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include "common.cuh"
 
 namespace rt {
@@ -81,9 +85,9 @@ __host__ __device__ inline size_t acc_smem(int mode, long long entries) {
 }
 
 // Blocks an SM, by the registers P points take: 3 at P = 2 (80
-// registers), 2 at P = 4 (128), 1 at P = 8.
+// registers), 2 at P = 4 (128).
 template <typename T, int DR, int P>
-__global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : P <= 4 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
     fused_assign_kernel(const T* __restrict__ x, long long n, int d,
                         const float* __restrict__ w,
                         const float* __restrict__ c,
@@ -266,32 +270,55 @@ inline Scratch scratch_layout(long long n, int d, int k, long long tiles,
   return s;
 }
 
+// What a launch of one walk instance needs that does not change between
+// calls, set or queried once, not on every call: per device, the
+// shared-memory limit (only ever raised, to the largest size asked for
+// so far); per (device, shared-memory size), the blocks an SM holds.
+struct LaunchCache {
+  std::mutex mu;
+  std::map<int, size_t> smem_limit;
+  std::map<std::pair<int, size_t>, int> per_sm;
+};
+
 template <typename T, int DR, int P>
 cudaError_t launch_walk(const T* x, long long n, int d, const float* w,
                         const float* c, const uint8_t* cv, int k, int slices,
-                        int mode, unsigned char* base, const Scratch& sc,
-                        long long tiles, int* assign_out, cudaStream_t s) {
+                        int mode, int sms, unsigned char* base,
+                        const Scratch& sc, long long tiles, int* assign_out,
+                        cudaStream_t s) {
+  static LaunchCache cache;
   const int slice = (k + slices - 1) / slices;
   const TileShape ts = tile_shape(d, DR, slice);
   const size_t smem = acc_smem(mode, (long long)k * (d + 1)) + ts.smem;
   auto kern = fused_assign_kernel<T, DR, P>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  {
+    std::lock_guard<std::mutex> lock(cache.mu);
+    const auto key = std::make_pair(dev, smem);
+    const auto hit = cache.per_sm.find(key);
+    if (hit != cache.per_sm.end()) {
+      per_sm = hit->second;
+    } else {
+      size_t& limit = cache.smem_limit[dev];
+      if (smem > limit) {
+        e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+        limit = smem;
+      }
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kThreads, smem);
+      if (e != cudaSuccess) return e;
+      cache.per_sm[key] = per_sm;
+    }
+  }
   // one tile a block when the center axis is split, else as many
   // persistent blocks as the SMs hold at once
   long long grid = tiles;
   if (slices == 1) {
-    int dev = 0, sms = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) {
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (e != cudaSuccess) return e;
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      kThreads, smem);
-    if (e != cudaSuccess) return e;
     const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
     grid = tiles < resident ? tiles : resident;
   }
@@ -308,21 +335,22 @@ cudaError_t launch_walk(const T* x, long long n, int d, const float* w,
 
 // One Lloyd step. out holds k*d + k + 1 floats: the (k, d) sums, the (k,)
 // counts, then the cost. scratch holds scratch_bytes bytes laid out as
-// rt::scratch_layout says, for `ppt` points a thread (2, 4 or 8) over
+// rt::scratch_layout says, for `ppt` points a thread (2 or 4) over
 // tiles = max(ceil(n / (256·ppt)), 1) point tiles and `slices` center
-// slices. mode is an rt::AccMode: where the groups' totals go. assign_out,
-// when not NULL, receives the (n,)
-// argmin (a check's hook; the step itself needs none).
+// slices. mode is an rt::AccMode: where the groups' totals go; sms is the
+// card's SM count (the persistent grid is that many times the blocks an
+// SM holds). assign_out, when not NULL, receives the (n,) argmin (a
+// check's hook; the step itself needs none).
 extern "C" int rt_fused_assign_reduce(const void* x, int dtype, long long n,
                                       int d, const float* w, const float* c,
                                       const uint8_t* cv, int k, int ppt,
-                                      int slices, int mode,
+                                      int slices, int mode, int sms,
                                       void* scratch, long long scratch_bytes,
                                       int* assign_out, float* out,
                                       void* stream) {
   using namespace rt;
   const cudaStream_t s = (cudaStream_t)stream;
-  if ((ppt != 2 && ppt != 4 && ppt != 8) || slices < 1 || k < 1 ||
+  if ((ppt != 2 && ppt != 4) || slices < 1 || k < 1 || sms < 1 ||
       mode < kGlobalAcc || mode > kWarpAcc ||
       (mode == kWarpAcc && (long long)k * (d + 1) > kWarpAccEntries)) {
     return (int)cudaErrorInvalidValue;
@@ -344,17 +372,11 @@ extern "C" int rt_fused_assign_reduce(const void* x, int dtype, long long n,
     const cudaError_t e1 = cudaGetLastError();
     if (e1 != cudaSuccess) return e1;
     const T* xt = (const T*)x;
-    switch (ppt) {
-      case 2:
-        return launch_walk<T, DR, 2>(xt, n, d, w, c, cv, k, slices,
-                                     mode, base, sc, tiles, assign_out, s);
-      case 4:
-        return launch_walk<T, DR, 4>(xt, n, d, w, c, cv, k, slices,
-                                     mode, base, sc, tiles, assign_out, s);
-      default:
-        return launch_walk<T, DR, 8>(xt, n, d, w, c, cv, k, slices,
-                                     mode, base, sc, tiles, assign_out, s);
-    }
+    return ppt == 2
+               ? launch_walk<T, DR, 2>(xt, n, d, w, c, cv, k, slices, mode,
+                                       sms, base, sc, tiles, assign_out, s)
+               : launch_walk<T, DR, 4>(xt, n, d, w, c, cv, k, slices, mode,
+                                       sms, base, sc, tiles, assign_out, s);
   });
   if (e != cudaSuccess) return (int)e;
   fused_finalize_kernel<<<grid_for((long long)k * (d + 1)), kThreads, 0, s>>>(

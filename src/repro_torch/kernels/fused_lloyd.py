@@ -42,7 +42,7 @@ UPDATE_MIN_DIST = CudaKernel(
     [_P, _I, _L, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P])
 FUSED_ASSIGN_REDUCE = CudaKernel(
     "fused_assign.cu", "rt_fused_assign_reduce",
-    [_P, _I, _L, _I, _P, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P, _P])
+    [_P, _I, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P])
 
 # The Lloyd step's launch shape (csrc/fused_assign.cu says why): the
 # fewest centers a slice of the center axis takes; the point tiles below
@@ -172,8 +172,6 @@ def update_min_dist_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
 def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,
                              c: torch.Tensor,
                              c_valid: Optional[torch.Tensor] = None, *,
-                             ppt: Optional[int] = None,
-                             acc: Optional[str] = None,
                              assign_out: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
@@ -183,10 +181,8 @@ def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,
     The sums and counts are exact fixed-point integer sums rounded once to
     float32 (``ref.fixed_point_reduce_ref`` reproduces them bit for bit
     from the argmin), so a call gives the same bits on every run. Finite
-    inputs only. ``ppt`` (2, 4 or 8 points a thread; None:
-    ``points_per_thread``) and ``acc`` (a key of ACC_MODES; None:
-    ``acc_mode``) are tuning knobs. ``assign_out``, an (n,) int32 CUDA
-    tensor, receives the argmin, for checks.
+    inputs only. ``assign_out``, an (n,) int32 CUDA tensor, receives the
+    argmin, for checks.
     """
     if x.dim() != 2:
         raise ValueError(f"fused_assign_reduce: points must be (n, d), got "
@@ -200,25 +196,18 @@ def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,
                   assign_out=assign_out)
     if k == 0:
         raise ValueError("fused_assign_reduce: no centers")
-    ppt = points_per_thread(k, d) if ppt is None else ppt
-    if ppt not in (2, 4, 8):
-        raise ValueError(f"fused_assign_reduce: ppt must be 2, 4 or 8, got "
-                         f"{ppt}")
     if assign_out is not None and (assign_out.shape != (n,)
                                    or assign_out.dtype != torch.int32):
         raise ValueError(f"fused_assign_reduce: assign_out must be ({n},) "
                          f"int32")
-    acc = acc_mode(k, d) if acc is None else acc
-    if acc not in ACC_MODES or (acc == "warp"
-                                and k * (d + 1) > WARP_ACC_ENTRIES):
-        raise ValueError(f"fused_assign_reduce: accumulators {acc!r} do "
-                         f"not take k·(d + 1) = {k * (d + 1)} entries")
-    slices = center_slices(n, k, _sm_count(x.device), ppt)
+    ppt = points_per_thread(k, d)
+    sms = _sm_count(x.device)
+    slices = center_slices(n, k, sms, ppt)
     nbytes = scratch_bytes(n, d, k, ppt, slices)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
     out = torch.empty((k * d + k + 1,), dtype=torch.float32, device=x.device)
     FUSED_ASSIGN_REDUCE(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(cf),
-                        ptr(cv), k, ppt, slices, ACC_MODES[acc],
-                        ptr(scratch), nbytes, ptr(assign_out), ptr(out),
+                        ptr(cv), k, ppt, slices, ACC_MODES[acc_mode(k, d)],
+                        sms, ptr(scratch), nbytes, ptr(assign_out), ptr(out),
                         stream_of(x))
     return out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k]

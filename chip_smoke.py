@@ -116,9 +116,11 @@ REGIME_REPLACES = {"resident": "src/repro/kernels/fused_lloyd.py:138",
 # (n, d, k) of the weighing checks: k-means‖ row 1's weighing (one
 # machine's 1.25 M points, 1 + 5·166 rows), row 2's at k = 100 (1 + 5·616
 # rows), EIM11's clustering at n = 1 M (12·14,438 rows) on a point subset,
-# and the conformance grid's k beyond 1024.
+# the conformance grid's k beyond 1024, and a shape where min_dist splits
+# the center axis into 8 slices (n <= 20,000, k >= 4,096).
 LLOYD_SHAPES = ((1_250_000, DIM, 831), (1_250_000, DIM, 3_081),
-                (65_536, DIM, 173_256), (20_000, DIM, 1025), (20_000, 33, 2100))
+                (65_536, DIM, 173_256), (20_000, DIM, 1025), (20_000, 33, 2100),
+                (20_000, DIM, 4_096))
 # (n, k) at d = 15 also held and timed with every launch shape: SOCCER's
 # coordinator calls at both Table 2 rows, k-means‖ row 1's weighing, 1024
 # centers at that n, and few centers at that n (where atomics meet on few
@@ -134,6 +136,25 @@ REPLACED_MS = {(17_353, 103): 0.0967, (80_585, 190): 0.2411,
                (1_250_000, 831): 10.3226, (1_250_000, 1024): 12.5924,
                (1_250_000, 4): 0.1178, (1_250_000, 25): 0.3523,
                (1_250_000, 3_081): 5.2671, (65_536, 173_256): 18.9260}
+# Float32 times, ms, of min_dist and remove_below on one point a thread
+# (rt::nearest), recorded on the same card model before they moved onto
+# the register-blocked walk (PERF.md §6, PR 14's chip run; NVIDIA H100
+# 80GB HBM3, 700 W): min_dist by (n, k) at d = 15, remove_below by
+# (m, p, k). Printed beside this run's times on lines of their own, never
+# in the JSON line.
+MIN_DIST_BEFORE_MS = {(17_353, 103): 0.0260, (80_585, 190): 0.0323,
+                      (1_250_000, 831): 1.3794, (1_250_000, 1024): 1.7045,
+                      (1_250_000, 3_081): 5.0892,
+                      (65_536, 173_256): 18.9917, (1_250_000, 4): 0.0360,
+                      (1_250_000, 25): 0.0597}
+REMOVE_BELOW_BEFORE_MS = {(8, 1_250_000, 103): 1.4190,
+                          (8, 1_250_000, 190): 2.5446,
+                          (8, 125_000, 1_111): 1.4963}
+# fit_profile's device time, ms, and calls of the same kernels in a fit,
+# recorded before: EIM11 n = 1 M's min_dist (PR 12's chip run) and SOCCER
+# k = 1000's remove_below (PR 14's), same card model
+PROFILE_BEFORE = {("eim11", "min_dist_kernel"): (436.8, 12),
+                  ("soccer", "remove_below_kernel"): (14.5, 1)}
 EIM11_N, EIM11_K = 1_000_000, 25
 # The coreset and robust tier (ROADMAP Queue 1 items 11-13): the paper's §8
 # mixture at n = 10 M, k = 25, with 2% isotropic gross outliers at 50x the
@@ -165,16 +186,25 @@ SOCCER_CORESET_KERNELS = SOCCER_KERNELS + ("sensitivity_scores",)
 SOCCER_WIDE_KERNELS = SOCCER_KERNELS
 
 
-def print_ptxas(log: str) -> int:
-    """One line a variant of the Lloyd kernel from ``nvcc -Xptxas -v``:
-    (point type, register row length DR, points a thread P), registers,
-    spill stores and loads. Returns the number of variants printed."""
+# the kernels on the register-blocked walk, whose instances print_ptxas
+# reads from the build's own nvcc log: (source, kernel)
+WALK_KERNELS = (("fused_assign.cu", "fused_assign_kernel"),
+                ("min_dist.cu", "min_dist_kernel"),
+                ("fused_lloyd.cu", "remove_below_kernel"))
+
+
+def print_ptxas(log: str, kernel: str) -> int:
+    """One line a variant of ``kernel`` (one of WALK_KERNELS) from ``nvcc
+    -Xptxas -v``: (point type, register row length DR, points a thread P),
+    registers, spill stores and loads. Returns the number of variants
+    printed."""
     import re
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     name, printed = None, 0
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_ZN2rt19fused_assign_kernelI"
-                      r"(f|13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '_ZN2rt\d+" + kernel
+                      + r"I(f|13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)E",
+                      line)
         if m:
             name = f"{types[m.group(1)]} DR={m.group(2)} P={m.group(3)}"
             spills = "spills not reported"
@@ -187,8 +217,8 @@ def print_ptxas(log: str) -> int:
             spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            print(f"ptxas fused_assign_kernel {name}: {m.group(1)} registers,"
-                  f" {spills}", flush=True)
+            print(f"ptxas {kernel} {name}: {m.group(1)} registers, {spills}",
+                  flush=True)
             name, printed = None, printed + 1
     return printed
 
@@ -397,12 +427,22 @@ def fused_line(errs, t_c, moved) -> str:
 
 
 def check_remove_below(ops, ref, x, c, alive, v, cv):
+    """remove_below exactly against min_dist's own d2 (the two share the
+    walk: the mask is ``alive & (d2 > v)`` bit for bit and the counts are
+    its row sums), then against its plain version, which may decide the
+    points within tol of v the other way."""
     m, p, d = x.shape
     tol = d2_tol(x.reshape(m * p, d)[:1_000_000], c)
     a_k, l_k = ops.remove_below(x, c, alive, v, cv)
+    d2_m, _ = ops.min_dist(x.reshape(m * p, d), c, cv)
+    want = alive & (d2_m.reshape(m, p) > v)
+    check(torch.equal(a_k, want),
+          f"remove_below's mask differs from alive & (min_dist's d2 > v) at "
+          f"{int((a_k != want).sum())} points")
+    check(torch.equal(l_k, want.sum(1, dtype=torch.int32)),
+          "remove_below counts differ from the mask's row sums")
+    del d2_m, want
     a_p, _ = ref.remove_below_ref(x, c, alive, v, cv)
-    check(torch.equal(l_k, a_k.sum(1, dtype=torch.int32)),
-          "remove_below counts disagree with its own mask")
     flips = (a_k != a_p).nonzero()
     err = 0.0
     if flips.numel():
@@ -486,9 +526,19 @@ def kernel_phase(ops, ref, consts):
                     print(f"check remove_below m={MACHINES} "
                           f"p={N_POINTS // MACHINES} k={kp} {dt} "
                           f"v={float(v):.4g}"
-                          f" mask={mask is not None} flips={nflip} "
-                          f"max_abs_err={err:.3g} tol={tol:.3g}")
+                          f" mask={mask is not None} exact=min_dist's "
+                          f"flips={nflip} max_abs_err={err:.3g} "
+                          f"tol={tol:.3g}")
             del xm
+        # no valid center: +inf and index 0, and nothing removed
+        none = torch.zeros(kp, dtype=torch.bool, device=dev)
+        xs = x_all[:, :20_000]
+        d2n, idxn = ops.min_dist(xs.reshape(-1, DIM), c, none)
+        an, ln = ops.remove_below(xs, c, alive[:, :20_000], v_mid, none)
+        check(bool(torch.isinf(d2n).all()) and int(idxn.abs().max()) == 0
+              and torch.equal(an, alive[:, :20_000])
+              and torch.equal(ln, an.sum(1, dtype=torch.int32)),
+              "min_dist / remove_below with no valid center")
         torch.cuda.synchronize()
 
     # times at every main-path shape (float32), row 1 kept for the JSON line
@@ -538,7 +588,24 @@ def kernel_phase(ops, ref, consts):
             bnd, by = bound_ms(nbytes, flops)
             print(f"time {name} {shape} f32: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, torch.cdist {lib_ms:.4f} ms, bound "
-                  f"{bnd:.4f} ms ({by})")
+                  f"{bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)")
+            before = (MIN_DIST_BEFORE_MS.get((eta, kp)) if name == "min_dist"
+                      else REMOVE_BELOW_BEFORE_MS.get(
+                          (MACHINES, N_POINTS // MACHINES, kp))
+                      if name == "remove_below" else None)
+            if before is not None:
+                print(f"recorded {name} {shape}: one point a thread "
+                      f"{before:.4f} ms (PERF.md, PR 14, not this run); "
+                      f"this run {ms:.4f} ms ({before / ms:.2f}x)")
+            if name == "remove_below":
+                xf = x_all.reshape(-1, DIM)
+                md_ms = timed_ms(lambda: ops.min_dist(xf, c))
+                print(f"time remove_below {shape} vs min_dist on the same "
+                      f"{N_POINTS} points and {kp} centers: {ms:.4f} vs "
+                      f"{md_ms:.4f} ms ({ms / md_ms:.3f}x)")
+                if ci == 0:
+                    rows[name].update(min_dist_ms=md_ms)
+                del xf
             if ci == 0:
                 rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                                   bound_by=by, library_ms=None,
@@ -611,13 +678,28 @@ def lloyd_bound(n: int, d: int, k: int):
                     2.0 * n * k * d + 2.0 * n * d)
 
 
+def min_dist_bound(n: int, d: int, k: int):
+    """min_dist's bound: points and centers read once, the (n,) d2 and
+    argmin written once; 2·n·k·d float32 operations."""
+    return bound_ms(n * d * 4 + k * d * 4 + n * 8, 2.0 * n * k * d)
+
+
+def min_dist_launch(n: int, d: int, k: int) -> str:
+    from repro_torch.kernels import walk
+    ppt = walk.points_per_thread(d)
+    sms = walk.sm_count(torch.device("cuda"))
+    return f"ppt={ppt} slices={walk.center_slices(n, k, sms, ppt)}"
+
+
 def time_lloyd(ops, x32, c):
     """Float32 times at one shape, every center valid and unit weights, as
-    the weighing passes run: the kernel and the min_dist kernel on the
-    same inputs, beside the bound. Returns the dict for the JSON line and
-    prints one line, then the replaced kernels' recorded time
-    (REPLACED_MS) on a line of its own."""
+    the weighing passes run: the Lloyd kernel and the min_dist kernel on
+    the same inputs, each beside its bound. Returns the dict for the JSON
+    line and prints one line for each, then the replaced kernels' and
+    min_dist's recorded times (REPLACED_MS, MIN_DIST_BEFORE_MS) on lines
+    of their own."""
     from repro_torch.kernels import fused_lloyd as fl
+    from repro_torch.kernels import walk
     n, d = x32.shape
     k = c.shape[0]
     ones = torch.ones(n, device="cuda")
@@ -626,27 +708,43 @@ def time_lloyd(ops, x32, c):
     md_ms = timed_ms(lambda: ops.min_dist(x32, c))
     ppt = fl.points_per_thread(k, d)
     launch = (f"ppt={ppt} acc={fl.acc_mode(k, d)} slices="
-              f"{fl.center_slices(n, k, fl._sm_count(x32.device), ppt)}")
+              f"{walk.center_slices(n, k, walk.sm_count(x32.device), ppt)}")
     bnd, by = lloyd_bound(n, d, k)
+    md_bnd, md_by = min_dist_bound(n, d, k)
     print(f"time fused_assign_reduce n={n} k={k} ({regime(k, d)}) f32: "
           f"kernel {ms:.4f} ms ({launch}), min_dist {md_ms:.4f} ms, bound "
           f"{bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)", flush=True)
+    print(f"time min_dist n={n} k={k} f32: {md_ms:.4f} ms "
+          f"({min_dist_launch(n, d, k)}), bound {md_bnd:.4f} ms ({md_by}; "
+          f"{100 * md_bnd / md_ms:.1f}% of it, aim 50%: "
+          f"{'met' if md_bnd / md_ms >= 0.5 else 'missed'}); the Lloyd "
+          f"kernel on the same inputs {ms:.4f} ms: min_dist "
+          f"{'no slower' if md_ms <= ms else 'slower'} "
+          f"({md_ms / ms:.3f}x)", flush=True)
     before = REPLACED_MS.get((n, k))
     if before is not None:
         print(f"recorded fused_assign_reduce n={n} k={k}: the replaced "
               f"kernel's time {before:.4f} ms (PERF.md, not this run) is "
               f"{before / ms:.2f}x this run's {ms:.4f} ms", flush=True)
+    before = MIN_DIST_BEFORE_MS.get((n, k))
+    if before is not None:
+        print(f"recorded min_dist n={n} k={k}: one point a thread "
+              f"{before:.4f} ms (PERF.md, PR 14, not this run); this run "
+              f"{md_ms:.4f} ms ({before / md_ms:.2f}x)", flush=True)
     return dict(shape=f"n={n} d={d} k={k}", launch=launch, ms=ms,
                 min_dist_ms=md_ms, bound_ms=bnd, bound_by=by,
-                share_of_bound=bnd / ms)
+                share_of_bound=bnd / ms, min_dist_bound_ms=md_bnd,
+                min_dist_share_of_bound=md_bnd / md_ms)
 
 
 def lloyd_phase(ops, ref, rows) -> None:
     """The Lloyd kernel at LLOYD_SHAPES, in three dtypes, with invalid
     centers and zero weights (check_fused, with a same-bits repeat;
-    all-zero weights give exact zeros); min_dist at 173,256 centers on the
-    same points; the weighing shapes timed (time_lloyd). The three TPU
-    regimes' timings go on the kernel's JSON row."""
+    all-zero weights give exact zeros; its argmin equals min_dist's);
+    min_dist against its plain version on the same points (float32 only
+    at 173,256 centers); the weighing shapes timed (time_lloyd). The
+    three TPU regimes' timings go on the kernel's JSON row, min_dist's
+    beside them on its own."""
     gen = torch.Generator("cuda").manual_seed(3)
     name = "fused_assign_reduce"
     regimes = []
@@ -669,6 +767,15 @@ def lloyd_phase(ops, ref, rows) -> None:
                       f"mask={mask is not None} "
                       + fused_line(errs, t_c, moved)
                       + " repeat=same bits", flush=True)
+                if n * k <= 10 ** 9:     # min_dist, split or not
+                    err, tol = check_min_dist(ops, ref, x, c, mask)
+                    rows["min_dist"]["max_abs_err"] = max(
+                        rows["min_dist"]["max_abs_err"], err)
+                    print(f"check min_dist n={n} d={d} k={k} "
+                          f"({min_dist_launch(n, d, k)}) {dt} mask="
+                          f"{mask is not None} max_abs_err={err:.3g} "
+                          f"tol={tol:.3g}; argmin = the Lloyd kernel's "
+                          f"assign_out", flush=True)
             zero = ops.fused_assign_reduce(x, torch.zeros_like(w), c, cv)
             check(all(float(t.abs().max()) == 0.0 for t in zero),
                   f"{name} k={k} {dt}: zero weights")
@@ -679,7 +786,8 @@ def lloyd_phase(ops, ref, rows) -> None:
                 err, tol = check_min_dist(ops, ref, x32, c, mask)
                 rows["min_dist"]["max_abs_err"] = max(
                     rows["min_dist"]["max_abs_err"], err)
-                print(f"check min_dist n={n} k={k} mask={mask is not None} "
+                print(f"check min_dist n={n} k={k} "
+                      f"({min_dist_launch(n, d, k)}) mask={mask is not None} "
                       f"max_abs_err={err:.3g} tol={tol:.3g}", flush=True)
         if n >= 65_536:                  # the weighing shapes
             ones = torch.ones(n, device="cuda")
@@ -694,6 +802,11 @@ def lloyd_phase(ops, ref, rows) -> None:
             print(f"time {name} n={n} k={k} plain {plain_ms:.4f} ms, "
                   f"torch.cdist {lib_ms:.4f} ms", flush=True)
             regimes.append(timing)
+            rows["min_dist"].setdefault("weighing", []).append(dict(
+                shape=timing["shape"], ms=timing["min_dist_ms"],
+                bound_ms=timing["min_dist_bound_ms"],
+                share_of_bound=timing["min_dist_share_of_bound"],
+                lloyd_ms=timing["ms"], launch=min_dist_launch(n, d, k)))
             del ones
         del x32, c, cv, w
     check({r["regime"] for r in regimes} == set(REGIME_REPLACES),
@@ -1030,8 +1143,8 @@ def tier_phase(ops, ref, rows) -> None:
                 wide_err = max(wide_err, err)
                 print(f"check remove_below m={m} p={p} k={k} {dt} "
                       f"v={float(v):.4g} mask={mask is not None} "
-                      f"flips={nflip} max_abs_err={err:.3g} tol={tol:.3g}",
-                      flush=True)
+                      f"exact=min_dist's flips={nflip} max_abs_err="
+                      f"{err:.3g} tol={tol:.3g}", flush=True)
         del x
     note("remove_below", wide_err)
     ones = torch.ones((m, p), dtype=torch.bool, device=dev)
@@ -1041,11 +1154,21 @@ def tier_phase(ops, ref, rows) -> None:
                        m * p * d * 4 + 2 * m * p + k * d * 4 + 4 + m * 4,
                        2.0 * m * p * k * d,
                        f"remove_below m={m} p={p} k={k}", "torch.cdist")
+    xf = x32.reshape(m * p, d)
+    md_ms = timed_ms(lambda: ops.min_dist(xf, c))
+    print(f"time remove_below m={m} p={p} k={k} vs min_dist on the same "
+          f"{m * p} points and {k} centers: {t['ms']:.4f} vs {md_ms:.4f} ms "
+          f"({t['ms'] / md_ms:.3f}x); share of the bound "
+          f"{100 * t['bound_ms'] / t['ms']:.1f}%", flush=True)
+    before = REMOVE_BELOW_BEFORE_MS[(m, p, k)]
+    print(f"recorded remove_below m={m} p={p} k={k}: one point a thread "
+          f"{before:.4f} ms (PERF.md, PR 14, not this run); this run "
+          f"{t['ms']:.4f} ms ({before / t['ms']:.2f}x)", flush=True)
     rows["remove_below"]["beyond_resident"] = dict(
         replaces=REMOVE_CHUNKED_REPLACES, library_ms=None,
         yardstick="torch.cdist", yardstick_ms=lib_ms, max_abs_err=wide_err,
-        **t)
-    del x32, alive, ones
+        min_dist_ms=md_ms, **t)
+    del x32, alive, ones, xf
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1228,10 +1351,10 @@ def table2_phase(api, KERNELS, k, eps, per_fit):
     return x, means, res, cost
 
 
-def eim11_phase(api, KERNELS, per_fit) -> None:
+def eim11_phase(api, KERNELS, per_fit):
     """EIM11 at n = 1 M, k = 25 against the claims of
     tests/test_baselines.py, with SOCCER on the same data for the
-    broadcast comparison."""
+    broadcast comparison. Returns the fit's sample size s and rounds."""
     from repro_torch.core.eim11 import sample_sizes
     n, k = EIM11_N, EIM11_K
     x, means = mixture(n, k)
@@ -1257,6 +1380,71 @@ def eim11_phase(api, KERNELS, per_fit) -> None:
     check(bcast > 20 * soc_bcast,
           f"EIM11 broadcast {bcast} <= 20x SOCCER's {soc_bcast}")
     check(res.centers.shape == (k, DIM), "EIM11 centers not (k, d)")
+    return s, res.rounds
+
+
+def eim11_sweep_phase(ops, ref, rows, s: int, rounds: int) -> None:
+    """min_dist at the two largest sweeps of the EIM11 fit above, from its
+    own sample size s and rounds: its last round's second sample (s rows,
+    core/eim11.py:95) and all m·p points (:98), each against the
+    clustering of that round (rounds·s rows). Held against the plain
+    version (float32, every center valid) and timed beside its bound and
+    the Lloyd kernel on the same inputs."""
+    gen = torch.Generator("cuda").manual_seed(8)
+    k = rounds * s
+    c = torch.rand((k, DIM), generator=gen, device="cuda")
+    out = []
+    for what, n in (("s2 sample (eim11.py:95)", s),
+                    ("all points (eim11.py:98)", EIM11_N)):
+        x = torch.rand((n, DIM), generator=gen, device="cuda")
+        err, tol = check_min_dist(ops, ref, x, c, None)
+        rows["min_dist"]["max_abs_err"] = max(rows["min_dist"]["max_abs_err"],
+                                              err)
+        ones = torch.ones(n, device="cuda")
+        ms = timed_ms(lambda: ops.min_dist(x, c), reps=5)
+        lloyd_ms = timed_ms(lambda: ops.fused_assign_reduce(x, ones, c),
+                            reps=5)
+        bnd, by = min_dist_bound(n, DIM, k)
+        launch = min_dist_launch(n, DIM, k)
+        print(f"time min_dist EIM11 {what} n={n} k={k} f32: {ms:.4f} ms "
+              f"({launch}), bound {bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% "
+              f"of it); the Lloyd kernel on the same inputs {lloyd_ms:.4f} "
+              f"ms ({ms / lloyd_ms:.3f}x); check max_abs_err={err:.3g} "
+              f"tol={tol:.3g}", flush=True)
+        out.append(dict(shape=f"n={n} d={DIM} k={k}", sweep=what, ms=ms,
+                        bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+                        lloyd_ms=lloyd_ms, launch=launch))
+        del x, ones
+    rows["min_dist"]["eim11_sweeps"] = out
+    del c
+    torch.cuda.empty_cache()
+
+
+def profile_phase(rows) -> None:
+    """fit_profile's device time of the kernels this walk moved, in the
+    fits where they cost most: min_dist in EIM11 at n = 1 M, remove_below
+    in SOCCER at k = 1000; each beside its time recorded before
+    (PROFILE_BEFORE), on a line of its own."""
+    from repro_torch import fit_profile
+    for algo, k, n, kernel, row in (
+            ("eim11", EIM11_K, EIM11_N, "min_dist_kernel", "min_dist"),
+            ("soccer", K_WIDE, N_POINTS, "remove_below_kernel",
+             "remove_below")):
+        prof = fit_profile.profile_fit(k, n, algo=algo, top=60)
+        hits = [r for r in prof["top"] if f"rt::{kernel}<" in r["name"]]
+        ms = sum(r["device_ms"] for r in hits)
+        calls = sum(r["calls"] for r in hits)
+        check(calls > 0, f"fit_profile {algo}: no {kernel} in the trace")
+        before_ms, before_calls = PROFILE_BEFORE[(algo, kernel)]
+        print(f"profile {algo} k={k} n={n}: {kernel} {ms:.1f} ms of device "
+              f"time in {calls} calls; fit wall {prof['wall_s']:.3f} s, "
+              f"device busy {prof['device_busy_s']:.3f} s", flush=True)
+        print(f"recorded profile {algo} k={k} n={n}: {kernel} "
+              f"{before_ms} ms in {before_calls} calls (PERF.md, one point "
+              f"a thread, not this run)", flush=True)
+        rows[row][f"{algo}_k{k}_profile"] = dict(
+            device_ms=ms, calls=calls, wall_s=prof["wall_s"],
+            device_busy_s=prof["device_busy_s"])
 
 
 def coreset_phase(api, KERNELS, x, means, soc, soc_cost, per_fit) -> None:
@@ -1429,8 +1617,9 @@ def main() -> None:
 
     secs = build.build_all()
     print(f"build: {len(build.SOURCES)} sources in {secs:.2f} s", flush=True)
-    check(print_ptxas(build.build_log("fused_assign.cu")) > 0,
-          "the build's nvcc log names no fused_assign_kernel variant")
+    for source, kernel in WALK_KERNELS:
+        check(print_ptxas(build.build_log(source), kernel) > 0,
+              f"the build's nvcc log names no {kernel} variant")
 
     p = N_POINTS // MACHINES
     consts = [derive_constants(N_POINTS, p, SoccerParams(k=k, epsilon=e))
@@ -1448,11 +1637,13 @@ def main() -> None:
                                            per_fit)
     for k, eps in TABLE2[1:]:
         table2_phase(api, ops.KERNELS, k, eps, per_fit)
-    eim11_phase(api, ops.KERNELS, per_fit)
+    eim11_s, eim11_rounds = eim11_phase(api, ops.KERNELS, per_fit)
+    eim11_sweep_phase(ops, ref, rows, eim11_s, eim11_rounds)
     coreset_phase(api, ops.KERNELS, x, means, soc, soc_cost, per_fit)
     robust_phase(api, ops.KERNELS, x, means, per_fit)
     del x, soc
     wide_phase(api, ops.KERNELS, per_fit)
+    profile_phase(rows)
 
     # launches: the fits together, each counted from 0;
     # launches_per_fit: each fit's own count

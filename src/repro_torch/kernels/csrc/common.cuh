@@ -1,10 +1,15 @@
 // Shared device code of the port's clustering kernels (sm_90a).
 //
-// Every kernel here answers "which valid center is nearest to this point"
-// for one point per thread (nearest) or P points per thread
-// (nearest_blocked, the Lloyd step), with the center set streamed through
-// shared memory in tiles. The distance is the expanded form the JAX reference
-// uses (repro/kernels/ref.py:43 and :72):
+// Every kernel here answers "which valid center is nearest to this point",
+// with the center set streamed through shared memory in tiles, in one of
+// two walks of the same per-point arithmetic (bit for bit):
+//   nearest          one point a thread: update_min_dist, sensitivity_scores,
+//                    truncated_cost;
+//   nearest_split    P points a thread (nearest_blocked), the center axis
+//                    optionally split over blocks: the Lloyd step
+//                    (fused_assign.cu), min_dist and remove_below.
+// The distance is the expanded form the JAX reference uses
+// (repro/kernels/ref.py:43 and :72):
 //
 //     d2 = max(min_j(||c_j||^2 - 2 x.c_j) + ||x||^2, 0)
 //
@@ -258,6 +263,73 @@ __device__ __forceinline__ void nearest_blocked(
       }
     }
   }
+}
+
+// ------------------------------------ the walk with the center axis split
+// nearest_blocked over all k centers for one tile of the thread's P
+// points, the center axis split into `slices` slices of `slice` centers
+// over blocks: block s of the tile walks [s·slice, (s + 1)·slice). With
+// one slice the walk is the whole result and no scratch is touched (the
+// scratch pointers may be NULL). With more, each block writes its
+// per-slice (best, arg) to row s of the (slices, n) scratch ws_best /
+// ws_arg, and the last of the tile's blocks to finish (a counter a tile,
+// tile_done, zeroed before the launch) combines the slices in slice order
+// with a strict <: the first-index argmin of one sequential walk, so the
+// split changes no bit. Returns true (uniformly over the block) in the
+// block that holds the tile's combined (best, arg). Every thread of the
+// block must call this.
+template <typename T, int DR, int P>
+__device__ __forceinline__ bool nearest_split(
+    const Rows<T, DR, P>& r, long long n, int d, const float* __restrict__ c,
+    const uint8_t* __restrict__ cv, int k, int slice, int s, int slices,
+    long long tile, int kt, float* smem, unsigned* __restrict__ tile_done,
+    float* __restrict__ ws_best, int* __restrict__ ws_arg,
+    float (&best)[P], int (&arg)[P]) {
+  const int j_lo = min(k, s * slice);
+  const int j_hi = min(k, j_lo + slice);
+  nearest_blocked<T, DR, P>(r, d, c, cv, j_lo, j_hi, kt, smem, best, arg);
+  if (slices == 1) return true;
+  const long long off = (long long)s * n;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (r.active[p]) {
+      ws_best[off + r.idx[p]] = best[p];
+      ws_arg[off + r.idx[p]] = arg[p];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ int last;
+  if (threadIdx.x == 0) {
+    last = atomicAdd(tile_done + tile, 1u) == (unsigned)slices - 1;
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    best[p] = INFINITY;
+    arg[p] = 0;
+    if (!r.active[p]) continue;
+    for (int q = 0; q < slices; ++q) {
+      const float b = __ldcg(ws_best + (long long)q * n + r.idx[p]);
+      if (b < best[p]) {
+        best[p] = b;
+        arg[p] = __ldcg(ws_arg + (long long)q * n + r.idx[p]);
+      }
+    }
+  }
+  return true;
+}
+
+inline size_t round8(size_t b) { return (b + 7) / 8 * 8; }
+
+// Point tiles of kThreads·P points over n (at least 1), the grid's x axis
+// of every nearest_split kernel.
+inline long long point_tiles(long long n, int ppt) {
+  const long long t = (n + (long long)kThreads * ppt - 1) /
+                      ((long long)kThreads * ppt);
+  return t > 1 ? t : 1;
 }
 
 // Fixed-order block sum (warp shuffles, then one warp over the warp

@@ -49,13 +49,14 @@
 //    each walking tiles of 256·P points in turn). When the tiles cannot
 //    fill the SMs (the wrapper's rule: fewer than 4 an SM), the center
 //    axis is split into S slices of at least 512 centers over grid.y,
-//    S chosen to fill the last wave. Each block walks one slice for its
-//    tile and writes a per-slice (best, arg) (the (S, n) scratch: the only
-//    place the (n,) argmin reaches device memory, 5.2 MB at EIM11's
-//    65,536 points and S = 10). The last block of a tile to finish (a
-//    counter a tile) combines the slices in slice order with a strict <,
-//    which is the first-index argmin of one sequential walk, and then
-//    reduces the tile.
+//    S chosen to fill the last wave (common.cuh: nearest_split, shared
+//    with min_dist). Each block walks one slice for its tile and writes a
+//    per-slice (best, arg) (the (S, n) scratch: the only place the (n,)
+//    argmin reaches device memory, 5.2 MB at EIM11's 65,536 points and
+//    S = 10). The last block of a tile to finish (a counter a tile)
+//    combines the slices in slice order with a strict <, which is the
+//    first-index argmin of one sequential walk, and then reduces the
+//    tile.
 // 4. Launches: one memset (accumulators, bound, tile counters), the bound
 //    pass (the shift needs max |w| and max |x| before any term is
 //    formed: the one extra read of x), the walk, and the finalize (fixed
@@ -115,8 +116,6 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
   const Shifts sh = shifts(bound, n);
   const double scx = ldexp(1.0, sh.x);
   const double scw = ldexp(1.0, sh.w);
-  const int j_lo = min(k, (int)blockIdx.y * slice);
-  const int j_hi = min(k, j_lo + slice);
 
   // A group total v at entry e of the accumulators (0 adds nothing).
   auto put = [&](long long e, unsigned long long v) {
@@ -135,40 +134,10 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
     const Rows<T, DR, P> r(x, n, d, tile * (kThreads * P) + threadIdx.x);
     float best[P];
     int arg[P];
-    nearest_blocked<T, DR, P>(r, d, c, cv, j_lo, j_hi, kt, tile_smem, best,
-                              arg);
-
-    if (gridDim.y > 1) {
-      const long long off = (long long)blockIdx.y * n;
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        if (r.active[p]) {
-          ws_best[off + r.idx[p]] = best[p];
-          ws_arg[off + r.idx[p]] = arg[p];
-        }
-      }
-      __threadfence();
-      __syncthreads();
-      __shared__ int last;
-      if (threadIdx.x == 0) {
-        last = atomicAdd(tile_done + tile, 1u) == gridDim.y - 1;
-      }
-      __syncthreads();
-      if (!last) continue;                     // uniform over the block
-      __threadfence();
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        best[p] = INFINITY;
-        arg[p] = 0;
-        if (!r.active[p]) continue;
-        for (unsigned s = 0; s < gridDim.y; ++s) {
-          const float b = __ldcg(ws_best + (long long)s * n + r.idx[p]);
-          if (b < best[p]) {
-            best[p] = b;
-            arg[p] = __ldcg(ws_arg + (long long)s * n + r.idx[p]);
-          }
-        }
-      }
+    if (!nearest_split<T, DR, P>(r, n, d, c, cv, k, slice, blockIdx.y,
+                                 gridDim.y, tile, kt, tile_smem, tile_done,
+                                 ws_best, ws_arg, best, arg)) {
+      continue;                                // uniform over the block
     }
 
     float cost = 0.f;
@@ -245,8 +214,6 @@ __global__ void __launch_bounds__(kThreads)
     if (threadIdx.x == 0) out[k * d + k] = s;
   }
 }
-
-inline size_t round8(size_t b) { return (b + 7) / 8 * 8; }
 
 // The scratch layout, in bytes from its start (the wrapper allocates one
 // buffer of `total` bytes; kernels/fused_lloyd.py::scratch_bytes mirrors
@@ -355,9 +322,7 @@ extern "C" int rt_fused_assign_reduce(const void* x, int dtype, long long n,
       (mode == kWarpAcc && (long long)k * (d + 1) > kWarpAccEntries)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long tiles =
-      n > 0 ? (n + (long long)kThreads * ppt - 1) / ((long long)kThreads * ppt)
-            : 1;
+  const long long tiles = point_tiles(n, ppt);
   const Scratch sc = scratch_layout(n, d, k, tiles, slices);
   if ((long long)sc.total > scratch_bytes) return (int)cudaErrorInvalidValue;
   unsigned char* base = (unsigned char*)scratch;

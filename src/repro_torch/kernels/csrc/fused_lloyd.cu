@@ -16,19 +16,24 @@ namespace rt {
 
 // ---------------------------------------------------------------- removal
 // Replaces repro/kernels/fused_lloyd.py::remove_below_pallas (pallas_call
-// at fused_lloyd.py:305).
+// at fused_lloyd.py:305) and remove_below_chunked_pallas (:789).
 //
 // Bound: on the main path it sweeps all m·p = 10 M points (600 MB of
-// float32) against k_plus = 103 centers at d = 15: ~33 GFLOP of float32
+// float32) against k_plus = 103 centers at d = 15: ~31 GFLOP of float32
 // FMAs against 0.6 GB, about 50 flop/byte, so it is bound by float32
-// operations (~0.5 ms at 67 TFLOP/s) rather than by the 0.2 ms the bytes
-// need. Design: the min_dist sweep (common.cuh) over a grid of (point
-// block, machine); the threshold v is read through a device pointer, so
-// the host never waits for it; each block counts its survivors with
-// __syncthreads_count and adds them to its machine's int32 count with one
-// atomicAdd. The (m, p) distance array never exists.
-template <typename T, int DR>
-__global__ void __launch_bounds__(kThreads)
+// operations (0.46 ms at 67 TFLOP/s) rather than by the 0.18 ms the bytes
+// need. Design: min_dist's register-blocked walk (common.cuh:
+// nearest_split, one slice: the 10 M points fill the card in every
+// cell) over a grid of (point tile, machine), P points a thread; the
+// threshold v is read through a device pointer, so the host never waits
+// for it; each block counts its survivors (one __syncthreads_count per
+// point slot of the thread, summed) and adds them to its machine's int32
+// count with one atomicAdd. The (m, p) distance array never exists. Each
+// point's d2 is min_dist's to the bit, so the mask is exactly
+// alive & (min_dist's d2 > v). Blocks an SM, from ptxas: 110 registers
+// at P = 4 (d <= 16), so 2; 72 at P = 2 (any d), so 3.
+template <typename T, int DR, int P>
+__global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
     remove_below_kernel(const T* __restrict__ x, long long p, int d,
                         const float* __restrict__ c,
                         const uint8_t* __restrict__ cv, int k, int kt,
@@ -37,21 +42,26 @@ __global__ void __launch_bounds__(kThreads)
                         uint8_t* __restrict__ alive_new,
                         int* __restrict__ live) {
   extern __shared__ __align__(16) float smem[];
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = (long long)blockIdx.y * p + i;
-  const bool active = i < p;
+  const long long base = (long long)blockIdx.y * p;
+  const long long tile = blockIdx.x;
+  const Rows<T, DR, P> r(x + base * d, p, d,
+                         tile * (kThreads * P) + threadIdx.x);
+  float best[P];
+  int arg[P];
+  nearest_split<T, DR, P>(r, p, d, c, cv, k, k, 0, 1, tile, kt, smem,
+                          nullptr, nullptr, nullptr, best, arg);
   const float vv = *v;
-  float best, x2;
-  int arg;
-  bool any_valid;
-  nearest<T, DR>(x + (active ? row : 0) * d, active, d, c, cv, k, kt, smem,
-                 best, arg, x2, any_valid);
-  int keep = 0;
-  if (active) {
-    keep = alive[row] && clamp0(best + x2) > vv;   // strict >, as ref.py
-    alive_new[row] = (uint8_t)keep;
+  int n_keep = 0;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    int keep = 0;
+    if (r.active[q]) {
+      const long long row = base + r.idx[q];
+      keep = alive[row] && clamp0(best[q] + r.x2[q]) > vv;  // strict >
+      alive_new[row] = (uint8_t)keep;
+    }
+    n_keep += __syncthreads_count(keep);
   }
-  const int n_keep = __syncthreads_count(keep);
   if (threadIdx.x == 0 && n_keep) atomicAdd(live + blockIdx.y, n_keep);
 }
 
@@ -97,12 +107,27 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) part[blockIdx.x] = s;
 }
 
+template <typename T, int DR, int P>
+cudaError_t launch_remove_below(const T* x, int m, long long p, int d,
+                                const float* c, const uint8_t* cv, int k,
+                                const float* v, const uint8_t* alive,
+                                uint8_t* alive_new, int* live,
+                                cudaStream_t s) {
+  const TileShape ts = tile_shape(d, DR, k);
+  const dim3 grid((unsigned)point_tiles(p, P), (unsigned)m);
+  return launch(remove_below_kernel<T, DR, P>, grid, ts.smem, s, x, p, d, c,
+                cv, k, ts.kt, v, alive, alive_new, live);
+}
+
 }  // namespace rt
 
+// ppt is the points a thread (kernels/walk.py::points_per_thread), which
+// must be the kernel's own P for the width.
 extern "C" int rt_remove_below(const void* x, int dtype, int m, long long p,
                                int d, const float* c, const uint8_t* cv,
-                               int k, const float* v, const uint8_t* alive,
-                               uint8_t* alive_new, int* live, void* stream) {
+                               int k, int ppt, const float* v,
+                               const uint8_t* alive, uint8_t* alive_new,
+                               int* live, void* stream) {
   using namespace rt;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(live, 0, sizeof(int) * (size_t)m, s);
@@ -110,11 +135,11 @@ extern "C" int rt_remove_below(const void* x, int dtype, int m, long long p,
   return (int)dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int DR = decltype(dr)::value;
-    const TileShape ts = tile_shape(d, DR, k);
+    constexpr int P = DR > 0 ? 4 : 2;  // rows in registers, or re-read
+    if (ppt != P) return cudaErrorInvalidValue;
     if (m == 0 || p == 0) return cudaGetLastError();
-    const dim3 grid((unsigned)blocks_for(p), (unsigned)m);
-    return launch(remove_below_kernel<T, DR>, grid, ts.smem, s, (const T*)x,
-                  p, d, c, cv, k, ts.kt, v, alive, alive_new, live);
+    return launch_remove_below<T, DR, P>((const T*)x, m, p, d, c, cv, k, v,
+                                         alive, alive_new, live, s);
   });
 }
 

@@ -6,57 +6,110 @@
 // center panels and drives the cross term through the MXU.
 //
 // What bounds it on the H100: the work is 2·n·k·d float32 operations on
-// n·d inputs, i.e. about k/2 operations per byte of points read. On the
-// main path (P2 of eta ~ 17 k rows against k_plus = 103 centers, d = 15)
-// that is ~50 flop/byte, above the card's float32 ridge of 67 TFLOP/s over
-// 3.35 TB/s (~20 flop/byte), so it is bound by float32 operations, and at
-// 17 k points (68 blocks) it fills only half the card and is launch-bound
-// in practice.
+// n·d inputs, i.e. about k/2 operations per byte of points read, above
+// the card's float32 ridge of 67 TFLOP/s over 3.35 TB/s (~20 flop/byte)
+// from k ≈ 40 up: bound by float32 operations at every shape that costs
+// time (k-means‖'s 1.25 M × 831 and 3,081 rows: 0.466 and 1.725 ms;
+// EIM11's sweeps of 1 M points against a clustering that grows by
+// 14,438 rows a round). At SOCCER's coordinator shapes (17 k points ×
+// 103 centers) it is bound by its launch and the host.
 //
-// Design: one thread per point, the point's row in registers, the center
-// set streamed through shared memory in 32 KB tiles with ||c||^2 and the
-// validity mask staged beside it; every thread reads the same center row,
-// so shared-memory reads are float4 broadcasts and each costs one
-// instruction per four FMAs. Nothing is carried between blocks, so blocks
-// run in any order. A tensor-core (wgmma) cross term is a later step.
+// Design: the register-blocked walk shared with the Lloyd step
+// (common.cuh: nearest_split). Each thread owns P points (4 at d <= 16,
+// their rows in registers; 2 at any other d, rows re-read from L1), so
+// each center row read from shared memory as float4 broadcasts feeds
+// P·16 FMAs, and an invalid center carries ||c||^2 = +inf (no validity
+// load, no branch). When the point tiles cannot fill the card (EIM11's
+// 14,438-row sample against its whole clustering) the center axis is
+// split over grid.y into slices of at least 512 centers, and the last
+// block of each tile combines the per-slice (best, arg) in slice order.
+// Per point the arithmetic is rt::nearest's to the bit, so the d2 and
+// argmin are those of the kernels still on one point a thread. With one
+// slice a call is one launch and touches no scratch.
 #include "common.cuh"
 
 namespace rt {
 
-template <typename T, int DR>
-__global__ void __launch_bounds__(kThreads)
+// Blocks an SM, from the registers ptxas gives each instance (nvcc
+// -Xptxas -v, printed by chip_smoke.py): 118 at P = 4 (d <= 16), so 2
+// blocks of 256 threads; 80 at P = 2 (any d), so 3. Forcing 3 blocks at
+// P = 4 caps it at 80 registers and spills (0.9243 -> 1.1427 ms at
+// 1.25 M × 831, PERF.md).
+template <typename T, int DR, int P>
+__global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
     min_dist_kernel(const T* __restrict__ x, long long n, int d,
                     const float* __restrict__ c,
-                    const uint8_t* __restrict__ cv, int k, int kt,
+                    const uint8_t* __restrict__ cv, int k, int kt, int slice,
+                    unsigned* __restrict__ tile_done,
+                    float* __restrict__ ws_best, int* __restrict__ ws_arg,
                     float* __restrict__ d2, int* __restrict__ idx) {
   extern __shared__ __align__(16) float smem[];
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = i < n;
-  float best, x2;
-  int arg;
-  bool any_valid;
-  nearest<T, DR>(x + (active ? i : 0) * d, active, d, c, cv, k, kt, smem,
-                 best, arg, x2, any_valid);
-  if (active) {
-    d2[i] = clamp0(best + x2);
-    idx[i] = arg;
+  const long long tile = blockIdx.x;
+  const Rows<T, DR, P> r(x, n, d, tile * (kThreads * P) + threadIdx.x);
+  float best[P];
+  int arg[P];
+  if (!nearest_split<T, DR, P>(r, n, d, c, cv, k, slice, blockIdx.y,
+                               gridDim.y, tile, kt, smem, tile_done, ws_best,
+                               ws_arg, best, arg)) {
+    return;
   }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (r.active[p]) {
+      d2[r.idx[p]] = clamp0(best[p] + r.x2[p]);
+      idx[r.idx[p]] = arg[p];
+    }
+  }
+}
+
+template <typename T, int DR, int P>
+cudaError_t launch_min_dist(const T* x, long long n, int d, const float* c,
+                            const uint8_t* cv, int k, int slices,
+                            unsigned char* scratch, float* d2, int* idx,
+                            cudaStream_t s) {
+  const long long tiles = point_tiles(n, P);
+  const int slice = (k + slices - 1) / slices;
+  const TileShape ts = tile_shape(d, DR, slice);
+  unsigned* done = nullptr;
+  float* ws_best = nullptr;
+  int* ws_arg = nullptr;
+  if (slices > 1) {
+    const size_t ws = round8((size_t)slices * n * 4);
+    done = (unsigned*)scratch;
+    ws_best = (float*)(scratch + round8((size_t)tiles * 4));
+    ws_arg = (int*)((unsigned char*)ws_best + ws);
+    const cudaError_t e = cudaMemsetAsync(done, 0, (size_t)tiles * 4, s);
+    if (e != cudaSuccess) return e;
+  }
+  return launch(min_dist_kernel<T, DR, P>,
+                dim3((unsigned)tiles, (unsigned)slices), ts.smem, s, x, n, d,
+                c, cv, k, ts.kt, slice, done, ws_best, ws_arg, d2, idx);
 }
 
 }  // namespace rt
 
+// ppt is the points a thread, slices the center slices (the wrapper's
+// rules: kernels/walk.py); ppt must be the kernel's own P for the width,
+// which the tiles and the scratch depend on. With slices > 1, scratch holds
+// kernels/walk.py::split_scratch_bytes bytes: the tile counters, then the
+// (slices, n) per-slice best and arg; with one slice it may be NULL.
 extern "C" int rt_min_dist(const void* x, int dtype, long long n, int d,
-                           const float* c, const uint8_t* cv, int k,
-                           float* d2, int* idx, void* stream) {
+                           const float* c, const uint8_t* cv, int k, int ppt,
+                           int slices, void* scratch, float* d2, int* idx,
+                           void* stream) {
   using namespace rt;
+  if (slices < 1 || (slices > 1 && !scratch)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  unsigned char* base = (unsigned char*)scratch;
   return (int)dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int DR = decltype(dr)::value;
-    const TileShape ts = tile_shape(d, DR, k);
+    constexpr int P = DR > 0 ? 4 : 2;  // rows in registers, or re-read
+    if (ppt != P) return cudaErrorInvalidValue;
     if (n == 0) return cudaGetLastError();
-    const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
-    return launch(min_dist_kernel<T, DR>, grid, ts.smem,
-                  (cudaStream_t)stream, (const T*)x, n, d, c, cv, k, ts.kt,
-                  d2, idx);
+    return launch_min_dist<T, DR, P>((const T*)x, n, d, c, cv, k, slices,
+                                     base, d2, idx, s);
   });
 }

@@ -5,7 +5,8 @@ which replace the kernels of ``repro/kernels/fused_lloyd.py``:
 
 * ``remove_below_cuda`` — SOCCER's removal over (m, p, d) shards: min-d2,
   the strict ``> v`` compare, the alive-mask update and per-machine live
-  counts in one sweep (replaces ``remove_below_pallas``);
+  counts in one sweep, on ``min_dist``'s register-blocked walk (replaces
+  ``remove_below_pallas`` and ``remove_below_chunked_pallas``);
 * ``update_min_dist_cuda`` — one D²-seeding step: ``min(d2, d2(x, c))``
   and the weighted mass ``sum w·d2_new`` (replaces
   ``update_min_dist_pallas`` and its pipelined big-n twin);
@@ -27,16 +28,17 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import (BLOCK_POINTS, CudaKernel, blocks,
-                                       check_on_card, dtype_code, ptr,
-                                       stream_of, vector_f32)
+from repro_torch.kernels import walk
+from repro_torch.kernels.build import (CudaKernel, blocks, check_on_card,
+                                       dtype_code, ptr, stream_of,
+                                       vector_f32)
 from repro_torch.kernels.min_dist import center_mask, centers_f32
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 REMOVE_BELOW = CudaKernel(
     "fused_lloyd.cu", "rt_remove_below",
-    [_P, _I, _I, _L, _I, _P, _P, _I, _P, _P, _P, _P, _P])
+    [_P, _I, _I, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P])
 UPDATE_MIN_DIST = CudaKernel(
     "fused_lloyd.cu", "rt_update_min_dist",
     [_P, _I, _L, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P])
@@ -44,43 +46,11 @@ FUSED_ASSIGN_REDUCE = CudaKernel(
     "fused_assign.cu", "rt_fused_assign_reduce",
     [_P, _I, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P])
 
-# The Lloyd step's launch shape (csrc/fused_assign.cu says why): the
-# fewest centers a slice of the center axis takes; the point tiles below
-# which the center axis is split, a multiple of the SMs; the accumulator
-# entries (k·(d + 1)) up to which each warp keeps its sums in shared
-# memory (csrc/fused_assign.cu: AccMode).
-MIN_SLICE = 512
-FILL_PER_SM = 4
+# The Lloyd step's accumulator entries (k·(d + 1)) up to which each warp
+# keeps its sums in shared memory (csrc/fused_assign.cu: AccMode); the
+# walk's launch shape is kernels/walk.py's.
 WARP_ACC_ENTRIES = 1024
 ACC_MODES = {"global": 0, "warp": 1}
-
-_SMS: dict = {}
-
-
-def lloyd_tiles(n: int, ppt: int) -> int:
-    """Point tiles of BLOCK_POINTS·ppt points over ``n`` (at least 1)."""
-    return max(-(-n // (BLOCK_POINTS * ppt)), 1)
-
-
-def center_slices(n: int, k: int, sms: int, ppt: int) -> int:
-    """Slices of the center axis: 1 when the point tiles reach FILL_PER_SM
-    blocks an SM; else, from the fewest slices that do up to twice as
-    many, the count whose blocks fill their last wave of ``sms`` best,
-    each slice of at least MIN_SLICE centers (EIM11's 65,536 × 173,256 at
-    4 points a thread: 64 tiles, 10 slices)."""
-    tiles = lloyd_tiles(n, ppt)
-    want = FILL_PER_SM * sms
-    top = k // MIN_SLICE
-    if tiles >= want or top < 2:
-        return 1
-    lo = -(-want // tiles)
-    best, waste = 1, None
-    for s in range(min(lo, top), min(2 * lo, top) + 1):
-        blocks = tiles * s
-        w = -(-blocks // sms) * sms / blocks
-        if waste is None or w < waste - 1e-9:
-            best, waste = s, w
-    return best
 
 
 def acc_mode(k: int, d: int) -> str:
@@ -90,11 +60,9 @@ def acc_mode(k: int, d: int) -> str:
 
 
 def points_per_thread(k: int, d: int) -> int:
-    """4 points a thread where the walk dominates (d <= 16, rows in
-    registers, beyond the warp accumulators), else 2: with few centers the
-    reduce dominates, and at d > 16 each point's row is re-read for every
-    center."""
-    return 4 if d <= 16 and acc_mode(k, d) == "global" else 2
+    """The walk's points a thread (``walk.points_per_thread``) beyond the
+    warp accumulators, else 2: with few centers the reduce dominates."""
+    return walk.points_per_thread(d) if acc_mode(k, d) == "global" else 2
 
 
 def scratch_bytes(n: int, d: int, k: int, ppt: int, slices: int) -> int:
@@ -104,17 +72,9 @@ def scratch_bytes(n: int, d: int, k: int, ppt: int, slices: int) -> int:
     with more than one slice, the (slices, n) per-slice (best, arg)."""
     def r8(b):
         return -(-b // 8) * 8
-    tiles = lloyd_tiles(n, ppt)
+    tiles = walk.point_tiles(n, ppt)
     ws = r8(slices * n * 4) if slices > 1 else 0
     return k * (d + 1) * 8 + 8 + 2 * r8(tiles * 4) + 2 * ws
-
-
-def _sm_count(device: torch.device) -> int:
-    key = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if key not in _SMS:
-        _SMS[key] = torch.cuda.get_device_properties(key).multi_processor_count
-    return _SMS[key]
 
 
 def remove_below_cuda(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,
@@ -140,8 +100,8 @@ def remove_below_cuda(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,
     alive_new = torch.empty((m, p), dtype=torch.bool, device=x.device)
     live = torch.empty((m,), dtype=torch.int32, device=x.device)
     REMOVE_BELOW(ptr(x), dtype_code(x), m, p, d, ptr(cf), ptr(cv),
-                 cf.shape[0], ptr(vt), ptr(alive), ptr(alive_new), ptr(live),
-                 stream_of(x))
+                 cf.shape[0], walk.points_per_thread(d), ptr(vt), ptr(alive),
+                 ptr(alive_new), ptr(live), stream_of(x))
     return alive_new, live
 
 
@@ -201,8 +161,8 @@ def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"fused_assign_reduce: assign_out must be ({n},) "
                          f"int32")
     ppt = points_per_thread(k, d)
-    sms = _sm_count(x.device)
-    slices = center_slices(n, k, sms, ppt)
+    sms = walk.sm_count(x.device)
+    slices = walk.center_slices(n, k, sms, ppt)
     nbytes = scratch_bytes(n, d, k, ppt, slices)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
     out = torch.empty((k * d + k + 1,), dtype=torch.float32, device=x.device)

@@ -290,3 +290,101 @@ def test_cuda_remove_below_beyond_resident(dt):
         flips = (a != a_p).reshape(-1)
         if bool(flips.any()):
             assert float((d2_p[flips] - v).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,d,k,split", [
+    (3_001, 15, 300, False), (5_000, 15, 4_096, True),
+    (1_999, 37, 1_500, True), (1_501, 513, 1_100, True),
+    (2_049, 15, 1_023, False)],
+    ids=["one_slice", "split", "split_any_width", "split_wide_d",
+         "one_slice_ragged"])
+def test_cuda_min_dist_blocked_walk(n, d, k, split, dt):
+    """min_dist on the register-blocked walk at its boundaries: one center
+    slice and several (the center axis split when the point tiles cannot
+    fill the card), ragged tails (n not a multiple of 256·P), d = 15
+    (rows in registers), 37 and 513 (rows re-read), with and without a
+    mask, and with no valid center (+inf and index 0, as ref.py). Held
+    against the plain version at test_cuda_kernels_match_plain's
+    tolerance, and its argmin against the Lloyd kernel's assign_out bit
+    for bit (the same walk and arithmetic)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    from repro_torch.kernels import walk
+    from repro_torch.kernels.fused_lloyd import fused_assign_reduce_cuda
+    _, x, c, cv, w = _inputs(6, n, d, k, dt)
+    ppt = walk.points_per_thread(d)
+    assert n % (256 * ppt) != 0
+    slices = walk.center_slices(n, k, walk.sm_count(x.device), ppt)
+    assert (slices > 1) == split
+    tol = _d2_tol(x, c)
+    xf = x.float()
+    none = torch.zeros(k, dtype=torch.bool, device="cuda")
+    for mask in (None, cv, none):
+        before = ops.KERNELS["min_dist"].launches
+        d2, idx = ops.min_dist(x, c, mask)
+        assert ops.KERNELS["min_dist"].launches == before + 1
+        if mask is none:
+            assert bool(torch.isinf(d2).all()) and int(idx.abs().max()) == 0
+            continue
+        d2_p, _ = ref.min_dist_ref(x, c, mask)
+        torch.testing.assert_close(d2, d2_p, rtol=0, atol=tol)
+        ci = c[idx.long()]               # argmin through the realized d2
+        real = torch.clamp((xf * xf).sum(-1) - 2 * (xf * ci).sum(-1)
+                           + (ci * ci).sum(-1), min=0)
+        torch.testing.assert_close(real, d2_p, rtol=0, atol=2 * tol)
+        if mask is not None:
+            assert bool(mask[idx.long()].all())
+        own = torch.empty_like(idx)
+        fused_assign_reduce_cuda(x, w, c, mask, assign_out=own)
+        assert torch.equal(own, idx)
+        again = ops.min_dist(x, c, mask)
+        assert torch.equal(again[0], d2) and torch.equal(again[1], idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("m,p,d,k", [(3, 1_000, 15, 103),
+                                     (2, 2_049, 15, 1_111),
+                                     (3, 777, 37, 300),
+                                     (2, 1_001, 513, 190)],
+                         ids=["main_path", "beyond_resident_ragged",
+                              "any_width", "wide_d"])
+def test_cuda_remove_below_blocked_walk(m, p, d, k, dt):
+    """remove_below on the register-blocked walk, P points a thread over a
+    grid of (point tile, machine), at ragged tails (p not a multiple of
+    the tile), d = 15, 37 and 513, with and without a mask and with no
+    valid center (nothing removed): the mask is exactly alive & (min_dist's
+    d2 > v), the strict > with v one of the d2 values, the counts are the
+    mask's row sums, and against the plain version only points within
+    tol of v flip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    from repro_torch.kernels import walk
+    g, x, c, cv, _ = _inputs(7, m * p, d, k, dt)
+    assert p % (256 * walk.points_per_thread(d)) != 0
+    tol = _d2_tol(x, c)
+    alive = torch.rand((m, p), device="cuda", generator=g) > 0.1
+    xs = x.reshape(m, p, d)
+    none = torch.zeros(k, dtype=torch.bool, device="cuda")
+    for mask in (None, cv, none):
+        d2, _ = ops.min_dist(x, c, mask)
+        v = (torch.median(d2) if mask is not none
+             else torch.tensor(0.5, device="cuda"))
+        before = ops.KERNELS["remove_below"].launches
+        a, live = ops.remove_below(xs, c, alive, v, mask)
+        assert ops.KERNELS["remove_below"].launches == before + 1
+        assert torch.equal(a, alive & (d2.reshape(m, p) > v))
+        assert torch.equal(live, a.sum(1, dtype=torch.int32))
+        if mask is none:
+            assert torch.equal(a, alive)
+            continue
+        assert bool((d2 == v).any())     # a point exactly at v is removed
+        a_p, _ = ref.remove_below_ref(xs, c, alive, v, mask)
+        d2_p, _ = ref.min_dist_ref(x, c, mask)
+        flips = (a != a_p).reshape(-1)
+        if bool(flips.any()):
+            assert float((d2_p[flips] - v).abs().max()) <= tol

@@ -27,6 +27,7 @@ from repro_torch.kernels import lloyd as tlloyd
 from repro_torch.kernels import min_dist as tmin
 from repro_torch.kernels import sensitivity as tsens
 from repro_torch.kernels import truncated as ttrunc
+from repro_torch.kernels import walk as twalk
 
 # xdist runs one worker per core: with torch's default of one intra-op
 # thread per core in every worker, the pools contend and small ops run
@@ -490,21 +491,59 @@ def test_lloyd_launch_shape_rules():
     assert tfused.acc_mode(63, 15) == "warp"
     assert tfused.acc_mode(65, 15) == "global"
     # EIM11's clustering on 132 SMs: 64 tiles of 1,024 points, 10 slices
-    assert tfused.lloyd_tiles(65_536, 4) == 64
-    s = tfused.center_slices(65_536, 173_256, 132, 4)
-    assert s == 10 and 173_256 // s >= tfused.MIN_SLICE
+    assert twalk.point_tiles(65_536, 4) == 64
+    s = twalk.center_slices(65_536, 173_256, 132, 4)
+    assert s == 10 and 173_256 // s >= twalk.MIN_SLICE
     # the weighing shapes and SOCCER's coordinator fill the card unsplit
-    assert tfused.center_slices(1_250_000, 831, 132, 4) == 1
-    assert tfused.center_slices(991_418, 1_111, 132, 4) == 1
+    assert twalk.center_slices(1_250_000, 831, 132, 4) == 1
+    assert twalk.center_slices(991_418, 1_111, 132, 4) == 1
     # too few centers to split
-    assert tfused.center_slices(3_000, 1_000, 132, 4) == 1
-    assert tfused.center_slices(3_000, 2_100, 132, 4) == 4
+    assert twalk.center_slices(3_000, 1_000, 132, 4) == 1
+    assert twalk.center_slices(3_000, 2_100, 132, 4) == 4
     for n, d, k, p, sl in ((65_536, 15, 173_256, 4, 10), (0, 15, 3, 2, 1),
                            (3_000, 33, 2_100, 2, 4)):
-        tiles = tfused.lloyd_tiles(n, p)
+        tiles = twalk.point_tiles(n, p)
         ws = 2 * (-(-sl * n * 4 // 8) * 8) if sl > 1 else 0
         assert tfused.scratch_bytes(n, d, k, p, sl) == (
             k * (d + 1) * 8 + 8 + 2 * (-(-tiles * 4 // 8) * 8) + ws)
+
+
+@pytest.mark.parametrize("n,d,k,ppt,slices", [
+    (17_353, 15, 103, 4, 1),        # SOCCER's coordinator: launch-bound
+    (1_250_000, 15, 3_081, 4, 1),   # k-means‖'s weighing fills the card
+    (1_000_000, 15, 86_628, 4, 1),  # EIM11's largest sweep of x
+    (14_438, 15, 86_628, 4, 44),    # EIM11's largest s2 sweep: 15 tiles
+    (20_000, 15, 4_096, 4, 8),      # n <= 20,000, k >= 4,096
+    (20_000, 37, 4_096, 2, 8),      # any width: 2 points a thread
+    (3_000, 513, 1_023, 2, 1),      # too few centers for two slices
+], ids=["coordinator", "weighing", "eim11_x", "eim11_s2", "split",
+        "split_any_width", "one_slice_small_k"])
+def test_walk_launch_shape_rules(n, d, k, ppt, slices):
+    """min_dist's and remove_below's launch shape (kernels/walk.py, the
+    rules the Lloyd step uses): 4 points a thread at d <= 16, else 2; the
+    center axis split into slices of >= 512 centers only when the point
+    tiles cannot reach 4 blocks an SM of 132, filling the last wave (or
+    into as many slices as k allows); the
+    split scratch holds the tile counters and the (slices, n) best and
+    arg, and nothing with one slice."""
+    assert twalk.points_per_thread(d) == ppt
+    got = twalk.center_slices(n, k, 132, ppt)
+    assert got == slices
+    tiles = twalk.point_tiles(n, ppt)
+    assert tiles == max(-(-n // (256 * ppt)), 1)
+    if slices == 1:
+        assert tiles >= twalk.FILL_PER_SM * 132 or k < 2 * twalk.MIN_SLICE
+        assert twalk.split_scratch_bytes(n, ppt, slices) == 0
+    else:
+        assert -(-k // slices) >= twalk.MIN_SLICE
+        # enough blocks to fill the card, or as many slices as k allows
+        assert (tiles * slices >= twalk.FILL_PER_SM * 132
+                or slices == k // twalk.MIN_SLICE)
+        assert twalk.split_scratch_bytes(n, ppt, slices) == (
+            -(-tiles * 4 // 8) * 8 + 2 * (-(-slices * n * 4 // 8) * 8))
+    # the Lloyd step beyond its warp accumulators takes the same shape
+    if k * (d + 1) > tfused.WARP_ACC_ENTRIES:
+        assert tfused.points_per_thread(k, d) == ppt
 
 
 # ---- degenerate cases --------------------------------------------------

@@ -17,24 +17,32 @@ PyTorch built for CUDA. It
    distance matrix rather than the same function); then holds them
    against their plain versions off the main path's shape too: d = 37
    and d = 513 (the any-width kernel variant, several center tiles) and
-   k = 1024 at d = 15 (two tiles);
+   k = 1024 at d = 15 (two tiles). ``remove_below``'s mask equals
+   ``alive & (min_dist's d2 > v)`` and its counts the mask's row sums,
+   bit for bit, at every shape, dtype and mask (the two share the
+   register-blocked walk), and with no valid center ``min_dist`` gives
+   +inf and index 0 and ``remove_below`` removes nothing;
 4. holds the one Lloyd kernel (``fused_assign_reduce``, every k) at the
    baselines' weighing shapes — 1.25 M points x 831 centers (k-means‖ at
    k = 25; the TPU's resident regime), 1.25 M x 3,081 (k-means‖ at
    k = 100; its single-walk regime) and 65,536 x 173,256 (EIM11's
    clustering; its two-walk regime), at k = 1025 and 2100, and at
    SOCCER's coordinator shapes and 1.25 M points x 4, 25, 831 and 1024
-   centers — in the three dtypes, with invalid centers and zero weights:
+   centers, and at 20,000 x 4,096 (min_dist's center axis split into 8
+   slices) — in the three dtypes, with invalid centers and zero weights:
    its argmin equals min_dist's and its sums and counts equal the plain
    fixed-point emulation (``ref.fixed_point_reduce_ref``) over that
    argmin bit for bit, its cost is within FUSED_RTOL of a float64 sum,
    a repeat call gives the same bits, and the sums hold against the
    plain version with a slack for each center from the near-tie points it
-   may gain or lose; holds min_dist at 173,256 centers; and times every
-   shape beside its bound and the min_dist kernel on the same inputs,
-   and prints the recorded times of the two kernels it replaced beside
-   them; it prints ``nvcc -Xptxas -v``'s registers and spills of the
-   kernel, from the build's own log;
+   may gain or lose; holds min_dist against its plain version at those
+   shapes (float32 only at 173,256 centers); and times every shape for
+   both kernels beside their bounds, with min_dist's share of its bound
+   and whether it is no slower than the Lloyd kernel, and prints the
+   recorded times of the kernels they replaced beside them; it prints
+   ``nvcc -Xptxas -v``'s registers and spills of the three kernels on
+   the register-blocked walk (the Lloyd kernel, min_dist, remove_below),
+   from the build's own log;
 5. holds the robust and coreset tier's kernels against their plain
    versions at that tier's shapes, in the three dtypes, with invalid
    centers and zero weights, with a same-bits repeat, and times them:
@@ -43,7 +51,8 @@ PyTorch built for CUDA. It
    1,275,000 x 15 against 25 centers (one machine's shard),
    ``truncated_cost`` over (8, 1,275,000, 15) against 25 centers with v
    at the median d2, and ``remove_below`` over (8, 125,000, 15) against
-   1,111 centers (SOCCER's k_plus at k = 1000, beyond the resident limit);
+   1,111 centers (SOCCER's k_plus at k = 1000, beyond the resident limit),
+   beside min_dist on the same points;
 6. runs one SOCCER round (once more with the coreset uplink and
    outlier_frac), kzmeans' trimmed Lloyd steps, and k-means‖'s seeding
    rounds with CUDA's sync debug mode set to "error", so a device->host
@@ -52,14 +61,21 @@ PyTorch built for CUDA. It
    both Table 2 rows at n = 10 M, EIM11 at n = 1 M, k = 25 (a cut of n:
    EIM11's removal sweeps every point against a clustering that grows by
    14,438 rows a round) — checks the paper's bounds and the reference
-   tests' claims, and that every kernel of each path was launched;
+   tests' claims, and that every kernel of each path was launched; then
+   times min_dist at the EIM11 fit's two largest sweeps (its last round's
+   second sample and all 1 M points against that round's clustering,
+   from the fit's own s and rounds) beside its bound and the Lloyd
+   kernel;
 8. runs the coreset and robust tier at n = 10 M: ``coreset_kmeans`` and
    SOCCER with ``uplink_mode="coreset"`` on Table 2 row 1's mixture; on
    that mixture with 2% gross outliers (10.2 M points), ``kzmeans`` with
    and without ``outlier_frac=0.02`` at a 1,640,000-row budget and SOCCER
    with and without ``outlier_frac=0.02``; and SOCCER at k = 1000
    (k_plus = 1,111), each against the reference tests' claims and with
-   every kernel of its path launched.
+   every kernel of its path launched;
+9. runs ``repro_torch.fit_profile`` on EIM11 at n = 1 M and SOCCER at
+   k = 1000 and prints the device time of min_dist and remove_below in
+   them beside the times recorded before the walk moved.
 
 It prints one JSON line of per-kernel numbers before the last line
 (``launches`` sums the fits, ``launches_per_fit`` gives each), and
@@ -532,11 +548,12 @@ def kernel_phase(ops, ref, consts):
             del xm
         # no valid center: +inf and index 0, and nothing removed
         none = torch.zeros(kp, dtype=torch.bool, device=dev)
-        xs = x_all[:, :20_000]
+        xs = x_all[:, :20_000].contiguous()
+        few = alive[:, :20_000].contiguous()
         d2n, idxn = ops.min_dist(xs.reshape(-1, DIM), c, none)
-        an, ln = ops.remove_below(xs, c, alive[:, :20_000], v_mid, none)
+        an, ln = ops.remove_below(xs, c, few, v_mid, none)
         check(bool(torch.isinf(d2n).all()) and int(idxn.abs().max()) == 0
-              and torch.equal(an, alive[:, :20_000])
+              and torch.equal(an, few)
               and torch.equal(ln, an.sum(1, dtype=torch.int32)),
               "min_dist / remove_below with no valid center")
         torch.cuda.synchronize()

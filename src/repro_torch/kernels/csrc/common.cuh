@@ -141,7 +141,7 @@ __device__ __forceinline__ void nearest(
 // the bit: the same fmaf chain over q = 0 .. DR-1 (or 0 .. d-1), the same
 // t = fmaf(-2, dot, ||c||^2) with ||c||^2 from the same loop, a strict <
 // over ascending j, and (+inf, 0) with no valid center. So the argmin and
-// min-d2 equal the min_dist kernel's.
+// min-d2 equal those of the kernels still on nearest().
 //
 // Rows<T, DR, P> holds the thread's P points: their rows in registers
 // (DR > 0, zero-padded past d) or their row pointers (DR == 0, any d,

@@ -107,27 +107,12 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) part[blockIdx.x] = s;
 }
 
-template <typename T, int DR, int P>
-cudaError_t launch_remove_below(const T* x, int m, long long p, int d,
-                                const float* c, const uint8_t* cv, int k,
-                                const float* v, const uint8_t* alive,
-                                uint8_t* alive_new, int* live,
-                                cudaStream_t s) {
-  const TileShape ts = tile_shape(d, DR, k);
-  const dim3 grid((unsigned)point_tiles(p, P), (unsigned)m);
-  return launch(remove_below_kernel<T, DR, P>, grid, ts.smem, s, x, p, d, c,
-                cv, k, ts.kt, v, alive, alive_new, live);
-}
-
 }  // namespace rt
 
-// ppt is the points a thread (kernels/walk.py::points_per_thread), which
-// must be the kernel's own P for the width.
 extern "C" int rt_remove_below(const void* x, int dtype, int m, long long p,
                                int d, const float* c, const uint8_t* cv,
-                               int k, int ppt, const float* v,
-                               const uint8_t* alive, uint8_t* alive_new,
-                               int* live, void* stream) {
+                               int k, const float* v, const uint8_t* alive,
+                               uint8_t* alive_new, int* live, void* stream) {
   using namespace rt;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(live, 0, sizeof(int) * (size_t)m, s);
@@ -135,11 +120,14 @@ extern "C" int rt_remove_below(const void* x, int dtype, int m, long long p,
   return (int)dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int DR = decltype(dr)::value;
-    constexpr int P = DR > 0 ? 4 : 2;  // rows in registers, or re-read
-    if (ppt != P) return cudaErrorInvalidValue;
+    // min_dist's points a thread: rows in registers, or re-read
+    constexpr int P = DR > 0 ? 4 : 2;
+    const TileShape ts = tile_shape(d, DR, k);
     if (m == 0 || p == 0) return cudaGetLastError();
-    return launch_remove_below<T, DR, P>((const T*)x, m, p, d, c, cv, k, v,
-                                         alive, alive_new, live, s);
+    const dim3 grid((unsigned)point_tiles(p, P), (unsigned)m);
+    return launch(remove_below_kernel<T, DR, P>, grid, ts.smem, s,
+                  (const T*)x, p, d, c, cv, k, ts.kt, v, alive, alive_new,
+                  live);
   });
 }
 

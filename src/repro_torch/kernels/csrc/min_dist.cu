@@ -33,8 +33,8 @@ namespace rt {
 // Blocks an SM, from the registers ptxas gives each instance (nvcc
 // -Xptxas -v, printed by chip_smoke.py): 118 at P = 4 (d <= 16), so 2
 // blocks of 256 threads; 80 at P = 2 (any d), so 3. Forcing 3 blocks at
-// P = 4 caps it at 80 registers and spills (0.9243 -> 1.1427 ms at
-// 1.25 M × 831, PERF.md).
+// P = 4 caps it at 80 registers, spills, and runs 24% slower at
+// 1.25 M × 831 on the H100 (PERF.md).
 template <typename T, int DR, int P>
 __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
     min_dist_kernel(const T* __restrict__ x, long long n, int d,
@@ -62,30 +62,6 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
   }
 }
 
-template <typename T, int DR, int P>
-cudaError_t launch_min_dist(const T* x, long long n, int d, const float* c,
-                            const uint8_t* cv, int k, int slices,
-                            unsigned char* scratch, float* d2, int* idx,
-                            cudaStream_t s) {
-  const long long tiles = point_tiles(n, P);
-  const int slice = (k + slices - 1) / slices;
-  const TileShape ts = tile_shape(d, DR, slice);
-  unsigned* done = nullptr;
-  float* ws_best = nullptr;
-  int* ws_arg = nullptr;
-  if (slices > 1) {
-    const size_t ws = round8((size_t)slices * n * 4);
-    done = (unsigned*)scratch;
-    ws_best = (float*)(scratch + round8((size_t)tiles * 4));
-    ws_arg = (int*)((unsigned char*)ws_best + ws);
-    const cudaError_t e = cudaMemsetAsync(done, 0, (size_t)tiles * 4, s);
-    if (e != cudaSuccess) return e;
-  }
-  return launch(min_dist_kernel<T, DR, P>,
-                dim3((unsigned)tiles, (unsigned)slices), ts.smem, s, x, n, d,
-                c, cv, k, ts.kt, slice, done, ws_best, ws_arg, d2, idx);
-}
-
 }  // namespace rt
 
 // ppt is the points a thread, slices the center slices (the wrapper's
@@ -107,9 +83,25 @@ extern "C" int rt_min_dist(const void* x, int dtype, long long n, int d,
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int DR = decltype(dr)::value;
     constexpr int P = DR > 0 ? 4 : 2;  // rows in registers, or re-read
-    if (ppt != P) return cudaErrorInvalidValue;
+    if (ppt != P) return cudaErrorInvalidValue;   // the wrapper's tiles
     if (n == 0) return cudaGetLastError();
-    return launch_min_dist<T, DR, P>((const T*)x, n, d, c, cv, k, slices,
-                                     base, d2, idx, s);
+    const long long tiles = point_tiles(n, P);
+    const int slice = (k + slices - 1) / slices;
+    const TileShape ts = tile_shape(d, DR, slice);
+    unsigned* done = nullptr;
+    float* ws_best = nullptr;
+    int* ws_arg = nullptr;
+    if (slices > 1) {
+      done = (unsigned*)base;
+      ws_best = (float*)(base + round8((size_t)tiles * 4));
+      ws_arg = (int*)(base + round8((size_t)tiles * 4) +
+                      round8((size_t)slices * n * 4));
+      const cudaError_t e = cudaMemsetAsync(done, 0, (size_t)tiles * 4, s);
+      if (e != cudaSuccess) return e;
+    }
+    return launch(min_dist_kernel<T, DR, P>,
+                  dim3((unsigned)tiles, (unsigned)slices), ts.smem, s,
+                  (const T*)x, n, d, c, cv, k, ts.kt, slice, done, ws_best,
+                  ws_arg, d2, idx);
   });
 }

@@ -16,9 +16,10 @@
 // ~92 MB: about 10 operations per byte, under the card's float32 ridge
 // (~20), so it is bound by bytes (~0.027 ms at 3.35 TB/s).
 //
-// Design: the min_dist sweep (common.cuh: one point per thread, the center
-// set streamed through shared memory), then per point the score and
-// argmin written out, and the block's masses and cost as per-block
+// Design: the one-point-a-thread walk (common.cuh: nearest, min_dist's
+// arithmetic to the bit; the center set streamed through shared memory),
+// then per point the score and argmin written out, and the block's
+// masses and cost as per-block
 // partials (common.cuh: center_partials, counts only, and block_sum) that
 // the fixed-order reduce_rows pass adds in block order: the same bits on
 // every run. A point is only ever assigned to a valid center, so invalid

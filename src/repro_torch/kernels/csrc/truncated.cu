@@ -16,13 +16,14 @@
 // operations per byte, under the float32 ridge (~20), so it is bound by
 // bytes (~0.195 ms at 3.35 TB/s).
 //
-// Design: the min_dist sweep (common.cuh) over a grid of (point block,
-// machine), as remove_below's, so one launch scores every machine; v is
-// read through a device pointer, so a threshold computed on the card never
-// waits for the host. Each block reduces its three sums in a fixed order
-// (block_sum) into per-block partials laid out (machine, 3, blocks), and
-// the fixed-order reduce_rows pass adds each row in block order: the same
-// bits on every run, and (m, 3) triples out for the caller's psum.
+// Design: the one-point-a-thread walk (common.cuh: nearest, min_dist's
+// arithmetic to the bit) over a grid of (point block, machine), so one
+// launch scores every machine; v is read through a device pointer, so a
+// threshold computed on the card never waits for the host. Each block
+// reduces its three sums in a fixed order (block_sum) into per-block
+// partials laid out (machine, 3, blocks), and the fixed-order
+// reduce_rows pass adds each row in block order: the same bits on every
+// run, and (m, 3) triples out for the caller's psum.
 // Nothing in the design depends on the number of centers.
 #include "common.cuh"
 

@@ -38,7 +38,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 REMOVE_BELOW = CudaKernel(
     "fused_lloyd.cu", "rt_remove_below",
-    [_P, _I, _I, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P])
+    [_P, _I, _I, _L, _I, _P, _P, _I, _P, _P, _P, _P, _P])
 UPDATE_MIN_DIST = CudaKernel(
     "fused_lloyd.cu", "rt_update_min_dist",
     [_P, _I, _L, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P])
@@ -100,8 +100,8 @@ def remove_below_cuda(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,
     alive_new = torch.empty((m, p), dtype=torch.bool, device=x.device)
     live = torch.empty((m,), dtype=torch.int32, device=x.device)
     REMOVE_BELOW(ptr(x), dtype_code(x), m, p, d, ptr(cf), ptr(cv),
-                 cf.shape[0], walk.points_per_thread(d), ptr(vt), ptr(alive),
-                 ptr(alive_new), ptr(live), stream_of(x))
+                 cf.shape[0], ptr(vt), ptr(alive), ptr(alive_new), ptr(live),
+                 stream_of(x))
     return alive_new, live
 
 

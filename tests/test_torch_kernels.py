@@ -519,8 +519,9 @@ def test_lloyd_launch_shape_rules():
 ], ids=["coordinator", "weighing", "eim11_x", "eim11_s2", "split",
         "split_any_width", "one_slice_small_k"])
 def test_walk_launch_shape_rules(n, d, k, ppt, slices):
-    """min_dist's and remove_below's launch shape (kernels/walk.py, the
-    rules the Lloyd step uses): 4 points a thread at d <= 16, else 2; the
+    """min_dist's launch shape (kernels/walk.py, the rules the Lloyd step
+    uses; remove_below takes the same P): 4 points a thread at d <= 16,
+    else 2; the
     center axis split into slices of >= 512 centers only when the point
     tiles cannot reach 4 blocks an SM of 132, filling the last wave (or
     into as many slices as k allows); the

@@ -154,8 +154,7 @@ REPLACED_MS = {(17_353, 103): 0.0967, (80_585, 190): 0.2411,
                (1_250_000, 3_081): 5.2671, (65_536, 173_256): 18.9260}
 # Float32 times, ms, of min_dist and remove_below on one point a thread
 # (rt::nearest), recorded on the same card model before they moved onto
-# the register-blocked walk (PERF.md §6, PR 14's chip run; NVIDIA H100
-# 80GB HBM3, 700 W): min_dist by (n, k) at d = 15, remove_below by
+# the register-blocked walk (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W): min_dist by (n, k) at d = 15, remove_below by
 # (m, p, k). Printed beside this run's times on lines of their own, never
 # in the JSON line.
 MIN_DIST_BEFORE_MS = {(17_353, 103): 0.0260, (80_585, 190): 0.0323,
@@ -167,8 +166,8 @@ REMOVE_BELOW_BEFORE_MS = {(8, 1_250_000, 103): 1.4190,
                           (8, 1_250_000, 190): 2.5446,
                           (8, 125_000, 1_111): 1.4963}
 # fit_profile's device time, ms, and calls of the same kernels in a fit,
-# recorded before: EIM11 n = 1 M's min_dist (PR 12's chip run) and SOCCER
-# k = 1000's remove_below (PR 14's), same card model
+# recorded in PERF.md §5 before the walk moved, same card model: EIM11
+# n = 1 M's min_dist and SOCCER k = 1000's remove_below
 PROFILE_BEFORE = {("eim11", "min_dist_kernel"): (436.8, 12),
                   ("soccer", "remove_below_kernel"): (14.5, 1)}
 EIM11_N, EIM11_K = 1_000_000, 25
@@ -612,7 +611,7 @@ def kernel_phase(ops, ref, consts):
                       if name == "remove_below" else None)
             if before is not None:
                 print(f"recorded {name} {shape}: one point a thread "
-                      f"{before:.4f} ms (PERF.md, PR 14, not this run); "
+                      f"{before:.4f} ms (PERF.md, not this run); "
                       f"this run {ms:.4f} ms ({before / ms:.2f}x)")
             if name == "remove_below":
                 xf = x_all.reshape(-1, DIM)
@@ -746,7 +745,7 @@ def time_lloyd(ops, x32, c):
     before = MIN_DIST_BEFORE_MS.get((n, k))
     if before is not None:
         print(f"recorded min_dist n={n} k={k}: one point a thread "
-              f"{before:.4f} ms (PERF.md, PR 14, not this run); this run "
+              f"{before:.4f} ms (PERF.md, not this run); this run "
               f"{md_ms:.4f} ms ({before / md_ms:.2f}x)", flush=True)
     return dict(shape=f"n={n} d={d} k={k}", launch=launch, ms=ms,
                 min_dist_ms=md_ms, bound_ms=bnd, bound_by=by,
@@ -1179,7 +1178,7 @@ def tier_phase(ops, ref, rows) -> None:
           f"{100 * t['bound_ms'] / t['ms']:.1f}%", flush=True)
     before = REMOVE_BELOW_BEFORE_MS[(m, p, k)]
     print(f"recorded remove_below m={m} p={p} k={k}: one point a thread "
-          f"{before:.4f} ms (PERF.md, PR 14, not this run); this run "
+          f"{before:.4f} ms (PERF.md, not this run); this run "
           f"{t['ms']:.4f} ms ({before / t['ms']:.2f}x)", flush=True)
     rows["remove_below"]["beyond_resident"] = dict(
         replaces=REMOVE_CHUNKED_REPLACES, library_ms=None,

@@ -53,11 +53,23 @@ PyTorch built for CUDA. It
    at the median d2, and ``remove_below`` over (8, 125,000, 15) against
    1,111 centers (SOCCER's k_plus at k = 1000, beyond the resident limit),
    beside min_dist on the same points;
-6. runs one SOCCER round (once more with the coreset uplink and
+6. holds the k-means++ seeding kernel (update_min_dist's kernel with its
+   Gumbel-max draw on) at SOCCER k = 1000's coordinator shape (991,418 x
+   15, 1,111 steps) and at 17,353 x 15 (103 steps), in the three dtypes,
+   with zero weights: step by step from a shared state its d2 equals
+   ``ops.update_min_dist``'s bit for bit and the plain step's within
+   d2_tol, its draw is the argmax of torch's keys from its own d2 and
+   agrees with the plain step's draw or lies within the keys' tolerance
+   of it (both keys printed); the C loop's draws equal the chained steps
+   and repeat bit for bit; with every point on one center the draws
+   fall back to the weights as the plain loop's do; and times a whole
+   seeding (device ms and host us) and one step beside its bound and the
+   parent's Python loop on the draw-off kernel;
+7. runs one SOCCER round (once more with the coreset uplink and
    outlier_frac), kzmeans' trimmed Lloyd steps, and k-means‖'s seeding
    rounds with CUDA's sync debug mode set to "error", so a device->host
    synchronization inside a round fails the run;
-7. runs ``repro_torch.api.fit`` on five instances — SOCCER and k-means‖ on
+8. runs ``repro_torch.api.fit`` on five instances — SOCCER and k-means‖ on
    both Table 2 rows at n = 10 M, EIM11 at n = 1 M, k = 25 (a cut of n:
    EIM11's removal sweeps every point against a clustering that grows by
    14,438 rows a round) — checks the paper's bounds and the reference
@@ -65,17 +77,25 @@ PyTorch built for CUDA. It
    times min_dist at the EIM11 fit's two largest sweeps (its last round's
    second sample and all 1 M points against that round's clustering,
    from the fit's own s and rounds) beside its bound and the Lloyd
-   kernel;
-8. runs the coreset and robust tier at n = 10 M: ``coreset_kmeans`` and
+   kernel; fits SOCCER, k-means‖ and EIM11 twice each at one seed on
+   1 M points and requires the same centers and cost bit for bit;
+9. runs the coreset and robust tier at n = 10 M: ``coreset_kmeans`` and
    SOCCER with ``uplink_mode="coreset"`` on Table 2 row 1's mixture; on
    that mixture with 2% gross outliers (10.2 M points), ``kzmeans`` with
    and without ``outlier_frac=0.02`` at a 1,640,000-row budget and SOCCER
    with and without ``outlier_frac=0.02``; and SOCCER at k = 1000
    (k_plus = 1,111), each against the reference tests' claims and with
-   every kernel of its path launched;
-9. runs ``repro_torch.fit_profile`` on EIM11 at n = 1 M and SOCCER at
+   every kernel of its path launched; coreset_kmeans and the robust
+   kzmeans fit are fitted a second time at full size and must give the
+   same centers and cost bit for bit;
+10. runs ``repro_torch.fit_profile`` on EIM11 at n = 1 M and SOCCER at
    k = 1000 and prints the device time of min_dist and remove_below in
-   them beside the times recorded before the walk moved.
+   them beside the times recorded before the walk moved, and the
+   seeding's device time and the fit wall at k = 1000 beside the parent
+   loop's recorded ones.
+
+Every kernel time is printed with the host's own microseconds a call
+beside the device's (``timed_ms``).
 
 It prints one JSON line of per-kernel numbers before the last line
 (``launches`` sums the fits, ``launches_per_fit`` gives each), and
@@ -171,6 +191,8 @@ REMOVE_BELOW_BEFORE_MS = {(8, 1_250_000, 103): 1.4190,
 PROFILE_BEFORE = {("eim11", "min_dist_kernel"): (436.8, 12),
                   ("soccer", "remove_below_kernel"): (14.5, 1)}
 EIM11_N, EIM11_K = 1_000_000, 25
+# points of the same-seed repeat fits of SOCCER, k-means‖ and EIM11
+REPEAT_N = 1_000_000
 # The coreset and robust tier (ROADMAP Queue 1 items 11-13): the paper's §8
 # mixture at n = 10 M, k = 25, with 2% isotropic gross outliers at 50x the
 # data's RMS radius (seed 7) for the robust fits: 10.2 M points, 1,275,000
@@ -208,20 +230,26 @@ WALK_KERNELS = (("fused_assign.cu", "fused_assign_kernel"),
                 ("fused_lloyd.cu", "remove_below_kernel"))
 
 
+# ... and the seeding kernel, whose third template argument is its draw
+PTXAS_KERNELS = WALK_KERNELS + (("fused_lloyd.cu", "seed_step_kernel"),)
+
+
 def print_ptxas(log: str, kernel: str) -> int:
-    """One line a variant of ``kernel`` (one of WALK_KERNELS) from ``nvcc
-    -Xptxas -v``: (point type, register row length DR, points a thread P),
-    registers, spill stores and loads. Returns the number of variants
-    printed."""
+    """One line a variant of ``kernel`` (one of PTXAS_KERNELS) from ``nvcc
+    -Xptxas -v``: (point type, register row length DR, points a thread P
+    or the draw on/off), registers, spill stores and loads. Returns the
+    number of variants printed."""
     import re
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     name, printed = None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN2rt\d+" + kernel
-                      + r"I(f|13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)E",
+                      + r"I(f|13__nv_bfloat16|6__half)Li(\d+)EL([ib])(\d+)E",
                       line)
         if m:
-            name = f"{types[m.group(1)]} DR={m.group(2)} P={m.group(3)}"
+            third = "P" if m.group(3) == "i" else "draw"
+            name = (f"{types[m.group(1)]} DR={m.group(2)} "
+                    f"{third}={m.group(4)}")
             spills = "spills not reported"
             continue
         if name is None:
@@ -248,18 +276,36 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def timed_ms(fn, reps: int = 20) -> float:
-    """Mean device milliseconds per call, after a warm-up, by CUDA events."""
+class Ms(float):
+    """Device milliseconds a call, with ``host_us``: the host's own
+    microseconds a call, the wall time of issuing the calls before the
+    synchronize. Where host_us exceeds the device time, the host bounds
+    the call."""
+    host_us: float
+
+
+def timed_ms(fn, reps: int = 20) -> Ms:
+    """Mean device milliseconds per call, after a warm-up, by CUDA events,
+    and the host's microseconds a call beside it (``Ms.host_us``)."""
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    out = Ms(start.elapsed_time(end) / reps)
+    out.host_us = host * 1e6 / reps
+    return out
+
+
+def host_note(ms: Ms) -> str:
+    return f"host {ms.host_us:.1f} us a call"
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -602,9 +648,10 @@ def kernel_phase(ops, ref, consts):
             plain_ms = timed_ms(plain, reps=5)
             lib_ms = timed_ms(lib, reps=5)
             bnd, by = bound_ms(nbytes, flops)
-            print(f"time {name} {shape} f32: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, torch.cdist {lib_ms:.4f} ms, bound "
-                  f"{bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)")
+            print(f"time {name} {shape} f32: kernel {ms:.4f} ms "
+                  f"({host_note(ms)}), plain {plain_ms:.4f} ms, torch.cdist "
+                  f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+                  f"{100 * bnd / ms:.1f}% of it)")
             before = (MIN_DIST_BEFORE_MS.get((eta, kp)) if name == "min_dist"
                       else REMOVE_BELOW_BEFORE_MS.get(
                           (MACHINES, N_POINTS // MACHINES, kp))
@@ -623,7 +670,8 @@ def kernel_phase(ops, ref, consts):
                     rows[name].update(min_dist_ms=md_ms)
                 del xf
             if ci == 0:
-                rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                rows[name].update(ms=ms, host_us=ms.host_us,
+                                  plain_ms=plain_ms, bound_ms=bnd,
                                   bound_by=by, library_ms=None,
                                   yardstick="torch.cdist", yardstick_ms=lib_ms,
                                   shape=shape)
@@ -728,7 +776,8 @@ def time_lloyd(ops, x32, c):
     bnd, by = lloyd_bound(n, d, k)
     md_bnd, md_by = min_dist_bound(n, d, k)
     print(f"time fused_assign_reduce n={n} k={k} ({regime(k, d)}) f32: "
-          f"kernel {ms:.4f} ms ({launch}), min_dist {md_ms:.4f} ms, bound "
+          f"kernel {ms:.4f} ms ({launch}; {host_note(ms)}), min_dist "
+          f"{md_ms:.4f} ms ({host_note(md_ms)}), bound "
           f"{bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)", flush=True)
     print(f"time min_dist n={n} k={k} f32: {md_ms:.4f} ms "
           f"({min_dist_launch(n, d, k)}), bound {md_bnd:.4f} ms ({md_by}; "
@@ -748,7 +797,8 @@ def time_lloyd(ops, x32, c):
               f"{before:.4f} ms (PERF.md, not this run); this run "
               f"{md_ms:.4f} ms ({before / md_ms:.2f}x)", flush=True)
     return dict(shape=f"n={n} d={d} k={k}", launch=launch, ms=ms,
-                min_dist_ms=md_ms, bound_ms=bnd, bound_by=by,
+                host_us=ms.host_us, min_dist_ms=md_ms,
+                min_dist_host_us=md_ms.host_us, bound_ms=bnd, bound_by=by,
                 share_of_bound=bnd / ms, min_dist_bound_ms=md_bnd,
                 min_dist_share_of_bound=md_bnd / md_ms)
 
@@ -1028,11 +1078,11 @@ def tier_phase(ops, ref, rows) -> None:
         plain_ms = timed_ms(plain, reps=5)
         lib_ms = timed_ms(lib, reps=5)
         bnd, by = bound_ms(nbytes, flops)
-        print(f"time {shape} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, {lib_name} {lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})",
-              flush=True)
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                    shape=shape), lib_ms
+        print(f"time {shape} f32: kernel {ms:.4f} ms ({host_note(ms)}), "
+              f"plain {plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by})", flush=True)
+        return dict(ms=ms, host_us=ms.host_us, plain_ms=plain_ms,
+                    bound_ms=bnd, bound_by=by, shape=shape), lib_ms
 
     # lloyd_reduce: kzmeans' gathered rows, assigned by min_dist to centers
     # of which some are invalid (so no row goes to an invalid center)
@@ -1189,6 +1239,219 @@ def tier_phase(ops, ref, rows) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- seeding
+#
+# The seeding kernel (update_min_dist's, its draw on) at SOCCER k = 1000's
+# coordinator shape (eta = 991,418 rows, k_plus = 1,111 steps) and Table 2
+# row 1's (17,353 rows, 103 steps). Step by step from a shared state, its
+# d2 must equal the draw-off kernel's (ops.update_min_dist) bit for bit and
+# the plain step's within d2_tol; its draw must be the argmax of torch's
+# keys from its own d2, and where it differs from the plain step's draw
+# the two plain keys must lie within KEY_ULPS float32 ulps plus the d2
+# slack of each (d2_tol / d2: the keys are logs of w·d2), both printed.
+SEED_SHAPES = ((991_418, 1_111), (17_353, 103))
+KEY_ULPS = 4
+# the plain steps checked at the start and at the end of a seeding
+SEED_CHECKED = 8
+# seeding times with the parent's loop (core/kmeans.py before this kernel:
+# one update_min_dist launch, a Gumbel draw in torch ops and a row gather
+# a step), from scripts/time_seeding.py on the same card model (PERF.md
+# §6; NVIDIA H100 80GB HBM3, 700 W): (n, k) -> (host ms, wall ms, device
+# busy ms). Printed on lines of their own, never in the JSON line.
+SEED_PARENT_MS = {(991_418, 1_111): (226.0, 226.1, 101.1),
+                  (17_353, 103): (36.9, 37.0, 3.8)}
+# fit_profile's SOCCER k = 1000 before this kernel (PERF.md §5): device ms
+# of update_min_dist, its mass pass and the seeding's torch ops; fit wall s
+SEED_PROFILE_BEFORE = (69.0, 11.8, 106.4, 4.575)
+
+
+def ulp32(v: float) -> float:
+    return float(np.spacing(np.float32(abs(v))))
+
+
+def seed_bound(n: int, d: int, itemsize: int):
+    """One draw-on step's bound: x, w and d2 read once, d2 written once."""
+    return bound_ms(n * d * itemsize + 3 * n * 4, 2.0 * n * d)
+
+
+def parent_loop(ops, gen, x, w, k):
+    """The parent's seeding loop (core/kmeans.py before this kernel), on
+    the draw-off kernel: a yardstick for the host's time a step."""
+    from repro_torch.core.kmeans import pick_row
+    from repro_torch.core.sampling import gumbel_argmax
+    n, d = x.shape
+    centers = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    centers[0] = pick_row(x, gumbel_argmax(gen, w))
+    d2min = torch.full((n,), torch.inf, dtype=torch.float32, device=x.device)
+    for i in range(1, k):
+        d2min, mass = ops.update_min_dist(x, w, centers[i - 1:i], d2min)
+        p = torch.where(mass > 0, w * d2min, w)
+        centers[i] = pick_row(x, gumbel_argmax(gen, p))
+    return centers
+
+
+def check_seed_step(ops, ref, fl, x, w, d2, prev, step, seed, what):
+    """One draw-on step from the shared state (d2, prev) against the
+    draw-off kernel and the plain step. Returns (the kernel's d2 and
+    winner, the d2 error, whether the plain draw agreed)."""
+    d2_k = d2.clone()
+    words = fl.kmeans_pp_step_cuda(x, w, d2_k, prev, step, seed)
+    g = ref.seed_gumbel(seed, x.shape[0], range(step, step + 1))[0]
+    wf = w.float()
+    err = 0.0
+    if prev is not None:
+        c = torch.index_select(x, 0, prev.reshape(1)).float()
+        d2_u, _ = ops.update_min_dist(x, w, c, d2)
+        check(torch.equal(d2_k, d2_u), f"{what}: the draw-on d2 differs from "
+              f"ops.update_min_dist's at {int((d2_k != d2_u).sum())} points")
+    d2_p, kd_p, kw_p = ref.kmeans_pp_step_ref(x, w, d2, prev, g)
+    tol = d2_tol(x, x)                      # the center is a row of x
+    err = float((d2_k - d2_p).abs().max()) if prev is not None else 0.0
+    check(err <= tol, f"{what}: d2 err {err} > {tol}")
+    # the kernel's draw against torch's keys from the kernel's own d2
+    kd = ref.gumbel_keys(wf * d2_k, g) if prev is not None else None
+    kw = ref.gumbel_keys(wf, g)
+    use_d2 = kd is not None and bool(kd.max() > -torch.inf)
+    keys = kd if use_d2 else kw
+    a = int(ref.winner_from_words(words))
+    check(bool(((words[0] >> 32) & ref.MASK32) > 0x007FFFFF) == use_d2,
+          f"{what}: the kernel took the other key set")
+    key_k = float(ref.key_of_word(words[0] if use_d2 else words[1]))
+    key_t = float(keys[a])
+    b = int(torch.argmax(keys))
+    check(abs(key_k - key_t) <= KEY_ULPS * ulp32(key_t)
+          and float(keys[b]) - key_t <= KEY_ULPS * ulp32(float(keys[b])),
+          f"{what}: the kernel drew {a} (key {key_k!r}, torch {key_t!r}), "
+          f"torch's argmax {b} (key {float(keys[b])!r})")
+    # against the plain step's own d2 and draw
+    p = int(ref.draw_winner(kd_p, kw_p))
+    agree = p == a
+    if not agree:
+        keys_p = kd_p if use_d2 else kw_p
+        ka, kb = float(keys_p[a]), float(keys_p[p])
+        slack = KEY_ULPS * (ulp32(ka) + ulp32(kb))
+        if use_d2:
+            slack += tol / max(float(d2_p[a]), 1e-30) + tol / max(
+                float(d2_p[p]), 1e-30)
+        print(f"{what}: kernel drew {a}, plain {p}; plain keys {ka!r} and "
+              f"{kb!r}, gap {kb - ka:.3g} within {slack:.3g}", flush=True)
+        check(kb - ka <= slack, f"{what}: the draws differ beyond the keys' "
+              f"tolerance")
+    return d2_k, torch.tensor(a, device=x.device), err, agree
+
+
+def seeding_phase(ops, ref, rows) -> None:
+    """The seeding kernel against the draw-off kernel and its plain version
+    at SEED_SHAPES in three dtypes, with zero weights and the all-on-center
+    fallback; a same-bits repeat of a whole seeding, which also equals the
+    chain of single steps; times a seeding beside the parent's loop."""
+    from repro_torch.kernels import fused_lloyd as fl
+    gen = torch.Generator("cuda").manual_seed(9)
+    dev = "cuda"
+    err_max, agreed, drawn = 0.0, 0, 0
+    for n, k in SEED_SHAPES:
+        x32 = torch.rand((n, DIM), generator=gen, device=dev)
+        w = torch.rand(n, generator=gen, device=dev)
+        w[: n // 5] = 0.0                         # padding rows
+        seed = torch.randint(0, 1 << 32, (2,), generator=gen, device=dev)
+        for dt in DTYPES:
+            x = x32.to(dt)
+            what = f"seeding n={n} k={k} {dt}"
+            d2 = torch.full((n,), torch.inf, device=dev)
+            prev, chain = None, []
+            for step in range(k):
+                if step < SEED_CHECKED or step >= k - 2:
+                    d2, prev, err, agree = check_seed_step(
+                        ops, ref, fl, x, w, d2, prev, step, seed,
+                        f"{what} step {step}")
+                    err_max = max(err_max, err)
+                    agreed += agree
+                    drawn += 1
+                else:
+                    words = fl.kmeans_pp_step_cuda(x, w, d2, prev, step, seed)
+                    prev = ref.winner_from_words(words)
+                chain.append(prev)
+            idx = ops.kmeans_plusplus_indices(x, w, k, seed)
+            check(torch.equal(idx, torch.stack(chain)),
+                  f"{what}: the C loop's draws differ from the chained steps")
+            check(torch.equal(idx, ops.kmeans_plusplus_indices(x, w, k, seed)),
+                  f"{what}: a repeat seeding gave other draws")
+            check(bool((w[idx] > 0).all()), f"{what}: drew a zero-weight row")
+            print(f"check {what}: draw-on d2 = update_min_dist's bit for bit "
+                  f"at {SEED_CHECKED + 2} checked steps, the C loop = the "
+                  f"chained steps, repeat = same draws, no zero-weight row",
+                  flush=True)
+            del x
+        # every point on a center: the D² mass is 0 from step 1 on and the
+        # draw falls back to the weights; the C loop equals the plain loop
+        xs = torch.ones((n, DIM), device=dev)
+        idx = ops.kmeans_plusplus_indices(xs, w, 4, seed)
+        idx_p = ref.kmeans_plusplus_indices_ref(xs, w, 4, seed)
+        check(torch.equal(idx, idx_p) and bool((w[idx] > 0).all()),
+              f"seeding fallback n={n}: kernel {idx.tolist()} plain "
+              f"{idx_p.tolist()}")
+        print(f"check seeding fallback n={n}: all on one center, draws "
+              f"{idx.tolist()} = plain's", flush=True)
+        del xs
+    rows["update_min_dist"]["max_abs_err"] = max(
+        rows["update_min_dist"]["max_abs_err"], err_max)
+    print(f"check seeding: max d2 err {err_max:.3g}; the plain step drew "
+          f"the kernel's row at {agreed} of {drawn} checked steps",
+          flush=True)
+
+    # times: a whole seeding, float32, and the parent's loop beside it
+    timing = []
+    for n, k in SEED_SHAPES:
+        x = torch.rand((n, DIM), generator=gen, device=dev)
+        w = torch.ones(n, device=dev)
+        seed = torch.randint(0, 1 << 32, (2,), generator=gen, device=dev)
+        ms = timed_ms(lambda: ops.kmeans_plusplus_indices(x, w, k, seed),
+                      reps=3)
+        g2 = torch.Generator(dev).manual_seed(1)
+        loop_ms = timed_ms(lambda: parent_loop(ops, g2, x, w, k), reps=3)
+        bnd, by = seed_bound(n, DIM, 4)
+        step_us = ms * 1e3 / k
+        print(f"time seeding n={n} d={DIM} k={k} f32: {ms:.4f} ms a "
+              f"seeding ({host_note(ms)}), {step_us:.2f} us a step, bound "
+              f"{bnd * 1e3:.2f} us a step ({by}; "
+              f"{100 * bnd * 1e3 / step_us:.1f}% of it); the parent's "
+              f"loop on the draw-off kernel {loop_ms:.4f} ms "
+              f"({host_note(loop_ms)})", flush=True)
+        host, wall, busy = SEED_PARENT_MS[(n, k)]
+        print(f"recorded seeding n={n} k={k}: the parent tree's loop host "
+              f"{host} ms, wall {wall} ms, device busy {busy} ms (PERF.md, "
+              f"not this run); this run {ms:.4f} ms", flush=True)
+        entry = dict(shape=f"n={n} d={DIM} k={k}", seeding_ms=ms,
+                     seeding_host_us=ms.host_us, step_us=step_us,
+                     step_bound_us=bnd * 1e3, parent_loop_ms=loop_ms,
+                     parent_loop_host_us=loop_ms.host_us)
+        if n == SEED_SHAPES[0][0]:
+            # the JSON's numbers: one step at the k = 1000 coordinator
+            prev = torch.tensor(5, device=dev)
+            d2 = torch.rand(n, generator=gen, device=dev) * DIM
+            g = ref.seed_gumbel(seed, n, range(1, 2))[0]
+
+            def plain():
+                d2_p, kd, kw = ref.kmeans_pp_step_ref(x, w, d2, prev, g)
+                return ref.draw_winner(kd, kw)
+            plain_ms = timed_ms(plain, reps=5)
+            draw_off = {key: rows["update_min_dist"].get(key) for key in
+                        ("ms", "host_us", "plain_ms", "bound_ms", "bound_by",
+                         "shape")}
+            rows["update_min_dist"].update(
+                ms=ms / k, host_us=ms.host_us / k, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=None,
+                yardstick="torch.cdist", yardstick_ms=timed_ms(
+                    lambda: torch.cdist(x, x[:1]), reps=5),
+                shape=f"n={n} d={DIM}, one draw-on step of a {k}-step "
+                      f"seeding", draw_off=draw_off)
+        timing.append(entry)
+        del x, w
+    rows["update_min_dist"]["seedings"] = timing
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- main path
 
 def sync_phase(params_cls) -> None:
@@ -1308,6 +1571,33 @@ def run_fit(api, KERNELS, x, k, algo, expect, **kw):
     check(int(np.sum(res.wire_bytes) + np.sum(res.wire_meta_bytes))
           == res.wire_bytes_total, f"fit {algo}: wire bytes do not sum")
     return res, wall, counts
+
+
+def check_repeat(api, x, k, algo, first, what, **kw) -> None:
+    """A second fit of ``first``'s algorithm, data and seed in this
+    process: the same centers and cost, bit for bit (ROADMAP Queue 3's
+    run-to-run fault)."""
+    again = api.fit(x, k, algo=algo, m=MACHINES, seed=0, **kw)
+    same = (again.centers.shape == first.centers.shape
+            and np.array_equal(again.centers, first.centers))
+    c1, c2 = cost_of(x, first.centers), cost_of(x, again.centers)
+    print(f"repeat {what}: centers {'same bits' if same else 'DIFFER'}, "
+          f"cost {c1!r} / {c2!r}", flush=True)
+    check(same and c1 == c2, f"repeat {what}: a second fit at the same seed "
+          f"gave other centers or cost")
+
+
+def repeat_phase(api) -> None:
+    """SOCCER, k-means‖ and EIM11 fitted twice in this process at one seed
+    on REPEAT_N points of the paper's mixture (a reduced n; coreset_kmeans
+    and kzmeans repeat at full size in their phases)."""
+    x, _ = mixture(REPEAT_N, 25)
+    for algo, kw in (("soccer", dict(epsilon=0.05, delta=0.1)),
+                     ("kmeans_parallel", dict(rounds=5)),
+                     ("eim11", dict(epsilon=0.1, delta=0.1))):
+        first = api.fit(x, 25, algo=algo, m=MACHINES, seed=0, **kw)
+        check_repeat(api, x, 25, algo, first, f"{algo} n={REPEAT_N} k=25",
+                     **kw)
 
 
 def report(algo, k, n, res, wall, ratio, counts, extra="") -> None:
@@ -1461,6 +1751,28 @@ def profile_phase(rows) -> None:
         rows[row][f"{algo}_k{k}_profile"] = dict(
             device_ms=ms, calls=calls, wall_s=prof["wall_s"],
             device_busy_s=prof["device_busy_s"])
+        if algo == "soccer":
+            # the union of the seeding kernels' time ranges: each step
+            # starts, and waits, while the step before runs
+            seed_ms = fit_profile.span_ms(prof, "rt::seed_step_kernel<",
+                                          "rt::seed_indices_kernel")
+            seed_calls = sum(r["calls"] for r in prof["top"]
+                             if "rt::seed_step_kernel<" in r["name"])
+            check(seed_calls > 0 and seed_ms > 0,
+                  "fit_profile soccer: no seeding kernel in the trace")
+            upd, mass, ops_ms, wall = SEED_PROFILE_BEFORE
+            print(f"profile soccer k={k} n={n}: the seeding kernels "
+                  f"{seed_ms:.1f} ms of device time in {seed_calls} steps "
+                  f"(the union of their time ranges); fit wall "
+                  f"{prof['wall_s']:.3f} s, device busy "
+                  f"{prof['device_busy_s']:.3f} s", flush=True)
+            print(f"recorded profile soccer k={k} n={n}: update_min_dist "
+                  f"{upd} + its mass pass {mass} + the seeding's torch ops "
+                  f"{ops_ms} ms of device time, fit wall {wall} s (PERF.md, "
+                  f"the parent's loop, not this run)", flush=True)
+            rows["update_min_dist"][f"soccer_k{k}_profile"] = dict(
+                seeding_device_ms=seed_ms, calls=seed_calls,
+                wall_s=prof["wall_s"], device_busy_s=prof["device_busy_s"])
 
 
 def coreset_phase(api, KERNELS, x, means, soc, soc_cost, per_fit) -> None:
@@ -1483,6 +1795,9 @@ def coreset_phase(api, KERNELS, x, means, soc, soc_cost, per_fit) -> None:
     check(np.array_equal(res.uplink_bytes, res.uplink_points * DIM * 4),
           "coreset_kmeans uplink bytes != rows * d * 4")
     check(res.centers.shape == (k, DIM), "coreset_kmeans centers not (k, d)")
+    check_repeat(api, x, k, "coreset_kmeans", res,
+                 f"coreset_kmeans n={x.shape[0]} k={k}",
+                 coreset_size=CORESET_BUDGET)
 
     cres, cwall, ccounts = run_fit(api, KERNELS, x, k, "soccer",
                                    SOCCER_CORESET_KERNELS, epsilon=0.05,
@@ -1570,6 +1885,9 @@ def robust_phase(api, KERNELS, x, means, per_fit) -> None:
     check(plain.extra["trimmed_mass"] == 0.0
           and plain.extra["trimmed_cost"] == 0.0,
           "kzmeans with outlier_frac=0 trimmed something")
+    check_repeat(api, xc, k, "kzmeans", robust,
+                 f"kzmeans outlier_frac={OUTLIER_FRAC} n={n} k={k}",
+                 outlier_frac=OUTLIER_FRAC, coreset_size=KZ_BUDGET)
 
     inlier = {}
     for frac in (OUTLIER_FRAC, 0.0):
@@ -1633,7 +1951,7 @@ def main() -> None:
 
     secs = build.build_all()
     print(f"build: {len(build.SOURCES)} sources in {secs:.2f} s", flush=True)
-    for source, kernel in WALK_KERNELS:
+    for source, kernel in PTXAS_KERNELS:
         check(print_ptxas(build.build_log(source), kernel) > 0,
               f"the build's nvcc log names no {kernel} variant")
 
@@ -1645,6 +1963,7 @@ def main() -> None:
     lloyd_phase(ops, ref, rows)
     dispatch_phase(ops, ref, rows)
     tier_phase(ops, ref, rows)
+    seeding_phase(ops, ref, rows)
     sync_phase(SoccerParams)
     tier_sync_phase(SoccerParams)
     kmpar_sync_phase()
@@ -1655,6 +1974,7 @@ def main() -> None:
         table2_phase(api, ops.KERNELS, k, eps, per_fit)
     eim11_s, eim11_rounds = eim11_phase(api, ops.KERNELS, per_fit)
     eim11_sweep_phase(ops, ref, rows, eim11_s, eim11_rounds)
+    repeat_phase(api)
     coreset_phase(api, ops.KERNELS, x, means, soc, soc_cost, per_fit)
     robust_phase(api, ops.KERNELS, x, means, per_fit)
     del x, soc

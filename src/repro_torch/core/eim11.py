@@ -35,6 +35,7 @@ from repro_torch.core.sampling import draw_global_sample
 from repro_torch.core.soccer import check_run_knobs, effective_n
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import exact_cumsum
 
 
 @dataclasses.dataclass
@@ -72,7 +73,7 @@ def weighted_quantile(d2: torch.Tensor, w: torch.Tensor,
     """The smallest d2 whose cumulative weight share reaches ``q``
     (ties in d2 keep their input order)."""
     order = torch.argsort(d2, stable=True)
-    cum = torch.cumsum(w[order], dim=0)
+    cum = exact_cumsum(w[order])
     total = torch.clamp(cum[-1], min=1e-30)
     idx = torch.searchsorted(cum / total, torch.tensor(
         [q], dtype=cum.dtype, device=cum.device))

@@ -1,16 +1,18 @@
 """Centralized weighted k-means black box A (the port of
 ``repro.core.kmeans``).
 
-Weighted k-means++ seeding (Gumbel-max categorical D²-sampling, one
-``update_min_dist`` launch per new center) followed by weighted Lloyd
-iterations (one ``fused_assign_reduce`` launch per iteration plus one for
-the final cost), so the same kernels serve the machines and the
-coordinator. Zero-weight rows are padding and never selected; empty
-clusters keep their previous center.
+Weighted k-means++ seeding (Gumbel-max categorical D²-sampling) followed
+by weighted Lloyd iterations (one ``fused_assign_reduce`` launch per
+iteration plus one for the final cost), so the same kernels serve the
+machines and the coordinator. Zero-weight rows are padding and never
+selected; empty clusters keep their previous center.
 
-PyTorch runs eagerly: the reference's ``lax.scan`` loops are Python loops
-here, and no value is read back to the host inside them, so a fit on the
-card queues its launches without waiting.
+The reference's seeding is a ``lax.scan`` in which XLA fuses the draw
+into each ``update_min_dist`` step; here the whole loop is one entry
+point (``ops.kmeans_plusplus_indices``), on the card one C call that
+launches the k steps of ``update_min_dist``'s kernel with its draw on.
+The Lloyd loop stays in Python; nothing inside either loop is read back
+to the host, so a fit on the card queues its launches without waiting.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.sampling import gumbel_argmax
 from repro_torch.kernels import ops
 
 
@@ -32,20 +33,14 @@ def kmeans_plusplus(gen: torch.Generator, x: torch.Tensor, w: torch.Tensor,
                     k: int) -> torch.Tensor:
     """Weighted D²-seeding. Returns (k, d) float32 initial centers.
 
-    Each seeding step is one fused sweep of ``x`` (``ops.update_min_dist``)
-    that lowers the running min-d2 against the newly chosen center and
-    totals the weighted mass for the next draw: k - 1 launches in all.
+    Draws the seeding's 64-bit Philox key from ``gen`` (on ``x``'s
+    device), runs the k steps in ``ops.kmeans_plusplus_indices`` and
+    gathers the chosen rows with one ``index_select``.
     """
-    n, d = x.shape
-    centers = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-    centers[0] = pick_row(x, gumbel_argmax(gen, w))
-    d2min = torch.full((n,), torch.inf, dtype=torch.float32, device=x.device)
-    for i in range(1, k):
-        d2min, mass = ops.update_min_dist(x, w, centers[i - 1:i], d2min)
-        # all-zero mass (every point on a center) -> fall back to uniform w
-        p = torch.where(mass > 0, w * d2min, w)
-        centers[i] = pick_row(x, gumbel_argmax(gen, p))
-    return centers
+    seed = torch.randint(0, 1 << 32, (2,), generator=gen, device=x.device,
+                         dtype=torch.int64)
+    idx = ops.kmeans_plusplus_indices(x, w, k, seed)
+    return torch.index_select(x, 0, idx).to(torch.float32)
 
 
 def lloyd(x: torch.Tensor, w: torch.Tensor, centers: torch.Tensor,

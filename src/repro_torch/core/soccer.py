@@ -86,7 +86,7 @@ def derive_constants(n: int, p_local: int, params: SoccerParams,
 # runs, its ROADMAP Queue 1 item)
 _LATER_PARAMS = {
     "straggler_rate": (0.0, "item 11 (SOCCER knobs)"),
-    "sharded_coordinator": (False, "item 9 (sharded_kmeans)"),
+    "sharded_coordinator": (False, "item 11 (sharded_kmeans)"),
     "blackbox": ("kmeans", "item 10 (minibatch)"),
 }
 # The reference's run-condition options (``repro.api.fit``) -> (the values

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ref import exact_cumsum
+
 
 def _sorted_desc(d2: torch.Tensor, w: torch.Tensor):
     order = torch.argsort(-d2, stable=True)
@@ -22,7 +24,7 @@ def weighted_truncated_cost(d2: torch.Tensor, w: torch.Tensor,
                             trunc_mass) -> torch.Tensor:
     """Sum of w*d2 after dropping ``trunc_mass`` weight of the largest d2."""
     _, d2s, ws = _sorted_desc(d2, w)
-    cum = torch.cumsum(ws, 0)          # inclusive, in descending-d2 order
+    cum = exact_cumsum(ws)             # inclusive, in descending-d2 order
     kept = torch.minimum(torch.clamp(cum - trunc_mass, min=0.0), ws)
     return torch.sum(kept * d2s)
 
@@ -32,7 +34,7 @@ def weighted_top_mass(d2: torch.Tensor, w: torch.Tensor,
     """Sum of w*d2 over the ``mass`` heaviest-cost weight units (the
     complement of ``weighted_truncated_cost``)."""
     _, d2s, ws = _sorted_desc(d2, w)
-    cum_ex = torch.cumsum(ws, 0) - ws                  # exclusive
+    cum_ex = exact_cumsum(ws) - ws                     # exclusive
     taken = torch.minimum(torch.clamp(mass - cum_ex, min=0.0), ws)
     return torch.sum(taken * d2s)
 
@@ -42,7 +44,7 @@ def trim_top_mass(d2: torch.Tensor, w: torch.Tensor, mass) -> torch.Tensor:
     largest d2, in the original point order (``0 <= kept <= w`` and
     ``sum(kept * d2) == weighted_truncated_cost(d2, w, mass)``)."""
     order, _, ws = _sorted_desc(d2, w)
-    kept = torch.minimum(torch.clamp(torch.cumsum(ws, 0) - mass, min=0.0), ws)
+    kept = torch.minimum(torch.clamp(exact_cumsum(ws) - mass, min=0.0), ws)
     out = torch.empty_like(kept)
     out[order] = kept
     return out

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core.kmeans import kmeans_plusplus
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import exact_cumsum
 
 
 def default_coreset_size(k: int, n: Optional[int] = None) -> int:
@@ -81,7 +82,7 @@ def build_coreset(gen: torch.Generator, x: torch.Tensor, w: torch.Tensor,
     total = torch.sum(sigma)
     p = sigma / torch.clamp(total, min=1e-30)
     # t iid draws by inverse CDF: O(n + t) memory
-    cdf = torch.cumsum(p, 0)
+    cdf = exact_cumsum(p)                # the same bits on every run
     u = torch.rand((t,), generator=gen, device=x.device) * cdf[-1]
     idx = torch.clamp(torch.searchsorted(cdf, u), 0, p.shape[0] - 1)
     pw = p[idx]

@@ -15,7 +15,11 @@ warm-up fit, then for one more fit prints:
   (``data.sharding.make_shards``, the same call the facade makes);
 * ``torch.profiler``'s device time per kernel or copy, summed over the
   fit, with launch counts, and the device's busy and idle share of the
-  wall (busy = the sum of device-side event times).
+  wall (busy = the union of the device-side events' time ranges: a
+  seeding step launched as a programmatic dependent of the one before
+  starts, and waits, while that one runs, so the sum of event times
+  would count the overlap twice; ``span_ms`` gives the union for one
+  group of kernels).
 
 The last line is one JSON object with the same numbers. Needs a CUDA
 card; the kernels are built from source at first use.
@@ -46,6 +50,26 @@ def _device_us(evt) -> float:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+def _union_us(ranges) -> float:
+    """Length of the union of (start, end) ranges, in their unit."""
+    total, lo, hi = 0.0, None, None
+    for start, end in sorted(ranges):
+        if hi is None or start > hi:
+            if hi is not None:
+                total += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    return total + (hi - lo if hi is not None else 0.0)
+
+
+def span_ms(prof: dict, *names: str) -> float:
+    """Device milliseconds of a profiled fit spent in the kernels whose
+    names contain one of ``names``: the union of their time ranges."""
+    return _union_us((start, end) for name, start, end in prof["_device"]
+                     if any(n in name for n in names)) / 1e3
 
 
 # each algorithm's knobs in a profiled fit
@@ -81,7 +105,11 @@ def profile_fit(k: int, n: int, m: int = 8, top: int = 15,
         wall_s = time.perf_counter() - t0
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    busy_us = sum(r[1] for r in rows)
+    device = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA]
+    busy_us = _union_us((start, end) for _, start, end in device)
     out = {"algo": algo, "k": k, "n": x.shape[0], "m": m,
            "rounds": res.rounds,
            "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
@@ -90,7 +118,8 @@ def profile_fit(k: int, n: int, m: int = 8, top: int = 15,
            "device_idle_share": (1.0 - busy_us / 1e6 / wall_s)
            if busy_us else None,
            "top": [{"name": name[:90], "device_ms": us / 1e3, "calls": cnt}
-                   for name, us, cnt in rows[:top]]}
+                   for name, us, cnt in rows[:top]],
+           "_device": device}
     print(f"fit {algo} k={k} n={x.shape[0]}: wall {wall_s:.3f} s, host shard placement "
           f"{shard_s:.3f} s, device busy "
           + (f"{busy_us / 1e6:.3f} s (idle share "
@@ -110,7 +139,9 @@ def main() -> None:
     args = ap.parse_args()
     results = [profile_fit(k, args.n, algo=args.algo)
                for k in (args.k or [25, 100])]
-    print(json.dumps({"profiles": results}))
+    print(json.dumps({"profiles": [
+        {key: v for key, v in r.items() if key != "_device"}
+        for r in results]}))
 
 
 if __name__ == "__main__":

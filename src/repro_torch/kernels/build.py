@@ -125,20 +125,25 @@ def load(source: str) -> ctypes.CDLL:
 class CudaKernel:
     """One C entry point of a kernel library, with its launch count.
 
-    ``launches`` goes up by one each time the entry point is called and
-    reports success: the C function launches its kernel(s) on the given
+    ``launches`` goes up each time the entry point is called and reports
+    success, by the number of launches of the kernel that the call made
+    (one, unless the caller says how many: a C loop launches one kernel
+    many times). The C function launches its kernel(s) on the given
     stream and returns ``cudaGetLastError()``, and a non-zero code raises
-    here.
+    here. An entry point built with ``counts=other`` adds its launches to
+    ``other``'s count: two C entries of one kernel keep one count.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 counts: "CudaKernel | None" = None):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._counter = self if counts is None else counts
         self._fn = None
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, launches: int = 1) -> None:
         if self._fn is None:
             fn = getattr(load(self.source), self.symbol)
             fn.argtypes = self.argtypes
@@ -149,7 +154,7 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.symbol} failed to launch: CUDA error {err} "
                 f"({torch.cuda.get_device_name()})")
-        self.launches += 1
+        self._counter.launches += launches
 
 
 def check_on_card(name: str, points: torch.Tensor, **others) -> None:

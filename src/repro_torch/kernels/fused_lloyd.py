@@ -10,6 +10,10 @@ which replace the kernels of ``repro/kernels/fused_lloyd.py``:
 * ``update_min_dist_cuda`` — one D²-seeding step: ``min(d2, d2(x, c))``
   and the weighted mass ``sum w·d2_new`` (replaces
   ``update_min_dist_pallas`` and its pipelined big-n twin);
+* ``kmeans_plusplus_indices_cuda`` — a whole weighted k-means++ seeding
+  on the same kernel with its Gumbel-max draw on: one C call launches the
+  k steps back to back and returns the (k,) chosen rows, with nothing
+  read back (``kmeans_pp_step_cuda`` runs one step, for checks);
 * ``fused_assign_reduce_cuda`` — one Lloyd step at any number of centers:
   assignment, weighted (k, d) sums, (k,) counts and the cost in one sweep
   (``csrc/fused_assign.cu``; replaces ``fused_assign_reduce_pallas``, its
@@ -29,9 +33,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import walk
-from repro_torch.kernels.build import (CudaKernel, blocks, check_on_card,
-                                       dtype_code, ptr, stream_of,
-                                       vector_f32)
+from repro_torch.kernels.build import (BLOCK_POINTS, CudaKernel,
+                                       check_on_card, dtype_code, ptr,
+                                       stream_of, vector_f32)
 from repro_torch.kernels.min_dist import center_mask, centers_f32
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -41,7 +45,17 @@ REMOVE_BELOW = CudaKernel(
     [_P, _I, _I, _L, _I, _P, _P, _I, _P, _P, _P, _P, _P])
 UPDATE_MIN_DIST = CudaKernel(
     "fused_lloyd.cu", "rt_update_min_dist",
-    [_P, _I, _L, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P])
+    [_P, _I, _L, _I, _P, _P, _P, _P, _I, _P, _P, _L, _P, _P])
+# the same kernel with its draw on: a whole seeding, or one step; both
+# count their launches as update_min_dist's
+KMEANS_PP = CudaKernel(
+    "fused_lloyd.cu", "rt_kmeanspp",
+    [_P, _I, _L, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P],
+    counts=UPDATE_MIN_DIST)
+KMEANS_PP_STEP = CudaKernel(
+    "fused_lloyd.cu", "rt_kmeanspp_step",
+    [_P, _I, _L, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
+    counts=UPDATE_MIN_DIST)
 FUSED_ASSIGN_REDUCE = CudaKernel(
     "fused_assign.cu", "rt_fused_assign_reduce",
     [_P, _I, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P])
@@ -75,6 +89,19 @@ def scratch_bytes(n: int, d: int, k: int, ppt: int, slices: int) -> int:
     tiles = walk.point_tiles(n, ppt)
     ws = r8(slices * n * 4) if slices > 1 else 0
     return k * (d + 1) * 8 + 8 + 2 * r8(tiles * 4) + 2 * ws
+
+
+# Bytes of rows in one staged tile of the seeding kernel, at most
+# (csrc/fused_lloyd.cu: kStageMax).
+SEED_STAGE_MAX = 48 * 1024
+
+
+def seed_tiles(n: int, d: int, itemsize: int) -> int:
+    """Tiles of the seeding kernel over ``n`` rows: BLOCK_POINTS rows a
+    tile, or as many as SEED_STAGE_MAX bytes hold (csrc/fused_lloyd.cu::
+    seed_tile_rows); at least 1, so scratch sized by it is never empty."""
+    rows = min(BLOCK_POINTS, max(1, SEED_STAGE_MAX // (max(d, 1) * itemsize)))
+    return max(-(-n // rows), 1)
 
 
 def remove_below_cuda(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,
@@ -121,12 +148,78 @@ def update_min_dist_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     cv = center_mask("update_min_dist", c_valid, cf.shape[0])
     check_on_card("update_min_dist", x, w=wf, d2=d2f, centers=cf, c_valid=cv)
     d2_new = torch.empty((n,), dtype=torch.float32, device=x.device)
-    part = torch.empty((blocks(n),), dtype=torch.float32, device=x.device)
+    nb = seed_tiles(n, d, x.element_size())
+    part = torch.empty((nb,), dtype=torch.float32, device=x.device)
     mass = torch.empty((), dtype=torch.float32, device=x.device)
     UPDATE_MIN_DIST(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(d2f), ptr(cf),
-                    ptr(cv), cf.shape[0], ptr(d2_new), ptr(part), ptr(mass),
-                    stream_of(x))
+                    ptr(cv), cf.shape[0], ptr(d2_new), ptr(part), nb,
+                    ptr(mass), stream_of(x))
     return d2_new, mass
+
+
+def _seeding_args(name: str, x: torch.Tensor, w: torch.Tensor,
+                  seed: torch.Tensor) -> torch.Tensor:
+    """Checks of a draw-on call; returns the float32 weights."""
+    if x.dim() != 2:
+        raise ValueError(f"{name}: points must be (n, d), got "
+                         f"{tuple(x.shape)}")
+    n = x.shape[0]
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"{name}: needs 1 <= n < 2^31 points, got {n}")
+    if seed.shape != (2,) or seed.dtype != torch.int64:
+        raise ValueError(f"{name}: seed must be (2,) int64, got "
+                         f"{tuple(seed.shape)} {seed.dtype}")
+    wf = vector_f32(name, "w", w, n)
+    check_on_card(name, x, w=wf, seed=seed)
+    return wf
+
+
+def kmeans_plusplus_indices_cuda(x: torch.Tensor, w: torch.Tensor, k: int,
+                                 seed: torch.Tensor) -> torch.Tensor:
+    """(k,) int64 rows of ``x`` drawn by weighted k-means++ (D²) seeding,
+    keyed by the (2,) int64 ``seed`` on the card: one C call launches the
+    k steps and the index write, and nothing is read back to the host.
+
+    Checks and allocates once a seeding: d2 at +inf, and the (k,) D² and
+    w words of the steps' draws at 0 (int64 storage of the kernel's
+    unsigned 64-bit words)."""
+    wf = _seeding_args("kmeans_plusplus_indices", x, w, seed)
+    n, d = x.shape
+    idx = torch.empty((k,), dtype=torch.int64, device=x.device)
+    if k == 0:
+        return idx
+    d2 = torch.full((n,), torch.inf, dtype=torch.float32, device=x.device)
+    words = torch.zeros((2, k), dtype=torch.int64, device=x.device)
+    KMEANS_PP(ptr(x), dtype_code(x), n, d, ptr(wf), k, ptr(seed), ptr(d2),
+              ptr(words[0]), ptr(words[1]), ptr(idx), walk.sm_count(x.device),
+              stream_of(x), launches=k)
+    return idx
+
+
+def kmeans_pp_step_cuda(x: torch.Tensor, w: torch.Tensor, d2: torch.Tensor,
+                        prev: Optional[torch.Tensor], step: int,
+                        seed: torch.Tensor) -> torch.Tensor:
+    """One draw-on step, as step ``step`` of a seeding keyed by ``seed``:
+    ``d2`` ((n,) float32, updated in place) is lowered against row
+    ``prev`` (a () int64 index on the card; None: no center, as step 0),
+    and the step's (D² word, w word) come back as a (2,) int64 tensor
+    (``ref.winner_from_words`` and ``ref.key_of_word`` read them)."""
+    wf = _seeding_args("kmeans_pp_step", x, w, seed)
+    n, d = x.shape
+    if d2.shape != (n,) or d2.dtype != torch.float32:
+        raise ValueError(f"kmeans_pp_step: d2 must be ({n},) float32")
+    check_on_card("kmeans_pp_step", x, d2=d2)
+    out = torch.zeros((2,), dtype=torch.int64, device=x.device)
+    pw = None
+    if prev is not None:
+        # a D² word above -inf at index prev: the center is row prev
+        pw = torch.zeros((2,), dtype=torch.int64, device=x.device)
+        pw[0] = (1 << 62) + (0xFFFFFFFF - prev.reshape(()).to(torch.int64))
+    KMEANS_PP_STEP(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(seed), step,
+                   ptr(d2), ptr(pw), None if pw is None else ptr(pw[1:]),
+                   ptr(out), ptr(out[1:]), walk.sm_count(x.device),
+                   stream_of(x))
+    return out
 
 
 def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,

@@ -17,6 +17,10 @@ JAX package's oracles):
   (m, p, d) shards: ``alive & (min-d2 > v)`` and per-machine live counts.
 * ``update_min_dist(x, w, c, d2, c_valid)`` — one D²-seeding step:
   ``min(d2, d2(x, c))`` and ``sum w·d2_new``.
+* ``kmeans_plusplus_indices(x, w, k, seed)`` — a whole weighted
+  k-means++ seeding: the (k,) chosen rows, drawn by Gumbel-max with
+  Philox bits keyed by ``seed``; on the card one C call runs the k steps
+  on ``update_min_dist``'s kernel with its draw on.
 * ``lloyd_reduce(x, w, assign, k)`` — (k, d) weighted sums and (k,)
   counts for a given assignment; beyond ``MAX_RESIDENT_K`` centers on the
   card, fixed-point accumulators instead of per-block partials.
@@ -37,6 +41,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.fused_lloyd import (FUSED_ASSIGN_REDUCE,
                                              REMOVE_BELOW, UPDATE_MIN_DIST,
                                              fused_assign_reduce_cuda,
+                                             kmeans_plusplus_indices_cuda,
                                              remove_below_cuda,
                                              update_min_dist_cuda)
 from repro_torch.kernels.lloyd import LLOYD_REDUCE, lloyd_reduce_cuda
@@ -56,11 +61,15 @@ from repro_torch.kernels.truncated import (TRUNCATED_COST,
 # per center, so none of them reads this limit.
 MAX_RESIDENT_K = 1024
 
+# The reference's seven (repro.kernels.ops.ENTRY_POINTS), then the
+# seeding loop, which the reference runs as a lax.scan over
+# update_min_dist and which the port runs on that kernel with its draw on.
 ENTRY_POINTS = ("min_dist", "lloyd_reduce", "fused_assign_reduce",
                 "remove_below", "update_min_dist", "sensitivity_scores",
-                "truncated_cost")
+                "truncated_cost", "kmeans_plusplus_indices")
 
-# CUDA kernel -> its wrapper's launch counter (for chip_smoke.py)
+# CUDA kernel -> its wrapper's launch counter (for chip_smoke.py); the
+# seeding's launches count as update_min_dist's, whose kernel they run
 KERNELS = {"min_dist": MIN_DIST, "fused_assign_reduce": FUSED_ASSIGN_REDUCE,
            "remove_below": REMOVE_BELOW, "update_min_dist": UPDATE_MIN_DIST,
            "lloyd_reduce": LLOYD_REDUCE,
@@ -128,6 +137,22 @@ def update_min_dist(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     return ref.update_min_dist_ref(x, w, c, d2, c_valid)
 
 
+def kmeans_plusplus_indices(x: torch.Tensor, w: torch.Tensor, k: int,
+                            seed: torch.Tensor) -> torch.Tensor:
+    """Weighted k-means++ (D²) seeding: (k,) int64 rows of ``x``.
+
+    Step 0 draws a row ∝ ``w``; each later step lowers the running min-d2
+    against the row drawn last and draws ∝ ``w·d2``, or ∝ ``w`` when that
+    mass is 0 (every point on a center). Each draw is a Gumbel-max over
+    Philox4x32-10 bits keyed by ``seed``, a (2,) int64 tensor on ``x``'s
+    device; a zero-weight row is never drawn unless every weight is 0. On
+    the card the whole loop is one C call: nothing is read back.
+    """
+    if _on_card(x):
+        return kmeans_plusplus_indices_cuda(x, w, k, seed)
+    return ref.kmeans_plusplus_indices_ref(x, w, k, seed)
+
+
 def sensitivity_scores(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
                        c_valid: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -138,13 +163,18 @@ def sensitivity_scores(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     Beyond ``MAX_RESIDENT_K`` centers on the card (which the coreset path,
     with O(k) bicriteria centers, never reaches) it is the ``min_dist``
     kernel followed by the (n,)-sized tail in PyTorch, as the reference's
-    dispatch does. With no valid center the result is the plain version's
-    (+inf scores, all mass on center 0), outside the reference's contract.
+    dispatch does, with the masses as exact sums (``ref.exact_index_add``:
+    a float ``index_add_`` on the card changes its bits from run to run).
+    With no valid center the result is the plain version's (+inf scores,
+    all mass on center 0), outside the reference's contract.
     """
     if _on_card(x):
         if c.shape[0] > MAX_RESIDENT_K:
             d2, assign = min_dist_cuda(x, c, c_valid)
-            return ref.sensitivity_from_min(w, d2, assign, c.shape[0])
+            scores = w.float() * d2
+            return (scores, assign,
+                    ref.exact_index_add(w.float(), assign, c.shape[0]),
+                    torch.sum(scores))
         return sensitivity_scores_cuda(x, w, c, c_valid)
     return ref.sensitivity_scores_ref(x, w, c, c_valid)
 

@@ -13,6 +13,10 @@ Semantics carried over from the reference (``repro/kernels/ref.py``):
   after it, then clamps at >= 0 (ref.py:72-73);
 * ``update_min_dist`` is an exact no-op on ``d2`` when no center is
   valid (+inf candidates);
+* the k-means++ seeding draws each center by Gumbel-max over
+  ``log(max(w·d2, 1e-38))`` where ``w·d2 > 0``, else over the weights
+  (the reference's uniform fallback at zero mass, core/kmeans.py:56-57),
+  with Philox4x32-10 bits that the CUDA kernel draws too;
 * ``remove_below`` keeps a point only if its min-d2 is strictly ``> v``;
   ``truncated_cost`` keeps it below the threshold if ``<= v``, and a row
   of weight 0 falls on neither side;
@@ -117,8 +121,7 @@ def sensitivity_from_min(w: torch.Tensor, d2: torch.Tensor,
                                     torch.Tensor]:
     """(scores, assign, mass, cost) from a finished min-distance pass: the
     tail of the sensitivity pass, (n,)- and (k,)-sized only (no sweep of
-    the points). ``ops`` also runs it after the ``min_dist`` kernel for
-    center sets beyond the resident limit."""
+    the points)."""
     wf = w.float()
     scores = wf * d2.float()
     mass = torch.zeros((k,), dtype=torch.float32, device=w.device)
@@ -230,6 +233,49 @@ def fixed_point_reduce_ref(x: torch.Tensor, w: torch.Tensor,
             (acc_w.double() * 2.0 ** -sw).float())
 
 
+# ---------------------------------------------------------- exact sums
+# A floating-point torch.cumsum or index_add_ on the card combines its
+# terms in an order that changes from run to run (PyTorch lists both among
+# its nondeterministic operations), so a draw or threshold read off one
+# can change between two runs of one seed. These two take the sums in
+# 64-bit fixed point instead, as fixed_point_reduce_ref does, with the
+# shift found on the device (no host read): integer sums are exact in any
+# order, so every run, on any device, gives the same bits. Each term is
+# rounded once to 2^-s, s the largest shift with n·max|v|·2^s < 2^62, and
+# each sum once to float32. Finite inputs only.
+
+def _fixed_scale(vd: torch.Tensor) -> torch.Tensor:
+    """() float64 2^s for the float64 terms ``vd`` (1 when all are 0)."""
+    top = vd.abs().max() * vd.shape[0]
+    _, e = torch.frexp(top)                              # top < 2^e
+    s = torch.where(top > 0, 62 - e, 0)
+    return torch.ldexp(torch.ones((), dtype=torch.float64, device=vd.device),
+                       s)
+
+
+def exact_cumsum(v: torch.Tensor) -> torch.Tensor:
+    """(n,) float32 inclusive prefix sums of the (n,) values ``v``."""
+    vd = v.double()
+    if vd.shape[0] == 0:
+        return vd.float()
+    scale = _fixed_scale(vd)
+    q = torch.round(vd * scale).long()
+    return (torch.cumsum(q, 0).double() / scale).float()
+
+
+def exact_index_add(v: torch.Tensor, index: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    """(k,) float32 sums of the (n,) values ``v`` by their index in
+    [0, k)."""
+    vd = v.double()
+    out = torch.zeros((k,), dtype=torch.int64, device=v.device)
+    if vd.shape[0] == 0:
+        return out.float()
+    scale = _fixed_scale(vd)
+    out.index_add_(0, index.long(), torch.round(vd * scale).long())
+    return (out.double() / scale).float()
+
+
 def remove_below_ref(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,
                      v: torch.Tensor,
                      c_valid: Optional[torch.Tensor] = None
@@ -240,3 +286,118 @@ def remove_below_ref(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,
     d2, _ = min_dist_ref(x.reshape(m * p, d), c, c_valid)
     alive_new = alive & (d2.reshape(m, p) > v)
     return alive_new, torch.sum(alive_new, dim=1, dtype=torch.int32)
+
+
+# ---------------------------------------------------- k-means++ seeding
+# Philox4x32-10 (Salmon et al., SC'11; Random123's round and key
+# schedule), as csrc/fused_lloyd.cu::philox_word0 computes it. Words are
+# uint32 values held in int64: a product of two of them wraps mod 2^64,
+# its low word is ``p & MASK32`` and its high word ``(p >> 32) & MASK32``.
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+MASK32 = 0xFFFFFFFF
+# the most seeding steps whose bits are drawn at once, times n
+SEED_BATCH = 1 << 22
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """The four words of the Philox4x32-10 block at counter (c0, c1, c2,
+    c3) under key (k0, k1): int64 tensors (or ints) of uint32 values,
+    broadcast together."""
+    x = [torch.as_tensor(c, dtype=torch.int64) for c in (c0, c1, c2, c3)]
+    k0 = torch.as_tensor(k0, dtype=torch.int64)
+    k1 = torch.as_tensor(k1, dtype=torch.int64)
+    for r in range(10):
+        if r:
+            k0 = (k0 + PHILOX_W[0]) & MASK32
+            k1 = (k1 + PHILOX_W[1]) & MASK32
+        p0 = x[0] * PHILOX_M[0]
+        p1 = x[2] * PHILOX_M[1]
+        x = [((p1 >> 32) & MASK32) ^ x[1] ^ k0, p1 & MASK32,
+             ((p0 >> 32) & MASK32) ^ x[3] ^ k1, p0 & MASK32]
+    return x
+
+
+def seed_gumbel(seed: torch.Tensor, n: int, steps: range) -> torch.Tensor:
+    """(len(steps), n) float32 Gumbel noise g = -log(-log u) of the
+    seeding keyed by ``seed`` ((2,) int64), for points 0..n-1 at the given
+    steps: counter (point, step, 0, 0), word 0 r, u = (2·(r >> 9) + 1)·2^-24
+    (exact in float32, never 0 or 1)."""
+    dev = seed.device
+    c0 = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
+    c1 = torch.as_tensor(list(steps), dtype=torch.int64, device=dev)[:, None]
+    r = philox4x32_10(c0, c1, 0, 0, seed[0], seed[1])[0]
+    u = ((r >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_keys(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Gumbel-max keys of weights ``p``: log(max(p, 1e-38)) + g where
+    p > 0, else -inf (core/sampling.py::gumbel_argmax's formula)."""
+    logp = torch.where(p > 0, torch.log(torch.clamp(p, min=1e-38)),
+                       -torch.inf)
+    return logp + g
+
+
+def draw_winner(key_d2: Optional[torch.Tensor],
+                key_w: torch.Tensor) -> torch.Tensor:
+    """The step's draw, a () int64 index: the argmax of the D² keys if one
+    is above -inf, else of the w keys (``key_d2`` None: step 0); ties to
+    the lowest index (torch.argmax)."""
+    aw = torch.argmax(key_w)
+    if key_d2 is None:
+        return aw
+    return torch.where(torch.max(key_d2) > -torch.inf, torch.argmax(key_d2),
+                       aw)
+
+
+def kmeans_pp_step_ref(x: torch.Tensor, w: torch.Tensor, d2: torch.Tensor,
+                       prev: Optional[torch.Tensor], g: torch.Tensor
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                  torch.Tensor]:
+    """One seeding step: ((n,) d2 lowered against row ``prev`` of ``x``
+    (unchanged when None), (n,) D² keys (None when ``prev`` is None) and
+    (n,) w keys), with the step's Gumbel noise ``g``."""
+    wf = w.float()
+    key_d2 = None
+    if prev is not None:
+        c = torch.index_select(x, 0, prev.reshape(1)).float()
+        d2 = torch.minimum(d2, min_dist_ref(x, c)[0])
+        key_d2 = gumbel_keys(wf * d2, g)
+    return d2, key_d2, gumbel_keys(wf, g)
+
+
+def kmeans_plusplus_indices_ref(x: torch.Tensor, w: torch.Tensor, k: int,
+                                seed: torch.Tensor) -> torch.Tensor:
+    """(k,) int64 rows of ``x`` drawn by weighted k-means++ seeding keyed
+    by the (2,) int64 ``seed``: the CUDA kernel's steps, bits and
+    tie rule, with ``min_dist_ref``'s d2 (the kernel's to a few ulps)."""
+    n = x.shape[0]
+    d2 = torch.full((n,), torch.inf, dtype=torch.float32, device=x.device)
+    idx = torch.empty((k,), dtype=torch.int64, device=x.device)
+    batch = max(1, SEED_BATCH // max(n, 1))
+    prev = None
+    for s0 in range(0, k, batch):
+        g = seed_gumbel(seed, n, range(s0, min(k, s0 + batch)))
+        for j in range(g.shape[0]):
+            d2, key_d2, key_w = kmeans_pp_step_ref(x, w, d2, prev, g[j])
+            prev = draw_winner(key_d2, key_w)
+            idx[s0 + j] = prev
+    return idx
+
+
+def key_of_word(word: torch.Tensor) -> torch.Tensor:
+    """The float32 key in the high half of a draw word
+    (csrc/fused_lloyd.cu::key_word), int64 storage in, float32 out."""
+    o = (word >> 32) & MASK32
+    b = torch.where(o >= 0x80000000, o - 0x80000000, MASK32 - o)
+    b = torch.where(b >= 0x80000000, b - (1 << 32), b)   # as int32 bits
+    return b.to(torch.int32).view(torch.float32)
+
+
+def winner_from_words(words: torch.Tensor) -> torch.Tensor:
+    """The index a step's (D² word, w word) draw: the D² word's if its key
+    is above -inf, else the w word's (csrc/fused_lloyd.cu::winner_of)."""
+    above = ((words[0] >> 32) & MASK32) > 0x007FFFFF
+    word = torch.where(above, words[0], words[1])
+    return MASK32 - (word & MASK32)

@@ -50,6 +50,7 @@ from repro_torch.coresets.sensitivity import (build_coreset,
                                               machine_data)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import exact_cumsum
 
 # seedings drawn on the coordinator; the lowest trimmed cost is kept
 SEEDINGS = 4
@@ -102,7 +103,7 @@ def realized_threshold(d2: torch.Tensor, w: torch.Tensor, z_mass
     """The distance of the first kept row when the top ``z_mass`` weight is
     peeled off in descending order of ``d2``."""
     order = torch.argsort(-d2, stable=True)
-    cum = torch.cumsum(w[order], 0)
+    cum = exact_cumsum(w[order])
     z = torch.as_tensor(z_mass, dtype=cum.dtype, device=cum.device)
     j = torch.clamp(torch.searchsorted(cum, z.reshape(1)), max=d2.shape[0] - 1)
     return d2[order][j][0]

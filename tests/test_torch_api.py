@@ -109,7 +109,7 @@ def test_fit_without_cuda_raises(monkeypatch, data):
 @pytest.mark.parametrize("kwargs,item", [
     (dict(straggler_rate=0.1), "item 11"),
     (dict(outlier_frac=0.05, blackbox="minibatch"), "item 10"),
-    (dict(sharded_coordinator=True), "item 9"),
+    (dict(sharded_coordinator=True), "item 11"),
     (dict(blackbox="minibatch"), "item 10"),
     (dict(uplink_mode="coreset", uplink_wire="codes"), "item 11"),
     (dict(uplink_dtype="bfloat16"), "item 11"),

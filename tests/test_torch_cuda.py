@@ -388,3 +388,105 @@ def test_cuda_remove_below_blocked_walk(m, p, d, k, dt):
         flips = (a != a_p).reshape(-1)
         if bool(flips.any()):
             assert float((d2_p[flips] - v).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,d,k,offset", [
+    (20_001, 15, 40, 0), (3_001, 15, 25, 1), (2_999, 37, 20, 1),
+    (1_001, 513, 12, 0)],
+    ids=["main_path", "unaligned_base", "any_width", "wide_d"])
+def test_cuda_seeding_matches_plain(n, d, k, offset, dt):
+    """The seeding kernel (update_min_dist's, its draw on) step by step
+    from a shared state: its d2 equals ops.update_min_dist's for the same
+    center bit for bit and the plain step's within tol; its draw is the
+    argmax of torch's keys from its own d2, the key in its word within 4
+    float32 ulps of torch's; the C loop's k draws equal the chained steps
+    and repeat bit for bit; zero-weight rows are never drawn. ``offset``
+    starts the points one row into their buffer (a base not 16-byte
+    aligned), as a machine's slice of an (m, p, d) tensor can."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    from repro_torch.kernels import fused_lloyd as fl
+    g, xb, _, _, w = _inputs(8, n + offset, d, 1, dt)
+    x, w = xb[offset:], w[offset:].contiguous()
+    assert (x.data_ptr() % 16 != 0) == (offset == 1 and d * x.element_size()
+                                         % 16 != 0)
+    seed = torch.randint(0, 1 << 32, (2,), generator=g, device="cuda")
+    tol = _d2_tol(x, x.float())
+    wf = w.float()
+    d2 = torch.full((n,), torch.inf, device="cuda")
+    prev, chain = None, []
+    for step in range(k):
+        d2_k = d2.clone()
+        words = fl.kmeans_pp_step_cuda(x, w, d2_k, prev, step, seed)
+        gs = ref.seed_gumbel(seed, n, range(step, step + 1))[0]
+        kd = None
+        if prev is not None:
+            c = torch.index_select(x, 0, prev.reshape(1)).float()
+            d2_u, _ = ops.update_min_dist(x, w, c, d2)
+            assert torch.equal(d2_k, d2_u)
+            d2_p, _, _ = ref.kmeans_pp_step_ref(x, w, d2, prev, gs)
+            torch.testing.assert_close(d2_k, d2_p, rtol=0, atol=tol)
+            kd = ref.gumbel_keys(wf * d2_k, gs)
+        keys = (kd if kd is not None and bool(kd.max() > -torch.inf)
+                else ref.gumbel_keys(wf, gs))
+        a = ref.winner_from_words(words)
+        b = torch.argmax(keys)
+        key_k = ref.key_of_word(words[0] if keys is kd else words[1])
+        ulp = 4 * float(torch.finfo(torch.float32).eps) * float(
+            keys[b].abs().clamp(min=1.0))
+        assert abs(float(key_k) - float(keys[a])) <= ulp
+        assert float(keys[b] - keys[a]) <= ulp
+        assert float(w[a]) > 0
+        d2, prev = d2_k, a
+        chain.append(a)
+    before = ops.KERNELS["update_min_dist"].launches
+    idx = ops.kmeans_plusplus_indices(x, w, k, seed)
+    assert ops.KERNELS["update_min_dist"].launches == before + k
+    assert torch.equal(idx, torch.stack(chain))
+    assert torch.equal(idx, ops.kmeans_plusplus_indices(x, w, k, seed))
+
+
+@pytest.mark.cuda
+def test_cuda_seeding_fallback_at_zero_mass():
+    """Every point on one center: from step 1 the D² keys are all -inf and
+    the draw falls back to the weights, as the plain version does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    x = torch.ones((5_000, 15), device="cuda")
+    w = torch.rand(5_000, device="cuda")
+    w[::3] = 0.0
+    seed = torch.tensor([3, 4], device="cuda")
+    idx = ops.kmeans_plusplus_indices(x, w, 6, seed)
+    assert torch.equal(idx, ref.kmeans_plusplus_indices_ref(x, w, 6, seed))
+    assert bool((w[idx] > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,kw", [
+    ("soccer", dict(epsilon=0.05, delta=0.1)),
+    ("kmeans_parallel", dict(rounds=5)),
+    ("eim11", dict(epsilon=0.1, delta=0.1)),
+    ("coreset_kmeans", dict(coreset_size=4_096)),
+    ("kzmeans", dict(outlier_frac=0.02, coreset_size=32_000))],
+    ids=["soccer", "kmeans_parallel", "eim11", "coreset_kmeans", "kzmeans"])
+def test_cuda_fits_repeat_bit_for_bit(algo, kw):
+    """Each registered algorithm fitted twice in one process at one seed
+    on one input of 200,000 points (the paper's mixture, 2% gross outliers
+    for kzmeans) gives the same centers and cost bit for bit (ROADMAP
+    Queue 3's run-to-run fault)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    from repro_torch import api
+    from repro_torch.configs.soccer_paper import GaussianMixtureSpec
+    from repro_torch.data.synthetic import contaminate, gaussian_mixture
+    x, _, _ = gaussian_mixture(GaussianMixtureSpec(
+        n=200_000, dim=15, k=25, sigma=0.001, zipf_gamma=1.5, seed=17))
+    if algo == "kzmeans":
+        x, _ = contaminate(x, frac=0.02, scale=50.0, seed=7)
+    fits = [api.fit(x, 25, algo=algo, m=8, seed=0, **kw) for _ in range(2)]
+    assert fits[0].centers.shape == fits[1].centers.shape
+    assert (fits[0].centers == fits[1].centers).all()
+    assert fits[0].cost(x) == fits[1].cost(x)

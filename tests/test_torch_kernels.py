@@ -195,6 +195,29 @@ def test_update_min_dist_matches_reference(name, n, d, k, jdt, tdt):
         assert bool((d2_o <= torch.from_numpy(d2) + 1e-6).all())
 
 
+@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES, ids=IDS)
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
+def test_seeding_step_d2_matches_reference(name, n, d, k, jdt, tdt):
+    """The plain seeding step's d2 (the D² update against the row drawn
+    last) against the JAX oracle ``update_min_dist_ref`` with that row as
+    the one-center block, on the same inputs, with ``_tols``; the step's
+    w keys do not depend on d2, its D² keys are the Gumbel keys of w·d2."""
+    xj, wj, _, _, xt, wt, _, _ = _data(n, d, 1, jdt, tdt, seed=7 * n + d + k)
+    rng = np.random.default_rng(3 * n + d)
+    d2 = (rng.random(n) * d).astype(np.float32)
+    prev = int(rng.integers(n))
+    tol, _ = _tols(jdt)
+    g = tref.seed_gumbel(torch.tensor([5, 7]), n, range(1, 2))[0]
+    d2_o, key_d2, key_w = tref.kmeans_pp_step_ref(
+        xt, wt, torch.from_numpy(d2), torch.tensor(prev), g)
+    d2_r, _ = jref.update_min_dist_ref(xj, wj, xj[prev:prev + 1].astype(
+        jnp.float32), jnp.asarray(d2))
+    np.testing.assert_allclose(d2_o.numpy(), d2_r, rtol=tol, atol=tol)
+    assert float(d2_o[prev]) <= tol              # the center's own row
+    assert torch.equal(key_d2, tref.gumbel_keys(wt.float() * d2_o, g))
+    assert torch.equal(key_w, tref.gumbel_keys(wt.float(), g))
+
+
 def _assign(n, k, seed):
     """An (n,) int32 assignment over [0, k) with a few entries outside it
     (-1 and k), which add nothing."""
@@ -636,9 +659,14 @@ def test_dispatch_rejects_other_devices():
     (tsens.sensitivity_scores_cuda, lambda x, c: (x, torch.ones(6), c)),
     (ttrunc.truncated_cost_cuda, lambda x, c: (
         x.reshape(2, 3, 4), torch.ones((2, 3)), c, 0.5)),
+    (tfused.kmeans_plusplus_indices_cuda, lambda x, c: (
+        x, torch.ones(6), 3, torch.zeros(2, dtype=torch.int64))),
+    (tfused.kmeans_pp_step_cuda, lambda x, c: (
+        x, torch.ones(6), torch.zeros(6), None, 0,
+        torch.zeros(2, dtype=torch.int64))),
 ], ids=["min_dist", "update_min_dist", "fused_assign_reduce",
         "remove_below", "lloyd_reduce", "sensitivity_scores",
-        "truncated_cost"])
+        "truncated_cost", "kmeans_plusplus_indices", "kmeans_pp_step"])
 def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
     """A wrapper launches its kernel or raises: CPU tensors never reach a
     plain version through it, and no launch is counted."""
@@ -665,6 +693,25 @@ def test_wrappers_check_shapes():
     with pytest.raises(ValueError, match="w must be"):
         ttrunc.truncated_cost_cuda(torch.zeros((2, 3, 4)), torch.ones(6),
                                    torch.zeros((3, 4)), 0.5)
+    with pytest.raises(ValueError, match="seed must be"):
+        tfused.kmeans_plusplus_indices_cuda(torch.zeros((6, 4)),
+                                            torch.ones(6), 3,
+                                            torch.zeros(2))
+    with pytest.raises(ValueError, match="n < 2"):
+        tfused.kmeans_plusplus_indices_cuda(
+            torch.zeros((0, 4)), torch.ones(0), 3,
+            torch.zeros(2, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("n,d,itemsize,tiles", [
+    (991_418, 15, 4, 3_873), (17_353, 15, 2, 68), (3_000, 37, 4, 12),
+    (3_000, 513, 4, 131), (0, 15, 4, 1)])
+def test_seed_tile_rule(n, d, itemsize, tiles):
+    """The seeding kernel's tiles (csrc/fused_lloyd.cu::seed_tile_rows):
+    256 rows a tile while 256 rows fit SEED_STAGE_MAX bytes (d <= 48 in
+    float32), else as many rows as fit; the draw-off wrapper sizes its
+    per-tile partials by this count."""
+    assert tfused.seed_tiles(n, d, itemsize) == tiles
 
 
 def test_build_is_keyed_on_sources():
@@ -686,14 +733,20 @@ def test_every_entry_point_covered():
     public = {name for name, fn in vars(ops).items()
               if callable(fn) and not name.startswith("_")
               and getattr(fn, "__module__", "") == ops.__name__}
-    covered = {"min_dist", "lloyd_reduce", "fused_assign_reduce",
+    kernels = {"min_dist", "lloyd_reduce", "fused_assign_reduce",
                "remove_below", "update_min_dist", "sensitivity_scores",
                "truncated_cost"}
+    covered = kernels | {"kmeans_plusplus_indices"}
     assert public == set(ops.ENTRY_POINTS) == covered
-    # the reference's seven, in its order
+    # the reference's seven, in its order, then the seeding loop (the
+    # reference's lax.scan over update_min_dist; tests/test_torch_kmeans.py
+    # holds it to its plain steps, and those to the JAX oracle below)
     from repro.kernels import ops as jops
-    assert ops.ENTRY_POINTS == jops.ENTRY_POINTS
+    assert ops.ENTRY_POINTS[:7] == jops.ENTRY_POINTS
+    assert ops.ENTRY_POINTS[7:] == ("kmeans_plusplus_indices",)
     # every kernel behind them has a launch counter, one kernel an entry
-    # point (fused_assign_reduce's serves every number of centers)
-    assert set(ops.KERNELS) == covered
+    # point (fused_assign_reduce's serves every number of centers; the
+    # seeding runs update_min_dist's kernel and counts as its launches)
+    assert set(ops.KERNELS) == kernels
+    assert tfused.KMEANS_PP._counter is ops.KERNELS["update_min_dist"]
 

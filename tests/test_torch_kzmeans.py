@@ -227,9 +227,14 @@ def test_outlier_robust_finalize():
     plain finalize by a wide margin.
 
     The reference asserts "within 3x of the mixture means" at one seed; in
-    both packages the bound depends on the seed (the finalize's one
-    k-means++ seeding can merge two components), so it is held here at
-    most of eight seeds, and the margin over the plain fit at every one."""
+    both packages the bound depends on the seed (the finalize's k-means++
+    seedings can leave an outlier row as a center and merge two
+    components), about half the seeds meeting it in each
+    (scripts/robust_finalize_rate.py). So the margin over the plain fit is
+    held at each of eight seeds, and the bound as a rate over 32 seeds: at
+    least 11 of them, which a rate of one half misses with probability
+    below 1% and a rate fallen to one fifth meets with probability below
+    5% (binomial tails)."""
     x, _, means = gaussian_mixture(JSpec(n=12_000, dim=10, k=6, sigma=0.001,
                                          seed=6))
     rng = np.random.default_rng(3)
@@ -240,19 +245,20 @@ def test_outlier_robust_finalize():
     parts = shard_points(x_all, M)
     ref = _cost(x, means)
     near = 0
-    for seed in range(8):
+    for seed in range(32):
         runs = {}
-        for frac in (0.0, 0.02):
+        for frac in ((0.0, 0.02) if seed < 8 else (0.02,)):
             runs[frac] = run_soccer(
                 parts, SoccerParams(k=6, epsilon=0.1, seed=seed,
                                     outlier_frac=frac),
                 eta_override=x_all.shape[0], device="cpu")
             assert runs[frac].rounds == 0, "eta >= n must skip every round"
         costs = {f: _cost(x, r.centers) for f, r in runs.items()}
-        assert not np.array_equal(runs[0.0].centers, runs[0.02].centers)
-        assert costs[0.02] < 0.1 * costs[0.0], (seed, costs)
+        if seed < 8:
+            assert not np.array_equal(runs[0.0].centers, runs[0.02].centers)
+            assert costs[0.02] < 0.1 * costs[0.0], (seed, costs)
         near += costs[0.02] <= 3.0 * ref
-    assert near >= 5, near
+    assert near >= 11, near
 
 
 def test_robust_soccer_rounds(contaminated):

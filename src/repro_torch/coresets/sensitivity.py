@@ -5,8 +5,8 @@ The port of ``repro.coresets.sensitivity``. The classic recipe
 2013):
 
 1. **Bicriteria solve** B: weighted k-means++ seeding with ``kb`` centers
-   (``core.kmeans.kmeans_plusplus``: one ``update_min_dist`` launch per
-   center after the first).
+   (``core.kmeans.kmeans_plusplus``: on the card one C call that
+   launches one step of ``update_min_dist``'s kernel a center).
 2. **Sensitivity scores**: one sweep (``kernels.ops.sensitivity_scores``,
    one launch) gives per-point weighted cost shares, assignments,
    per-cluster weight masses and cost(B), from which the standard
@@ -16,7 +16,8 @@ The port of ``repro.coresets.sensitivity``. The classic recipe
 
 3. **Importance sample** ``t`` points iid with probability ``p ∝ sigma``
    (with replacement) by the inverse CDF of one ``torch.rand`` draw from
-   the explicit generator (``cumsum`` + ``searchsorted``), and attach the
+   the explicit generator (an exact prefix sum, ``ref.exact_cumsum``,
+   + ``searchsorted``), and attach the
    Horvitz–Thompson weight ``u = w / (t * p)``, so every weighted cost
    estimate over the coreset is unbiased.
 

@@ -3,11 +3,13 @@
 // Every kernel here answers "which valid center is nearest to this point",
 // with the center set streamed through shared memory in tiles, in one of
 // two walks of the same per-point arithmetic (bit for bit):
-//   nearest          one point a thread: update_min_dist, sensitivity_scores,
+//   nearest          one point a thread: sensitivity_scores,
 //                    truncated_cost;
 //   nearest_split    P points a thread (nearest_blocked), the center axis
 //                    optionally split over blocks: the Lloyd step
 //                    (fused_assign.cu), min_dist and remove_below.
+// The seeding step (fused_lloyd.cu::seed_step_kernel) walks nearest()'s
+// arithmetic too, one point a thread, on rows staged in shared memory.
 // The distance is the expanded form the JAX reference uses
 // (repro/kernels/ref.py:43 and :72):
 //

@@ -117,10 +117,10 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
 // 3.35 TB/s; its 2·15 FMAs and one Philox block a point are far below the
 // card's rates. Design: each block walks a grid-stride loop over tiles of
 // contiguous rows (256 rows while they fit kStageMax bytes), staged into
-// shared memory with 16-byte cp.async copies and double-buffered: tile
-// t + grid is in flight while tile t is computed, its w and d2 with it, so
-// no load waits on the compute path. The rows arrive as whole 16-byte
-// transactions rather than one 60-byte row a thread through L1. Each step
+// shared memory by TMA bulk copies (one thread issues a tile's rows, w and
+// d2 against the stage's mbarrier) and double-buffered: tile t + grid is
+// in flight while tile t is computed, so no load waits on the compute
+// path, and no thread spends instructions on addresses. Each step
 // is a programmatic dependent launch of the one before: its blocks start
 // as the step before's leave the SMs and put their first tile's rows and
 // w (read-only through a seeding) in flight before they wait for it, so
@@ -153,37 +153,62 @@ __host__ __device__ inline int stage_bytes(int rows, int d, int itemsize) {
   return (rows * d * itemsize + 15) / 16 * 16 + 32;
 }
 
-// Starts the copy of bytes [src, src + nbytes) into dst (16-byte aligned)
-// as 16-byte cp.async copies of the enclosing aligned range. Every thread
-// of the block calls it; each then commits the group.
-__device__ __forceinline__ void stage_async(const unsigned char* src,
-                                            long long nbytes,
-                                            unsigned char* dst) {
+// TMA bulk copies (cp.async.bulk) into shared memory, each completing on
+// a stage's mbarrier: one thread arms the barrier with the bytes a tile's
+// copies will bring (barrier_expect) and issues them; every thread waits
+// on the barrier's phase before it reads the tile.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void barrier_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void barrier_expect(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void barrier_wait(unsigned long long* bar,
+                                             unsigned phase) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tWAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@p bra DONE;\n\tbra WAIT;\n\tDONE:\n\t}\n" ::"r"(smem_addr(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+// Length of the 16-byte-aligned range around [src, src + nbytes).
+__device__ __forceinline__ unsigned aligned_len(const unsigned char* src,
+                                                long long nbytes) {
   const unsigned long long s = (unsigned long long)src;
-  const unsigned long long a0 = s & ~15ull;
-  const unsigned long long a1 = (s + nbytes + 15) & ~15ull;
-  const int chunks = (int)((a1 - a0) >> 4);
-  const unsigned d0 = (unsigned)__cvta_generic_to_shared(dst);
-  for (int e = threadIdx.x; e < chunks; e += blockDim.x) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     d0 + 16u * (unsigned)e),
-                 "l"(a0 + 16ull * (unsigned long long)e)
-                 : "memory");
-  }
+  return (unsigned)(((s + nbytes + 15) & ~15ull) - (s & ~15ull));
+}
+
+// One bulk copy of that aligned range into dst (16-byte aligned).
+__device__ __forceinline__ void bulk_copy(unsigned char* dst,
+                                          const unsigned char* src,
+                                          long long nbytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"((unsigned long long)src & ~15ull), "r"(aligned_len(src, nbytes)),
+      "r"(smem_addr(bar))
+      : "memory");
 }
 
 // Byte offset of src in its stage buffer.
 __device__ __forceinline__ int stage_offset(const unsigned char* src) {
   return (int)((unsigned long long)src & 15ull);
-}
-
-__device__ __forceinline__ void async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most the newest group is in flight.
-__device__ __forceinline__ void async_wait_older() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Programmatic dependent launch (sm_90): a draw-on step is launched while
@@ -364,30 +389,46 @@ struct StagedRow {
   }
 };
 
-// Starts the copies of tile t's parts into the stage buffer buf: its rows
-// (when rows_on), its w (w_on) and its d2 (d2_on), each as stage_async
-// copies it, at buf, buf + rbytes and buf + rbytes + vbytes. Every thread
-// of the block calls it; the caller commits the group.
+// Tile t's parts, each a range of bytes: its rows, its w, its d2.
 template <typename T>
-__device__ __forceinline__ void stage_tile(
-    const T* x, const float* w, const float* d2, long long n, int d,
-    int tile_rows, long long t, bool rows_on, bool w_on, bool d2_on,
-    unsigned char* buf, int rbytes, int vbytes) {
-  const long long r0 = t * tile_rows;
-  const long long rows = min((long long)tile_rows, n - r0);
-  if (rows_on) {
-    stage_async(reinterpret_cast<const unsigned char*>(x + r0 * d),
-                rows * d * (long long)sizeof(T), buf);
+struct TileParts {
+  const unsigned char* src[3];
+  long long len[3];
+
+  __device__ __forceinline__ TileParts(const T* x, const float* w,
+                                       const float* d2, long long n, int d,
+                                       int tile_rows, long long t) {
+    const long long r0 = t * tile_rows;
+    const long long rows = min((long long)tile_rows, n - r0);
+    src[0] = reinterpret_cast<const unsigned char*>(x + r0 * d);
+    len[0] = rows * d * (long long)sizeof(T);
+    src[1] = reinterpret_cast<const unsigned char*>(w + r0);
+    src[2] = reinterpret_cast<const unsigned char*>(d2 + r0);
+    len[1] = len[2] = rows * 4;
   }
-  if (w_on) {
-    stage_async(reinterpret_cast<const unsigned char*>(w + r0), rows * 4,
-                buf + rbytes);
+
+  // The bytes the parts in `on` bring (bit q: part q).
+  __device__ __forceinline__ unsigned bytes(unsigned on) const {
+    unsigned b = 0;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      if (on >> q & 1u) b += aligned_len(src[q], len[q]);
+    }
+    return b;
   }
-  if (d2_on) {
-    stage_async(reinterpret_cast<const unsigned char*>(d2 + r0), rows * 4,
-                buf + rbytes + vbytes);
+
+  // Copies the parts in `on` to buf, buf + rbytes and buf + rbytes +
+  // vbytes, completing on bar. One thread calls it.
+  __device__ __forceinline__ void stage(unsigned on, unsigned char* buf,
+                                        int rbytes, int vbytes,
+                                        unsigned long long* bar) const {
+    unsigned char* dst[3] = {buf, buf + rbytes, buf + rbytes + vbytes};
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      if (on >> q & 1u) bulk_copy(dst[q], src[q], len[q], bar);
+    }
   }
-}
+};
 
 // Element 0 of src's copy in the stage part that begins at part.
 template <typename V>
@@ -434,12 +475,26 @@ __global__ void __launch_bounds__(kThreads)
   const long long tiles = (n + tile_rows - 1) / tile_rows;
   const int rbytes = stage_bytes(tile_rows, d, (int)sizeof(T));
   const int vbytes = stage_bytes(tile_rows, 1, 4);
+  // the parts a tile stages: rows (with a center), w, d2 (bits 0, 1, 2)
+  const unsigned parts = (kc > 0 ? 1u : 0u) | 2u | (read_d2 ? 4u : 0u);
+
+  __shared__ __align__(8) unsigned long long full[2];   // stage b landed
+  if (threadIdx.x == 0) {
+    barrier_init(&full[0]);
+    barrier_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  unsigned phase = 0u;                         // bit b: stage b's parity
 
   // The first tile's rows and w (read-only through a seeding) are in
   // flight before the wait for the step before, its d2 after it, all
   // under the center's load. The grid has at most one block a tile.
-  stage_tile<T>(x, w, d2_in, n, d, tile_rows, blockIdx.x, kc > 0, true,
-                false, stage[0], rbytes, vbytes);
+  const TileParts<T> first(x, w, d2_in, n, d, tile_rows, blockIdx.x);
+  if (threadIdx.x == 0) {
+    barrier_expect(&full[0], first.bytes(parts));
+    first.stage(parts & 3u, stage[0], rbytes, vbytes, &full[0]);
+  }
   long long win = 0;
   uint32_t k0 = 0u, k1 = 0u;
   if constexpr (kDraw) {
@@ -449,9 +504,9 @@ __global__ void __launch_bounds__(kThreads)
     k0 = (uint32_t)seed[0];
     k1 = (uint32_t)seed[1];
   }
-  stage_tile<T>(x, w, d2_in, n, d, tile_rows, blockIdx.x, false, false,
-                read_d2, stage[0], rbytes, vbytes);
-  async_commit();
+  if (threadIdx.x == 0) {
+    first.stage(parts & 4u, stage[0], rbytes, vbytes, &full[0]);
+  }
   if (kc > 0 && resident) {
     load_centers<T, DR, kDraw>(x, win, c, cv, d, 0, kc, kt, sc);
   }
@@ -460,13 +515,13 @@ __global__ void __launch_bounds__(kThreads)
   float acc = 0.f;
   int b = 0;
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    if (t + gridDim.x < tiles) {
-      stage_tile<T>(x, w, d2_in, n, d, tile_rows, t + gridDim.x, kc > 0,
-                    true, read_d2, stage[b ^ 1], rbytes, vbytes);
+    if (threadIdx.x == 0 && t + gridDim.x < tiles) {
+      const TileParts<T> next(x, w, d2_in, n, d, tile_rows, t + gridDim.x);
+      barrier_expect(&full[b ^ 1], next.bytes(parts));
+      next.stage(parts, stage[b ^ 1], rbytes, vbytes, &full[b ^ 1]);
     }
-    async_commit();
-    async_wait_older();
-    __syncthreads();                           // tile t staged for all
+    barrier_wait(&full[b], phase >> b & 1u);   // tile t staged
+    phase ^= 1u << b;
     const long long r0 = t * tile_rows;
     const int rows = (int)min((long long)tile_rows, n - r0);
     const long long i = r0 + threadIdx.x;

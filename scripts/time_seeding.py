@@ -11,8 +11,10 @@ prints, for the best of ``--reps`` seedings after a warm-up:
 * host ms: the wall time of the ``kmeans_plusplus`` call itself, before
   any synchronize (the host's own time to run the loop and enqueue it);
 * wall ms: the wall time to the end of a ``torch.cuda.synchronize()``;
-* device-busy ms: the sum of the device-side event times that
-  ``torch.profiler`` records in one more seeding (kernels and copies).
+* device-busy ms: the union of the time ranges of the device-side
+  events that ``torch.profiler`` records in one more seeding (kernels and
+  copies; a seeding step launched as a programmatic dependent of the one
+  before overlaps it, so a sum would count the overlap twice).
 
 The last line is one JSON object with the same numbers and the card's
 name and power limit.
@@ -39,12 +41,18 @@ def device_busy_ms(fn) -> float:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            us += float(getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0.0)))
-    return us / 1e3
+    ranges = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if getattr(e, "device_type", None)
+                    == torch.autograd.DeviceType.CUDA)
+    us, lo, hi = 0.0, None, None
+    for start, end in ranges:
+        if hi is None or start > hi:
+            us += 0.0 if hi is None else hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    return (us + (0.0 if hi is None else hi - lo)) / 1e3
 
 
 def main() -> None:

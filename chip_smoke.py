@@ -278,29 +278,58 @@ def check(cond: bool, msg: str) -> None:
 
 class Ms(float):
     """Device milliseconds a call, with ``host_us``: the host's own
-    microseconds a call, the wall time of issuing the calls before the
-    synchronize. Where host_us exceeds the device time, the host bounds
-    the call."""
+    microseconds a call, the wall time of issuing one call to an idle
+    device. Where host_us exceeds the device time, the host bounds the
+    call when calls follow one another."""
     host_us: float
+
+
+# The longest device sleep timed_ms enqueues before its calls, in ms:
+# where the host's time for the calls is longer, the device bounds none
+# of them at that rate anyway.
+SLEEP_MAX_MS = 200.0
+_cycles_per_ms = []
+
+
+def device_sleep(ms: float) -> None:
+    """Enqueue a device-side spin of about ``ms`` milliseconds."""
+    if not _cycles_per_ms:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _cycles_per_ms.append(10_000_000 / start.elapsed_time(end))
+    torch.cuda._sleep(int(_cycles_per_ms[0] * ms))
 
 
 def timed_ms(fn, reps: int = 20) -> Ms:
     """Mean device milliseconds per call, after a warm-up, by CUDA events,
-    and the host's microseconds a call beside it (``Ms.host_us``)."""
+    and the host's own microseconds a call beside it (``Ms.host_us``: the
+    least of three warm-up calls, each issued to an idle device). The
+    timed calls are enqueued behind a device sleep twice as long as the
+    host takes for them, so the device reaches them only after the host
+    has issued them all and the events time the device alone, unless a
+    call waits for the device itself or fills the launch queue."""
+    host_one = []
     for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        host_one.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    device_sleep(min(2e3 * reps * min(host_one) + 1.0, SLEEP_MAX_MS))
     start.record()
-    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    host = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
     out = Ms(start.elapsed_time(end) / reps)
-    out.host_us = host * 1e6 / reps
+    out.host_us = min(host_one) * 1e6
     return out
 
 
@@ -1260,9 +1289,10 @@ SEED_CHECKED = 8
 # busy ms). Printed on lines of their own, never in the JSON line.
 SEED_PARENT_MS = {(991_418, 1_111): (226.0, 226.1, 101.1),
                   (17_353, 103): (36.9, 37.0, 3.8)}
-# fit_profile's SOCCER k = 1000 before this kernel (PERF.md §5): device ms
-# of update_min_dist, its mass pass and the seeding's torch ops; fit wall s
-SEED_PROFILE_BEFORE = (69.0, 11.8, 106.4, 4.575)
+# SOCCER k = 1000's two seedings on the parent's loop (PERF.md §6, from
+# scripts/fit_ab.py): device ms, the sum of event times, which equals the
+# union of their time ranges there (no two of its events overlap)
+SEED_PROFILE_BEFORE_MS = 191.5
 
 
 def ulp32(v: float) -> float:
@@ -1438,6 +1468,17 @@ def seeding_phase(ops, ref, rows) -> None:
             draw_off = {key: rows["update_min_dist"].get(key) for key in
                         ("ms", "host_us", "plain_ms", "bound_ms", "bound_by",
                          "shape")}
+            # the draw-off call at this shape, one center: the parent
+            # loop's call a step (PERF.md §6 row 3 holds the parent's)
+            c1 = x[5:6].float()
+            off_ms = timed_ms(lambda: ops.update_min_dist(x, w, c1, d2))
+            off_bnd, _ = seed_bound(n, DIM, 4)
+            draw_off.update(coordinator_ms=off_ms,
+                            coordinator_host_us=off_ms.host_us,
+                            coordinator_bound_ms=off_bnd)
+            print(f"time update_min_dist draw-off n={n} d={DIM}, one "
+                  f"center: {off_ms * 1e3:.2f} us a call ({host_note(off_ms)}"
+                  f"), bound {off_bnd * 1e3:.2f} us", flush=True)
             rows["update_min_dist"].update(
                 ms=ms / k, host_us=ms.host_us / k, plain_ms=plain_ms,
                 bound_ms=bnd, bound_by=by, library_ms=None,
@@ -1752,26 +1793,29 @@ def profile_phase(rows) -> None:
             device_ms=ms, calls=calls, wall_s=prof["wall_s"],
             device_busy_s=prof["device_busy_s"])
         if algo == "soccer":
-            # the union of the seeding kernels' time ranges: each step
-            # starts, and waits, while the step before runs
-            seed_ms = fit_profile.span_ms(prof, "rt::seed_step_kernel<",
-                                          "rt::seed_indices_kernel")
+            # the union of the seeding kernels' time ranges, and their sum:
+            # each step starts, and waits, while the step before runs
+            names = ("rt::seed_step_kernel<", "rt::seed_indices_kernel")
+            seed_ms = fit_profile.span_ms(prof, *names)
+            seed_sum = sum(end - start for name, start, end
+                           in prof["_device"]
+                           if any(n in name for n in names)) / 1e3
             seed_calls = sum(r["calls"] for r in prof["top"]
                              if "rt::seed_step_kernel<" in r["name"])
             check(seed_calls > 0 and seed_ms > 0,
                   "fit_profile soccer: no seeding kernel in the trace")
-            upd, mass, ops_ms, wall = SEED_PROFILE_BEFORE
             print(f"profile soccer k={k} n={n}: the seeding kernels "
                   f"{seed_ms:.1f} ms of device time in {seed_calls} steps "
-                  f"(the union of their time ranges); fit wall "
-                  f"{prof['wall_s']:.3f} s, device busy "
+                  f"as the union of their time ranges, {seed_sum:.1f} ms "
+                  f"summed; fit wall {prof['wall_s']:.3f} s, device busy "
                   f"{prof['device_busy_s']:.3f} s", flush=True)
-            print(f"recorded profile soccer k={k} n={n}: update_min_dist "
-                  f"{upd} + its mass pass {mass} + the seeding's torch ops "
-                  f"{ops_ms} ms of device time, fit wall {wall} s (PERF.md, "
-                  f"the parent's loop, not this run)", flush=True)
+            print(f"recorded profile soccer k={k} n={n}: the parent's "
+                  f"seeding loop {SEED_PROFILE_BEFORE_MS} ms of device time, "
+                  f"summed and as a union (PERF.md, not this run)",
+                  flush=True)
             rows["update_min_dist"][f"soccer_k{k}_profile"] = dict(
-                seeding_device_ms=seed_ms, calls=seed_calls,
+                seeding_device_ms=seed_ms, seeding_device_sum_ms=seed_sum,
+                calls=seed_calls,
                 wall_s=prof["wall_s"], device_busy_s=prof["device_busy_s"])
 
 

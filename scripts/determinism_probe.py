@@ -5,7 +5,7 @@
 On one CUDA card, for float32 vectors of 20,000 to 10 M entries, prints
 how many of 50 repeats of ``torch.cumsum`` and of a float ``index_add_``
 (into 1,025 bins) differ in any bit from the first call, the same for
-``repro_torch.kernels.ref.exact_cumsum`` when the tree at ``--src``
+``repro_torch.kernels.exact.exact_cumsum`` when the tree at ``--src``
 (default: this checkout's ``src``) has it, and whether
 ``torch.use_deterministic_algorithms(True)`` makes ``torch.cumsum`` on
 the card raise. With ``--fits`` it then fits ``coreset_kmeans`` (16,384
@@ -42,7 +42,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("determinism_probe.py needs a CUDA card")
     sys.path.insert(0, os.path.abspath(args.src))
-    from repro_torch.kernels import ref
+    try:
+        from repro_torch.kernels.exact import exact_cumsum as exact
+    except ImportError:                  # a tree without the exact sums
+        exact = None
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -50,7 +53,6 @@ def main() -> None:
     print(f"device: {smi}; torch {torch.__version__}; src {args.src}",
           flush=True)
     g = torch.Generator("cuda").manual_seed(0)
-    exact = getattr(ref, "exact_cumsum", None)
     for n in SIZES:
         v = torch.rand(n, generator=g, device="cuda")
         a = torch.randint(0, 1025, (n,), generator=g, device="cuda")

@@ -35,7 +35,7 @@ from repro_torch.core.sampling import draw_global_sample
 from repro_torch.core.soccer import check_run_knobs, effective_n
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import exact_cumsum
+from repro_torch.kernels.exact import exact_cumsum
 
 
 @dataclasses.dataclass

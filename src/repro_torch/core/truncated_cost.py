@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ref import exact_cumsum
+from repro_torch.kernels.exact import exact_cumsum
 
 
 def _sorted_desc(d2: torch.Tensor, w: torch.Tensor):

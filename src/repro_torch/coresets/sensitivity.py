@@ -16,7 +16,7 @@ The port of ``repro.coresets.sensitivity``. The classic recipe
 
 3. **Importance sample** ``t`` points iid with probability ``p ∝ sigma``
    (with replacement) by the inverse CDF of one ``torch.rand`` draw from
-   the explicit generator (an exact prefix sum, ``ref.exact_cumsum``,
+   the explicit generator (an exact prefix sum, ``kernels/exact.py``,
    + ``searchsorted``), and attach the
    Horvitz–Thompson weight ``u = w / (t * p)``, so every weighted cost
    estimate over the coreset is unbiased.
@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.core.kmeans import kmeans_plusplus
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import exact_cumsum
+from repro_torch.kernels.exact import exact_cumsum
 
 
 def default_coreset_size(k: int, n: Optional[int] = None) -> int:

@@ -76,8 +76,9 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
 //
 // One template, two modes:
 //  * draw off (rt_update_min_dist, ops.update_min_dist): d2_new =
-//    min(d2, d2 to k centers) and one partial of sum w·d2_new a tile,
-//    added up by the fixed-order reduce_rows pass. An invalid center's
+//    min(d2, d2 to k centers) and one partial of sum w·d2_new a tile
+//    (not a block), added up by the fixed-order reduce_rows pass, so the
+//    sum's bits do not depend on the grid. An invalid center's
 //    ||c||^2 is +inf, so with no valid center no candidate is < d2 and d2
 //    passes through bit for bit.
 //  * draw on (rt_kmeanspp): one k-means++ step. Step i reads step i-1's
@@ -115,27 +116,29 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
 // Bound: bytes. A step at SOCCER k = 1000's coordinator (991,418 x 15,
 // float32) reads x (59.5 MB), w and d2 and writes d2: 71.4 MB, 21.3 us at
 // 3.35 TB/s; its 2·15 FMAs and one Philox block a point are far below the
-// card's rates. Design: each block walks a grid-stride loop over tiles of
-// contiguous rows (256 rows while they fit kStageMax bytes), staged into
-// shared memory by TMA bulk copies (one thread issues a tile's rows, w and
-// d2 against the stage's mbarrier) and double-buffered: tile t + grid is
-// in flight while tile t is computed, so no load waits on the compute
-// path, and no thread spends instructions on addresses. Each step
-// is a programmatic dependent launch of the one before: its blocks start
-// as the step before's leave the SMs and put their first tile's rows and
-// w (read-only through a seeding) in flight before they wait for it, so
-// the launch gap and the first load overlap the step before's tail. The
-// w keys are computed only where they can be read (step 0, and a block
-// with no D² key above -inf). A tile's base need
-// not be 16-byte aligned (a machine's slice x[j] of an (m, p, d) tensor
-// starts j·p·d·itemsize bytes in): its copy is aligned down to 16 bytes,
-// and the rows sit at that offset in shared memory. The aligned copy reads
-// at most 15 bytes on either side of the rows, inside the same
-// allocation: PyTorch's allocations start and end on 512-byte boundaries.
-// The draw's grid is one wave (the occupancy query's blocks an SM times
-// the SMs), and one C call (rt_kmeanspp) launches the k steps of a
-// seeding back to back, then one small kernel that writes the k chosen
-// indices, so the host does nothing a step and reads nothing back.
+// card's rates. Design, in both modes: one wave of blocks (the occupancy
+// query's blocks an SM times the SMs), each walking a grid-stride loop over
+// tiles of contiguous rows (256 rows while they fit kStageMax bytes), staged
+// into shared memory by TMA bulk copies (one thread issues a tile's rows, w
+// and d2 against the stage's mbarrier) and double-buffered: tile t + grid is
+// in flight while tile t is computed, so no load waits on the compute path,
+// and no thread spends instructions on addresses. Each step after the first
+// is a programmatic dependent launch of the one before: its blocks start as
+// the step before's leave the SMs and put their first tile's rows and w in
+// flight before they wait for it, so the launch gap and the first load
+// overlap the step before's tail. That early read is safe because no step
+// writes x or w; the first step of a C call waits for everything before it
+// (an ordinary launch), so x and w are whatever the stream wrote before the
+// call. The w keys are computed only where they can be read (step 0, and a
+// block with no D² key above -inf). A tile's base need not be 16-byte
+// aligned (a machine's slice x[j] of an (m, p, d) tensor starts
+// j·p·d·itemsize bytes in): its copy is aligned down to 16 bytes, and the
+// rows sit at that offset in shared memory. The aligned copy reads at most
+// 15 bytes on either side of the rows, inside the same allocation: PyTorch's
+// allocations start and end on 512-byte boundaries. One C call (rt_kmeanspp)
+// launches the k steps of a seeding back to back, then one small kernel that
+// writes the k chosen indices, so the host does nothing a step and reads
+// nothing back.
 
 constexpr int kStageMax = 48 * 1024;       // bytes of rows a stage, at most
 constexpr uint32_t kNegInfKey = 0x007FFFFFu;   // key_word's bits of -inf
@@ -442,7 +445,7 @@ __device__ __forceinline__ const V* staged(const unsigned char* part,
 // buffer (sbytes long) holds a tile's rows, then its w and its d2; after
 // the two stages comes the center tile (kt rows). Draw off: k centers c
 // (cv), d2_out = min(d2_in, ...) and part[block] = the block's sum of
-// w·d2_out. Draw on: d2_in == d2_out (updated in place); the center is
+// w·d2_out in tile t's part[t]. Draw on: d2_in == d2_out (updated in place); the center is
 // the winner of (prev_d2, prev_w), none when they are NULL (step 0); the
 // step's words go to win_d2 and win_w (zeroed by the caller).
 //
@@ -487,9 +490,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   unsigned phase = 0u;                         // bit b: stage b's parity
 
-  // The first tile's rows and w (read-only through a seeding) are in
-  // flight before the wait for the step before, its d2 after it, all
-  // under the center's load. The grid has at most one block a tile.
+  // The first tile's rows and w (no step writes them) are in flight
+  // before the wait for the step before, its d2 after it, all under the
+  // center's load. The grid has at most one block a tile.
   const TileParts<T> first(x, w, d2_in, n, d, tile_rows, blockIdx.x);
   if (threadIdx.x == 0) {
     barrier_expect(&full[0], first.bytes(parts));
@@ -512,7 +515,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   unsigned long long best_d = 0ull, best_w = 0ull;
-  float acc = 0.f;
   int b = 0;
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     if (threadIdx.x == 0 && t + gridDim.x < tiles) {
@@ -570,7 +572,7 @@ __global__ void __launch_bounds__(kThreads)
         contrib = sw[threadIdx.x] * nd;
       }
       const float s = block_sum(contrib);
-      if (threadIdx.x == 0) acc += s;
+      if (threadIdx.x == 0) part[t] = s;
     }
     __syncthreads();                           // stage[b] read by all
     b ^= 1;
@@ -596,8 +598,6 @@ __global__ void __launch_bounds__(kThreads)
       if (best_d) atomicMax(win_d2, best_d);
       if (fallback && best_w) atomicMax(win_w, best_w);
     }
-  } else {
-    if (threadIdx.x == 0) part[blockIdx.x] = acc;
   }
 }
 
@@ -631,9 +631,30 @@ inline SeedShape seed_shape(long long n, int d, int itemsize, int kt,
   return s;
 }
 
+// One wave of a seed_step_kernel instance's blocks at `smem` bytes of
+// shared memory, at most `tiles`; raises the kernel's limit first.
+template <typename K>
+inline cudaError_t one_wave(K kern, size_t smem, int sms, long long tiles,
+                            long long* grid) {
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  const long long g = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  *grid = g < tiles ? g : tiles;
+  return cudaSuccess;
+}
+
 // `count` draw-on steps from step `first`: the first reads its center's
 // words from (prev_d2, prev_w) (NULL: no center), each later one from the
-// step before it; step first + i writes win_d2[i] and win_w[i].
+// step before it; step first + i writes win_d2[i] and win_w[i]. The first
+// is an ordinary launch, each later one a programmatic dependent.
 inline cudaError_t seed_steps(const void* x, int dtype, long long n, int d,
                               const float* w, const long long* seed,
                               float* d2, int first, int count,
@@ -649,19 +670,9 @@ inline cudaError_t seed_steps(const void* x, int dtype, long long n, int d,
     const SeedShape ss =
         seed_shape(n, d, (int)sizeof(T), 1, DR > 0 ? DR : d);
     auto kern = seed_step_kernel<T, DR, true>;
-    cudaError_t e = cudaSuccess;
-    if (ss.smem > 48 * 1024) {
-      e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ss.smem);
-      if (e != cudaSuccess) return e;
-    }
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      kThreads, ss.smem);
+    long long grid = 0;
+    cudaError_t e = one_wave(kern, ss.smem, sms, ss.tiles, &grid);
     if (e != cudaSuccess) return e;
-    long long grid = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-    grid = grid < ss.tiles ? grid : ss.tiles;
-    // each step a programmatic dependent of the launch before it
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
     attr[0].val.programmaticStreamSerializationAllowed = 1;
@@ -671,12 +682,12 @@ inline cudaError_t seed_steps(const void* x, int dtype, long long n, int d,
     cfg.dynamicSmemBytes = ss.smem;
     cfg.stream = s;
     cfg.attrs = attr;
-    cfg.numAttrs = 1;
     const T* xt = (const T*)x;
     const float* none_f = nullptr;
     const uint8_t* none_u8 = nullptr;
     float* no_part = nullptr;
     for (int i = 0; i < count; ++i) {
+      cfg.numAttrs = i ? 1 : 0;                // the first waits for all
       const unsigned long long* pd = i ? win_d2 + i - 1 : prev_d2;
       const unsigned long long* pw = i ? win_w + i - 1 : prev_w;
       e = cudaLaunchKernelEx(&cfg, kern, xt, n, d, ss.tile_rows, ss.sbytes,
@@ -714,12 +725,12 @@ extern "C" int rt_remove_below(const void* x, int dtype, int m, long long p,
 }
 
 // Draw off. part holds nb floats, at least one a tile (seed_shape; the
-// wrapper's kernels/fused_lloyd.py::seed_tiles).
+// wrapper's kernels/fused_lloyd.py::seed_tiles); sms is the card's SMs.
 extern "C" int rt_update_min_dist(const void* x, int dtype, long long n,
                                   int d, const float* w, const float* d2,
                                   const float* c, const uint8_t* cv, int k,
                                   float* d2_new, float* part, long long nb,
-                                  float* mass, void* stream) {
+                                  float* mass, int sms, void* stream) {
   using namespace rt;
   const cudaStream_t s = (cudaStream_t)stream;
   long long tiles = 0;
@@ -732,11 +743,14 @@ extern "C" int rt_update_min_dist(const void* x, int dtype, long long n,
     tiles = ss.tiles;
     if (tiles > nb) return cudaErrorInvalidValue;
     if (n == 0) return cudaGetLastError();
-    // one tile a block: part[b] is tile b's fixed-order block sum
-    return launch(seed_step_kernel<T, DR, false>, dim3((unsigned)tiles),
-                  ss.smem, s, (const T*)x, n, d, ss.tile_rows, ss.sbytes, w,
-                  d2, d2_new, c, cv, k, kt, part, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, 0);
+    auto kern = seed_step_kernel<T, DR, false>;
+    long long grid = 0;
+    const cudaError_t e = one_wave(kern, ss.smem, sms, tiles, &grid);
+    if (e != cudaSuccess) return e;
+    kern<<<(unsigned)grid, kThreads, ss.smem, s>>>(
+        (const T*)x, n, d, ss.tile_rows, ss.sbytes, w, d2, d2_new, c, cv, k,
+        kt, part, nullptr, nullptr, nullptr, nullptr, nullptr, 0);
+    return cudaGetLastError();
   });
   if (e != cudaSuccess) return (int)e;
   return (int)reduce_rows(part, tiles, 1, mass, s);

@@ -45,7 +45,7 @@ REMOVE_BELOW = CudaKernel(
     [_P, _I, _I, _L, _I, _P, _P, _I, _P, _P, _P, _P, _P])
 UPDATE_MIN_DIST = CudaKernel(
     "fused_lloyd.cu", "rt_update_min_dist",
-    [_P, _I, _L, _I, _P, _P, _P, _P, _I, _P, _P, _L, _P, _P])
+    [_P, _I, _L, _I, _P, _P, _P, _P, _I, _P, _P, _L, _P, _I, _P])
 # the same kernel with its draw on: a whole seeding, or one step; both
 # count their launches as update_min_dist's
 KMEANS_PP = CudaKernel(
@@ -153,7 +153,7 @@ def update_min_dist_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     mass = torch.empty((), dtype=torch.float32, device=x.device)
     UPDATE_MIN_DIST(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(d2f), ptr(cf),
                     ptr(cv), cf.shape[0], ptr(d2_new), ptr(part), nb,
-                    ptr(mass), stream_of(x))
+                    ptr(mass), walk.sm_count(x.device), stream_of(x))
     return d2_new, mass
 
 

@@ -163,18 +163,15 @@ def sensitivity_scores(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     Beyond ``MAX_RESIDENT_K`` centers on the card (which the coreset path,
     with O(k) bicriteria centers, never reaches) it is the ``min_dist``
     kernel followed by the (n,)-sized tail in PyTorch, as the reference's
-    dispatch does, with the masses as exact sums (``ref.exact_index_add``:
-    a float ``index_add_`` on the card changes its bits from run to run).
+    dispatch does; its masses are exact sums (``kernels/exact.py``: a
+    float ``index_add_`` on the card changes its bits from run to run).
     With no valid center the result is the plain version's (+inf scores,
     all mass on center 0), outside the reference's contract.
     """
     if _on_card(x):
         if c.shape[0] > MAX_RESIDENT_K:
             d2, assign = min_dist_cuda(x, c, c_valid)
-            scores = w.float() * d2
-            return (scores, assign,
-                    ref.exact_index_add(w.float(), assign, c.shape[0]),
-                    torch.sum(scores))
+            return ref.sensitivity_from_min(w, d2, assign, c.shape[0])
         return sensitivity_scores_cuda(x, w, c, c_valid)
     return ref.sensitivity_scores_ref(x, w, c, c_valid)
 

@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.exact import exact_index_add
 
 # center-panel size; bounds the live (n, panel) distance matrix
 # (repro/kernels/ref.py:15: EIM11's clustering reaches 173 k rows)
@@ -121,11 +122,17 @@ def sensitivity_from_min(w: torch.Tensor, d2: torch.Tensor,
                                     torch.Tensor]:
     """(scores, assign, mass, cost) from a finished min-distance pass: the
     tail of the sensitivity pass, (n,)- and (k,)-sized only (no sweep of
-    the points)."""
+    the points). The masses are a float ``index_add_``, the reference's
+    arithmetic, on the CPU, and the fixed-point sums of
+    ``kernels/exact.py`` on the card, where a float ``index_add_`` changes
+    its bits from run to run."""
     wf = w.float()
     scores = wf * d2.float()
-    mass = torch.zeros((k,), dtype=torch.float32, device=w.device)
-    mass.index_add_(0, assign.long(), wf)
+    if wf.is_cuda:
+        mass = exact_index_add(wf, assign, k)
+    else:
+        mass = torch.zeros((k,), dtype=torch.float32, device=w.device)
+        mass.index_add_(0, assign.long(), wf)
     return scores, assign.to(torch.int32), mass, torch.sum(scores)
 
 
@@ -231,49 +238,6 @@ def fixed_point_reduce_ref(x: torch.Tensor, w: torch.Tensor,
                         device=x.device).index_add_(0, a, tw)
     return ((acc_x.double() * 2.0 ** -sx).float(),
             (acc_w.double() * 2.0 ** -sw).float())
-
-
-# ---------------------------------------------------------- exact sums
-# A floating-point torch.cumsum or index_add_ on the card combines its
-# terms in an order that changes from run to run (PyTorch lists both among
-# its nondeterministic operations), so a draw or threshold read off one
-# can change between two runs of one seed. These two take the sums in
-# 64-bit fixed point instead, as fixed_point_reduce_ref does, with the
-# shift found on the device (no host read): integer sums are exact in any
-# order, so every run, on any device, gives the same bits. Each term is
-# rounded once to 2^-s, s the largest shift with n·max|v|·2^s < 2^62, and
-# each sum once to float32. Finite inputs only.
-
-def _fixed_scale(vd: torch.Tensor) -> torch.Tensor:
-    """() float64 2^s for the float64 terms ``vd`` (1 when all are 0)."""
-    top = vd.abs().max() * vd.shape[0]
-    _, e = torch.frexp(top)                              # top < 2^e
-    s = torch.where(top > 0, 62 - e, 0)
-    return torch.ldexp(torch.ones((), dtype=torch.float64, device=vd.device),
-                       s)
-
-
-def exact_cumsum(v: torch.Tensor) -> torch.Tensor:
-    """(n,) float32 inclusive prefix sums of the (n,) values ``v``."""
-    vd = v.double()
-    if vd.shape[0] == 0:
-        return vd.float()
-    scale = _fixed_scale(vd)
-    q = torch.round(vd * scale).long()
-    return (torch.cumsum(q, 0).double() / scale).float()
-
-
-def exact_index_add(v: torch.Tensor, index: torch.Tensor,
-                    k: int) -> torch.Tensor:
-    """(k,) float32 sums of the (n,) values ``v`` by their index in
-    [0, k)."""
-    vd = v.double()
-    out = torch.zeros((k,), dtype=torch.int64, device=v.device)
-    if vd.shape[0] == 0:
-        return out.float()
-    scale = _fixed_scale(vd)
-    out.index_add_(0, index.long(), torch.round(vd * scale).long())
-    return (out.double() / scale).float()
 
 
 def remove_below_ref(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,

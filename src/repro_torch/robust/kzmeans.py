@@ -50,7 +50,7 @@ from repro_torch.coresets.sensitivity import (build_coreset,
                                               machine_data)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import exact_cumsum
+from repro_torch.kernels.exact import exact_cumsum
 
 # seedings drawn on the coordinator; the lowest trimmed cost is kept
 SEEDINGS = 4

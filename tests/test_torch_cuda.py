@@ -450,6 +450,34 @@ def test_cuda_seeding_matches_plain(n, d, k, offset, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,d,k,offset", [
+    (991_418, 15, 1, 0), (400_001, 37, 300, 1), (300_000, 15, 1025, 0)],
+    ids=["coordinator", "any_width_unaligned", "two_center_tiles"])
+def test_cuda_update_min_dist_many_tiles(n, d, k, offset, dt):
+    """The draw-off kernel where each block of its one wave walks many
+    tiles: d2 against the plain version within tol, the mass (a fixed-order
+    sum of one partial a tile) against a float64 sum of the plain terms
+    within float32's rounding plus the d2 slack, and the same bits on a
+    repeat; ``offset`` starts the points one row into their buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    g, xb, c, cv, w = _inputs(10, n + offset, d, k, dt)
+    x, w = xb[offset:], w[offset:].contiguous()
+    d2 = torch.rand(n, device="cuda", generator=g) * d
+    tol = _d2_tol(x, c)
+    u, mass = ops.update_min_dist(x, w, c, d2, cv)
+    u_p, _ = ref.update_min_dist_ref(x, w, c, d2, cv)
+    torch.testing.assert_close(u, u_p, rtol=0, atol=tol)
+    want = float((w.double() * u_p.double()).sum())
+    assert abs(float(mass) - want) <= (1e-5 * abs(want)
+                                       + tol * float(w.sum()))
+    u2, mass2 = ops.update_min_dist(x, w, c, d2, cv)
+    assert torch.equal(u, u2) and torch.equal(mass, mass2)
+
+
+@pytest.mark.cuda
 def test_cuda_seeding_fallback_at_zero_mass():
     """Every point on one center: from step 1 the D² keys are all -inf and
     the draw falls back to the weights, as the plain version does."""

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, exact, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import fused_lloyd as tfused
 from repro_torch.kernels import lloyd as tlloyd
@@ -450,6 +450,53 @@ def test_fixed_point_sums_ignore_row_order(jdt, tdt):
         p = torch.from_numpy(np.random.default_rng(seed).permutation(4000))
         s2, c2 = tref.fixed_point_reduce_ref(xt[p], wt[p], a[p], 30)
         assert torch.equal(s, s2) and torch.equal(c, c2)
+
+
+# ---- the exact float sums (kernels/exact.py) ----------------------------
+
+def _signed_heavy(n, seed):
+    """(n,) float32 values over several orders of magnitude, both signs."""
+    rng = np.random.default_rng(seed)
+    v = rng.pareto(1.5, n) * rng.choice([-1.0, 1.0], n)
+    return torch.from_numpy(v.astype(np.float32))
+
+
+def test_exact_index_add_ignores_row_order():
+    """Integer sums are exact: any order of the terms gives the same bits,
+    which a float index_add_ on the card does not."""
+    v = _signed_heavy(5000, 26)
+    a = torch.from_numpy(np.random.default_rng(27).integers(0, 40, 5000))
+    s = exact.exact_index_add(v, a, 40)
+    for seed in (28, 29):
+        p = torch.from_numpy(np.random.default_rng(seed).permutation(5000))
+        assert torch.equal(s, exact.exact_index_add(v[p], a[p], 40))
+
+
+@pytest.mark.parametrize("fn", ["cumsum", "index_add"])
+def test_exact_sums_within_their_rounding(fn):
+    """Against float64 sums of the same terms: within n·2^-(s+1) (one
+    rounding of each term), the float64 sum's own error and float32's
+    half ulp of the result; the shift is the largest with
+    n·max|v|·2^s < 2^62. Empty and all-zero inputs give zeros."""
+    n = 4000
+    v = _signed_heavy(n, 30)
+    vd = v.double()
+    s = 62 - np.frexp(float(vd.abs().max()) * n)[1]
+    if fn == "cumsum":
+        got, want = exact.exact_cumsum(v), torch.cumsum(vd, 0)
+        empty = exact.exact_cumsum(torch.zeros(0))
+        zero = exact.exact_cumsum(torch.zeros(7))
+    else:
+        a = torch.from_numpy(np.random.default_rng(31).integers(0, 25, n))
+        got = exact.exact_index_add(v, a, 25)
+        want = torch.zeros(25, dtype=torch.float64).index_add_(0, a, vd)
+        empty = exact.exact_index_add(torch.zeros(0), a[:0], 3)
+        zero = exact.exact_index_add(torch.zeros(7), a[:7], 25)
+    assert got.dtype == torch.float32
+    bound = (n * 2.0 ** -(s + 1) + n * 2.0 ** -53 * float(vd.abs().sum())
+             + 2.0 ** -24 * want.abs())
+    assert bool(((got.double() - want).abs() <= bound).all())
+    assert not bool(empty.any()) and not bool(zero.any())
 
 
 @pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)

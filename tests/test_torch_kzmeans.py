@@ -229,12 +229,14 @@ def test_outlier_robust_finalize():
     The reference asserts "within 3x of the mixture means" at one seed; in
     both packages the bound depends on the seed (the finalize's k-means++
     seedings can leave an outlier row as a center and merge two
-    components), about half the seeds meeting it in each
-    (scripts/robust_finalize_rate.py). So the margin over the plain fit is
-    held at each of eight seeds, and the bound as a rate over 32 seeds: at
-    least 11 of them, which a rate of one half misses with probability
-    below 1% and a rate fallen to one fifth meets with probability below
-    5% (binomial tails)."""
+    components). scripts/robust_finalize_rate.py measures the rate: the
+    port 32 of seeds 0-63 (324 of 576 seeds), the JAX package 41 of seeds
+    0-63 (77 of 144). So the margin over the plain fit is held at each of
+    eight seeds, and the bound at no fewer than 28 of 64 seeds, 4 below
+    the port's count: a rate fallen to 35% meets it with probability
+    below 10%, and a change of the random stream that keeps the rate near
+    the reference's misses it with probability near 5% (binomial tails),
+    in which case the rate is measured again, not the seeds changed."""
     x, _, means = gaussian_mixture(JSpec(n=12_000, dim=10, k=6, sigma=0.001,
                                          seed=6))
     rng = np.random.default_rng(3)
@@ -245,7 +247,7 @@ def test_outlier_robust_finalize():
     parts = shard_points(x_all, M)
     ref = _cost(x, means)
     near = 0
-    for seed in range(32):
+    for seed in range(64):
         runs = {}
         for frac in ((0.0, 0.02) if seed < 8 else (0.02,)):
             runs[frac] = run_soccer(
@@ -258,7 +260,7 @@ def test_outlier_robust_finalize():
             assert not np.array_equal(runs[0.0].centers, runs[0.02].centers)
             assert costs[0.02] < 0.1 * costs[0.0], (seed, costs)
         near += costs[0.02] <= 3.0 * ref
-    assert near >= 11, near
+    assert near >= 28, near
 
 
 def test_robust_soccer_rounds(contaminated):

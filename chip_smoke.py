@@ -40,15 +40,21 @@ PyTorch built for CUDA. It
    both kernels beside their bounds, with min_dist's share of its bound
    and whether it is no slower than the Lloyd kernel, and prints the
    recorded times of the kernels they replaced beside them; it prints
-   ``nvcc -Xptxas -v``'s registers and spills of the three kernels on
-   the register-blocked walk (the Lloyd kernel, min_dist, remove_below),
-   from the build's own log;
+   ``nvcc -Xptxas -v``'s registers and spills of the kernels on the
+   register-blocked walk (the Lloyd kernel, min_dist, remove_below,
+   sensitivity_scores) and of lloyd_reduce, from the build's own log;
 5. holds the robust and coreset tier's kernels against their plain
    versions at that tier's shapes, in the three dtypes, with invalid
    centers and zero weights, with a same-bits repeat, and times them:
    ``lloyd_reduce`` at 1,640,000 x 15 (kzmeans' gathered rows) with k = 25
-   and k = 1025 (its fixed-point branch), ``sensitivity_scores`` at
-   1,275,000 x 15 against 25 centers (one machine's shard),
+   (warp accumulators) and k = 1025 (global accumulators), its sums and
+   counts equal to ``ref.fixed_point_reduce_ref`` and to the Lloyd
+   kernel's given that kernel's own argmin, bit for bit, and its bound
+   pass's device time on a line of its own; ``sensitivity_scores`` at
+   1,275,000 x 15 against 25 centers (one machine's shard) and 1,111
+   (SOCCER k = 1000's width), its argmin and scores min_dist's and its
+   masses ``exact_index_add``'s over that argmin, bit for bit, and at
+   1,111 beside the min_dist + PyTorch route it replaced;
    ``truncated_cost`` over (8, 1,275,000, 15) against 25 centers with v
    at the median d2, and ``remove_below`` over (8, 125,000, 15) against
    1,111 centers (SOCCER's k_plus at k = 1000, beyond the resident limit),
@@ -201,10 +207,26 @@ OUTLIER_FRAC, OUTLIER_SCALE, OUTLIER_SEED = 0.02, 50.0, 7
 KZ_BUDGET = 1_640_000         # kzmeans uplink rows, both conditions
 CORESET_BUDGET = 16_384       # coreset_kmeans uplink rows
 K_WIDE = 1000                 # SOCCER at k = 1000: k_plus = 1,111
-# (n, d, k) of lloyd_reduce's checks: kzmeans' gathered rows at k = 25,
-# and k = 1025 for the fixed-point branch beyond the resident limit
+# (n, d, k) of lloyd_reduce's checks: kzmeans' gathered rows at k = 25
+# (warp accumulators), and k = 1025 (global accumulators)
 LLOYD_REDUCE_SHAPES = ((KZ_BUDGET, DIM, 25), (KZ_BUDGET, DIM, 1025))
-SENSITIVITY_SHAPE = (1_275_000, DIM, 25)       # one machine, kb = 25
+# sensitivity_scores: one machine's shard against kb = 25 centers, and
+# against SOCCER k = 1000's k_plus (global accumulators)
+SENSITIVITY_SHAPES = ((1_275_000, DIM, 25), (1_275_000, DIM, 1_111))
+# Float32 times, ms, of the two kernels before they moved onto the grouped
+# fixed-point reduce (PERF.md §6 rows 10-11; NVIDIA H100 80GB HBM3, 700 W):
+# lloyd_reduce's per-block partials at k = 25 and its ungrouped fixed-point
+# kernel at k = 1025; sensitivity_scores on one point a thread at k = 25.
+# Printed beside this run's times on lines of their own, never in the JSON
+# line (scripts/time_reduce.py times the parent's kernels in the same call).
+TIER_BEFORE_MS = {("lloyd_reduce", 25): 0.4063,
+                  ("lloyd_reduce", 1025): 0.4545,
+                  ("sensitivity_scores", 25): 0.0865}
+# The fits' cost ratios before the two kernels moved (PERF.md §6, PR 16),
+# printed beside this run's: the Lloyd sums and the masses now have other
+# low bits.
+COST_RATIOS_BEFORE = {"coreset_kmeans": 1.0151, "soccer_coreset": 0.8396,
+                      "kzmeans_robust": 2911.14}
 TRUNCATED_SHAPE = (MACHINES, 1_275_000, DIM, 25)
 REMOVE_WIDE_SHAPE = (MACHINES, 125_000, DIM, 1_111)
 # the plain one-hot lloyd_reduce sums each center's rows in a float32
@@ -227,11 +249,14 @@ SOCCER_WIDE_KERNELS = SOCCER_KERNELS
 # reads from the build's own nvcc log: (source, kernel)
 WALK_KERNELS = (("fused_assign.cu", "fused_assign_kernel"),
                 ("min_dist.cu", "min_dist_kernel"),
-                ("fused_lloyd.cu", "remove_below_kernel"))
+                ("fused_lloyd.cu", "remove_below_kernel"),
+                ("sensitivity.cu", "sensitivity_kernel"))
 
 
-# ... and the seeding kernel, whose third template argument is its draw
-PTXAS_KERNELS = WALK_KERNELS + (("fused_lloyd.cu", "seed_step_kernel"),)
+# ... lloyd_reduce's kernel (the Lloyd step's reduce without the walk) and
+# the seeding kernel, whose third template argument is its draw
+PTXAS_KERNELS = WALK_KERNELS + (("lloyd.cu", "lloyd_reduce_kernel"),
+                                ("fused_lloyd.cu", "seed_step_kernel"))
 
 
 def print_ptxas(log: str, kernel: str) -> int:
@@ -335,6 +360,12 @@ def timed_ms(fn, reps: int = 20) -> Ms:
 
 def host_note(ms: Ms) -> str:
     return f"host {ms.host_us:.1f} us a call"
+
+
+def split_line(split: dict) -> str:
+    if not split:
+        return "not measured (the profiler saw no device time)"
+    return ", ".join(f"{name} {us:.2f} us" for name, us in split.items())
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -950,17 +981,35 @@ def dispatch_phase(ops, ref, rows) -> None:
 
 # ----------------------------------------------- coreset and robust kernels
 
-def check_lloyd_reduce(ops, ref, x, w, a, k):
-    """lloyd_reduce against a float64 index_add over the same assignment
-    (to FUSED_RTOL of each element: the reduction itself) and against its
-    plain version (to LLOYD_PLAIN_RTOL); a repeat call gives the same bits
-    and all-zero weights give exact zeros. Returns the largest difference
-    from the plain version."""
+def check_lloyd_reduce(ops, ref, x, w, a, k, c, cv):
+    """lloyd_reduce exactly against the fixed-point emulation
+    (``ref.fixed_point_reduce_ref``) over the same assignment and against
+    the Lloyd kernel's sums and counts over centers ``c`` (mask ``cv``)
+    given that kernel's own argmin, both bit for bit; against a float64
+    index_add over the same assignment (to FUSED_RTOL of each element: the
+    reduction itself) and against its plain version (to
+    LLOYD_PLAIN_RTOL); a repeat call gives the same bits and all-zero
+    weights give exact zeros. Returns the largest difference from the
+    plain version."""
+    from repro_torch.kernels.fused_lloyd import fused_assign_reduce_cuda
     d = x.shape[1]
     s_k, n_k = ops.lloyd_reduce(x, w, a, k)
     again = ops.lloyd_reduce(x, w, a, k)
     check(torch.equal(s_k, again[0]) and torch.equal(n_k, again[1]),
           f"lloyd_reduce k={k}: a repeat call gave other bits")
+    s_e, n_e = ref.fixed_point_reduce_ref(x, w, a, k)
+    for what, got, want in (("sums", s_k, s_e), ("counts", n_k, n_e)):
+        check(torch.equal(got, want),
+              f"lloyd_reduce k={k} {what}: {int((got != want).sum())} "
+              f"elements differ from the fixed-point emulation")
+    own = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    s_f, n_f, _ = fused_assign_reduce_cuda(x, w, c, cv, assign_out=own)
+    s_o, n_o = ops.lloyd_reduce(x, w, own, k)
+    for what, got, want in (("sums", s_o, s_f), ("counts", n_o, n_f)):
+        check(torch.equal(got, want),
+              f"lloyd_reduce k={k} {what}: {int((got != want).sum())} "
+              f"elements differ from the Lloyd kernel's given its argmin")
+    del s_f, n_f, s_o, n_o, own
     ok = (a >= 0) & (a < k)
     al = a[ok].long()
     wd = w[ok].double()
@@ -990,13 +1039,15 @@ def check_lloyd_reduce(ops, ref, x, w, a, k):
 
 def check_sensitivity(ops, ref, x, w, c, cv):
     """sensitivity_scores against min_dist's own argmin and d2 (the kernel
-    shares its distance code: the same assignment and scores bit for bit)
-    and a float64 sum of the masses and cost, then against its plain
+    shares its walk: the same assignment and scores bit for bit), its
+    masses against exact_index_add over that argmin (bit for bit), and a
+    float64 sum of the masses and cost, then against its plain
     version: scores within tol·w, the cost within FUSED_RTOL plus the d2
     slack, each mass within FUSED_RTOL of a float64 sum over the plain
     version's assignment plus the weight of the near-tie points assigned
     differently (as in check_fused). A repeat call gives the same
     bits."""
+    from repro_torch.kernels.exact import exact_index_add
     tol = d2_tol(x, c)
     k = c.shape[0]
     out = ops.sensitivity_scores(x, w, c, cv)
@@ -1007,6 +1058,10 @@ def check_sensitivity(ops, ref, x, w, c, cv):
     d2, idx = ops.min_dist(x, c, cv)
     check(torch.equal(asg, idx), "sensitivity_scores: not min_dist's argmin")
     check(torch.equal(sc, w * d2), "sensitivity_scores: scores != w * d2")
+    want = exact_index_add(w, idx, k)
+    check(torch.equal(mass, want),
+          f"sensitivity_scores: {int((mass != want).sum())} masses differ "
+          f"from exact_index_add over min_dist's argmin")
     wd = w.double()
     m64 = torch.zeros(k, dtype=torch.float64, device=x.device
                       ).index_add_(0, idx.long(), wd)
@@ -1091,6 +1146,10 @@ def tier_phase(ops, ref, rows) -> None:
     resident limit, against their plain versions at that tier's shapes in
     three dtypes, with invalid centers and zero weights; float32 timings
     of kernel, plain version and the closest PyTorch call(s)."""
+    from repro_torch.kernels.exact import exact_index_add
+    from repro_torch.kernels.fused_lloyd import acc_mode
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from time_reduce import device_split
     gen = torch.Generator("cuda").manual_seed(6)
     dev = "cuda"
 
@@ -1124,65 +1183,105 @@ def tier_phase(ops, ref, rows) -> None:
         w[: n // 5] = 0.0
         _, a = ops.min_dist(x32, c, cv)
         for dt in DTYPES:
-            err = check_lloyd_reduce(ops, ref, x32.to(dt), w, a, k)
+            err = check_lloyd_reduce(ops, ref, x32.to(dt), w, a, k, c, cv)
             note("lloyd_reduce", err)
             print(f"check lloyd_reduce n={n} d={d} k={k} {dt} "
-                  f"max_abs_err={err:.3g} (float64 index_add within "
-                  f"{FUSED_RTOL}, plain within {LLOYD_PLAIN_RTOL}) "
-                  f"repeat=same bits", flush=True)
-        if k <= ops.MAX_RESIDENT_K:
-            wx = x32 * w[:, None]
-            al = a.long()
-            t, lib_ms = timing(
-                lambda: ops.lloyd_reduce(x32, w, a, k),
-                lambda: ref.lloyd_reduce_ref(x32, w, a, k),
-                lambda: (torch.zeros((k, d), device=dev).index_add_(
-                    0, al, wx), torch.bincount(al, weights=w, minlength=k)),
-                n * d * 4 + 2 * n * 4 + (k * d + k) * 4, 2.0 * n * d + n,
-                f"lloyd_reduce n={n} d={d} k={k}",
-                "index_add_+bincount")
-            note("lloyd_reduce", 0.0, library_ms=lib_ms,
-                 library="index_add_ of the pre-weighted rows + bincount",
-                 **t)
+                  f"max_abs_err={err:.3g} (= the fixed-point emulation and "
+                  f"the Lloyd kernel's sums given its argmin, bit for bit; "
+                  f"float64 index_add within {FUSED_RTOL}, plain within "
+                  f"{LLOYD_PLAIN_RTOL}) repeat=same bits", flush=True)
+        wx = x32 * w[:, None]
+        al = a.long()
+        mode = acc_mode(k, d)
+        t, lib_ms = timing(
+            lambda: ops.lloyd_reduce(x32, w, a, k),
+            lambda: ref.lloyd_reduce_ref(x32, w, a, k),
+            lambda: (torch.zeros((k, d), device=dev).index_add_(
+                0, al, wx), torch.bincount(al, weights=w, minlength=k)),
+            n * d * 4 + 2 * n * 4 + (k * d + k) * 4, 2.0 * n * d + n,
+            f"lloyd_reduce n={n} d={d} k={k} ({mode} accumulators)",
+            "index_add_+bincount")
+        # the bound pass reads x and w once more before the reduce
+        floor, _ = bound_ms(2 * (n * d * 4 + n * 4) + n * 4
+                            + (k * d + k) * 4, 0.0)
+        split = device_split(lambda: ops.lloyd_reduce(x32, w, a, k))
+        bound_us = sum(us for nm, us in split.items() if "bound_kernel" in nm)
+        total_us = sum(split.values())
+        print(f"time lloyd_reduce n={n} d={d} k={k} device split a call: "
+              f"{split_line(split)}; bound pass {bound_us:.2f} us"
+              + (f" ({100 * bound_us / total_us:.1f}% of {total_us:.2f} us)"
+                 if total_us else "")
+              + f"; two-read floor {floor:.4f} ms", flush=True)
+        before = TIER_BEFORE_MS[("lloyd_reduce", k)]
+        print(f"recorded lloyd_reduce n={n} d={d} k={k}: before the grouped "
+              f"reduce {before:.4f} ms (PERF.md, not this run); this run "
+              f"{t['ms']:.4f} ms ({before / t['ms']:.2f}x)", flush=True)
+        row = dict(library_ms=lib_ms, acc_mode=mode, floor_ms=floor,
+                   bound_pass_us=bound_us, device_split_us=split,
+                   library="index_add_ of the pre-weighted rows + bincount",
+                   **t)
+        if k == LLOYD_REDUCE_SHAPES[0][2]:
+            note("lloyd_reduce", 0.0, **row)
         else:
-            t, _ = timing(lambda: ops.lloyd_reduce(x32, w, a, k),
-                          lambda: ref.lloyd_reduce_ref(x32, w, a, k),
-                          lambda: torch.bincount(a.long(), weights=w,
-                                                 minlength=k),
-                          n * d * 4 + 2 * n * 4 + (k * d + k) * 4,
-                          2.0 * n * d + n,
-                          f"lloyd_reduce n={n} d={d} k={k} (fixed point)",
-                          "bincount")
-            rows["lloyd_reduce"]["fixed_point"] = t
-        del x32, a, w
+            rows["lloyd_reduce"]["global_acc"] = row
+        del x32, a, w, wx, al
     torch.cuda.empty_cache()
 
-    # sensitivity_scores: one machine's shard against kb = 25 centers
-    n, d, k = SENSITIVITY_SHAPE
-    x32 = rand(n, d)
-    c = rand(k, d)
-    cv = rand(k) > 0.3
-    cv[0] = True
-    w = rand(n)
-    w[: n // 5] = 0.0
-    for dt in DTYPES:
-        x = x32.to(dt)
-        for mask in (None, cv):
-            err, tol, moved = check_sensitivity(ops, ref, x, w, c, mask)
-            note("sensitivity_scores", err)
-            print(f"check sensitivity_scores n={n} k={k} {dt} mask="
-                  f"{mask is not None} max_abs_err={err:.3g} tol={tol:.3g} "
-                  f"moved={moved} repeat=same bits", flush=True)
-    t, lib_ms = timing(lambda: ops.sensitivity_scores(x32, w, c),
-                       lambda: ref.sensitivity_scores_ref(x32, w, c),
-                       lambda: torch.cdist(x32, c),
-                       n * d * 4 + n * 4 + k * d * 4 + 2 * n * 4
-                       + (k + 1) * 4, 2.0 * n * k * d,
-                       f"sensitivity_scores n={n} k={k}", "torch.cdist")
-    note("sensitivity_scores", 0.0, library_ms=None,
-         yardstick="torch.cdist", yardstick_ms=lib_ms, **t)
-    del x32, w
-    torch.cuda.empty_cache()
+    # sensitivity_scores: one machine's shard against kb = 25 centers and
+    # against SOCCER k = 1000's 1,111
+    for n, d, k in SENSITIVITY_SHAPES:
+        x32 = rand(n, d)
+        c = rand(k, d)
+        cv = rand(k) > 0.3
+        cv[0] = True
+        w = rand(n)
+        w[: n // 5] = 0.0
+        for dt in DTYPES:
+            x = x32.to(dt)
+            for mask in (None, cv):
+                err, tol, moved = check_sensitivity(ops, ref, x, w, c, mask)
+                note("sensitivity_scores", err)
+                print(f"check sensitivity_scores n={n} k={k} {dt} mask="
+                      f"{mask is not None} max_abs_err={err:.3g} tol="
+                      f"{tol:.3g} moved={moved} (argmin and scores = "
+                      f"min_dist's, masses = exact_index_add's, bit for "
+                      f"bit) repeat=same bits", flush=True)
+            del x
+        t, lib_ms = timing(lambda: ops.sensitivity_scores(x32, w, c),
+                           lambda: ref.sensitivity_scores_ref(x32, w, c),
+                           lambda: torch.cdist(x32, c),
+                           n * d * 4 + n * 4 + k * d * 4 + 2 * n * 4
+                           + (k + 1) * 4, 2.0 * n * k * d,
+                           f"sensitivity_scores n={n} k={k} "
+                           f"({acc_mode(k, 0)} accumulators)", "torch.cdist")
+        split = device_split(lambda: ops.sensitivity_scores(x32, w, c))
+        print(f"time sensitivity_scores n={n} k={k} device split a call: "
+              f"{split_line(split)}", flush=True)
+        row = dict(library_ms=None, yardstick="torch.cdist",
+                   yardstick_ms=lib_ms, device_split_us=split, **t)
+        if k == SENSITIVITY_SHAPES[0][2]:
+            before = TIER_BEFORE_MS[("sensitivity_scores", k)]
+            print(f"recorded sensitivity_scores n={n} k={k}: one point a "
+                  f"thread {before:.4f} ms (PERF.md, not this run); this "
+                  f"run {t['ms']:.4f} ms ({before / t['ms']:.2f}x)",
+                  flush=True)
+            note("sensitivity_scores", 0.0, **row)
+        else:
+            # the route this kernel replaced beyond 1,024 centers: min_dist,
+            # then the (n,)-sized tail in PyTorch with exact masses
+            def old_route():
+                d2, idx = ops.min_dist(x32, c)
+                scores = w * d2
+                return scores, exact_index_add(w, idx, k), scores.sum()
+            old_ms = timed_ms(old_route)
+            print(f"time sensitivity_scores n={n} k={k}: kernel "
+                  f"{t['ms']:.4f} ms vs min_dist + PyTorch tail (the route "
+                  f"it replaced) {old_ms:.4f} ms ({host_note(old_ms)}; "
+                  f"{old_ms / t['ms']:.2f}x)", flush=True)
+            rows["sensitivity_scores"]["wide"] = dict(
+                min_dist_tail_ms=old_ms, **row)
+        del x32, w
+        torch.cuda.empty_cache()
 
     # truncated_cost: every machine's shard in one launch, v at the median
     m, p, d, k = TRUNCATED_SHAPE
@@ -1819,6 +1918,13 @@ def profile_phase(rows) -> None:
                 wall_s=prof["wall_s"], device_busy_s=prof["device_busy_s"])
 
 
+def print_ratio_before(fit: str, ratio: float) -> None:
+    before = COST_RATIOS_BEFORE[fit]
+    print(f"recorded {fit} cost/means_cost before the grouped reduce "
+          f"{before} (PERF.md, not this run); this run {ratio:.4f}",
+          flush=True)
+
+
 def coreset_phase(api, KERNELS, x, means, soc, soc_cost, per_fit) -> None:
     """coreset_kmeans and SOCCER's coreset uplink on Table 2 row 1's data,
     against tests/test_coresets.py's claims; ``soc`` is the points-uplink
@@ -1839,6 +1945,7 @@ def coreset_phase(api, KERNELS, x, means, soc, soc_cost, per_fit) -> None:
     check(np.array_equal(res.uplink_bytes, res.uplink_points * DIM * 4),
           "coreset_kmeans uplink bytes != rows * d * 4")
     check(res.centers.shape == (k, DIM), "coreset_kmeans centers not (k, d)")
+    print_ratio_before("coreset_kmeans", cost / ref)
     check_repeat(api, x, k, "coreset_kmeans", res,
                  f"coreset_kmeans n={x.shape[0]} k={k}",
                  coreset_size=CORESET_BUDGET)
@@ -1862,6 +1969,7 @@ def coreset_phase(api, KERNELS, x, means, soc, soc_cost, per_fit) -> None:
           f"coreset uplink ran {cres.rounds} rounds, points {soc.rounds}")
     check(ccost <= 2.0 * soc_cost,
           f"coreset uplink cost {ccost} > 2x the points uplink's {soc_cost}")
+    print_ratio_before("soccer_coreset", ccost / ref)
     check_soccer_structure(cres, k, "soccer uplink_mode=coreset")
 
 
@@ -1916,6 +2024,7 @@ def robust_phase(api, KERNELS, x, means, per_fit) -> None:
           f"plain {robust_inl / plain_inl:.4f} (bound 0.01: "
           f"{'met' if robust_inl < 0.01 * plain_inl else 'not met'})",
           flush=True)
+    print_ratio_before("kzmeans_robust", robust_inl / ref)
     e = robust.extra
     total = cost_of(xc, robust.centers)
     check(abs(e["kz_cost"] + e["trimmed_cost"] - total) <= 1e-4 * total,

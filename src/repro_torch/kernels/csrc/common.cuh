@@ -3,13 +3,16 @@
 // Every kernel here answers "which valid center is nearest to this point",
 // with the center set streamed through shared memory in tiles, in one of
 // two walks of the same per-point arithmetic (bit for bit):
-//   nearest          one point a thread: sensitivity_scores,
-//                    truncated_cost;
+//   nearest          one point a thread: truncated_cost;
 //   nearest_split    P points a thread (nearest_blocked), the center axis
 //                    optionally split over blocks: the Lloyd step
-//                    (fused_assign.cu), min_dist and remove_below.
+//                    (fused_assign.cu), min_dist, remove_below and
+//                    sensitivity_scores.
 // The seeding step (fused_lloyd.cu::seed_step_kernel) walks nearest()'s
 // arithmetic too, one point a thread, on rows staged in shared memory.
+// Sums by center are exact fixed-point sums, grouped by center within
+// each warp before they touch memory (WarpGroups, GroupAcc, put_point):
+// the Lloyd step's, lloyd_reduce's and sensitivity_scores' masses.
 // The distance is the expanded form the JAX reference uses
 // (repro/kernels/ref.py:43 and :72):
 //
@@ -30,7 +33,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <type_traits>
+#include <utility>
 
 namespace rt {
 
@@ -375,48 +382,15 @@ inline long long blocks_for(long long n) {
   return (n + kThreads - 1) / kThreads;
 }
 
-// ------------------------------------------------ per-block center sums
-// One block's weighted (k, d) sums (when `sums`) and (k,) weight counts,
-// from its `rows` points' centers sa[] and weights sw[] in shared memory
-// (a center outside [0, k) adds nothing). Thread q owns the (center,
-// coordinate) pairs q, q + blockDim.x, ... and scans the block's points
-// in order, so every per-block sum is taken in one fixed order. The sums
-// go to part rows [0, k·d), the counts to rows [k·d, k·d + k) (to rows
-// [0, k) when !sums), each row nb floats long, one per block; the
-// fixed-order reduce_rows pass then adds each row in block order. Every
-// thread of the block must call this after sa[] and sw[] are written and
-// synchronized.
-template <typename T>
-__device__ __forceinline__ void center_partials(
-    const T* __restrict__ x, long long base, int rows, int d, int k,
-    const int* sa, const float* sw, bool sums, float* __restrict__ part,
-    long long nb) {
-  const int kd = sums ? k * d : 0;
-  for (int q = threadIdx.x; q < kd; q += blockDim.x) {
-    const int j = q / d;
-    const int dd = q - j * d;
-    float acc = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      if (sa[r] == j) acc = fmaf(sw[r], widen(x[(base + r) * d + dd]), acc);
-    }
-    part[(long long)q * nb + blockIdx.x] = acc;
-  }
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    float acc = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      if (sa[r] == j) acc += sw[r];
-    }
-    part[(long long)(kd + j) * nb + blockIdx.x] = acc;
-  }
-}
-
 // ------------------------------------------ fixed-point center sums
-// Exact sums at every k for the Lloyd step (fused_assign.cu), and for
-// lloyd_reduce beyond its per-block partials' limit: each term w·x_q is formed exactly in
-// double, scaled by 2^s and rounded once to an int64, and added into its
-// center's (d + 1)-wide accumulator row with an integer atomicAdd; the
-// last column takes w at its own scale. s is the largest shift with
-// n·max|w|·max|x|·2^s < 2^62, so no center's sum can overflow. Integer
+// Exact sums at every k for the Lloyd step (fused_assign.cu),
+// lloyd_reduce (lloyd.cu) and sensitivity_scores' masses
+// (sensitivity.cu): each term w·x_q is formed exactly in double, scaled
+// by 2^s and rounded once to an int64, and added into its center's
+// (d + 1)-wide accumulator row with integer adds; the last column takes
+// w at its own scale (the masses are that column alone). s is the
+// largest shift with n·max|w|·max|x|·2^s < 2^62, so no center's sum can
+// overflow. Integer
 // addition is exact and associative: the accumulators hold the same bits
 // whatever order the blocks run in. Each term's rounding error is at most
 // 2^-(s+1), i.e. about n·max|w|·max|x|·2^-63: far below float32's own
@@ -425,17 +399,23 @@ __device__ __forceinline__ void center_partials(
 
 // bound[0] = max |w_i|, bound[1] = max |x_iq| over rows with w_i != 0, as
 // float bits (atomicMax on the bit patterns of non-negative floats is
-// exact in any order); the caller zeroes both. Finite inputs are assumed:
-// NaN is skipped by fmaxf, an infinity makes the shift meaningless.
+// exact in any order); the caller zeroes both. With d = 0 it reads w
+// alone and bound[1] stays 0. Finite inputs are assumed: NaN is skipped
+// by fmaxf, an infinity makes the shift meaningless.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     bound_kernel(const T* __restrict__ x, long long n, int d,
                  const float* __restrict__ w, unsigned* __restrict__ bound) {
   // Each block takes kThreads rows at a time: their weights are staged in
   // shared memory, then their kThreads·d coordinates are read
-  // contiguously, one a thread at a time.
+  // contiguously, one a thread at a time, each thread stepping its (row,
+  // column) by kThreads elements with no division.
   __shared__ float sw[kThreads];
   float mw = 0.f, mx = 0.f;
+  const int row0 = d > 0 ? (int)threadIdx.x / d : 0;
+  const int col0 = d > 0 ? (int)threadIdx.x - row0 * d : 0;
+  const int step_r = d > 0 ? kThreads / d : 0;
+  const int step_c = d > 0 ? kThreads - step_r * d : 0;
   for (long long r0 = (long long)blockIdx.x * kThreads; r0 < n;
        r0 += (long long)gridDim.x * kThreads) {
     const int rows = (int)min((long long)kThreads, n - r0);
@@ -446,8 +426,16 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     const T* xb = x + r0 * d;
+    int r = row0, q = col0;
+#pragma unroll 4
     for (int e = threadIdx.x; e < rows * d; e += kThreads) {
-      if (sw[e / d] != 0.f) mx = fmaxf(mx, fabsf(widen(xb[e])));
+      if (sw[r] != 0.f) mx = fmaxf(mx, fabsf(widen(xb[e])));
+      r += step_r;
+      q += step_c;
+      if (q >= d) {
+        q -= d;
+        ++r;
+      }
     }
   }
   // one atomicMax pair a block: atomics on one address serialize
@@ -495,21 +483,6 @@ __device__ __forceinline__ Shifts shifts(const unsigned* bound, long long n) {
   const double mw = (double)__uint_as_float(bound[0]);
   const double mx = (double)__uint_as_float(bound[1]);
   return {fixed_shift((double)n * mw * mx), fixed_shift((double)n * mw)};
-}
-
-__device__ __forceinline__ unsigned long long to_fixed(double v, int s) {
-  return (unsigned long long)llrint(ldexp(v, s));   // two's complement
-}
-
-// Adds w·x and w of one point into its center's accumulator row.
-template <typename T>
-__device__ __forceinline__ void add_fixed(unsigned long long* row,
-                                          const T* __restrict__ xrow, int d,
-                                          float wi, Shifts s) {
-  for (int q = 0; q < d; ++q) {
-    atomicAdd(row + q, to_fixed((double)wi * (double)widen(xrow[q]), s.x));
-  }
-  atomicAdd(row + d, to_fixed((double)wi, s.w));
 }
 
 // The warp's points grouped by center before they touch the accumulators.
@@ -567,6 +540,134 @@ __device__ __forceinline__ unsigned long long to_fixed_scaled(double v,
   return (unsigned long long)__double2ll_rn(v * scale);
 }
 
+// Where a group's totals go (the wrapper picks by the accumulator entries:
+// kernels/fused_lloyd.py::acc_mode):
+enum AccMode {
+  kGlobalAcc = 0,   // straight into the global accumulators
+  kWarpAcc = 1,     // each warp's own shared rows (no atomics: a warp's
+                    // leaders hold distinct keys and its points come one
+                    // after another), summed and flushed once a block:
+                    // k·cols <= kWarpAccEntries
+};
+constexpr int kWarpAccEntries = 1024;
+
+// A warp's shared row of `cols` int64 entries is padded to an odd number
+// of words, so that the leaders of different keys, adding into one column
+// at once, fall on different banks (a row of 16 words, the paper's
+// d = 15, put every key's entry of a column on one bank).
+__host__ __device__ inline int acc_pitch(int cols) { return cols | 1; }
+
+__host__ __device__ inline size_t acc_smem(int mode, int k, int cols) {
+  const size_t b = mode == kWarpAcc
+                       ? (size_t)k * acc_pitch(cols) * 8 * (kThreads / 32)
+                       : 0;
+  return (b + 15) / 16 * 16;
+}
+
+// The accumulators a block adds its group totals into: k rows of `cols`
+// int64 in device memory (acc, zeroed before the launch) and, in kWarpAcc
+// mode, each warp's own copy at the start of the dynamic shared memory
+// (acc_smem bytes, rows acc_pitch(cols) apart), which each warp zeroes
+// here. Every thread of the block constructs it, and calls flush() once
+// at the end.
+struct GroupAcc {
+  int mode;
+  int k;
+  int cols;
+  int pitch;
+  unsigned long long* sacc;   // kWarpAcc: the block's (warps, k, pitch)
+  unsigned long long* wacc;   // this warp's rows of sacc
+  unsigned long long* acc;
+
+  __device__ __forceinline__ GroupAcc(int mode_, int k_, int cols_,
+                                      unsigned char* smem,
+                                      unsigned long long* acc_)
+      : mode(mode_),
+        k(k_),
+        cols(cols_),
+        pitch(acc_pitch(cols_)),
+        sacc(reinterpret_cast<unsigned long long*>(smem)),
+        wacc(sacc + (size_t)(threadIdx.x >> 5) * k_ * acc_pitch(cols_)),
+        acc(acc_) {
+    if (mode == kWarpAcc) {
+      for (int e = threadIdx.x & 31; e < k * pitch; e += 32) wacc[e] = 0ull;
+      __syncwarp();
+    }
+  }
+
+  // A group total v at column q of row `key` (0 adds nothing), from its
+  // leader.
+  __device__ __forceinline__ void put(int key, int q, unsigned long long v) {
+    if (v == 0ull) return;
+    if (mode == kWarpAcc) {
+      wacc[key * pitch + q] += v;
+    } else {
+      atomicAdd(acc + (long long)key * cols + q, v);
+    }
+  }
+
+  // kWarpAcc: the warps' rows summed, one global atomicAdd a non-zero
+  // entry.
+  __device__ __forceinline__ void flush() {
+    if (mode != kWarpAcc) return;
+    __syncthreads();
+    const int warps = blockDim.x >> 5;
+    for (int e = threadIdx.x; e < k * cols; e += blockDim.x) {
+      const int j = e / cols;
+      const int s = j * pitch + (e - j * cols);
+      unsigned long long v = 0ull;
+      for (int wp = 0; wp < warps; ++wp) {
+        v += sacc[(size_t)wp * k * pitch + s];
+      }
+      if (v != 0ull) atomicAdd(acc + e, v);
+    }
+  }
+};
+
+// One point a lane: its terms w·x_q (q < d) at scale scx and w at scale
+// scw, each rounded once to an int64, summed over the warp's lanes of the
+// same key (WarpGroups) and put by each group's leader into row `key`
+// (d + 1 entries, w last) of the accumulators; key < 0 adds nothing. The
+// point is point p of r. All 32 lanes of the warp call this together.
+template <typename T, int DR, int P>
+__device__ __forceinline__ void put_point(const Rows<T, DR, P>& r, int p,
+                                          int key, float wi, int d,
+                                          double scx, double scw,
+                                          GroupAcc& acc) {
+  const WarpGroups g(key);
+  const double wd = (double)wi;
+  if (DR > 0) {
+#pragma unroll
+    for (int q0 = 0; q0 < DR; q0 += 8) {
+      unsigned long long v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[i] = (key >= 0 && q0 + i < d)
+                   ? to_fixed_scaled(wd * (double)r.xr[p][q0 + i], scx)
+                   : 0ull;
+      }
+      g.sum(v);
+      if (g.leader) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (q0 + i < d) acc.put(key, q0 + i, v[i]);
+        }
+      }
+    }
+  } else {
+    for (int q = 0; q < d; ++q) {
+      const double xq = (double)widen(r.row[p][q]);
+      unsigned long long v[1] = {key >= 0 ? to_fixed_scaled(wd * xq, scx)
+                                          : 0ull};
+      g.sum(v);
+      if (g.leader) acc.put(key, q, v[0]);
+    }
+  }
+  unsigned long long vw[1] = {key >= 0 ? to_fixed_scaled(wd, scw) : 0ull};
+  g.sum(vw);
+  if (g.leader) acc.put(key, d, vw[0]);
+}
+
 // acc·2^-s as float32: out[j·d + q] = sums, out[k·d + j] = counts.
 __device__ __forceinline__ void fixed_finalize(
     const unsigned long long* __restrict__ acc, long long k, int d,
@@ -593,6 +694,50 @@ __global__ void __launch_bounds__(kThreads)
                           const unsigned* __restrict__ bound,
                           float* __restrict__ out) {
   fixed_finalize(acc, k, d, n, bound, out);
+}
+
+// The fixed-point rows to float32 (every block), and a cost: the per-tile
+// partials summed in tile order (block 0) into out[k·d + k], the same
+// bits on every run and for every grid.
+__global__ void __launch_bounds__(kThreads)
+    fused_finalize_kernel(const unsigned long long* __restrict__ acc,
+                          long long k, int d, long long n,
+                          const unsigned* __restrict__ bound,
+                          const float* __restrict__ part, long long tiles,
+                          float* __restrict__ out) {
+  fixed_finalize(acc, k, d, n, bound, out);
+  if (blockIdx.x == 0) {
+    float a = 0.f;
+    for (long long b = threadIdx.x; b < tiles; b += blockDim.x) a += part[b];
+    const float s = block_sum(a);
+    if (threadIdx.x == 0) out[k * d + k] = s;
+  }
+}
+
+// The scratch of a walk with fixed-point sums (the Lloyd step; with
+// d = 0, sensitivity_scores' masses), in bytes from its start: the
+// wrapper allocates one buffer of `total` bytes (kernels/fused_lloyd.py::
+// scratch_bytes mirrors it), and the first `zeroed` bytes are set to 0 by
+// one memset: the (k, d + 1) int64 accumulators, the bound, the tile
+// counters; then the tile cost partials and, with more than one center
+// slice, the (slices, n) per-slice best and arg.
+struct Scratch {
+  size_t acc, bound, done, zeroed, part, best, arg, total;
+};
+
+inline Scratch scratch_layout(long long n, int d, int k, long long tiles,
+                              int slices) {
+  Scratch s;
+  s.acc = 0;
+  s.bound = s.acc + (size_t)k * (d + 1) * 8;
+  s.done = s.bound + 8;
+  s.zeroed = s.done + round8((size_t)tiles * 4);
+  s.part = s.zeroed;
+  s.best = s.part + round8((size_t)tiles * 4);
+  const size_t ws = slices > 1 ? round8((size_t)slices * n * 4) : 0;
+  s.arg = s.best + ws;
+  s.total = s.arg + ws;
+  return s;
 }
 
 // A grid-stride launch over `items`, at most 4096 blocks.
@@ -624,17 +769,6 @@ cudaError_t by_width(int d, F&& f) {
   return f((T*)nullptr, std::integral_constant<int, 0>());
 }
 
-// Calls f(T*{}) for the point dtype alone (kernels with no center walk).
-template <typename F>
-cudaError_t by_dtype(int dtype, F&& f) {
-  switch (dtype) {
-    case kF32: return f((float*)nullptr);
-    case kBF16: return f((__nv_bfloat16*)nullptr);
-    case kF16: return f((__half*)nullptr);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 template <typename F>
 cudaError_t dispatch(int dtype, int d, F&& f) {
   switch (dtype) {
@@ -657,6 +791,41 @@ cudaError_t launch(void (*kern)(KArgs...), dim3 grid, size_t smem,
   }
   kern<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// The blocks of `kern` (kThreads threads, `smem` bytes of dynamic shared
+// memory) an SM holds at once, at least 1, for a persistent grid; first
+// the kernel's shared-memory limit is raised to `smem` where it is below.
+// Both are set or queried once a (kernel, device, size), not every call.
+template <typename... KArgs>
+cudaError_t blocks_per_sm(void (*kern)(KArgs...), size_t smem, int* per_sm) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> limits;
+  static std::map<std::tuple<const void*, int, size_t>, int> cache;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const void* id = reinterpret_cast<const void*>(kern);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(std::make_tuple(id, dev, smem));
+  if (hit != cache.end()) {
+    *per_sm = hit->second;
+    return cudaSuccess;
+  }
+  size_t& limit = limits[std::make_pair(id, dev)];
+  if (smem > limit) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    limit = smem;
+  }
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  *per_sm = blocks > 0 ? blocks : 1;
+  cache[std::make_tuple(id, dev, smem)] = *per_sm;
+  return cudaSuccess;
 }
 
 }  // namespace rt

@@ -36,8 +36,9 @@
 //    bits, which a plain emulation (kernels/ref.py::
 //    fixed_point_reduce_ref) reproduces exactly. Before touching memory
 //    each warp groups its points by center (common.cuh: WarpGroups,
-//    __match_any_sync and a shuffle tree over each group's lanes): one
-//    atomicAdd per group and column instead of one per point and column.
+//    __match_any_sync and a shuffle tree over each group's lanes;
+//    put_point and GroupAcc, shared with lloyd_reduce): one atomicAdd
+//    per group and column instead of one per point and column.
 //    With few centers (k·(d + 1) <= 1,024 entries) each warp adds its
 //    groups into its own shared rows with no atomics, and a persistent
 //    block flushes the warps' sum once, one global atomicAdd per non-zero
@@ -62,28 +63,9 @@
 //    formed: the one extra read of x), the walk, and the finalize (fixed
 //    point to float32, and the fixed-order sum of the per-tile cost
 //    partials: one float a tile, the same bits every run).
-#include <map>
-#include <mutex>
-#include <utility>
-
 #include "common.cuh"
 
 namespace rt {
-
-// Where a group's totals go (the wrapper picks by k·(d + 1) entries):
-enum AccMode {
-  kGlobalAcc = 0,   // straight into the (k, d + 1) global accumulators
-  kWarpAcc = 1,     // each warp's own shared rows (no atomics: a warp's
-                    // leaders hold distinct keys and its points come one
-                    // after another), summed and flushed once a block:
-                    // k·(d + 1) <= kWarpAccEntries
-};
-constexpr int kWarpAccEntries = 1024;     // int64 entries a warp: 8 KB
-__host__ __device__ inline size_t acc_smem(int mode, long long entries) {
-  const size_t b =
-      mode == kWarpAcc ? (size_t)entries * 8 * (kThreads / 32) : 0;
-  return (b + 15) / 16 * 16;
-}
 
 // Blocks an SM, by the registers P points take: 3 at P = 2 (80
 // registers), 2 at P = 4 (128).
@@ -101,31 +83,13 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
                         float* __restrict__ ws_best, int* __restrict__ ws_arg,
                         int* __restrict__ assign_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int cols = d + 1;
-  const int entries = k * cols;
-  const int warps = blockDim.x >> 5;
   // kWarpAcc: each warp's (k, d + 1) int64 rows, then the center tile
-  unsigned long long* sacc = reinterpret_cast<unsigned long long*>(smem_raw);
-  unsigned long long* wacc = sacc + (size_t)(threadIdx.x >> 5) * entries;
-  const int sacc_n = mode == kWarpAcc ? entries * warps : 0;
+  GroupAcc ga(mode, k, d + 1, smem_raw, acc);
   float* tile_smem =
-      reinterpret_cast<float*>(smem_raw + acc_smem(mode, entries));
-  for (int e = threadIdx.x; e < sacc_n; e += blockDim.x) {
-    sacc[e] = 0ull;                            // ordered by the walk's syncs
-  }
+      reinterpret_cast<float*>(smem_raw + acc_smem(mode, k, d + 1));
   const Shifts sh = shifts(bound, n);
   const double scx = ldexp(1.0, sh.x);
   const double scw = ldexp(1.0, sh.w);
-
-  // A group total v at entry e of the accumulators (0 adds nothing).
-  auto put = [&](long long e, unsigned long long v) {
-    if (v == 0ull) return;
-    if (mode == kWarpAcc) {
-      wacc[e] += v;
-    } else {
-      atomicAdd(acc + e, v);
-    }
-  };
 
   // Persistent blocks walk the tiles tile, tile + gridDim.x, ... (one
   // tile a block when the center axis is split); each tile's cost is its
@@ -149,103 +113,14 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
         if (assign_out != nullptr) assign_out[r.idx[p]] = arg[p];
       }
       const int key = (r.active[p] && wi != 0.f) ? arg[p] : -1;
-      const WarpGroups g(key);
-      const long long row = (long long)(key < 0 ? 0 : key) * cols;
-      const double wd = (double)wi;
-      if (DR > 0) {
-#pragma unroll
-        for (int q0 = 0; q0 < DR; q0 += 8) {
-          unsigned long long v[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            v[i] = (key >= 0 && q0 + i < d)
-                       ? to_fixed_scaled(wd * (double)r.xr[p][q0 + i], scx)
-                       : 0ull;
-          }
-          g.sum(v);
-          if (g.leader) {
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              if (q0 + i < d) put(row + q0 + i, v[i]);
-            }
-          }
-        }
-      } else {
-        for (int q = 0; q < d; ++q) {
-          const double xq = (double)widen(r.row[p][q]);
-          unsigned long long v[1] = {
-              key >= 0 ? to_fixed_scaled(wd * xq, scx) : 0ull};
-          g.sum(v);
-          if (g.leader) put(row + q, v[0]);
-        }
-      }
-      unsigned long long vw[1] = {key >= 0 ? to_fixed_scaled(wd, scw)
-                                           : 0ull};
-      g.sum(vw);
-      if (g.leader) put(row + d, vw[0]);
+      put_point<T, DR, P>(r, p, key, wi, d, scx, scw, ga);
     }
     const float s = block_sum(cost);
     if (threadIdx.x == 0) part[tile] = s;
   }
 
-  if (mode == kWarpAcc) {                      // one flush a block
-    __syncthreads();
-    for (int e = threadIdx.x; e < entries; e += blockDim.x) {
-      unsigned long long v = 0ull;
-      for (int wp = 0; wp < warps; ++wp) v += sacc[(size_t)wp * entries + e];
-      if (v != 0ull) atomicAdd(acc + e, v);
-    }
-  }
+  ga.flush();                                  // kWarpAcc: once a block
 }
-
-// The fixed-point rows to float32 (every block), and the cost: the tile
-// partials summed in tile order (block 0).
-__global__ void __launch_bounds__(kThreads)
-    fused_finalize_kernel(const unsigned long long* __restrict__ acc,
-                          long long k, int d, long long n,
-                          const unsigned* __restrict__ bound,
-                          const float* __restrict__ part, long long tiles,
-                          float* __restrict__ out) {
-  fixed_finalize(acc, k, d, n, bound, out);
-  if (blockIdx.x == 0) {
-    float a = 0.f;
-    for (long long b = threadIdx.x; b < tiles; b += blockDim.x) a += part[b];
-    const float s = block_sum(a);
-    if (threadIdx.x == 0) out[k * d + k] = s;
-  }
-}
-
-// The scratch layout, in bytes from its start (the wrapper allocates one
-// buffer of `total` bytes; kernels/fused_lloyd.py::scratch_bytes mirrors
-// it): the first `zeroed` bytes are set to 0 by one memset.
-struct Scratch {
-  size_t acc, bound, done, zeroed, part, best, arg, total;
-};
-
-inline Scratch scratch_layout(long long n, int d, int k, long long tiles,
-                              int slices) {
-  Scratch s;
-  s.acc = 0;
-  s.bound = s.acc + (size_t)k * (d + 1) * 8;
-  s.done = s.bound + 8;
-  s.zeroed = s.done + round8((size_t)tiles * 4);
-  s.part = s.zeroed;
-  s.best = s.part + round8((size_t)tiles * 4);
-  const size_t ws = slices > 1 ? round8((size_t)slices * n * 4) : 0;
-  s.arg = s.best + ws;
-  s.total = s.arg + ws;
-  return s;
-}
-
-// What a launch of one walk instance needs that does not change between
-// calls, set or queried once, not on every call: per device, the
-// shared-memory limit (only ever raised, to the largest size asked for
-// so far); per (device, shared-memory size), the blocks an SM holds.
-struct LaunchCache {
-  std::mutex mu;
-  std::map<int, size_t> smem_limit;
-  std::map<std::pair<int, size_t>, int> per_sm;
-};
 
 template <typename T, int DR, int P>
 cudaError_t launch_walk(const T* x, long long n, int d, const float* w,
@@ -253,40 +128,18 @@ cudaError_t launch_walk(const T* x, long long n, int d, const float* w,
                         int mode, int sms, unsigned char* base,
                         const Scratch& sc, long long tiles, int* assign_out,
                         cudaStream_t s) {
-  static LaunchCache cache;
   const int slice = (k + slices - 1) / slices;
   const TileShape ts = tile_shape(d, DR, slice);
-  const size_t smem = acc_smem(mode, (long long)k * (d + 1)) + ts.smem;
+  const size_t smem = acc_smem(mode, k, d + 1) + ts.smem;
   auto kern = fused_assign_kernel<T, DR, P>;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
   int per_sm = 0;
-  {
-    std::lock_guard<std::mutex> lock(cache.mu);
-    const auto key = std::make_pair(dev, smem);
-    const auto hit = cache.per_sm.find(key);
-    if (hit != cache.per_sm.end()) {
-      per_sm = hit->second;
-    } else {
-      size_t& limit = cache.smem_limit[dev];
-      if (smem > limit) {
-        e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-        limit = smem;
-      }
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        kThreads, smem);
-      if (e != cudaSuccess) return e;
-      cache.per_sm[key] = per_sm;
-    }
-  }
+  const cudaError_t e = blocks_per_sm(kern, smem, &per_sm);
+  if (e != cudaSuccess) return e;
   // one tile a block when the center axis is split, else as many
   // persistent blocks as the SMs hold at once
   long long grid = tiles;
   if (slices == 1) {
-    const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+    const long long resident = (long long)per_sm * sms;
     grid = tiles < resident ? tiles : resident;
   }
   kern<<<dim3((unsigned)grid, (unsigned)slices), kThreads, smem, s>>>(

@@ -12,99 +12,106 @@
 // What bounds it on the H100: n·d + 2n inputs read once and (k·d + k)
 // floats written, 2·n·d operations: about one operation per byte, so it is
 // bound by bytes (1.64 M rows at d = 15 on the kzmeans path: ~111 MB,
-// ~0.033 ms at 3.35 TB/s).
+// ~0.033 ms at 3.35 TB/s). This design reads x twice (the bound pass,
+// then the reduce): its floor is ~0.065 ms at that shape.
 //
-// Design: a reduce over the assignment read from memory. Up to
-// ops.MAX_RESIDENT_K centers, each block stages its points' centers and weights
-// in shared memory and writes per-block partials of the (k·d + k) sums
-// (common.cuh: center_partials), which the fixed-order reduce_rows pass
-// adds in block order: no atomics, the same bits on every run, and no
-// integer atomics meeting on a few rows at small k (kzmeans runs k = 25).
-// Beyond the limit the partials would need (k·d + k)·blocks floats, so the
-// sums go into (k, d + 1) fixed-point int64 accumulators instead
-// (common.cuh: bound_kernel, add_fixed, fixed_finalize_kernel; the scheme
-// of fused_assign.cu), exact in any order. An assignment outside [0, k)
-// adds nothing, as the reference's one-hot and segment sum.
+// Design: the Lloyd step's reduce (fused_assign.cu) without its walk, at
+// every k. Each term w·x_q (and w) becomes an int64 at scale 2^s
+// (common.cuh: bound_kernel, shifts, to_fixed_scaled), so the sums are
+// exact in any order: they equal ref.py::fixed_point_reduce_ref bit for
+// bit, and fused_assign_reduce's sums given its own argmin. Persistent
+// blocks walk tiles of 256·P points, the rows in registers at d <= 16
+// (common.cuh: Rows); each warp groups its points by center before they
+// touch memory (common.cuh: put_point, WarpGroups), and the group
+// leaders add into the warp's own shared rows, flushed once a block, when
+// k·(d + 1) <= kWarpAccEntries (kzmeans' k = 25: 400 entries), else
+// straight into the global accumulators (common.cuh: GroupAcc). An
+// assignment outside [0, k), or a weight of 0, adds nothing, as the
+// reference's one-hot and segment sum. Launches: one memset
+// (accumulators and bound), the bound pass, the reduce, the finalize.
+// The per-block float partials of every center that this kernel wrote
+// before (k·d + k floats a block, each (center, coordinate) pair scanning
+// the block's 256 points) are gone.
 #include "common.cuh"
 
 namespace rt {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// Points a thread: with no walk the reduce dominates, as in the Lloyd
+// step's few-center launch (fused_lloyd.py::points_per_thread), and 3
+// blocks an SM, as there.
+constexpr int kLloydP = 2;
+
+template <typename T, int DR, int P>
+__global__ void __launch_bounds__(kThreads, 3)
     lloyd_reduce_kernel(const T* __restrict__ x, long long n, int d,
                         const float* __restrict__ w,
                         const int* __restrict__ assign, int k,
-                        float* __restrict__ part, long long nb) {
-  __shared__ int sa[kThreads];
-  __shared__ float sw[kThreads];
-  const long long base = (long long)blockIdx.x * blockDim.x;
-  const long long i = base + threadIdx.x;
-  const bool active = i < n;
-  sa[threadIdx.x] = active ? assign[i] : -1;
-  sw[threadIdx.x] = active ? w[i] : 0.f;
-  __syncthreads();
-  const int rows = (int)min((long long)blockDim.x, n - base);
-  center_partials(x, base, rows, d, k, sa, sw, true, part, nb);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    lloyd_reduce_fixed_kernel(const T* __restrict__ x, long long n, int d,
-                              const float* __restrict__ w,
-                              const int* __restrict__ assign, int k,
-                              const unsigned* __restrict__ bound,
-                              unsigned long long* __restrict__ acc) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float wi = w[i];
-  const int a = assign[i];
-  if (wi == 0.f || a < 0 || a >= k) return;
-  add_fixed(acc + (long long)a * (d + 1), x + i * d, d, wi, shifts(bound, n));
+                        long long tiles, int mode,
+                        const unsigned* __restrict__ bound,
+                        unsigned long long* __restrict__ acc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  GroupAcc ga(mode, k, d + 1, smem_raw, acc);
+  const Shifts sh = shifts(bound, n);
+  const double scx = ldexp(1.0, sh.x);
+  const double scw = ldexp(1.0, sh.w);
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const Rows<T, DR, P> r(x, n, d, tile * (kThreads * P) + threadIdx.x);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float wi = r.active[p] ? w[r.idx[p]] : 0.f;
+      const int a = r.active[p] ? assign[r.idx[p]] : -1;
+      const int key = (wi != 0.f && a >= 0 && a < k) ? a : -1;
+      put_point<T, DR, P>(r, p, key, wi, d, scx, scw, ga);
+    }
+  }
+  ga.flush();
 }
 
 }  // namespace rt
 
-// out holds k*d + k floats: the (k, d) sums, then the (k,) counts.
-// fixed == 0: part holds (k*d + k) * max(blocks_for(n), 1) floats, bound
-// and acc are unused. fixed != 0: bound holds 2 uint32 and acc k*(d+1)
-// int64, part is unused.
+// out holds k*d + k floats: the (k, d) sums, then the (k,) counts. scratch
+// holds (k*(d + 1) + 1) * 8 bytes: the (k, d + 1) int64 accumulators, then
+// the bound (kernels/lloyd.py::scratch_bytes). mode is an rt::AccMode
+// (kWarpAcc only up to kWarpAccEntries entries); sms is the card's SM
+// count (the persistent grid is that many times the blocks an SM holds).
 extern "C" int rt_lloyd_reduce(const void* x, int dtype, long long n, int d,
                                const float* w, const int* assign, int k,
-                               int fixed, float* part, unsigned* bound,
-                               unsigned long long* acc, float* out,
+                               int mode, int sms, void* scratch,
+                               long long scratch_bytes, float* out,
                                void* stream) {
   using namespace rt;
   const cudaStream_t s = (cudaStream_t)stream;
-  const long long nb = blocks_for(n);
-  if (!fixed) {
-    cudaError_t e = by_dtype(dtype, [&](auto tag) -> cudaError_t {
-      using T = std::remove_pointer_t<decltype(tag)>;
-      if (n == 0) return cudaGetLastError();
-      lloyd_reduce_kernel<T><<<(unsigned)nb, kThreads, 0, s>>>(
-          (const T*)x, n, d, w, assign, k, part, nb);
-      return cudaGetLastError();
-    });
-    if (e != cudaSuccess) return (int)e;
-    return (int)reduce_rows(part, nb, (long long)k * d + k, out, s);
+  const long long entries = (long long)k * (d + 1);
+  if (k < 0 || sms < 1 || mode < kGlobalAcc || mode > kWarpAcc ||
+      (mode == kWarpAcc && entries > kWarpAccEntries) ||
+      (entries + 1) * 8 > scratch_bytes) {
+    return (int)cudaErrorInvalidValue;
   }
-  cudaError_t e = cudaMemsetAsync(bound, 0, 2 * sizeof(unsigned), s);
+  unsigned long long* acc = (unsigned long long*)scratch;
+  unsigned* bound = (unsigned*)(acc + entries);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (entries + 1) * 8, s);
   if (e != cudaSuccess) return (int)e;
-  e = cudaMemsetAsync(acc, 0, sizeof(unsigned long long) * (size_t)k * (d + 1),
-                      s);
-  if (e != cudaSuccess) return (int)e;
-  e = by_dtype(dtype, [&](auto tag) -> cudaError_t {
+  e = dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
     using T = std::remove_pointer_t<decltype(tag)>;
+    constexpr int DR = decltype(dr)::value;
     if (n == 0) return cudaGetLastError();
     bound_kernel<T><<<bound_grid(n), kThreads, 0, s>>>((const T*)x, n, d, w,
                                                         bound);
-    const cudaError_t e1 = cudaGetLastError();
+    cudaError_t e1 = cudaGetLastError();
     if (e1 != cudaSuccess) return e1;
-    lloyd_reduce_fixed_kernel<T><<<(unsigned)nb, kThreads, 0, s>>>(
-        (const T*)x, n, d, w, assign, k, (const unsigned*)bound, acc);
+    auto kern = lloyd_reduce_kernel<T, DR, kLloydP>;
+    const size_t smem = acc_smem(mode, k, d + 1);
+    int per_sm = 0;
+    e1 = blocks_per_sm(kern, smem, &per_sm);
+    if (e1 != cudaSuccess) return e1;
+    const long long tiles = point_tiles(n, kLloydP);
+    const long long resident = (long long)per_sm * sms;
+    kern<<<(unsigned)(tiles < resident ? tiles : resident), kThreads, smem,
+           s>>>((const T*)x, n, d, w, assign, k, tiles, mode, bound, acc);
     return cudaGetLastError();
   });
   if (e != cudaSuccess) return (int)e;
-  fixed_finalize_kernel<<<grid_for((long long)k * (d + 1)), kThreads, 0,
-                          s>>>(acc, k, d, n, bound, out);
+  fixed_finalize_kernel<<<grid_for(entries), kThreads, 0, s>>>(acc, k, d, n,
+                                                               bound, out);
   return (int)cudaGetLastError();
 }

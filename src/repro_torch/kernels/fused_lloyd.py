@@ -60,16 +60,18 @@ FUSED_ASSIGN_REDUCE = CudaKernel(
     "fused_assign.cu", "rt_fused_assign_reduce",
     [_P, _I, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P])
 
-# The Lloyd step's accumulator entries (k·(d + 1)) up to which each warp
-# keeps its sums in shared memory (csrc/fused_assign.cu: AccMode); the
-# walk's launch shape is kernels/walk.py's.
+# The fixed-point accumulator entries (k·(d + 1)) up to which each warp
+# keeps its sums in shared memory (csrc/common.cuh: AccMode, GroupAcc);
+# the walk's launch shape is kernels/walk.py's.
 WARP_ACC_ENTRIES = 1024
 ACC_MODES = {"global": 0, "warp": 1}
 
 
 def acc_mode(k: int, d: int) -> str:
-    """Where the Lloyd step's group totals go: each warp's shared rows up
-    to WARP_ACC_ENTRIES entries, else the global accumulators."""
+    """Where the group totals of k rows of d + 1 fixed-point sums go: each
+    warp's shared rows up to WARP_ACC_ENTRIES entries, else the global
+    accumulators. The Lloyd step's rule, and ``lloyd_reduce``'s; with
+    d = 0, the one column of ``sensitivity_scores``' masses."""
     return "warp" if k * (d + 1) <= WARP_ACC_ENTRIES else "global"
 
 
@@ -80,10 +82,11 @@ def points_per_thread(k: int, d: int) -> int:
 
 
 def scratch_bytes(n: int, d: int, k: int, ppt: int, slices: int) -> int:
-    """Bytes of the Lloyd step's one scratch buffer, laid out as
-    ``csrc/fused_assign.cu::scratch_layout``: (k, d + 1) int64
-    accumulators, the bound, the tile counters, the tile cost partials and,
-    with more than one slice, the (slices, n) per-slice (best, arg)."""
+    """Bytes of the one scratch buffer of a walk with fixed-point sums (the
+    Lloyd step; with d = 0, ``sensitivity_scores``), laid out as
+    ``csrc/common.cuh::scratch_layout``: (k, d + 1) int64 accumulators,
+    the bound, the tile counters, the tile cost partials and, with more
+    than one slice, the (slices, n) per-slice (best, arg)."""
     def r8(b):
         return -(-b // 8) * 8
     tiles = walk.point_tiles(n, ppt)

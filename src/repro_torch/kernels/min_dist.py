@@ -3,7 +3,8 @@
 Replaces ``repro/kernels/min_dist.py::min_dist_pallas``. The kernel
 (``csrc/min_dist.cu``) walks the center set through shared memory with
 P points a thread, the register-blocked walk it shares with the Lloyd
-step and ``remove_below`` (``csrc/common.cuh::nearest_split``), and
+step, ``remove_below`` and ``sensitivity_scores``
+(``csrc/common.cuh::nearest_split``), and
 splits the center axis over blocks when the point tiles cannot fill the
 card (``kernels/walk.py`` decides both), so the (n, k) distance matrix
 never exists; its note says what bounds it on the card. The plain

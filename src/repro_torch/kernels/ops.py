@@ -22,10 +22,11 @@ JAX package's oracles):
   Philox bits keyed by ``seed``; on the card one C call runs the k steps
   on ``update_min_dist``'s kernel with its draw on.
 * ``lloyd_reduce(x, w, assign, k)`` — (k, d) weighted sums and (k,)
-  counts for a given assignment; beyond ``MAX_RESIDENT_K`` centers on the
-  card, fixed-point accumulators instead of per-block partials.
+  counts for a given assignment; on the card exact fixed-point sums, one
+  kernel at every number of centers.
 * ``sensitivity_scores(x, w, c, c_valid)`` — the coreset sensitivity
-  pass: (n,) scores w·min-d2, (n,) argmin, (k,) masses, () cost.
+  pass: (n,) scores w·min-d2, (n,) argmin, (k,) masses, () cost; on the
+  card one kernel at every number of centers.
 * ``truncated_cost(x, w, c, v, c_valid)`` — the weighted cost split at
   ``v``: kept cost (min-d2 <= v), tail mass and tail cost (> v).
 
@@ -50,16 +51,6 @@ from repro_torch.kernels.sensitivity import (SENSITIVITY_SCORES,
                                              sensitivity_scores_cuda)
 from repro_torch.kernels.truncated import (TRUNCATED_COST,
                                            truncated_cost_cuda)
-
-# The kernels that keep per-block partials of every center
-# (lloyd_reduce's partials branch, sensitivity_scores) serve up to this
-# many centers; beyond it lloyd_reduce runs its fixed-point branch and
-# sensitivity_scores the min_dist kernel with its (n,)-sized tail in
-# PyTorch. fused_assign_reduce has one kernel at every k (fixed-point
-# sums grouped by center), and remove_below, min_dist, update_min_dist and
-# truncated_cost stream the centers through shared memory and keep nothing
-# per center, so none of them reads this limit.
-MAX_RESIDENT_K = 1024
 
 # The reference's seven (repro.kernels.ops.ENTRY_POINTS), then the
 # seeding loop, which the reference runs as a lax.scan over
@@ -99,8 +90,7 @@ def lloyd_reduce(x: torch.Tensor, w: torch.Tensor, assign: torch.Tensor,
     """Weighted per-center ((k, d) sums, (k,) counts) for a Lloyd step with
     the (n,) assignment given; an assignment outside [0, k) adds nothing."""
     if _on_card(x):
-        return lloyd_reduce_cuda(x, w, assign, k,
-                                 fixed_point=k > MAX_RESIDENT_K)
+        return lloyd_reduce_cuda(x, w, assign, k)
     return ref.lloyd_reduce_ref(x, w, assign, k)
 
 
@@ -160,18 +150,13 @@ def sensitivity_scores(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     """The coreset sensitivity pass: ((n,) w·min-d2 scores, (n,) argmin,
     (k,) per-center weight mass, () weighted cost of ``c``).
 
-    Beyond ``MAX_RESIDENT_K`` centers on the card (which the coreset path,
-    with O(k) bicriteria centers, never reaches) it is the ``min_dist``
-    kernel followed by the (n,)-sized tail in PyTorch, as the reference's
-    dispatch does; its masses are exact sums (``kernels/exact.py``: a
-    float ``index_add_`` on the card changes its bits from run to run).
-    With no valid center the result is the plain version's (+inf scores,
-    all mass on center 0), outside the reference's contract.
+    On the card one kernel at every number of centers: its argmin and d2
+    are ``min_dist``'s and its masses exact sums
+    (``kernels.exact.exact_index_add``'s bits). With no valid center the
+    result is the plain version's (+inf scores, all mass on center 0),
+    outside the reference's contract.
     """
     if _on_card(x):
-        if c.shape[0] > MAX_RESIDENT_K:
-            d2, assign = min_dist_cuda(x, c, c_valid)
-            return ref.sensitivity_from_min(w, d2, assign, c.shape[0])
         return sensitivity_scores_cuda(x, w, c, c_valid)
     return ref.sensitivity_scores_ref(x, w, c, c_valid)
 

@@ -38,7 +38,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.exact import exact_index_add
 
 # center-panel size; bounds the live (n, panel) distance matrix
 # (repro/kernels/ref.py:15: EIM11's clustering reaches 173 k rows)
@@ -122,17 +121,13 @@ def sensitivity_from_min(w: torch.Tensor, d2: torch.Tensor,
                                     torch.Tensor]:
     """(scores, assign, mass, cost) from a finished min-distance pass: the
     tail of the sensitivity pass, (n,)- and (k,)-sized only (no sweep of
-    the points). The masses are a float ``index_add_``, the reference's
-    arithmetic, on the CPU, and the fixed-point sums of
-    ``kernels/exact.py`` on the card, where a float ``index_add_`` changes
-    its bits from run to run."""
+    the points), in the reference's arithmetic (a float ``index_add_``
+    for the masses). The card's kernel takes its masses as exact sums
+    (``kernels.exact.exact_index_add``'s bits)."""
     wf = w.float()
     scores = wf * d2.float()
-    if wf.is_cuda:
-        mass = exact_index_add(wf, assign, k)
-    else:
-        mass = torch.zeros((k,), dtype=torch.float32, device=w.device)
-        mass.index_add_(0, assign.long(), wf)
+    mass = torch.zeros((k,), dtype=torch.float32, device=w.device)
+    mass.index_add_(0, assign.long(), wf)
     return scores, assign.to(torch.int32), mass, torch.sum(scores)
 
 

@@ -1,8 +1,9 @@
 """Launch shape of the register-blocked center walk.
 
 ``csrc/common.cuh::nearest_split`` is the one walk of the Lloyd step
-(``csrc/fused_assign.cu``), ``min_dist`` (``csrc/min_dist.cu``) and
-``remove_below`` (``csrc/fused_lloyd.cu``): each thread owns P points,
+(``csrc/fused_assign.cu``), ``min_dist`` (``csrc/min_dist.cu``),
+``remove_below`` (``csrc/fused_lloyd.cu``) and ``sensitivity_scores``
+(``csrc/sensitivity.cu``): each thread owns P points,
 and when the point tiles cannot fill the card the center axis is split
 over blocks. The wrappers decide the launch shape here, on the host, by
 these rules; nothing here touches the card but the cached SM count.

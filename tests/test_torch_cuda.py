@@ -152,19 +152,29 @@ def _d2_tol(x, c):
 @pytest.mark.parametrize("d,k", [(15, 25), (37, 300), (15, 1025)],
                          ids=["kzmeans", "any_width", "fixed_point"])
 def test_cuda_lloyd_reduce_matches_plain(d, k, dt):
-    """lloyd_reduce against a float64 index_add over the same assignment
-    and against its plain version: per-block partials up to 1024 centers,
-    fixed-point accumulators beyond. Assignments outside [0, k) add
-    nothing, zero weights add nothing, a repeat call gives the same bits."""
+    """lloyd_reduce (one kernel at every k: warp rows at kzmeans' k = 25,
+    global accumulators at 37 × 300 and 15 × 1025) equals the fixed-point
+    emulation bit for bit, and the Lloyd kernel's sums and counts given
+    that kernel's own argmin; within 1e-5 of a float64 index_add over the
+    same assignment and of its plain version. Assignments outside [0, k)
+    add nothing, zero weights add nothing, a repeat call gives the same
+    bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels build only there")
+    from repro_torch.kernels.fused_lloyd import fused_assign_reduce_cuda
     n = 3000
-    g, x, _, _, w = _inputs(2, n, d, k, dt)
+    g, x, c, cv, w = _inputs(2, n, d, k, dt)
     assign = torch.randint(-1, k + 1, (n,), device="cuda", generator=g,
                            dtype=torch.int32)
     before = ops.KERNELS["lloyd_reduce"].launches
     s, cnt = ops.lloyd_reduce(x, w, assign, k)
     assert ops.KERNELS["lloyd_reduce"].launches == before + 1
+    s_e, n_e = ref.fixed_point_reduce_ref(x, w, assign, k)
+    assert torch.equal(s, s_e) and torch.equal(cnt, n_e)
+    own = torch.empty(n, dtype=torch.int32, device="cuda")
+    s_f, n_f, _ = fused_assign_reduce_cuda(x, w, c, cv, assign_out=own)
+    s_o, n_o = ops.lloyd_reduce(x, w, own, k)
+    assert torch.equal(s_o, s_f) and torch.equal(n_o, n_f)
     ok = (assign >= 0) & (assign < k)
     a = assign[ok].long()
     wd, xd = w[ok].double(), x[ok].double()
@@ -186,14 +196,21 @@ def test_cuda_lloyd_reduce_matches_plain(d, k, dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
                                 torch.float16], ids=["f32", "bf16", "f16"])
-@pytest.mark.parametrize("d,k", [(15, 25), (37, 300), (15, 1024)],
-                         ids=["bicriteria", "any_width", "two_tiles"])
+@pytest.mark.parametrize("d,k", [(15, 25), (37, 300), (15, 1024),
+                                 (15, 1111)],
+                         ids=["bicriteria", "any_width", "two_tiles",
+                              "soccer_k1000"])
 def test_cuda_sensitivity_scores_matches_plain(d, k, dt):
-    """sensitivity_scores against min_dist's own d2 and argmin (the kernel
-    shares its distance code) and against its plain version; invalid
-    centers get no mass; a repeat call gives the same bits."""
+    """sensitivity_scores (one kernel at every k) against min_dist's own d2
+    and argmin (the kernels share the walk), its masses against
+    exact_index_add over that argmin bit for bit, and against its plain
+    version; invalid centers get no mass; a repeat call gives the same
+    bits. At k = 1024 and 1111 the 3,000 points (3 tiles of 1,024) split
+    the center axis over 2 slices; k = 1111 takes the global
+    accumulators."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels build only there")
+    from repro_torch.kernels.exact import exact_index_add
     _, x, c, cv, w = _inputs(3, 3000, d, k, dt)
     tol = _d2_tol(x, c)
     for mask in (None, cv):
@@ -203,6 +220,7 @@ def test_cuda_sensitivity_scores_matches_plain(d, k, dt):
         d2, idx = ops.min_dist(x, c, mask)
         assert torch.equal(asg, idx)
         assert torch.equal(sc, w * d2)
+        assert torch.equal(mass, exact_index_add(w, idx, k))
         m64 = torch.zeros(k, dtype=torch.float64, device="cuda"
                           ).index_add_(0, idx.long(), w.double())
         torch.testing.assert_close(mass.double(), m64, rtol=1e-5, atol=1e-5)

@@ -452,6 +452,30 @@ def test_fixed_point_sums_ignore_row_order(jdt, tdt):
         assert torch.equal(s, s2) and torch.equal(c, c2)
 
 
+@pytest.mark.parametrize("k", [25, 1111], ids=["bicriteria", "k1111"])
+def test_exact_masses_match_sensitivity_pallas(k):
+    """The card's sensitivity masses are exact_index_add(w, argmin, k) bit
+    for bit; over the reference Pallas kernel's own argmin (interpret
+    mode) they hold its masses to the f32 tolerance, at the coreset path's
+    25 centers and at SOCCER k = 1000's 1,111, past the TPU's resident
+    limit of 1,024."""
+    from repro.kernels.sensitivity import sensitivity_scores_pallas
+    n, d = 600, 15
+    xj, wj, cj, vj, _, wt, _, _ = _data(n, d, k, jnp.float32, torch.float32,
+                                        seed=40 + k)
+    _, tight = _tols(jnp.float32)
+    for cvj in (None, vj):
+        _, a_r, m_r, _ = sensitivity_scores_pallas(xj, wj, cj, cvj,
+                                                   interpret=True)
+        a = torch.from_numpy(np.asarray(a_r).astype(np.int64))
+        m = exact.exact_index_add(wt, a, k)
+        np.testing.assert_allclose(m.numpy(), np.asarray(m_r), rtol=tight,
+                                   atol=tight)
+        if cvj is not None:               # invalid centers receive no mass
+            assert float(m[~torch.from_numpy(np.array(cvj))].abs().sum()
+                         ) == 0.0
+
+
 # ---- the exact float sums (kernels/exact.py) ----------------------------
 
 def _signed_heavy(n, seed):
@@ -560,6 +584,15 @@ def test_lloyd_launch_shape_rules():
     assert tfused.points_per_thread(831, 37) == 2
     assert tfused.acc_mode(63, 15) == "warp"
     assert tfused.acc_mode(65, 15) == "global"
+    # lloyd_reduce takes the same rule (kzmeans' k = 25: 400 entries) and
+    # a scratch of its accumulators and the bound; sensitivity_scores'
+    # masses are one column (d = 0), warp rows up to 1,024 centers
+    assert tlloyd.acc_mode is tfused.acc_mode
+    assert tfused.acc_mode(25, 15) == "warp"
+    assert tfused.acc_mode(1025, 15) == "global"
+    assert tlloyd.scratch_bytes(25, 15) == (25 * 16 + 1) * 8
+    assert tfused.acc_mode(1024, 0) == "warp"
+    assert tfused.acc_mode(1025, 0) == "global"
     # EIM11's clustering on 132 SMs: 64 tiles of 1,024 points, 10 slices
     assert twalk.point_tiles(65_536, 4) == 64
     s = twalk.center_slices(65_536, 173_256, 132, 4)
@@ -718,10 +751,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
     """A wrapper launches its kernel or raises: CPU tensors never reach a
     plain version through it, and no launch is counted."""
     before = {n: k.launches for n, k in ops.KERNELS.items()}
-    kw = ({"fixed_point": False} if wrapper is tlloyd.lloyd_reduce_cuda
-          else {})
     with pytest.raises(ValueError, match="CUDA"):
-        wrapper(*args(torch.zeros((6, 4)), torch.zeros((3, 4))), **kw)
+        wrapper(*args(torch.zeros((6, 4)), torch.zeros((3, 4))))
     assert before == {n: k.launches for n, k in ops.KERNELS.items()}
 
 
@@ -735,8 +766,7 @@ def test_wrappers_check_shapes():
         build.dtype_code(torch.zeros(3, dtype=torch.float64))
     with pytest.raises(ValueError, match="assign"):
         tlloyd.lloyd_reduce_cuda(torch.zeros((6, 4)), torch.ones(6),
-                                 torch.zeros(5, dtype=torch.int32), 3,
-                                 fixed_point=False)
+                                 torch.zeros(5, dtype=torch.int32), 3)
     with pytest.raises(ValueError, match="w must be"):
         ttrunc.truncated_cost_cuda(torch.zeros((2, 3, 4)), torch.ones(6),
                                    torch.zeros((3, 4)), 0.5)

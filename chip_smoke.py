@@ -120,6 +120,8 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+from cuda_timing import Ms, device_split, timed_ms  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 N_POINTS, DIM, MACHINES = 10_000_000, 15, 8
@@ -299,63 +301,6 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
-
-
-class Ms(float):
-    """Device milliseconds a call, with ``host_us``: the host's own
-    microseconds a call, the wall time of issuing one call to an idle
-    device. Where host_us exceeds the device time, the host bounds the
-    call when calls follow one another."""
-    host_us: float
-
-
-# The longest device sleep timed_ms enqueues before its calls, in ms:
-# where the host's time for the calls is longer, the device bounds none
-# of them at that rate anyway.
-SLEEP_MAX_MS = 200.0
-_cycles_per_ms = []
-
-
-def device_sleep(ms: float) -> None:
-    """Enqueue a device-side spin of about ``ms`` milliseconds."""
-    if not _cycles_per_ms:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        torch.cuda._sleep(10_000_000)
-        end.record()
-        torch.cuda.synchronize()
-        _cycles_per_ms.append(10_000_000 / start.elapsed_time(end))
-    torch.cuda._sleep(int(_cycles_per_ms[0] * ms))
-
-
-def timed_ms(fn, reps: int = 20) -> Ms:
-    """Mean device milliseconds per call, after a warm-up, by CUDA events,
-    and the host's own microseconds a call beside it (``Ms.host_us``: the
-    least of three warm-up calls, each issued to an idle device). The
-    timed calls are enqueued behind a device sleep twice as long as the
-    host takes for them, so the device reaches them only after the host
-    has issued them all and the events time the device alone, unless a
-    call waits for the device itself or fills the launch queue."""
-    host_one = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        host_one.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    device_sleep(min(2e3 * reps * min(host_one) + 1.0, SLEEP_MAX_MS))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    out = Ms(start.elapsed_time(end) / reps)
-    out.host_us = min(host_one) * 1e6
-    return out
 
 
 def host_note(ms: Ms) -> str:
@@ -1148,8 +1093,6 @@ def tier_phase(ops, ref, rows) -> None:
     of kernel, plain version and the closest PyTorch call(s)."""
     from repro_torch.kernels.exact import exact_index_add
     from repro_torch.kernels.fused_lloyd import acc_mode
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    from time_reduce import device_split
     gen = torch.Generator("cuda").manual_seed(6)
     dev = "cuda"
 
@@ -1216,7 +1159,7 @@ def tier_phase(ops, ref, rows) -> None:
         print(f"recorded lloyd_reduce n={n} d={d} k={k}: before the grouped "
               f"reduce {before:.4f} ms (PERF.md, not this run); this run "
               f"{t['ms']:.4f} ms ({before / t['ms']:.2f}x)", flush=True)
-        row = dict(library_ms=lib_ms, acc_mode=mode, floor_ms=floor,
+        row = dict(library_ms=lib_ms, acc_mode=mode,
                    bound_pass_us=bound_us, device_split_us=split,
                    library="index_add_ of the pre-weighted rows + bincount",
                    **t)
@@ -1255,10 +1198,13 @@ def tier_phase(ops, ref, rows) -> None:
                            f"sensitivity_scores n={n} k={k} "
                            f"({acc_mode(k, 0)} accumulators)", "torch.cdist")
         split = device_split(lambda: ops.sensitivity_scores(x32, w, c))
+        w_us = sum(us for nm, us in split.items() if "max_abs_kernel" in nm)
         print(f"time sensitivity_scores n={n} k={k} device split a call: "
-              f"{split_line(split)}", flush=True)
+              f"{split_line(split)}; pass over w {w_us:.2f} us (it overlaps "
+              f"the walk's start)", flush=True)
         row = dict(library_ms=None, yardstick="torch.cdist",
-                   yardstick_ms=lib_ms, device_split_us=split, **t)
+                   yardstick_ms=lib_ms, bound_pass_us=w_us,
+                   device_split_us=split, **t)
         if k == SENSITIVITY_SHAPES[0][2]:
             before = TIER_BEFORE_MS[("sensitivity_scores", k)]
             print(f"recorded sensitivity_scores n={n} k={k}: one point a "

@@ -23,7 +23,7 @@ the seedings' device time and the fit's device busy time, each both as
 the sum of event times and as the union of their time ranges (the two
 differ where events overlap, as programmatic dependent launches do).
 The fences add host waits, so that fit's wall is not reported. The last
-line is one JSON object.
+line is one JSON object. ``union_us``: ``cuda_timing.py``.
 """
 from __future__ import annotations
 
@@ -37,19 +37,9 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from cuda_timing import union_us
+
 MARK = "fit_ab::seeding"
-
-
-def union_us(ranges) -> float:
-    total, lo, hi = 0.0, None, None
-    for start, end in sorted(ranges):
-        if hi is None or start > hi:
-            if hi is not None:
-                total += hi - lo
-            lo, hi = start, end
-        else:
-            hi = max(hi, end)
-    return total + (hi - lo if hi is not None else 0.0)
 
 
 def fence_seedings(kmeans, shapes: list) -> None:

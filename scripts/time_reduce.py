@@ -20,8 +20,16 @@ shape of SHAPES, float32 points and weights drawn from a seed, it prints:
 centers; ``sensitivity_scores`` and the Lloyd step
 (``fused_assign_reduce``, whose reduce the other two share) run against k
 random centers, all valid.
+
+With ``--modes`` it times only ``sensitivity_scores`` at the widths of
+MODE_KS, once with each accumulator mode of ``kernels.fused_lloyd``
+(the wrapper's ``acc_mode`` replaced for the call): each warp's shared
+rows against the global accumulators, where the wrapper would pick the
+warp rows. Only a tree whose wrapper takes its mode from ``acc_mode``
+can be timed so.
+
 The last line is one JSON object with the same numbers and the card's
-name and power limit.
+name and power limit. Timing: ``cuda_timing.py``.
 """
 from __future__ import annotations
 
@@ -30,9 +38,10 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 import torch
+
+from cuda_timing import device_split, timed_ms
 
 # (entry point, n, d, k): kzmeans' 1.64 M gathered rows at k = 25 and
 # 1025 (warp and global accumulators); one machine's 1.275 M rows against
@@ -44,57 +53,9 @@ SHAPES = (("lloyd_reduce", 1_640_000, 15, 25),
           ("sensitivity_scores", 1_275_000, 15, 1_111),
           ("fused_assign_reduce", 1_250_000, 15, 25),
           ("fused_assign_reduce", 1_250_000, 15, 831))
-# the device sleep the timed calls are enqueued behind: ~30 ms on an H100
-# (up to 1.98 GHz), well above the host's time for 20 calls
-SLEEP_CYCLES = 50_000_000
-
-
-def device_ms(fn, reps: int) -> float:
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def host_us(fn) -> float:
-    best = None
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        t = time.perf_counter() - t0
-        best = t if best is None else min(best, t)
-    torch.cuda.synchronize()
-    return best * 1e6
-
-
-def device_split(fn, reps: int = 10) -> dict:
-    """Device µs a call of each kernel and memset that ``fn`` launches, by
-    short name, from torch.profiler over ``reps`` calls after a warm-up;
-    empty where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = float(getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0)))
-        if us > 0:
-            name = e.key.split("(")[0].replace("void ", "")
-            out[name] = out.get(name, 0.0) + us / reps
-    return out
+# --modes: sensitivity_scores on one machine's 1.275 M rows at widths
+# from 256 centers to the warp rows' limit (kWarpAccEntries = 1,024)
+MODE_KS = (256, 512, 1024)
 
 
 def main() -> None:
@@ -102,18 +63,24 @@ def main() -> None:
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--src", default=os.path.join(root, "src"))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--modes", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_reduce.py needs a CUDA card")
     sys.path.insert(0, os.path.abspath(args.src))
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, sensitivity
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"device: {smi} src: {args.src}", flush=True)
+    if args.modes:
+        shapes = [("sensitivity_scores", 1_275_000, 15, k, mode)
+                  for k in MODE_KS for mode in ("warp", "global")]
+    else:
+        shapes = [s + (None,) for s in SHAPES]
     out = []
-    for name, n, d, k in SHAPES:
+    for name, n, d, k, mode in shapes:
         g = torch.Generator("cuda").manual_seed(k)
         x = torch.rand((n, d), generator=g, device="cuda")
         w = torch.rand(n, generator=g, device="cuda")
@@ -129,16 +96,23 @@ def main() -> None:
         else:
             def fn():
                 return ops.fused_assign_reduce(x, w, c)
-        fn()
-        h = host_us(fn)
-        ms = device_ms(fn, args.reps)
-        split = device_split(fn)
-        print(f"{name} n={n} d={d} k={k} f32: {ms:.4f} ms a call, host "
-              f"{h:.1f} us; split: "
+        picked = getattr(sensitivity, "acc_mode", None)
+        if mode is not None:
+            sensitivity.acc_mode = lambda k_, d_: mode
+        try:
+            fn()
+            ms = timed_ms(fn, args.reps)
+            split = device_split(fn)
+        finally:
+            if mode is not None:
+                sensitivity.acc_mode = picked
+        tag = f" {mode} accumulators" if mode else ""
+        print(f"{name} n={n} d={d} k={k}{tag} f32: {ms:.4f} ms a call, host "
+              f"{ms.host_us:.1f} us; split: "
               + (", ".join(f"{nm} {us:.2f} us" for nm, us in split.items())
                  or "not measured"), flush=True)
-        out.append(dict(name=name, n=n, d=d, k=k, ms=ms, host_us=h,
-                        split_us=split))
+        out.append(dict(name=name, n=n, d=d, k=k, mode=mode, ms=ms,
+                        host_us=ms.host_us, split_us=split))
         del x, w, c
         torch.cuda.empty_cache()
     print(json.dumps({"device": smi, "src": args.src, "calls": out}))

@@ -21,10 +21,10 @@ Then, at the first shape's n and d, it times one draw-off
 a step; its mass pass included): device µs a call by CUDA events over
 back-to-back calls enqueued behind a device sleep (so the host has issued
 them all before the device reaches them, and the events time the device
-alone), and the host's µs a call.
+alone), and the host's µs a call, issued to an idle device.
 
 The last line is one JSON object with the same numbers and the card's
-name and power limit.
+name and power limit. Timing: ``cuda_timing.py``.
 """
 from __future__ import annotations
 
@@ -37,32 +37,11 @@ import time
 
 import torch
 
+from cuda_timing import device_busy_ms, timed_ms
+
 # (n, d, k): SOCCER k = 1000's coordinator seeding (eta rows, k_plus
 # centers), then Table 2 rows 1 and 2's (PERF.md §4)
 SHAPES = ((991_418, 15, 1_111), (17_353, 15, 103), (80_585, 15, 190))
-# the device sleep the draw-off calls are enqueued behind: ~30 ms on an
-# H100 (up to 1.98 GHz), well above the host's ~3.5 ms for 50 calls
-SLEEP_CYCLES = 50_000_000
-
-
-def device_busy_ms(fn) -> float:
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ranges = sorted((e.time_range.start, e.time_range.end)
-                    for e in prof.events()
-                    if getattr(e, "device_type", None)
-                    == torch.autograd.DeviceType.CUDA)
-    us, lo, hi = 0.0, None, None
-    for start, end in ranges:
-        if hi is None or start > hi:
-            us += 0.0 if hi is None else hi - lo
-            lo, hi = start, end
-        else:
-            hi = max(hi, end)
-    return (us + (0.0 if hi is None else hi - lo)) / 1e3
 
 
 def time_draw_off(ops, x: torch.Tensor, w: torch.Tensor, reps: int = 50):
@@ -70,20 +49,8 @@ def time_draw_off(ops, x: torch.Tensor, w: torch.Tensor, reps: int = 50):
     g = torch.Generator("cuda").manual_seed(2)
     d2 = torch.rand(x.shape[0], generator=g, device="cuda") * x.shape[1]
     c = x[5:6].float()
-    for _ in range(3):
-        ops.update_min_dist(x, w, c, d2)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        ops.update_min_dist(x, w, c, d2)
-    host = time.perf_counter() - t0
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) * 1e3 / reps, host * 1e6 / reps
+    ms = timed_ms(lambda: ops.update_min_dist(x, w, c, d2), reps)
+    return ms * 1e3, ms.host_us
 
 
 def main() -> None:

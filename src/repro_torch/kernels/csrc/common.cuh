@@ -46,6 +46,21 @@ constexpr int kTileFloats = 8192;    // 32 KB of centers per shared tile
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
+// Programmatic dependent launch (sm_90). A kernel launched by
+// launch_ex(true, ...) may start while the kernel before it on the stream
+// runs: once every block of that one has called launch_dependents (or
+// left), the dependent's blocks take the SMs they find free, and
+// wait_prerequisites blocks them until the kernel before has finished and
+// its writes are visible. Without a programmatic launch both return at
+// once.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_prerequisites() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -399,9 +414,8 @@ inline long long blocks_for(long long n) {
 
 // bound[0] = max |w_i|, bound[1] = max |x_iq| over rows with w_i != 0, as
 // float bits (atomicMax on the bit patterns of non-negative floats is
-// exact in any order); the caller zeroes both. With d = 0 it reads w
-// alone and bound[1] stays 0. Finite inputs are assumed: NaN is skipped
-// by fmaxf, an infinity makes the shift meaningless.
+// exact in any order); the caller zeroes both. Finite inputs are assumed:
+// NaN is skipped by fmaxf, an infinity makes the shift meaningless.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     bound_kernel(const T* __restrict__ x, long long n, int d,
@@ -464,6 +478,44 @@ __global__ void __launch_bounds__(kThreads)
 inline unsigned bound_grid(long long n) {
   const long long b = (n + kThreads - 1) / kThreads;
   return (unsigned)(b < 1 ? 1 : (b > 1024 ? 1024 : b));
+}
+
+// bound[0] = max |w_i| as float bits, bound_kernel's, from a pass over w
+// alone (sensitivity_scores' masses); the caller zeroes it. Few blocks,
+// eight loads in flight a thread: the walk launched after it
+// (launch_ex) takes the rest of the SMs meanwhile.
+constexpr int kMaxAbsBlocks = 128;
+
+__global__ void __launch_bounds__(kThreads)
+    max_abs_kernel(const float* __restrict__ w, long long n,
+                   unsigned* __restrict__ bound) {
+  launch_dependents();
+  const long long stride = (long long)gridDim.x * kThreads;
+  long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  float m = 0.f;
+  for (; i + 7 * stride < n; i += 8 * stride) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = w[i + u * stride];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) m = fmaxf(m, fabsf(v[u]));
+  }
+  for (; i < n; i += stride) m = fmaxf(m, fabsf(w[i]));
+  __shared__ float sm[kThreads / 32];
+  for (int o = 16; o > 0; o >>= 1) {
+    m = fmaxf(m, __shfl_down_sync(0xffffffffu, m, o));
+  }
+  if ((threadIdx.x & 31) == 0) sm[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int j = 1; j < kThreads / 32; ++j) m = fmaxf(m, sm[j]);
+    atomicMax(bound, __float_as_uint(m));
+  }
+}
+
+inline unsigned max_abs_grid(long long n) {
+  const long long b = (n + 8ll * kThreads - 1) / (8ll * kThreads);
+  return (unsigned)(b < 1 ? 1 : (b > kMaxAbsBlocks ? kMaxAbsBlocks : b));
 }
 
 // The largest s with b·2^s < 2^62 (0 when b == 0: every term is then 0).
@@ -698,13 +750,15 @@ __global__ void __launch_bounds__(kThreads)
 
 // The fixed-point rows to float32 (every block), and a cost: the per-tile
 // partials summed in tile order (block 0) into out[k·d + k], the same
-// bits on every run and for every grid.
+// bits on every run and for every grid. It may be launched after the
+// kernel whose sums it reads (launch_ex; sensitivity_scores).
 __global__ void __launch_bounds__(kThreads)
     fused_finalize_kernel(const unsigned long long* __restrict__ acc,
                           long long k, int d, long long n,
                           const unsigned* __restrict__ bound,
                           const float* __restrict__ part, long long tiles,
                           float* __restrict__ out) {
+  wait_prerequisites();
   fixed_finalize(acc, k, d, n, bound, out);
   if (blockIdx.x == 0) {
     float a = 0.f;
@@ -779,52 +833,88 @@ cudaError_t dispatch(int dtype, int d, F&& f) {
   }
 }
 
-// Launch with dynamic shared memory, raising the per-kernel limit first
-// when a tile needs more than the default 48 KB.
+// Raises `kern`'s dynamic shared-memory limit to `smem` where the default
+// 48 KB is short, once a (kernel, device, size) and not every call.
+template <typename... KArgs>
+cudaError_t smem_limit(void (*kern)(KArgs...), size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> limits;
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& limit = limits[std::make_pair(reinterpret_cast<const void*>(kern),
+                                        dev)];
+  if (smem <= limit) return cudaSuccess;
+  const cudaError_t e2 = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e2 == cudaSuccess) limit = smem;
+  return e2;
+}
+
+// Launch with dynamic shared memory (smem_limit first).
 template <typename... KArgs, typename... Args>
 cudaError_t launch(void (*kern)(KArgs...), dim3 grid, size_t smem,
                    cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = smem_limit(kern, smem);
+  if (e != cudaSuccess) return e;
   kern<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
+// launch through cudaLaunchKernelEx; with `after`, as a programmatic
+// dependent of the kernel before it on the stream, which `kern` waits for
+// (wait_prerequisites) before it reads what that kernel writes. Only
+// sensitivity_scores gains by it: its walk needs the pass over w only
+// after its search (PERF.md §6 has the two kernels it slowed).
+template <typename... KArgs, typename... Args>
+cudaError_t launch_ex(bool after, void (*kern)(KArgs...), dim3 grid,
+                      size_t smem, cudaStream_t stream, Args... args) {
+  const cudaError_t e = smem_limit(kern, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = after ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
 // The blocks of `kern` (kThreads threads, `smem` bytes of dynamic shared
-// memory) an SM holds at once, at least 1, for a persistent grid; first
-// the kernel's shared-memory limit is raised to `smem` where it is below.
-// Both are set or queried once a (kernel, device, size), not every call.
+// memory) an SM holds at once, at least 1, for a persistent grid, queried
+// once a (kernel, device, size); smem_limit first.
 template <typename... KArgs>
 cudaError_t blocks_per_sm(void (*kern)(KArgs...), size_t smem, int* per_sm) {
   static std::mutex mu;
-  static std::map<std::pair<const void*, int>, size_t> limits;
   static std::map<std::tuple<const void*, int, size_t>, int> cache;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  const void* id = reinterpret_cast<const void*>(kern);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto hit = cache.find(std::make_tuple(id, dev, smem));
-  if (hit != cache.end()) {
-    *per_sm = hit->second;
-    return cudaSuccess;
+  const auto key =
+      std::make_tuple(reinterpret_cast<const void*>(kern), dev, smem);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto hit = cache.find(key);
+    if (hit != cache.end()) {
+      *per_sm = hit->second;
+      return cudaSuccess;
+    }
   }
-  size_t& limit = limits[std::make_pair(id, dev)];
-  if (smem > limit) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return e;
-    limit = smem;
-  }
+  e = smem_limit(kern, smem);
+  if (e != cudaSuccess) return e;
   int blocks = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads,
                                                     smem);
   if (e != cudaSuccess) return e;
   *per_sm = blocks > 0 ? blocks : 1;
-  cache[std::make_tuple(id, dev, smem)] = *per_sm;
+  std::lock_guard<std::mutex> lock(mu);
+  cache[key] = *per_sm;
   return cudaSuccess;
 }
 

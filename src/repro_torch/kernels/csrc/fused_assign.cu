@@ -62,7 +62,10 @@
 //    pass (the shift needs max |w| and max |x| before any term is
 //    formed: the one extra read of x), the walk, and the finalize (fixed
 //    point to float32, and the fixed-order sum of the per-tile cost
-//    partials: one float a tile, the same bits every run).
+//    partials: one float a tile, the same bits every run). Launched as
+//    programmatic dependents (common.cuh: launch_ex), the walk and the
+//    finalize took 8 µs more on an H100 at 1.25 M × 25 and 15-20 µs more
+//    at × 831 (PERF.md §6): they are ordinary launches.
 #include "common.cuh"
 
 namespace rt {

@@ -214,19 +214,6 @@ __device__ __forceinline__ int stage_offset(const unsigned char* src) {
   return (int)((unsigned long long)src & 15ull);
 }
 
-// Programmatic dependent launch (sm_90): a draw-on step is launched while
-// the step before it runs; launch_dependents lets the next step's blocks
-// start as this step's blocks leave the SMs, and wait_prerequisites blocks
-// until the step before has finished and its writes are visible. Without
-// a programmatic launch both return at once.
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wait_prerequisites() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 // Philox4x32-10 (Salmon et al., SC'11; Random123's round and key
 // schedule): word 0 of the block at counter (c0, c1, 0, 0), key (k0, k1).
 __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1,
@@ -632,21 +619,14 @@ inline SeedShape seed_shape(long long n, int d, int itemsize, int kt,
 }
 
 // One wave of a seed_step_kernel instance's blocks at `smem` bytes of
-// shared memory, at most `tiles`; raises the kernel's limit first.
+// shared memory, at most `tiles` (common.cuh: blocks_per_sm).
 template <typename K>
 inline cudaError_t one_wave(K kern, size_t smem, int sms, long long tiles,
                             long long* grid) {
-  cudaError_t e = cudaSuccess;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                    smem);
+  const cudaError_t e = blocks_per_sm(kern, smem, &per_sm);
   if (e != cudaSuccess) return e;
-  const long long g = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const long long g = (long long)per_sm * sms;
   *grid = g < tiles ? g : tiles;
   return cudaSuccess;
 }

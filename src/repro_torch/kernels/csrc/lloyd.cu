@@ -29,6 +29,10 @@
 // assignment outside [0, k), or a weight of 0, adds nothing, as the
 // reference's one-hot and segment sum. Launches: one memset
 // (accumulators and bound), the bound pass, the reduce, the finalize.
+// Launched as programmatic dependents (common.cuh: launch_ex), the
+// reduce and the finalize took 3 µs more on an H100 at 1.64 M × 15,
+// k = 25 (PERF.md §6): the reduce needs the bound for its first term, so
+// nothing overlaps.
 // The per-block float partials of every center that this kernel wrote
 // before (k·d + k floats a block, each (center, coordinate) pair scanning
 // the block's 256 points) are gone.

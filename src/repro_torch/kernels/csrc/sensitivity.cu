@@ -24,19 +24,24 @@
 //    min-d2 are min_dist's bit for bit. Each point's score
 //    w·clamp0(best + ||x||^2) and argmin are written out.
 // 2. The masses are exact fixed-point sums of w (common.cuh:
-//    to_fixed_scaled at the shift of n·max|w|, from a bound pass over w
-//    alone), so they equal kernels/exact.py::exact_index_add(w, argmin, k)
-//    bit for bit, whatever the grid. Each warp groups its points by
-//    center (WarpGroups); the leaders add into the warp's shared rows,
-//    flushed once a block, when k <= kWarpAccEntries, else into the
-//    global int64 accumulators (GroupAcc).
+//    to_fixed_scaled at the shift of n·max|w|, from a pass over w alone,
+//    max_abs_kernel), so they equal kernels/exact.py::exact_index_add(w,
+//    argmin, k) bit for bit, whatever the grid. Each warp groups its
+//    points by center (WarpGroups); the leaders add into the warp's shared
+//    rows, flushed once a block, when k <= kWarpAccEntries, else into the
+//    global int64 accumulators (GroupAcc). The two modes time within 2%
+//    of each other from k = 256 to 1,024 (PERF.md §6), where the walk
+//    dominates.
 // 3. The cost: one float partial a point tile (block_sum), added in tile
 //    order by the finalize (common.cuh: fused_finalize_kernel).
 // A point is only ever assigned to a valid center, so invalid centers get
 // no mass; with no valid center at all every point gets +inf and center 0,
 // and center 0 takes the whole mass, as the plain version (kernels/ref.py)
 // does. Launches: one memset (accumulators, bound, tile counters), the
-// bound pass, the walk, the finalize.
+// pass over w, the walk, the finalize. The walk is launched while the pass
+// over w runs (common.cuh: launch_ex) and waits for its bound only
+// after the search, before the masses; the finalize is launched after
+// the walk the same way.
 #include "common.cuh"
 
 namespace rt {
@@ -64,11 +69,12 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
   const Rows<T, DR, P> r(x, n, d, tile * (kThreads * P) + threadIdx.x);
   float best[P];
   int arg[P];
-  if (!nearest_split<T, DR, P>(r, n, d, c, cv, k, slice, blockIdx.y,
-                               gridDim.y, tile, kt, tile_smem, tile_done,
-                               ws_best, ws_arg, best, arg)) {
-    return;                                    // uniform over the block
-  }
+  const bool mine = nearest_split<T, DR, P>(r, n, d, c, cv, k, slice,
+                                            blockIdx.y, gridDim.y, tile, kt,
+                                            tile_smem, tile_done, ws_best,
+                                            ws_arg, best, arg);
+  wait_prerequisites();                        // the pass over w
+  if (!mine) return;                           // uniform over the block
   const double scw = ldexp(1.0, shifts(bound, n).w);
   float cost = 0.f;
 #pragma unroll
@@ -125,25 +131,25 @@ extern "C" int rt_sensitivity_scores(const void* x, int dtype, long long n,
     if (ppt != P) return cudaErrorInvalidValue;   // the wrapper's tiles
     if (n == 0) return cudaGetLastError();
     unsigned* bound = (unsigned*)(base + sc.bound);
-    bound_kernel<float><<<bound_grid(n), kThreads, 0, s>>>(nullptr, n, 0, w,
-                                                            bound);
+    max_abs_kernel<<<max_abs_grid(n), kThreads, 0, s>>>(w, n, bound);
     const cudaError_t e1 = cudaGetLastError();
     if (e1 != cudaSuccess) return e1;
     const int slice = (k + slices - 1) / slices;
     const TileShape ts = tile_shape(d, DR, slice);
-    return launch(sensitivity_kernel<T, DR, P>,
-                  dim3((unsigned)tiles, (unsigned)slices),
-                  acc_smem(mode, k, 1) + ts.smem, s, (const T*)x, n, d, w, c,
-                  cv, k, ts.kt, slice, mode, (const unsigned*)bound,
-                  (unsigned long long*)(base + sc.acc),
-                  (unsigned*)(base + sc.done), (float*)(base + sc.part),
-                  (float*)(base + sc.best), (int*)(base + sc.arg), scores,
-                  assign);
+    return launch_ex(true, sensitivity_kernel<T, DR, P>,
+                     dim3((unsigned)tiles, (unsigned)slices),
+                     acc_smem(mode, k, 1) + ts.smem, s, (const T*)x, n, d, w,
+                     c, cv, k, ts.kt, slice, mode, (const unsigned*)bound,
+                     (unsigned long long*)(base + sc.acc),
+                     (unsigned*)(base + sc.done), (float*)(base + sc.part),
+                     (float*)(base + sc.best), (int*)(base + sc.arg), scores,
+                     assign);
   });
   if (e != cudaSuccess) return (int)e;
-  fused_finalize_kernel<<<grid_for(k), kThreads, 0, s>>>(
-      (const unsigned long long*)(base + sc.acc), k, 0, n,
-      (const unsigned*)(base + sc.bound), (const float*)(base + sc.part),
-      n > 0 ? tiles : 0, out);
-  return (int)cudaGetLastError();
+  return (int)launch_ex(n > 0, fused_finalize_kernel, dim3(grid_for(k)), 0,
+                        s, (const unsigned long long*)(base + sc.acc),
+                        (long long)k, 0, (long long)n,
+                        (const unsigned*)(base + sc.bound),
+                        (const float*)(base + sc.part), n > 0 ? tiles : 0ll,
+                        out);
 }

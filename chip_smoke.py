@@ -56,9 +56,15 @@ PyTorch built for CUDA. It
    masses ``exact_index_add``'s over that argmin, bit for bit, and at
    1,111 beside the min_dist + PyTorch route it replaced;
    ``truncated_cost`` over (8, 1,275,000, 15) against 25 centers with v
-   at the median d2, and ``remove_below`` over (8, 125,000, 15) against
-   1,111 centers (SOCCER's k_plus at k = 1000, beyond the resident limit),
-   beside min_dist on the same points;
+   at the median d2 (timed beside the recorded time of its one-point-a-
+   thread kernel), over (8, 125,000, 15) against 1,111 centers and over
+   (8, 12,501, 15) against 1,111 (the center axis split; machine bases
+   off 16 bytes), each side's sums equal to float64 sums over min_dist's
+   own d2, a repeat giving the same bits and zero weights no side, and
+   with no valid center every point in the tail; and ``remove_below``
+   over (8, 125,000, 15) against 1,111 centers (SOCCER's k_plus at
+   k = 1000, beyond the resident limit), beside min_dist and
+   truncated_cost on the same points;
 6. holds the k-means++ seeding kernel (update_min_dist's kernel with its
    Gumbel-max draw on) at SOCCER k = 1000's coordinator shape (991,418 x
    15, 1,111 steps) and at 17,353 x 15 (103 steps), in the three dtypes,
@@ -231,6 +237,16 @@ COST_RATIOS_BEFORE = {"coreset_kmeans": 1.0151, "soccer_coreset": 0.8396,
                       "kzmeans_robust": 2911.14}
 TRUNCATED_SHAPE = (MACHINES, 1_275_000, DIM, 25)
 REMOVE_WIDE_SHAPE = (MACHINES, 125_000, DIM, 1_111)
+# truncated_cost is also held at REMOVE_WIDE_SHAPE (one center slice: its
+# 984 point tiles fill the card) and at 8 machines of an odd 12,501 rows
+# against 1,111 centers: the center axis split in two, and every machine's
+# base but the first off 16 bytes for the tiles' bulk copies, in float32
+# and bfloat16 alike.
+TRUNCATED_SPLIT_SHAPE = (MACHINES, 12_501, DIM, 1_111)
+# Float32 ms of truncated_cost on one point a thread at TRUNCATED_SHAPE
+# (PERF.md §6 row 12, PR 14; NVIDIA H100 80GB HBM3, 700 W), printed beside
+# this run's time on a line of its own, never in the JSON line.
+TRUNCATED_BEFORE_MS = 0.4782
 # the plain one-hot lloyd_reduce sums each center's rows in a float32
 # matmul over 1.64 M rows, in another order than the kernel
 LLOYD_PLAIN_RTOL = 1e-4
@@ -252,7 +268,8 @@ SOCCER_WIDE_KERNELS = SOCCER_KERNELS
 WALK_KERNELS = (("fused_assign.cu", "fused_assign_kernel"),
                 ("min_dist.cu", "min_dist_kernel"),
                 ("fused_lloyd.cu", "remove_below_kernel"),
-                ("sensitivity.cu", "sensitivity_kernel"))
+                ("sensitivity.cu", "sensitivity_kernel"),
+                ("truncated.cu", "truncated_kernel"))
 
 
 # ... lloyd_reduce's kernel (the Lloyd step's reduce without the walk) and
@@ -1229,39 +1246,73 @@ def tier_phase(ops, ref, rows) -> None:
         del x32, w
         torch.cuda.empty_cache()
 
-    # truncated_cost: every machine's shard in one launch, v at the median
-    m, p, d, k = TRUNCATED_SHAPE
-    x32 = rand(m, p, d)
-    c = rand(k, d)
-    cv = rand(k) > 0.3
-    cv[0] = True
-    w = rand(m, p)
-    w[:, : p // 5] = 0.0
-    for dt in DTYPES:
-        x = x32.to(dt)
-        for mask in (None, cv):
-            d2, _ = ops.min_dist(x.reshape(m * p, d), c, mask)
+    # truncated_cost: every machine's shard in one launch, v at the median,
+    # at kzmeans' shape, at the wide shape (one slice) and at an odd p
+    # whose center axis is split (unaligned machine bases)
+    from repro_torch.kernels import truncated, walk
+    sms = walk.sm_count(torch.device(dev))
+    for m, p, d, k in (TRUNCATED_SHAPE, REMOVE_WIDE_SHAPE,
+                       TRUNCATED_SPLIT_SHAPE):
+        x32 = rand(m, p, d)
+        c = rand(k, d)
+        cv = rand(k) > 0.3
+        cv[0] = True
+        w = rand(m, p)
+        w[:, : p // 5] = 0.0
+        slices = truncated.launch_shape(m, p, d, k, sms)[2]
+        for dt in DTYPES:
+            x = x32.to(dt)
+            # machine 1's rows begin off a 16-byte boundary
+            off = (x.data_ptr() + p * d * x.element_size()) % 16
+            for mask in (None, cv):
+                d2, _ = ops.min_dist(x.reshape(m * p, d), c, mask)
+                v = torch.median(d2[:1_000_000])
+                err, tol, near = check_truncated(ops, ref, x, w, c, mask, v)
+                note("truncated_cost", err)
+                print(f"check truncated_cost m={m} p={p} k={k} {dt} mask="
+                      f"{mask is not None} slices={slices} base_off={off} "
+                      f"v={float(v):.4g} max_abs_err={err:.3g} tol="
+                      f"{tol:.3g} near_v={near} (exact side = min_dist's "
+                      f"d2) repeat=same bits zero_w=no side", flush=True)
+            del x
+        if (m, p, d, k) == TRUNCATED_SPLIT_SHAPE:
+            # no valid center: every point in the tail, as the plain version
+            none = torch.zeros(k, dtype=torch.bool, device=dev)
+            kept, tmass, tcost = ops.truncated_cost(x32, w, c, v, none)
+            e = float((tmass.double() - w.double().sum(1)).abs().max())
+            check(float(kept.abs().max()) == 0.0 and bool(
+                torch.isinf(tcost).all()) and e <= FUSED_RTOL * float(
+                    w.double().sum(1).max()),
+                  f"truncated_cost with no valid center: kept {kept}, tail "
+                  f"mass off w's sums by {e}, tail cost {tcost}")
+            print(f"check truncated_cost m={m} p={p} k={k} no valid center: "
+                  f"kept 0, tail mass = w's sums (err {e:.3g}), tail cost "
+                  f"inf", flush=True)
+        if (m, p, d, k) == TRUNCATED_SHAPE:
+            d2, _ = ops.min_dist(x32.reshape(m * p, d), c)
             v = torch.median(d2[:1_000_000])
-            err, tol, near = check_truncated(ops, ref, x, w, c, mask, v)
-            note("truncated_cost", err)
-            print(f"check truncated_cost m={m} p={p} k={k} {dt} mask="
-                  f"{mask is not None} v={float(v):.4g} max_abs_err="
-                  f"{err:.3g} tol={tol:.3g} near_v={near} repeat=same bits",
-                  flush=True)
-        del x
-    d2, _ = ops.min_dist(x32.reshape(m * p, d), c)
-    v = torch.median(d2[:1_000_000])
-    xf = x32.reshape(m * p, d)
-    t, lib_ms = timing(lambda: ops.truncated_cost(x32, w, c, v),
-                       lambda: ref.truncated_cost_ref(x32, w, c, v),
-                       lambda: torch.cdist(xf, c),
-                       m * p * d * 4 + m * p * 4 + k * d * 4 + 4 + 3 * m * 4,
-                       2.0 * m * p * k * d,
-                       f"truncated_cost m={m} p={p} k={k}", "torch.cdist")
-    note("truncated_cost", 0.0, library_ms=None, yardstick="torch.cdist",
-         yardstick_ms=lib_ms, **t)
-    del x32, w, d2, xf
-    torch.cuda.empty_cache()
+            xf = x32.reshape(m * p, d)
+            t, lib_ms = timing(lambda: ops.truncated_cost(x32, w, c, v),
+                               lambda: ref.truncated_cost_ref(x32, w, c, v),
+                               lambda: torch.cdist(xf, c),
+                               m * p * d * 4 + m * p * 4 + k * d * 4 + 4
+                               + 3 * m * 4, 2.0 * m * p * k * d,
+                               f"truncated_cost m={m} p={p} k={k}",
+                               "torch.cdist")
+            print(f"recorded truncated_cost m={m} p={p} k={k}: one point a "
+                  f"thread {TRUNCATED_BEFORE_MS:.4f} ms (PERF.md, not this "
+                  f"run); this run {t['ms']:.4f} ms "
+                  f"({TRUNCATED_BEFORE_MS / t['ms']:.2f}x); share of the "
+                  f"bound {100 * t['bound_ms'] / t['ms']:.1f}%", flush=True)
+            split = device_split(lambda: ops.truncated_cost(x32, w, c, v))
+            print(f"time truncated_cost m={m} p={p} k={k} device split a "
+                  f"call: {split_line(split)}", flush=True)
+            note("truncated_cost", 0.0, library_ms=None,
+                 yardstick="torch.cdist", yardstick_ms=lib_ms,
+                 device_split_us=split, **t)
+            del d2, xf
+        del x32, w
+        torch.cuda.empty_cache()
 
     # remove_below beyond the resident limit (PERF.md row 9)
     m, p, d, k = REMOVE_WIDE_SHAPE
@@ -1300,6 +1351,20 @@ def tier_phase(ops, ref, rows) -> None:
           f"{m * p} points and {k} centers: {t['ms']:.4f} vs {md_ms:.4f} ms "
           f"({t['ms'] / md_ms:.3f}x); share of the bound "
           f"{100 * t['bound_ms'] / t['ms']:.1f}%", flush=True)
+    # truncated_cost on the same points and centers (PERF.md §6 row 12)
+    wt = rand(m, p)
+    tr_ms = timed_ms(lambda: ops.truncated_cost(x32, wt, c, v_mid))
+    tr_bnd, tr_by = bound_ms(m * p * d * 4 + m * p * 4 + k * d * 4 + 4
+                             + 3 * m * 4, 2.0 * m * p * k * d)
+    print(f"time truncated_cost m={m} p={p} k={k} f32: {tr_ms:.4f} ms "
+          f"({host_note(tr_ms)}), bound {tr_bnd:.4f} ms ({tr_by}); "
+          f"min_dist {md_ms:.4f} ms, remove_below {t['ms']:.4f} ms on the "
+          f"same points ({tr_ms / md_ms:.3f}x, {tr_ms / t['ms']:.3f}x)",
+          flush=True)
+    rows["truncated_cost"]["wide"] = dict(
+        shape=f"truncated_cost m={m} p={p} k={k}", ms=tr_ms,
+        host_us=tr_ms.host_us, bound_ms=tr_bnd, bound_by=tr_by,
+        min_dist_ms=md_ms, remove_below_ms=t["ms"])
     before = REMOVE_BELOW_BEFORE_MS[(m, p, k)]
     print(f"recorded remove_below m={m} p={p} k={k}: one point a thread "
           f"{before:.4f} ms (PERF.md, not this run); this run "
@@ -1308,7 +1373,7 @@ def tier_phase(ops, ref, rows) -> None:
         replaces=REMOVE_CHUNKED_REPLACES, library_ms=None,
         yardstick="torch.cdist", yardstick_ms=lib_ms, max_abs_err=wide_err,
         min_dist_ms=md_ms, **t)
-    del x32, alive, ones, xf
+    del x32, alive, ones, xf, wt
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -1,7 +1,8 @@
-"""Time the port's lloyd_reduce, sensitivity_scores and Lloyd step on one
-CUDA card.
+"""Time the port's lloyd_reduce, sensitivity_scores, Lloyd step and
+truncated_cost on one CUDA card.
 
-    python3 scripts/time_reduce.py [--src DIR] [--reps 20]
+    python3 scripts/time_reduce.py [--src DIR] [--reps 20] [--only NAME]
+        [--stages 1-5]
 
 Loads ``repro_torch.kernels.ops`` from ``DIR`` (default: this checkout's
 ``src``), so the same script times two trees in one call (the parent's
@@ -19,7 +20,11 @@ shape of SHAPES, float32 points and weights drawn from a seed, it prints:
 ``lloyd_reduce`` takes the assignment ``ops.min_dist`` gives to k random
 centers; ``sensitivity_scores`` and the Lloyd step
 (``fused_assign_reduce``, whose reduce the other two share) run against k
-random centers, all valid.
+random centers, all valid; ``truncated_cost`` over the n points as
+MACHINES shards of n / MACHINES rows, with v at the median d2. ``--only``
+times the shapes of one entry point. ``--stages`` sets
+``kernels.truncated.STAGES`` (the tile stages of truncated_cost's kernel)
+for the run.
 
 With ``--modes`` it times only ``sensitivity_scores`` at the widths of
 MODE_KS, once with each accumulator mode of ``kernels.fused_lloyd``
@@ -52,7 +57,15 @@ SHAPES = (("lloyd_reduce", 1_640_000, 15, 25),
           ("sensitivity_scores", 1_275_000, 15, 25),
           ("sensitivity_scores", 1_275_000, 15, 1_111),
           ("fused_assign_reduce", 1_250_000, 15, 25),
-          ("fused_assign_reduce", 1_250_000, 15, 831))
+          ("fused_assign_reduce", 1_250_000, 15, 831),
+          ("truncated_cost", 10_200_000, 15, 25),
+          ("truncated_cost", 10_200_000, 15, 1),
+          ("truncated_cost", 1_000_000, 15, 1_111))
+# truncated_cost's shards: kzmeans' 8 machines of 1,275,000 rows (its
+# scoring pass over all 10.2 M points), the same against one center (the
+# walk nearly free: what the loads alone take), and 8 × 125,000 against
+# SOCCER k = 1000's 1,111 centers (chip_smoke.py's REMOVE_WIDE_SHAPE)
+MACHINES = 8
 # --modes: sensitivity_scores on one machine's 1.275 M rows at widths
 # from 256 centers to the warp rows' limit (kWarpAccEntries = 1,024)
 MODE_KS = (256, 512, 1024)
@@ -64,11 +77,15 @@ def main() -> None:
     ap.add_argument("--src", default=os.path.join(root, "src"))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--modes", action="store_true")
+    ap.add_argument("--only")
+    ap.add_argument("--stages", type=int, choices=(1, 2, 3, 4, 5))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_reduce.py needs a CUDA card")
     sys.path.insert(0, os.path.abspath(args.src))
-    from repro_torch.kernels import ops, sensitivity
+    from repro_torch.kernels import ops, sensitivity, truncated
+    if args.stages is not None:
+        truncated.STAGES = args.stages
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -78,7 +95,8 @@ def main() -> None:
         shapes = [("sensitivity_scores", 1_275_000, 15, k, mode)
                   for k in MODE_KS for mode in ("warp", "global")]
     else:
-        shapes = [s + (None,) for s in SHAPES]
+        shapes = [s + (None,) for s in SHAPES
+                  if args.only in (None, s[0])]
     out = []
     for name, n, d, k, mode in shapes:
         g = torch.Generator("cuda").manual_seed(k)
@@ -93,6 +111,13 @@ def main() -> None:
         elif name == "sensitivity_scores":
             def fn():
                 return ops.sensitivity_scores(x, w, c)
+        elif name == "truncated_cost":
+            v = torch.median(ops.min_dist(x[:1_000_000], c)[0])
+            xs = x.reshape(MACHINES, n // MACHINES, d)
+            ws = w.reshape(MACHINES, n // MACHINES)
+
+            def fn():
+                return ops.truncated_cost(xs, ws, c, v)
         else:
             def fn():
                 return ops.fused_assign_reduce(x, w, c)
@@ -112,7 +137,8 @@ def main() -> None:
               + (", ".join(f"{nm} {us:.2f} us" for nm, us in split.items())
                  or "not measured"), flush=True)
         out.append(dict(name=name, n=n, d=d, k=k, mode=mode, ms=ms,
-                        host_us=ms.host_us, split_us=split))
+                        host_us=ms.host_us, split_us=split,
+                        stages=args.stages))
         del x, w, c
         torch.cuda.empty_cache()
     print(json.dumps({"device": smi, "src": args.src, "calls": out}))

@@ -14,7 +14,9 @@ prints, for the best of ``--reps`` seedings after a warm-up:
 * device-busy ms: the union of the time ranges of the device-side
   events that ``torch.profiler`` records in one more seeding (kernels and
   copies; a seeding step launched as a programmatic dependent of the one
-  before overlaps it, so a sum would count the overlap twice).
+  before overlaps it, so a sum would count the overlap twice);
+* the first 16 hex digits of the sha256 of the chosen centers' bits, so
+  two trees' seedings can be compared bit for bit.
 
 Then, at the first shape's n and d, it times one draw-off
 ``ops.update_min_dist`` call against one center (the parent loop's call
@@ -29,6 +31,7 @@ name and power limit. Timing: ``cuda_timing.py``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -78,8 +81,10 @@ def main() -> None:
         def seed():
             return kmeans_plusplus(torch.Generator("cuda").manual_seed(1),
                                    x, w, k)
-        seed()
+        first = seed()
         torch.cuda.synchronize()
+        # the seeding's chosen rows, to compare two trees' bits
+        digest = hashlib.sha256(first.cpu().numpy().tobytes()).hexdigest()
         host, wall = [], []
         for _ in range(args.reps):
             t0 = time.perf_counter()
@@ -91,12 +96,13 @@ def main() -> None:
         row = dict(n=n, d=d, k=k, host_ms=min(host) * 1e3,
                    wall_ms=min(wall) * 1e3, device_busy_ms=busy,
                    wall_us_per_step=min(wall) * 1e6 / k,
-                   device_us_per_step=busy * 1e3 / k)
+                   device_us_per_step=busy * 1e3 / k,
+                   centers_sha256=digest[:16])
         print(f"seeding n={n} d={d} k={k}: host {row['host_ms']:.1f} ms, "
               f"wall {row['wall_ms']:.1f} ms "
               f"({row['wall_us_per_step']:.1f} us a step), device busy "
-              f"{busy:.1f} ms ({row['device_us_per_step']:.1f} us a step)",
-              flush=True)
+              f"{busy:.1f} ms ({row['device_us_per_step']:.1f} us a step); "
+              f"centers sha256 {digest[:16]}", flush=True)
         out.append(row)
         if n == SHAPES[0][0]:
             dev_us, host_us = time_draw_off(ops, x, w)

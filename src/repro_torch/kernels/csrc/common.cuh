@@ -1,15 +1,21 @@
 // Shared device code of the port's clustering kernels (sm_90a).
 //
 // Every kernel here answers "which valid center is nearest to this point",
-// with the center set streamed through shared memory in tiles, in one of
-// two walks of the same per-point arithmetic (bit for bit):
-//   nearest          one point a thread: truncated_cost;
+// with the center set streamed through shared memory in tiles, on one
+// per-point arithmetic (bit for bit), in one of two walks:
 //   nearest_split    P points a thread (nearest_blocked), the center axis
 //                    optionally split over blocks: the Lloyd step
-//                    (fused_assign.cu), min_dist, remove_below and
-//                    sensitivity_scores.
-// The seeding step (fused_lloyd.cu::seed_step_kernel) walks nearest()'s
-// arithmetic too, one point a thread, on rows staged in shared memory.
+//                    (fused_assign.cu), min_dist, remove_below,
+//                    sensitivity_scores and truncated_cost;
+//   seed_walk        one point a thread, no argmin: the seeding step
+//                    (fused_lloyd.cu: seed_walk, seed_step_kernel).
+// The per-point arithmetic: ||x||^2 and each x.c are fmaf chains over
+// q = 0 .. DR-1 (the row zero-padded past d) or 0 .. d-1, t = fmaf(-2,
+// x.c, ||c||^2) with ||c||^2 from the same chain, the least t over
+// ascending centers by a strict <, and d2 = clamp0(t + ||x||^2).
+// truncated_cost and the seeding step read their rows from tiles staged
+// in shared memory by TMA bulk copies (smem_addr .. stage_offset below);
+// the others read them from device memory.
 // Sums by center are exact fixed-point sums, grouped by center within
 // each warp before they touch memory (WarpGroups, GroupAcc, put_point):
 // the Lloyd step's, lloyd_reduce's and sensitivity_scores' masses.
@@ -71,107 +77,107 @@ __device__ __forceinline__ float clamp0(float v) {
   return v < 0.f ? 0.f : v;          // NaN passes through, as in torch.clamp
 }
 
-// Nearest valid center of one point against all k centers.
-//
-// DR > 0: the point's row lives in DR registers (zero-padded past d) and
-// center rows are stored DR floats apart, read as float4 broadcasts.
-// DR == 0: any d; the row is re-read from global memory (L1-resident)
-// for each center. Every thread of the block must call this (it holds
-// __syncthreads); `active` is false for the ragged tail past n.
-//
-// Ties keep the first index (strict <), as jnp.argmin and torch.min do.
-// With no valid center, best stays +inf and arg 0, as in the reference.
-template <typename T, int DR>
-__device__ __forceinline__ void nearest(
-    const T* __restrict__ xrow, bool active, int d,
-    const float* __restrict__ c, const uint8_t* __restrict__ cv, int k,
-    int kt, float* smem, float& best, int& arg, float& x2, bool& any_valid) {
-  constexpr int kRegs = DR > 0 ? DR : 1;
-  const int stride = DR > 0 ? DR : d;
-  float* sc = smem;                            // (kt, stride) center rows
-  float* sc2 = sc + (size_t)kt * stride;       // (kt,) ||c||^2
-  int* sok = reinterpret_cast<int*>(sc2 + kt);  // (kt,) validity
+// ------------------------------------------------- staged point tiles
+// TMA bulk copies (cp.async.bulk) into shared memory, each completing on
+// a stage's mbarrier: one thread arms the barrier with the bytes a tile's
+// copies will bring (barrier_expect) and issues them; every thread waits
+// on the barrier's phase before it reads the tile. A tile's base need not
+// be 16-byte aligned (a machine's slice x[j] of an (m, p, d) tensor
+// starts j·p·d·itemsize bytes in): its copy is aligned down to 16 bytes,
+// and the rows sit at that offset in shared memory (stage_offset). The
+// aligned copy reads at most 15 bytes on either side of the rows, inside
+// the same allocation: PyTorch's allocations start and end on 512-byte
+// boundaries.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-  float xr[kRegs];
-  x2 = 0.f;
-  if (DR > 0) {
-#pragma unroll
-    for (int q = 0; q < kRegs; ++q) {
-      xr[q] = (active && q < d) ? widen(xrow[q]) : 0.f;
-      x2 = fmaf(xr[q], xr[q], x2);
-    }
-  } else if (active) {
-    for (int q = 0; q < d; ++q) {
-      const float v = widen(xrow[q]);
-      x2 = fmaf(v, v, x2);
-    }
-  }
+__device__ __forceinline__ void barrier_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
 
-  best = INFINITY;
-  arg = 0;
-  any_valid = false;
-  for (int t0 = 0; t0 < k; t0 += kt) {
-    const int rows = min(kt, k - t0);
-    __syncthreads();                           // last tile fully consumed
-    for (int e = threadIdx.x; e < rows * stride; e += blockDim.x) {
-      const int j = e / stride;
-      const int q = e - j * stride;
-      sc[e] = q < d ? c[(size_t)(t0 + j) * d + q] : 0.f;
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < rows; j += blockDim.x) {
-      float s = 0.f;
-      for (int q = 0; q < d; ++q) {
-        const float v = sc[(size_t)j * stride + q];
-        s = fmaf(v, v, s);
-      }
-      sc2[j] = s;
-      sok[j] = cv == nullptr ? 1 : (int)cv[t0 + j];
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < rows; ++j) {
-      if (!sok[j]) continue;
-      any_valid = true;
-      float dot = 0.f;
-      if (DR > 0) {
-        const float4* cr =
-            reinterpret_cast<const float4*>(sc + (size_t)j * stride);
-#pragma unroll
-        for (int q = 0; q < kRegs / 4; ++q) {
-          const float4 v = cr[q];
-          dot = fmaf(xr[4 * q], v.x, dot);
-          dot = fmaf(xr[4 * q + 1], v.y, dot);
-          dot = fmaf(xr[4 * q + 2], v.z, dot);
-          dot = fmaf(xr[4 * q + 3], v.w, dot);
-        }
-      } else {
-        const float* cr = sc + (size_t)j * stride;
-        for (int q = 0; q < d; ++q) dot = fmaf(widen(xrow[q]), cr[q], dot);
-      }
-      const float t = fmaf(-2.f, dot, sc2[j]);
-      if (t < best) {
-        best = t;
-        arg = t0 + j;
-      }
-    }
-  }
+__device__ __forceinline__ void barrier_expect(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void barrier_wait(unsigned long long* bar,
+                                             unsigned phase) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tWAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@p bra DONE;\n\tbra WAIT;\n\tDONE:\n\t}\n" ::"r"(smem_addr(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+// Length of the 16-byte-aligned range around [src, src + nbytes).
+__device__ __forceinline__ unsigned aligned_len(const unsigned char* src,
+                                                long long nbytes) {
+  const unsigned long long s = (unsigned long long)src;
+  return (unsigned)(((s + nbytes + 15) & ~15ull) - (s & ~15ull));
+}
+
+// One bulk copy of that aligned range into dst (16-byte aligned).
+__device__ __forceinline__ void bulk_copy(unsigned char* dst,
+                                          const unsigned char* src,
+                                          long long nbytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"((unsigned long long)src & ~15ull), "r"(aligned_len(src, nbytes)),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A bulk prefetch of that aligned range into L2: nothing to wait for.
+__device__ __forceinline__ void bulk_prefetch_l2(const unsigned char* src,
+                                                 long long nbytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(
+                   (unsigned long long)src & ~15ull),
+               "r"(aligned_len(src, nbytes))
+               : "memory");
+}
+
+// Byte offset of src in its stage buffer.
+__device__ __forceinline__ int stage_offset(const unsigned char* src) {
+  return (int)((unsigned long long)src & 15ull);
+}
+
+// Element 0 of src's copy in the stage part that begins at part.
+template <typename V>
+__device__ __forceinline__ const V* staged(const unsigned char* part,
+                                           const void* src) {
+  return reinterpret_cast<const V*>(
+      part + stage_offset(reinterpret_cast<const unsigned char*>(src)));
+}
+
+// Bytes of one stage buffer: a tile of rows plus up to 16 bytes of
+// alignment on either side, a multiple of 16.
+__host__ __device__ inline int stage_bytes(int rows, int d, int itemsize) {
+  return (rows * d * itemsize + 15) / 16 * 16 + 32;
 }
 
 // ------------------------------------------- register-blocked center walk
-// nearest() for P points a thread: each center row read from shared
-// memory feeds P·DR FMAs instead of DR, and its validity and ||c||^2 are
-// read once for the P points. Per point the arithmetic is nearest()'s to
-// the bit: the same fmaf chain over q = 0 .. DR-1 (or 0 .. d-1), the same
-// t = fmaf(-2, dot, ||c||^2) with ||c||^2 from the same loop, a strict <
-// over ascending j, and (+inf, 0) with no valid center. So the argmin and
-// min-d2 equal those of the kernels still on nearest().
+// P points a thread: each center row read from shared memory feeds P·DR
+// FMAs, and its ||c||^2 is read once for the P points. Per point the
+// arithmetic is the one above, so every kernel on this walk gives
+// min_dist's argmin and min-d2, bit for bit.
 //
 // Rows<T, DR, P> holds the thread's P points: their rows in registers
 // (DR > 0, zero-padded past d) or their row pointers (DR == 0, any d,
-// re-read from L1), and ||x||^2 computed as nearest() computes it. Point p
-// of the thread is row first + p·blockDim.x; a row past n is inactive and
-// reads row 0.
+// re-read for every center), and ||x||^2. Point p of the thread is row
+// first + p·blockDim.x of the n rows; a row past n is inactive and reads
+// row lo. The rows are read from `rows`, which holds rows lo, lo + 1, ...
+// of the points: the points themselves (lo = 0), or a tile of them staged
+// in shared memory (lo = the tile's first row).
 template <typename T, int DR, int P>
 struct Rows {
   static constexpr int kRegs = DR > 0 ? DR : 1;
@@ -182,12 +188,16 @@ struct Rows {
   float x2[P];
 
   __device__ __forceinline__ Rows(const T* __restrict__ x, long long n,
-                                  int d, long long first) {
+                                  int d, long long first)
+      : Rows(x, 0, n, d, first) {}
+
+  __device__ __forceinline__ Rows(const T* __restrict__ rows, long long lo,
+                                  long long n, int d, long long first) {
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       idx[p] = first + (long long)p * blockDim.x;
       active[p] = idx[p] < n;
-      row[p] = x + (active[p] ? idx[p] : 0) * d;
+      row[p] = rows + ((active[p] ? idx[p] : lo) - lo) * d;
       x2[p] = 0.f;
       if (DR > 0) {
 #pragma unroll
@@ -205,22 +215,97 @@ struct Rows {
   }
 };
 
+// Centers [t0, t0 + rows) of c into the shared tile: kt rows of `stride`
+// floats (DR, or d; zero-padded past d), then kt ||c||^2, +inf for an
+// invalid center. Every thread of the block must call this (it holds
+// __syncthreads on both sides: the tile before is consumed, this one is
+// ready).
+__device__ __forceinline__ void load_center_tile(
+    const float* __restrict__ c, const uint8_t* __restrict__ cv, int d,
+    int stride, int t0, int rows, int kt, float* smem) {
+  float* sc = smem;                            // (kt, stride) center rows
+  float* sc2 = sc + (size_t)kt * stride;       // (kt,) ||c||^2, or +inf
+  __syncthreads();                             // last tile fully consumed
+  for (int e = threadIdx.x; e < rows * stride; e += blockDim.x) {
+    const int j = e / stride;
+    const int q = e - j * stride;
+    sc[e] = q < d ? c[(size_t)(t0 + j) * d + q] : 0.f;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < rows; j += blockDim.x) {
+    float s = 0.f;
+    for (int q = 0; q < d; ++q) {
+      const float v = sc[(size_t)j * stride + q];
+      s = fmaf(v, v, s);
+    }
+    sc2[j] = (cv == nullptr || cv[t0 + j]) ? s : INFINITY;
+  }
+  __syncthreads();
+}
+
+// (best, arg) = the nearest of (best, arg) and the `rows` centers of the
+// shared tile (load_center_tile's; absolute index t0 + j), for each of
+// the thread's P points; with kArg false only best. An invalid center's
+// ||c||^2 is +inf: its t is +inf (or NaN), never < best, so it is never
+// chosen: no validity array and no branch in the walk.
+template <typename T, int DR, int P, bool kArg>
+__device__ __forceinline__ void scan_center_tile(
+    const Rows<T, DR, P>& r, int d, int t0, int rows, int kt,
+    const float* smem, float (&best)[P], int (&arg)[P]) {
+  const int stride = DR > 0 ? DR : d;
+  const float* sc = smem;
+  const float* sc2 = sc + (size_t)kt * stride;
+#pragma unroll 4
+  for (int j = 0; j < rows; ++j) {
+    float dot[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) dot[p] = 0.f;
+    if (DR > 0) {
+      const float4* cr =
+          reinterpret_cast<const float4*>(sc + (size_t)j * stride);
+#pragma unroll
+      for (int q = 0; q < Rows<T, DR, P>::kRegs / 4; ++q) {
+        const float4 v = cr[q];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          dot[p] = fmaf(r.xr[p][4 * q], v.x, dot[p]);
+          dot[p] = fmaf(r.xr[p][4 * q + 1], v.y, dot[p]);
+          dot[p] = fmaf(r.xr[p][4 * q + 2], v.z, dot[p]);
+          dot[p] = fmaf(r.xr[p][4 * q + 3], v.w, dot[p]);
+        }
+      }
+    } else {
+      const float* cr = sc + (size_t)j * stride;
+      for (int q = 0; q < d; ++q) {
+        const float v = cr[q];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          dot[p] = fmaf(widen(r.row[p][q]), v, dot[p]);
+        }
+      }
+    }
+    const float c2 = sc2[j];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float t = fmaf(-2.f, dot[p], c2);
+      if (t < best[p]) {
+        best[p] = t;
+        if (kArg) arg[p] = t0 + j;
+      }
+    }
+  }
+}
+
 // The nearest valid center among [j_lo, j_hi) of each of the thread's P
-// points (absolute indices in arg). Every thread of the block must call
-// this (it holds __syncthreads). The shared tile is nearest()'s: kt rows
-// of `stride` floats (DR, or d), then kt ||c||^2.
-//
-// An invalid center's ||c||^2 is +inf: its t is +inf (or NaN), never
-// < best, so it is never chosen, and a valid center's t is computed as
-// nearest() computes it: no validity array and no branch in the walk.
-template <typename T, int DR, int P>
+// points (absolute indices in arg; with kArg false only best, and arg
+// stays 0), the centers streamed through the shared tile (kt rows) one
+// tile at a time. Every thread of the block must call this (it holds
+// __syncthreads).
+template <typename T, int DR, int P, bool kArg = true>
 __device__ __forceinline__ void nearest_blocked(
     const Rows<T, DR, P>& r, int d, const float* __restrict__ c,
     const uint8_t* __restrict__ cv, int j_lo, int j_hi, int kt, float* smem,
     float (&best)[P], int (&arg)[P]) {
-  const int stride = DR > 0 ? DR : d;
-  float* sc = smem;                            // (kt, stride) center rows
-  float* sc2 = sc + (size_t)kt * stride;       // (kt,) ||c||^2, or +inf
   bool any_active = false;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
@@ -230,61 +315,9 @@ __device__ __forceinline__ void nearest_blocked(
   }
   for (int t0 = j_lo; t0 < j_hi; t0 += kt) {
     const int rows = min(kt, j_hi - t0);
-    __syncthreads();                           // last tile fully consumed
-    for (int e = threadIdx.x; e < rows * stride; e += blockDim.x) {
-      const int j = e / stride;
-      const int q = e - j * stride;
-      sc[e] = q < d ? c[(size_t)(t0 + j) * d + q] : 0.f;
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < rows; j += blockDim.x) {
-      float s = 0.f;
-      for (int q = 0; q < d; ++q) {
-        const float v = sc[(size_t)j * stride + q];
-        s = fmaf(v, v, s);
-      }
-      sc2[j] = (cv == nullptr || cv[t0 + j]) ? s : INFINITY;
-    }
-    __syncthreads();
-    if (!any_active) continue;
-#pragma unroll 4
-    for (int j = 0; j < rows; ++j) {
-      float dot[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) dot[p] = 0.f;
-      if (DR > 0) {
-        const float4* cr =
-            reinterpret_cast<const float4*>(sc + (size_t)j * stride);
-#pragma unroll
-        for (int q = 0; q < Rows<T, DR, P>::kRegs / 4; ++q) {
-          const float4 v = cr[q];
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            dot[p] = fmaf(r.xr[p][4 * q], v.x, dot[p]);
-            dot[p] = fmaf(r.xr[p][4 * q + 1], v.y, dot[p]);
-            dot[p] = fmaf(r.xr[p][4 * q + 2], v.z, dot[p]);
-            dot[p] = fmaf(r.xr[p][4 * q + 3], v.w, dot[p]);
-          }
-        }
-      } else {
-        const float* cr = sc + (size_t)j * stride;
-        for (int q = 0; q < d; ++q) {
-          const float v = cr[q];
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            dot[p] = fmaf(widen(r.row[p][q]), v, dot[p]);
-          }
-        }
-      }
-      const float c2 = sc2[j];
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const float t = fmaf(-2.f, dot[p], c2);
-        if (t < best[p]) {
-          best[p] = t;
-          arg[p] = t0 + j;
-        }
-      }
+    load_center_tile(c, cv, d, DR > 0 ? DR : d, t0, rows, kt, smem);
+    if (any_active) {
+      scan_center_tile<T, DR, P, kArg>(r, d, t0, rows, kt, smem, best, arg);
     }
   }
 }
@@ -301,8 +334,9 @@ __device__ __forceinline__ void nearest_blocked(
 // with a strict <: the first-index argmin of one sequential walk, so the
 // split changes no bit. Returns true (uniformly over the block) in the
 // block that holds the tile's combined (best, arg). Every thread of the
-// block must call this.
-template <typename T, int DR, int P>
+// block must call this. With kArg false only best is kept (ws_arg is not
+// touched and may be NULL; arg stays 0).
+template <typename T, int DR, int P, bool kArg = true>
 __device__ __forceinline__ bool nearest_split(
     const Rows<T, DR, P>& r, long long n, int d, const float* __restrict__ c,
     const uint8_t* __restrict__ cv, int k, int slice, int s, int slices,
@@ -311,14 +345,15 @@ __device__ __forceinline__ bool nearest_split(
     float (&best)[P], int (&arg)[P]) {
   const int j_lo = min(k, s * slice);
   const int j_hi = min(k, j_lo + slice);
-  nearest_blocked<T, DR, P>(r, d, c, cv, j_lo, j_hi, kt, smem, best, arg);
+  nearest_blocked<T, DR, P, kArg>(r, d, c, cv, j_lo, j_hi, kt, smem, best,
+                                  arg);
   if (slices == 1) return true;
   const long long off = (long long)s * n;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     if (r.active[p]) {
       ws_best[off + r.idx[p]] = best[p];
-      ws_arg[off + r.idx[p]] = arg[p];
+      if (kArg) ws_arg[off + r.idx[p]] = arg[p];
     }
   }
   __threadfence();
@@ -339,7 +374,7 @@ __device__ __forceinline__ bool nearest_split(
       const float b = __ldcg(ws_best + (long long)q * n + r.idx[p]);
       if (b < best[p]) {
         best[p] = b;
-        arg[p] = __ldcg(ws_arg + (long long)q * n + r.idx[p]);
+        if (kArg) arg[p] = __ldcg(ws_arg + (long long)q * n + r.idx[p]);
       }
     }
   }

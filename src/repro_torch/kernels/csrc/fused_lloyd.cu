@@ -100,10 +100,11 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
 //    needs no mass and no second launch. Step 0 has no center and draws
 //    on the w key alone (kmeans.py:48).
 //
-// Per point the arithmetic is nearest()'s (common.cuh): the same fmaf
-// chains for ||x||^2 and x.c, t = fmaf(-2, x.c, ||c||^2), clamp0(t +
-// ||x||^2) and a strict <. So both modes give the same d2 for the same
-// center, bit for bit, and it is min_dist's d2 for a one-center block.
+// Per point the arithmetic is common.cuh's (seed_walk on the point's
+// Rows<T, DR, 1>): the same fmaf chains for ||x||^2 and x.c, t = fmaf(-2,
+// x.c, ||c||^2), clamp0(t + ||x||^2) and a strict <. So both modes give
+// the same d2 for the same center, bit for bit, and it is min_dist's d2
+// for a one-center block.
 //
 // Random bits: Philox4x32-10, written out below (no cuRAND). The key is a
 // 64-bit seed that the wrapper draws once a seeding from the caller's
@@ -130,12 +131,9 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
 // writes x or w; the first step of a C call waits for everything before it
 // (an ordinary launch), so x and w are whatever the stream wrote before the
 // call. The w keys are computed only where they can be read (step 0, and a
-// block with no D² key above -inf). A tile's base need not be 16-byte
-// aligned (a machine's slice x[j] of an (m, p, d) tensor starts
-// j·p·d·itemsize bytes in): its copy is aligned down to 16 bytes, and the
-// rows sit at that offset in shared memory. The aligned copy reads at most
-// 15 bytes on either side of the rows, inside the same allocation: PyTorch's
-// allocations start and end on 512-byte boundaries. One C call (rt_kmeanspp)
+// block with no D² key above -inf). The staging helpers (bulk copies
+// aligned down to 16 bytes, mbarriers) are common.cuh's, shared with
+// truncated_cost. One C call (rt_kmeanspp)
 // launches the k steps of a seeding back to back, then one small kernel that
 // writes the k chosen indices, so the host does nothing a step and reads
 // nothing back.
@@ -148,70 +146,6 @@ __host__ __device__ inline int seed_tile_rows(int d, int itemsize) {
   const long long row = (long long)(d > 0 ? d : 1) * itemsize;
   const long long r = kStageMax / row;
   return (int)(r >= kThreads ? kThreads : (r > 1 ? r : 1));
-}
-
-// Bytes of one stage buffer: a tile of rows plus up to 16 bytes of
-// alignment on either side, a multiple of 16.
-__host__ __device__ inline int stage_bytes(int rows, int d, int itemsize) {
-  return (rows * d * itemsize + 15) / 16 * 16 + 32;
-}
-
-// TMA bulk copies (cp.async.bulk) into shared memory, each completing on
-// a stage's mbarrier: one thread arms the barrier with the bytes a tile's
-// copies will bring (barrier_expect) and issues them; every thread waits
-// on the barrier's phase before it reads the tile.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void barrier_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void barrier_expect(unsigned long long* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void barrier_wait(unsigned long long* bar,
-                                             unsigned phase) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tWAIT:\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
-      "@p bra DONE;\n\tbra WAIT;\n\tDONE:\n\t}\n" ::"r"(smem_addr(bar)),
-      "r"(phase)
-      : "memory");
-}
-
-// Length of the 16-byte-aligned range around [src, src + nbytes).
-__device__ __forceinline__ unsigned aligned_len(const unsigned char* src,
-                                                long long nbytes) {
-  const unsigned long long s = (unsigned long long)src;
-  return (unsigned)(((s + nbytes + 15) & ~15ull) - (s & ~15ull));
-}
-
-// One bulk copy of that aligned range into dst (16-byte aligned).
-__device__ __forceinline__ void bulk_copy(unsigned char* dst,
-                                          const unsigned char* src,
-                                          long long nbytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"((unsigned long long)src & ~15ull), "r"(aligned_len(src, nbytes)),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Byte offset of src in its stage buffer.
-__device__ __forceinline__ int stage_offset(const unsigned char* src) {
-  return (int)((unsigned long long)src & 15ull);
 }
 
 // Philox4x32-10 (Salmon et al., SC'11; Random123's round and key
@@ -287,8 +221,9 @@ __device__ __forceinline__ unsigned long long block_max(
   return v;
 }
 
-// The centers [t0, t0 + rows) into the shared tile, laid out as nearest()
-// lays it out (rows `stride` floats apart, zero-padded past d, then kt
+// The centers [t0, t0 + rows) into the shared tile, laid out as
+// common.cuh's load_center_tile lays it out (rows `stride` floats apart,
+// zero-padded past d, then kt
 // ||c||^2, +inf for an invalid center). Draw on, the one center is row
 // `win` of x, widened; draw off, rows of the float32 centers c. Every
 // thread of the block must call this.
@@ -325,59 +260,35 @@ __device__ __forceinline__ void load_centers(
   __syncthreads();
 }
 
-// One thread's point, its row staged in shared memory: the row in DR
-// registers (zero-padded past d) or re-read from shared memory (DR == 0,
-// any d), and ||x||^2 as nearest() computes it.
+// best = min(best, t) over the `rows` centers of the shared tile, for
+// the one point of r: the per-point arithmetic of common.cuh with no
+// argmin.
 template <typename T, int DR>
-struct StagedRow {
-  static constexpr int kRegs = DR > 0 ? DR : 1;
-  const T* row;
-  float xr[kRegs];
-  float x2;
-
-  __device__ __forceinline__ StagedRow(const T* r, bool active, int d)
-      : row(r) {
-    x2 = 0.f;
+__device__ __forceinline__ void seed_walk(const Rows<T, DR, 1>& r,
+                                          const float* sc, const float* sc2,
+                                          int rows, int d, float& best) {
+  const int stride = DR > 0 ? DR : d;
+  for (int j = 0; j < rows; ++j) {
+    float dot = 0.f;
     if (DR > 0) {
+      const float4* cr =
+          reinterpret_cast<const float4*>(sc + (size_t)j * stride);
 #pragma unroll
-      for (int q = 0; q < kRegs; ++q) {
-        xr[q] = (active && q < d) ? widen(r[q]) : 0.f;
-        x2 = fmaf(xr[q], xr[q], x2);
+      for (int q = 0; q < Rows<T, DR, 1>::kRegs / 4; ++q) {
+        const float4 v = cr[q];
+        dot = fmaf(r.xr[0][4 * q], v.x, dot);
+        dot = fmaf(r.xr[0][4 * q + 1], v.y, dot);
+        dot = fmaf(r.xr[0][4 * q + 2], v.z, dot);
+        dot = fmaf(r.xr[0][4 * q + 3], v.w, dot);
       }
-    } else if (active) {
-      for (int q = 0; q < d; ++q) {
-        const float v = widen(r[q]);
-        x2 = fmaf(v, v, x2);
-      }
+    } else {
+      const float* cr = sc + (size_t)j * stride;
+      for (int q = 0; q < d; ++q) dot = fmaf(widen(r.row[0][q]), cr[q], dot);
     }
+    const float t = fmaf(-2.f, dot, sc2[j]);
+    if (t < best) best = t;
   }
-
-  // best = min(best, t) over the `rows` centers of the shared tile.
-  __device__ __forceinline__ void walk(const float* sc, const float* sc2,
-                                       int rows, int d, float& best) const {
-    const int stride = DR > 0 ? DR : d;
-    for (int j = 0; j < rows; ++j) {
-      float dot = 0.f;
-      if (DR > 0) {
-        const float4* cr =
-            reinterpret_cast<const float4*>(sc + (size_t)j * stride);
-#pragma unroll
-        for (int q = 0; q < kRegs / 4; ++q) {
-          const float4 v = cr[q];
-          dot = fmaf(xr[4 * q], v.x, dot);
-          dot = fmaf(xr[4 * q + 1], v.y, dot);
-          dot = fmaf(xr[4 * q + 2], v.z, dot);
-          dot = fmaf(xr[4 * q + 3], v.w, dot);
-        }
-      } else {
-        const float* cr = sc + (size_t)j * stride;
-        for (int q = 0; q < d; ++q) dot = fmaf(widen(row[q]), cr[q], dot);
-      }
-      const float t = fmaf(-2.f, dot, sc2[j]);
-      if (t < best) best = t;
-    }
-  }
-};
+}
 
 // Tile t's parts, each a range of bytes: its rows, its w, its d2.
 template <typename T>
@@ -419,14 +330,6 @@ struct TileParts {
     }
   }
 };
-
-// Element 0 of src's copy in the stage part that begins at part.
-template <typename V>
-__device__ __forceinline__ const V* staged(const unsigned char* part,
-                                           const void* src) {
-  return reinterpret_cast<const V*>(
-      part + stage_offset(reinterpret_cast<const unsigned char*>(src)));
-}
 
 // One seeding step over n points in tiles of tile_rows rows. A stage
 // buffer (sbytes long) holds a tile's rows, then its w and its d2; after
@@ -520,21 +423,20 @@ __global__ void __launch_bounds__(kThreads)
     float nd = 0.f;
     if (active && read_d2) nd = sd[threadIdx.x];
     if (kc > 0) {
-      const T* srow = staged<T>(stage[b], x + r0 * d) +
-                      (size_t)(active ? threadIdx.x : 0) * d;
-      const StagedRow<T, DR> r(srow, active, d);
+      const Rows<T, DR, 1> r(staged<T>(stage[b], x + r0 * d), r0, r0 + rows,
+                             d, i);
       float best = INFINITY;
       if (resident) {
-        if (active) r.walk(sc, sc2, kc, d, best);
+        if (active) seed_walk(r, sc, sc2, kc, d, best);
       } else {
         for (int t0 = 0; t0 < kc; t0 += kt) {
           const int rows_c = min(kt, kc - t0);
           load_centers<T, DR, kDraw>(x, win, c, cv, d, t0, rows_c, kt, sc);
-          if (active) r.walk(sc, sc2, rows_c, d, best);
+          if (active) seed_walk(r, sc, sc2, rows_c, d, best);
         }
       }
       if (active) {
-        const float cand = clamp0(best + r.x2);
+        const float cand = clamp0(best + r.x2[0]);
         nd = cand < nd ? cand : nd;
       }
     }

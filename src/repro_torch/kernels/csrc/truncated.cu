@@ -14,84 +14,289 @@
 // inputs, and 3 floats a machine out. On the kzmeans path (8 machines of
 // 1,275,000 rows, d = 15, k = 25) that is ~7.7 GFLOP on ~653 MB: about 12
 // operations per byte, under the float32 ridge (~20), so it is bound by
-// bytes (~0.195 ms at 3.35 TB/s).
+// bytes (~0.195 ms at 3.35 TB/s); at 1,111 centers by operations.
 //
-// Design: the one-point-a-thread walk (common.cuh: nearest, min_dist's
-// arithmetic to the bit) over a grid of (point block, machine), so one
-// launch scores every machine; v is read through a device pointer, so a
-// threshold computed on the card never waits for the host. Each block
-// reduces its three sums in a fixed order (block_sum) into per-block
-// partials laid out (machine, 3, blocks), and the fixed-order
-// reduce_rows pass adds each row in block order: the same bits on every
-// run, and (m, 3) triples out for the caller's psum.
-// Nothing in the design depends on the number of centers.
+// Design, one kernel at every k:
+// 1. The walk is min_dist's (common.cuh: nearest_split; the launch shape
+//    from kernels/walk.py: P points a thread, the center axis split over
+//    blocks where the point tiles cannot fill the card). The work items
+//    are (machine, point tile, center slice): a tile never straddles two
+//    machines, and the slices come from the m·tiles tiles of the whole
+//    launch. So each point's d2, and with it its side of v, is min_dist's
+//    bit for bit.
+// 2. A tile's rows (kThreads·P·d·itemsize contiguous bytes: 61,440 at
+//    float32, P = 4, d = 15) are staged into shared memory by one TMA bulk
+//    copy against an mbarrier (common.cuh: bulk_copy), aligned down to 16
+//    bytes where a machine's base is not. The whole tile is in flight at
+//    once and coalesced, and no thread spends instructions on addresses;
+//    the threads then build their Rows from shared memory (rows of d = 15
+//    float32 are an odd number of words apart: no bank conflicts), and
+//    at d > 16 (DR == 0) re-read them from there for every center. A tile
+//    of more than kStageMax bytes (d > 48 at float32) is read in place
+//    from device memory instead, as min_dist reads it.
+// 3. Each tile's three sums go through one fixed-order float partial
+//    (block_sum) laid out (machine, 3, tiles), and the fixed-order
+//    reduce_rows pass adds each row in tile order: the same bits on every
+//    run, and (m, 3) triples out for the caller's psum.
+// v is read through a device pointer, so a threshold computed on the card
+// never waits for the host. With no valid center every d2 is +inf, so
+// every point falls in the tail, as the plain version (kernels/ref.py)
+// gives.
 #include "common.cuh"
 
 namespace rt {
 
-template <typename T, int DR>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kStageMax = 96 * 1024;   // bytes of rows a staged tile, at most
+
+// The scratch of a call, in bytes from its start: the (m, 3, tiles) tile
+// partials, then, with more than one center slice, the m·tiles tile
+// counters (zeroed by one memset) and the (m, slices, p) per-slice best
+// (kernels/truncated.py::scratch_bytes mirrors it). No argmin is kept.
+struct TruncScratch {
+  size_t part, done, best, total;
+};
+
+inline TruncScratch trunc_scratch(int m, long long p, long long tiles,
+                                  int slices) {
+  TruncScratch s;
+  s.part = 0;
+  s.done = round8((size_t)m * 3 * tiles * 4);
+  const bool split = slices > 1;
+  s.best = s.done + (split ? round8((size_t)m * tiles * 4) : 0);
+  s.total = s.best + (split ? round8((size_t)slices * m * p * 4) : 0);
+  return s;
+}
+
+// S, the arrangement of the stages: 1 = one stage a block, a block an
+// item; 2 = a one-wave grid-stride loop over two stages, the next item's
+// tile in flight while this one is walked; 3 = a one-wave grid-stride
+// loop over one stage, refilled with the next item's tile as soon as its
+// rows are in registers (DR > 0), else after the walk; 4 = 3, with the
+// center tile loaded once a block where one slice fits it; 5 = 4, with
+// the tile after next prefetched into L2 (bulk_prefetch_l2). sbytes is a
+// stage's bytes, 0 where the rows are read in place. Blocks an SM as
+// min_dist's walk.
+template <typename T, int DR, int P, int S>
+__global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
     truncated_kernel(const T* __restrict__ x, long long p, int d,
                      const float* __restrict__ w, const float* __restrict__ c,
                      const uint8_t* __restrict__ cv, int k, int kt,
-                     const float* __restrict__ v, float* __restrict__ part,
-                     long long nb) {
-  extern __shared__ __align__(16) float smem[];
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = (long long)blockIdx.y * p + i;
-  const bool active = i < p;
+                     int slice, int slices, long long tiles,
+                     long long items, int sbytes,
+                     const float* __restrict__ v,
+                     unsigned* __restrict__ tile_done,
+                     float* __restrict__ ws_best, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem_u8[];
+  constexpr int kTile = kThreads * P;          // points a tile
+  constexpr int kStages = S == 2 ? 2 : 1;
+  // the stage is free once the rows are in registers (S = 3, DR > 0)
+  constexpr bool kEarly = S >= 3 && DR > 0;
+  const bool resident = S >= 4 && slices == 1 && k <= kt;
+  const bool staged_rows = sbytes > 0;
+  float* sc = reinterpret_cast<float*>(smem_u8 + kStages * (size_t)sbytes);
+  __shared__ __align__(8) unsigned long long full[kStages];  // b landed
+  if (staged_rows && threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < kStages; ++b) barrier_init(&full[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // item -> (machine j, its tile t, center slice s); tile = j·tiles + t
+  auto rows_of = [&](long long item, long long& j, long long& r0) {
+    const long long tile = item / slices;
+    j = tile / tiles;
+    r0 = (tile - j * tiles) * kTile;
+  };
+  // item `it`'s rows: their first byte and their length
+  auto span = [&](long long it, const unsigned char*& src,
+                  long long& nbytes) {
+    long long j, r0;
+    rows_of(it, j, r0);
+    src = reinterpret_cast<const unsigned char*>(x + (j * p + r0) * d);
+    nbytes = min((long long)kTile, p - r0) * d * (long long)sizeof(T);
+  };
+  // One thread stages item `it`'s rows into stage b.
+  auto stage = [&](long long it, int b) {
+    const unsigned char* src;
+    long long nbytes;
+    span(it, src, nbytes);
+    barrier_expect(&full[b], aligned_len(src, nbytes));
+    bulk_copy(smem_u8 + b * (size_t)sbytes, src, nbytes, &full[b]);
+  };
+
+  if (staged_rows && threadIdx.x == 0 && blockIdx.x < items) {
+    stage(blockIdx.x, 0);
+  }
+  if (resident) load_center_tile(c, cv, d, DR > 0 ? DR : d, 0, k, kt, sc);
   const float vv = *v;
-  float best, x2;
-  int arg;
-  bool any_valid;
-  nearest<T, DR>(x + (active ? row : 0) * d, active, d, c, cv, k, kt, smem,
-                 best, arg, x2, any_valid);
-  float kept = 0.f, tmass = 0.f, tcost = 0.f;
-  if (active) {
-    const float wi = w[row];
-    const float d2 = clamp0(best + x2);
-    const float s = wi > 0.f ? wi * d2 : 0.f;    // weight 0: no side
-    if (d2 <= vv) {                              // inclusive below, as ref.py
-      kept = s;
+  unsigned phase = 0u;                         // bit b: stage b's parity
+  int b = 0;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    if (S == 2 && staged_rows && threadIdx.x == 0 && it + gridDim.x < items) {
+      stage(it + gridDim.x, b ^ 1);
+    }
+    long long j, r0;
+    rows_of(it, j, r0);
+    const long long tile = it / slices;
+    const int s = (int)(it - tile * slices);
+    const T* xm = x + j * p * d;
+    const T* src = xm;
+    long long lo = 0;
+    if (staged_rows) {
+      barrier_wait(&full[b], phase >> b & 1u);   // the tile's rows landed
+      phase ^= 1u << b;
+      src = staged<T>(smem_u8 + b * (size_t)sbytes, xm + r0 * d);
+      lo = r0;
+    }
+    const Rows<T, DR, P> r(src, lo, p, d, r0 + threadIdx.x);
+    if (kEarly && staged_rows) {
+      __syncthreads();                         // every row in registers
+      if (threadIdx.x == 0 && it + gridDim.x < items) {
+        stage(it + gridDim.x, 0);
+        if (S == 5 && it + 2ll * gridDim.x < items) {
+          const unsigned char* pf;
+          long long nbytes;
+          span(it + 2ll * gridDim.x, pf, nbytes);
+          bulk_prefetch_l2(pf, nbytes);
+        }
+      }
+    }
+    float best[P];
+    int arg[P];
+    bool mine = true;
+    if (resident) {
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        best[q] = INFINITY;
+        arg[q] = 0;
+      }
+      scan_center_tile<T, DR, P, false>(r, d, 0, k, kt, sc, best, arg);
     } else {
-      tmass = wi;
-      tcost = s;
+      mine = nearest_split<T, DR, P, false>(
+          r, p, d, c, cv, k, slice, s, slices, tile, kt, sc, tile_done,
+          slices > 1 ? ws_best + j * slices * p : nullptr, nullptr, best,
+          arg);
+    }
+    if (mine) {                                // uniform over the block
+      const float* wm = w + j * p;
+      float kept = 0.f, tmass = 0.f, tcost = 0.f;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        if (!r.active[q]) continue;
+        const float wi = wm[r.idx[q]];
+        const float d2 = clamp0(best[q] + r.x2[q]);
+        const float sq = wi > 0.f ? wi * d2 : 0.f;   // weight 0: no side
+        if (d2 <= vv) {                              // inclusive, as ref.py
+          kept += sq;
+        } else {
+          tmass += wi;
+          tcost += sq;
+        }
+      }
+      kept = block_sum(kept);
+      tmass = block_sum(tmass);
+      tcost = block_sum(tcost);
+      if (threadIdx.x == 0) {
+        float* o = part + j * 3 * tiles + (tile - j * tiles);
+        o[0] = kept;
+        o[tiles] = tmass;
+        o[2 * tiles] = tcost;
+      }
+    }
+    if (staged_rows && !kEarly) __syncthreads();   // stage b read by all
+    if (S == 2) {
+      b ^= 1;
+    } else if (!kEarly && staged_rows && threadIdx.x == 0 &&
+               it + gridDim.x < items) {
+      stage(it + gridDim.x, 0);
     }
   }
-  kept = block_sum(kept);
-  tmass = block_sum(tmass);
-  tcost = block_sum(tcost);
-  if (threadIdx.x == 0) {
-    float* out = part + (long long)blockIdx.y * 3 * nb + blockIdx.x;
-    out[0] = kept;
-    out[nb] = tmass;
-    out[2 * nb] = tcost;
+}
+
+template <typename T, int DR, int P, int S>
+inline cudaError_t launch_truncated(const T* x, int m, long long p, int d,
+                                    const float* w, const float* c,
+                                    const uint8_t* cv, int k, int slices,
+                                    long long tiles, int sms, const float* v,
+                                    unsigned* done, float* ws_best,
+                                    float* part, cudaStream_t s) {
+  const int slice = (k + slices - 1) / slices;
+  const TileShape ts = tile_shape(d, DR, slice);
+  const long long tile_bytes = (long long)kThreads * P * d * sizeof(T);
+  const int sbytes = tile_bytes <= kStageMax
+                         ? stage_bytes(kThreads * P, d, (int)sizeof(T))
+                         : 0;
+  const size_t smem = (S == 2 ? 2 : 1) * (size_t)sbytes + ts.smem;
+  const long long items = (long long)m * tiles * slices;
+  auto kern = truncated_kernel<T, DR, P, S>;
+  long long grid = items;
+  if (S >= 2) {
+    int per_sm = 0;
+    const cudaError_t e = blocks_per_sm(kern, smem, &per_sm);
+    if (e != cudaSuccess) return e;
+    const long long wave = (long long)per_sm * sms;
+    grid = wave < grid ? wave : grid;
   }
+  return launch(kern, dim3((unsigned)grid), smem, s, x, p, d, w, c, cv, k,
+                ts.kt, slice, slices, tiles, items, sbytes, v, done, ws_best,
+                part);
 }
 
 }  // namespace rt
 
-// x is (m, p, d), w (m, p); part holds m * 3 * max(blocks_for(p), 1)
-// floats; out holds (m, 3): each machine's kept cost, tail mass and tail
-// cost.
+// x is (m, p, d), w (m, p); out holds (m, 3): each machine's kept cost,
+// tail mass and tail cost. ppt is the points a thread and slices the
+// center slices (kernels/truncated.py::launch_shape: walk.py's rules over
+// the m·tiles tiles of the launch; ppt must be the walk's own P for the
+// width); stages is truncated_kernel's S (1-5); sms is the card's SMs.
+// scratch holds scratch_bytes bytes laid out as rt::trunc_scratch says.
 extern "C" int rt_truncated_cost(const void* x, int dtype, int m,
                                  long long p, int d, const float* w,
                                  const float* c, const uint8_t* cv, int k,
-                                 const float* v, float* part, float* out,
+                                 const float* v, int ppt, int slices,
+                                 int stages, int sms, void* scratch,
+                                 long long scratch_bytes, float* out,
                                  void* stream) {
   using namespace rt;
   const cudaStream_t s = (cudaStream_t)stream;
-  const long long nb = blocks_for(p);
-  cudaError_t e = dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
-    using T = std::remove_pointer_t<decltype(tag)>;
-    constexpr int DR = decltype(dr)::value;
-    const TileShape ts = tile_shape(d, DR, k);
-    if (m == 0 || p == 0) return cudaGetLastError();
-    const dim3 grid((unsigned)nb, (unsigned)m);
-    return launch(truncated_kernel<T, DR>, grid, ts.smem, s, (const T*)x, p,
-                  d, w, c, cv, k, ts.kt, v, part, nb);
-  });
-  if (e != cudaSuccess) return (int)e;
-  if (m == 0) return (int)cudaGetLastError();
-  return (int)reduce_rows(part, nb, 3LL * m, out, s);
+  if (m < 0 || p < 0 || slices < 1 || stages < 1 || stages > 5) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long tiles = point_tiles(p, ppt);
+  const TruncScratch sc = trunc_scratch(m, p, tiles, slices);
+  if ((long long)sc.total > scratch_bytes) return (int)cudaErrorInvalidValue;
+  if (m == 0) return (int)cudaSuccess;
+  unsigned char* base = (unsigned char*)scratch;
+  float* part = (float*)(base + sc.part);
+  if (p > 0) {
+    unsigned* done = nullptr;
+    float* ws_best = nullptr;
+    if (slices > 1) {
+      done = (unsigned*)(base + sc.done);
+      ws_best = (float*)(base + sc.best);
+      const cudaError_t e =
+          cudaMemsetAsync(done, 0, (size_t)m * tiles * 4, s);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const cudaError_t e =
+        dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
+          using T = std::remove_pointer_t<decltype(tag)>;
+          constexpr int DR = decltype(dr)::value;
+          constexpr int P = DR > 0 ? 4 : 2;  // rows in registers, or re-read
+          if (ppt != P) return cudaErrorInvalidValue;  // the wrapper's tiles
+          auto go = [&](auto st) {
+            return launch_truncated<T, DR, P, decltype(st)::value>(
+                (const T*)x, m, p, d, w, c, cv, k, slices, tiles, sms, v,
+                done, ws_best, part, s);
+          };
+          if (stages == 5) return go(std::integral_constant<int, 5>());
+          if (stages == 4) return go(std::integral_constant<int, 4>());
+          if (stages == 3) return go(std::integral_constant<int, 3>());
+          return stages == 2 ? go(std::integral_constant<int, 2>())
+                             : go(std::integral_constant<int, 1>());
+        });
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)reduce_rows(part, p > 0 ? tiles : 0, 3LL * m, out, s);
 }

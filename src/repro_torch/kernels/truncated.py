@@ -6,9 +6,13 @@ machine's points gives its kept cost (min-d2 ``<= v``), tail weight mass
 and tail cost (``> v``); rows of weight 0 fall on neither side. The grid
 covers every machine, so one launch returns the (m,) triples that kzmeans
 psums; ``kernels.ops.truncated_cost`` also serves the reference's (n, d)
-contract through it. The sums go through per-block partials added in a
-fixed order: the same bits on every run. The plain version is
-``kernels.ref.truncated_cost_ref``.
+contract through it. The kernel walks ``min_dist``'s register-blocked
+walk (``csrc/common.cuh::nearest_split``) on point tiles staged in shared
+memory by TMA bulk copies, with the launch shape of ``launch_shape``
+(``kernels/walk.py``'s rules over the tiles of every machine), so each
+point's d2 and side of v are ``min_dist``'s bit for bit. The sums go
+through one partial a point tile added in a fixed order: the same bits
+on every run. The plain version is ``kernels.ref.truncated_cost_ref``.
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import (CudaKernel, blocks, check_on_card,
+from repro_torch.kernels import walk
+from repro_torch.kernels.build import (CudaKernel, check_on_card,
                                        dtype_code, ptr, stream_of)
 from repro_torch.kernels.min_dist import center_mask, centers_f32
 
@@ -25,7 +30,40 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 TRUNCATED_COST = CudaKernel(
     "truncated.cu", "rt_truncated_cost",
-    [_P, _I, _I, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P])
+    [_P, _I, _I, _L, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _L, _P,
+     _P])
+
+# The arrangement of the staged tiles (csrc/truncated.cu: truncated_kernel's
+# S): 1, one stage a block and a block an item; 2, a one-wave loop over
+# two stages; 3, a one-wave loop over one stage refilled once the rows are
+# in registers; 4, 3 with the center tile loaded once a block; 5, 4 with
+# the tile after next prefetched into L2.
+STAGES = 5
+
+
+def launch_shape(m: int, p: int, d: int, k: int, sms: int
+                 ) -> Tuple[int, int, int]:
+    """(points a thread, point tiles a machine, center slices) of a call
+    over (m, p, d) shards against k centers: ``walk.py``'s rules, the
+    slices from the m·tiles point tiles of the whole launch (a tile never
+    straddles two machines)."""
+    ppt = walk.points_per_thread(d)
+    tiles = walk.point_tiles(p, ppt)
+    return ppt, tiles, walk.slices_for_tiles(m * tiles, k, sms)
+
+
+def scratch_bytes(m: int, p: int, ppt: int, slices: int) -> int:
+    """Bytes of a call's scratch (``csrc/truncated.cu::trunc_scratch``):
+    the (m, 3, tiles) tile partials, then, with more than one slice, the
+    m·tiles tile counters and the (m, slices, p) per-slice best (no
+    argmin), each rounded up to 8 bytes."""
+    def r8(b):
+        return -(-b // 8) * 8
+    tiles = walk.point_tiles(p, ppt)
+    part = r8(m * 3 * tiles * 4)
+    if slices == 1:
+        return part
+    return part + r8(m * tiles * 4) + r8(slices * m * p * 4)
 
 
 def truncated_cost_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
@@ -33,7 +71,8 @@ def truncated_cost_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per machine of (m, p, d) points and (m, p) weights: ((m,) kept cost
     of the rows with min-d2 <= v, (m,) tail weight mass, (m,) tail cost),
-    float32. ``v`` is read by the kernel through a device pointer."""
+    float32, at any number of centers. ``v`` is read by the kernel through
+    a device pointer."""
     if x.dim() != 3:
         raise ValueError(f"truncated_cost: points must be (m, p, d), got "
                          f"{tuple(x.shape)}")
@@ -43,12 +82,17 @@ def truncated_cost_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
                          f"{tuple(w.shape)}")
     wf = w.to(torch.float32).contiguous()
     cf = centers_f32("truncated_cost", c, d)
-    cv = center_mask("truncated_cost", c_valid, cf.shape[0])
+    k = cf.shape[0]
+    cv = center_mask("truncated_cost", c_valid, k)
     vt = torch.as_tensor(v, dtype=torch.float32, device=x.device).reshape(())
     check_on_card("truncated_cost", x, w=wf, centers=cf, c_valid=cv, v=vt)
-    part = torch.empty((m * 3 * blocks(p),), dtype=torch.float32,
-                       device=x.device)
-    out = torch.empty((m, 3), dtype=torch.float32, device=x.device)
+    dev = x.device
+    sms = walk.sm_count(dev)
+    ppt, _, slices = launch_shape(m, p, d, k, sms)
+    nbytes = scratch_bytes(m, p, ppt, slices)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    out = torch.empty((m, 3), dtype=torch.float32, device=dev)
     TRUNCATED_COST(ptr(x), dtype_code(x), m, p, d, ptr(wf), ptr(cf), ptr(cv),
-                   cf.shape[0], ptr(vt), ptr(part), ptr(out), stream_of(x))
+                   k, ptr(vt), ppt, slices, STAGES, sms, ptr(scratch),
+                   nbytes, ptr(out), stream_of(x))
     return out[:, 0], out[:, 1], out[:, 2]

@@ -2,11 +2,13 @@
 
 ``csrc/common.cuh::nearest_split`` is the one walk of the Lloyd step
 (``csrc/fused_assign.cu``), ``min_dist`` (``csrc/min_dist.cu``),
-``remove_below`` (``csrc/fused_lloyd.cu``) and ``sensitivity_scores``
-(``csrc/sensitivity.cu``): each thread owns P points,
+``remove_below`` (``csrc/fused_lloyd.cu``), ``sensitivity_scores``
+(``csrc/sensitivity.cu``) and ``truncated_cost`` (``csrc/truncated.cu``,
+its tiles over every machine of one launch): each thread owns P points,
 and when the point tiles cannot fill the card the center axis is split
-over blocks. The wrappers decide the launch shape here, on the host, by
-these rules; nothing here touches the card but the cached SM count.
+over blocks. Only the seeding step walks one point a thread. The
+wrappers decide the launch shape here, on the host, by these rules;
+nothing here touches the card but the cached SM count.
 """
 from __future__ import annotations
 
@@ -34,12 +36,18 @@ def point_tiles(n: int, ppt: int) -> int:
 
 
 def center_slices(n: int, k: int, sms: int, ppt: int) -> int:
-    """Slices of the center axis: 1 when the point tiles reach FILL_PER_SM
-    blocks an SM; else, from the fewest slices that do up to twice as
-    many, the count whose blocks fill their last wave of ``sms`` best,
-    each slice of at least MIN_SLICE centers (EIM11's 65,536 × 173,256 at
-    4 points a thread: 64 tiles, 10 slices)."""
-    tiles = point_tiles(n, ppt)
+    """Slices of the center axis over the point tiles of ``n`` points
+    (``slices_for_tiles``; EIM11's 65,536 × 173,256 at 4 points a thread:
+    64 tiles, 10 slices)."""
+    return slices_for_tiles(point_tiles(n, ppt), k, sms)
+
+
+def slices_for_tiles(tiles: int, k: int, sms: int) -> int:
+    """Slices of the center axis for a launch of ``tiles`` point tiles: 1
+    when they reach FILL_PER_SM blocks an SM; else, from the fewest slices
+    that do up to twice as many, the count whose blocks fill their last
+    wave of ``sms`` best, each slice of at least MIN_SLICE centers."""
+    tiles = max(tiles, 1)
     want = FILL_PER_SM * sms
     top = k // MIN_SLICE
     if tiles >= want or top < 2:

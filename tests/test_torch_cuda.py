@@ -242,16 +242,25 @@ def test_cuda_sensitivity_scores_matches_plain(d, k, dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
                                 torch.float16], ids=["f32", "bf16", "f16"])
-@pytest.mark.parametrize("d,k", [(15, 25), (37, 300), (15, 1111)],
-                         ids=["kzmeans", "any_width", "beyond_resident"])
-def test_cuda_truncated_cost_matches_plain(d, k, dt):
+@pytest.mark.parametrize("d,k", [(15, 25), (37, 300), (15, 1111),
+                                 (60, 100)],
+                         ids=["kzmeans", "any_width", "beyond_resident",
+                              "rows_in_place"])
+@pytest.mark.parametrize("p", [1000, 1001, 5000],
+                         ids=["p1000", "unaligned_p1001", "tiles_p5000"])
+def test_cuda_truncated_cost_matches_plain(p, d, k, dt):
     """truncated_cost over (m, p, d) shards, one triple a machine, against
     sums over min_dist's own d2 (the kernel shares its distance code) with
     v at the median, so both sides are populated; the (n, d) entry point
-    gives the one-machine triple; a repeat call gives the same bits."""
+    gives the one-machine triple; a repeat call gives the same bits. At
+    p = 1001 a machine's base is not 16-byte aligned for the bulk copy of
+    its tiles; at p = 5000 a machine spans several point tiles, and at
+    1,111 centers the center axis is split; at d = 60 a float32 tile is
+    too wide to stage and is read in place. Zero weights fall on no side,
+    and with no valid center every point falls in the tail."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels build only there")
-    m, p = 3, 1000
+    m = 3
     _, x, c, cv, w = _inputs(4, m * p, d, k, dt)
     tol = _d2_tol(x, c)
     for mask in (None, cv):
@@ -282,6 +291,14 @@ def test_cuda_truncated_cost_matches_plain(d, k, dt):
         again = ops.truncated_cost(xs, ws, c, v, mask)
         assert all(torch.equal(a, b) for a, b in
                    zip((kept, tmass, tcost), again))
+        zero = ops.truncated_cost(xs, torch.zeros_like(ws), c, v, mask)
+        assert all(float(t.abs().max()) == 0.0 for t in zero)
+    none = torch.zeros(k, dtype=torch.bool, device="cuda")
+    kept, tmass, tcost = ops.truncated_cost(xs, ws, c, 1e30, none)
+    assert float(kept.abs().max()) == 0.0
+    torch.testing.assert_close(tmass.double(), ws.double().sum(1),
+                               rtol=1e-5, atol=1e-6)
+    assert bool(torch.isinf(tcost).all())
 
 
 @pytest.mark.cuda

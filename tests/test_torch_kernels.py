@@ -603,6 +603,13 @@ def test_lloyd_launch_shape_rules():
     # too few centers to split
     assert twalk.center_slices(3_000, 1_000, 132, 4) == 1
     assert twalk.center_slices(3_000, 2_100, 132, 4) == 4
+    # truncated_cost over 8 machines: kzmeans' 1.275 M points a machine
+    # and 8 × 125,000 at 1,111 centers fill the card unsplit (984 tiles;
+    # one machine's 123 alone would split); 8 × 12,501 splits in two
+    assert ttrunc.launch_shape(8, 1_275_000, 15, 25, 132) == (4, 1246, 1)
+    assert ttrunc.launch_shape(8, 125_000, 15, 1_111, 132) == (4, 123, 1)
+    assert twalk.center_slices(125_000, 1_111, 132, 4) == 2
+    assert ttrunc.launch_shape(8, 12_501, 15, 1_111, 132) == (4, 13, 2)
     for n, d, k, p, sl in ((65_536, 15, 173_256, 4, 10), (0, 15, 3, 2, 1),
                            (3_000, 33, 2_100, 2, 4)):
         tiles = twalk.point_tiles(n, p)
@@ -648,6 +655,27 @@ def test_walk_launch_shape_rules(n, d, k, ppt, slices):
     # the Lloyd step beyond its warp accumulators takes the same shape
     if k * (d + 1) > tfused.WARP_ACC_ENTRIES:
         assert tfused.points_per_thread(k, d) == ppt
+    # truncated_cost: one machine of n points takes min_dist's shape; its
+    # scratch is the (3, tiles) partials, then min_dist's split scratch
+    # less the argmin (truncated_cost keeps none)
+    assert ttrunc.launch_shape(1, n, d, k, 132) == (ppt, tiles, slices)
+    assert ttrunc.scratch_bytes(1, n, ppt, slices) == (
+        -(-3 * tiles * 4 // 8) * 8
+        + twalk.split_scratch_bytes(n, ppt, slices)
+        - (-(-slices * n * 4 // 8) * 8 if slices > 1 else 0))
+    # over 8 machines of n/8 points the slices come from the tiles of
+    # every machine (a tile never straddles two), the scratch holds each
+    # machine's partials, counters and (slices, p) best
+    pm = -(-n // 8)
+    ppt8, tm, got8 = ttrunc.launch_shape(8, pm, d, k, 132)
+    assert (ppt8, tm) == (ppt, twalk.point_tiles(pm, ppt))
+    assert got8 == twalk.slices_for_tiles(8 * tm, k, 132)
+    assert (got8 == 1) == (8 * tm >= twalk.FILL_PER_SM * 132
+                           or k < 2 * twalk.MIN_SLICE)
+    ws = -(-got8 * 8 * pm * 4 // 8) * 8 if got8 > 1 else 0
+    assert ttrunc.scratch_bytes(8, pm, ppt, got8) == (
+        -(-8 * 3 * tm * 4 // 8) * 8
+        + ((-(-8 * tm * 4 // 8) * 8) if got8 > 1 else 0) + ws)
 
 
 # ---- degenerate cases --------------------------------------------------

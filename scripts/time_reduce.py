@@ -2,7 +2,6 @@
 truncated_cost on one CUDA card.
 
     python3 scripts/time_reduce.py [--src DIR] [--reps 20] [--only NAME]
-        [--stages 1-5]
 
 Loads ``repro_torch.kernels.ops`` from ``DIR`` (default: this checkout's
 ``src``), so the same script times two trees in one call (the parent's
@@ -22,9 +21,7 @@ centers; ``sensitivity_scores`` and the Lloyd step
 (``fused_assign_reduce``, whose reduce the other two share) run against k
 random centers, all valid; ``truncated_cost`` over the n points as
 MACHINES shards of n / MACHINES rows, with v at the median d2. ``--only``
-times the shapes of one entry point. ``--stages`` sets
-``kernels.truncated.STAGES`` (the tile stages of truncated_cost's kernel)
-for the run.
+times the shapes of one entry point.
 
 With ``--modes`` it times only ``sensitivity_scores`` at the widths of
 MODE_KS, once with each accumulator mode of ``kernels.fused_lloyd``
@@ -78,14 +75,11 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--modes", action="store_true")
     ap.add_argument("--only")
-    ap.add_argument("--stages", type=int, choices=(1, 2, 3, 4, 5))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_reduce.py needs a CUDA card")
     sys.path.insert(0, os.path.abspath(args.src))
-    from repro_torch.kernels import ops, sensitivity, truncated
-    if args.stages is not None:
-        truncated.STAGES = args.stages
+    from repro_torch.kernels import ops, sensitivity
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -137,8 +131,7 @@ def main() -> None:
               + (", ".join(f"{nm} {us:.2f} us" for nm, us in split.items())
                  or "not measured"), flush=True)
         out.append(dict(name=name, n=n, d=d, k=k, mode=mode, ms=ms,
-                        host_us=ms.host_us, split_us=split,
-                        stages=args.stages))
+                        host_us=ms.host_us, split_us=split))
         del x, w, c
         torch.cuda.empty_cache()
     print(json.dumps({"device": smi, "src": args.src, "calls": out}))

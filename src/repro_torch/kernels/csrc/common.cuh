@@ -137,15 +137,6 @@ __device__ __forceinline__ void bulk_copy(unsigned char* dst,
       : "memory");
 }
 
-// A bulk prefetch of that aligned range into L2: nothing to wait for.
-__device__ __forceinline__ void bulk_prefetch_l2(const unsigned char* src,
-                                                 long long nbytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(
-                   (unsigned long long)src & ~15ull),
-               "r"(aligned_len(src, nbytes))
-               : "memory");
-}
-
 // Byte offset of src in its stage buffer.
 __device__ __forceinline__ int stage_offset(const unsigned char* src) {
   return (int)((unsigned long long)src & 15ull);

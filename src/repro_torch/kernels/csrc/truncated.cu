@@ -34,6 +34,15 @@
 //    at d > 16 (DR == 0) re-read them from there for every center. A tile
 //    of more than kStageMax bytes (d > 48 at float32) is read in place
 //    from device memory instead, as min_dist reads it.
+//    One wave of blocks (the occupancy query's 2 an SM at P = 4) walks the
+//    items in a grid-stride loop over one stage: at d <= 16 the stage is
+//    refilled with the block's next tile as soon as the rows are in
+//    registers, so that copy is in flight while this tile is walked (the
+//    register file is the second buffer: two 61 KB stages would hold one
+//    block an SM); at d > 16 it is refilled after the walk. Where one
+//    slice fits one center tile (k <= 512 at d <= 16) the tile is loaded
+//    once a block, not once an item. PERF.md §6 (PR 18) has the times of
+//    the arrangements measured against this one.
 // 3. Each tile's three sums go through one fixed-order float partial
 //    (block_sum) laid out (machine, 3, tiles), and the fixed-order
 //    reduce_rows pass adds each row in tile order: the same bits on every
@@ -67,16 +76,11 @@ inline TruncScratch trunc_scratch(int m, long long p, long long tiles,
   return s;
 }
 
-// S, the arrangement of the stages: 1 = one stage a block, a block an
-// item; 2 = a one-wave grid-stride loop over two stages, the next item's
-// tile in flight while this one is walked; 3 = a one-wave grid-stride
-// loop over one stage, refilled with the next item's tile as soon as its
-// rows are in registers (DR > 0), else after the walk; 4 = 3, with the
-// center tile loaded once a block where one slice fits it; 5 = 4, with
-// the tile after next prefetched into L2 (bulk_prefetch_l2). sbytes is a
-// stage's bytes, 0 where the rows are read in place. Blocks an SM as
-// min_dist's walk.
-template <typename T, int DR, int P, int S>
+// Items of (machine j, point tile t, center slice s), tile = j·tiles + t,
+// item = tile·slices + s, in a grid-stride loop. sbytes is the stage's
+// bytes, 0 where the rows are read in place. Blocks an SM as min_dist's
+// walk.
+template <typename T, int DR, int P>
 __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
     truncated_kernel(const T* __restrict__ x, long long p, int d,
                      const float* __restrict__ w, const float* __restrict__ c,
@@ -88,79 +92,55 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
                      float* __restrict__ ws_best, float* __restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem_u8[];
   constexpr int kTile = kThreads * P;          // points a tile
-  constexpr int kStages = S == 2 ? 2 : 1;
-  // the stage is free once the rows are in registers (S = 3, DR > 0)
-  constexpr bool kEarly = S >= 3 && DR > 0;
-  const bool resident = S >= 4 && slices == 1 && k <= kt;
   const bool staged_rows = sbytes > 0;
-  float* sc = reinterpret_cast<float*>(smem_u8 + kStages * (size_t)sbytes);
-  __shared__ __align__(8) unsigned long long full[kStages];  // b landed
+  const bool resident = slices == 1 && k <= kt;  // one center tile, kept
+  unsigned char* stage = smem_u8;
+  float* sc = reinterpret_cast<float*>(smem_u8 + sbytes);
+  __shared__ __align__(8) unsigned long long full;   // the stage landed
   if (staged_rows && threadIdx.x == 0) {
-#pragma unroll
-    for (int b = 0; b < kStages; ++b) barrier_init(&full[b]);
+    barrier_init(&full);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // item -> (machine j, its tile t, center slice s); tile = j·tiles + t
   auto rows_of = [&](long long item, long long& j, long long& r0) {
-    const long long tile = item / slices;
-    j = tile / tiles;
-    r0 = (tile - j * tiles) * kTile;
+    j = item / slices / tiles;
+    r0 = (item / slices - j * tiles) * kTile;
   };
-  // item `it`'s rows: their first byte and their length
-  auto span = [&](long long it, const unsigned char*& src,
-                  long long& nbytes) {
+  // One thread stages item `it`'s rows, if there is such an item.
+  auto stage_item = [&](long long it) {
+    if (it >= items) return;
     long long j, r0;
     rows_of(it, j, r0);
-    src = reinterpret_cast<const unsigned char*>(x + (j * p + r0) * d);
-    nbytes = min((long long)kTile, p - r0) * d * (long long)sizeof(T);
-  };
-  // One thread stages item `it`'s rows into stage b.
-  auto stage = [&](long long it, int b) {
-    const unsigned char* src;
-    long long nbytes;
-    span(it, src, nbytes);
-    barrier_expect(&full[b], aligned_len(src, nbytes));
-    bulk_copy(smem_u8 + b * (size_t)sbytes, src, nbytes, &full[b]);
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(x + (j * p + r0) * d);
+    const long long nbytes =
+        min((long long)kTile, p - r0) * d * (long long)sizeof(T);
+    barrier_expect(&full, aligned_len(src, nbytes));
+    bulk_copy(stage, src, nbytes, &full);
   };
 
-  if (staged_rows && threadIdx.x == 0 && blockIdx.x < items) {
-    stage(blockIdx.x, 0);
-  }
+  if (staged_rows && threadIdx.x == 0) stage_item(blockIdx.x);
   if (resident) load_center_tile(c, cv, d, DR > 0 ? DR : d, 0, k, kt, sc);
   const float vv = *v;
-  unsigned phase = 0u;                         // bit b: stage b's parity
-  int b = 0;
+  unsigned phase = 0u;
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
-    if (S == 2 && staged_rows && threadIdx.x == 0 && it + gridDim.x < items) {
-      stage(it + gridDim.x, b ^ 1);
-    }
     long long j, r0;
     rows_of(it, j, r0);
     const long long tile = it / slices;
-    const int s = (int)(it - tile * slices);
     const T* xm = x + j * p * d;
     const T* src = xm;
     long long lo = 0;
     if (staged_rows) {
-      barrier_wait(&full[b], phase >> b & 1u);   // the tile's rows landed
-      phase ^= 1u << b;
-      src = staged<T>(smem_u8 + b * (size_t)sbytes, xm + r0 * d);
+      barrier_wait(&full, phase);              // the tile's rows landed
+      phase ^= 1u;
+      src = staged<T>(stage, xm + r0 * d);
       lo = r0;
     }
     const Rows<T, DR, P> r(src, lo, p, d, r0 + threadIdx.x);
-    if (kEarly && staged_rows) {
+    if (DR > 0 && staged_rows) {
       __syncthreads();                         // every row in registers
-      if (threadIdx.x == 0 && it + gridDim.x < items) {
-        stage(it + gridDim.x, 0);
-        if (S == 5 && it + 2ll * gridDim.x < items) {
-          const unsigned char* pf;
-          long long nbytes;
-          span(it + 2ll * gridDim.x, pf, nbytes);
-          bulk_prefetch_l2(pf, nbytes);
-        }
-      }
+      if (threadIdx.x == 0) stage_item(it + gridDim.x);
     }
     float best[P];
     int arg[P];
@@ -174,9 +154,9 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
       scan_center_tile<T, DR, P, false>(r, d, 0, k, kt, sc, best, arg);
     } else {
       mine = nearest_split<T, DR, P, false>(
-          r, p, d, c, cv, k, slice, s, slices, tile, kt, sc, tile_done,
-          slices > 1 ? ws_best + j * slices * p : nullptr, nullptr, best,
-          arg);
+          r, p, d, c, cv, k, slice, (int)(it - tile * slices), slices, tile,
+          kt, sc, tile_done, slices > 1 ? ws_best + j * slices * p : nullptr,
+          nullptr, best, arg);
     }
     if (mine) {                                // uniform over the block
       const float* wm = w + j * p;
@@ -204,43 +184,11 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
         o[2 * tiles] = tcost;
       }
     }
-    if (staged_rows && !kEarly) __syncthreads();   // stage b read by all
-    if (S == 2) {
-      b ^= 1;
-    } else if (!kEarly && staged_rows && threadIdx.x == 0 &&
-               it + gridDim.x < items) {
-      stage(it + gridDim.x, 0);
+    if (DR == 0 && staged_rows) {
+      __syncthreads();                         // the walk read the stage
+      if (threadIdx.x == 0) stage_item(it + gridDim.x);
     }
   }
-}
-
-template <typename T, int DR, int P, int S>
-inline cudaError_t launch_truncated(const T* x, int m, long long p, int d,
-                                    const float* w, const float* c,
-                                    const uint8_t* cv, int k, int slices,
-                                    long long tiles, int sms, const float* v,
-                                    unsigned* done, float* ws_best,
-                                    float* part, cudaStream_t s) {
-  const int slice = (k + slices - 1) / slices;
-  const TileShape ts = tile_shape(d, DR, slice);
-  const long long tile_bytes = (long long)kThreads * P * d * sizeof(T);
-  const int sbytes = tile_bytes <= kStageMax
-                         ? stage_bytes(kThreads * P, d, (int)sizeof(T))
-                         : 0;
-  const size_t smem = (S == 2 ? 2 : 1) * (size_t)sbytes + ts.smem;
-  const long long items = (long long)m * tiles * slices;
-  auto kern = truncated_kernel<T, DR, P, S>;
-  long long grid = items;
-  if (S >= 2) {
-    int per_sm = 0;
-    const cudaError_t e = blocks_per_sm(kern, smem, &per_sm);
-    if (e != cudaSuccess) return e;
-    const long long wave = (long long)per_sm * sms;
-    grid = wave < grid ? wave : grid;
-  }
-  return launch(kern, dim3((unsigned)grid), smem, s, x, p, d, w, c, cv, k,
-                ts.kt, slice, slices, tiles, items, sbytes, v, done, ws_best,
-                part);
 }
 
 }  // namespace rt
@@ -249,20 +197,18 @@ inline cudaError_t launch_truncated(const T* x, int m, long long p, int d,
 // tail mass and tail cost. ppt is the points a thread and slices the
 // center slices (kernels/truncated.py::launch_shape: walk.py's rules over
 // the m·tiles tiles of the launch; ppt must be the walk's own P for the
-// width); stages is truncated_kernel's S (1-5); sms is the card's SMs.
-// scratch holds scratch_bytes bytes laid out as rt::trunc_scratch says.
+// width); sms is the card's SMs. scratch holds scratch_bytes bytes laid
+// out as rt::trunc_scratch says.
 extern "C" int rt_truncated_cost(const void* x, int dtype, int m,
                                  long long p, int d, const float* w,
                                  const float* c, const uint8_t* cv, int k,
                                  const float* v, int ppt, int slices,
-                                 int stages, int sms, void* scratch,
+                                 int sms, void* scratch,
                                  long long scratch_bytes, float* out,
                                  void* stream) {
   using namespace rt;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (m < 0 || p < 0 || slices < 1 || stages < 1 || stages > 5) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (m < 0 || p < 0 || slices < 1) return (int)cudaErrorInvalidValue;
   const long long tiles = point_tiles(p, ppt);
   const TruncScratch sc = trunc_scratch(m, p, tiles, slices);
   if ((long long)sc.total > scratch_bytes) return (int)cudaErrorInvalidValue;
@@ -285,16 +231,24 @@ extern "C" int rt_truncated_cost(const void* x, int dtype, int m,
           constexpr int DR = decltype(dr)::value;
           constexpr int P = DR > 0 ? 4 : 2;  // rows in registers, or re-read
           if (ppt != P) return cudaErrorInvalidValue;  // the wrapper's tiles
-          auto go = [&](auto st) {
-            return launch_truncated<T, DR, P, decltype(st)::value>(
-                (const T*)x, m, p, d, w, c, cv, k, slices, tiles, sms, v,
-                done, ws_best, part, s);
-          };
-          if (stages == 5) return go(std::integral_constant<int, 5>());
-          if (stages == 4) return go(std::integral_constant<int, 4>());
-          if (stages == 3) return go(std::integral_constant<int, 3>());
-          return stages == 2 ? go(std::integral_constant<int, 2>())
-                             : go(std::integral_constant<int, 1>());
+          const int slice = (k + slices - 1) / slices;
+          const TileShape ts = tile_shape(d, DR, slice);
+          const long long tile_bytes =
+              (long long)kThreads * P * d * sizeof(T);
+          const int sbytes =
+              tile_bytes <= kStageMax
+                  ? stage_bytes(kThreads * P, d, (int)sizeof(T))
+                  : 0;
+          const size_t smem = (size_t)sbytes + ts.smem;
+          const long long items = (long long)m * tiles * slices;
+          auto kern = truncated_kernel<T, DR, P>;
+          int per_sm = 0;
+          const cudaError_t e1 = blocks_per_sm(kern, smem, &per_sm);
+          if (e1 != cudaSuccess) return e1;
+          const long long wave = (long long)per_sm * sms;
+          return launch(kern, dim3((unsigned)(wave < items ? wave : items)),
+                        smem, s, (const T*)x, p, d, w, c, cv, k, ts.kt, slice,
+                        slices, tiles, items, sbytes, v, done, ws_best, part);
         });
     if (e != cudaSuccess) return (int)e;
   }

@@ -30,15 +30,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 TRUNCATED_COST = CudaKernel(
     "truncated.cu", "rt_truncated_cost",
-    [_P, _I, _I, _L, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _L, _P,
-     _P])
-
-# The arrangement of the staged tiles (csrc/truncated.cu: truncated_kernel's
-# S): 1, one stage a block and a block an item; 2, a one-wave loop over
-# two stages; 3, a one-wave loop over one stage refilled once the rows are
-# in registers; 4, 3 with the center tile loaded once a block; 5, 4 with
-# the tile after next prefetched into L2.
-STAGES = 5
+    [_P, _I, _I, _L, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _L, _P, _P])
 
 
 def launch_shape(m: int, p: int, d: int, k: int, sms: int
@@ -93,6 +85,6 @@ def truncated_cost_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     out = torch.empty((m, 3), dtype=torch.float32, device=dev)
     TRUNCATED_COST(ptr(x), dtype_code(x), m, p, d, ptr(wf), ptr(cf), ptr(cv),
-                   k, ptr(vt), ppt, slices, STAGES, sms, ptr(scratch),
-                   nbytes, ptr(out), stream_of(x))
+                   k, ptr(vt), ppt, slices, sms, ptr(scratch), nbytes,
+                   ptr(out), stream_of(x))
     return out[:, 0], out[:, 1], out[:, 2]

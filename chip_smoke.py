@@ -187,10 +187,11 @@ REPLACED_MS = {(17_353, 103): 0.0967, (80_585, 190): 0.2411,
                (1_250_000, 4): 0.1178, (1_250_000, 25): 0.3523,
                (1_250_000, 3_081): 5.2671, (65_536, 173_256): 18.9260}
 # Float32 times, ms, of min_dist and remove_below on one point a thread
-# (rt::nearest), recorded on the same card model before they moved onto
-# the register-blocked walk (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W): min_dist by (n, k) at d = 15, remove_below by
-# (m, p, k). Printed beside this run's times on lines of their own, never
-# in the JSON line.
+# (a walk since removed), recorded on the same card model before they
+# moved onto the register-blocked walk (PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700 W): min_dist by (n, k) at d = 15, remove_below by (m, p, k).
+# Printed beside this run's times on lines of their own, never in the
+# JSON line.
 MIN_DIST_BEFORE_MS = {(17_353, 103): 0.0260, (80_585, 190): 0.0323,
                       (1_250_000, 831): 1.3794, (1_250_000, 1024): 1.7045,
                       (1_250_000, 3_081): 5.0892,
@@ -244,7 +245,7 @@ REMOVE_WIDE_SHAPE = (MACHINES, 125_000, DIM, 1_111)
 # and bfloat16 alike.
 TRUNCATED_SPLIT_SHAPE = (MACHINES, 12_501, DIM, 1_111)
 # Float32 ms of truncated_cost on one point a thread at TRUNCATED_SHAPE
-# (PERF.md §6 row 12, PR 14; NVIDIA H100 80GB HBM3, 700 W), printed beside
+# (PERF.md §6 row 12; NVIDIA H100 80GB HBM3, 700 W), printed beside
 # this run's time on a line of its own, never in the JSON line.
 TRUNCATED_BEFORE_MS = 0.4782
 # the plain one-hot lloyd_reduce sums each center's rows in a float32

@@ -28,7 +28,7 @@
 //    the P points; an invalid center carries ||c||^2 = +inf, so the walk
 //    has no validity load and no branch. One point a thread spent about
 //    as many shared-memory loads and compares as FMAs. Per point the
-//    arithmetic is rt::nearest's to the bit, so the argmin and min-d2 are
+//    arithmetic is common.cuh's to the bit, so the argmin and min-d2 are
 //    the min_dist kernel's.
 // 2. The reduce. Each term w·x_q (and w) becomes an int64 at scale 2^s
 //    (common.cuh: bound_kernel, shifts, to_fixed_scaled): integer

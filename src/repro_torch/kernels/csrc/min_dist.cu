@@ -23,9 +23,9 @@
 // 14,438-row sample against its whole clustering) the center axis is
 // split over grid.y into slices of at least 512 centers, and the last
 // block of each tile combines the per-slice (best, arg) in slice order.
-// Per point the arithmetic is rt::nearest's to the bit, so the d2 and
-// argmin are those of the kernels still on one point a thread. With one
-// slice a call is one launch and touches no scratch.
+// Per point the arithmetic is common.cuh's to the bit, so the d2 and
+// argmin are those of every kernel on this walk and of the seeding step.
+// With one slice a call is one launch and touches no scratch.
 #include "common.cuh"
 
 namespace rt {

@@ -41,7 +41,7 @@
 //    register file is the second buffer: two 61 KB stages would hold one
 //    block an SM); at d > 16 it is refilled after the walk. Where one
 //    slice fits one center tile (k <= 512 at d <= 16) the tile is loaded
-//    once a block, not once an item. PERF.md §6 (PR 18) has the times of
+//    once a block, not once an item. PERF.md §6 has the times of
 //    the arrangements measured against this one.
 // 3. Each tile's three sums go through one fixed-order float partial
 //    (block_sum) laid out (machine, 3, tiles), and the fixed-order

@@ -6,8 +6,14 @@ every per-machine tensor (``(m, ...)``) on one device, as the reference's
 ``repro.core.comm.VirtualCluster`` does. It provides two raw collectives —
 ``_reduce`` (sum over machines) and ``_gather`` (per-machine blocks) —
 and ``_WireOps`` derives the recording wrappers the algorithms use:
-``psum``, ``all_machines``, the fixed-width ``concat_machines`` and the
-length-prefixed ragged gather ``gather_ragged``.
+``psum``, ``all_machines``, the fixed-width ``concat_machines``, the
+length-prefixed ragged gather ``gather_ragged``, and their int8 codes
+variants (``*_compressed``): machine-side affine quantization, 1-byte
+codes plus one per-machine (scale, zero_point) pair through the
+collective, dequantization on arrival. The values land on each
+machine's own 256-level grid, the bits of ``ft.compression.
+fake_quantize_int8`` applied before a plain gather, so a codes-wire fit
+equals a values-wire fit.
 
 Wire accounting: the JAX package records bytes once, when a round is
 traced, and multiplies by the rounds it ran. PyTorch runs eagerly, so
@@ -133,6 +139,40 @@ class _WireOps:
         g = self._gather(x)
         return g.reshape((-1,) + tuple(g.shape[2:]))
 
+    def _encode(self, x: torch.Tensor):
+        """Per-machine int8 codes and qparams of (local_m, rows, ...)
+        blocks, and the qparams' metadata bytes."""
+        from repro_torch.ft.compression import (affine_qparams,
+                                                quantize_affine_int8)
+        scale, zp = affine_qparams(x)          # one pair per machine
+        codes = quantize_affine_int8(x, scale, zp)
+        return codes, scale, zp, (static_nbytes(scale)
+                                  + static_nbytes(zp)) * self._fan
+
+    def _decode(self, codes, scale, zp) -> torch.Tensor:
+        from repro_torch.ft.compression import dequantize_affine_int8
+        return dequantize_affine_int8(self._gather(codes),
+                                      self._gather(scale),
+                                      self._gather(zp))
+
+    def all_machines_compressed(self, x: torch.Tensor) -> torch.Tensor:
+        """(local_m, t, ...) float32 blocks -> (m, t, ...) float32; the
+        wire carries int8 codes plus one per-machine affine
+        (scale, zero_point) pair on the metadata channel."""
+        if x.dim() < 3:
+            raise ValueError(
+                f"compressed gathers need (local_m, rows, ...) blocks so "
+                f"each machine gets its own code book; got shape "
+                f"{tuple(x.shape)}")
+        codes, scale, zp, meta = self._encode(x)
+        record_wire(payload=static_nbytes(codes) * self._fan, meta=meta)
+        return self._decode(codes, scale, zp)
+
+    def concat_machines_compressed(self, x: torch.Tensor) -> torch.Tensor:
+        """(local_m, t, ...) -> (m*t, ...) float32; int8 codes on the wire."""
+        g = self.all_machines_compressed(x)
+        return g.reshape((-1,) + tuple(g.shape[2:]))
+
     def _budget_counts(self, counts: torch.Tensor, cap: int, rows: int
                        ) -> torch.Tensor:
         """Counts clipped to the block width. Rows beyond the budget are
@@ -188,6 +228,24 @@ class _WireOps:
                     **{"row_meta_bytes" if meta else "row_bytes":
                        _row_nbytes(values)})
         return self._compact(self._gather(values), counts, rows)
+
+    def gather_ragged_compressed(self, values: torch.Tensor,
+                                 counts: torch.Tensor, rows: int
+                                 ) -> torch.Tensor:
+        """Ragged gather whose wire carries int8 codes + per-machine affine
+        qparams; returns the (rows, ...) float32 reconstruction.
+
+        Callers mask never-uploaded slots (e.g. with a live row) before
+        the call, so that padding cannot widen a machine's code book.
+        """
+        if values.dim() < 3:
+            raise ValueError(
+                f"compressed gathers need (local_m, cap, ...) blocks, got "
+                f"shape {tuple(values.shape)}")
+        counts = self._budget_counts(counts, values.shape[1], rows)
+        codes, scale, zp, meta = self._encode(values)
+        record_wire(meta=4 * self.m + meta, row_bytes=_row_nbytes(codes))
+        return self._compact(self._decode(codes, scale, zp), counts, rows)
 
 
 # ------------------------------------------------------------ clusters

@@ -1,7 +1,6 @@
 """EIM11 (Ene, Im, Moseley 2011) — the paper's second baseline.
 
-The port of ``repro.core.eim11`` on the virtual backend with the float32
-uplink. Per round (paper §2's description): machines upload two samples;
+The port of ``repro.core.eim11`` on the virtual backend. Per round (paper §2's description): machines upload two samples;
 the coordinator *adds the whole first sample to the clustering*, computes
 a quantile threshold of the second sample's distances to the clustering,
 and broadcasts the threshold **and the clustering** — whose size grows by
@@ -82,15 +81,20 @@ def weighted_quantile(d2: torch.Tensor, w: torch.Tensor,
 
 def _round(comm: VirtualCluster, gen: torch.Generator, x: torch.Tensor,
            w: torch.Tensor, alive: torch.Tensor, centers: torch.Tensor,
-           base: int, s: int, cap: int, remove_frac: float):
+           base: int, s: int, cap: int, remove_frac: float, uplink: dict):
     """One round; adds the first sample at rows [base, base + s) of
     ``centers`` in place. Returns the new alive mask, the () live count
-    and the () points uploaded."""
+    and the () points uploaded. ``uplink`` is the samples' upload dtype
+    and wire."""
     m, p, d = x.shape
     n_vec = comm.all_machines(torch.sum(alive, dim=1, dtype=torch.int32))
-    s1, _, r1 = draw_global_sample(comm, gen, x, w, alive, n_vec, s, cap)
-    s2, w2, r2 = draw_global_sample(comm, gen, x, w, alive, n_vec, s, cap)
-    # the coordinator adds the whole first sample to the clustering
+    s1, _, r1 = draw_global_sample(comm, gen, x, w, alive, n_vec, s, cap,
+                                   **uplink)
+    s2, w2, r2 = draw_global_sample(comm, gen, x, w, alive, n_vec, s, cap,
+                                    **uplink)
+    # the coordinator adds the whole first sample to the clustering (the
+    # clustering is broadcast downlink, so it stays float32; only the
+    # uploads s1, s2 may arrive narrowed)
     centers[base:base + s] = s1
     clustering = centers[:base + s]
     d2s, _ = ops.min_dist(s2, clustering)
@@ -112,7 +116,8 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
     ``alive`` optional (m, p) weights and mask. ``run_knobs`` are the
     reference's run-condition options, checked by the one guard
     (``soccer.check_run_knobs``)."""
-    check_run_knobs(backend=backend, **run_knobs)
+    upload_dtype, wire = check_run_knobs(backend=backend, **run_knobs)
+    uplink = dict(upload_dtype=upload_dtype, wire=wire)
     dev = resolve_device(device)
     m, p, d = x_parts.shape
     comm = VirtualCluster(m)
@@ -135,7 +140,8 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
     while n_rem > s and rounds < max_rounds:
         with wire_tally() as t:
             alive, n_rem_t, up = _round(comm, gen, x, w, alive, centers,
-                                        rounds * s, s, cap, remove_frac)
+                                        rounds * s, s, cap, remove_frac,
+                                        uplink)
         n_rem = int(n_rem_t)          # the one device->host read a round
         rounds += 1
         # the coordinator re-broadcasts its whole clustering
@@ -150,7 +156,7 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
     with wire_tally() as t_fin:
         n_vec = comm.all_machines(torch.sum(alive, dim=1, dtype=torch.int32))
         v_pts, v_w, real = draw_global_sample(comm, gen, x, w, alive, n_vec,
-                                              s, cap)
+                                              s, cap, **uplink)
         c_fin, _ = kmeans(gen, v_pts, v_w, k)
         centers[base:base + k] = c_fin
         row = torch.arange(rows, device=dev)

@@ -1,7 +1,7 @@
 """k-means‖ (scalable k-means++, Bahmani et al. 2012) — the paper's baseline.
 
-The port of ``repro.core.kmeans_parallel`` on the virtual backend with
-the float32 uplink. Distributed seeding over the same machine/coordinator
+The port of ``repro.core.kmeans_parallel`` on the virtual backend.
+Distributed seeding over the same machine/coordinator
 abstraction as SOCCER: per round every point is selected with probability
 min(1, l·w·d²(x,C)/φ(C)) (expected ``l`` selections, paper/MLLib default
 l = 2k), the selections are scattered into the replicated center buffer
@@ -27,9 +27,8 @@ import torch
 from repro_torch.core.comm import VirtualCluster, WireTally, wire_tally
 from repro_torch.core.metrics import assignment_counts
 from repro_torch.core.reduce import reduce_to_k
-from repro_torch.core.sampling import (exclusive_cumsum,
-                                       global_weighted_choice,
-                                       quantize_uplink, scatter_at)
+from repro_torch.core.sampling import (global_weighted_choice,
+                                       quantize_uplink, scatter_selected)
 from repro_torch.core.soccer import check_run_knobs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
@@ -60,11 +59,14 @@ def buffer_rows(k: int, rounds: int, l: Optional[float] = None,
     return l, cap, 1 + rounds * cap
 
 
-def _one_round(comm: VirtualCluster, l: float, cap: int, upload_dtype: str,
-               gen: torch.Generator, x: torch.Tensor, w: torch.Tensor,
-               centers: torch.Tensor, valid: torch.Tensor, base: int):
+def _one_round(comm: VirtualCluster, l: float, cap: int,
+               gen: torch.Generator, x: torch.Tensor, payload: torch.Tensor,
+               w: torch.Tensor, centers: torch.Tensor, valid: torch.Tensor,
+               base: int):
     """One oversampling round; writes into rows [base, base + cap).
 
+    ``payload`` is ``x`` rounded to the uplink precision: the points the
+    machines upload (the f32 scatter channel promotes them back).
     Rows from ``base`` on are all invalid when the round starts, so the
     distances are taken to ``centers[:base]``: the same d² as the full
     buffer, without streaming its empty rows past every point.
@@ -75,26 +77,8 @@ def _one_round(comm: VirtualCluster, l: float, cap: int, upload_dtype: str,
     phi = comm.psum(torch.sum(w * d2, dim=1))
     prob = torch.clamp(l * w * d2 / torch.clamp(phi, min=1e-30), max=1.0)
     sel = (torch.rand((m, p), generator=gen, device=x.device) < prob) & (w > 0)
-
-    c_vec = comm.all_machines(torch.sum(sel, dim=1, dtype=torch.int32))
-    offs = exclusive_cumsum(torch.clamp(c_vec, max=cap))
-    # The reference scatters every point with its rank among the selected
-    # ones and drops all but the first ``cap`` slots. Only those slots can
-    # land, so the port finds them directly: slot t of machine j holds the
-    # (t+1)-th selected point, the first index where the running count
-    # reaches t + 1. Same rows at the same positions.
-    count = torch.cumsum(sel, dim=1, dtype=torch.int32)
-    slot = torch.arange(cap, dtype=torch.int32, device=x.device)
-    idx = torch.searchsorted(count, (slot + 1).expand(m, cap).contiguous())
-    idx = torch.clamp(idx, max=p - 1)
-    pos = base + offs[:, None] + slot[None, :]
-    take = (slot[None, :] < c_vec[:, None]) & (pos < base + cap)
-
-    pts = torch.gather(x, 1, idx[..., None].expand(-1, -1, d))
-    vals = torch.cat([quantize_uplink(pts, upload_dtype),
-                      torch.ones((m, cap, 1), dtype=x.dtype,
-                                 device=x.device)], dim=-1)
-    buf = scatter_at(comm, vals, pos, take, centers.shape[0])
+    buf, c_vec = scatter_selected(comm, payload, sel, cap, base,
+                                  centers.shape[0])
     landed = buf[:, -1] > 0
     new_centers = torch.where(landed[:, None], buf[:, :-1], centers)
     return (new_centers, valid | landed, phi,
@@ -102,8 +86,11 @@ def _one_round(comm: VirtualCluster, l: float, cap: int, upload_dtype: str,
 
 
 def oversample(comm: VirtualCluster, gen: torch.Generator, x: torch.Tensor,
-               w: torch.Tensor, rounds: int, l: float, cap: int, rows: int):
-    """The seeding phase: one weighted choice, then ``rounds`` rounds.
+               w: torch.Tensor, rounds: int, l: float, cap: int, rows: int,
+               upload_dtype: str = "float32"):
+    """The seeding phase: one weighted choice, then ``rounds`` rounds,
+    whose uploads are rounded to ``upload_dtype`` (int8: one code book a
+    machine over its whole shard, as the reference quantizes ``x``).
 
     Returns the (rows, d) centers, (rows,) valid mask, (rounds,) φ and
     selection counts — all still on ``x``'s device, nothing read back —
@@ -117,11 +104,12 @@ def oversample(comm: VirtualCluster, gen: torch.Generator, x: torch.Tensor,
     # from a device-side compare: setting an element from a host value
     # would copy it to the card and wait for that copy
     valid = torch.arange(rows, device=x.device) == 0
+    payload = quantize_uplink(x, upload_dtype)
     phis, nsels, tallies = [], [], []
     for r in range(rounds):
         with wire_tally() as t:
             centers, valid, phi, nsel = _one_round(
-                comm, l, cap, "float32", gen, x, w, centers, valid,
+                comm, l, cap, gen, x, payload, w, centers, valid,
                 1 + r * cap)
         phis.append(phi)
         nsels.append(nsel)
@@ -144,8 +132,10 @@ def run_kmeans_parallel(x_parts, k: int, rounds: int, *,
     """Driver on the virtual backend; ``x_parts`` is (m, p, d) (numpy or a
     tensor), ``w`` optional (m, p) weights (0 = padding). ``run_knobs``
     are the reference's run-condition options, checked by the one guard
-    (``soccer.check_run_knobs``)."""
-    check_run_knobs(backend=backend, **run_knobs)
+    (``soccer.check_run_knobs``); ``uplink_dtype`` rounds the uploaded
+    points, and the wire is the dense f32 scatter channel whatever
+    ``uplink_wire`` says, as in the reference."""
+    upload_dtype, _ = check_run_knobs(backend=backend, **run_knobs)
     dev = resolve_device(device)
     m, p, d = x_parts.shape
     comm = VirtualCluster(m)
@@ -157,7 +147,7 @@ def run_kmeans_parallel(x_parts, k: int, rounds: int, *,
            else generator)
 
     centers, valid, phis, nsels, t_seed, t_rounds = oversample(
-        comm, gen, x, w, rounds, l, cap, rows)
+        comm, gen, x, w, rounds, l, cap, rows, upload_dtype)
     with wire_tally() as t_counts:
         counts = assignment_counts(comm, x, w, centers, valid)
     final = reduce_to_k(gen, centers, counts * valid, k, lloyd_iters)

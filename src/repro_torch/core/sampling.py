@@ -18,9 +18,12 @@ device; they are not the JAX package's threefry bits, so a test holds a
 sampled step to the reference's outcomes, not to its draws.
 
 The baselines add ``scatter_at`` (k-means‖'s rank-positioned upload into a
-dense per-machine buffer, whose pad is recorded as wire), the two-stage
-``global_weighted_choice`` and ``quantize_uplink``; the coreset uplinks
-add ``gather_weighted``, the fixed-width weighted gather.
+dense per-machine buffer, whose pad is recorded as wire) and the
+two-stage ``global_weighted_choice``; the coreset uplinks add
+``gather_weighted``, the fixed-width weighted gather. The uplink dtype
+contract (``check_uplink_dtype``, ``check_uplink_wire``,
+``quantize_uplink``, ``uplink_storage_dtype``) is the reference's
+``api.backends`` and ``core.sampling`` one, kept here.
 """
 from __future__ import annotations
 
@@ -31,15 +34,78 @@ import torch
 from repro_torch.core.comm import record_wire
 
 
+# Machine->coordinator payload precisions (the ``uplink_dtype`` knob):
+# points are rounded to this dtype before the upload and accounted at its
+# width in ``ClusterResult.uplink_bytes``. "int8" goes through the affine
+# quantizer in ``ft.compression``; its payload is stored as the float32
+# reconstruction, so the kernels need no int8 path.
+UPLINK_DTYPES = ("float32", "bfloat16", "float16", "int8")
+# Wire transport of the quantized payload (the ``uplink_wire`` knob):
+# "values" moves payloads at their storage width (int8 as its float32
+# reconstruction), "codes" moves int8 payloads as 1-byte codes plus one
+# per-machine (scale, zero_point) pair (``core.comm``'s compressed
+# gathers), "auto" is "codes" for int8 and "values" otherwise.
+UPLINK_WIRES = ("auto", "codes", "values")
+_FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def check_uplink_dtype(dtype) -> str:
+    """The uplink dtype's name (a name, a torch or a numpy dtype);
+    ValueError for one outside ``UPLINK_DTYPES``."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).removeprefix("torch.")
+    elif isinstance(dtype, str):
+        name = dtype
+    else:
+        name = str(getattr(dtype, "__name__", dtype))
+    if name not in UPLINK_DTYPES:
+        raise ValueError(
+            f"unsupported uplink_dtype {dtype!r}: expected one of "
+            f"{', '.join(UPLINK_DTYPES)}")
+    return name
+
+
+def check_uplink_wire(wire, dtype: str = "float32") -> str:
+    """Validate an ``uplink_wire`` knob against the uplink dtype and
+    resolve it to the transport, "codes" or "values"."""
+    if wire not in UPLINK_WIRES:
+        raise ValueError(
+            f"unsupported uplink_wire {wire!r}: expected one of "
+            f"{', '.join(UPLINK_WIRES)}")
+    if wire == "auto":
+        return "codes" if dtype == "int8" else "values"
+    if wire == "codes" and dtype != "int8":
+        raise ValueError(
+            f"uplink_wire='codes' ships int8 codes + per-machine qparams "
+            f"and needs uplink_dtype='int8', got uplink_dtype={dtype!r}")
+    return wire
+
+
 def quantize_uplink(x: torch.Tensor, upload_dtype: str) -> torch.Tensor:
-    """Round an upload payload to the uplink precision. The port runs the
-    float32 uplink, which passes ``x`` through; the narrower precisions
-    wait for ROADMAP Queue 1 item 11 (uplink compression)."""
+    """Round an upload payload to the uplink precision, machine-side.
+
+    The float precisions come back in the uplink dtype itself: the
+    kernels take bfloat16 and float16 points and widen on load with
+    float32 accumulators, so a narrow payload is never upcast into twice
+    its bytes. "int8" comes back as the float32 reconstruction on the
+    payload's int8 grid (``ft.compression.fake_quantize_int8``: one code
+    book a machine for a (m, rows, d) block), which is what the
+    coordinator decodes; the accounting still charges 1 byte a
+    coordinate.
+    """
     if upload_dtype == "float32":
         return x
-    raise NotImplementedError(
-        f"uplink_dtype={upload_dtype!r} is not ported yet (ROADMAP Queue 1 "
-        f"item 11 (uplink compression)); the port runs 'float32'")
+    if upload_dtype == "int8":
+        from repro_torch.ft.compression import fake_quantize_int8
+        return fake_quantize_int8(x)
+    return x.to(uplink_storage_dtype(upload_dtype))
+
+
+def uplink_storage_dtype(upload_dtype: str) -> torch.dtype:
+    """Device-side storage dtype of a quantized payload: the uplink dtype
+    for the float precisions, float32 for "int8" (its reconstruction)."""
+    return _FLOAT_DTYPES.get(upload_dtype, torch.float32)
 
 
 def apportion(counts: torch.Tensor, total: int) -> torch.Tensor:
@@ -132,6 +198,37 @@ def scatter_at(comm, values: torch.Tensor, pos: torch.Tensor,
     return comm._reduce(local)
 
 
+def scatter_selected(comm, payload: torch.Tensor,
+                     sel: torch.Tensor, cap: int, base: int,
+                     rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Upload the selected points of each machine into rows
+    [base, base + cap) of a (rows, d + 1) buffer, in machine order, the
+    last column 1 where a row landed (the rest exactly 0); the selections
+    beyond ``cap`` are dropped. Returns the buffer and the (m,) selection
+    counts.
+
+    The reference scatters every point with its rank among the selected
+    ones and drops all but the first ``cap`` slots. Only those slots can
+    land, so the port finds them directly: slot t of machine j holds the
+    (t+1)-th selected point, the first index where the running count
+    reaches t + 1. Same rows at the same positions.
+    """
+    m, p, d = payload.shape
+    c_vec = comm.all_machines(torch.sum(sel, dim=1, dtype=torch.int32))
+    offs = exclusive_cumsum(torch.clamp(c_vec, max=cap))
+    count = torch.cumsum(sel, dim=1, dtype=torch.int32)
+    slot = torch.arange(cap, dtype=torch.int32, device=payload.device)
+    idx = torch.searchsorted(count, (slot + 1).expand(m, cap).contiguous())
+    idx = torch.clamp(idx, max=p - 1)
+    pos = base + offs[:, None] + slot[None, :]
+    take = (slot[None, :] < c_vec[:, None]) & (pos < base + cap)
+    pts = torch.gather(payload, 1, idx[..., None].expand(-1, -1, d))
+    vals = torch.cat([pts.to(torch.float32),
+                      torch.ones((m, cap, 1), dtype=torch.float32,
+                                 device=payload.device)], dim=-1)
+    return scatter_at(comm, vals, pos, take, rows), c_vec
+
+
 def gather_weighted(comm, pts: torch.Tensor, wts: torch.Tensor,
                     upload_dtype: str = "float32", wire: str = "values"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -148,17 +245,18 @@ def gather_weighted(comm, pts: torch.Tensor, wts: torch.Tensor,
       upload_dtype: payload precision; the points are quantized
         machine-side (``quantize_uplink``), the weights ride the metadata
         channel at full precision, like the HT weights.
-      wire: "values" (blocks move at storage width); the int8 "codes"
-        wire waits for ROADMAP Queue 1 item 11.
+      wire: "values" (blocks move at storage width) or "codes" (int8
+        only: 1-byte codes + per-machine qparams through the gather,
+        dequantized on arrival; the same values at 1/4 the bytes).
 
     Returns:
-      ((m*t, d) points, (m*t,) float32 weights), both replicated.
+      ((m*t, d) points in the uplink storage dtype, (m*t,) float32
+      weights), both replicated.
     """
     if wire == "codes":
-        raise NotImplementedError(
-            "uplink_wire='codes' is not ported yet (ROADMAP Queue 1 item 11 "
-            "(uplink compression)); the port runs 'values'")
-    g_pts = comm.concat_machines(quantize_uplink(pts, upload_dtype))
+        g_pts = comm.concat_machines_compressed(pts)
+    else:
+        g_pts = comm.concat_machines(quantize_uplink(pts, upload_dtype))
     return g_pts, comm.concat_machines(wts.to(torch.float32), meta=True)
 
 
@@ -199,17 +297,24 @@ def gumbel_argmax(gen: torch.Generator, p: torch.Tensor) -> torch.Tensor:
 
 def draw_global_sample(comm, gen: torch.Generator, x: torch.Tensor,
                        w: torch.Tensor, alive: torch.Tensor,
-                       n_vec_resp: torch.Tensor, total: int, cap: int):
+                       n_vec_resp: torch.Tensor, total: int, cap: int,
+                       upload_dtype: str = "float32", wire: str = "values"):
     """Exact-size global uniform sample with HT weights.
 
     Args:
       x: (m, p, d); w: (m, p) data weights; alive: (m, p).
-      n_vec_resp: (m,) live counts of responding machines.
+      n_vec_resp: (m,) live counts of responding machines (0 = skipped).
       total: global sample size (static, e.g. η); cap: per-machine buffer.
+      upload_dtype: payload precision; the point coordinates are rounded
+        machine-side before the ragged upload (the HT weights ride the
+        metadata channel at full precision).
+      wire: transport of the payload, "values" (storage width) or
+        "codes" (int8 codes + per-machine qparams, dequantized on
+        arrival). Both give the same values; only the bytes differ.
 
     Returns:
-      (total, d) points and (total,) float32 weights, replicated; the
-      realized draw count (a () int32 tensor).
+      (total, d) points in the uplink storage dtype and (total,) float32
+      weights, replicated; the realized draw count (a () int32 tensor).
     """
     ids = comm.machine_ids(x.device)
     c_vec = apportion(n_vec_resp, total)
@@ -217,9 +322,14 @@ def draw_global_sample(comm, gen: torch.Generator, x: torch.Tensor,
     idx, take = sample_local(gen, alive, my_c, cap)
     pts = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
     # buffer rows beyond the draw are never uploaded (the ragged gather
-    # drops them); row 0 stands in for them, as in the reference
+    # drops them); row 0 stands in for them, as in the reference, so that
+    # they cannot widen the int8 code book of the real payload
     pts = torch.where(take[..., None], pts, pts[:, :1])
-    out = comm.gather_ragged(pts, c_vec, total)
+    if wire == "codes":
+        out = comm.gather_ragged_compressed(pts, c_vec, total)
+    else:
+        out = comm.gather_ragged(quantize_uplink(pts, upload_dtype), c_vec,
+                                 total)
     w_pt = torch.gather(w, 1, idx)
     n_local = torch.sum(alive, dim=1).to(torch.float32)
     ht = n_local / torch.clamp(my_c.to(torch.float32), min=1.0)

@@ -1,10 +1,13 @@
 """SOCCER — Sampling, Optimal Clustering Cost Estimation, Removal (Alg. 1).
 
-The port of ``repro.core.soccer``: gather coordinator, float32 uplink,
-``blackbox="kmeans"``, no stragglers; raw points or machine-side coresets
-on the uplink (``uplink_mode``), and the robust knob ``outlier_frac``
-(truncated removal threshold, trimmed finalize). One ``soccer_round`` is
-one communication round of the paper:
+The port of ``repro.core.soccer`` with every ``SoccerParams`` knob: the
+gather coordinator or the sharded one (``sharded_coordinator``,
+``core.sharded_kmeans``), the k-means or mini-batch black box, straggler
+deadlines, raw points or machine-side coresets on the uplink
+(``uplink_mode``) at any uplink precision and wire (``uplink_dtype``,
+``uplink_wire``), and the robust knob ``outlier_frac`` (truncated
+removal threshold, trimmed finalize). One ``soccer_round`` is one
+communication round of the paper:
 
   sample P1, P2 (exact-size, HT-weighted)  ->  ragged "upload"
   coordinator:  C_iter = A(P1, k_plus); v from the truncated cost on P2
@@ -13,14 +16,16 @@ one communication round of the paper:
 
 The number of rounds is data-dependent, so ``run_soccer`` is a host loop
 with one device->host read per round (``int(state.n_remaining)``), the
-synchronization barrier a real deployment pays. Nothing inside a round
-reads a value back to the host. Removed points are masked, never moved.
+synchronization barrier a real deployment pays, and an optional host
+hook ``on_round`` after each round (failure injection, ``ft.failures``).
+Nothing inside a round reads a value back to the host. Removed points are
+masked, never moved.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +33,10 @@ import torch
 from repro_torch.configs.soccer_paper import SoccerParams
 from repro_torch.core.comm import VirtualCluster, wire_tally
 from repro_torch.core.kmeans import kmeans
-from repro_torch.core.sampling import draw_global_sample
+from repro_torch.core.minibatch import minibatch_kmeans
+from repro_torch.core.sampling import (check_uplink_dtype, check_uplink_wire,
+                                       draw_global_sample)
+from repro_torch.core.sharded_kmeans import sharded_center_threshold
 from repro_torch.core.truncated_cost import removal_threshold, trim_top_mass
 from repro_torch.coresets.uplink import draw_coreset_sample
 from repro_torch.device import DeviceLike, resolve_device
@@ -43,18 +51,30 @@ class SoccerConstants:
     d_k: float           # 6.5·log(1.1k/(δε))
     eta: int             # coordinator capacity 36·k·n^ε·log(1.1k/(δε))
     max_rounds: int
-    cap: int             # per-machine sample buffer width
+    cap: int             # per-machine sample buffer width (gather mode)
+    cap_sharded: int     # per-machine sample buffer (sharded coordinator):
+                         # ~8x the balanced share eta/m instead of eta
     lloyd_iters: int
+    blackbox: str        # kmeans | minibatch
+    minibatch_size: int
+    sharded_coordinator: bool
+    sharded_threshold: str = "bisect"   # bisect | topk
+    sharded_seeding: str = "d2"         # d2 | kmeanspar
     outlier_frac: float = 0.0   # (k, z) mass z = outlier_frac·N, untouched
                                 # by the removal threshold and trimmed
                                 # from the finalize fit
+    straggler_rate: float = 0.0
+    uplink_dtype: str = "float32"       # payload precision
+    uplink_wire: str = "values"         # resolved transport: values | codes
     uplink_mode: str = "points"  # points | coreset
     coreset_rows: int = 0       # per-machine coreset rows t
     coreset_kb: int = 0         # machine-side bicriteria centers
 
 
 def derive_constants(n: int, p_local: int, params: SoccerParams,
-                     eta_override: int = 0, m: int = 0) -> SoccerConstants:
+                     eta_override: int = 0, m: int = 0,
+                     uplink_dtype: str = "float32",
+                     uplink_wire: str = "values") -> SoccerConstants:
     log_term = math.log(1.1 * params.k / (params.delta * params.epsilon))
     d_k = 6.5 * log_term
     k_plus = int(math.ceil(params.k + 9.0 * log_term))
@@ -64,6 +84,8 @@ def derive_constants(n: int, p_local: int, params: SoccerParams,
     max_rounds = params.max_rounds or (
         int(math.ceil(1.0 / params.epsilon)) + 2)
     m = m or params.n_machines
+    cap_sharded = min(p_local, eta,
+                      max(64, int(math.ceil(8.0 * eta / max(m, 1)))))
     coreset_rows = coreset_kb = 0
     if params.uplink_mode == "coreset":
         # uplink budget in rows, decoupled from eta: by default enough rows
@@ -74,64 +96,55 @@ def derive_constants(n: int, p_local: int, params: SoccerParams,
                                   min(p_local, eta)))
         coreset_kb = params.coreset_bicriteria or max(
             1, min(params.k, coreset_rows))
-    return SoccerConstants(k=params.k, k_plus=k_plus, d_k=d_k, eta=eta,
-                           max_rounds=max_rounds, cap=min(p_local, eta),
-                           lloyd_iters=params.lloyd_iters,
-                           outlier_frac=params.outlier_frac,
-                           uplink_mode=params.uplink_mode,
-                           coreset_rows=coreset_rows, coreset_kb=coreset_kb)
+    return SoccerConstants(
+        k=params.k, k_plus=k_plus, d_k=d_k, eta=eta, max_rounds=max_rounds,
+        cap=min(p_local, eta), cap_sharded=cap_sharded,
+        lloyd_iters=params.lloyd_iters, blackbox=params.blackbox,
+        minibatch_size=params.minibatch_size,
+        sharded_coordinator=params.sharded_coordinator,
+        sharded_threshold=params.sharded_threshold,
+        sharded_seeding=params.sharded_seeding,
+        outlier_frac=params.outlier_frac,
+        straggler_rate=params.straggler_rate,
+        uplink_dtype=uplink_dtype, uplink_wire=uplink_wire,
+        uplink_mode=params.uplink_mode,
+        coreset_rows=coreset_rows, coreset_kb=coreset_kb)
 
 
-# SoccerParams fields outside what the port runs -> (the value the port
-# runs, its ROADMAP Queue 1 item)
-_LATER_PARAMS = {
-    "straggler_rate": (0.0, "item 11 (SOCCER knobs)"),
-    "sharded_coordinator": (False, "item 11 (sharded_kmeans)"),
-    "blackbox": ("kmeans", "item 10 (minibatch)"),
-}
-# The reference's run-condition options (``repro.api.fit``) -> (the values
-# the port runs, its ROADMAP Queue 1 item). ``fit`` passes them through to
-# every driver, and each driver checks them with ``check_run_knobs``.
-RUN_KNOBS = {
+# The reference's run-condition options (``repro.api.fit``), which ``fit``
+# passes to every driver and each driver checks with ``check_run_knobs``.
+RUN_KNOBS = ("backend", "uplink_dtype", "uplink_wire", "trace")
+# run knobs with values the port does not run yet -> (the values it runs,
+# their ROADMAP Queue 1 item)
+_NOT_PORTED = {
     "backend": ((None, "virtual", "auto"),
                 "item 17 (the multi-device backend)"),
-    "uplink_dtype": ((None, "float32"), "item 11 (uplink compression)"),
-    "uplink_wire": ((None, "auto", "values"), "item 11 (uplink compression)"),
-    "failure_plan": ((None,), "item 11 (failure injection)"),
     "trace": ((None, False, "off"), "item 14 (telemetry)"),
 }
 
 
-def _not_ported(what: str, runs, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                              f"{item}); the port runs {runs!r}")
-
-
-def check_main_path(params: SoccerParams, **run_knobs) -> None:
-    """Raise NotImplementedError for a knob the port does not run yet: a
-    ``SoccerParams`` field or one of ``RUN_KNOBS``."""
-    for name, (runs, item) in _LATER_PARAMS.items():
-        value = getattr(params, name)
-        if value != runs:
-            _not_ported(f"SoccerParams.{name}={value!r}", runs, item)
-    check_run_knobs(**run_knobs)
-
-
-def check_run_knobs(**run_knobs) -> None:
-    """The one guard over ``RUN_KNOBS``, called by every driver (SOCCER,
-    k-means‖, EIM11): TypeError for an option the reference does not have,
-    NotImplementedError for a value the port does not run yet."""
+def check_run_knobs(**run_knobs) -> Tuple[str, str]:
+    """The one guard over ``RUN_KNOBS``, called by every driver: TypeError
+    for an option the reference does not have, ValueError for a value it
+    rejects, NotImplementedError for a value the port does not run yet.
+    Returns the uplink dtype's name and the resolved wire ("values" or
+    "codes")."""
     unknown = set(run_knobs) - set(RUN_KNOBS)
     if unknown:
         raise TypeError(f"unexpected option(s) {sorted(unknown)}")
     backend = run_knobs.get("backend", "virtual")
-    if backend not in RUN_KNOBS["backend"][0] + ("mesh",):
+    if backend not in _NOT_PORTED["backend"][0] + ("mesh",):
         raise ValueError(f"unknown backend {backend!r}: expected 'virtual', "
                          f"'auto' or 'mesh'")
-    for name, value in run_knobs.items():
-        runs, item = RUN_KNOBS[name]
+    for name, (runs, item) in _NOT_PORTED.items():
+        value = run_knobs.get(name)
         if value not in runs:
-            _not_ported(f"{name}={value!r}", runs, item)
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet (ROADMAP Queue 1 "
+                f"{item}); the port runs {runs!r}")
+    dtype = check_uplink_dtype(run_knobs.get("uplink_dtype") or "float32")
+    return dtype, check_uplink_wire(run_knobs.get("uplink_wire") or "auto",
+                                    dtype)
 
 
 @dataclasses.dataclass
@@ -231,15 +244,41 @@ def _draw_sample(comm: VirtualCluster, const: SoccerConstants,
     while sample_real keeps the underlying draw size, which drives the
     alpha = |P2|/N threshold scaling.
     """
+    uplink = dict(upload_dtype=const.uplink_dtype, wire=const.uplink_wire)
     if const.uplink_mode == "coreset":
         return draw_coreset_sample(comm, state.gen, state.x, state.w,
                                    alive_eff, n_vec_resp, const.eta,
                                    const.cap, const.coreset_rows,
-                                   const.coreset_kb)
+                                   const.coreset_kb, **uplink)
     pts, wts, real = draw_global_sample(comm, state.gen, state.x, state.w,
                                         alive_eff, n_vec_resp, const.eta,
-                                        const.cap)
+                                        const.cap, **uplink)
     return pts, wts, real, real
+
+
+def _blackbox(const: SoccerConstants, gen: torch.Generator, x: torch.Tensor,
+              w: torch.Tensor, k: int) -> torch.Tensor:
+    """The coordinator's black box A(S, k): k-means++ + Lloyd, or
+    mini-batch k-means (``blackbox="minibatch"``)."""
+    if const.blackbox == "minibatch":
+        c, _ = minibatch_kmeans(gen, x, w, k, batch=const.minibatch_size)
+    else:
+        c, _ = kmeans(gen, x, w, k, const.lloyd_iters)
+    return c
+
+
+def _respond(gen: torch.Generator, const: SoccerConstants,
+             n_vec: torch.Tensor) -> torch.Tensor:
+    """The live counts of the machines that meet one upload's sampling
+    deadline (0 for a straggler). Each upload has its own deadline, so
+    each draws its own mask; if every machine with points would miss it,
+    all respond. Draws nothing when ``straggler_rate`` is 0."""
+    if const.straggler_rate <= 0.0:
+        return n_vec
+    r = torch.rand(n_vec.shape, generator=gen,
+                   device=n_vec.device) >= const.straggler_rate
+    r = r | (torch.sum(torch.where(r, n_vec, 0)) == 0)
+    return torch.where(r, n_vec, 0)
 
 
 def _outlier_mass(const: SoccerConstants, n_total: torch.Tensor):
@@ -251,21 +290,34 @@ def _outlier_mass(const: SoccerConstants, n_total: torch.Tensor):
 def soccer_round(state: SoccerState, comm: VirtualCluster,
                  const: SoccerConstants) -> SoccerState:
     alive_eff, n_vec, n_total = _live_counts(comm, state)
+    # --- straggler deadlines: laggards skip sampling this round only;
+    # they keep the broadcast and the removal
+    n_vec_r1 = _respond(state.gen, const, n_vec)
+    n_vec_r2 = _respond(state.gen, const, n_vec)
 
-    # --- upload P1, P2 (independent draws; in coreset mode each is
-    # compressed machine-side before the upload)
-    p1, w1, up1, _ = _draw_sample(comm, const, state, alive_eff, n_vec)
-    p2, w2, up2, real2 = _draw_sample(comm, const, state, alive_eff, n_vec)
-    # --- coordinator: C_iter = A(P1, k_plus); threshold from P2. alpha is
-    # P2's OWN realized sampling rate: the truncation mass L = l/alpha and
-    # the psi->population rescale both describe the P2 statistic. The
-    # (k, z) mass must not inflate the threshold either.
-    c_iter, _ = kmeans(state.gen, p1, w1, const.k_plus, const.lloyd_iters)
-    d2_p2, _ = ops.min_dist(p2, c_iter)
-    alpha = real2.to(torch.float32) / torch.clamp(
-        n_total.to(torch.float32), min=1.0)
-    v = removal_threshold(d2_p2, w2, const.k, const.d_k, alpha,
-                          outlier_mass=_outlier_mass(const, n_total))
+    if const.sharded_coordinator:
+        # beyond-paper: the samples stay sharded; the collectives shrink
+        # from O(eta·d) to O(k_plus·d·iters) (core.sharded_kmeans)
+        c_iter, v, uplink_pts, alpha = sharded_center_threshold(
+            comm, const, state, alive_eff, n_vec_r1, n_vec_r2, n_total)
+    else:
+        # --- upload P1, P2 (independent draws; in coreset mode each is
+        # compressed machine-side before the upload)
+        p1, w1, up1, _ = _draw_sample(comm, const, state, alive_eff,
+                                      n_vec_r1)
+        p2, w2, up2, real2 = _draw_sample(comm, const, state, alive_eff,
+                                          n_vec_r2)
+        # --- coordinator: C_iter = A(P1, k_plus); threshold from P2.
+        # alpha is P2's OWN realized sampling rate: the truncation mass
+        # L = l/alpha and the psi->population rescale both describe the
+        # P2 statistic. The (k, z) mass must not inflate the threshold.
+        c_iter = _blackbox(const, state.gen, p1, w1, const.k_plus)
+        d2_p2, _ = ops.min_dist(p2, c_iter)
+        alpha = real2.to(torch.float32) / torch.clamp(
+            n_total.to(torch.float32), min=1.0)
+        v = removal_threshold(d2_p2, w2, const.k, const.d_k, alpha,
+                              outlier_mass=_outlier_mass(const, n_total))
+        uplink_pts = up1 + up2
 
     # --- broadcast (v, C_iter); the machines remove points in one fused
     # sweep: min-d2, threshold compare, mask update and live counts
@@ -277,7 +329,7 @@ def soccer_round(state: SoccerState, comm: VirtualCluster,
     state.centers_valid[i] = True
     state.v_hist[i] = v
     state.n_hist[i] = n_total
-    state.uplink[i] = up1 + up2
+    state.uplink[i] = uplink_pts
     state.alpha_hist[i] = alpha
     return dataclasses.replace(state, alive=alive_new, round_idx=i + 1,
                                n_remaining=n_rem)
@@ -296,10 +348,10 @@ def soccer_finalize(state: SoccerState, comm: VirtualCluster,
     alive_eff, n_vec, n_total = _live_counts(comm, state)
     v_pts, v_w, up, _ = _draw_sample(comm, const, state, alive_eff, n_vec)
     if const.outlier_frac > 0.0:
-        c_prov, _ = kmeans(state.gen, v_pts, v_w, const.k, const.lloyd_iters)
+        c_prov = _blackbox(const, state.gen, v_pts, v_w, const.k)
         d2, _ = ops.min_dist(v_pts, c_prov)
         v_w = trim_top_mass(d2, v_w, _outlier_mass(const, n_total))
-    c_fin, _ = kmeans(state.gen, v_pts, v_w, const.k, const.lloyd_iters)
+    c_fin = _blackbox(const, state.gen, v_pts, v_w, const.k)
     i = state.round_idx
     state.centers[i] = 0.0
     state.centers[i, :const.k] = c_fin
@@ -351,21 +403,26 @@ def stopping_rule(remaining: float, capacity: float, prev: float) -> bool:
 def run_soccer(x_parts, params: SoccerParams, *, backend: str = "virtual",
                generator: Optional[torch.Generator] = None,
                w=None, alive=None, eta_override: int = 0,
-               device: DeviceLike = "cuda", **run_knobs) -> SoccerResult:
+               device: DeviceLike = "cuda",
+               on_round: Optional[Callable] = None,
+               **run_knobs) -> SoccerResult:
     """The SOCCER host driver.
 
     ``x_parts`` is (m, p, d) points (numpy or a tensor), ``w``/``alive``
     optional (m, p) weights and mask. ``generator`` defaults to one on
-    ``device`` seeded with ``params.seed``. ``run_knobs`` are the
-    reference's other run-condition options (``RUN_KNOBS``); only the
-    values the port runs are accepted.
+    ``device`` seeded with ``params.seed``. ``on_round(round_idx, state)``
+    is an optional host callback after each round, once the round's live
+    count has been read (failure injection); if it returns a state, the
+    loop continues from it. ``run_knobs`` are the reference's other
+    run-condition options (``RUN_KNOBS``, checked by ``check_run_knobs``).
     """
-    check_main_path(params, backend=backend, **run_knobs)
+    uplink_dtype, uplink_wire = check_run_knobs(backend=backend, **run_knobs)
     dev = resolve_device(device)
     m, p, _ = x_parts.shape
     comm = VirtualCluster(m)
     const = derive_constants(effective_n(m, p, w, alive), p, params,
-                             eta_override, m=m)
+                             eta_override, m=m, uplink_dtype=uplink_dtype,
+                             uplink_wire=uplink_wire)
     gen = (torch.Generator(dev).manual_seed(params.seed)
            if generator is None else generator)
     state = init_state(
@@ -390,6 +447,8 @@ def run_soccer(x_parts, params: SoccerParams, *, backend: str = "virtual",
         tallies.append(t)
         rounds += 1
         n_rem = int(state.n_remaining)
+        if on_round is not None:
+            state = on_round(rounds, state) or state
     with wire_tally() as t:
         state = soccer_finalize(state, comm, const)
     tallies.append(t)

@@ -22,6 +22,7 @@ from repro_torch.api.registry import register_algorithm
 from repro_torch.api.result import ClusterResult, uplink_bytes
 from repro_torch.core.comm import VirtualCluster, wire_tally
 from repro_torch.core.kmeans import kmeans
+from repro_torch.core.minibatch import minibatch_kmeans
 from repro_torch.core.sampling import gather_weighted
 from repro_torch.core.soccer import check_run_knobs
 from repro_torch.coresets.sensitivity import (build_coresets,
@@ -45,22 +46,18 @@ def fit_coreset_kmeans(x_parts, k: int, *, backend: str = "virtual",
       coreset_size: total coordinator-side budget in rows, split evenly
         across machines (0 = ``default_coreset_size``).
       bicriteria: machine-side bicriteria center count (0 = min(k, t)).
-      blackbox: coordinator solver; "kmeans" ("minibatch" is not ported).
+      blackbox: coordinator solver, "kmeans" | "minibatch".
       uplink_mode: this algorithm's uplink is a coreset, so only
         "coreset" (or None) is valid.
     """
     if blackbox not in ("kmeans", "minibatch"):
         raise ValueError(f"coreset_kmeans blackbox must be 'kmeans' or "
                          f"'minibatch', got {blackbox!r}")
-    if blackbox == "minibatch":
-        raise NotImplementedError(
-            "blackbox='minibatch' is not ported yet (ROADMAP Queue 1 item 10 "
-            "(minibatch)); the port runs 'kmeans'")
     if uplink_mode not in (None, "coreset"):
         raise ValueError(
             f"coreset_kmeans always uploads coresets; uplink_mode="
             f"{uplink_mode!r} is contradictory")
-    check_run_knobs(backend=backend, **run_knobs)
+    upload_dtype, wire = check_run_knobs(backend=backend, **run_knobs)
     m, p, d = x_parts.shape
     total = coreset_size or default_coreset_size(k, m * p)
     t = max(1, -(-total // m))                    # per-machine rows
@@ -73,8 +70,12 @@ def fit_coreset_kmeans(x_parts, k: int, *, backend: str = "virtual",
            else generator)
     with wire_tally() as tally:
         cpts, cw = build_coresets(gen, x, w_dev, t, kb)
-        g_pts, g_w = gather_weighted(comm, cpts, cw)
-        centers, cost = kmeans(gen, g_pts, g_w, k, lloyd_iters)
+        g_pts, g_w = gather_weighted(comm, cpts, cw, upload_dtype, wire=wire)
+        if blackbox == "minibatch":
+            centers, cost = minibatch_kmeans(gen, g_pts, g_w, k,
+                                             batch=minibatch_size)
+        else:
+            centers, cost = kmeans(gen, g_pts, g_w, k, lloyd_iters)
         # every machine with any coreset mass ships its full t-row block
         # (weight-0 padding rows ride along)
         realized = torch.sum(torch.any(g_w.reshape(m, t) > 0, dim=1)) * t
@@ -82,7 +83,7 @@ def fit_coreset_kmeans(x_parts, k: int, *, backend: str = "virtual",
     return ClusterResult(
         centers=centers.cpu().numpy(), k=k, algo="coreset_kmeans",
         backend="virtual", rounds=1, uplink_points=up,
-        uplink_bytes=uplink_bytes(up, d),
+        uplink_bytes=uplink_bytes(up, d, dtype=upload_dtype),
         wire_bytes=np.asarray([tally.payload], np.int64),
         wire_meta_bytes=np.asarray([tally.meta], np.int64),
         extra={"blackbox_cost": float(cost), "coreset_rows_per_machine": t,

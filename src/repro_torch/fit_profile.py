@@ -4,8 +4,11 @@
 
 Draws the paper's §8 mixture (d = 15, σ = 0.001, Zipf γ = 1.5, m = 8
 machines; Table 2 rows 1 and 2 are k = 25 and 100) and fits it with
-``--algo``: SOCCER at ε = 0.05, δ = 0.1 (the paper's setting), k-means‖
-at its defaults (5 rounds, l = 2k), EIM11 at ε = 0.1, δ = 0.1,
+``--algo``, one of ``PROFILES``: SOCCER at ε = 0.05, δ = 0.1 (the paper's
+setting; ``soccer_sharded`` with the sharded coordinator,
+``soccer_minibatch`` with the mini-batch black box, ``soccer_int8`` on
+the int8 codes uplink), k-means‖ at its defaults (5 rounds, l = 2k),
+EIM11 at ε = 0.1, δ = 0.1, the centralized ``lloyd`` and ``minibatch``,
 coreset_kmeans with a 16,384-row budget, or kzmeans at outlier_frac =
 0.02 with a 1,640,000-row budget on the mixture contaminated by 2% gross
 outliers (``data.synthetic.contaminate``, scale 50, seed 7). It runs one
@@ -72,13 +75,23 @@ def span_ms(prof: dict, *names: str) -> float:
                      if any(n in name for n in names)) / 1e3
 
 
-# each algorithm's knobs in a profiled fit
-ALGO_PARAMS = {"soccer": dict(epsilon=0.05, delta=0.1),
-               "kmeans_parallel": {},
-               "eim11": dict(epsilon=0.1, delta=0.1),
-               "coreset_kmeans": dict(coreset_size=16_384),
-               "kzmeans": dict(outlier_frac=0.02, coreset_size=1_640_000)}
-# algorithms profiled on contaminated data -> the outlier fraction
+_PAPER = dict(epsilon=0.05, delta=0.1)
+# each profile -> (its registered algorithm, the knobs of a profiled fit)
+PROFILES = {"soccer": ("soccer", _PAPER),
+            "soccer_sharded": ("soccer", dict(_PAPER,
+                                              sharded_coordinator=True)),
+            "soccer_minibatch": ("soccer", dict(_PAPER,
+                                                blackbox="minibatch")),
+            "soccer_int8": ("soccer", dict(_PAPER, uplink_dtype="int8")),
+            "kmeans_parallel": ("kmeans_parallel", {}),
+            "eim11": ("eim11", dict(epsilon=0.1, delta=0.1)),
+            "lloyd": ("lloyd", {}),
+            "minibatch": ("minibatch", {}),
+            "coreset_kmeans": ("coreset_kmeans",
+                               dict(coreset_size=16_384)),
+            "kzmeans": ("kzmeans", dict(outlier_frac=0.02,
+                                        coreset_size=1_640_000))}
+# profiles fitted on contaminated data -> the outlier fraction
 CONTAMINATION = {"kzmeans": 0.02}
 
 
@@ -89,7 +102,8 @@ def profile_fit(k: int, n: int, m: int = 8, top: int = 15,
                                                    sigma=0.001, seed=17))
     if algo in CONTAMINATION:
         x, _ = contaminate(x, frac=CONTAMINATION[algo], scale=50.0, seed=7)
-    kw = dict(algo=algo, m=m, seed=0, **ALGO_PARAMS[algo])
+    name, knobs = PROFILES[algo]
+    kw = dict(algo=name, m=m, seed=0, **knobs)
     api.fit(x, k, **kw)                                      # warm-up
     torch.cuda.synchronize()
 
@@ -135,7 +149,7 @@ def main() -> None:
     ap.add_argument("--k", type=int, action="append",
                     help="clusters (repeatable; default 25 and 100)")
     ap.add_argument("--n", type=int, default=10_000_000)
-    ap.add_argument("--algo", choices=sorted(ALGO_PARAMS), default="soccer")
+    ap.add_argument("--algo", choices=sorted(PROFILES), default="soccer")
     args = ap.parse_args()
     results = [profile_fit(k, args.n, algo=args.algo)
                for k in (args.k or [25, 100])]

@@ -136,7 +136,7 @@ def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
         raise ValueError(
             f"kzmeans always uploads coresets + outlier candidates; "
             f"uplink_mode={uplink_mode!r} is contradictory")
-    check_run_knobs(backend=backend, **run_knobs)
+    upload_dtype, wire = check_run_knobs(backend=backend, **run_knobs)
     m, p, d = x_parts.shape
     # clusterz sizing: all z global outliers could sit on one machine, so
     # each ships up to z candidates (capped by its shard)
@@ -160,7 +160,7 @@ def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
                   for j in range(m)]
         g_pts, g_w = gather_weighted(
             comm, torch.stack([b[0] for b in blocks]),
-            torch.stack([b[1] for b in blocks]))
+            torch.stack([b[1] for b in blocks]), upload_dtype, wire=wire)
         n_mass = comm.psum(torch.sum(w_dev, dim=-1))  # population mass
         z_mass = n_mass * outlier_frac
         # best-of-4 seeding on the trimmed cost (outliers get no vote)
@@ -188,7 +188,7 @@ def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
     return ClusterResult(
         centers=centers.cpu().numpy(), k=k, algo="kzmeans",
         backend="virtual", rounds=1, uplink_points=up,
-        uplink_bytes=uplink_bytes(up, d),
+        uplink_bytes=uplink_bytes(up, d, dtype=upload_dtype),
         wire_bytes=np.asarray([tally.payload], np.int64),
         wire_meta_bytes=np.asarray([tally.meta], np.int64),
         extra={"kz_cost": float(kept), "trim_threshold": float(v),

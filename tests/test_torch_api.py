@@ -107,37 +107,23 @@ def test_fit_without_cuda_raises(monkeypatch, data):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(straggler_rate=0.1), "item 11"),
-    (dict(outlier_frac=0.05, blackbox="minibatch"), "item 10"),
-    (dict(sharded_coordinator=True), "item 11"),
-    (dict(blackbox="minibatch"), "item 10"),
-    (dict(uplink_mode="coreset", uplink_wire="codes"), "item 11"),
-    (dict(uplink_dtype="bfloat16"), "item 11"),
-    (dict(uplink_wire="codes"), "item 11"),
-    (dict(failure_plan=object()), "item 11"),
     (dict(trace="rounds"), "item 14"),
     (dict(backend="mesh"), "item 17"),
-], ids=["straggler_rate", "outlier_frac", "sharded_coordinator",
-        "blackbox", "uplink_mode", "uplink_dtype", "uplink_wire",
-        "failure_plan", "trace", "backend_mesh"])
+], ids=["trace", "backend_mesh"])
 def test_knobs_outside_the_slice_raise(data, kwargs, item):
-    """Each knob the port does not run raises, naming its ROADMAP item;
-    ``outlier_frac`` and ``uplink_mode`` run (see test_torch_kzmeans.py and
-    test_torch_coresets.py), so their cases pair them with a black box and
-    a wire that do not."""
+    """Each knob the port does not run raises, naming its ROADMAP item
+    (every SoccerParams knob, the uplink knobs and failure_plan run: see
+    test_torch_sharded.py, test_torch_minibatch.py, test_torch_uplink.py
+    and test_torch_failures.py)."""
     x, _ = data
     with pytest.raises(NotImplementedError, match=item):
         api.fit(x[:800], 3, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(uplink_dtype="bfloat16"), "item 11"),
-    (dict(uplink_wire="codes"), "item 11"),
-    (dict(failure_plan=object()), "item 11"),
     (dict(trace="rounds"), "item 14"),
     (dict(backend="mesh"), "item 17"),
-], ids=["uplink_dtype", "uplink_wire", "failure_plan", "trace",
-        "backend_mesh"])
+], ids=["trace", "backend_mesh"])
 @pytest.mark.parametrize("algo", ["kmeans_parallel", "eim11"])
 def test_baseline_run_knobs_raise(data, algo, kwargs, item):
     """The baselines reject the run-condition options they do not run
@@ -150,9 +136,10 @@ def test_baseline_run_knobs_raise(data, algo, kwargs, item):
 def test_registry_and_validation(data):
     x, _ = data
     assert api.list_algorithms() == ("coreset_kmeans", "eim11",
-                                     "kmeans_parallel", "kzmeans", "soccer")
+                                     "kmeans_parallel", "kzmeans", "lloyd",
+                                     "minibatch", "soccer")
     with pytest.raises(ValueError, match="unknown algorithm"):
-        api.fit(x[:800], 3, algo="lloyd", device="cpu")
+        api.fit(x[:800], 3, algo="kmedoids", device="cpu")
     for algo, bad in (("kmeans_parallel", "epsilon"), ("eim11", "rounds")):
         with pytest.raises(TypeError, match="unexpected parameter"):
             api.fit(x[:800], 3, algo=algo, device="cpu", **{bad: 1})

@@ -107,7 +107,9 @@ def test_derive_constants_coreset_fields(kw, eta_override):
 
 def test_gather_weighted_accounting():
     """Points on the payload channel, weights on the metadata channel, both
-    fixed-width; the int8 codes wire is not ported yet."""
+    fixed-width; on the int8 codes wire the points move as 1-byte codes
+    plus 8 bytes of qparams a machine and arrive as the values wire's
+    int8 reconstruction, bit for bit."""
     comm = VirtualCluster(4)
     pts = torch.rand((4, 5, 3))
     wts = torch.rand((4, 5))
@@ -116,10 +118,14 @@ def test_gather_weighted_accounting():
     assert g_pts.shape == (20, 3) and g_w.shape == (20,)
     assert torch.equal(g_pts, pts.reshape(20, 3))
     assert (t.payload, t.meta) == (4 * 5 * 3 * 4, 4 * 5 * 4)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gather_weighted(comm, pts, wts, wire="codes")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gather_weighted(comm, pts, wts, "int8")
+    with wire_tally() as tc:
+        c_pts, c_w = gather_weighted(comm, pts, wts, "int8", wire="codes")
+    with wire_tally() as tv:
+        v_pts, v_w = gather_weighted(comm, pts, wts, "int8")
+    assert torch.equal(c_pts, v_pts) and torch.equal(c_w, v_w)
+    assert c_pts.dtype == torch.float32
+    assert (tc.payload, tc.meta) == (4 * 5 * 3, 4 * 5 * 4 + 8 * 4)
+    assert (tv.payload, tv.meta) == (4 * 5 * 3 * 4, 4 * 5 * 4)
 
 
 # ---- construction claims (tests/test_coresets.py) -------------------------
@@ -218,9 +224,9 @@ def test_coreset_kmeans_validation():
     with pytest.raises(ValueError, match="contradictory"):
         api.fit(x, 2, algo="coreset_kmeans", m=4, uplink_mode="points",
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        api.fit(x, 2, algo="coreset_kmeans", m=4, blackbox="minibatch",
-                device="cpu")
+    mb = api.fit(x, 2, algo="coreset_kmeans", m=4, blackbox="minibatch",
+                 minibatch_size=64, coreset_size=64, device="cpu")
+    assert mb.rounds == 1 and mb.centers.shape == (2, 3)
     res = api.fit(x, 2, algo="coreset_kmeans", m=4, uplink_mode="coreset",
                   coreset_size=64, lloyd_iters=2, device="cpu")
     assert res.rounds == 1 and res.params["uplink_mode"] == "coreset"

@@ -533,8 +533,18 @@ def test_cuda_seeding_fallback_at_zero_mass():
     ("kmeans_parallel", dict(rounds=5)),
     ("eim11", dict(epsilon=0.1, delta=0.1)),
     ("coreset_kmeans", dict(coreset_size=4_096)),
-    ("kzmeans", dict(outlier_frac=0.02, coreset_size=32_000))],
-    ids=["soccer", "kmeans_parallel", "eim11", "coreset_kmeans", "kzmeans"])
+    ("kzmeans", dict(outlier_frac=0.02, coreset_size=32_000)),
+    ("lloyd", {}), ("minibatch", {}),
+    ("soccer", dict(epsilon=0.05, delta=0.1, sharded_coordinator=True)),
+    ("soccer", dict(epsilon=0.05, delta=0.1, sharded_coordinator=True,
+                    sharded_threshold="topk", sharded_seeding="kmeanspar")),
+    ("soccer", dict(epsilon=0.05, delta=0.1, blackbox="minibatch")),
+    ("soccer", dict(epsilon=0.05, delta=0.1, uplink_dtype="int8")),
+    ("soccer", dict(epsilon=0.05, delta=0.1, uplink_dtype="bfloat16",
+                    straggler_rate=0.3))],
+    ids=["soccer", "kmeans_parallel", "eim11", "coreset_kmeans", "kzmeans",
+         "lloyd", "minibatch", "soccer_sharded", "soccer_sharded_topk",
+         "soccer_minibatch", "soccer_int8", "soccer_bf16_stragglers"])
 def test_cuda_fits_repeat_bit_for_bit(algo, kw):
     """Each registered algorithm fitted twice in one process at one seed
     on one input of 200,000 points (the paper's mixture, 2% gross outliers

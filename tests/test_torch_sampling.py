@@ -199,11 +199,18 @@ def test_global_weighted_choice_statistics():
 
 
 def test_quantize_uplink_runs_float32_only():
+    """float32 passes the payload through untouched; every narrower
+    precision now runs too (their values against the reference's in
+    test_torch_compression.py): the float ones in their own dtype, int8
+    as its float32 reconstruction on the payload's 256-level grid."""
     x = torch.rand(3, 4)
     assert tsamp.quantize_uplink(x, "float32") is x
-    for dt in ("bfloat16", "float16", "int8"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tsamp.quantize_uplink(x, dt)
+    for dt, store in (("bfloat16", torch.bfloat16),
+                      ("float16", torch.float16), ("int8", torch.float32)):
+        q = tsamp.quantize_uplink(x, dt)
+        assert q.dtype == store == tsamp.uplink_storage_dtype(dt)
+        assert torch.allclose(q.float(), x, atol=(x.max() - x.min()) / 255)
+    assert tsamp.quantize_uplink(x, "int8").unique().numel() <= 256
 
 
 def test_wire_tally_records_every_executed_call():

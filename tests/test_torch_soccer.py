@@ -167,10 +167,10 @@ def test_alpha_is_p2s_own_rate(mixture, monkeypatch):
     draws = []
     real_draw = tsoc.draw_global_sample
 
-    def draw(comm, gen, x, w, alive, n_vec, total, cap):
+    def draw(comm, gen, x, w, alive, n_vec, total, cap, **uplink):
         if len(draws) == 1:                    # P2: a smaller exact size
             total //= 2
-        out = real_draw(comm, gen, x, w, alive, n_vec, total, cap)
+        out = real_draw(comm, gen, x, w, alive, n_vec, total, cap, **uplink)
         draws.append(out)
         return out
 

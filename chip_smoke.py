@@ -108,11 +108,13 @@ PyTorch built for CUDA. It
 11. holds the kernels at the shapes the knobs' paths give them: the
    sharded coordinator's flattened (8·cap_sharded, 15) buffers (k = 25:
    the seeding, the Lloyd step and min_dist, with 7/8 of the slots of
-   weight 0; k = 1000: the Lloyd step on one machine's 991,418 slots,
-   timed over all eight) and the mini-batch step's (1,024, 15) batch
-   against 103 and 25 centers; runs one sharded round, one straggler
-   round, one int8-codes round and one mini-batch black box with CUDA's
-   sync debug mode set to "error";
+   weight 0; k = 1000: the seeding's 1,111 steps and the Lloyd step over
+   all 7,931,344 slots, the plain version over 991,418-row chunks), the
+   mini-batch step's (1,024, 15) batch against 103 and 25 centers, and
+   the centralized fits' gathered 10 M rows (the k = 25 seeding over all
+   of them, the Lloyd step against its centers); runs one sharded round,
+   one straggler round, one int8-codes round and one mini-batch black
+   box with CUDA's sync debug mode set to "error";
 12. fits on Table 2 row 1's data (n = 10 M, k = 25): SOCCER with
    ``sharded_coordinator=True`` (bisect and D² seeding, twice for the
    same bits; topk and k-means‖ seeding), ``blackbox="minibatch"``
@@ -126,8 +128,9 @@ PyTorch built for CUDA. It
    tests' claims (sharded cost <= 1.5x the gather fit's + 0.1x the
    means'; codes = values bit for bit at 1/4 the payload, measured =
    modeled bytes; stragglers lose no data; failures cost <= 4x max(the
-   plain fit's, the means'); the mini-batch black box within
-   tests/test_kmeans.py:71's bound), with every kernel of its path
+   plain fit's, the means'); the mini-batch black box and the
+   centralized minibatch fit within tests/test_kmeans.py:71's bound),
+   with every kernel of its path
    launched; then ``fit_profile``'s wall, device busy time and idle
    share of the sharded, mini-batch, int8, lloyd and minibatch fits.
 
@@ -416,10 +419,32 @@ def check_update_min_dist(ops, ref, x, w, c, d2, cv):
 FUSED_RTOL = 1e-5
 
 
-def check_fused(ops, ref, x, w, c, cv, repeat: bool = False):
+def plain_fused(ref, x, w, c, cv, rows: int):
+    """The plain Lloyd step and ``min_dist_ref`` over ``rows``-row chunks
+    of x: ((k, d) sums, (k,) counts and () cost, each the chunks' float32
+    sum, then (n,) d2 and argmin). A chunk's (rows, k) distance panel
+    fits the card where a whole (n, k) one may not."""
+    k, d = c.shape
+    sums = torch.zeros((k, d), device=x.device)
+    counts = torch.zeros(k, device=x.device)
+    cost = torch.zeros((), device=x.device)
+    d2s, idxs = [], []
+    for i in range(0, x.shape[0], rows):
+        xs, ws = x[i:i + rows], w[i:i + rows]
+        s_c, n_c, cost_c = ref.fused_assign_reduce_ref(xs, ws, c, cv)
+        sums, counts, cost = sums + s_c, counts + n_c, cost + cost_c
+        d2_c, idx_c = ref.min_dist_ref(xs, c, cv)
+        d2s.append(d2_c)
+        idxs.append(idx_c)
+    return sums, counts, cost, torch.cat(d2s), torch.cat(idxs)
+
+
+def check_fused(ops, ref, x, w, c, cv, repeat: bool = False,
+                plain_rows: int = 0):
     """The Lloyd step (one kernel at every k) against three references,
     element by element; ``repeat`` also checks that a second call gives
-    the same bits.
+    the same bits, ``plain_rows`` runs the plain version over chunks of
+    that many rows (``plain_fused``; all n rows at once when 0).
 
     1. Exact. The kernel walks the centers with min_dist's arithmetic, so
        its argmin (the wrapper's ``assign_out``) must equal
@@ -489,8 +514,8 @@ def check_fused(ops, ref, x, w, c, cv, repeat: bool = False):
     if cv is not None:
         check(float(n_k[~cv].abs().sum()) == 0.0,
               "fused_assign_reduce gave mass to an invalid center")
-    s_p, n_p, cost_p = ref.fused_assign_reduce_ref(x, w, c, cv)
-    d2_p, idx_p = ref.min_dist_ref(x, c, cv)
+    s_p, n_p, cost_p, d2_p, idx_p = plain_fused(ref, x, w, c, cv,
+                                                plain_rows or x.shape[0])
     moved = (idx_k != idx_p).nonzero().squeeze(1)
     slack_s = torch.zeros((k, d), dtype=torch.float64, device=x.device)
     slack_n = torch.zeros(k, dtype=torch.float64, device=x.device)
@@ -2214,9 +2239,10 @@ def knob_kernel_phase(ops, ref, rows, params_cls) -> None:
     """The kernels at the shapes the new paths give them: the sharded
     coordinator's flattened (m·cap_sharded, d) buffers at k = 25 (the
     seeding, the Lloyd step and min_dist, float32 as the buffers are) and
-    k = 1000 (the Lloyd step checked on one machine's 991,418 slots,
-    timed over all eight), and the mini-batch step's (1,024, d) batch
-    against k_plus and k centers."""
+    k = 1000 (the seeding's 1,111 steps and the Lloyd step over all
+    7,931,344 slots, its plain version over one machine's 991,418 at a
+    time), and the mini-batch step's (1,024, d) batch against k_plus and
+    k centers."""
     from repro_torch.core.soccer import derive_constants
     gen = torch.Generator("cuda").manual_seed(11)
     p = N_POINTS // MACHINES
@@ -2261,11 +2287,19 @@ def knob_kernel_phase(ops, ref, rows, params_cls) -> None:
                 shape=f"n={n} d={DIM} k={const.k_plus}", seeding_ms=sd,
                 step_us=sd * 1e3 / const.k_plus, step_bound_us=s_bnd * 1e3)
         else:
-            one = slice(0, const.cap_sharded)
-            errs, t_c, moved = check_fused(ops, ref, x[one], w[one], c, None)
-            print(f"check fused_assign_reduce {what}, one machine's "
-                  f"{const.cap_sharded} slots, f32: "
+            errs, t_c, moved = check_fused(ops, ref, x, w, c, None,
+                                           plain_rows=const.cap_sharded)
+            print(f"check fused_assign_reduce {what} f32 (plain version "
+                  f"over {const.cap_sharded}-row chunks): "
                   f"{fused_line(errs, t_c, moved)}", flush=True)
+            seed = torch.randint(0, 1 << 32, (2,), generator=gen,
+                                 device="cuda")
+            err, agree, checked = check_seeding(
+                ops, ref, x, w, const.k_plus, seed,
+                f"seeding {what} k_plus={const.k_plus}")
+            print(f"check seeding {what}: d2 err {err:.3g}; the plain step "
+                  f"drew the kernel's row at {agree} of {checked}",
+                  flush=True)
         time_fused(ops, ref, x, w, c, what, f"sharded_k{k}", rows)
         del x, w, c
         torch.cuda.empty_cache()
@@ -2282,6 +2316,31 @@ def knob_kernel_phase(ops, ref, rows, params_cls) -> None:
               f"{fused_line(errs, t_c, moved)}", flush=True)
         time_fused(ops, ref, xb, ones, c, "minibatch step",
                    f"minibatch_step_k{k}", rows)
+
+
+def central_kernel_phase(ops, ref, x, rows) -> None:
+    """The kernels at the shapes ``fit(algo="lloyd")`` and
+    ``fit(algo="minibatch")`` give them on the gathered union of Table 2
+    row 1's data (n = 10 M, unit weights, float32): the k = 25 seeding
+    over all n rows, and the Lloyd step (every Lloyd iteration, the
+    mini-batch fit's full-set cost) against the centers it drew."""
+    n, k = x.shape[0], 25
+    gen = torch.Generator("cuda").manual_seed(13)
+    xg = torch.from_numpy(x).cuda()
+    w = torch.ones(n, device="cuda")
+    seed = torch.randint(0, 1 << 32, (2,), generator=gen, device="cuda")
+    what = f"central n={n}"
+    err, agree, checked = check_seeding(ops, ref, xg, w, k, seed,
+                                        f"seeding {what} k={k}")
+    print(f"check seeding {what} k={k}: d2 err {err:.3g}; the plain step "
+          f"drew the kernel's row at {agree} of {checked}", flush=True)
+    c = xg[ops.kmeans_plusplus_indices(xg, w, k, seed)]
+    errs, t_c, moved = check_fused(ops, ref, xg, w, c, None, repeat=True)
+    print(f"check fused_assign_reduce {what} k={k} f32: "
+          f"{fused_line(errs, t_c, moved)}", flush=True)
+    time_fused(ops, ref, xg, w, c, "central", f"central_k{k}", rows)
+    del xg
+    torch.cuda.empty_cache()
 
 
 def knob_sync_phase(params_cls) -> None:
@@ -2383,15 +2442,8 @@ def knob_fit_phase(api, KERNELS, x, means, soc, soc_cost, per_fit) -> None:
             check(cost <= 3.0 * ref, f"lloyd: cost {cost} > 3x the means' "
                   f"{ref}")
         else:
-            # seeded on the first 16k rows, the mini-batch fit misses
-            # Zipf components at these proportions, as the reference's does
-            # (tests/test_torch_minibatch.py::
-            # test_minibatch_claim_at_the_smoke_proportions; ROADMAP
-            # Queue 3): printed, not asserted
-            print(f"minibatch at n={n}: cost / means' {cost / ref:.4f} "
-                  f"({MINIBATCH_CLAIM} bound {minibatch_bound(ref) / ref:.4f}"
-                  f"x: {'met' if cost < minibatch_bound(ref) else 'not met'})"
-                  , flush=True)
+            check(cost < minibatch_bound(ref), f"minibatch: cost {cost} >= "
+                  f"{MINIBATCH_CLAIM}'s bound {minibatch_bound(ref)}")
     # the uplink dtypes: bytes at the dtype's width; int8 codes = values
     fits = {}
     for dtype, wire in (("bfloat16", None), ("float16", None),
@@ -2556,6 +2608,7 @@ def main() -> None:
     repeat_phase(api)
     coreset_phase(api, ops.KERNELS, x, means, soc, soc_cost, per_fit)
     robust_phase(api, ops.KERNELS, x, means, per_fit)
+    central_kernel_phase(ops, ref, x, rows)
     knob_fit_phase(api, ops.KERNELS, x, means, soc, soc_cost, per_fit)
     del x, soc
     wide_phase(api, ops.KERNELS, per_fit)

@@ -27,7 +27,7 @@ from repro_torch.core.eim11 import run_eim11
 from repro_torch.core.kmeans import kmeans
 from repro_torch.core.kmeans_parallel import run_kmeans_parallel
 from repro_torch.core.minibatch import minibatch_kmeans
-from repro_torch.core.sampling import check_uplink_dtype, quantize_uplink
+from repro_torch.core.sampling import quantize_uplink
 from repro_torch.core.soccer import RUN_KNOBS, check_run_knobs, run_soccer
 from repro_torch.coresets.sensitivity import machine_data
 from repro_torch.device import DeviceLike, resolve_device
@@ -49,10 +49,6 @@ def _split_run_knobs(algo: str, params: dict, allowed: set) -> dict:
     run_knobs = {n: params.pop(n) for n in RUN_KNOBS if n in params}
     _reject_unknown(algo, params, allowed)
     return run_knobs
-
-
-def _uplink_dtype(run_knobs: dict) -> str:
-    return check_uplink_dtype(run_knobs.get("uplink_dtype") or "float32")
 
 
 @register_algorithm("soccer")
@@ -110,7 +106,7 @@ def fit_kmeans_parallel(x_parts, k: int, *, backend: str = "virtual",
     return ClusterResult(
         centers=res.centers, k=k, algo="kmeans_parallel", backend="virtual",
         rounds=res.rounds, uplink_points=up,
-        uplink_bytes=uplink_bytes(up, d, dtype=_uplink_dtype(run_knobs)),
+        uplink_bytes=uplink_bytes(up, d, dtype=res.uplink_dtype),
         wire_bytes=res.wire_payload[:len(up)],
         wire_meta_bytes=res.wire_meta[:len(up)],
         extra={"phi_hist": res.phi_hist, "oversampled": res.oversampled,
@@ -134,8 +130,7 @@ def fit_eim11(x_parts, k: int, *, backend: str = "virtual",
     return ClusterResult(
         centers=res.centers, k=k, algo="eim11", backend="virtual",
         rounds=res.rounds, uplink_points=np.asarray(res.uplink, np.int64),
-        uplink_bytes=uplink_bytes(res.uplink, d,
-                                  dtype=_uplink_dtype(run_knobs)),
+        uplink_bytes=uplink_bytes(res.uplink, d, dtype=res.uplink_dtype),
         n_hist=res.n_hist,
         wire_bytes=res.wire_payload, wire_meta_bytes=res.wire_meta,
         extra={"broadcast_points": res.broadcast_points, "raw": res})

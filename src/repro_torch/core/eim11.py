@@ -51,6 +51,7 @@ class EIM11Result:
         default_factory=lambda: np.zeros((0,), np.int64))
     wire_meta: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0,), np.int64))
+    uplink_dtype: str = "float32"  # as check_run_knobs resolved it
 
 
 def sample_sizes(m: int, p: int, k: int, epsilon: float, delta: float,
@@ -174,4 +175,5 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
         wire_payload=np.asarray([t.bytes_at(u) for t, u in
                                  zip(tallies, up_arr)], np.int64),
         wire_meta=np.asarray([t.meta_bytes_at(u) for t, u in
-                              zip(tallies, up_arr)], np.int64))
+                              zip(tallies, up_arr)], np.int64),
+        uplink_dtype=upload_dtype)

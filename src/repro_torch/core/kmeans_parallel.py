@@ -47,6 +47,7 @@ class KMeansParallelResult:
         default_factory=lambda: np.zeros((0,), np.int64))
     wire_meta: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0,), np.int64))
+    uplink_dtype: str = "float32"  # as check_run_knobs resolved it
 
 
 def buffer_rows(k: int, rounds: int, l: Optional[float] = None,
@@ -166,4 +167,5 @@ def run_kmeans_parallel(x_parts, k: int, rounds: int, *,
         centers=final.cpu().numpy(),
         oversampled=centers[valid].cpu().numpy(), rounds=rounds,
         phi_hist=phis.cpu().numpy(), selected_hist=nsels.cpu().numpy(),
-        wire_payload=wire_payload, wire_meta=wire_meta)
+        wire_payload=wire_payload, wire_meta=wire_meta,
+        uplink_dtype=upload_dtype)

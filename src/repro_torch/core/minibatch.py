@@ -10,7 +10,10 @@ The reference draws each batch with ``jax.random.categorical``. Here the
 CDF of w is built once with ``kernels.exact.exact_cumsum`` (a float
 ``torch.cumsum`` on the card changes from run to run) and each batch is
 one ``searchsorted`` of uniforms from the generator, so a fit on the card
-repeats bit for bit and no step reads anything back to the host.
+repeats bit for bit and no step reads anything back to the host. The CDF
+and the uniforms are float64: in float32 a uniform times a total of 10 M
+unit weights falls on a grid of spacing ~0.6, which draws some rows twice
+as often as others.
 """
 from __future__ import annotations
 
@@ -24,15 +27,16 @@ from repro_torch.kernels.exact import exact_cumsum
 
 
 def row_sampler(cdf: torch.Tensor):
-    """A draw of (batch,) row indices ∝ the weights whose inclusive prefix
-    sums are ``cdf``, with replacement: ``draw(gen, batch)``. A row of
-    weight 0 is never drawn (an index is clamped to the last row of
-    positive weight, found once here)."""
+    """A draw of (batch,) row indices ∝ the weights whose float64
+    inclusive prefix sums are ``cdf``, with replacement:
+    ``draw(gen, batch)``. A row of weight 0 is never drawn (an index is
+    clamped to the last row of positive weight, found once here)."""
     total = cdf[-1]
     last = torch.sum(cdf < total)
 
     def draw(gen: torch.Generator, batch: int) -> torch.Tensor:
-        u = torch.rand((batch,), generator=gen, device=cdf.device) * total
+        u = torch.rand((batch,), generator=gen, dtype=cdf.dtype,
+                       device=cdf.device) * total
         return torch.minimum(torch.searchsorted(cdf, u, right=True), last)
 
     return draw
@@ -49,7 +53,7 @@ def minibatch_kmeans(gen: torch.Generator, x: torch.Tensor, w: torch.Tensor,
     n = x.shape[0]
     m0 = min(n, 16 * k)
     c = kmeans_plusplus(gen, x[:m0], w[:m0], k)
-    draw = row_sampler(exact_cumsum(w.to(torch.float32)))
+    draw = row_sampler(exact_cumsum(w.to(torch.float32), torch.float64))
     ones = torch.ones((batch,), dtype=torch.float32, device=x.device)
     n_c = torch.zeros((k,), dtype=torch.float32, device=x.device)
     for _ in range(steps):

@@ -7,7 +7,8 @@ one can change between two runs of one seed. These take the sums in
 64-bit fixed point instead, as ``ref.fixed_point_reduce_ref`` does, with
 the shift found on the device (no host read): integer sums are exact in
 any order. Each term is rounded once to 2^-s, s the largest shift with
-n·max|v|·2^s < 2^62, and each sum once to float32. Finite inputs only.
+n·max|v|·2^s < 2^62, and each sum once to float32 (``exact_cumsum``
+may keep float64). Finite inputs only.
 """
 from __future__ import annotations
 
@@ -23,14 +24,16 @@ def _fixed_scale(vd: torch.Tensor) -> torch.Tensor:
                        s)
 
 
-def exact_cumsum(v: torch.Tensor) -> torch.Tensor:
-    """(n,) float32 inclusive prefix sums of the (n,) values ``v``."""
+def exact_cumsum(v: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(n,) inclusive prefix sums of the (n,) values ``v``, rounded once
+    to ``dtype`` (float64 keeps a row's share of a total past 2^24)."""
     vd = v.double()
     if vd.shape[0] == 0:
-        return vd.float()
+        return vd.to(dtype)
     scale = _fixed_scale(vd)
     q = torch.round(vd * scale).long()
-    return (torch.cumsum(q, 0).double() / scale).float()
+    return (torch.cumsum(q, 0).double() / scale).to(dtype)
 
 
 def exact_index_add(v: torch.Tensor, index: torch.Tensor,

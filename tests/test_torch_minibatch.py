@@ -72,7 +72,7 @@ def test_row_sampler_by_distribution():
     """Rows are drawn ∝ w with replacement (5 sigma per row); a row of
     weight 0 is never drawn, the trailing padding rows included."""
     w = torch.tensor([1.0, 0.0, 3.0, 2.0, 0.0, 4.0, 0.0, 0.0])
-    cdf = exact_cumsum(w)
+    cdf = exact_cumsum(w, torch.float64)
     draws = 40_000
     idx = row_sampler(cdf)(torch.Generator().manual_seed(0), draws)
     counts = torch.bincount(idx, minlength=8).double().numpy()
@@ -80,8 +80,28 @@ def test_row_sampler_by_distribution():
     assert counts[prob == 0].sum() == 0
     se = np.sqrt(draws * prob * (1 - prob))
     assert np.all(np.abs(counts - draws * prob) <= 5 * se + 1)
-    ones = exact_cumsum(torch.ones(3))
+    ones = exact_cumsum(torch.ones(3), torch.float64)
     assert row_sampler(ones)(torch.Generator().manual_seed(1), 10).max() <= 2
+
+
+def test_row_sampler_resolves_rows_past_2_24():
+    """A total of 2^26 over 2^20 rows, in pairs weighing (1, 127): the
+    light rows of each quarter of the rows take 1/512 of the draws (5
+    sigma). With float32 uniforms (a grid of total·2^-24 = 4) a light row
+    would hold one grid point of its pair's 32, 4x its share; with a
+    float32 CDF the light rows past 2^24 would round away."""
+    pairs = 2 ** 19
+    w = torch.tensor([1.0, 127.0]).repeat(pairs)
+    cdf = exact_cumsum(w, torch.float64)
+    assert cdf.dtype == torch.float64 and float(cdf[-1]) == 2.0 ** 26
+    assert torch.equal(cdf[1:] - cdf[:-1], w[1:].double())
+    draws = 200_000
+    idx = row_sampler(cdf)(torch.Generator().manual_seed(2), draws)
+    quarter = (idx // (pairs // 2))[idx % 2 == 0]
+    light = torch.bincount(quarter, minlength=4).numpy()
+    prob = 1.0 / 512
+    se = np.sqrt(draws * prob * (1 - prob))
+    assert np.all(np.abs(light - draws * prob) <= 5 * se), light
 
 
 def test_minibatch_narrow_payload():
@@ -225,23 +245,30 @@ def test_blackbox_minibatch_matches_reference(data, algo, kw):
     assert cost <= 4.0 * _cost(x, means) + 1.0
 
 
-def test_minibatch_claim_at_the_smoke_proportions():
+def test_minibatch_claim_at_the_smoke_proportions(capsys):
     """On the paper's Zipf mixture at k = 25 (the smoke's proportions at
     n = 20,000; short runs, since the seeding decides the outcome), a
     centralized mini-batch fit seeds on the first 16k rows and can miss
-    whole small components: tests/test_kmeans.py:71's bound fails for the
-    reference as for the port, at most of seeds 0-3 (ROADMAP Queue 3).
-    ``chip_smoke.py`` prints this ratio at n = 10 M and asserts the bound
-    on SOCCER's mini-batch black box, whose C_out keeps every round's
-    k_plus centers."""
+    whole small components, and tests/test_kmeans.py:71's bound with
+    them. The seeds where each package misses it are recorded (ROADMAP
+    Queue 3); the port misses it at no more of seeds 0-3 than the
+    reference does. ``chip_smoke.py`` asserts the bound at n = 10 M."""
     x, _, means = gaussian_mixture(GaussianMixtureSpec(
         n=20_000, dim=15, k=25, sigma=0.001, zipf_gamma=1.5, seed=17))
-    bound = 4.0 * _cost(x, means) + 1.0
+    full = _cost(x, means)
+    bound = 4.0 * full + 1.0
     kw = dict(algo="minibatch", m=M, batch=128, steps=10)
-    missed = {"port": 0, "reference": 0}
+    missed = {"port": [], "reference": []}
     for seed in range(4):
         res = api.fit(x, 25, seed=seed, device="cpu", **kw)
         jres = jfit(x, 25, backend="virtual", seed=seed, **kw)
-        missed["port"] += _cost(x, res.centers) >= bound
-        missed["reference"] += float(jres.cost(jnp.asarray(x))) >= bound
-    assert missed["port"] >= 2 and missed["reference"] >= 2, missed
+        assert res.rounds == 1 and res.uplink_points.tolist() == [20_000]
+        assert np.isfinite(res.centers).all()
+        for who, cost in (("port", _cost(x, res.centers)),
+                          ("reference", float(jres.cost(jnp.asarray(x))))):
+            if cost >= bound:
+                missed[who].append((seed, round(cost / full, 2)))
+    with capsys.disabled():
+        print(f"\nminibatch at the smoke's proportions, the seeds (and cost "
+              f"/ means' cost) missing {bound / full:.2f}x: {missed}")
+    assert len(missed["port"]) <= len(missed["reference"]), missed

@@ -132,7 +132,37 @@ PyTorch built for CUDA. It
    centralized minibatch fit within tests/test_kmeans.py:71's bound),
    with every kernel of its path
    launched; then ``fit_profile``'s wall, device busy time and idle
-   share of the sharded, mini-batch, int8, lloyd and minibatch fits.
+   share of the sharded, mini-batch, int8, lloyd and minibatch fits;
+13. runs the telemetry (``fit(trace=...)``): SOCCER at Table 2 row 1
+   with ``trace="rounds"`` equal to the untraced fit bit for bit
+   (centers, rounds, n_hist, uplink and wire bytes); the k-means‖,
+   EIM11, coreset_kmeans, kzmeans, lloyd, minibatch and SOCCER sharded
+   and mini-batch fits above traced, each record of the pinned
+   14-field schema and the records' wire bytes summing exactly to the
+   fit's (where such a fit is repeated, the untraced repeat equals it bit
+   for bit); one ``trace="full"`` fit whose spans appear as
+   ``torch.profiler`` ranges; the sync check's round inside such a
+   trace; and the trace's overhead on ``run_soccer`` at Table 2 row 1
+   with the shards on the card, median of alternating plain/traced
+   pairs within 2%, printed beside the card's name and power limit;
+14. runs the stream at the paper's widths: ``drifting_mixture`` of 9
+   batches of 1.25 M points in R^15 (k = 25, m = 8, a birth at step 5),
+   a SOCCER bootstrap on batch 0, then 8 times ``serve_assign`` of the
+   new batch against the current snapshot and ``fit_update``
+   (refine_iters = 4, drift_tol = 2.0); holds min_dist over a whole
+   1.25 M x 25 batch, the bucket compress's 25-step seeding and
+   sensitivity_scores over one machine's 262,144-row padded bucket, and
+   the refine's Lloyd step over the flattened tree against their plain
+   versions; checks the drift trigger's rule on every update,
+   m·k·refine_iters uplink rows on every update without a re-cluster,
+   a re-cluster on an injected shift, none on a stationary control, and
+   that the stream checkpointed at update 4 and resumed in a fresh
+   process ends with the same centers bit for bit; runs
+   ``run_stream_suite`` (update_c1, update_c4, full_c1) against the
+   reference's acceptance; prints each update's wall, the compress's
+   device ms, the serve chunk latency at p50 and p99, resident rows and
+   epsilon_bound; and
+15. runs ``repro_torch.api.selfcheck`` on the card.
 
 Every kernel time is printed with the host's own microseconds a call
 beside the device's (``timed_ms``).
@@ -146,6 +176,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1672,9 +1703,12 @@ def seeding_phase(ops, ref, rows) -> None:
 
 def sync_phase(params_cls) -> None:
     """One SOCCER round on 1 M points under CUDA's sync debug mode set to
-    "error": any device->host synchronization inside the round raises."""
+    "error", with a trace="full", annotate=True trace active: any
+    device->host synchronization inside the round raises, and a read back
+    in the same block is shown to."""
     from repro_torch.core import soccer
     from repro_torch.core.comm import VirtualCluster
+    from repro_torch.obs import trace as obs_trace
     n = 1_000_000
     gen = torch.Generator("cuda").manual_seed(1)
     parts = torch.rand((MACHINES, n // MACHINES, DIM), generator=gen,
@@ -1683,14 +1717,31 @@ def sync_phase(params_cls) -> None:
                                     params_cls(k=25, epsilon=0.05))
     state = soccer.init_state(parts, const, gen)
     torch.cuda.synchronize()
+    rt = obs_trace.RunTrace("full", annotate=True)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state = soccer.soccer_round(state, VirtualCluster(MACHINES), const)
+        with obs_trace.run_trace(rt):
+            state = soccer.soccer_round(state, VirtualCluster(MACHINES),
+                                        const)
+            # the control: a read back inside the same traced block does
+            # raise, so the mode is watching
+            try:
+                int(state.n_remaining)
+                watched = False
+            except RuntimeError:
+                watched = True
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print(f"sync: one soccer_round at n={n} ran with no host sync; "
-          f"n_remaining={int(state.n_remaining)}", flush=True)
+    check(watched, "sync: a read back under sync debug mode 'error' did not "
+                   "raise")
+    spans = [s["name"] for s in rt.spans]
+    check("soccer.removal" in spans, f"sync: the traced round recorded "
+                                     f"spans {spans}")
+    print(f"sync: one soccer_round at n={n} ran with no host sync, inside a "
+          f"trace='full', annotate=True trace (spans {spans}; a read back "
+          f"there raised); n_remaining={int(state.n_remaining)}",
+          flush=True)
 
 
 def tier_sync_phase(params_cls) -> None:
@@ -1786,21 +1837,27 @@ def run_fit(api, KERNELS, x, k, algo, expect, **kw):
           f"fit {algo} k={k}: centers not finite (c, d)")
     check(int(np.sum(res.wire_bytes) + np.sum(res.wire_meta_bytes))
           == res.wire_bytes_total, f"fit {algo}: wire bytes do not sum")
+    if "trace" in res.extra:
+        check_trace(res, f"fit {algo} k={k} n={x.shape[0]}")
     return res, wall, counts
 
 
 def check_repeat(api, x, k, algo, first, what, **kw) -> None:
-    """A second fit of ``first``'s algorithm, data and seed in this
-    process: the same centers and cost, bit for bit (ROADMAP Queue 3's
-    run-to-run fault)."""
+    """A second, untraced fit of ``first``'s algorithm, data and seed in
+    this process: the same centers, cost, rounds, n_hist, uplink and wire
+    bytes, bit for bit (ROADMAP Queue 3's run-to-run fault; where
+    ``first`` was traced, also a traced fit equal to an untraced one)."""
     again = api.fit(x, k, algo=algo, m=MACHINES, seed=0, **kw)
     same = (again.centers.shape == first.centers.shape
             and np.array_equal(again.centers, first.centers))
     c1, c2 = cost_of(x, first.centers), cost_of(x, again.centers)
-    print(f"repeat {what}: centers {'same bits' if same else 'DIFFER'}, "
-          f"cost {c1!r} / {c2!r}", flush=True)
+    traced = "trace" in first.extra
+    print(f"repeat {what}{' (first traced, second not)' if traced else ''}"
+          f": centers {'same bits' if same else 'DIFFER'}, cost {c1!r} / "
+          f"{c2!r}", flush=True)
     check(same and c1 == c2, f"repeat {what}: a second fit at the same seed "
           f"gave other centers or cost")
+    check_same_fit(first, again, f"repeat {what}")
 
 
 def repeat_phase(api) -> None:
@@ -1811,7 +1868,9 @@ def repeat_phase(api) -> None:
     for algo, kw in (("soccer", dict(epsilon=0.05, delta=0.1)),
                      ("kmeans_parallel", dict(rounds=5)),
                      ("eim11", dict(epsilon=0.1, delta=0.1))):
-        first = api.fit(x, 25, algo=algo, m=MACHINES, seed=0, **kw)
+        first = api.fit(x, 25, algo=algo, m=MACHINES, seed=0,
+                        trace="rounds", **kw)
+        check_trace(first, f"{algo} n={REPEAT_N} k=25")
         check_repeat(api, x, 25, algo, first, f"{algo} n={REPEAT_N} k=25",
                      **kw)
 
@@ -1860,7 +1919,7 @@ def table2_phase(api, KERNELS, k, eps, per_fit):
     _, cap, rows = buffer_rows(k, rounds)
     expect = KMPAR_KERNELS
     kres, kwall, kcounts = run_fit(api, KERNELS, x, k, "kmeans_parallel",
-                                   expect, rounds=rounds)
+                                   expect, rounds=rounds, trace="rounds")
     per_fit[f"kmeans_parallel_k{k}"] = kcounts
     over = kres.extra["oversampled"].shape[0]
     kcost = cost_of(x, kres.centers)
@@ -1883,7 +1942,8 @@ def eim11_phase(api, KERNELS, per_fit):
     ref = cost_of(x, means)
     soc, _, _ = run_fit(api, KERNELS, x, k, "soccer", SOCCER_KERNELS,
                         epsilon=0.1, delta=0.1)
-    res, wall, counts = run_fit(api, KERNELS, x, k, "eim11", EIM11_KERNELS)
+    res, wall, counts = run_fit(api, KERNELS, x, k, "eim11", EIM11_KERNELS,
+                                trace="rounds")
     per_fit[f"eim11_k{k}"] = counts
     s, rows = sample_sizes(MACHINES, n // MACHINES, k, 0.1, 0.1, 12)
     cost = cost_of(x, res.centers)
@@ -2008,7 +2068,8 @@ def coreset_phase(api, KERNELS, x, means, soc, soc_cost, per_fit) -> None:
     k = 25
     ref = cost_of(x, means)
     res, wall, counts = run_fit(api, KERNELS, x, k, "coreset_kmeans",
-                                CORESET_KERNELS, coreset_size=CORESET_BUDGET)
+                                CORESET_KERNELS, coreset_size=CORESET_BUDGET,
+                                trace="rounds")
     per_fit[f"coreset_kmeans_k{k}"] = counts
     cost = cost_of(x, res.centers)
     rows_pm = CORESET_BUDGET // MACHINES
@@ -2064,7 +2125,7 @@ def robust_phase(api, KERNELS, x, means, per_fit) -> None:
     for frac in (0.0, OUTLIER_FRAC):
         res, wall, counts = run_fit(api, KERNELS, xc, k, "kzmeans",
                                     KZMEANS_KERNELS, outlier_frac=frac,
-                                    coreset_size=KZ_BUDGET)
+                                    coreset_size=KZ_BUDGET, trace="rounds")
         per_fit[f"kzmeans_frac{frac}_k{k}"] = counts
         inl = cost_of(x, res.centers)
         e = res.extra
@@ -2410,7 +2471,8 @@ def knob_fit_phase(api, KERNELS, x, means, soc, soc_cost, per_fit) -> None:
                      dict(sharded_threshold="topk",
                           sharded_seeding="kmeanspar"))):
         res, cost = fit(key, "soccer", SOCCER_KERNELS,
-                        sharded_coordinator=True, **paper, **kw)
+                        sharded_coordinator=True, trace="rounds", **paper,
+                        **kw)
         check_soccer_structure(res, k, key)
         check(cost <= 1.5 * soc_cost + 0.1 * ref,
               f"{key}: cost {cost} > 1.5x the gather fit's {soc_cost} + "
@@ -2424,7 +2486,7 @@ def knob_fit_phase(api, KERNELS, x, means, soc, soc_cost, per_fit) -> None:
                          f"k={k}", sharded_coordinator=True, **paper)
     # the mini-batch black box: tests/test_kmeans.py:71's bound
     res, cost = fit("soccer_minibatch_k25", "soccer", SOCCER_KERNELS,
-                    blackbox="minibatch", **paper)
+                    blackbox="minibatch", trace="rounds", **paper)
     check_soccer_structure(res, k, "soccer blackbox=minibatch")
     check(cost < minibatch_bound(ref), f"soccer blackbox=minibatch: cost "
           f"{cost} >= {MINIBATCH_CLAIM}'s bound {minibatch_bound(ref)}")
@@ -2432,7 +2494,8 @@ def knob_fit_phase(api, KERNELS, x, means, soc, soc_cost, per_fit) -> None:
                  f"n={n} k={k}", blackbox="minibatch", **paper)
     # the centralized baselines: one gather of all n rows
     for algo in ("lloyd", "minibatch"):
-        res, cost = fit(f"{algo}_k{k}", algo, CENTRAL_KERNELS)
+        res, cost = fit(f"{algo}_k{k}", algo, CENTRAL_KERNELS,
+                        trace="rounds")
         check(res.rounds == 1 and res.uplink_points.tolist() == [n],
               f"{algo}: rounds {res.rounds}, uplink {res.uplink_points}")
         check(res.wire_bytes.tolist() == [n * DIM * 4]
@@ -2561,6 +2624,460 @@ def knob_profile_phase() -> None:
               f"{prof['device_idle_share']:.3f}", flush=True)
 
 
+# ------------------------------------------------------ telemetry (PR 20)
+
+# the smoke's traced fits: records of each follow obs.trace.ROUND_SCHEMA
+# and sum exactly to the fit's wire bytes
+OVERHEAD_PAIRS = 21           # plain/traced pairs of the overhead gate
+OVERHEAD_REPS = 8             # runs a block; a block's time is its fastest
+OVERHEAD_LIMIT = 0.02         # benchmarks/check_regression.py's 2% gate
+
+
+def check_trace(res, what: str) -> None:
+    """A traced fit's records: the pinned schema (names, order, types),
+    one record a round (+ the finalize) or one upload record, and their
+    wire bytes summing exactly to the fit's total."""
+    from repro_torch.obs.trace import ROUND_FIELDS, ROUND_SCHEMA
+    t = res.extra["trace"]
+    recs = t["records"]
+    types = dict(ROUND_SCHEMA)
+    for r in recs:
+        check(tuple(r) == ROUND_FIELDS, f"{what}: a record's fields are "
+              f"{tuple(r)}, not the schema's")
+        bad = [f for f, v in r.items()
+               if v is not None and type(v) is not types[f]]
+        check(not bad, f"{what}: fields {bad} off their schema types")
+    phases = [r["phase"] for r in recs]
+    if phases == ["upload"]:
+        check(res.rounds == 1, f"{what}: an upload record, {res.rounds} "
+              f"rounds")
+    elif phases and phases[-1] == "finalize":
+        check(phases == ["round"] * res.rounds + ["finalize"],
+              f"{what}: phases {phases} for {res.rounds} rounds")
+    else:
+        check(phases == ["round"] * res.rounds,
+              f"{what}: phases {phases} for {res.rounds} rounds")
+    wire = sum(r["wire_payload_bytes"] + r["wire_meta_bytes"] for r in recs)
+    check(wire == res.wire_bytes_total, f"{what}: the records' wire bytes "
+          f"{wire} != wire_bytes_total {res.wire_bytes_total}")
+    check(all(r["wall_s"] is not None and r["wall_s"] >= 0 for r in recs),
+          f"{what}: a record without a wall")
+    print(f"trace {what}: {len(recs)} records ({'/'.join(phases)}), "
+          f"stop_reason={t['stop_reason']} rounds_to_margin="
+          f"{t['rounds_to_margin']}, wire {wire} B = wire_bytes_total, "
+          f"walls {[round(r['wall_s'], 4) for r in recs]} s, builds "
+          f"{t['compile_s']:.2f} s", flush=True)
+
+
+def check_same_fit(a, b, what: str) -> None:
+    """Two fits' centers, rounds, n_hist, uplink and wire bytes, bit for
+    bit."""
+    same = (a.centers.shape == b.centers.shape
+            and np.array_equal(a.centers, b.centers)
+            and a.rounds == b.rounds
+            and np.array_equal(a.uplink_points, b.uplink_points))
+    for f in ("n_hist", "wire_bytes", "wire_meta_bytes"):
+        x, y = getattr(a, f), getattr(b, f)
+        same = same and ((x is None and y is None)
+                         or (x is not None and y is not None
+                             and np.array_equal(x, y)))
+    check(same, f"{what}: the two fits differ (centers, rounds, n_hist, "
+          f"uplink or wire bytes)")
+
+
+def trace_phase(api, KERNELS, x, soc, per_fit) -> None:
+    """SOCCER at Table 2 row 1 with trace="rounds" against the untraced
+    fit ``soc`` of table2_phase (same data and seed), bit for bit; one
+    trace="full" fit at 1 M points (its spans annotated) whose spans
+    appear as torch.profiler ranges."""
+    res, wall, counts = run_fit(api, KERNELS, x, 25, "soccer",
+                                SOCCER_KERNELS, epsilon=0.05, delta=0.1,
+                                trace="rounds")
+    per_fit["soccer_traced_k25"] = counts
+    check_same_fit(res, soc, "soccer traced vs untraced, Table 2 row 1")
+    t = res.extra["trace"]
+    check(t["meta"]["eta"] == soc.extra["const"].eta, "trace meta eta")
+    print(f"trace soccer k=25 n={x.shape[0]}: traced = untraced bit for "
+          f"bit (centers, rounds={res.rounds}, n_hist="
+          f"{res.n_hist.tolist()}, wire bytes); fit wall {wall:.3f} s",
+          flush=True)
+    from repro_torch.obs.report import format_summary
+    print(format_summary(t), flush=True)
+
+    xs, _ = mixture(REPEAT_N, 25)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        full = api.fit(xs, 25, m=MACHINES, seed=0, epsilon=0.05, delta=0.1,
+                       trace="full")
+    check_trace(full, f"soccer trace=full n={REPEAT_N}")
+    spans = {s["name"] for s in full.extra["trace"]["spans"]}
+    seen = {e.key for e in prof.key_averages()}
+    check({"soccer.round", "soccer.finalize", "soccer.removal"} <= spans,
+          f"trace=full recorded spans {sorted(spans)}")
+    check(spans <= seen, f"spans missing from torch.profiler: "
+          f"{sorted(spans - seen)}")
+    print(f"trace full n={REPEAT_N} (spans annotated): spans "
+          f"{sorted(spans)} all appear as torch.profiler ranges", flush=True)
+
+
+def overhead_phase(x, smi: str) -> None:
+    """The trace's overhead on SOCCER's host driver at Table 2 row 1, the
+    shards already on the card (no shard placement in the time):
+    OVERHEAD_PAIRS pairs of a plain and a traced block of OVERHEAD_REPS
+    back-to-back runs, in alternating order. A run takes ~15 ms, and
+    single runs spread by tens of percent on this shared host, upward
+    only (preemption, clock ramps), so a block's time is its fastest
+    run; the median of the pairs' traced-over-plain deltas must be within
+    OVERHEAD_LIMIT. The same delta over the blocks' medians is printed
+    beside it. ``x`` is the row's data, placed as ``fit`` places it."""
+    from repro_torch.configs.soccer_paper import SoccerParams
+    from repro_torch.core.soccer import run_soccer
+    from repro_torch.data.sharding import make_shards
+    from repro_torch.obs import trace as obs_trace
+    parts, _, _ = make_shards(x, None, MACHINES, seed=0)
+    parts = torch.from_numpy(parts).cuda()
+    params = SoccerParams(k=25, epsilon=0.05, delta=0.1, seed=0)
+
+    def block(traced: bool):
+        walls = []
+        for _ in range(OVERHEAD_REPS):
+            torch.cuda.synchronize()
+            t0 = obs_trace.clock()
+            if traced:
+                with obs_trace.run_trace(obs_trace.RunTrace("rounds")):
+                    run_soccer(parts, params, device=parts.device)
+            else:
+                run_soccer(parts, params, device=parts.device)
+            walls.append(obs_trace.clock() - t0)
+        return min(walls), float(np.median(walls))
+
+    block(False)
+    block(True)                               # warm both paths
+    best, mid = [], []                        # (plain, traced) a pair
+    for i in range(OVERHEAD_PAIRS):
+        order = (False, True) if i % 2 == 0 else (True, False)
+        t = {flag: block(flag) for flag in order}
+        best.append((t[False][0], t[True][0]))
+        mid.append((t[False][1], t[True][1]))
+    deltas = [b / a - 1.0 for a, b in best]
+    med = float(np.median(deltas))
+    med_mid = float(np.median([b / a - 1.0 for a, b in mid]))
+    print(f"trace overhead on run_soccer, Table 2 row 1, shards on the "
+          f"card, {OVERHEAD_PAIRS} pairs alternating, blocks of "
+          f"{OVERHEAD_REPS} runs: median delta of the blocks' fastest runs "
+          f"{100 * med:+.3f}% (limit {100 * OVERHEAD_LIMIT:.0f}%), of their "
+          f"medians {100 * med_mid:+.3f}%; plain fastest "
+          f"{1e3 * min(a for a, _ in best):.3f} ms, traced fastest "
+          f"{1e3 * min(b for _, b in best):.3f} ms, plain median "
+          f"{1e3 * float(np.median([a for a, _ in mid])):.3f} ms, traced "
+          f"median {1e3 * float(np.median([b for _, b in mid])):.3f} ms; "
+          f"deltas {[round(100 * d, 3) for d in deltas]} %; card {smi}",
+          flush=True)
+    check(med <= OVERHEAD_LIMIT, f"trace overhead {100 * med:.3f}% > "
+          f"{100 * OVERHEAD_LIMIT:.0f}%")
+    del parts
+
+
+# ------------------------------------------------------- streaming (PR 20)
+
+# the stream: drifting_mixture at the paper's widths (d = 15, k = 25, 8
+# machines), 1.25 M points a batch (156,250 a machine, padded to 262,144)
+STREAM = dict(steps=9, n_per_step=1_250_000, k=25, dim=DIM, drift=0.04,
+              sigma=0.02, birth_step=5, seed=53)
+STREAM_CONTROL = dict(STREAM, steps=5, drift=0.0, birth_step=None)
+STREAM_UPDATE = dict(refine_iters=4, drift_tol=2.0)
+STREAM_SAVE_AT = 4            # updates before the checkpoint
+STREAM_KERNELS = ("min_dist", "update_min_dist", "sensitivity_scores",
+                  "fused_assign_reduce")
+STREAM_SUITE_LIMITS = dict(cost_vs_full=1.1, uplink_frac_of_full=0.25)
+
+
+def stream_batches(spec):
+    from repro_torch.data.synthetic import drifting_mixture
+    batches, _ = drifting_mixture(**spec)
+    return batches
+
+
+def stream_updates(api, res, batches, what: str, samples=None, first=1,
+                   **kw):
+    """Serve each batch against the current snapshot, then fit_update on
+    it (updates ``first``, ``first + 1``, ...); returns the last result and
+    one line of numbers an update."""
+    from repro_torch.streaming import serve_assign, snapshot
+    lines = []
+    for i, xb in enumerate(batches, start=first - 1):
+        n0 = len(samples) if samples is not None else 0
+        snap = snapshot(res)
+        assign, d2, version = serve_assign(snap, xb)
+        check(version == snap.version and assign.shape == (xb.shape[0],)
+              and np.isfinite(d2).all(), f"{what}: serve_assign")
+        ref_cost = (res.extra["stream"].ref_cost if "stream" in res.extra
+                     else float("nan"))
+        res = api.fit_update(res, xb, m=MACHINES, **{**STREAM_UPDATE, **kw})
+        e = res.extra
+        lines.append(dict(
+            update=i + 1, wall_s=res.wall_time_s, ref_cost=ref_cost,
+            reclustered=e["reclustered"], uplink=int(res.uplink_points[-1]),
+            resident_rows=e["resident_rows"],
+            epsilon_bound=e["epsilon_bound"],
+            cost_per_weight=e["cost_per_weight"], version=e["version"],
+            serve_chunks=(len(samples) - n0) if samples is not None
+            else None))
+    return res, lines
+
+
+def stream_resume_main(ckdir: str, out: str) -> None:
+    """``python3 chip_smoke.py --stream-resume DIR OUT``: in a fresh
+    process, restore the stream saved at update STREAM_SAVE_AT, replay
+    the rest of the stream and write the final centers to OUT (.npy)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import api
+    from repro_torch.api.result import ClusterResult
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.streaming import restore_stream
+    state = restore_stream(Checkpointer(ckdir, use_async=False))
+    res = ClusterResult(centers=state.centers, k=state.k, algo="stream",
+                        backend="virtual", rounds=state.n_reclusters,
+                        uplink_points=np.zeros(1), uplink_bytes=np.zeros(1),
+                        extra={"stream": state})
+    batches = stream_batches(STREAM)[1 + STREAM_SAVE_AT:]
+    res, _ = stream_updates(api, res, batches, "resumed stream",
+                            first=1 + STREAM_SAVE_AT)
+    np.save(out, res.centers)
+
+
+def stream_kernel_phase(ops, ref, rows, batch, centers, tree) -> float:
+    """The stream path's kernels against their plain versions at its
+    shapes: min_dist over a whole 1.25 M x 25 batch (serve_assign's and
+    the refine's cost), the bucket compress's 25-step seeding and
+    sensitivity_scores over one machine's 262,144-row padded bucket, and
+    the refine's Lloyd step over the flattened tree; times each, and one
+    whole batch's compress (8 machines), whose device ms it returns."""
+    from repro_torch.core.kmeans import kmeans_plusplus
+    from repro_torch.streaming.tree import _compress, machine_generators
+    from repro_torch.streaming.update import _shard_stream_batch
+    xb = torch.from_numpy(batch).cuda()
+    c = torch.as_tensor(centers, device="cuda")
+    err, tol = check_min_dist(ops, ref, xb, c, None)
+    ms = timed_ms(lambda: ops.min_dist(xb, c), reps=10)
+    bnd, by = min_dist_bound(*xb.shape, c.shape[0])
+    print(f"stream min_dist {tuple(xb.shape)} x {c.shape[0]}: err {err:.3g} "
+          f"(tol {tol:.3g}); {ms:.4f} ms ({host_note(ms)}), bound "
+          f"{bnd:.4f} ms ({by})", flush=True)
+    rows["min_dist"]["stream_batch"] = dict(
+        shape=f"n={xb.shape[0]} d={DIM} k={c.shape[0]}", ms=ms,
+        host_us=ms.host_us, bound_ms=bnd, bound_by=by, max_abs_err=err)
+    del xb
+
+    xs, ws = _shard_stream_batch(batch, None, MACHINES, "cuda")
+    x0, w0 = xs[0], ws[0]            # 262,144 rows: stream_bucket(156,250)
+    kb = STREAM["k"]
+    seed = torch.tensor([53, 7], dtype=torch.int64, device="cuda")
+    s_err, agreed, drawn = check_seeding(ops, ref, x0, w0, kb, seed,
+                                         "stream bucket seeding")
+    cb = kmeans_plusplus(torch.Generator("cuda").manual_seed(3), x0, w0, kb)
+    e_s, tol_s, moved_s = check_sensitivity(ops, ref, x0, w0, cb, None)
+    ms_s = timed_ms(lambda: ops.sensitivity_scores(x0, w0, cb), reps=10)
+    plain_s = timed_ms(lambda: ref.sensitivity_scores_ref(x0, w0, cb),
+                       reps=3)
+    print(f"stream sensitivity_scores {tuple(x0.shape)} x {kb}: err "
+          f"{e_s:.3g} (tol {tol_s:.3g}, moved {moved_s}); {ms_s:.4f} ms "
+          f"({host_note(ms_s)}), plain {plain_s:.4f} ms; seeding d2 err "
+          f"{s_err:.3g}, plain step drew the kernel's row at {agreed} of "
+          f"{drawn}", flush=True)
+    rows["sensitivity_scores"]["stream_bucket"] = dict(
+        shape=f"n={x0.shape[0]} d={DIM} k={kb}", ms=ms_s,
+        host_us=ms_s.host_us, plain_ms=plain_s, max_abs_err=e_s)
+    t = 128
+    gens = machine_generators(1, 0, MACHINES, "cuda")
+    comp = timed_ms(lambda: _compress(gens, xs, ws, t, kb), reps=3)
+    print(f"stream compress of one batch ({MACHINES} x {x0.shape[0]} x "
+          f"{DIM} -> {MACHINES} x {t}, kb={kb}): {comp:.4f} ms of device "
+          f"time ({host_note(comp)})", flush=True)
+    rows["sensitivity_scores"]["stream_compress"] = dict(
+        device_ms=comp, host_us=comp.host_us)
+    del xs, ws
+
+    pts, wts = tree
+    m, width, d = pts.shape
+    xt, wt = pts.reshape(m * width, d), wts.reshape(-1)
+    errs, t_c, moved = check_fused(ops, ref, xt, wt, c, None, repeat=True)
+    print(f"stream refine Lloyd step over the flattened tree "
+          f"{tuple(xt.shape)} x {c.shape[0]}: {fused_line(errs, t_c, moved)}",
+          flush=True)
+    time_fused(ops, ref, xt, wt, c, "stream refine", "stream_tree", rows)
+    return comp
+
+
+def stream_phase(api, KERNELS, ops, ref, rows, per_fit) -> None:
+    """The streaming path at the paper's widths: a SOCCER bootstrap on
+    batch 0, then 8 times serve_assign + fit_update; the kernels at the
+    stream's shapes; the drift trigger on the birth and on a stationary
+    control; a checkpoint at update STREAM_SAVE_AT resumed in a fresh
+    process, bit for bit; and run_stream_suite's acceptance."""
+    import tempfile
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.streaming import (StreamPolicy, flatten_tree,
+                                       run_stream_suite, save_stream, serve)
+    t_phase = time.perf_counter()
+    batches = stream_batches(STREAM)
+    k = STREAM["k"]
+    boot, wall, counts = run_fit(api, KERNELS, batches[0], k, "soccer",
+                                 SOCCER_KERNELS, epsilon=0.05, delta=0.1)
+    per_fit["stream_bootstrap_k25"] = counts
+    print(f"stream bootstrap: SOCCER on batch 0 ({batches[0].shape[0]} "
+          f"points), rounds={boot.rounds}, wall {wall:.3f} s", flush=True)
+
+    # record every serve chunk's latency beside the registry's histogram
+    samples = []
+    observe = serve.SERVE_LATENCY.observe
+    serve.SERVE_LATENCY.observe = lambda v: (samples.append(v), observe(v))
+    torch.cuda.synchronize()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    res, lines = stream_updates(api, boot, batches[1:1 + STREAM_SAVE_AT],
+                                "stream", samples)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="stream_ck_",
+                             dir=os.path.join(ROOT, "build"))
+    save_stream(Checkpointer(ckdir, use_async=False), STREAM_SAVE_AT,
+                res.extra["stream"])
+    res, more = stream_updates(api, res, batches[1 + STREAM_SAVE_AT:],
+                               "stream", samples, first=1 + STREAM_SAVE_AT)
+    lines += more
+    torch.cuda.synchronize()
+    counts = {name: kern.launches for name, kern in KERNELS.items()}
+    serve.SERVE_LATENCY.observe = observe
+    per_fit["stream_updates_k25"] = counts
+    missing = [n for n in STREAM_KERNELS if counts[n] == 0]
+    check(not missing, f"stream: kernels of its path not launched: "
+          f"{missing} ({counts})")
+    for ln in lines:
+        print(f"stream update {ln['update']}: wall {ln['wall_s']:.3f} s, "
+              f"reclustered={ln['reclustered']} uplink={ln['uplink']} rows, "
+              f"resident_rows={ln['resident_rows']} epsilon_bound="
+              f"{ln['epsilon_bound']:.4f} cost/weight="
+              f"{ln['cost_per_weight']:.6g} version={ln['version']} serve "
+              f"chunks={ln['serve_chunks']}", flush=True)
+    lat = np.asarray(samples)
+    print(f"stream serve: {lat.size} chunks of {serve.SERVE_BATCH} rows, "
+          f"latency p50 {np.percentile(lat, 50):.4f} ms, p99 "
+          f"{np.percentile(lat, 99):.4f} ms, max {lat.max():.4f} ms; "
+          f"launches over the 8 updates {counts}", flush=True)
+    rows["min_dist"]["stream_serve_chunk"] = dict(
+        p50_ms=float(np.percentile(lat, 50)),
+        p99_ms=float(np.percentile(lat, 99)), chunks=int(lat.size))
+    # the drift trigger: an update re-clusters iff its refined per-weight
+    # tree cost exceeds drift_tol x the reference (none on the first)
+    tol = STREAM_UPDATE["drift_tol"]
+    ratios = [ln["cost_per_weight"] / ln["ref_cost"]
+              for ln in lines if not ln["reclustered"]
+              and np.isfinite(ln["ref_cost"])]
+    check(all(r <= tol for r in ratios), f"stream: an update past "
+          f"drift_tol did not re-cluster: ratios {ratios}")
+    fired = [ln["update"] for ln in lines if ln["reclustered"]]
+    print(f"stream drift trigger (drift_tol {tol}): re-clustered at "
+          f"updates {fired}; the other updates' cost / reference "
+          f"{[round(r, 4) for r in ratios]}; the birth is at update "
+          f"{STREAM['birth_step']}", flush=True)
+    refine_rows = MACHINES * k * STREAM_UPDATE["refine_iters"]
+    quiet = [ln for ln in lines if not ln["reclustered"]]
+    check(quiet and all(ln["uplink"] == refine_rows for ln in quiet),
+          f"stream: a refine-only update uploaded other than m*k*iters = "
+          f"{refine_rows} rows: {[ln['uplink'] for ln in quiet]}")
+    for ln in lines:
+        check(ln["resident_rows"] <= 128 * (int(np.log2(ln["update"])) + 1),
+              f"stream: resident rows {ln['resident_rows']} beyond "
+              f"t(log2 B + 1)")
+
+    state = res.extra["stream"]
+    tree = flatten_tree(state.levels, state.occupied, state.m, state.t, DIM,
+                        state.device)
+    comp = stream_kernel_phase(ops, ref, rows, batches[-1], res.centers, tree)
+    del tree
+
+    out = os.path.join(ckdir, "resumed.npy")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--stream-resume", ckdir, out], check=True)
+    resumed = np.load(out)
+    check(np.array_equal(resumed, res.centers),
+          "stream: the stream resumed in a fresh process from the "
+          "checkpoint ends with other centers")
+    print(f"stream resume: saved at update {STREAM_SAVE_AT}, restored in a "
+          f"fresh process, replayed updates {STREAM_SAVE_AT + 1}-"
+          f"{len(lines)}: final centers equal bit for bit "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    shutil.rmtree(ckdir)
+
+    # an injected shift of every point by 1 in each coordinate fires the
+    # trigger and runs the re-cluster (SOCCER over the tree, condensed)
+    for kern in KERNELS.values():
+        kern.launches = 0
+    shifted, slines = stream_updates(api, res, [batches[-1] + 1.0],
+                                     "shifted", first=len(lines) + 1)
+    counts = {name: kern.launches for name, kern in KERNELS.items()}
+    per_fit["stream_recluster_k25"] = counts
+    sl = slines[0]
+    check(sl["reclustered"] and sl["uplink"] > refine_rows,
+          f"stream: an injected shift did not re-cluster: {sl}")
+    check(counts["fused_assign_reduce"] > 0 and counts["update_min_dist"] > 0,
+          f"stream re-cluster: kernels not launched {counts}")
+    print(f"stream injected shift (update {sl['update']}): re-clustered, "
+          f"uplink {sl['uplink']} rows, wall {sl['wall_s']:.3f} s, "
+          f"cost/weight {sl['cost_per_weight']:.6g} (reference before "
+          f"{sl['ref_cost']:.6g}); launches {counts}", flush=True)
+
+    control = stream_batches(STREAM_CONTROL)
+    cres = api.fit(control[0], k, m=MACHINES, seed=0, epsilon=0.05,
+                   delta=0.1)
+    cres, clines = stream_updates(api, cres, control[1:], "control")
+    check(not any(ln["reclustered"] for ln in clines),
+          f"stream control (drift=0): re-clustered at "
+          f"{[ln['update'] for ln in clines if ln['reclustered']]}")
+    print(f"stream control (drift=0, {len(control)} steps): no re-cluster; "
+          f"walls {[round(ln['wall_s'], 3) for ln in clines]} s", flush=True)
+
+    paper = dict(epsilon=0.05, delta=0.1)
+    pols = (StreamPolicy("update_c1", mode="update", cadence=1,
+                         fit_params=paper, **STREAM_UPDATE),
+            StreamPolicy("update_c4", mode="update", cadence=4,
+                         fit_params=paper, **STREAM_UPDATE),
+            StreamPolicy("full_c1", mode="full", cadence=1,
+                         fit_params=paper))
+    t0 = time.perf_counter()
+    suite = {r["policy"]: r for r in run_stream_suite(batches, k, pols,
+                                                      m=MACHINES)}
+    for name, r in suite.items():
+        print(f"stream suite {name}: final_cost={r['final_cost']:.6g} "
+              f"cost_vs_full={r['cost_vs_full']:.4f} uplink_bytes="
+              f"{r['uplink_bytes']} uplink_frac_of_full="
+              f"{r['uplink_frac_of_full']:.4f} staleness_vs_full="
+              f"{r['staleness_vs_full']:.4f} reclusters={r['reclusters']}",
+              flush=True)
+    c1, c4 = suite["update_c1"], suite["update_c4"]
+    check(c1["cost_vs_full"] <= STREAM_SUITE_LIMITS["cost_vs_full"],
+          f"stream suite: update_c1 cost {c1['cost_vs_full']:.4f}x full")
+    check(c1["uplink_frac_of_full"]
+          <= STREAM_SUITE_LIMITS["uplink_frac_of_full"],
+          f"stream suite: update_c1 uplink {c1['uplink_frac_of_full']:.4f} "
+          f"of full")
+    check(c4["uplink_bytes"] < c1["uplink_bytes"],
+          "stream suite: update_c4 uplink not below update_c1's")
+    print(f"stream phase: {time.perf_counter() - t_phase:.1f} s (suite "
+          f"{time.perf_counter() - t0:.1f} s); compress {comp:.4f} ms of "
+          f"device time a batch", flush=True)
+
+
+def selfcheck_phase() -> None:
+    from repro_torch.api import selfcheck
+    failed = selfcheck.main()
+    check(failed == 0, f"selfcheck: {failed} checks failed")
+    print("selfcheck: every registered algorithm and the telemetry screen "
+          "passed on the card", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -2569,7 +3086,8 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(f"device: {smi.stdout.strip().splitlines()[0]}", flush=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"device: {smi_line}", flush=True)
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import api
@@ -2610,10 +3128,14 @@ def main() -> None:
     robust_phase(api, ops.KERNELS, x, means, per_fit)
     central_kernel_phase(ops, ref, x, rows)
     knob_fit_phase(api, ops.KERNELS, x, means, soc, soc_cost, per_fit)
+    trace_phase(api, ops.KERNELS, x, soc, per_fit)
+    overhead_phase(x, smi_line)
     del x, soc
     wide_phase(api, ops.KERNELS, per_fit)
     profile_phase(rows)
     knob_profile_phase()
+    stream_phase(api, ops.KERNELS, ops, ref, rows, per_fit)
+    selfcheck_phase()
 
     # launches: the fits together, each counted from 0;
     # launches_per_fit: each fit's own count
@@ -2630,4 +3152,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--stream-resume"]:
+        stream_resume_main(*sys.argv[2:4])
+    else:
+        main()

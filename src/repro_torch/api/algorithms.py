@@ -10,6 +10,9 @@ registry contract and reports per-round uplink in points and bytes (at
 the uplink dtype's width), the achieved wire bytes, and the raw core
 result under ``extra["raw"]``. The run-condition options ``fit`` passes
 on are checked by the drivers' one guard, ``core.soccer.check_run_knobs``.
+Under ``fit(trace=...)`` the multi-round drivers emit their records in
+their host loops; the one-shot drivers emit one ``phase="upload"``
+record, timed up to their first read back.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from repro_torch.core.sampling import quantize_uplink
 from repro_torch.core.soccer import RUN_KNOBS, check_run_knobs, run_soccer
 from repro_torch.coresets.sensitivity import machine_data
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import trace as obs_trace
 
 _SOCCER_FIELDS = {f.name for f in dataclasses.fields(SoccerParams)}
 
@@ -151,7 +155,9 @@ def _fit_central(method: str, x_parts, k: int, generator, w, alive,
     x, w_dev = machine_data(x_parts, w, alive, dev)
     gen = (torch.Generator(dev).manual_seed(seed) if generator is None
            else generator)
-    with wire_tally() as t:
+    trace = obs_trace.current_trace()
+    sc = obs_trace.StepClock() if trace is not None else None
+    with obs_trace.span(f"{method}.upload"), wire_tally() as t:
         if wire == "codes":
             xa = comm.concat_machines_compressed(x)
         else:
@@ -161,7 +167,17 @@ def _fit_central(method: str, x_parts, k: int, generator, w, alive,
             centers, cost = minibatch_kmeans(gen, xa, wa, k, **bb_kw)
         else:
             centers, cost = kmeans(gen, xa, wa, k, **bb_kw)
-    up = np.asarray([int(torch.sum(w_dev > 0))], np.int64)
+        n_up = int(torch.sum(w_dev > 0))
+    up = np.asarray([n_up], np.int64)
+    if trace is not None:
+        # the whole algorithm is one gather + one black-box call: a
+        # single phase="upload" record carries its entire telemetry
+        sc.stop()
+        trace.emit_round(
+            round=1, phase="upload", n_live=n_up, uplink_rows=n_up,
+            wire_payload_bytes=t.payload, wire_meta_bytes=t.meta,
+            wall_s=sc.wall_s, compile_s=sc.compile_s)
+        trace.stop_reason = "one_shot"
     return ClusterResult(
         centers=centers.cpu().numpy(), k=k, algo=method, backend="virtual",
         rounds=1, uplink_points=up,

@@ -12,18 +12,18 @@
     res = fit(x, k=25, sharded_coordinator=True, blackbox="minibatch")
     res = fit(x, k=25, uplink_dtype="int8")                  # codes wire
     res = fit(x, k=25, failure_plan=FailurePlan(fail_at={1: (2,)}))
+    res = fit(x, k=25, trace="rounds")      # res.extra["trace"]: records
     res.centers, res.rounds, res.uplink_points, res.cost(x)
+    res = fit_update(res, x_new)            # streaming (repro_torch.streaming)
 
 ``x`` is either flat ``(n, d)`` data (placed on ``m`` machines by
 ``shard_policy``, see ``repro_torch.data.sharding``) or pre-sharded
 ``(m, p, d)``, passed through untouched. The signature mirrors
-``repro.api.fit``; the knobs the port does not run yet (``trace``,
-``backend="mesh"``) raise ``NotImplementedError`` naming their ROADMAP
-item.
+``repro.api.fit``; ``backend="mesh"`` is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -34,6 +34,7 @@ from repro_torch.api.result import ClusterResult
 from repro_torch.core.sampling import check_uplink_dtype, check_uplink_wire
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ft.failures import FailurePlan
+from repro_torch.obs import trace as obs_trace
 
 
 def _as_parts(x: np.ndarray, w, m: int, seed: int, policy):
@@ -101,7 +102,15 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
         deaths and straggler deadlines, through the host loop's
         ``on_round`` hook (algorithms registered with
         ``supports_failure_plan``, i.e. SOCCER).
-      trace: not ported yet (ROADMAP Queue 1 item 14); only None/"off".
+      trace: observability knob (``repro_torch.obs``). ``None``/"off"
+        (default): no tracing, no allocation; "rounds": one record of
+        ``obs.trace.ROUND_SCHEMA`` a round (live count, realized alpha,
+        removal threshold, stopping-rule margin, uplink rows, achieved
+        wire bytes, wall/build split) in ``result.extra["trace"]``;
+        "full": also span and event timelines, each span mirrored into a
+        ``torch.profiler`` range (``repro_torch.obs.export``,
+        ``python -m repro_torch.obs.report``). A traced fit computes what
+        the untraced one does, bit for bit.
       device: "cuda" (default; raises without CUDA) or "cpu", where the
         kernels' plain PyTorch versions run.
       **algo_params: algorithm-specific knobs (e.g. ``epsilon``).
@@ -160,12 +169,27 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
             algo_params.setdefault("straggler_rate",
                                    failure_plan.straggler_rate)
 
-    t0 = time.perf_counter()
-    res = driver(parts, k, backend=backend, generator=generator,
-                 w=w_parts, alive=alive_parts, seed=seed, device=dev,
-                 uplink_dtype=ud, uplink_wire=uplink_wire, trace=trace,
-                 **algo_params)
-    res.wall_time_s = time.perf_counter() - t0
+    rt = None
+    if trace not in (None, False, "off"):
+        rt = obs_trace.RunTrace(mode=trace, annotate=True, meta=dict(
+            algo=algo, backend=backend, k=k, m=m, seed=seed,
+            device=str(dev)))
+
+    # every fit is timed by the one obs clock (obs.trace.clock), so fit
+    # walls and trace walls never come from different timers
+    t0 = obs_trace.clock()
+    run = dict(backend=backend, generator=generator, w=w_parts,
+               alive=alive_parts, seed=seed, device=dev, uplink_dtype=ud,
+               uplink_wire=uplink_wire, **algo_params)
+    if rt is None:
+        res = driver(parts, k, **run)
+    else:
+        with obs_trace.run_trace(rt):
+            res = driver(parts, k, **run)
+    res.wall_time_s = obs_trace.clock() - t0
+    if rt is not None:
+        rt.wall_s = res.wall_time_s
+        res.extra["trace"] = rt.summary()
     res.params = dict(k=k, m=m, seed=seed, device=str(dev), **algo_params)
     if shard_policy is not None:
         res.params["shard_policy"] = getattr(policy, "__name__", policy)
@@ -177,3 +201,20 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
         res.params["failure_plan"] = failure_plan
         res.params.pop("on_round", None)
     return res
+
+
+def fit_update(result: ClusterResult, x_new, **kwargs) -> ClusterResult:
+    """Incrementally fold a new batch into a previous ``fit`` result.
+
+    The streaming counterpart of ``fit``: machine-local merge-and-reduce
+    coreset trees absorb the batch (zero uplink), Lloyd warm-starts from
+    the previous centers over the tree coreset, and a full SOCCER
+    re-cluster fires only when the drift trigger (SOCCER's own stopping
+    rule on costs) says the centers went stale. See
+    ``repro_torch.streaming.update.fit_update`` for the knobs and the
+    uplink accounting.
+    """
+    # imported at call time: repro_torch.streaming imports repro_torch.api
+    # back (registry, result)
+    from repro_torch.streaming.update import fit_update as _fit_update
+    return _fit_update(result, x_new, **kwargs)

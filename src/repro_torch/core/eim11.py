@@ -15,7 +15,9 @@ always a prefix, so every distance pass of a round is taken to that
 prefix only (the same d² and argmin as the full buffer with its mask).
 The host loop reads one value back per round, the live count, as the
 reference does; the uplink counts stay on the device until the end, and
-the broadcast volume follows from host-known sizes.
+the broadcast volume follows from host-known sizes. Under
+``fit(trace=...)`` a round is timed up to that read and the finalize up
+to the uplink counts' read.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch.core.soccer import check_run_knobs, effective_n
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.exact import exact_cumsum
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass
@@ -135,15 +138,23 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
 
     centers = torch.zeros((rows, d), dtype=torch.float32, device=dev)
     n = int(alive.sum())
-    n_hist, ups, tallies = [n], [], []
+    n_hist, ups, tallies, clocks = [n], [], [], []
     rounds = broadcast = 0
     n_rem = n
+    trace = obs_trace.current_trace()
+    if trace is not None:
+        trace.meta.setdefault("capacity", s)
+        trace.meta.setdefault("max_rounds", max_rounds)
     while n_rem > s and rounds < max_rounds:
-        with wire_tally() as t:
+        sc = obs_trace.StepClock() if trace is not None else None
+        with obs_trace.span("eim11.round", round=rounds + 1), \
+                wire_tally() as t:
             alive, n_rem_t, up = _round(comm, gen, x, w, alive, centers,
                                         rounds * s, s, cap, remove_frac,
                                         uplink)
-        n_rem = int(n_rem_t)          # the one device->host read a round
+            n_rem = int(n_rem_t)      # the one device->host read a round
+        if sc is not None:
+            clocks.append(sc.stop())
         rounds += 1
         # the coordinator re-broadcasts its whole clustering
         broadcast += min(rounds * s, rows)
@@ -154,7 +165,8 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
     # final: survivors -> coordinator -> k-means; then weighted reduction
     # over the clustering (its valid rows: the rounds' samples and c_fin)
     base = max(min(rounds * s, rows - k), 0)
-    with wire_tally() as t_fin:
+    sc = obs_trace.StepClock() if trace is not None else None
+    with obs_trace.span("eim11.finalize"), wire_tally() as t_fin:
         n_vec = comm.all_machines(torch.sum(alive, dim=1, dtype=torch.int32))
         v_pts, v_w, real = draw_global_sample(comm, gen, x, w, alive, n_vec,
                                               s, cap, **uplink)
@@ -168,12 +180,32 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
     ups.append(real)
 
     up_arr = torch.stack(ups).cpu().numpy().astype(np.int64)
+    if sc is not None:
+        clocks.append(sc.stop())
+    wire_payload = np.asarray([t.bytes_at(u) for t, u in
+                               zip(tallies, up_arr)], np.int64)
+    wire_meta = np.asarray([t.meta_bytes_at(u) for t, u in
+                            zip(tallies, up_arr)], np.int64)
+    if trace is not None:
+        for r in range(1, rounds + 1):
+            trace.emit_round(
+                round=r, phase="round", n_live=n_hist[r - 1], capacity=s,
+                removed=n_hist[r - 1] - n_hist[r],
+                stop_ratio=n_hist[r] / s, stop_margin=n_hist[r] - s,
+                uplink_rows=up_arr[r - 1],
+                wire_payload_bytes=wire_payload[r - 1],
+                wire_meta_bytes=wire_meta[r - 1],
+                wall_s=clocks[r - 1].wall_s,
+                compile_s=clocks[r - 1].compile_s)
+        trace.emit_round(
+            round=rounds + 1, phase="finalize", n_live=n_hist[rounds],
+            capacity=s, uplink_rows=up_arr[rounds],
+            wire_payload_bytes=wire_payload[rounds],
+            wire_meta_bytes=wire_meta[rounds],
+            wall_s=clocks[rounds].wall_s, compile_s=clocks[rounds].compile_s)
+        trace.stop_reason = "capacity" if n_rem <= s else "max_rounds"
     return EIM11Result(
         centers=final.cpu().numpy(), rounds=rounds,
         broadcast_points=broadcast, n_hist=np.asarray(n_hist),
-        uplink=up_arr,
-        wire_payload=np.asarray([t.bytes_at(u) for t, u in
-                                 zip(tallies, up_arr)], np.int64),
-        wire_meta=np.asarray([t.meta_bytes_at(u) for t, u in
-                              zip(tallies, up_arr)], np.int64),
+        uplink=up_arr, wire_payload=wire_payload, wire_meta=wire_meta,
         uplink_dtype=upload_dtype)

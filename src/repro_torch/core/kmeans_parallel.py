@@ -12,7 +12,11 @@ the Lloyd kernel) and reduced to k with weighted k-means. k-means‖ has **no st
 
 The reference runs all rounds as one ``lax.scan``; here they are a host
 loop that reads nothing back from the device inside it: φ and the
-selection counts stay on the card until the last round has been queued.
+selection counts stay on the card until the last round has been queued,
+and are read once after the loop, as the reference reads its scan's
+outputs. Under ``fit(trace=...)`` each round's record takes an equal
+share of the wall from the seeding's start to that read, as the
+reference's records share the scan's.
 The reference's ``TRACE_COUNTS`` counts JAX traces of the round body and
 has no counterpart in eager PyTorch, so it is not ported.
 """
@@ -32,6 +36,7 @@ from repro_torch.core.sampling import (global_weighted_choice,
 from repro_torch.core.soccer import check_run_knobs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass
@@ -147,8 +152,15 @@ def run_kmeans_parallel(x_parts, k: int, rounds: int, *,
     gen = (torch.Generator(dev).manual_seed(seed) if generator is None
            else generator)
 
-    centers, valid, phis, nsels, t_seed, t_rounds = oversample(
-        comm, gen, x, w, rounds, l, cap, rows, upload_dtype)
+    trace = obs_trace.current_trace()
+    sc = obs_trace.StepClock() if trace is not None else None
+    with obs_trace.span("kmeans_parallel.oversample", rounds=rounds):
+        centers, valid, phis, nsels, t_seed, t_rounds = oversample(
+            comm, gen, x, w, rounds, l, cap, rows, upload_dtype)
+        phi_hist = phis.cpu().numpy()
+        sel_hist = nsels.cpu().numpy()
+    if sc is not None:
+        sc.stop()
     with wire_tally() as t_counts:
         counts = assignment_counts(comm, x, w, centers, valid)
     final = reduce_to_k(gen, centers, counts * valid, k, lloyd_iters)
@@ -163,9 +175,23 @@ def run_kmeans_parallel(x_parts, k: int, rounds: int, *,
     wire_meta[0] += t_seed.meta
     wire_payload[-1] += t_counts.payload
     wire_meta[-1] += t_counts.meta
+    if trace is not None:
+        # fields k-means‖ has no notion of (alpha, v, live counts,
+        # stopping margins) stay None in the pinned schema
+        trace.meta.setdefault("rounds", rounds)
+        wall = None if rounds == 0 else sc.wall_s / rounds
+        for r in range(1, max(rounds, 1) + 1):
+            trace.emit_round(
+                round=r, phase="round",
+                uplink_rows=(int(sel_hist[r - 1]) + (1 if r == 1 else 0)
+                             if r <= len(sel_hist) else None),
+                wire_payload_bytes=wire_payload[r - 1],
+                wire_meta_bytes=wire_meta[r - 1],
+                wall_s=wall, compile_s=sc.compile_s if r == 1 else None)
+        trace.stop_reason = "fixed_rounds"
     return KMeansParallelResult(
         centers=final.cpu().numpy(),
         oversampled=centers[valid].cpu().numpy(), rounds=rounds,
-        phi_hist=phis.cpu().numpy(), selected_hist=nsels.cpu().numpy(),
+        phi_hist=phi_hist, selected_hist=sel_hist,
         wire_payload=wire_payload, wire_meta=wire_meta,
         uplink_dtype=upload_dtype)

@@ -19,7 +19,9 @@ with one device->host read per round (``int(state.n_remaining)``), the
 synchronization barrier a real deployment pays, and an optional host
 hook ``on_round`` after each round (failure injection, ``ft.failures``).
 Nothing inside a round reads a value back to the host. Removed points are
-masked, never moved.
+masked, never moved. Under ``fit(trace=...)`` each round and the finalize
+emit one record of ``obs.trace.ROUND_SCHEMA``, timed from the step's
+start to that read; tracing adds no read of its own.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from repro_torch.core.truncated_cost import removal_threshold, trim_top_mass
 from repro_torch.coresets.uplink import draw_coreset_sample
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,15 +114,15 @@ def derive_constants(n: int, p_local: int, params: SoccerParams,
         coreset_rows=coreset_rows, coreset_kb=coreset_kb)
 
 
-# The reference's run-condition options (``repro.api.fit``), which ``fit``
-# passes to every driver and each driver checks with ``check_run_knobs``.
-RUN_KNOBS = ("backend", "uplink_dtype", "uplink_wire", "trace")
+# The reference's run-condition options (``repro.api.fit``) that ``fit``
+# passes to every driver and each driver checks with ``check_run_knobs``
+# (``trace`` is taken by ``fit`` itself: drivers read the ambient trace).
+RUN_KNOBS = ("backend", "uplink_dtype", "uplink_wire")
 # run knobs with values the port does not run yet -> (the values it runs,
 # their ROADMAP Queue 1 item)
 _NOT_PORTED = {
     "backend": ((None, "virtual", "auto"),
                 "item 17 (the multi-device backend)"),
-    "trace": ((None, False, "off"), "item 14 (telemetry)"),
 }
 
 
@@ -298,31 +301,35 @@ def soccer_round(state: SoccerState, comm: VirtualCluster,
     if const.sharded_coordinator:
         # beyond-paper: the samples stay sharded; the collectives shrink
         # from O(eta·d) to O(k_plus·d·iters) (core.sharded_kmeans)
-        c_iter, v, uplink_pts, alpha = sharded_center_threshold(
-            comm, const, state, alive_eff, n_vec_r1, n_vec_r2, n_total)
+        with obs_trace.span("soccer.sharded_coordinator"):
+            c_iter, v, uplink_pts, alpha = sharded_center_threshold(
+                comm, const, state, alive_eff, n_vec_r1, n_vec_r2, n_total)
     else:
         # --- upload P1, P2 (independent draws; in coreset mode each is
         # compressed machine-side before the upload)
-        p1, w1, up1, _ = _draw_sample(comm, const, state, alive_eff,
-                                      n_vec_r1)
-        p2, w2, up2, real2 = _draw_sample(comm, const, state, alive_eff,
-                                          n_vec_r2)
+        with obs_trace.span("soccer.upload"):
+            p1, w1, up1, _ = _draw_sample(comm, const, state, alive_eff,
+                                          n_vec_r1)
+            p2, w2, up2, real2 = _draw_sample(comm, const, state,
+                                              alive_eff, n_vec_r2)
         # --- coordinator: C_iter = A(P1, k_plus); threshold from P2.
         # alpha is P2's OWN realized sampling rate: the truncation mass
         # L = l/alpha and the psi->population rescale both describe the
         # P2 statistic. The (k, z) mass must not inflate the threshold.
-        c_iter = _blackbox(const, state.gen, p1, w1, const.k_plus)
-        d2_p2, _ = ops.min_dist(p2, c_iter)
-        alpha = real2.to(torch.float32) / torch.clamp(
-            n_total.to(torch.float32), min=1.0)
-        v = removal_threshold(d2_p2, w2, const.k, const.d_k, alpha,
-                              outlier_mass=_outlier_mass(const, n_total))
+        with obs_trace.span("soccer.coordinator"):
+            c_iter = _blackbox(const, state.gen, p1, w1, const.k_plus)
+            d2_p2, _ = ops.min_dist(p2, c_iter)
+            alpha = real2.to(torch.float32) / torch.clamp(
+                n_total.to(torch.float32), min=1.0)
+            v = removal_threshold(d2_p2, w2, const.k, const.d_k, alpha,
+                                  outlier_mass=_outlier_mass(const, n_total))
         uplink_pts = up1 + up2
 
     # --- broadcast (v, C_iter); the machines remove points in one fused
     # sweep: min-d2, threshold compare, mask update and live counts
-    alive_new, live = ops.remove_below(state.x, c_iter, alive_eff, v)
-    n_rem = comm.psum(live)
+    with obs_trace.span("soccer.removal"):
+        alive_new, live = ops.remove_below(state.x, c_iter, alive_eff, v)
+        n_rem = comm.psum(live)
 
     i = state.round_idx
     state.centers[i] = c_iter
@@ -435,32 +442,91 @@ def run_soccer(x_parts, params: SoccerParams, *, backend: str = "virtual",
     # The progress half of stopping_rule doubles as the no-progress guard:
     # if the threshold cannot remove anything, finalize on a subsample
     # instead of spinning to max_rounds.
+    trace = obs_trace.current_trace()
+    if trace is not None:
+        trace.meta.setdefault("eta", const.eta)
+        trace.meta.setdefault("k", const.k)
+        trace.meta.setdefault("max_rounds", const.max_rounds)
     rounds = 0
     prev_n = math.inf
     n_rem = int(state.n_remaining)      # the one device->host read a round
-    tallies = []
+    tallies, clocks = [], []
     while rounds < const.max_rounds and stopping_rule(n_rem, const.eta,
                                                       prev_n):
         prev_n = n_rem
-        with wire_tally() as t:
+        sc = obs_trace.StepClock() if trace is not None else None
+        with obs_trace.span("soccer.round", round=rounds + 1), \
+                wire_tally() as t:
             state = soccer_round(state, comm, const)
+            n_rem = int(state.n_remaining)
+        if sc is not None:
+            clocks.append(sc.stop())
         tallies.append(t)
         rounds += 1
-        n_rem = int(state.n_remaining)
         if on_round is not None:
             state = on_round(rounds, state) or state
-    with wire_tally() as t:
+    sc = obs_trace.StepClock() if trace is not None else None
+    with obs_trace.span("soccer.finalize"), wire_tally() as t:
         state = soccer_finalize(state, comm, const)
     tallies.append(t)
     for t in tallies:
         t.warn_overflow()
-
     up = state.uplink.cpu().numpy()
-    return SoccerResult(
+    if sc is not None:
+        clocks.append(sc.stop())
+
+    wire_payload = np.asarray([t.bytes_at(up[r]) for r, t in
+                               enumerate(tallies)], np.int64)
+    wire_meta = np.asarray([t.meta_bytes_at(up[r]) for r, t in
+                            enumerate(tallies)], np.int64)
+    res = SoccerResult(
         centers=flatten_centers(state), rounds=rounds, const=const,
         n_hist=state.n_hist.cpu().numpy(), v_hist=state.v_hist.cpu().numpy(),
-        uplink=up, state=state,
-        wire_payload=np.asarray([t.bytes_at(up[r]) for r, t in
-                                 enumerate(tallies)], np.int64),
-        wire_meta=np.asarray([t.meta_bytes_at(up[r]) for r, t in
-                              enumerate(tallies)], np.int64))
+        uplink=up, state=state, wire_payload=wire_payload,
+        wire_meta=wire_meta)
+    if trace is not None:
+        _emit_soccer_records(trace, res, state.alpha_hist.cpu().numpy(),
+                             n_rem, prev_n, clocks)
+    return res
+
+
+def _emit_soccer_records(trace: obs_trace.RunTrace, res: "SoccerResult",
+                         a_hist: np.ndarray, n_rem: int, prev_n: float,
+                         clocks) -> None:
+    """Turn the run's histories into the pinned per-round records.
+
+    ``n_hist[i]`` is N at the *start* of (0-indexed) round ``i``;
+    finalize writes ``n_hist[rounds]``, so the post-removal live count of
+    round ``r`` (1-based) is ``n_hist[r]``: the number the stopping rule
+    compared against eta. ``n_rem`` is the live count the loop read last,
+    ``clocks`` one ``StepClock`` a round and one for the finalize.
+    """
+    const, rounds, up = res.const, res.rounds, res.uplink
+    n_hist, v_hist = res.n_hist, res.v_hist
+    wire_payload, wire_meta = res.wire_payload, res.wire_meta
+    for r in range(1, rounds + 1):
+        n_after = int(n_hist[r])
+        trace.emit_round(
+            round=r, phase="round",
+            n_live=n_hist[r - 1], capacity=const.eta,
+            alpha=a_hist[r - 1], v=v_hist[r - 1],
+            removed=int(n_hist[r - 1]) - n_after,
+            stop_ratio=n_after / const.eta,
+            stop_margin=n_after - const.eta,
+            uplink_rows=up[r - 1],
+            wire_payload_bytes=wire_payload[r - 1],
+            wire_meta_bytes=wire_meta[r - 1],
+            wall_s=clocks[r - 1].wall_s, compile_s=clocks[r - 1].compile_s)
+    trace.emit_round(
+        round=rounds + 1, phase="finalize",
+        n_live=n_hist[rounds], capacity=const.eta,
+        uplink_rows=up[rounds],
+        wire_payload_bytes=wire_payload[rounds],
+        wire_meta_bytes=wire_meta[rounds],
+        wall_s=clocks[rounds].wall_s, compile_s=clocks[rounds].compile_s)
+    if n_rem <= const.eta:
+        trace.stop_reason = "capacity"
+    elif prev_n != math.inf and n_rem >= prev_n:
+        trace.stop_reason = "no_progress"
+    else:
+        trace.stop_reason = "max_rounds"

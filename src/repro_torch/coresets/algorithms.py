@@ -29,6 +29,7 @@ from repro_torch.coresets.sensitivity import (build_coresets,
                                               default_coreset_size,
                                               machine_data)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import trace as obs_trace
 
 
 @register_algorithm("coreset_kmeans")
@@ -68,7 +69,9 @@ def fit_coreset_kmeans(x_parts, k: int, *, backend: str = "virtual",
     x, w_dev = machine_data(x_parts, w, alive, dev)
     gen = (torch.Generator(dev).manual_seed(seed) if generator is None
            else generator)
-    with wire_tally() as tally:
+    trace = obs_trace.current_trace()
+    sc = obs_trace.StepClock() if trace is not None else None
+    with obs_trace.span("coreset_kmeans.upload"), wire_tally() as tally:
         cpts, cw = build_coresets(gen, x, w_dev, t, kb)
         g_pts, g_w = gather_weighted(comm, cpts, cw, upload_dtype, wire=wire)
         if blackbox == "minibatch":
@@ -79,7 +82,14 @@ def fit_coreset_kmeans(x_parts, k: int, *, backend: str = "virtual",
         # every machine with any coreset mass ships its full t-row block
         # (weight-0 padding rows ride along)
         realized = torch.sum(torch.any(g_w.reshape(m, t) > 0, dim=1)) * t
-    up = np.asarray([int(realized)], np.int64)
+        up = np.asarray([int(realized)], np.int64)
+    if trace is not None:
+        sc.stop()
+        trace.emit_round(
+            round=1, phase="upload", uplink_rows=up[0],
+            wire_payload_bytes=tally.payload, wire_meta_bytes=tally.meta,
+            wall_s=sc.wall_s, compile_s=sc.compile_s)
+        trace.stop_reason = "one_shot"
     return ClusterResult(
         centers=centers.cpu().numpy(), k=k, algo="coreset_kmeans",
         backend="virtual", rounds=1, uplink_points=up,

@@ -4,13 +4,14 @@ The PyTorch port's own numpy copy of the generators its main path needs
 from ``repro.data.synthetic``: the same seed gives bit-identical arrays
 in both packages. k-spherical-Gaussian mixtures in R^dim with Zipf(γ)
 component weights (the paper: dim=15, σ=0.001, γ=1.5, means uniform in
-the unit cube), and ``contaminate``, the gross outliers the robust tier
-is measured on.
+the unit cube), ``drifting_mixture``, the time-evolving stream the
+streaming path is measured on, and ``contaminate``, the gross outliers
+the robust tier is measured on.
 """
 from __future__ import annotations
 
 import warnings
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -60,6 +61,46 @@ def shard_points(x: np.ndarray, m: int, seed: int = 0,
     if pad:
         w[n:] = 0.0
     return parts, w.reshape(m, p)
+
+
+def drifting_mixture(steps: int, n_per_step: int, k: int = 8, dim: int = 8,
+                     drift: float = 0.0, sigma: float = 0.02,
+                     birth_step: Optional[int] = None,
+                     death_step: Optional[int] = None, seed: int = 11
+                     ) -> Tuple[list, np.ndarray]:
+    """Time-evolving mixture: one batch per step, means random-walking.
+
+    The streaming scenarios' generator. Component means start uniform in
+    the unit cube and take an independent Gaussian step of RMS length
+    ``drift`` per unit-cube-diagonal between batches (``drift=0`` is the
+    stationary control). ``birth_step`` holds one component at zero
+    weight until that step (cluster birth — new mass appears where no
+    center has been); ``death_step`` zeroes one component's weight from
+    that step on (its mass redistributes over the survivors). Weights
+    are Zipf(1.5) like the paper's §8 mixture.
+
+    Returns (batches, means_hist): ``steps`` arrays of shape
+    ``(n_per_step, dim)`` float32 and the ``(steps, k, dim)`` mean
+    trajectory for diagnostics.
+    """
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(0.0, 1.0, size=(k, dim))
+    step_sigma = drift / np.sqrt(dim)   # per-axis, so E||step|| ~= drift
+    base_w = np.arange(1, k + 1, dtype=np.float64) ** (-1.5)
+    batches, hist = [], []
+    for s in range(steps):
+        weights = base_w.copy()
+        if birth_step is not None and s < birth_step:
+            weights[k - 1] = 0.0
+        if death_step is not None and s >= death_step:
+            weights[0 if k == 1 else 1] = 0.0
+        weights /= weights.sum()
+        labels = rng.choice(k, size=n_per_step, p=weights)
+        x = means[labels] + rng.normal(0.0, sigma, size=(n_per_step, dim))
+        batches.append(x.astype(np.float32))
+        hist.append(means.astype(np.float32).copy())
+        means = means + rng.normal(0.0, step_sigma, size=(k, dim))
+    return batches, np.stack(hist)
 
 
 def contaminate(x: np.ndarray, frac: float = 0.01, scale: float = 50.0,

@@ -51,6 +51,7 @@ from repro_torch.coresets.sensitivity import (build_coreset,
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.exact import exact_cumsum
+from repro_torch.obs import trace as obs_trace
 
 # seedings drawn on the coordinator; the lowest trimmed cost is kept
 SEEDINGS = 4
@@ -155,7 +156,9 @@ def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
     # machine)
     seed_mask = torch.cat([torch.ones(t, device=dev),
                            torch.zeros(t_out, device=dev)]).repeat(m)
-    with wire_tally() as tally:
+    trace = obs_trace.current_trace()
+    sc = obs_trace.StepClock() if trace is not None else None
+    with obs_trace.span("kzmeans.upload"), wire_tally() as tally:
         blocks = [_machine_summary(gen, x[j], w_dev[j], t, t_out, kb)
                   for j in range(m)]
         g_pts, g_w = gather_weighted(
@@ -184,7 +187,14 @@ def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
             x, w_dev, centers, v))
         # every machine with any uplink mass ships its full rows-block
         realized = torch.sum(torch.any(g_w.reshape(m, rows) > 0, dim=1)) * rows
-    up = np.asarray([int(realized)], np.int64)
+        up = np.asarray([int(realized)], np.int64)
+    if trace is not None:
+        sc.stop()
+        trace.emit_round(
+            round=1, phase="upload", v=float(v), uplink_rows=up[0],
+            wire_payload_bytes=tally.payload, wire_meta_bytes=tally.meta,
+            wall_s=sc.wall_s, compile_s=sc.compile_s)
+        trace.stop_reason = "one_shot"
     return ClusterResult(
         centers=centers.cpu().numpy(), k=k, algo="kzmeans",
         backend="virtual", rounds=1, uplink_points=up,

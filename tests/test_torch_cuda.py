@@ -563,3 +563,61 @@ def test_cuda_fits_repeat_bit_for_bit(algo, kw):
     assert fits[0].centers.shape == fits[1].centers.shape
     assert (fits[0].centers == fits[1].centers).all()
     assert fits[0].cost(x) == fits[1].cost(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,kw", [
+    ("soccer", dict(epsilon=0.05, delta=0.1)),
+    ("soccer", dict(epsilon=0.05, delta=0.1, eta_override=20_000)),
+    ("kmeans_parallel", dict(rounds=5)),
+    ("eim11", dict(epsilon=0.1, delta=0.1)),
+    ("coreset_kmeans", dict(coreset_size=4_096)),
+    ("kzmeans", dict(outlier_frac=0.02, coreset_size=32_000)),
+    ("lloyd", {}), ("minibatch", {})],
+    ids=["soccer", "soccer_multiround", "kmeans_parallel", "eim11",
+         "coreset_kmeans", "kzmeans", "lloyd", "minibatch"])
+def test_cuda_traced_fit_equals_untraced(algo, kw):
+    """A trace="rounds" fit on the card computes what the untraced one
+    does, bit for bit, and its records sum exactly to wire_bytes_total."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.configs.soccer_paper import GaussianMixtureSpec
+    from repro_torch.data.synthetic import gaussian_mixture
+    x, _, _ = gaussian_mixture(GaussianMixtureSpec(
+        n=200_000, dim=15, k=25, sigma=0.001, zipf_gamma=1.5, seed=17))
+    plain = api.fit(x, 25, algo=algo, m=8, seed=0, **kw)
+    res = api.fit(x, 25, algo=algo, m=8, seed=0, trace="rounds", **kw)
+    assert (res.centers == plain.centers).all()
+    assert res.rounds == plain.rounds
+    assert (res.wire_bytes == plain.wire_bytes).all()
+    t = res.extra["trace"]
+    wire = sum(r["wire_payload_bytes"] + r["wire_meta_bytes"]
+               for r in t["records"])
+    assert wire == res.wire_bytes_total
+    assert all(r["wall_s"] is not None for r in t["records"])
+    if plain.n_hist is not None:
+        assert np.array_equal(res.n_hist, plain.n_hist)
+
+
+@pytest.mark.cuda
+def test_cuda_fit_update_runs_and_repeats():
+    """One fit_update on the card (fold, refine, a forced re-cluster),
+    twice from one bootstrap: the same centers bit for bit, m·k·iters
+    uplink rows plus the re-cluster's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.data.synthetic import drifting_mixture
+    batches, _ = drifting_mixture(steps=2, n_per_step=100_000, k=25,
+                                  dim=15, drift=0.04, sigma=0.02, seed=53)
+    boot = api.fit(batches[0], 25, m=8, seed=0, epsilon=0.05)
+    outs = [api.fit_update(boot, batches[1], m=8, refine_iters=4,
+                           recluster="always") for _ in range(2)]
+    assert (outs[0].centers == outs[1].centers).all()
+    assert outs[0].centers.shape == (25, 15)
+    assert np.isfinite(outs[0].centers).all()
+    assert outs[0].uplink_points[0] > 8 * 25 * 4
+    assert outs[0].extra["stream"].device.type == "cuda"

@@ -49,14 +49,25 @@ def test_port_has_its_modules():
                 "repro_torch/coresets/sensitivity.py",
                 "repro_torch/coresets/uplink.py",
                 "repro_torch/coresets/algorithms.py",
-                "repro_torch/robust/kzmeans.py"):
+                "repro_torch/robust/kzmeans.py",
+                "repro_torch/obs/trace.py", "repro_torch/obs/metrics.py",
+                "repro_torch/obs/export.py", "repro_torch/obs/report.py",
+                "repro_torch/api/selfcheck.py",
+                "repro_torch/checkpoint/checkpointer.py",
+                "repro_torch/streaming/tree.py",
+                "repro_torch/streaming/state.py",
+                "repro_torch/streaming/serve.py",
+                "repro_torch/streaming/update.py",
+                "repro_torch/streaming/protocol.py"):
         assert mod in names
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.api, repro_torch.kernels.ops, "
             "repro_torch.core.reduce, repro_torch.coresets, "
-            "repro_torch.robust, repro_torch.fit_profile; "
+            "repro_torch.robust, repro_torch.fit_profile, repro_torch.obs, "
+            "repro_torch.obs.report, repro_torch.api.selfcheck, "
+            "repro_torch.checkpoint.checkpointer, repro_torch.streaming; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")

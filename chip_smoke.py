@@ -144,18 +144,22 @@ PyTorch built for CUDA. It
    ``torch.profiler`` ranges; the sync check's round inside such a
    trace; and the trace's overhead on ``run_soccer`` at Table 2 row 1
    with the shards on the card, median of alternating plain/traced
-   pairs within 2%, printed beside the card's name and power limit;
+   pairs within 2% on each block's fastest and on its median run,
+   printed beside the card's name and power limit;
 14. runs the stream at the paper's widths: ``drifting_mixture`` of 9
    batches of 1.25 M points in R^15 (k = 25, m = 8, a birth at step 5),
    a SOCCER bootstrap on batch 0, then 8 times ``serve_assign`` of the
    new batch against the current snapshot and ``fit_update``
    (refine_iters = 4, drift_tol = 2.0); holds min_dist over a whole
-   1.25 M x 25 batch, the bucket compress's 25-step seeding and
-   sensitivity_scores over one machine's 262,144-row padded bucket, and
-   the refine's Lloyd step over the flattened tree against their plain
-   versions; checks the drift trigger's rule on every update,
-   m·k·refine_iters uplink rows on every update without a re-cluster,
-   a re-cluster on an injected shift, none on a stationary control, and
+   1.25 M x 25 batch and over the serve path's 4,096-row and last,
+   padded chunks, the 25-step seeding and sensitivity_scores over one
+   machine's 262,144-row padded bucket and over one machine's 256-row
+   merge input from the run (coreset weights), and the refine's Lloyd
+   step over the flattened tree against their plain versions; checks
+   the drift trigger's rule on every update, m·k·refine_iters uplink
+   rows on every update without a re-cluster, a ladder of sudden jumps
+   (1, 2, 4, 8 drift steps) quiet at 1 and firing within the ladder,
+   none on a stationary control, and
    that the stream checkpointed at update 4 and resumed in a fresh
    process ends with the same centers bit for bit; runs
    ``run_stream_suite`` (update_c1, update_c4, full_c1) against the
@@ -174,6 +178,7 @@ before that line. Without CUDA it exits non-zero at once.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -2628,8 +2633,8 @@ def knob_profile_phase() -> None:
 
 # the smoke's traced fits: records of each follow obs.trace.ROUND_SCHEMA
 # and sum exactly to the fit's wire bytes
-OVERHEAD_PAIRS = 21           # plain/traced pairs of the overhead gate
-OVERHEAD_REPS = 8             # runs a block; a block's time is its fastest
+OVERHEAD_PAIRS = 31           # plain/traced pairs of the overhead gate
+OVERHEAD_REPS = 10            # runs a block: its fastest and its median
 OVERHEAD_LIMIT = 0.02         # benchmarks/check_regression.py's 2% gate
 
 
@@ -2726,11 +2731,13 @@ def overhead_phase(x, smi: str) -> None:
     shards already on the card (no shard placement in the time):
     OVERHEAD_PAIRS pairs of a plain and a traced block of OVERHEAD_REPS
     back-to-back runs, in alternating order. A run takes ~15 ms, and
-    single runs spread by tens of percent on this shared host, upward
-    only (preemption, clock ramps), so a block's time is its fastest
-    run; the median of the pairs' traced-over-plain deltas must be within
-    OVERHEAD_LIMIT. The same delta over the blocks' medians is printed
-    beside it. ``x`` is the row's data, placed as ``fit`` places it."""
+    single runs spread by tens of percent on a shared host, upward
+    only (preemption, clock ramps). Two statistics of a block, each
+    held to OVERHEAD_LIMIT as the median of the pairs' traced-over-plain
+    deltas: its fastest run (the cost of the traced code path itself)
+    and its median run (which also sees overhead that shows up as
+    spread, such as allocation in traced rounds). ``x`` is the row's
+    data, placed as ``fit`` places it."""
     from repro_torch.configs.soccer_paper import SoccerParams
     from repro_torch.core.soccer import run_soccer
     from repro_torch.data.sharding import make_shards
@@ -2766,8 +2773,8 @@ def overhead_phase(x, smi: str) -> None:
     print(f"trace overhead on run_soccer, Table 2 row 1, shards on the "
           f"card, {OVERHEAD_PAIRS} pairs alternating, blocks of "
           f"{OVERHEAD_REPS} runs: median delta of the blocks' fastest runs "
-          f"{100 * med:+.3f}% (limit {100 * OVERHEAD_LIMIT:.0f}%), of their "
-          f"medians {100 * med_mid:+.3f}%; plain fastest "
+          f"{100 * med:+.3f}%, of their medians {100 * med_mid:+.3f}% "
+          f"(limit {100 * OVERHEAD_LIMIT:.0f}% on each); plain fastest "
           f"{1e3 * min(a for a, _ in best):.3f} ms, traced fastest "
           f"{1e3 * min(b for _, b in best):.3f} ms, plain median "
           f"{1e3 * float(np.median([a for a, _ in mid])):.3f} ms, traced "
@@ -2775,7 +2782,9 @@ def overhead_phase(x, smi: str) -> None:
           f"deltas {[round(100 * d, 3) for d in deltas]} %; card {smi}",
           flush=True)
     check(med <= OVERHEAD_LIMIT, f"trace overhead {100 * med:.3f}% > "
-          f"{100 * OVERHEAD_LIMIT:.0f}%")
+          f"{100 * OVERHEAD_LIMIT:.0f}% on the blocks' fastest runs")
+    check(med_mid <= OVERHEAD_LIMIT, f"trace overhead {100 * med_mid:.3f}% "
+          f"> {100 * OVERHEAD_LIMIT:.0f}% on the blocks' median runs")
     del parts
 
 
@@ -2794,9 +2803,9 @@ STREAM_SUITE_LIMITS = dict(cost_vs_full=1.1, uplink_frac_of_full=0.25)
 
 
 def stream_batches(spec):
+    """The stream's batches and its (steps, k, d) mean trajectory."""
     from repro_torch.data.synthetic import drifting_mixture
-    batches, _ = drifting_mixture(**spec)
-    return batches
+    return drifting_mixture(**spec)
 
 
 def stream_updates(api, res, batches, what: str, samples=None, first=1,
@@ -2841,24 +2850,73 @@ def stream_resume_main(ckdir: str, out: str) -> None:
                         backend="virtual", rounds=state.n_reclusters,
                         uplink_points=np.zeros(1), uplink_bytes=np.zeros(1),
                         extra={"stream": state})
-    batches = stream_batches(STREAM)[1 + STREAM_SAVE_AT:]
+    batches = stream_batches(STREAM)[0][1 + STREAM_SAVE_AT:]
     res, _ = stream_updates(api, res, batches, "resumed stream",
                             first=1 + STREAM_SAVE_AT)
     np.save(out, res.centers)
 
 
-def stream_kernel_phase(ops, ref, rows, batch, centers, tree) -> float:
+def stream_kernel_phase(ops, ref, rows, batch, centers, tree,
+                        merge) -> float:
     """The stream path's kernels against their plain versions at its
-    shapes: min_dist over a whole 1.25 M x 25 batch (serve_assign's and
-    the refine's cost), the bucket compress's 25-step seeding and
-    sensitivity_scores over one machine's 262,144-row padded bucket, and
-    the refine's Lloyd step over the flattened tree; times each, and one
-    whole batch's compress (8 machines), whose device ms it returns."""
+    shapes: min_dist over a whole 1.25 M x 25 batch and over the serve
+    path's chunks (a full 4,096-row chunk and the batch's last, padded
+    one), the bucket compress's 25-step seeding and sensitivity_scores
+    over one machine's 262,144-row padded bucket and over one machine's
+    merge input from the run (two buckets' 256 rows, carrying coreset
+    weights), and the refine's Lloyd step over the flattened tree; times
+    each, and one whole batch's compress (8 machines), whose device ms it
+    returns."""
     from repro_torch.core.kmeans import kmeans_plusplus
-    from repro_torch.streaming.tree import _compress, machine_generators
+    from repro_torch.streaming.serve import SERVE_BATCH
+    from repro_torch.streaming.tree import (_compress, machine_generators,
+                                            stream_bucket)
     from repro_torch.streaming.update import _shard_stream_batch
-    xb = torch.from_numpy(batch).cuda()
     c = torch.as_tensor(centers, device="cuda")
+    kb = STREAM["k"]
+    # the serve path's chunks, padded as serve_assign pads them
+    tail = batch.shape[0] % SERVE_BATCH or SERVE_BATCH
+    for name, rows_in in (("full", SERVE_BATCH), ("last", tail)):
+        chunk = np.zeros((stream_bucket(rows_in), DIM), np.float32)
+        chunk[:rows_in] = batch[batch.shape[0] - rows_in:] if name == "last" \
+            else batch[:rows_in]
+        xc = torch.from_numpy(chunk).cuda()
+        err, tol = check_min_dist(ops, ref, xc, c, None)
+        ms = timed_ms(lambda: ops.min_dist(xc, c), reps=20)
+        plain = timed_ms(lambda: ref.min_dist_ref(xc, c, None), reps=5)
+        bnd, by = min_dist_bound(*xc.shape, c.shape[0])
+        print(f"stream serve chunk ({name}: {rows_in} rows padded to "
+              f"{xc.shape[0]}) min_dist x {c.shape[0]}: err {err:.3g} (tol "
+              f"{tol:.3g}); {ms:.4f} ms ({host_note(ms)}), plain "
+              f"{plain:.4f} ms, bound {bnd:.5f} ms ({by})", flush=True)
+        rows["min_dist"][f"stream_serve_{name}_chunk"] = dict(
+            shape=f"n={xc.shape[0]} ({rows_in} rows) d={DIM} "
+            f"k={c.shape[0]}", ms=ms, host_us=ms.host_us, plain_ms=plain,
+            bound_ms=bnd, bound_by=by, max_abs_err=err)
+
+    # one machine's merge input: two level buckets' points and weights
+    xm, wm = merge["x"], merge["w"]
+    seed = torch.tensor([53, 11], dtype=torch.int64, device="cuda")
+    m_err, m_agreed, m_drawn = check_seeding(ops, ref, xm, wm, kb, seed,
+                                             "stream merge seeding")
+    cm = kmeans_plusplus(torch.Generator("cuda").manual_seed(5), xm, wm, kb)
+    e_m, tol_m, moved_m = check_sensitivity(ops, ref, xm, wm, cm, None)
+    ms_m = timed_ms(lambda: ops.sensitivity_scores(xm, wm, cm), reps=20)
+    plain_m = timed_ms(lambda: ref.sensitivity_scores_ref(xm, wm, cm),
+                       reps=5)
+    pos = wm[wm > 0]
+    print(f"stream merge sensitivity_scores {tuple(xm.shape)} x {kb} "
+          f"(coreset weights {float(pos.min()):.4g}-{float(pos.max()):.4g}, "
+          f"{int(pos.numel())} of {wm.numel()} rows weighted): err "
+          f"{e_m:.3g} (tol {tol_m:.3g}, moved {moved_m}); {ms_m:.4f} ms "
+          f"({host_note(ms_m)}), plain {plain_m:.4f} ms; seeding d2 err "
+          f"{m_err:.3g}, plain step drew the kernel's row at {m_agreed} of "
+          f"{m_drawn}", flush=True)
+    rows["sensitivity_scores"]["stream_merge"] = dict(
+        shape=f"n={xm.shape[0]} d={DIM} k={kb}", ms=ms_m,
+        host_us=ms_m.host_us, plain_ms=plain_m, max_abs_err=e_m)
+
+    xb = torch.from_numpy(batch).cuda()
     err, tol = check_min_dist(ops, ref, xb, c, None)
     ms = timed_ms(lambda: ops.min_dist(xb, c), reps=10)
     bnd, by = min_dist_bound(*xb.shape, c.shape[0])
@@ -2872,7 +2930,6 @@ def stream_kernel_phase(ops, ref, rows, batch, centers, tree) -> float:
 
     xs, ws = _shard_stream_batch(batch, None, MACHINES, "cuda")
     x0, w0 = xs[0], ws[0]            # 262,144 rows: stream_bucket(156,250)
-    kb = STREAM["k"]
     seed = torch.tensor([53, 7], dtype=torch.int64, device="cuda")
     s_err, agreed, drawn = check_seeding(ops, ref, x0, w0, kb, seed,
                                          "stream bucket seeding")
@@ -2913,15 +2970,18 @@ def stream_kernel_phase(ops, ref, rows, batch, centers, tree) -> float:
 def stream_phase(api, KERNELS, ops, ref, rows, per_fit) -> None:
     """The streaming path at the paper's widths: a SOCCER bootstrap on
     batch 0, then 8 times serve_assign + fit_update; the kernels at the
-    stream's shapes; the drift trigger on the birth and on a stationary
-    control; a checkpoint at update STREAM_SAVE_AT resumed in a fresh
-    process, bit for bit; and run_stream_suite's acceptance."""
+    stream's shapes; the drift trigger on the birth, on a ladder of
+    sudden jumps and on a stationary control; a checkpoint at update
+    STREAM_SAVE_AT resumed in a fresh process, bit for bit; and
+    run_stream_suite's acceptance."""
     import tempfile
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.streaming import (StreamPolicy, flatten_tree,
                                        run_stream_suite, save_stream, serve)
+    from repro_torch.streaming import tree as stream_tree
+    from stream_drift_ratios import JUMPS, jumped_batch
     t_phase = time.perf_counter()
-    batches = stream_batches(STREAM)
+    batches, means = stream_batches(STREAM)
     k = STREAM["k"]
     boot, wall, counts = run_fit(api, KERNELS, batches[0], k, "soccer",
                                  SOCCER_KERNELS, epsilon=0.05, delta=0.1)
@@ -2933,6 +2993,17 @@ def stream_phase(api, KERNELS, ops, ref, rows, per_fit) -> None:
     samples = []
     observe = serve.SERVE_LATENCY.observe
     serve.SERVE_LATENCY.observe = lambda v: (samples.append(v), observe(v))
+    # keep machine 0's first merge input (two level buckets' 2t rows and
+    # their coreset weights) for the kernel checks
+    merge = {}
+    compress = stream_tree._compress
+
+    def keep_merge(gens, x, w, t, kb):
+        if x.shape[1] == 2 * t and not merge:
+            merge.update(x=x[0].clone(), w=w[0].clone())
+        return compress(gens, x, w, t, kb)
+
+    stream_tree._compress = keep_merge
     torch.cuda.synchronize()
     for kern in KERNELS.values():
         kern.launches = 0
@@ -2949,6 +3020,8 @@ def stream_phase(api, KERNELS, ops, ref, rows, per_fit) -> None:
     torch.cuda.synchronize()
     counts = {name: kern.launches for name, kern in KERNELS.items()}
     serve.SERVE_LATENCY.observe = observe
+    stream_tree._compress = compress
+    check(bool(merge), "stream: no tree merge ran")
     per_fit["stream_updates_k25"] = counts
     missing = [n for n in STREAM_KERNELS if counts[n] == 0]
     check(not missing, f"stream: kernels of its path not launched: "
@@ -2994,7 +3067,8 @@ def stream_phase(api, KERNELS, ops, ref, rows, per_fit) -> None:
     state = res.extra["stream"]
     tree = flatten_tree(state.levels, state.occupied, state.m, state.t, DIM,
                         state.device)
-    comp = stream_kernel_phase(ops, ref, rows, batches[-1], res.centers, tree)
+    comp = stream_kernel_phase(ops, ref, rows, batches[-1], res.centers, tree,
+                               merge)
     del tree
 
     out = os.path.join(ckdir, "resumed.npy")
@@ -3011,25 +3085,49 @@ def stream_phase(api, KERNELS, ops, ref, rows, per_fit) -> None:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     shutil.rmtree(ckdir)
 
-    # an injected shift of every point by 1 in each coordinate fires the
-    # trigger and runs the re-cluster (SOCCER over the tree, condensed)
-    for kern in KERNELS.values():
-        kern.launches = 0
-    shifted, slines = stream_updates(api, res, [batches[-1] + 1.0],
-                                     "shifted", first=len(lines) + 1)
-    counts = {name: kern.launches for name, kern in KERNELS.items()}
+    # the trigger against sudden jumps, from the state after update 8,
+    # once a rung: every component's mean moves at once by J times one
+    # ordinary drift step (scripts/stream_drift_ratios.py::jumped_batch).
+    # J = 1 (the stream's own next step) must stay quiet; a rung of the
+    # ladder must fire and run the re-cluster (SOCCER over the tree,
+    # condensed), its kernels counted from 0
+    from repro_torch.streaming.update import DRIFT_EVENTS
+    rungs, fired_rung = [], None
+    for jmp in JUMPS:
+        xj = jumped_batch(batches[-1], means[-1], jmp, STREAM["drift"])
+        for kern in KERNELS.values():
+            kern.launches = 0
+        _, jl = stream_updates(api, copy.deepcopy(res), [xj],
+                               f"jump {jmp:g}", first=len(lines) + 1)
+        counts = {name: kern.launches for name, kern in KERNELS.items()}
+        ev = DRIFT_EVENTS.read()["events"][-1]
+        ratio = ev["cost_per_weight"] / ev["ref_cost"]
+        sl = jl[0]
+        check(sl["reclustered"] == (ratio > tol), f"stream jump {jmp:g}: "
+              f"reclustered={sl['reclustered']} at ratio {ratio:.4f}")
+        rungs.append((jmp, ratio, sl["reclustered"]))
+        print(f"stream jump {jmp:g} x drift (update {sl['update']}): "
+              f"reclustered={sl['reclustered']}, ratio at the trigger "
+              f"{ratio:.4f}, uplink {sl['uplink']} rows, wall "
+              f"{sl['wall_s']:.3f} s", flush=True)
+        if sl["reclustered"] and fired_rung is None:
+            fired_rung = (jmp, ratio, sl, counts)
+    check(not rungs[0][2], f"stream: the stream's own next step (jump 1) "
+          f"re-clustered at ratio {rungs[0][1]:.4f}")
+    check(fired_rung is not None, f"stream: no jump of the ladder fired "
+          f"the trigger: {rungs}")
+    jmp, ratio, sl, counts = fired_rung
     per_fit["stream_recluster_k25"] = counts
-    sl = slines[0]
-    check(sl["reclustered"] and sl["uplink"] > refine_rows,
-          f"stream: an injected shift did not re-cluster: {sl}")
+    check(sl["uplink"] > refine_rows, f"stream: the re-cluster at jump "
+          f"{jmp:g} uploaded {sl['uplink']} rows")
     check(counts["fused_assign_reduce"] > 0 and counts["update_min_dist"] > 0,
           f"stream re-cluster: kernels not launched {counts}")
-    print(f"stream injected shift (update {sl['update']}): re-clustered, "
-          f"uplink {sl['uplink']} rows, wall {sl['wall_s']:.3f} s, "
-          f"cost/weight {sl['cost_per_weight']:.6g} (reference before "
-          f"{sl['ref_cost']:.6g}); launches {counts}", flush=True)
+    print(f"stream drift trigger fires first at a jump of {jmp:g} x drift, "
+          f"ratio {ratio:.4f} > {tol}: re-clustered, uplink {sl['uplink']} "
+          f"rows, cost/weight after {sl['cost_per_weight']:.6g} (reference "
+          f"before {sl['ref_cost']:.6g}); launches {counts}", flush=True)
 
-    control = stream_batches(STREAM_CONTROL)
+    control, _ = stream_batches(STREAM_CONTROL)
     cres = api.fit(control[0], k, m=MACHINES, seed=0, epsilon=0.05,
                    delta=0.1)
     cres, clines = stream_updates(api, cres, control[1:], "control")

@@ -156,7 +156,7 @@ def _fit_central(method: str, x_parts, k: int, generator, w, alive,
     gen = (torch.Generator(dev).manual_seed(seed) if generator is None
            else generator)
     trace = obs_trace.current_trace()
-    sc = obs_trace.StepClock() if trace is not None else None
+    sc = obs_trace.step_clock()
     with obs_trace.span(f"{method}.upload"), wire_tally() as t:
         if wire == "codes":
             xa = comm.concat_machines_compressed(x)
@@ -169,10 +169,10 @@ def _fit_central(method: str, x_parts, k: int, generator, w, alive,
             centers, cost = kmeans(gen, xa, wa, k, **bb_kw)
         n_up = int(torch.sum(w_dev > 0))
     up = np.asarray([n_up], np.int64)
+    sc.stop()
     if trace is not None:
         # the whole algorithm is one gather + one black-box call: a
         # single phase="upload" record carries its entire telemetry
-        sc.stop()
         trace.emit_round(
             round=1, phase="upload", n_live=n_up, uplink_rows=n_up,
             wire_payload_bytes=t.payload, wire_meta_bytes=t.meta,

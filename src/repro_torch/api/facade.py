@@ -181,11 +181,8 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
     run = dict(backend=backend, generator=generator, w=w_parts,
                alive=alive_parts, seed=seed, device=dev, uplink_dtype=ud,
                uplink_wire=uplink_wire, **algo_params)
-    if rt is None:
+    with obs_trace.run_trace(rt):
         res = driver(parts, k, **run)
-    else:
-        with obs_trace.run_trace(rt):
-            res = driver(parts, k, **run)
     res.wall_time_s = obs_trace.clock() - t0
     if rt is not None:
         rt.wall_s = res.wall_time_s

@@ -146,15 +146,14 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
         trace.meta.setdefault("capacity", s)
         trace.meta.setdefault("max_rounds", max_rounds)
     while n_rem > s and rounds < max_rounds:
-        sc = obs_trace.StepClock() if trace is not None else None
+        sc = obs_trace.step_clock()
         with obs_trace.span("eim11.round", round=rounds + 1), \
                 wire_tally() as t:
             alive, n_rem_t, up = _round(comm, gen, x, w, alive, centers,
                                         rounds * s, s, cap, remove_frac,
                                         uplink)
             n_rem = int(n_rem_t)      # the one device->host read a round
-        if sc is not None:
-            clocks.append(sc.stop())
+        clocks.append(sc.stop())
         rounds += 1
         # the coordinator re-broadcasts its whole clustering
         broadcast += min(rounds * s, rows)
@@ -165,7 +164,7 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
     # final: survivors -> coordinator -> k-means; then weighted reduction
     # over the clustering (its valid rows: the rounds' samples and c_fin)
     base = max(min(rounds * s, rows - k), 0)
-    sc = obs_trace.StepClock() if trace is not None else None
+    sc = obs_trace.step_clock()
     with obs_trace.span("eim11.finalize"), wire_tally() as t_fin:
         n_vec = comm.all_machines(torch.sum(alive, dim=1, dtype=torch.int32))
         v_pts, v_w, real = draw_global_sample(comm, gen, x, w, alive, n_vec,
@@ -180,8 +179,7 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
     ups.append(real)
 
     up_arr = torch.stack(ups).cpu().numpy().astype(np.int64)
-    if sc is not None:
-        clocks.append(sc.stop())
+    clocks.append(sc.stop())
     wire_payload = np.asarray([t.bytes_at(u) for t, u in
                                zip(tallies, up_arr)], np.int64)
     wire_meta = np.asarray([t.meta_bytes_at(u) for t, u in

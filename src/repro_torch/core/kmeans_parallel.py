@@ -153,14 +153,13 @@ def run_kmeans_parallel(x_parts, k: int, rounds: int, *,
            else generator)
 
     trace = obs_trace.current_trace()
-    sc = obs_trace.StepClock() if trace is not None else None
+    sc = obs_trace.step_clock()
     with obs_trace.span("kmeans_parallel.oversample", rounds=rounds):
         centers, valid, phis, nsels, t_seed, t_rounds = oversample(
             comm, gen, x, w, rounds, l, cap, rows, upload_dtype)
         phi_hist = phis.cpu().numpy()
         sel_hist = nsels.cpu().numpy()
-    if sc is not None:
-        sc.stop()
+    sc.stop()
     with wire_tally() as t_counts:
         counts = assignment_counts(comm, x, w, centers, valid)
     final = reduce_to_k(gen, centers, counts * valid, k, lloyd_iters)

@@ -454,26 +454,24 @@ def run_soccer(x_parts, params: SoccerParams, *, backend: str = "virtual",
     while rounds < const.max_rounds and stopping_rule(n_rem, const.eta,
                                                       prev_n):
         prev_n = n_rem
-        sc = obs_trace.StepClock() if trace is not None else None
+        sc = obs_trace.step_clock()
         with obs_trace.span("soccer.round", round=rounds + 1), \
                 wire_tally() as t:
             state = soccer_round(state, comm, const)
             n_rem = int(state.n_remaining)
-        if sc is not None:
-            clocks.append(sc.stop())
+        clocks.append(sc.stop())
         tallies.append(t)
         rounds += 1
         if on_round is not None:
             state = on_round(rounds, state) or state
-    sc = obs_trace.StepClock() if trace is not None else None
+    sc = obs_trace.step_clock()
     with obs_trace.span("soccer.finalize"), wire_tally() as t:
         state = soccer_finalize(state, comm, const)
     tallies.append(t)
     for t in tallies:
         t.warn_overflow()
     up = state.uplink.cpu().numpy()
-    if sc is not None:
-        clocks.append(sc.stop())
+    clocks.append(sc.stop())
 
     wire_payload = np.asarray([t.bytes_at(up[r]) for r, t in
                                enumerate(tallies)], np.int64)

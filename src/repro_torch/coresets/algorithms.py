@@ -70,7 +70,7 @@ def fit_coreset_kmeans(x_parts, k: int, *, backend: str = "virtual",
     gen = (torch.Generator(dev).manual_seed(seed) if generator is None
            else generator)
     trace = obs_trace.current_trace()
-    sc = obs_trace.StepClock() if trace is not None else None
+    sc = obs_trace.step_clock()
     with obs_trace.span("coreset_kmeans.upload"), wire_tally() as tally:
         cpts, cw = build_coresets(gen, x, w_dev, t, kb)
         g_pts, g_w = gather_weighted(comm, cpts, cw, upload_dtype, wire=wire)
@@ -83,8 +83,8 @@ def fit_coreset_kmeans(x_parts, k: int, *, backend: str = "virtual",
         # (weight-0 padding rows ride along)
         realized = torch.sum(torch.any(g_w.reshape(m, t) > 0, dim=1)) * t
         up = np.asarray([int(realized)], np.int64)
+    sc.stop()
     if trace is not None:
-        sc.stop()
         trace.emit_round(
             round=1, phase="upload", uplink_rows=up[0],
             wire_payload_bytes=tally.payload, wire_meta_bytes=tally.meta,

@@ -30,7 +30,8 @@ step) has no eager counterpart: the port's compile is the kernels'
 first-call ``nvcc`` build (``kernels/build.py``). ``StepClock`` times a
 step and splits off the build seconds the step triggered: ``compile_s``
 is those seconds (None when every kernel was already built) and
-``wall_s`` the rest.
+``wall_s`` the rest. Drivers take one from ``step_clock()``, a shared
+no-op when no trace is active, so they keep one code path.
 """
 from __future__ import annotations
 
@@ -138,6 +139,27 @@ class StepClock:
         self.compile_s = built if built > 0.0 else None
         self.wall_s = t1 - self.t0 - built
         return self
+
+
+class _NullClock:
+    """The do-nothing step clock handed out whenever tracing is off."""
+
+    __slots__ = ()
+    wall_s = compile_s = None
+
+    def stop(self) -> "_NullClock":
+        return self
+
+
+_NULL_CLOCK = _NullClock()
+
+
+def step_clock():
+    """A started ``StepClock`` inside an active trace, else a shared
+    no-op (no allocation, no clock read when tracing is off)."""
+    if not _STACK:
+        return _NULL_CLOCK
+    return StepClock()
 
 
 # ------------------------------------------------------------------- spans
@@ -292,9 +314,16 @@ def current_trace() -> Optional[RunTrace]:
     return _STACK[-1] if _STACK else None
 
 
+def run_trace(trace: Optional[RunTrace]):
+    """Activate ``trace`` for the block: drivers inside publish to it.
+    ``run_trace(None)`` is a null context (tracing stays off)."""
+    if trace is None:
+        return contextlib.nullcontext()
+    return _activate(trace)
+
+
 @contextlib.contextmanager
-def run_trace(trace: RunTrace):
-    """Activate ``trace`` for the block: drivers inside publish to it."""
+def _activate(trace: RunTrace):
     _STACK.append(trace)
     try:
         yield trace

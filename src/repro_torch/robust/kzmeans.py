@@ -157,7 +157,7 @@ def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
     seed_mask = torch.cat([torch.ones(t, device=dev),
                            torch.zeros(t_out, device=dev)]).repeat(m)
     trace = obs_trace.current_trace()
-    sc = obs_trace.StepClock() if trace is not None else None
+    sc = obs_trace.step_clock()
     with obs_trace.span("kzmeans.upload"), wire_tally() as tally:
         blocks = [_machine_summary(gen, x[j], w_dev[j], t, t_out, kb)
                   for j in range(m)]
@@ -188,8 +188,8 @@ def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
         # every machine with any uplink mass ships its full rows-block
         realized = torch.sum(torch.any(g_w.reshape(m, rows) > 0, dim=1)) * rows
         up = np.asarray([int(realized)], np.int64)
+    sc.stop()
     if trace is not None:
-        sc.stop()
         trace.emit_round(
             round=1, phase="upload", v=float(v), uplink_rows=up[0],
             wire_payload_bytes=tally.payload, wire_meta_bytes=tally.meta,

@@ -392,6 +392,23 @@ def test_step_clock_splits_off_build_seconds(monkeypatch):
     assert trace.clock is not None and build.build_seconds() >= 0.0
 
 
+def test_step_clock_and_run_trace_are_null_when_off():
+    """Off a trace, step_clock() is the shared no-op (reads no clock) and
+    run_trace(None) leaves tracing off; inside one, a real StepClock."""
+    prev = trace.set_clock(lambda: pytest.fail("clock read off a trace"))
+    try:
+        with run_trace(None):
+            assert trace.current_trace() is None
+            sc = trace.step_clock()
+            assert sc is trace._NULL_CLOCK and sc.stop() is sc
+            assert sc.wall_s is None and sc.compile_s is None
+    finally:
+        trace.set_clock(prev)
+    with run_trace(RunTrace()):
+        sc = trace.step_clock().stop()
+        assert isinstance(sc, trace.StepClock) and sc.wall_s >= 0.0
+
+
 def test_sequential_fits_report_identical_metrics():
     """The same fit twice in one process gives identical telemetry (walls
     excluded): no counter bleed, no stale tally."""

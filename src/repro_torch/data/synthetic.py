@@ -5,8 +5,10 @@ from ``repro.data.synthetic``: the same seed gives bit-identical arrays
 in both packages. k-spherical-Gaussian mixtures in R^dim with Zipf(γ)
 component weights (the paper: dim=15, σ=0.001, γ=1.5, means uniform in
 the unit cube), ``drifting_mixture``, the time-evolving stream the
-streaming path is measured on, and ``contaminate``, the gross outliers
-the robust tier is measured on.
+streaming path is measured on, ``contaminate``, the gross outliers the
+robust tier is measured on, and the scenario lab's two instances:
+``kmeans_parallel_hard_instance`` (Theorem 7.2's duplicated locations)
+and ``heavy_tailed_mixture`` (Student-t tails).
 """
 from __future__ import annotations
 
@@ -61,6 +63,59 @@ def shard_points(x: np.ndarray, m: int, seed: int = 0,
     if pad:
         w[n:] = 0.0
     return parts, w.reshape(m, p)
+
+
+def kmeans_parallel_hard_instance(k: int, z: int, dim: int = 2,
+                                  spread: float = 100.0, seed: int = 3,
+                                  sigma: float = 0.0,
+                                  heavy_factor: Optional[int] = None
+                                  ) -> np.ndarray:
+    """Theorem 7.2 / Bachem et al. hard instance, duplicated z times.
+
+    k distinct, far-apart locations; location 1 carries ``heavy_factor·z``
+    copies (paper: heavy_factor = k-1, so one location holds half the
+    mass) and each of the others z copies. k-means‖'s per-round selection
+    probability l·d²/φ is diluted by the duplicate mass, so it misses a
+    constant fraction of the light locations every round and needs ~k-1
+    rounds; SOCCER's uniform P1 w.h.p. contains every distinct location,
+    so OPT(P1)≈0 and one round removes everything.
+
+    ``sigma > 0`` jitters every copy (as a fraction of ``spread``) so
+    clustering costs are strictly positive and cost *ratios* stay
+    well-defined; the round-count gap is unchanged.
+    """
+    rng = np.random.default_rng(seed)
+    locs = rng.normal(0.0, spread, size=(k, dim)).astype(np.float32)
+    reps = np.full((k,), z, np.int64)
+    reps[0] = (k - 1 if heavy_factor is None else heavy_factor) * z
+    x = np.repeat(locs, reps, axis=0)
+    if sigma > 0.0:
+        x = x + rng.normal(0.0, sigma * spread,
+                           size=x.shape).astype(np.float32)
+    return x.astype(np.float32)
+
+
+def heavy_tailed_mixture(n: int, k: int = 10, dim: int = 12,
+                         df: float = 2.0, scale_spread: float = 1.5,
+                         seed: int = 5
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Student-t mixture with per-cluster log-uniform scales (KDD-like).
+
+    ``df`` ~ 2 gives infinite-variance tails: a constant fraction of the
+    mass sits far from every mean, which is exactly the regime where the
+    paper's Table-3 rows need multiple SOCCER rounds (each round's
+    threshold peels the dense core, the tail survives to the next).
+
+    Returns (x, labels, means) like ``gaussian_mixture``.
+    """
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(0.0, 1000.0, size=(k, dim)).astype(np.float32)
+    scales = 10.0 ** rng.uniform(-scale_spread, scale_spread, size=(k, 1))
+    weights = np.arange(1, k + 1, dtype=np.float64) ** (-1.5)
+    weights /= weights.sum()
+    labels = rng.choice(k, size=n, p=weights).astype(np.int32)
+    noise = rng.standard_t(df, size=(n, dim)) * scales[labels]
+    return ((means[labels] + noise).astype(np.float32), labels, means)
 
 
 def drifting_mixture(steps: int, n_per_step: int, k: int = 8, dim: int = 8,

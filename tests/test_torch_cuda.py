@@ -5,9 +5,13 @@ installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Without a CUDA card every test skips. The full check at the main path's
-shapes is ``chip_smoke.py``.
+Without a CUDA card every kernel test skips; the last test, of one of
+``chip_smoke.py``'s tolerances, runs anywhere. The full check at the main
+path's shapes is ``chip_smoke.py``.
 """
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -621,3 +625,44 @@ def test_cuda_fit_update_runs_and_repeats():
     assert np.isfinite(outs[0].centers).all()
     assert outs[0].uplink_points[0] > 8 * 25 * 4
     assert outs[0].extra["stream"].device.type == "cuda"
+
+
+def test_smoke_fused_tolerance_all_moved_center():
+    """``chip_smoke.py``'s Lloyd-step check against the plain version
+    where a whole duplicated location sits under two tied centers and the
+    kernel and the plain version put it on different ones (the scenario
+    lab's Theorem 7.2 instance). The kernel's sums are exact fixed-point
+    sums rounded once to float32 (``ref.fixed_point_reduce_ref``); the
+    plain version's float64 sum for the kernel's center is 0. A relative
+    term on the plain side alone flags that correct center (its float32
+    rounding exceeds the absolute floor); the larger of the two sides
+    does not."""
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    n, k = 400, 2
+    x = torch.tensor([[100.0, 37.3, 0.1, 5.0]]).repeat(n, 1)
+    w = torch.ones(n)                  # two centers sit on the copies
+    s_k, n_k = ref.fixed_point_reduce_ref(x, w, torch.zeros(n,
+                                                            dtype=torch.long),
+                                          k)   # the kernel: center 0
+    wx = w.double()[:, None] * x.double()
+    plain = torch.ones(n, dtype=torch.long)    # the plain version: center 1
+    exact_s = torch.zeros((k, 4), dtype=torch.float64).index_add_(0, plain,
+                                                                  wx)
+    exact_n = torch.zeros(k, dtype=torch.float64).index_add_(
+        0, plain, w.double())
+    slack_s = torch.zeros((k, 4), dtype=torch.float64)
+    slack_n = torch.zeros(k, dtype=torch.float64)
+    for a in (torch.zeros(n, dtype=torch.long), plain):
+        slack_s.index_add_(0, a, wx.abs())
+        slack_n.index_add_(0, a, w.double())
+    for got, exact, slack in ((s_k, exact_s, slack_s),
+                              (n_k, exact_n, slack_n)):
+        assert not bool(smoke.fused_outside_tol(got, exact, slack).any())
+    old = ((s_k.double() - exact_s).abs()
+           > smoke.FUSED_RTOL * exact_s.abs() + slack_s + 1e-6)
+    assert bool(old[0].any()) and not bool(old[1].any())
+

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: nothing under ``src/repro_torch/`` and
-nothing in ``chip_smoke.py`` imports JAX or the JAX package ``repro``
-(only the tests import both)."""
+"""The PyTorch port stands alone: nothing under ``src/repro_torch/``, no
+``examples/*_torch.py`` and nothing in ``chip_smoke.py`` imports JAX or
+the JAX package ``repro`` (only the tests import both)."""
 import ast
 import os
 import subprocess
@@ -10,7 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+PORT = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+FILES = PORT + sorted((ROOT / "examples").glob("*_torch.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -39,7 +40,7 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_port_has_its_modules():
-    names = {str(p.relative_to(ROOT / "src")) for p in FILES[:-1]}
+    names = {str(p.relative_to(ROOT / "src")) for p in PORT}
     for mod in ("repro_torch/api/facade.py", "repro_torch/core/soccer.py",
                 "repro_torch/kernels/ops.py", "repro_torch/data/sharding.py",
                 "repro_torch/configs/soccer_paper.py",
@@ -58,8 +59,18 @@ def test_port_has_its_modules():
                 "repro_torch/streaming/state.py",
                 "repro_torch/streaming/serve.py",
                 "repro_torch/streaming/update.py",
-                "repro_torch/streaming/protocol.py"):
+                "repro_torch/streaming/protocol.py",
+                "repro_torch/scenarios/__init__.py",
+                "repro_torch/scenarios/registry.py",
+                "repro_torch/scenarios/library.py",
+                "repro_torch/scenarios/sweep.py",
+                "repro_torch/scenarios/report.py",
+                "repro_torch/scenarios/run.py"):
         assert mod in names
+    examples = {p.name for p in FILES if p.parent.name == "examples"}
+    assert examples == {"quickstart_torch.py",
+                        "distributed_clustering_torch.py",
+                        "streaming_clustering_torch.py"}
 
 
 def test_importing_the_port_loads_no_jax():
@@ -67,7 +78,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.reduce, repro_torch.coresets, "
             "repro_torch.robust, repro_torch.fit_profile, repro_torch.obs, "
             "repro_torch.obs.report, repro_torch.api.selfcheck, "
-            "repro_torch.checkpoint.checkpointer, repro_torch.streaming; "
+            "repro_torch.checkpoint.checkpointer, repro_torch.streaming, "
+            "repro_torch.scenarios, repro_torch.scenarios.run; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")

@@ -188,7 +188,19 @@ PyTorch built for CUDA. It
    (``examples/*_torch.py``) as subprocesses at their reference sizes
    (``--scenario-seeds`` runs only the round-1 states and the seeds);
    and
-16. runs ``repro_torch.api.selfcheck`` on the card.
+16. runs ``repro_torch.api.selfcheck`` on the card; and
+17. holds the mesh backend to the virtual one: the seeding step
+   and the Lloyd step over 8 parts of the sharded coordinator's buffer
+   against the flattened calls, bit for bit, and against their plain
+   versions (``mesh_kernel_phase``); then, last, 8 ranks sharing the card
+   over gloo run Table 2 row 1 at full width, three fits a rank, each
+   equal to the card's virtual fit bit for bit with every kernel of the
+   path launched on every rank (counts under ``launches_per_fit``'s
+   ``mesh_*`` keys), the other six algorithms and the sharded coordinator
+   at 1 M equal to their virtual fits, the scenario CLI with ``--backend
+   mesh``, the launch CLI on 8 ranks and NCCL at world size 1, with the
+   mesh fits' walls beside the virtual ones' and their seconds in
+   collectives (``mesh_phase``).
 
 Every kernel time is printed with the host's own microseconds a call
 beside the device's (``timed_ms``).
@@ -3672,6 +3684,385 @@ def selfcheck_phase() -> None:
           "passed on the card", flush=True)
 
 
+# ------------------------------------------------------------- mesh phase
+#
+# The mesh backend on the card: one machine per torch.distributed rank.
+# One card holds every rank (NCCL refuses two ranks on one device), so
+# the ranks join a gloo group and their collectives stage CUDA tensors
+# through the host; NCCL gets a world-size-1 check.
+MESH_N = 1_000_000                      # the other algorithms' fits
+MESH_FITS = {
+    "kmeans_parallel": ("kmeans_parallel", dict(rounds=5)),
+    "eim11": ("eim11", dict(epsilon=0.1, delta=0.1)),
+    "lloyd": ("lloyd", {}),
+    "minibatch": ("minibatch", {}),
+    "coreset_kmeans": ("coreset_kmeans", {}),
+    "kzmeans": ("kzmeans", dict(outlier_frac=0.01)),
+    "soccer_sharded": ("soccer", dict(epsilon=0.05, delta=0.1,
+                                      sharded_coordinator=True)),
+}
+MESH_FIT_KERNELS = {"kmeans_parallel": KMPAR_KERNELS,
+                    "eim11": EIM11_KERNELS,
+                    "lloyd": ("update_min_dist", "fused_assign_reduce"),
+                    "minibatch": ("update_min_dist",),
+                    "coreset_kmeans": CORESET_KERNELS,
+                    "kzmeans": KZMEANS_KERNELS,
+                    "soccer_sharded": SOCCER_KERNELS}
+
+
+def fit_digest(res) -> dict:
+    """What a mesh fit must share with its virtual fit, bit for bit."""
+    def ints(a):
+        return None if a is None else [int(v) for v in a]
+    return dict(centers=np.asarray(res.centers, np.float32).tobytes().hex(),
+                shape=list(np.asarray(res.centers).shape),
+                rounds=int(res.rounds), n_hist=ints(res.n_hist),
+                uplink=ints(res.uplink_points), wire=ints(res.wire_bytes),
+                meta=ints(res.wire_meta_bytes))
+
+
+def mesh_reference(x, soc) -> dict:
+    """Before the table 2 data and fit are dropped: their digest, and the
+    data written where the ranks load it."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="mesh-phase-")
+    np.save(os.path.join(work, "x.npy"), x)
+    return dict(work=work, digest=fit_digest(soc), wall=soc.wall_time_s)
+
+
+def mesh_rank(rank: int, work: str) -> None:
+    """One rank of the mesh phase: the Table 2 row 1 SOCCER fit on
+    1/8 of the machines, then MESH_FITS at MESH_N; each fit's digest,
+    wall, collective seconds and kernel launches to rank<r>.json."""
+    from repro_torch import api
+    from repro_torch.core import comm as comm_mod
+    from repro_torch.kernels import ops
+    spent = [0.0]
+    gather = comm_mod.MeshCluster._gather
+
+    def timed_gather(self, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(self, t)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    def one(x, k, algo, **kw):
+        torch.cuda.synchronize()
+        for kern in ops.KERNELS.values():
+            kern.launches = 0
+        spent[0] = 0.0
+        t0 = time.perf_counter()
+        res = api.fit(x, k, algo=algo, m=MACHINES, seed=0, backend="mesh",
+                      **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return dict(digest=fit_digest(res), backend=res.backend, wall=wall,
+                    fit_s=res.wall_time_s, collective_s=spent[0],
+                    finite=bool(np.isfinite(res.centers).all()),
+                    launches={n: k.launches for n, k in ops.KERNELS.items()})
+
+    out = {}
+    x = np.load(os.path.join(work, "x.npy"), mmap_mode="r")
+    # the first fit of a rank loads its libraries: its wall is kept apart
+    out["soccer_k25_first"] = one(x, 25, "soccer", epsilon=0.05, delta=0.1)
+    out["soccer_k25"] = one(x, 25, "soccer", epsilon=0.05, delta=0.1)
+    comm_mod.MeshCluster._gather = timed_gather
+    out["soccer_k25_timed"] = one(x, 25, "soccer", epsilon=0.05, delta=0.1)
+    del x
+    x1 = np.load(os.path.join(work, "x1.npy"))
+    for name, (algo, kw) in MESH_FITS.items():
+        out[name] = one(x1, 25, algo, **kw)
+    comm_mod.MeshCluster._gather = gather
+    # the scenario CLI under the launched group (rank 0 alone writes)
+    import contextlib
+    import io
+    from repro_torch.scenarios import run as scen_run
+    with contextlib.redirect_stdout(io.StringIO()):   # its table, 8 times
+        out["scenario_rc"] = scen_run.main(
+            ["--suite", "adversarial_kmeanspar", "--quick", "--device",
+             "cuda", "--backend", "mesh", "--out",
+             os.path.join(work, f"scen{rank}.json")])
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def nccl_rank(rank: int, work: str) -> None:
+    """World size 1 over NCCL: float and int8 blocks gathered on the card
+    come back with their bits."""
+    import torch.distributed as dist
+    from repro_torch.api.backends import mesh_comm
+    comm = mesh_comm()
+    xf = torch.randn((1, 7, 15), device="cuda")
+    xi = torch.randint(-128, 127, (1, 33), dtype=torch.int8, device="cuda")
+    gf, gi = comm._gather(xf), comm._gather(xi)
+    ok = (dist.get_backend() == "nccl" and gf.is_cuda and gi.dtype ==
+          torch.int8 and torch.equal(gf, xf) and torch.equal(gi, xi)
+          and torch.equal(comm._reduce(xf), xf[0]))
+    with open(os.path.join(work, "nccl.json"), "w") as fh:
+        json.dump(dict(ok=bool(ok), backend=dist.get_backend()), fh)
+
+
+def mesh_kernel_phase(ops, ref, rows, params_cls) -> None:
+    """The two kernels a mesh rank runs on its part of the sharded
+    coordinator's buffer (Table 2 row 1's 8 × cap_sharded slots, float32,
+    k_plus = 103): a seeding step keyed by global rows
+    (``kmeans_pp_step_at``) and the Lloyd step at the whole buffer's
+    shifts (``fixed_bound``, ``fused_assign_reduce_fixed``). The parts'
+    seeding, emulated in one process, draws the flattened call's rows
+    and its d2 bit for bit; the parts' summed accumulators round to the
+    flattened Lloyd step's sums bit for bit; each part's step against its
+    plain version (the words' keys within KEY_ULPS, d2 within d2_tol; the
+    accumulators exact given the kernel's argmin); both timed beside
+    their plain versions and bounds."""
+    from repro_torch.core.soccer import derive_constants
+    from repro_torch.kernels import exact, fused_lloyd as fl
+    k, eps = TABLE2[0]
+    const = derive_constants(N_POINTS, N_POINTS // MACHINES,
+                             params_cls(k=k, epsilon=eps))
+    gen = torch.Generator("cuda").manual_seed(23)
+    x, w, c = sharded_buffer(gen, const)
+    cap, kp = const.cap_sharded, const.k_plus
+    seed = torch.randint(0, 1 << 32, (2,), generator=gen, device="cuda")
+    parts = [(x[j * cap:(j + 1) * cap], w[j * cap:(j + 1) * cap])
+             for j in range(MACHINES)]
+    # the seeding, part by part, against one call over the buffer
+    idx = ops.kmeans_plusplus_indices(x, w, kp, seed)
+    d2s = [torch.full((cap,), torch.inf, device="cuda") for _ in parts]
+    d2_flat = torch.full((x.shape[0],), torch.inf, device="cuda")
+    center, drawn, prev = None, [], None
+    for step in range(kp):
+        words = []
+        for j, (xp, wp) in enumerate(parts):
+            d2s[j], wd = ops.kmeans_pp_step_at(xp, wp, d2s[j], center, step,
+                                               seed, j * cap)
+            words.append(wd)
+        best = ref.max_word(torch.stack(words), 0)
+        win = ref.winner_from_words(best)
+        flat_words = fl.kmeans_pp_step_cuda(x, w, d2_flat, prev, step, seed)
+        # a w word is published only by blocks with no D² key above -inf,
+        # and the parts' blocks are not the flattened call's, so the w
+        # words agree where the draw reads them: when no D² key is
+        used = 0 if bool(((best[0] >> 32) & ref.MASK32) > ref.NEG_INF_KEY) \
+            else 1
+        check(torch.equal(best[0], flat_words[0])
+              and torch.equal(best[used], flat_words[used])
+              and torch.equal(win, ref.winner_from_words(flat_words)),
+              f"mesh seeding step {step}: the parts' draw differs from the "
+              f"flattened step's")
+        if step < 2:
+            for j, (xp, wp) in enumerate(parts[:2]):
+                d2_p, wd_p = ref.kmeans_pp_step_at_ref(
+                    xp, wp, torch.full((cap,), torch.inf, device="cuda")
+                    if center is None else d2_before[j], center, step, seed,
+                    j * cap)
+                tol = d2_tol(xp, xp)
+                check(float((d2_p - d2s[j]).abs().max()) <= tol
+                      if center is not None else True,
+                      f"mesh seeding step {step} part {j}: d2 beyond {tol}")
+                kind = 1 if center is None else 0  # the word a step fills
+                ka = float(ref.key_of_word(words[j][kind]))
+                kb = float(ref.key_of_word(wd_p[kind]))
+                check(abs(ka - kb) <= 1e-4 * max(1.0, abs(kb)),
+                      f"mesh seeding step {step} part {j}: key {ka!r} vs "
+                      f"plain {kb!r}")
+        d2_before = [d.clone() for d in d2s]
+        drawn.append(win)
+        prev = win
+        center = x[win].float()
+    check(torch.equal(torch.stack(drawn), idx),
+          "mesh seeding: the parts drew other rows than the flattened call")
+    check(torch.equal(torch.cat(d2s), d2_flat),
+          "mesh seeding: the parts' d2 differ from the flattened step's")
+    # the Lloyd step, part by part
+    n_all = x.shape[0]
+    bounds = [ops.fixed_bound(xp, wp) for xp, wp in parts]
+    for (xp, wp), b in zip(parts, bounds):
+        check(torch.equal(b, ref.fixed_bound_ref(xp, wp)),
+              "mesh lloyd: fixed_bound differs from its plain version")
+    bound = torch.stack(bounds).amax(0)
+    acc = torch.zeros((kp, DIM + 1), dtype=torch.int64, device="cuda")
+    for xp, wp in parts:
+        assign = torch.empty((cap,), dtype=torch.int32, device="cuda")
+        a = fl.fused_assign_reduce_fixed_cuda(xp, wp, c, bound, n_all,
+                                              assign_out=assign)
+        check(torch.equal(a, ref.fixed_sums_ref(xp, wp, assign, kp, bound,
+                                                n_all)),
+              "mesh lloyd: a part's accumulators differ from the plain "
+              "fixed-point sums over the kernel's argmin")
+        acc += a
+    sums, counts = exact.fixed_finalize(acc, bound, n_all)
+    fs, fc, _ = ops.fused_assign_reduce(x, w, c)
+    check(torch.equal(sums, fs) and torch.equal(counts, fc),
+          "mesh lloyd: the parts' sums differ from the flattened step's")
+    xp, wp = parts[0]
+    d2_0 = torch.full((cap,), torch.inf, device="cuda")
+    ms = timed_ms(lambda: ops.kmeans_pp_step_at(xp, wp, d2_0, center, 1,
+                                                seed, 0))
+    plain = timed_ms(lambda: ref.kmeans_pp_step_at_ref(xp, wp, d2_0, center,
+                                                       1, seed, 0), reps=3)
+    bnd, by = seed_bound(cap, DIM, 4)
+    rows["update_min_dist"]["mesh_step"] = dict(
+        shape=f"n={cap} d={DIM} part 1 of {MACHINES}", ms=ms,
+        host_us=ms.host_us, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    ms_l = timed_ms(lambda: ops.fused_assign_reduce_fixed(xp, wp, c, bound,
+                                                          n_all))
+    plain_l = timed_ms(lambda: ref.fused_assign_reduce_fixed_ref(
+        xp, wp, c, bound, n_all), reps=3)
+    bnd_l, by_l = lloyd_bound(cap, DIM, kp)
+    rows["fused_assign_reduce"]["mesh_part"] = dict(
+        shape=f"n={cap} d={DIM} k={kp} part 1 of {MACHINES}", ms=ms_l,
+        host_us=ms_l.host_us, plain_ms=plain_l, bound_ms=bnd_l,
+        bound_by=by_l)
+    print(f"mesh kernels: {kp} seeding steps over {MACHINES} parts of "
+          f"{cap} slots = the flattened call (rows, words, d2 bit for "
+          f"bit); the Lloyd step's parts sum to its bits; a part's step "
+          f"{ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} {by}), a "
+          f"part's Lloyd step {ms_l:.4f} ms (plain {plain_l:.4f}, bound "
+          f"{bnd_l:.4f} {by_l})", flush=True)
+
+
+def mesh_phase(api, KERNELS, mesh_ref, per_fit, smi: str) -> None:
+    """The mesh backend at full width: 8 ranks sharing the card over gloo
+    run Table 2 row 1 (10 M × 15, k = 25, ε = 0.05, one machine a rank)
+    and must give the card's virtual fit bit for bit on every rank, every
+    kernel of the path launched on every rank; the other six algorithms
+    and SOCCER's sharded coordinator at MESH_N on the mesh equal their
+    virtual fits here; the launch CLI on 8 ranks; NCCL at world size
+    1."""
+    from repro_torch.launch.mesh import spawn_local
+    work = mesh_ref["work"]
+    x1, _ = mixture(MESH_N, 25)
+    np.save(os.path.join(work, "x1.npy"), x1)
+    virt = {}
+    for name, (algo, kw) in MESH_FITS.items():
+        res, wall, counts = run_fit(api, KERNELS, x1, 25, algo,
+                                    MESH_FIT_KERNELS[name], **kw)
+        virt[name] = dict(digest=fit_digest(res), wall=wall,
+                          fit_s=res.wall_time_s,
+                          cost=cost_of(x1, res.centers))
+    from repro_torch.scenarios import run as scen_run
+    scen_virt = os.path.join(work, "scen_virtual.json")
+    check(scen_run.main(["--suite", "adversarial_kmeanspar", "--quick",
+                         "--device", "cuda", "--out", scen_virt]) == 0,
+          "scenario CLI (virtual) failed")
+    t0 = time.perf_counter()
+    spawn_local(mesh_rank, MACHINES, (work,), device="cuda")
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(MACHINES):
+        with open(os.path.join(work, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    ref_d = mesh_ref["digest"]
+    for r, got in enumerate(ranks):
+        fit = got["soccer_k25"]
+        check(fit["backend"] == "mesh" and fit["finite"],
+              f"mesh rank {r}: not a finite mesh fit")
+        for key in ref_d:
+            for run in ("soccer_k25_first", "soccer_k25", "soccer_k25_timed"):
+                check(got[run]["digest"][key] == ref_d[key],
+                      f"mesh rank {r}: Table 2 row 1 {key} ({run}) differs "
+                      f"from the virtual fit's")
+        missing = [n for n in SOCCER_KERNELS if fit["launches"][n] == 0]
+        check(not missing, f"mesh rank {r}: {missing} not launched")
+        per_fit[f"mesh_soccer_k25_rank{r}"] = fit["launches"]
+    for name in MESH_FITS:
+        for r, got in enumerate(ranks):
+            fit = got[name]
+            check(fit["backend"] == "mesh" and fit["finite"],
+                  f"mesh {name} rank {r}: not a finite mesh fit")
+            check(fit["digest"] == ranks[0][name]["digest"],
+                  f"mesh {name}: rank {r}'s result differs from rank 0's")
+            missing = [n for n in MESH_FIT_KERNELS[name]
+                       if fit["launches"][n] == 0]
+            check(not missing, f"mesh {name} rank {r}: {missing} not "
+                               f"launched")
+        got, want = ranks[0][name]["digest"], virt[name]["digest"]
+        same = got == want
+        note = "the virtual fit's bits"
+        if not same and name == "soccer_sharded":
+            cost = cost_of(x1, np.frombuffer(bytes.fromhex(got["centers"]),
+                                             np.float32).reshape(got["shape"]))
+            check(got["rounds"] == want["rounds"]
+                  and cost <= 1.5 * virt[name]["cost"] + 1e-3,
+                  f"mesh {name}: beyond the reference's bound")
+            note = (f"NOT the virtual bits; rounds {got['rounds']}, cost "
+                    f"{cost!r} <= 1.5 x {virt[name]['cost']!r} + 1e-3")
+        else:
+            check(same, f"mesh {name}: differs from its virtual fit")
+        per_fit[f"mesh_{name}_1M"] = ranks[0][name]["launches"]
+        print(f"mesh {name} n={MESH_N}: {note}; with the collectives timed, "
+              f"the fit's own wall (shard placement excluded) "
+              f"{max(g[name]['fit_s'] for g in ranks):.3f} s (slowest rank; "
+              f"virtual {virt[name]['fit_s']:.3f} s), of it "
+              f"{max(g[name]['collective_s'] for g in ranks):.3f} s in "
+              f"collectives; the fit call with placement "
+              f"{max(g[name]['wall'] for g in ranks):.3f} s (virtual "
+              f"{virt[name]['wall']:.3f} s) [{smi}]", flush=True)
+    # the scenario CLI on the mesh: rank 0's rows = the virtual rows but
+    # for the times, and no other rank wrote a file
+    check(all(g["scenario_rc"] == 0 for g in ranks), "scenario CLI on the "
+          "mesh failed on a rank")
+    check(not any(os.path.exists(os.path.join(work, f"scen{r}.json"))
+                  for r in range(1, MACHINES)), "a rank other than 0 wrote "
+          "the scenario JSON")
+    timing = ("wall_time_s", "compile_s")
+    rows_of = {}
+    for side, path in (("mesh", "scen0.json"), ("virtual", "scen_virtual.json")):
+        with open(os.path.join(work, path)) as fh:
+            rows_of[side] = [{k: v for k, v in r.items() if k not in timing}
+                             for r in json.load(fh)["rows"]]
+    check(rows_of["mesh"] == rows_of["virtual"], "scenario CLI: the mesh "
+          "rows differ from the virtual rows")
+    print(f"mesh scenario CLI --backend mesh (adversarial_kmeanspar, quick): "
+          f"{len(rows_of['mesh'])} rows = the virtual run's but for the "
+          f"times; rank 0 alone wrote its JSON", flush=True)
+    first = [g["soccer_k25_first"]["fit_s"] for g in ranks]
+    fit_s = [g["soccer_k25"]["fit_s"] for g in ranks]
+    calls = [g["soccer_k25"]["wall"] for g in ranks]
+    timed = [g["soccer_k25_timed"]["fit_s"] for g in ranks]
+    coll = [g["soccer_k25_timed"]["collective_s"] for g in ranks]
+    print(f"mesh soccer k=25 n={N_POINTS} on {MACHINES} ranks (gloo, one "
+          f"card): = the virtual fit bit for bit on every rank, three fits "
+          f"each (centers, rounds {ref_d['rounds']}, n_hist, uplink, wire "
+          f"bytes); the fit's own wall (shard placement excluded, slowest "
+          f"rank) {max(fit_s):.3f} s (rank 0 {fit_s[0]:.3f} s; a rank's "
+          f"first fit {max(first):.3f} s), virtual {mesh_ref['wall']:.3f} s "
+          f"(table2_phase's fit); with the collectives timed "
+          f"{max(timed):.3f} s, of it {max(coll):.3f} s in collectives "
+          f"(rank 0 {coll[0]:.3f} s); the fit call with each rank's "
+          f"placement of the 10 M points {max(calls):.3f} s; spawn and all "
+          f"fits {spawn_s:.1f} s [{smi}]", flush=True)
+    # the launch CLI on 8 ranks
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch", "--devices",
+         str(MACHINES), "--algo", "soccer", "--k", "16"], env=env,
+        capture_output=True, text=True, timeout=600)
+    check(cli.returncode == 0, f"launch CLI failed: {cli.stderr[-3000:]}")
+    rep = json.loads(cli.stdout)
+    check(rep["backend"] == "mesh" and rep["m"] == MACHINES
+          and rep["process_group"] == "gloo"
+          and sum(rep["wire_bytes"]) + sum(rep["wire_meta_bytes"])
+          == rep["wire_bytes_total"] and np.isfinite(rep["cost"]),
+          f"launch CLI report: {rep}")
+    print(f"launch CLI --devices {MACHINES}: mesh over gloo, rounds "
+          f"{rep['rounds']}, wire {rep['wire_bytes_total']} B "
+          f"({rep['bytes_vs_omega_mk']} x Omega(mk)), fit wall "
+          f"{rep['wall_time_s']} s, command "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # NCCL at world size 1
+    spawn_local(nccl_rank, 1, (work,), device="cuda")
+    with open(os.path.join(work, "nccl.json")) as fh:
+        nccl = json.load(fh)
+    check(nccl["ok"], f"NCCL world size 1: {nccl}")
+    print("mesh NCCL world size 1: float and int8 gathered on the card "
+          "with their bits", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -3709,6 +4100,7 @@ def main() -> None:
     tier_sync_phase(SoccerParams)
     kmpar_sync_phase()
     knob_sync_phase(SoccerParams)
+    mesh_kernel_phase(ops, ref, rows, SoccerParams)
     per_fit = {}
     x, means, soc, soc_cost = table2_phase(api, ops.KERNELS, *TABLE2[0],
                                            per_fit)
@@ -3724,6 +4116,7 @@ def main() -> None:
     knob_fit_phase(api, ops.KERNELS, x, means, soc, soc_cost, per_fit)
     trace_phase(api, ops.KERNELS, x, soc, per_fit)
     overhead_phase(x, smi_line)
+    mesh_ref = mesh_reference(x, soc)
     del x, soc
     wide_phase(api, ops.KERNELS, per_fit)
     profile_phase(rows)
@@ -3731,6 +4124,7 @@ def main() -> None:
     stream_phase(api, ops.KERNELS, ops, ref, rows, per_fit)
     scenario_phase(api, ops.KERNELS, ops, ref, rows, per_fit, smi_line)
     selfcheck_phase()
+    mesh_phase(api, ops.KERNELS, mesh_ref, per_fit, smi_line)
 
     # launches: the fits together, each counted from 0;
     # launches_per_fit: each fit's own count

@@ -9,7 +9,10 @@ the reference's signatures and defaults; ``coreset_kmeans`` and
 registry contract and reports per-round uplink in points and bytes (at
 the uplink dtype's width), the achieved wire bytes, and the raw core
 result under ``extra["raw"]``. The run-condition options ``fit`` passes
-on are checked by the drivers' one guard, ``core.soccer.check_run_knobs``.
+on are checked and resolved by the drivers' one guard,
+``core.soccer.check_run_knobs``; ``backend`` is anything
+``api.backends.resolve_backend`` takes, and ``ClusterResult.backend`` is
+the resolved backend's name.
 Under ``fit(trace=...)`` the multi-round drivers emit their records in
 their host loops; the one-shot drivers emit one ``phase="upload"``
 record, timed up to their first read back.
@@ -25,7 +28,7 @@ import torch
 from repro_torch.api.registry import register_algorithm
 from repro_torch.api.result import ClusterResult, uplink_bytes
 from repro_torch.configs.soccer_paper import SoccerParams
-from repro_torch.core.comm import VirtualCluster, wire_tally
+from repro_torch.core.comm import wire_tally
 from repro_torch.core.eim11 import run_eim11
 from repro_torch.core.kmeans import kmeans
 from repro_torch.core.kmeans_parallel import run_kmeans_parallel
@@ -56,7 +59,7 @@ def _split_run_knobs(algo: str, params: dict, allowed: set) -> dict:
 
 
 @register_algorithm("soccer")
-def fit_soccer(x_parts, k: int, *, backend: str = "virtual",
+def fit_soccer(x_parts, k: int, *, backend="virtual",
                generator: Optional[torch.Generator] = None, w=None,
                alive=None, seed: int = 0, eta_override: int = 0,
                on_round=None, device: DeviceLike = "cuda",
@@ -71,7 +74,7 @@ def fit_soccer(x_parts, k: int, *, backend: str = "virtual",
                      on_round=on_round, **run_knobs)
     up = res.uplink[: res.rounds + 1]
     return ClusterResult(
-        centers=res.centers, k=k, algo="soccer", backend="virtual",
+        centers=res.centers, k=k, algo="soccer", backend=res.backend,
         rounds=res.rounds, uplink_points=np.asarray(up, np.int64),
         uplink_bytes=uplink_bytes(up, d, dtype=res.const.uplink_dtype),
         n_hist=res.n_hist[: res.rounds + 1],
@@ -87,7 +90,7 @@ fit_soccer.supports_uplink_mode = True
 
 
 @register_algorithm("kmeans_parallel")
-def fit_kmeans_parallel(x_parts, k: int, *, backend: str = "virtual",
+def fit_kmeans_parallel(x_parts, k: int, *, backend="virtual",
                         generator: Optional[torch.Generator] = None,
                         w=None, alive=None, seed: int = 0, rounds: int = 5,
                         l: Optional[float] = None, lloyd_iters: int = 25,
@@ -108,7 +111,8 @@ def fit_kmeans_parallel(x_parts, k: int, *, backend: str = "virtual",
     sel = [int(s) for s in res.selected_hist]
     up = np.asarray([1 + sel[0]] + sel[1:] if sel else [1], np.int64)
     return ClusterResult(
-        centers=res.centers, k=k, algo="kmeans_parallel", backend="virtual",
+        centers=res.centers, k=k, algo="kmeans_parallel",
+        backend=res.backend,
         rounds=res.rounds, uplink_points=up,
         uplink_bytes=uplink_bytes(up, d, dtype=res.uplink_dtype),
         wire_bytes=res.wire_payload[:len(up)],
@@ -118,7 +122,7 @@ def fit_kmeans_parallel(x_parts, k: int, *, backend: str = "virtual",
 
 
 @register_algorithm("eim11")
-def fit_eim11(x_parts, k: int, *, backend: str = "virtual",
+def fit_eim11(x_parts, k: int, *, backend="virtual",
               generator: Optional[torch.Generator] = None, w=None,
               alive=None, seed: int = 0, epsilon: float = 0.1,
               delta: float = 0.1, remove_frac: float = 0.5,
@@ -132,7 +136,7 @@ def fit_eim11(x_parts, k: int, *, backend: str = "virtual",
                     generator=generator, max_rounds=max_rounds, seed=seed,
                     device=device, backend=backend, **run_knobs)
     return ClusterResult(
-        centers=res.centers, k=k, algo="eim11", backend="virtual",
+        centers=res.centers, k=k, algo="eim11", backend=res.backend,
         rounds=res.rounds, uplink_points=np.asarray(res.uplink, np.int64),
         uplink_bytes=uplink_bytes(res.uplink, d, dtype=res.uplink_dtype),
         n_hist=res.n_hist,
@@ -147,12 +151,13 @@ def _fit_central(method: str, x_parts, k: int, generator, w, alive,
     the uplink dtype and wire, and the coordinator runs the black box on
     the union. On the values wire the payload is rounded after the
     gather, so int8 takes one code book for the union (the reference's
-    order); the codes wire takes one a machine."""
-    uplink_dtype, wire = check_run_knobs(**run_knobs)
+    order); the codes wire takes one a machine. On a mesh every rank
+    gathers every row and runs the black box on them."""
     m, p, d = x_parts.shape
+    bk, uplink_dtype, wire = check_run_knobs(m, **run_knobs)
     dev = resolve_device(device)
-    comm = VirtualCluster(m)
-    x, w_dev = machine_data(x_parts, w, alive, dev)
+    comm = bk.make_comm(m)
+    x, w_dev = machine_data(x_parts, w, alive, dev, bk)
     gen = (torch.Generator(dev).manual_seed(seed) if generator is None
            else generator)
     trace = obs_trace.current_trace()
@@ -167,7 +172,8 @@ def _fit_central(method: str, x_parts, k: int, generator, w, alive,
             centers, cost = minibatch_kmeans(gen, xa, wa, k, **bb_kw)
         else:
             centers, cost = kmeans(gen, xa, wa, k, **bb_kw)
-        n_up = int(torch.sum(w_dev > 0))
+        # a raw sum over machines: a count, not traffic to record
+        n_up = int(comm._reduce(torch.sum(w_dev > 0, dim=1)))
     up = np.asarray([n_up], np.int64)
     sc.stop()
     if trace is not None:
@@ -179,7 +185,7 @@ def _fit_central(method: str, x_parts, k: int, generator, w, alive,
             wall_s=sc.wall_s, compile_s=sc.compile_s)
         trace.stop_reason = "one_shot"
     return ClusterResult(
-        centers=centers.cpu().numpy(), k=k, algo=method, backend="virtual",
+        centers=centers.cpu().numpy(), k=k, algo=method, backend=bk.name,
         rounds=1, uplink_points=up,
         uplink_bytes=uplink_bytes(up, d, dtype=uplink_dtype),
         wire_bytes=np.asarray([t.payload], np.int64),
@@ -188,7 +194,7 @@ def _fit_central(method: str, x_parts, k: int, generator, w, alive,
 
 
 @register_algorithm("lloyd")
-def fit_lloyd(x_parts, k: int, *, backend: str = "virtual",
+def fit_lloyd(x_parts, k: int, *, backend="virtual",
               generator: Optional[torch.Generator] = None, w=None,
               alive=None, seed: int = 0, iters: int = 25,
               device: DeviceLike = "cuda", **params) -> ClusterResult:
@@ -200,7 +206,7 @@ def fit_lloyd(x_parts, k: int, *, backend: str = "virtual",
 
 
 @register_algorithm("minibatch")
-def fit_minibatch(x_parts, k: int, *, backend: str = "virtual",
+def fit_minibatch(x_parts, k: int, *, backend="virtual",
                   generator: Optional[torch.Generator] = None, w=None,
                   alive=None, seed: int = 0, batch: int = 1024,
                   steps: int = 60, device: DeviceLike = "cuda",

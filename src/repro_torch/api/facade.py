@@ -19,8 +19,10 @@
 ``x`` is either flat ``(n, d)`` data (placed on ``m`` machines by
 ``shard_policy``, see ``repro_torch.data.sharding``) or pre-sharded
 ``(m, p, d)``, passed through untouched. The signature mirrors
-``repro.api.fit``; ``backend="mesh"`` is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+``repro.api.fit``. ``backend="mesh"`` runs one machine per rank of an
+initialized ``torch.distributed`` process group of world size ``m``
+(``python -m repro_torch.launch``); every rank calls ``fit`` with the
+whole ``x``, keeps its own machine's rows, and returns the same result.
 """
 from __future__ import annotations
 
@@ -29,9 +31,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.api.backends import (check_uplink_dtype, check_uplink_wire,
+                                      resolve_backend)
 from repro_torch.api.registry import get_algorithm
 from repro_torch.api.result import ClusterResult
-from repro_torch.core.sampling import check_uplink_dtype, check_uplink_wire
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ft.failures import FailurePlan
 from repro_torch.obs import trace as obs_trace
@@ -79,8 +82,12 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
       x: ``(n, d)`` points or ``(m, p, d)`` machine-sharded points.
       k: number of clusters.
       algo: registered algorithm name (``list_algorithms()``).
-      backend: "virtual" (all machines on one device; "auto" is the same
-        here); "mesh" is not ported yet.
+      backend: "virtual" (all machines on one device), "mesh" (one
+        machine per rank of the initialized ``torch.distributed`` default
+        group, whose world size must be ``m``; ValueError otherwise),
+        "auto" ("mesh" exactly when such a group exists), a
+        ``torch.distributed.ProcessGroup``, or a
+        ``repro_torch.api.backends.Backend``.
       m: machine count for flat input (default 8, the paper's setup).
       w: optional per-point weights, shaped like ``x`` minus the last axis.
       generator: optional ``torch.Generator`` on ``device`` (default: one
@@ -169,16 +176,18 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
             algo_params.setdefault("straggler_rate",
                                    failure_plan.straggler_rate)
 
+    bk = resolve_backend(backend, m, uplink_dtype=ud,
+                         uplink_wire=uplink_wire)
     rt = None
     if trace not in (None, False, "off"):
         rt = obs_trace.RunTrace(mode=trace, annotate=True, meta=dict(
-            algo=algo, backend=backend, k=k, m=m, seed=seed,
+            algo=algo, backend=bk.name, k=k, m=m, seed=seed,
             device=str(dev)))
 
     # every fit is timed by the one obs clock (obs.trace.clock), so fit
     # walls and trace walls never come from different timers
     t0 = obs_trace.clock()
-    run = dict(backend=backend, generator=generator, w=w_parts,
+    run = dict(backend=bk, generator=generator, w=w_parts,
                alive=alive_parts, seed=seed, device=dev, uplink_dtype=ud,
                uplink_wire=uplink_wire, **algo_params)
     with obs_trace.run_trace(rt):

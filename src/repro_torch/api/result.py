@@ -47,7 +47,7 @@ class ClusterResult:
     centers: np.ndarray                 # (c, d) final centers
     k: int                              # requested number of clusters
     algo: str                           # registry name
-    backend: str                        # "virtual"
+    backend: str                        # "virtual" | "mesh"
     rounds: int                         # communication rounds used
     uplink_points: np.ndarray           # (R,) points uploaded per round
     uplink_bytes: np.ndarray            # (R,) same in bytes (dtype-aware)

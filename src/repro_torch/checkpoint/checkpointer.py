@@ -13,9 +13,14 @@ package reads the other's files.
 
 ``restore`` takes a *template* tree of the same structure and fills every
 leaf from the file: a tensor leaf comes back as a tensor of its dtype on
-its device, any other leaf as a numpy array. Placing leaves by
-``shardings`` belongs to the multi-device backend (ROADMAP Queue 1 item
-17) and raises.
+its device, any other leaf as a numpy array. ``shardings``, a tree of
+the same structure, places each leaf instead, the counterpart of
+``jax.device_put(a, sharding)``: a device (a name or ``torch.device``)
+puts the leaf there whole; a mark (``api.backends.MACHINE`` or
+``REPLICATED``) places it through the backend's ``put`` (``backend``;
+default: a ``MeshBackend`` when a process group is initialized, so each
+rank takes its own machine's row of a ``MACHINE`` leaf, else the virtual
+backend, which keeps the leaf whole).
 """
 from __future__ import annotations
 
@@ -67,6 +72,28 @@ def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _place_tree(tree: Any, shardings: Any, backend: Any) -> Any:
+    """Each leaf of ``tree`` placed as the same path of ``shardings``
+    says: a device, or a placement mark through ``backend.put``."""
+    from repro_torch.api import backends
+    if backend is None:
+        import torch.distributed as dist
+        backend = (backends.MeshBackend() if dist.is_available()
+                   and dist.is_initialized() else backends.VirtualBackend())
+    marks = (backends.MACHINE, backends.REPLICATED)
+
+    def place(path: str, leaf):
+        spec = shardings
+        for key in path.split("/") if path else ():
+            spec = spec[key] if isinstance(spec, dict) else spec[int(key)]
+        if isinstance(spec, str) and spec in marks:
+            return backend.put(leaf, spec)
+        return torch.as_tensor(np.asarray(_host(leaf)),
+                               device=torch.device(spec))
+
+    return _map(tree, place)
 
 
 class Checkpointer:
@@ -130,11 +157,7 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                shardings: Any = None) -> Any:
-        if shardings is not None:
-            raise NotImplementedError(
-                "Checkpointer.restore(shardings=...) is not ported yet "
-                "(ROADMAP Queue 1 item 17, the multi-device backend)")
+                shardings: Any = None, backend: Any = None) -> Any:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -151,4 +174,7 @@ class Checkpointer:
                     leaf.dtype)
             return arr
 
-        return _map(template, fill)
+        out = _map(template, fill)
+        if shardings is None:
+            return out
+        return _place_tree(out, shardings, backend)

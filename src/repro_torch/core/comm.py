@@ -1,9 +1,12 @@
-"""Machine/coordinator communication for the port's virtual backend.
+"""Machine/coordinator communication: the virtual and the mesh cluster.
 
 The paper's coordinator model has ``m`` machines that talk only to a
 coordinator. ``VirtualCluster`` folds all ``m`` machines into axis 0 of
 every per-machine tensor (``(m, ...)``) on one device, as the reference's
-``repro.core.comm.VirtualCluster`` does. It provides two raw collectives —
+``repro.core.comm.VirtualCluster`` does; ``MeshCluster`` holds one machine
+per ``torch.distributed`` rank (``(1, ...)`` blocks), the counterpart of
+the reference's ``MeshCluster`` inside ``shard_map``. Each provides two
+raw collectives —
 ``_reduce`` (sum over machines) and ``_gather`` (per-machine blocks) —
 and ``_WireOps`` derives the recording wrappers the algorithms use:
 ``psum``, ``all_machines``, the fixed-width ``concat_machines``, the
@@ -14,6 +17,15 @@ collective, dequantization on arrival. The values land on each
 machine's own 256-level grid, the bits of ``ft.compression.
 fake_quantize_int8`` applied before a plain gather, so a codes-wire fit
 equals a values-wire fit.
+
+Both clusters give every rank the virtual cluster's bits: the mesh's
+``_reduce`` gathers the ``(m, ...)`` blocks and sums them over the machine
+axis in machine order, as the virtual one does, never through
+``all_reduce``, whose summation order is the library's. Machine-axis
+random draws go through ``machine_rand``/``machine_draws``: both clusters
+draw every machine's numbers from the run's generator, in machine order,
+and keep their own machines' share, so a machine draws the same numbers
+whichever process holds it and every rank's generator stays in step.
 
 Wire accounting: the JAX package records bytes once, when a round is
 traced, and multiplies by the rounds it ran. PyTorch runs eagerly, so
@@ -26,7 +38,7 @@ import contextlib
 import dataclasses
 import math
 import warnings
-from typing import List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -112,7 +124,32 @@ def _row_nbytes(x: torch.Tensor) -> int:
 
 
 class _WireOps:
-    """Derived collectives + wire recording over ``_reduce``/``_gather``."""
+    """Derived collectives + wire recording over ``_reduce``/``_gather``,
+    and the machine-axis draws over ``machine_base``."""
+
+    def _mine(self, rows):
+        """This process's machines' entries of an m-long machine axis."""
+        return rows[self.machine_base:self.machine_base + self.local_m]
+
+    def machine_ids(self, device) -> torch.Tensor:
+        """(local_m,) int32 global ids of this process's machines."""
+        return torch.arange(self.machine_base,
+                            self.machine_base + self.local_m,
+                            dtype=torch.int32, device=device)
+
+    def machine_rand(self, gen: torch.Generator, shape, device
+                     ) -> torch.Tensor:
+        """(local_m, *shape) uniforms in [0, 1): this process's rows of
+        one (m, *shape) ``torch.rand`` draw from ``gen``."""
+        return self._mine(torch.rand((self.m, *shape), generator=gen,
+                                     device=device))
+
+    def machine_draws(self, draw: Callable[[], Any]) -> List[Any]:
+        """``draw()`` once a machine, in machine order; this process's
+        machines' results (a list of local_m). For per-machine draws
+        that interleave with a machine's own work, as the coreset
+        builds' seed and inverse-CDF draws do."""
+        return self._mine([draw() for _ in range(self.m)])
 
     @property
     def _fan(self) -> int:
@@ -260,11 +297,67 @@ class VirtualCluster(_WireOps):
     def local_m(self) -> int:
         return self.m
 
+    @property
+    def machine_base(self) -> int:
+        return 0
+
     def _reduce(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sum(x, dim=0)
 
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
-    def machine_ids(self, device) -> torch.Tensor:
-        return torch.arange(self.m, dtype=torch.int32, device=device)
+
+# dtypes that move through a gather as their bytes: not every gloo or
+# NCCL build takes them, and a byte view keeps every bit
+_BYTE_WIRE = (torch.bool, torch.bfloat16, torch.float16)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshCluster(_WireOps):
+    """One machine per rank of a ``torch.distributed`` process group
+    (``group`` None: the default group): per-machine tensors are this
+    rank's ``(1, ...)`` block, and machine ``rank`` is this rank's."""
+    m: int
+    rank: int
+    group: Any = None
+
+    def __post_init__(self):
+        if not 0 <= self.rank < self.m:
+            raise ValueError(f"MeshCluster: rank {self.rank} outside "
+                             f"[0, {self.m})")
+
+    @property
+    def local_m(self) -> int:
+        return 1
+
+    @property
+    def machine_base(self) -> int:
+        return self.rank
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(1, ...) -> (m, ...) in rank order, on ``x``'s device. An int8
+        block moves at one byte an element: compression survives the
+        collective. Under gloo a CUDA block is staged through the host
+        (gloo's collectives move host memory); NCCL moves it on the
+        card."""
+        import torch.distributed as dist
+        if x.shape[0] != 1:
+            raise ValueError(f"MeshCluster: per-machine blocks are (1, ...), "
+                             f"got {tuple(x.shape)}")
+        x = x.contiguous()
+        wire = x.view(torch.uint8) if x.dtype in _BYTE_WIRE else x
+        if wire.is_cuda and dist.get_backend(self.group) == "gloo":
+            wire = wire.cpu()       # gloo moves host memory: stage there
+        parts = [torch.empty_like(wire) for _ in range(self.m)]
+        dist.all_gather(parts, wire, group=self.group)
+        g = torch.cat(parts, 0).to(x.device)
+        if g.dtype != x.dtype:
+            g = g.view(x.dtype).reshape((self.m,) + tuple(x.shape[1:]))
+        return g
+
+    def _reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over machines: the gathered (m, ...) blocks summed over
+        axis 0 in machine order on every rank, the virtual cluster's
+        ``torch.sum(x, dim=0)`` bits."""
+        return torch.sum(self._gather(x), dim=0)

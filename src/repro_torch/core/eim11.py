@@ -1,6 +1,6 @@
 """EIM11 (Ene, Im, Moseley 2011) — the paper's second baseline.
 
-The port of ``repro.core.eim11`` on the virtual backend. Per round (paper §2's description): machines upload two samples;
+The port of ``repro.core.eim11``, on either backend. Per round (paper §2's description): machines upload two samples;
 the coordinator *adds the whole first sample to the clustering*, computes
 a quantile threshold of the second sample's distances to the clustering,
 and broadcasts the threshold **and the clustering** — whose size grows by
@@ -55,6 +55,7 @@ class EIM11Result:
     wire_meta: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0,), np.int64))
     uplink_dtype: str = "float32"  # as check_run_knobs resolved it
+    backend: str = "virtual"       # the resolved backend's name
 
 
 def sample_sizes(m: int, p: int, k: int, epsilon: float, delta: float,
@@ -114,30 +115,32 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
               remove_frac: float = 0.5, w=None, alive=None,
               generator: Optional[torch.Generator] = None,
               max_rounds: int = 12, seed: int = 0,
-              device: DeviceLike = "cuda", backend: str = "virtual",
+              device: DeviceLike = "cuda", backend="virtual",
               **run_knobs) -> EIM11Result:
-    """Driver on the virtual backend; ``x_parts`` is (m, p, d), ``w`` and
-    ``alive`` optional (m, p) weights and mask. ``run_knobs`` are the
-    reference's run-condition options, checked by the one guard
-    (``soccer.check_run_knobs``)."""
-    upload_dtype, wire = check_run_knobs(backend=backend, **run_knobs)
+    """Driver; ``x_parts`` is (m, p, d), ``w`` and ``alive`` optional
+    (m, p) weights and mask, every machine's (a mesh rank keeps its
+    own). ``run_knobs`` are the reference's run-condition options,
+    checked and resolved by the one guard (``soccer.check_run_knobs``)."""
+    from repro_torch.api.backends import MACHINE
+    m, p, d = x_parts.shape
+    bk, upload_dtype, wire = check_run_knobs(m, backend=backend,
+                                             **run_knobs)
     uplink = dict(upload_dtype=upload_dtype, wire=wire)
     dev = resolve_device(device)
-    m, p, d = x_parts.shape
-    comm = VirtualCluster(m)
+    comm = bk.make_comm(m)
     s, rows = sample_sizes(m, p, k, epsilon, delta, max_rounds, w, alive)
     cap = min(p, s)
-    x = torch.as_tensor(x_parts, device=dev).to(torch.float32)
-    w = (torch.ones((m, p), dtype=torch.float32, device=dev) if w is None
-         else torch.as_tensor(np.asarray(w, np.float32), device=dev))
-    alive = (torch.ones((m, p), dtype=torch.bool, device=dev)
-             if alive is None
-             else torch.as_tensor(np.asarray(alive, bool), device=dev))
+    x, w, alive = bk.put(
+        (x_parts, np.ones((m, p), np.float32) if w is None
+         else np.asarray(w, np.float32),
+         np.ones((m, p), bool) if alive is None else np.asarray(alive, bool)),
+        MACHINE, device=dev)
+    x = x.to(torch.float32)
     gen = (torch.Generator(dev).manual_seed(seed) if generator is None
            else generator)
 
     centers = torch.zeros((rows, d), dtype=torch.float32, device=dev)
-    n = int(alive.sum())
+    n = int(comm._reduce(torch.sum(alive, dim=1)))
     n_hist, ups, tallies, clocks = [n], [], [], []
     rounds = broadcast = 0
     n_rem = n
@@ -206,4 +209,4 @@ def run_eim11(x_parts, k: int, epsilon: float, *, delta: float = 0.1,
         centers=final.cpu().numpy(), rounds=rounds,
         broadcast_points=broadcast, n_hist=np.asarray(n_hist),
         uplink=up_arr, wire_payload=wire_payload, wire_meta=wire_meta,
-        uplink_dtype=upload_dtype)
+        uplink_dtype=upload_dtype, backend=bk.name)

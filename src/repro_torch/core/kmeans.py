@@ -16,7 +16,7 @@ to the host, so a fit on the card queues its launches without waiting.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,16 +29,25 @@ def pick_row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return torch.index_select(x, 0, i.reshape(1))[0]
 
 
-def kmeans_plusplus(gen: torch.Generator, x: torch.Tensor, w: torch.Tensor,
-                    k: int) -> torch.Tensor:
+def draw_seed(gen: torch.Generator, device) -> torch.Tensor:
+    """A seeding's 64-bit Philox key, a (2,) int64 tensor drawn from
+    ``gen``."""
+    return torch.randint(0, 1 << 32, (2,), generator=gen, device=device,
+                         dtype=torch.int64)
+
+
+def kmeans_plusplus(gen: Optional[torch.Generator], x: torch.Tensor,
+                    w: torch.Tensor, k: int,
+                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Weighted D²-seeding. Returns (k, d) float32 initial centers.
 
     Draws the seeding's 64-bit Philox key from ``gen`` (on ``x``'s
-    device), runs the k steps in ``ops.kmeans_plusplus_indices`` and
-    gathers the chosen rows with one ``index_select``.
+    device; or takes ``seed``, one drawn before by ``draw_seed``), runs
+    the k steps in ``ops.kmeans_plusplus_indices`` and gathers the chosen
+    rows with one ``index_select``.
     """
-    seed = torch.randint(0, 1 << 32, (2,), generator=gen, device=x.device,
-                         dtype=torch.int64)
+    if seed is None:
+        seed = draw_seed(gen, x.device)
     idx = ops.kmeans_plusplus_indices(x, w, k, seed)
     return torch.index_select(x, 0, idx).to(torch.float32)
 

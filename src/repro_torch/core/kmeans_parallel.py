@@ -1,6 +1,6 @@
 """k-means‖ (scalable k-means++, Bahmani et al. 2012) — the paper's baseline.
 
-The port of ``repro.core.kmeans_parallel`` on the virtual backend.
+The port of ``repro.core.kmeans_parallel``, on either backend.
 Distributed seeding over the same machine/coordinator
 abstraction as SOCCER: per round every point is selected with probability
 min(1, l·w·d²(x,C)/φ(C)) (expected ``l`` selections, paper/MLLib default
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.comm import VirtualCluster, WireTally, wire_tally
+from repro_torch.kernels.exact import exact_row_sum
 from repro_torch.core.metrics import assignment_counts
 from repro_torch.core.reduce import reduce_to_k
 from repro_torch.core.sampling import (global_weighted_choice,
@@ -53,6 +54,7 @@ class KMeansParallelResult:
     wire_meta: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0,), np.int64))
     uplink_dtype: str = "float32"  # as check_run_knobs resolved it
+    backend: str = "virtual"       # the resolved backend's name
 
 
 def buffer_rows(k: int, rounds: int, l: Optional[float] = None,
@@ -80,9 +82,9 @@ def _one_round(comm: VirtualCluster, l: float, cap: int,
     m, p, d = x.shape
     d2, _ = ops.min_dist(x.reshape(m * p, d), centers[:base], valid[:base])
     d2 = d2.reshape(m, p)
-    phi = comm.psum(torch.sum(w * d2, dim=1))
+    phi = comm.psum(exact_row_sum(w * d2))
     prob = torch.clamp(l * w * d2 / torch.clamp(phi, min=1e-30), max=1.0)
-    sel = (torch.rand((m, p), generator=gen, device=x.device) < prob) & (w > 0)
+    sel = (comm.machine_rand(gen, (p,), x.device) < prob) & (w > 0)
     buf, c_vec = scatter_selected(comm, payload, sel, cap, base,
                                   centers.shape[0])
     landed = buf[:, -1] > 0
@@ -133,21 +135,24 @@ def run_kmeans_parallel(x_parts, k: int, rounds: int, *,
                         lloyd_iters: int = 25,
                         oversample_slack: float = 3.0, seed: int = 0,
                         device: DeviceLike = "cuda",
-                        backend: str = "virtual",
+                        backend="virtual",
                         **run_knobs) -> KMeansParallelResult:
-    """Driver on the virtual backend; ``x_parts`` is (m, p, d) (numpy or a
-    tensor), ``w`` optional (m, p) weights (0 = padding). ``run_knobs``
-    are the reference's run-condition options, checked by the one guard
+    """Driver; ``x_parts`` is (m, p, d) (numpy or a tensor), ``w``
+    optional (m, p) weights (0 = padding), every machine's (a mesh rank
+    keeps its own). ``run_knobs`` are the reference's run-condition
+    options, checked and resolved by the one guard
     (``soccer.check_run_knobs``); ``uplink_dtype`` rounds the uploaded
     points, and the wire is the dense f32 scatter channel whatever
     ``uplink_wire`` says, as in the reference."""
-    upload_dtype, _ = check_run_knobs(backend=backend, **run_knobs)
-    dev = resolve_device(device)
+    from repro_torch.api.backends import MACHINE
     m, p, d = x_parts.shape
-    comm = VirtualCluster(m)
-    x = torch.as_tensor(x_parts, device=dev).to(torch.float32)
-    w = (torch.ones((m, p), dtype=torch.float32, device=dev) if w is None
-         else torch.as_tensor(np.asarray(w, np.float32), device=dev))
+    bk, upload_dtype, _ = check_run_knobs(m, backend=backend, **run_knobs)
+    dev = resolve_device(device)
+    comm = bk.make_comm(m)
+    w = np.ones((m, p), np.float32) if w is None else np.asarray(
+        w, np.float32)
+    x, w = bk.put((x_parts, w), MACHINE, device=dev)
+    x = x.to(torch.float32)
     l, cap, rows = buffer_rows(k, rounds, l, oversample_slack)
     gen = (torch.Generator(dev).manual_seed(seed) if generator is None
            else generator)
@@ -193,4 +198,4 @@ def run_kmeans_parallel(x_parts, k: int, rounds: int, *,
         oversampled=centers[valid].cpu().numpy(), rounds=rounds,
         phi_hist=phi_hist, selected_hist=sel_hist,
         wire_payload=wire_payload, wire_meta=wire_meta,
-        uplink_dtype=upload_dtype)
+        uplink_dtype=upload_dtype, backend=bk.name)

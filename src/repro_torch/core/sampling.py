@@ -21,65 +21,42 @@ The baselines add ``scatter_at`` (k-means‖'s rank-positioned upload into a
 dense per-machine buffer, whose pad is recorded as wire) and the
 two-stage ``global_weighted_choice``; the coreset uplinks add
 ``gather_weighted``, the fixed-width weighted gather. The uplink dtype
-contract (``check_uplink_dtype``, ``check_uplink_wire``,
-``quantize_uplink``, ``uplink_storage_dtype``) is the reference's
-``api.backends`` and ``core.sampling`` one, kept here.
+contract's checks (``check_uplink_dtype``, ``check_uplink_wire``) live in
+``api.backends`` and are re-exported here; ``quantize_uplink`` and
+``uplink_storage_dtype`` are the reference's ``core.sampling`` ones.
+
+Every machine-axis draw goes through the comm (``comm.machine_rand``), so
+a machine draws the same numbers on the virtual and the mesh backend, and
+a per-machine sum that a draw or a threshold reads is an exact row sum
+(``kernels.exact.exact_row_sum``), whose bits do not depend on how many
+machines a tensor holds. The Gumbel top-k ranks by ``ordered_topk``: the
+score's bits above the index, so ties fall to the lowest index whatever
+the tensor's layout.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.comm import record_wire
+from repro_torch.core.comm import VirtualCluster, record_wire
+from repro_torch.kernels.exact import exact_row_sum
 
 
-# Machine->coordinator payload precisions (the ``uplink_dtype`` knob):
-# points are rounded to this dtype before the upload and accounted at its
-# width in ``ClusterResult.uplink_bytes``. "int8" goes through the affine
-# quantizer in ``ft.compression``; its payload is stored as the float32
-# reconstruction, so the kernels need no int8 path.
-UPLINK_DTYPES = ("float32", "bfloat16", "float16", "int8")
-# Wire transport of the quantized payload (the ``uplink_wire`` knob):
-# "values" moves payloads at their storage width (int8 as its float32
-# reconstruction), "codes" moves int8 payloads as 1-byte codes plus one
-# per-machine (scale, zero_point) pair (``core.comm``'s compressed
-# gathers), "auto" is "codes" for int8 and "values" otherwise.
-UPLINK_WIRES = ("auto", "codes", "values")
 _FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
+# the uplink dtype contract lives in api.backends, as in the reference;
+# these names are re-exported from here (lazily: the api package imports
+# this module)
+_BACKEND_NAMES = ("UPLINK_DTYPES", "UPLINK_WIRES", "check_uplink_dtype",
+                  "check_uplink_wire")
 
 
-def check_uplink_dtype(dtype) -> str:
-    """The uplink dtype's name (a name, a torch or a numpy dtype);
-    ValueError for one outside ``UPLINK_DTYPES``."""
-    if isinstance(dtype, torch.dtype):
-        name = str(dtype).removeprefix("torch.")
-    elif isinstance(dtype, str):
-        name = dtype
-    else:
-        name = str(getattr(dtype, "__name__", dtype))
-    if name not in UPLINK_DTYPES:
-        raise ValueError(
-            f"unsupported uplink_dtype {dtype!r}: expected one of "
-            f"{', '.join(UPLINK_DTYPES)}")
-    return name
-
-
-def check_uplink_wire(wire, dtype: str = "float32") -> str:
-    """Validate an ``uplink_wire`` knob against the uplink dtype and
-    resolve it to the transport, "codes" or "values"."""
-    if wire not in UPLINK_WIRES:
-        raise ValueError(
-            f"unsupported uplink_wire {wire!r}: expected one of "
-            f"{', '.join(UPLINK_WIRES)}")
-    if wire == "auto":
-        return "codes" if dtype == "int8" else "values"
-    if wire == "codes" and dtype != "int8":
-        raise ValueError(
-            f"uplink_wire='codes' ships int8 codes + per-machine qparams "
-            f"and needs uplink_dtype='int8', got uplink_dtype={dtype!r}")
-    return wire
+def __getattr__(name):
+    if name in _BACKEND_NAMES:
+        from repro_torch.api import backends
+        return getattr(backends, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def quantize_uplink(x: torch.Tensor, upload_dtype: str) -> torch.Tensor:
@@ -143,26 +120,46 @@ def exclusive_cumsum(c: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(c, 0, dtype=c.dtype) - c
 
 
-def sample_local(gen: torch.Generator, alive: torch.Tensor, c: torch.Tensor,
-                 cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def ordered_topk(scores: torch.Tensor, t: int) -> torch.Tensor:
+    """(r, t) int64 indices of the ``t`` largest of each row of the
+    (r, p) float32 ``scores``, largest first, a tie to the lower index:
+    a top-k over unique int64 keys (the score's order-preserving bits
+    above ``2^32 - 1 - index``), so the result does not depend on how
+    the library splits the rows."""
+    p = scores.shape[-1]
+    b = scores.contiguous().view(torch.int32).to(torch.int64)
+    o = torch.where(b < 0, ~b & 0xFFFFFFFF, b | 0x80000000)
+    idx = torch.arange(p, dtype=torch.int64, device=scores.device)
+    key = ((o - 0x80000000) << 32) | (0xFFFFFFFF - idx)    # signed order
+    _, top = torch.topk(key, t, dim=-1)
+    return top
+
+
+def sample_local(gen: torch.Generator, alive: torch.Tensor,
+                 c: torch.Tensor, cap: int, comm=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw ``c[j]`` live points of each machine uniformly without
-    replacement (Gumbel top-k), all machines at once.
+    replacement (Gumbel top-k), all of this process's machines at once.
 
     Args:
       gen: generator on ``alive``'s device.
-      alive: (m, p) bool.
-      c: (m,) int32 draw counts, each <= that machine's live count.
+      alive: (local_m, p) bool.
+      c: (local_m,) int32 draw counts, each <= that machine's live count.
       cap: static upper bound on c (buffer width).
+      comm: the cluster whose ``machine_rand`` draws the scores (None:
+        a virtual cluster of ``alive``'s machines).
 
     Returns:
-      idx: (m, cap) int64 point indices (the first ``c[j]`` are the draw).
-      take: (m, cap) bool — ``arange(cap) < c[j]``.
+      idx: (local_m, cap) int64 point indices (the first ``c[j]`` are the
+        draw).
+      take: (local_m, cap) bool — ``arange(cap) < c[j]``.
     """
     m, p = alive.shape
-    g = torch.rand((m, p), generator=gen, device=alive.device)
+    comm = VirtualCluster(m) if comm is None else comm
+    g = comm.machine_rand(gen, (p,), alive.device)
     g = g * (1.0 - 1e-7) + 1e-7                      # uniform in [1e-7, 1)
     scores = torch.where(alive, g, -1.0)
-    _, idx = torch.topk(scores, min(cap, p), dim=1)
+    idx = ordered_topk(scores, min(cap, p))
     if cap > p:  # degenerate tiny-machine case
         idx = torch.nn.functional.pad(idx, (0, cap - p))
     slot = torch.arange(cap, dtype=torch.int32, device=alive.device)
@@ -215,13 +212,14 @@ def scatter_selected(comm, payload: torch.Tensor,
     """
     m, p, d = payload.shape
     c_vec = comm.all_machines(torch.sum(sel, dim=1, dtype=torch.int32))
-    offs = exclusive_cumsum(torch.clamp(c_vec, max=cap))
+    ids = comm.machine_ids(payload.device)
+    offs = exclusive_cumsum(torch.clamp(c_vec, max=cap))[ids]
     count = torch.cumsum(sel, dim=1, dtype=torch.int32)
     slot = torch.arange(cap, dtype=torch.int32, device=payload.device)
     idx = torch.searchsorted(count, (slot + 1).expand(m, cap).contiguous())
     idx = torch.clamp(idx, max=p - 1)
     pos = base + offs[:, None] + slot[None, :]
-    take = (slot[None, :] < c_vec[:, None]) & (pos < base + cap)
+    take = (slot[None, :] < c_vec[ids][:, None]) & (pos < base + cap)
     pts = torch.gather(payload, 1, idx[..., None].expand(-1, -1, d))
     vals = torch.cat([pts.to(torch.float32),
                       torch.ones((m, cap, 1), dtype=torch.float32,
@@ -274,9 +272,10 @@ def global_weighted_choice(gen: torch.Generator, comm,
       (d,) the selected point, replicated. A zero weight is never chosen
       (its Gumbel-max logit is -inf) unless every weight is zero.
     """
-    mass_all = comm.all_machines(torch.sum(weights, dim=1))     # (m,)
+    mass_all = comm.all_machines(exact_row_sum(weights))        # (m,)
     mid = gumbel_argmax(gen, mass_all)                          # () machine
-    pidx = gumbel_argmax(gen, weights)                          # (local_m,)
+    pidx = gumbel_argmax(gen, weights, comm.machine_rand(
+        gen, weights.shape[1:], weights.device))                # (local_m,)
     ids = comm.machine_ids(x.device)
     onehot = (ids == mid).to(x.dtype)
     picked = torch.gather(x, 1, pidx[:, None, None].expand(-1, 1, x.shape[-1])
@@ -284,13 +283,17 @@ def global_weighted_choice(gen: torch.Generator, comm,
     return comm.psum(picked * onehot[:, None])
 
 
-def gumbel_argmax(gen: torch.Generator, p: torch.Tensor) -> torch.Tensor:
+def gumbel_argmax(gen: torch.Generator, p: torch.Tensor,
+                  u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Index along the last axis drawn ∝ ``p`` (>= 0, not necessarily
-    normalized), by the Gumbel-max trick with the explicit generator; a
-    zero ``p`` is never drawn unless all are zero."""
+    normalized), by the Gumbel-max trick with the explicit generator (or
+    the uniforms ``u``, shaped like ``p``: a machine-axis draw's, from
+    ``comm.machine_rand``); a zero ``p`` is never drawn unless all are
+    zero."""
     logp = torch.where(p > 0, torch.log(torch.clamp(p, min=1e-38)),
                        -torch.inf)
-    u = torch.rand(p.shape, generator=gen, device=p.device)
+    if u is None:
+        u = torch.rand(p.shape, generator=gen, device=p.device)
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-38)))
     return torch.argmax(logp + gumbel, dim=-1)
 
@@ -302,7 +305,7 @@ def draw_global_sample(comm, gen: torch.Generator, x: torch.Tensor,
     """Exact-size global uniform sample with HT weights.
 
     Args:
-      x: (m, p, d); w: (m, p) data weights; alive: (m, p).
+      x: (local_m, p, d); w: (local_m, p) data weights; alive: (local_m, p).
       n_vec_resp: (m,) live counts of responding machines (0 = skipped).
       total: global sample size (static, e.g. η); cap: per-machine buffer.
       upload_dtype: payload precision; the point coordinates are rounded
@@ -319,7 +322,7 @@ def draw_global_sample(comm, gen: torch.Generator, x: torch.Tensor,
     ids = comm.machine_ids(x.device)
     c_vec = apportion(n_vec_resp, total)
     my_c = c_vec[ids]
-    idx, take = sample_local(gen, alive, my_c, cap)
+    idx, take = sample_local(gen, alive, my_c, cap, comm)
     pts = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
     # buffer rows beyond the draw are never uploaded (the ragged gather
     # drops them); row 0 stands in for them, as in the reference, so that

@@ -18,6 +18,27 @@ same math runs distributed:
   boundary found by a 32-step bisection of scalar psums (``bisect``) or
   from the union of per-machine top-l candidates (``topk``).
 
+On the mesh backend no rank holds the flattened buffer, so the seeding
+and the Lloyd step run part by part and give the virtual run's bits:
+
+* each seeding step is one ``ops.kmeans_pp_step_at`` launch over the
+  rank's slots, its Philox counters keyed on the slots' global indices
+  (rank·cap + i); a Gumbel-max draw over a union is the largest of the
+  per-rank maxima, so one small all-gather of each rank's two draw words
+  and the two rows they name picks the flattened call's winner, the
+  zero-mass fallback decided on the global words;
+* each Lloyd step gathers the ranks' fixed-point bound words
+  (``ops.fixed_bound``), takes its exact int64 accumulators at the whole
+  buffer's shifts (``ops.fused_assign_reduce_fixed``), sums them over the
+  ranks in integers and rounds once (``exact.fixed_finalize``): the
+  flattened launch's sums on the card. The plain version's float sums
+  have no such split, so on the CPU a mesh Lloyd step is the card's
+  fixed-point arithmetic and a virtual one is not.
+
+The per-machine float sums the threshold reads are exact row sums
+(``exact.exact_row_sum``), so a rank's (1, cap) block gives its row of the
+virtual (m, cap) buffer's bits.
+
 Wire accounting counts every executed collective, so where the reference
 records a scanned or looped collective once a trace, the port records it
 once an iteration. A round's metadata bytes on the virtual backend, with
@@ -43,12 +64,14 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.comm import record_wire
-from repro_torch.core.kmeans import kmeans_plusplus
+from repro_torch.core.kmeans import draw_seed, kmeans_plusplus
 from repro_torch.core.metrics import assignment_counts
 from repro_torch.core.sampling import (apportion, global_weighted_choice,
-                                       sample_local, scatter_selected)
+                                       ordered_topk, sample_local,
+                                       scatter_selected)
 from repro_torch.core.truncated_cost import weighted_top_mass
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.exact import exact_row_sum, fixed_finalize
 
 BISECT_STEPS = 32
 
@@ -65,7 +88,7 @@ def draw_local_sample(comm, gen: torch.Generator, x: torch.Tensor,
     ids = comm.machine_ids(x.device)
     c_vec = torch.clamp(apportion(n_vec_resp, total), max=cap)
     my_c = c_vec[ids]
-    idx, take = sample_local(gen, alive, my_c, cap)
+    idx, take = sample_local(gen, alive, my_c, cap, comm)
     pts = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
     w_pt = torch.gather(w, 1, idx)
     n_local = torch.sum(alive, dim=1).to(torch.float32)
@@ -92,33 +115,85 @@ def sharded_round_meta_bytes(m: int, d: int, k_plus: int, lloyd_iters: int,
     return 4 * m + seeding + lloyd + threshold + 4 * m
 
 
+def _split(comm) -> bool:
+    """True where no process holds every machine (a mesh of several)."""
+    return comm.local_m != comm.m
+
+
 def distributed_kmeans_pp(gen: torch.Generator, comm, pts: torch.Tensor,
                           ws: torch.Tensor, k: int) -> torch.Tensor:
     """Weighted D²-seeding over sharded points -> (k, d) float32.
 
     One ``ops.kmeans_plusplus_indices`` call over the flattened buffer
-    (see the module docstring), recording the reference's collectives: a
-    global choice per center and the psum of the machines' masses per
-    step after the first."""
+    (see the module docstring), or on a mesh one ``_mesh_kmeans_pp`` step
+    a center, recording the reference's collectives: a global choice per
+    center and the psum of the machines' masses per step after the
+    first."""
     m, cap, d = pts.shape
-    centers = kmeans_plusplus(gen, pts.reshape(m * cap, d), ws.reshape(-1),
-                              k)
+    if _split(comm):
+        centers = _mesh_kmeans_pp(gen, comm, pts, ws, k)
+    else:
+        centers = kmeans_plusplus(gen, pts.reshape(m * cap, d),
+                                  ws.reshape(-1), k)
     record_wire(meta=k * _choice_meta_bytes(comm.m, d)
                 + (k - 1) * 4 * comm.m)
     return centers
+
+
+def _mesh_kmeans_pp(gen: torch.Generator, comm, pts: torch.Tensor,
+                    ws: torch.Tensor, k: int) -> torch.Tensor:
+    """The flattened seeding's k draws with each rank holding its (1, cap)
+    slots: per step one ``ops.kmeans_pp_step_at`` over the rank's slots
+    (rows rank·cap ..), then one all-gather of each rank's (D² word, w
+    word) and the two rows they name; every rank picks the same winner
+    and row, which becomes the next step's center. Nothing is read back
+    to the host."""
+    _, cap, d = pts.shape
+    x, w = pts.reshape(cap, d), ws.reshape(cap)
+    seed = draw_seed(gen, x.device)
+    base = comm.machine_base * cap
+    d2 = torch.full((cap,), torch.inf, dtype=torch.float32, device=x.device)
+    center, rows = None, []
+    cols = torch.arange(d, device=x.device)
+    for step in range(k):
+        d2, words = ops.kmeans_pp_step_at(x, w, d2, center, step, seed, base)
+        local = torch.clamp(ref.MASK32 - (words & ref.MASK32) - base, 0,
+                            cap - 1)
+        named = torch.index_select(x, 0, local).to(torch.float32)
+        g = comm._gather(torch.cat([words.view(torch.int32),
+                                    named.reshape(-1).view(torch.int32)]
+                                   )[None])              # (m, 4 + 2d)
+        best = ref.max_word(g[:, :4].contiguous().view(torch.int64), 0)
+        kind = (((best[0] >> 32) & ref.MASK32) <= ref.NEG_INF_KEY).long()
+        flip = torch.iinfo(torch.int64).min
+        owner = torch.argmax(
+            g[:, :4].contiguous().view(torch.int64) ^ flip, dim=0)
+        row = torch.index_select(g, 0, torch.gather(owner, 0, kind[None]))[0]
+        center = torch.gather(row, 0, 4 + kind * d + cols).view(torch.float32)
+        rows.append(center)
+    return torch.stack(rows)
 
 
 def distributed_lloyd(comm, pts: torch.Tensor, ws: torch.Tensor,
                       centers: torch.Tensor, iters: int) -> torch.Tensor:
     """Weighted Lloyd over sharded points; each step one Lloyd launch over
     the flattened buffer and the psum of each machine's (k, d) sums and
-    (k,) counts."""
+    (k,) counts. On a mesh each step gathers the ranks' fixed-point bound
+    words and sums their exact accumulators (module docstring)."""
     m, cap, d = pts.shape
     k = centers.shape[0]
     x, w = pts.reshape(m * cap, d), ws.reshape(-1)
     c = centers.to(torch.float32)
     for _ in range(iters):
-        sums, counts, _ = ops.fused_assign_reduce(x, w, c)
+        if _split(comm):
+            n_all = comm.m * cap
+            bound = torch.amax(comm._gather(ops.fixed_bound(x, w)[None]),
+                               dim=0)
+            acc = comm._reduce(ops.fused_assign_reduce_fixed(
+                x, w, c, bound, n_all)[None])
+            sums, counts = fixed_finalize(acc, bound, n_all)
+        else:
+            sums, counts, _ = ops.fused_assign_reduce(x, w, c)
         record_wire(meta=4 * comm.m * k * d + 4 * comm.m * k)
         c = torch.where(counts[:, None] > 0,
                         sums / torch.clamp(counts[:, None], min=1e-30), c)
@@ -150,13 +225,14 @@ def distributed_threshold(comm, pts: torch.Tensor, ws: torch.Tensor,
     m, cap, d = pts.shape
     d2, _ = ops.min_dist(pts.reshape(m * cap, d), c_iter)
     d2 = d2.reshape(m, cap)
-    total = comm.psum(torch.sum(ws * d2, dim=1))
+    total = comm.psum(exact_row_sum(ws * d2))
     d2 = d2 * (ws > 0)
     trunc_mass = (1.5 * (k + 1) * d_k / torch.clamp(alpha, min=1e-30)
                   + outlier_mass)
     if mode == "topk":
         t = topk_candidates(k, d_k, cap, extra_top)
-        top_d2, top_idx = torch.topk(d2, t, dim=1)
+        top_idx = ordered_topk(d2, t)
+        top_d2 = torch.gather(d2, 1, top_idx)
         top_w = torch.gather(ws, 1, top_idx)
         dropped = weighted_top_mass(comm.all_machines(top_d2).reshape(-1),
                                     comm.all_machines(top_w).reshape(-1),
@@ -166,13 +242,13 @@ def distributed_threshold(comm, pts: torch.Tensor, ws: torch.Tensor,
         lo = torch.zeros_like(hi)
         for _ in range(BISECT_STEPS):
             mid = 0.5 * (lo + hi)
-            above = comm.psum(torch.sum(ws * (d2 > mid), dim=1))
+            above = comm.psum(exact_row_sum(ws * (d2 > mid)))
             up = above > trunc_mass
             lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid)
         tau = 0.5 * (lo + hi)
         over = d2 > tau
-        above_sum = comm.psum(torch.sum(ws * d2 * over, dim=1))
-        mass_above = comm.psum(torch.sum(ws * over, dim=1))
+        above_sum = comm.psum(exact_row_sum(ws * d2 * over))
+        mass_above = comm.psum(exact_row_sum(ws * over))
         dropped = above_sum + torch.clamp(trunc_mass - mass_above,
                                           min=0.0) * tau
     psi = (2.0 / 3.0) * torch.clamp(total - dropped, min=0.0)
@@ -237,11 +313,10 @@ def distributed_kmeans_parallel_seed(gen: torch.Generator, comm,
                    device=pts.device))
     for r in range(rounds):
         d2m = d2.reshape(m, p)
-        phi = comm.psum(torch.sum(ws * d2m, dim=1))
+        phi = comm.psum(exact_row_sum(ws * d2m))
         prob = torch.clamp(l * ws * d2m / torch.clamp(phi, min=1e-30),
                            max=1.0)
-        sel = (torch.rand((m, p), generator=gen, device=pts.device)
-               < prob) & (ws > 0)
+        sel = (comm.machine_rand(gen, (p,), pts.device) < prob) & (ws > 0)
         buf, _ = scatter_selected(comm, pts, sel, cap, 1 + r * cap, rows)
         cand = torch.where(buf[:, d:] > 0, buf, cand)
         block = cand[1 + r * cap: 1 + (r + 1) * cap]

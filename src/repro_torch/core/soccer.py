@@ -36,8 +36,7 @@ from repro_torch.configs.soccer_paper import SoccerParams
 from repro_torch.core.comm import VirtualCluster, wire_tally
 from repro_torch.core.kmeans import kmeans
 from repro_torch.core.minibatch import minibatch_kmeans
-from repro_torch.core.sampling import (check_uplink_dtype, check_uplink_wire,
-                                       draw_global_sample)
+from repro_torch.core.sampling import draw_global_sample
 from repro_torch.core.sharded_kmeans import sharded_center_threshold
 from repro_torch.core.truncated_cost import removal_threshold, trim_top_mass
 from repro_torch.coresets.uplink import draw_coreset_sample
@@ -118,50 +117,39 @@ def derive_constants(n: int, p_local: int, params: SoccerParams,
 # passes to every driver and each driver checks with ``check_run_knobs``
 # (``trace`` is taken by ``fit`` itself: drivers read the ambient trace).
 RUN_KNOBS = ("backend", "uplink_dtype", "uplink_wire")
-# run knobs with values the port does not run yet -> (the values it runs,
-# their ROADMAP Queue 1 item)
-_NOT_PORTED = {
-    "backend": ((None, "virtual", "auto"),
-                "item 17 (the multi-device backend)"),
-}
 
 
-def check_run_knobs(**run_knobs) -> Tuple[str, str]:
+def check_run_knobs(m: int, **run_knobs):
     """The one guard over ``RUN_KNOBS``, called by every driver: TypeError
     for an option the reference does not have, ValueError for a value it
-    rejects, NotImplementedError for a value the port does not run yet.
-    Returns the uplink dtype's name and the resolved wire ("values" or
-    "codes")."""
+    rejects (``api.backends.resolve_backend``: an unknown backend, or
+    "mesh" without a process group of world size ``m``). Returns the
+    resolved backend, the uplink dtype's name and the resolved wire
+    ("values" or "codes")."""
+    from repro_torch.api.backends import check_uplink_wire, resolve_backend
     unknown = set(run_knobs) - set(RUN_KNOBS)
     if unknown:
         raise TypeError(f"unexpected option(s) {sorted(unknown)}")
-    backend = run_knobs.get("backend", "virtual")
-    if backend not in _NOT_PORTED["backend"][0] + ("mesh",):
-        raise ValueError(f"unknown backend {backend!r}: expected 'virtual', "
-                         f"'auto' or 'mesh'")
-    for name, (runs, item) in _NOT_PORTED.items():
-        value = run_knobs.get(name)
-        if value not in runs:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP Queue 1 "
-                f"{item}); the port runs {runs!r}")
-    dtype = check_uplink_dtype(run_knobs.get("uplink_dtype") or "float32")
-    return dtype, check_uplink_wire(run_knobs.get("uplink_wire") or "auto",
-                                    dtype)
+    bk = resolve_backend(run_knobs.get("backend"), m,
+                         run_knobs.get("uplink_dtype"),
+                         run_knobs.get("uplink_wire"))
+    return bk, bk.uplink_dtype, check_uplink_wire(bk.uplink_wire,
+                                                  bk.uplink_dtype)
 
 
 @dataclasses.dataclass
 class SoccerState:
-    """(m, ...) tensors are per-machine; the rest are replicated.
+    """(local_m, ...) tensors are per-machine (all m machines on the
+    virtual backend, this rank's one on a mesh); the rest are replicated.
 
     The history buffers (``centers`` ... ``alpha_hist``) are updated in
     place, one row per round: PyTorch tensors are mutable, and a round
     otherwise copies (R, k_plus, d) for one new row.
     """
-    x: torch.Tensor             # (m, p, d) points
-    w: torch.Tensor             # (m, p) data weights (1.0 = plain points)
-    alive: torch.Tensor         # (m, p) not-yet-removed mask
-    machine_ok: torch.Tensor    # (m,) False = machine failed
+    x: torch.Tensor             # (local_m, p, d) points
+    w: torch.Tensor             # (local_m, p) data weights (1.0 = plain)
+    alive: torch.Tensor         # (local_m, p) not-yet-removed mask
+    machine_ok: torch.Tensor    # (local_m,) False = machine failed
     gen: torch.Generator        # the run's random stream, on x's device
     round_idx: int              # rounds run so far (host-side)
     n_remaining: torch.Tensor   # () int32 live points
@@ -171,21 +159,28 @@ class SoccerState:
     n_hist: torch.Tensor        # (R,) N at the start of each round
     uplink: torch.Tensor        # (R,) realized points uploaded per round
     alpha_hist: torch.Tensor    # (R,) realized P2 sampling rate per round
+    machine_base: int = 0       # global id of the first per-machine row
 
 
 def init_state(x_parts: torch.Tensor, const: SoccerConstants,
                gen: torch.Generator, w: Optional[torch.Tensor] = None,
-               alive: Optional[torch.Tensor] = None) -> SoccerState:
+               alive: Optional[torch.Tensor] = None,
+               comm=None) -> SoccerState:
+    """The state before round 1 over ``x_parts`` (this process's
+    machines); ``comm`` (None: a virtual cluster of them) sums the live
+    count over every machine."""
     m, p, d = x_parts.shape
     dev = x_parts.device
     r = const.max_rounds + 1
     w = torch.ones((m, p), dtype=torch.float32, device=dev) if w is None else w
     alive = (torch.ones((m, p), dtype=torch.bool, device=dev)
              if alive is None else alive)
+    comm = VirtualCluster(m) if comm is None else comm
     return SoccerState(
         x=x_parts.to(torch.float32), w=w, alive=alive,
         machine_ok=torch.ones((m,), dtype=torch.bool, device=dev), gen=gen,
-        round_idx=0, n_remaining=torch.sum(alive, dtype=torch.int32),
+        round_idx=0, n_remaining=comm._reduce(torch.sum(
+            alive, dim=1, dtype=torch.int32)).to(torch.int32),
         centers=torch.zeros((r, const.k_plus, d), dtype=torch.float32,
                             device=dev),
         centers_valid=torch.zeros((r, const.k_plus), dtype=torch.bool,
@@ -193,7 +188,8 @@ def init_state(x_parts: torch.Tensor, const: SoccerConstants,
         v_hist=torch.zeros((r,), dtype=torch.float32, device=dev),
         n_hist=torch.zeros((r,), dtype=torch.int32, device=dev),
         uplink=torch.zeros((r,), dtype=torch.int32, device=dev),
-        alpha_hist=torch.zeros((r,), dtype=torch.float32, device=dev))
+        alpha_hist=torch.zeros((r,), dtype=torch.float32, device=dev),
+        machine_base=comm.machine_base)
 
 
 # SoccerState fields that hold tensors, with the dtype each is carried in
@@ -382,6 +378,7 @@ class SoccerResult:
     # vs metadata (count vectors, HT weights)
     wire_payload: np.ndarray
     wire_meta: np.ndarray
+    backend: str = "virtual"   # the resolved backend's name
 
 
 def flatten_centers(state: SoccerState) -> np.ndarray:
@@ -407,7 +404,7 @@ def stopping_rule(remaining: float, capacity: float, prev: float) -> bool:
     return remaining > capacity and remaining < prev
 
 
-def run_soccer(x_parts, params: SoccerParams, *, backend: str = "virtual",
+def run_soccer(x_parts, params: SoccerParams, *, backend="virtual",
                generator: Optional[torch.Generator] = None,
                w=None, alive=None, eta_override: int = 0,
                device: DeviceLike = "cuda",
@@ -416,28 +413,33 @@ def run_soccer(x_parts, params: SoccerParams, *, backend: str = "virtual",
     """The SOCCER host driver.
 
     ``x_parts`` is (m, p, d) points (numpy or a tensor), ``w``/``alive``
-    optional (m, p) weights and mask. ``generator`` defaults to one on
-    ``device`` seeded with ``params.seed``. ``on_round(round_idx, state)``
+    optional (m, p) weights and mask: every machine's, on every rank of a
+    mesh, which keeps its own machine's rows (``backend.put``).
+    ``backend`` is anything ``api.backends.resolve_backend`` takes.
+    ``generator`` defaults to one on ``device`` seeded with
+    ``params.seed``; on a mesh every rank's must be seeded alike. ``on_round(round_idx, state)``
     is an optional host callback after each round, once the round's live
     count has been read (failure injection); if it returns a state, the
     loop continues from it. ``run_knobs`` are the reference's other
     run-condition options (``RUN_KNOBS``, checked by ``check_run_knobs``).
     """
-    uplink_dtype, uplink_wire = check_run_knobs(backend=backend, **run_knobs)
-    dev = resolve_device(device)
+    from repro_torch.api.backends import MACHINE
     m, p, _ = x_parts.shape
-    comm = VirtualCluster(m)
+    bk, uplink_dtype, uplink_wire = check_run_knobs(m, backend=backend,
+                                                    **run_knobs)
+    dev = resolve_device(device)
+    comm = bk.make_comm(m)
     const = derive_constants(effective_n(m, p, w, alive), p, params,
                              eta_override, m=m, uplink_dtype=uplink_dtype,
                              uplink_wire=uplink_wire)
     gen = (torch.Generator(dev).manual_seed(params.seed)
            if generator is None else generator)
-    state = init_state(
-        torch.as_tensor(x_parts, device=dev), const, gen,
-        w=None if w is None else torch.as_tensor(
-            np.asarray(w, np.float32), device=dev),
-        alive=None if alive is None else torch.as_tensor(
-            np.asarray(alive, bool), device=dev))
+    x_dev, w_dev, alive_dev = bk.put(
+        (x_parts, None if w is None else np.asarray(w, np.float32),
+         None if alive is None else np.asarray(alive, bool)), MACHINE,
+        device=dev)
+    state = init_state(x_dev, const, gen, w=w_dev, alive=alive_dev,
+                       comm=comm)
 
     # The progress half of stopping_rule doubles as the no-progress guard:
     # if the threshold cannot remove anything, finalize on a subsample
@@ -481,7 +483,7 @@ def run_soccer(x_parts, params: SoccerParams, *, backend: str = "virtual",
         centers=flatten_centers(state), rounds=rounds, const=const,
         n_hist=state.n_hist.cpu().numpy(), v_hist=state.v_hist.cpu().numpy(),
         uplink=up, state=state, wire_payload=wire_payload,
-        wire_meta=wire_meta)
+        wire_meta=wire_meta, backend=bk.name)
     if trace is not None:
         _emit_soccer_records(trace, res, state.alpha_hist.cpu().numpy(),
                              n_rem, prev_n, clocks)

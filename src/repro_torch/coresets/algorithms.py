@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.api.registry import register_algorithm
 from repro_torch.api.result import ClusterResult, uplink_bytes
-from repro_torch.core.comm import VirtualCluster, wire_tally
+from repro_torch.core.comm import wire_tally
 from repro_torch.core.kmeans import kmeans
 from repro_torch.core.minibatch import minibatch_kmeans
 from repro_torch.core.sampling import gather_weighted
@@ -33,7 +33,7 @@ from repro_torch.obs import trace as obs_trace
 
 
 @register_algorithm("coreset_kmeans")
-def fit_coreset_kmeans(x_parts, k: int, *, backend: str = "virtual",
+def fit_coreset_kmeans(x_parts, k: int, *, backend="virtual",
                        generator: Optional[torch.Generator] = None, w=None,
                        alive=None, seed: int = 0, coreset_size: int = 0,
                        bicriteria: int = 0, lloyd_iters: int = 25,
@@ -58,21 +58,22 @@ def fit_coreset_kmeans(x_parts, k: int, *, backend: str = "virtual",
         raise ValueError(
             f"coreset_kmeans always uploads coresets; uplink_mode="
             f"{uplink_mode!r} is contradictory")
-    upload_dtype, wire = check_run_knobs(backend=backend, **run_knobs)
     m, p, d = x_parts.shape
+    bk, upload_dtype, wire = check_run_knobs(m, backend=backend,
+                                             **run_knobs)
     total = coreset_size or default_coreset_size(k, m * p)
     t = max(1, -(-total // m))                    # per-machine rows
     kb = bicriteria or max(1, min(k, t))
 
     dev = resolve_device(device)
-    comm = VirtualCluster(m)
-    x, w_dev = machine_data(x_parts, w, alive, dev)
+    comm = bk.make_comm(m)
+    x, w_dev = machine_data(x_parts, w, alive, dev, bk)
     gen = (torch.Generator(dev).manual_seed(seed) if generator is None
            else generator)
     trace = obs_trace.current_trace()
     sc = obs_trace.step_clock()
     with obs_trace.span("coreset_kmeans.upload"), wire_tally() as tally:
-        cpts, cw = build_coresets(gen, x, w_dev, t, kb)
+        cpts, cw = build_coresets(gen, x, w_dev, t, kb, comm)
         g_pts, g_w = gather_weighted(comm, cpts, cw, upload_dtype, wire=wire)
         if blackbox == "minibatch":
             centers, cost = minibatch_kmeans(gen, g_pts, g_w, k,
@@ -92,7 +93,7 @@ def fit_coreset_kmeans(x_parts, k: int, *, backend: str = "virtual",
         trace.stop_reason = "one_shot"
     return ClusterResult(
         centers=centers.cpu().numpy(), k=k, algo="coreset_kmeans",
-        backend="virtual", rounds=1, uplink_points=up,
+        backend=bk.name, rounds=1, uplink_points=up,
         uplink_bytes=uplink_bytes(up, d, dtype=upload_dtype),
         wire_bytes=np.asarray([tally.payload], np.int64),
         wire_meta_bytes=np.asarray([tally.meta], np.int64),

@@ -27,7 +27,7 @@ def draw_coreset_sample(comm, gen: torch.Generator, x: torch.Tensor,
     """Exact-size global sample, coreset-compressed before the upload.
 
     Args:
-      x: (m, p, d); w: (m, p) data weights; alive: (m, p).
+      x: (local_m, p, d); w: (local_m, p) data weights; alive: (local_m, p).
       n_vec_resp: (m,) live counts of responding machines.
       total: global sample size (eta); cap: per-machine buffer.
       t: per-machine coreset rows (the uplink knob).
@@ -43,13 +43,13 @@ def draw_coreset_sample(comm, gen: torch.Generator, x: torch.Tensor,
     ids = comm.machine_ids(x.device)
     c_vec = apportion(n_vec_resp, total)
     my_c = c_vec[ids]
-    idx, take = sample_local(gen, alive, my_c, cap)
+    idx, take = sample_local(gen, alive, my_c, cap, comm)
     pts = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
     w_pt = torch.gather(w, 1, idx)
     n_local = torch.sum(alive, dim=1).to(torch.float32)
     ht = n_local / torch.clamp(my_c.to(torch.float32), min=1.0)
     w_s = w_pt * ht[:, None] * take.to(torch.float32)    # HT-weighted draw
-    cpts, cw = build_coresets(gen, pts, w_s, t, kb)
+    cpts, cw = build_coresets(gen, pts, w_s, t, kb, comm)
     g_pts, g_w = gather_weighted(comm, cpts, cw, upload_dtype, wire=wire)
     uplink_rows = torch.sum(c_vec > 0, dtype=torch.int32) * t
     return g_pts, g_w, uplink_rows, torch.sum(c_vec, dtype=torch.int32)

@@ -73,10 +73,11 @@ class FailurePlan:
 
 
 def fail_machines(state: SoccerState, ids: Sequence[int]) -> SoccerState:
-    """Mark machines failed (axis-0 machine ids); the next round's live
-    counts exclude them."""
+    """Mark machines failed (global machine ids); the next round's live
+    counts exclude them. On a mesh each rank marks the ones it holds."""
+    base, local_m = state.machine_base, state.machine_ok.shape[0]
     dead = torch.zeros_like(state.machine_ok)
-    dead[list(ids)] = True
+    dead[[j - base for j in ids if base <= j < base + local_m]] = True
     return dataclasses.replace(state, machine_ok=state.machine_ok & ~dead)
 
 

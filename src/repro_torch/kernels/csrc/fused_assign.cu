@@ -79,6 +79,7 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
                         const float* __restrict__ c,
                         const uint8_t* __restrict__ cv, int k, int kt,
                         int slice, long long tiles, int mode,
+                        long long n_shift,
                         const unsigned* __restrict__ bound,
                         unsigned long long* __restrict__ acc,
                         unsigned* __restrict__ tile_done,
@@ -90,7 +91,7 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
   GroupAcc ga(mode, k, d + 1, smem_raw, acc);
   float* tile_smem =
       reinterpret_cast<float*>(smem_raw + acc_smem(mode, k, d + 1));
-  const Shifts sh = shifts(bound, n);
+  const Shifts sh = shifts(bound, n_shift);
   const double scx = ldexp(1.0, sh.x);
   const double scw = ldexp(1.0, sh.w);
 
@@ -128,9 +129,9 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
 template <typename T, int DR, int P>
 cudaError_t launch_walk(const T* x, long long n, int d, const float* w,
                         const float* c, const uint8_t* cv, int k, int slices,
-                        int mode, int sms, unsigned char* base,
-                        const Scratch& sc, long long tiles, int* assign_out,
-                        cudaStream_t s) {
+                        int mode, long long n_shift, int sms,
+                        unsigned char* base, const Scratch& sc,
+                        long long tiles, int* assign_out, cudaStream_t s) {
   const int slice = (k + slices - 1) / slices;
   const TileShape ts = tile_shape(d, DR, slice);
   const size_t smem = acc_smem(mode, k, d + 1) + ts.smem;
@@ -146,7 +147,7 @@ cudaError_t launch_walk(const T* x, long long n, int d, const float* w,
     grid = tiles < resident ? tiles : resident;
   }
   kern<<<dim3((unsigned)grid, (unsigned)slices), kThreads, smem, s>>>(
-      x, n, d, w, c, cv, k, ts.kt, slice, tiles, mode,
+      x, n, d, w, c, cv, k, ts.kt, slice, tiles, mode, n_shift,
       (const unsigned*)(base + sc.bound),
       (unsigned long long*)(base + sc.acc), (unsigned*)(base + sc.done),
       (float*)(base + sc.part), (float*)(base + sc.best),
@@ -164,11 +165,20 @@ cudaError_t launch_walk(const T* x, long long n, int d, const float* w,
 // card's SM count (the persistent grid is that many times the blocks an
 // SM holds). assign_out, when not NULL, receives the (n,) argmin (a
 // check's hook; the step itself needs none).
+//
+// A step over one part of a larger point set (a mesh rank's rows) takes
+// the whole set's bound and row count: bound_in, when not NULL, holds
+// rt_fixed_bound's two words over every part (the bound pass is skipped),
+// and n_shift (> 0) is the whole set's row count for the shifts. Each
+// part's (k, d + 1) int64 accumulators, the first bytes of scratch, then
+// add up exactly to the one-call accumulators of the whole set.
 extern "C" int rt_fused_assign_reduce(const void* x, int dtype, long long n,
                                       int d, const float* w, const float* c,
                                       const uint8_t* cv, int k, int ppt,
                                       int slices, int mode, int sms,
                                       void* scratch, long long scratch_bytes,
+                                      const unsigned* bound_in,
+                                      long long n_shift,
                                       int* assign_out, float* out,
                                       void* stream) {
   using namespace rt;
@@ -178,31 +188,59 @@ extern "C" int rt_fused_assign_reduce(const void* x, int dtype, long long n,
       (mode == kWarpAcc && (long long)k * (d + 1) > kWarpAccEntries)) {
     return (int)cudaErrorInvalidValue;
   }
+  const long long ns = n_shift > 0 ? n_shift : n;
   const long long tiles = point_tiles(n, ppt);
   const Scratch sc = scratch_layout(n, d, k, tiles, slices);
   if ((long long)sc.total > scratch_bytes) return (int)cudaErrorInvalidValue;
   unsigned char* base = (unsigned char*)scratch;
   cudaError_t e = cudaMemsetAsync(base, 0, sc.zeroed, s);
   if (e != cudaSuccess) return (int)e;
+  if (bound_in != nullptr) {
+    e = cudaMemcpyAsync(base + sc.bound, bound_in, 2 * sizeof(unsigned),
+                        cudaMemcpyDeviceToDevice, s);
+    if (e != cudaSuccess) return (int)e;
+  }
   e = dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int DR = decltype(dr)::value;
     if (n == 0) return cudaGetLastError();
-    bound_kernel<T><<<bound_grid(n), kThreads, 0, s>>>(
-        (const T*)x, n, d, w, (unsigned*)(base + sc.bound));
-    const cudaError_t e1 = cudaGetLastError();
-    if (e1 != cudaSuccess) return e1;
+    if (bound_in == nullptr) {
+      bound_kernel<T><<<bound_grid(n), kThreads, 0, s>>>(
+          (const T*)x, n, d, w, (unsigned*)(base + sc.bound));
+      const cudaError_t e1 = cudaGetLastError();
+      if (e1 != cudaSuccess) return e1;
+    }
     const T* xt = (const T*)x;
     return ppt == 2
                ? launch_walk<T, DR, 2>(xt, n, d, w, c, cv, k, slices, mode,
-                                       sms, base, sc, tiles, assign_out, s)
+                                       ns, sms, base, sc, tiles, assign_out,
+                                       s)
                : launch_walk<T, DR, 4>(xt, n, d, w, c, cv, k, slices, mode,
-                                       sms, base, sc, tiles, assign_out, s);
+                                       ns, sms, base, sc, tiles, assign_out,
+                                       s);
   });
   if (e != cudaSuccess) return (int)e;
   fused_finalize_kernel<<<grid_for((long long)k * (d + 1)), kThreads, 0, s>>>(
-      (const unsigned long long*)(base + sc.acc), k, d, n,
+      (const unsigned long long*)(base + sc.acc), k, d, ns,
       (const unsigned*)(base + sc.bound), (const float*)(base + sc.part),
       n > 0 ? tiles : 0, out);
   return (int)cudaGetLastError();
+}
+
+// The Lloyd step's bound pass alone: bound[0] = max |w_i|, bound[1] =
+// max |x_iq| over rows with w_i != 0, as float bits (two words, zeroed
+// here). The words of several parts combine by max.
+extern "C" int rt_fixed_bound(const void* x, int dtype, long long n, int d,
+                              const float* w, unsigned* bound, void* stream) {
+  using namespace rt;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(bound, 0, 2 * sizeof(unsigned), s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)dispatch(dtype, d, [&](auto tag, auto) -> cudaError_t {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    if (n == 0) return cudaGetLastError();
+    bound_kernel<T><<<bound_grid(n), kThreads, 0, s>>>((const T*)x, n, d, w,
+                                                       bound);
+    return cudaGetLastError();
+  });
 }

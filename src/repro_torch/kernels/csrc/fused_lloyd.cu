@@ -112,7 +112,11 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
 // by the host); the counter is (point index, step, 0, 0); word 0 gives
 // u = (2·(r >> 9) + 1)·2^-24, exact in float32 and never 0 or 1. The
 // counter does not depend on the launch shape, so the plain version
-// (kernels/ref.py) draws the same bits.
+// (kernels/ref.py) draws the same bits. A step over a part of the set (a
+// mesh rank's rows, rt_kmeanspp_step_at) keys its counters and its words'
+// indices on the global index base + i, and takes its center as d floats
+// (the winning row, gathered from the rank that holds it): the largest
+// word over the parts is then the whole set's, bit for bit.
 //
 // Bound: bytes. A step at SOCCER k = 1000's coordinator (991,418 x 15,
 // float32) reads x (59.5 MB), w and d2 and writes d2: 71.4 MB, 21.3 us at
@@ -241,7 +245,7 @@ __device__ __forceinline__ void load_centers(
     float v = 0.f;
     if (q < d) {
       if constexpr (kDraw) {
-        v = widen(x[win * d + q]);
+        v = c != nullptr ? c[q] : widen(x[win * d + q]);
       } else {
         v = c[(size_t)(t0 + j) * d + q];
       }
@@ -355,14 +359,15 @@ __global__ void __launch_bounds__(kThreads)
                      const unsigned long long* prev_d2,
                      const unsigned long long* prev_w,
                      unsigned long long* win_d2, unsigned long long* win_w,
-                     const long long* __restrict__ seed, int step) {
+                     const long long* __restrict__ seed, int step,
+                     long long base) {
   extern __shared__ __align__(16) unsigned char smem_u8[];
   unsigned char* stage[2] = {smem_u8, smem_u8 + sbytes};
   float* sc = reinterpret_cast<float*>(smem_u8 + 2 * (size_t)sbytes);
   const float* sc2 = sc + (size_t)kt * (DR > 0 ? DR : d);
 
   int kc = k;                                  // centers this step walks
-  if constexpr (kDraw) kc = prev_w != nullptr ? 1 : 0;
+  if constexpr (kDraw) kc = (prev_w != nullptr || c != nullptr) ? 1 : 0;
   const bool resident = kc <= kt;
   const bool read_d2 = kc > 0 || !kDraw;       // step 0 leaves d2 alone
   const long long tiles = (n + tile_rows - 1) / tile_rows;
@@ -393,7 +398,7 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (kDraw) {
     launch_dependents();
     wait_prerequisites();
-    if (kc) win = winner_of(__ldcg(prev_d2), __ldcg(prev_w));
+    if (prev_w != nullptr) win = winner_of(__ldcg(prev_d2), __ldcg(prev_w));
     k0 = (uint32_t)seed[0];
     k1 = (uint32_t)seed[1];
   }
@@ -443,14 +448,15 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (kDraw) {
       if (active) {
         if (kc > 0) d2_out[i] = nd;            // in place: this thread's
+        const long long gi = base + i;         // the point's global index
         const float g =
-            gumbel(philox_word0((uint32_t)i, (uint32_t)step, k0, k1));
+            gumbel(philox_word0((uint32_t)gi, (uint32_t)step, k0, k1));
         const float wi = sw[threadIdx.x];
         if (kc > 0) {
-          const unsigned long long kd = key_word(gumbel_key(wi * nd, g), i);
+          const unsigned long long kd = key_word(gumbel_key(wi * nd, g), gi);
           best_d = kd > best_d ? kd : best_d;
         } else {
-          const unsigned long long kw = key_word(gumbel_key(wi, g), i);
+          const unsigned long long kw = key_word(gumbel_key(wi, g), gi);
           best_w = kw > best_w ? kw : best_w;
         }
       }
@@ -475,9 +481,10 @@ __global__ void __launch_bounds__(kThreads)
       for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
         const long long i = t * tile_rows + threadIdx.x;
         if ((int)threadIdx.x < tile_rows && i < n) {
-          const float g =
-              gumbel(philox_word0((uint32_t)i, (uint32_t)step, k0, k1));
-          const unsigned long long kw = key_word(gumbel_key(w[i], g), i);
+          const float g = gumbel(
+              philox_word0((uint32_t)(base + i), (uint32_t)step, k0, k1));
+          const unsigned long long kw =
+              key_word(gumbel_key(w[i], g), base + i);
           best_w = kw > best_w ? kw : best_w;
         }
       }
@@ -533,15 +540,17 @@ inline cudaError_t one_wave(K kern, size_t smem, int sms, long long tiles,
   return cudaSuccess;
 }
 
-// `count` draw-on steps from step `first`: the first reads its center's
-// words from (prev_d2, prev_w) (NULL: no center), each later one from the
-// step before it; step first + i writes win_d2[i] and win_w[i]. The first
+// `count` draw-on steps from step `first` over rows base .. base + n - 1
+// of the seeded set: the first reads its center's words from (prev_d2,
+// prev_w), or takes `center` (d floats), or has none (all NULL), each
+// later one reads the step before it; step first + i writes win_d2[i] and win_w[i]. The first
 // is an ordinary launch, each later one a programmatic dependent.
 inline cudaError_t seed_steps(const void* x, int dtype, long long n, int d,
                               const float* w, const long long* seed,
                               float* d2, int first, int count,
                               const unsigned long long* prev_d2,
                               const unsigned long long* prev_w,
+                              const float* center, long long base,
                               unsigned long long* win_d2,
                               unsigned long long* win_w, int sms,
                               cudaStream_t s) {
@@ -572,10 +581,11 @@ inline cudaError_t seed_steps(const void* x, int dtype, long long n, int d,
       cfg.numAttrs = i ? 1 : 0;                // the first waits for all
       const unsigned long long* pd = i ? win_d2 + i - 1 : prev_d2;
       const unsigned long long* pw = i ? win_w + i - 1 : prev_w;
+      const float* ci = i ? none_f : center;
       e = cudaLaunchKernelEx(&cfg, kern, xt, n, d, ss.tile_rows, ss.sbytes,
-                             w, (const float*)d2, d2, none_f, none_u8, 1, 1,
+                             w, (const float*)d2, d2, ci, none_u8, 1, 1,
                              no_part, pd, pw, win_d2 + i, win_w + i, seed,
-                             first + i);
+                             first + i, base);
       if (e != cudaSuccess) return e;
     }
     return cudaSuccess;
@@ -631,7 +641,7 @@ extern "C" int rt_update_min_dist(const void* x, int dtype, long long n,
     if (e != cudaSuccess) return e;
     kern<<<(unsigned)grid, kThreads, ss.smem, s>>>(
         (const T*)x, n, d, ss.tile_rows, ss.sbytes, w, d2, d2_new, c, cv, k,
-        kt, part, nullptr, nullptr, nullptr, nullptr, nullptr, 0);
+        kt, part, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0ll);
     return cudaGetLastError();
   });
   if (e != cudaSuccess) return (int)e;
@@ -651,7 +661,8 @@ extern "C" int rt_kmeanspp(const void* x, int dtype, long long n, int d,
   const cudaStream_t s = (cudaStream_t)stream;
   if (k <= 0) return cudaSuccess;
   const cudaError_t e = seed_steps(x, dtype, n, d, w, seed, d2, 0, k,
-                                   nullptr, nullptr, win_d2, win_w, sms, s);
+                                   nullptr, nullptr, nullptr, 0, win_d2,
+                                   win_w, sms, s);
   if (e != cudaSuccess) return (int)e;
   seed_indices_kernel<<<(unsigned)((k + kThreads - 1) / kThreads), kThreads,
                         0, s>>>(win_d2, win_w, k, idx_out);
@@ -672,5 +683,28 @@ extern "C" int rt_kmeanspp_step(const void* x, int dtype, long long n,
                                 void* stream) {
   using namespace rt;
   return (int)seed_steps(x, dtype, n, d, w, seed, d2, step, 1, prev_d2,
-                         prev_w, out_d2, out_w, sms, (cudaStream_t)stream);
+                         prev_w, nullptr, 0, out_d2, out_w, sms,
+                         (cudaStream_t)stream);
+}
+
+// One draw-on step over one part of a larger point set (a mesh rank's
+// rows), as step `step` of a seeding of the whole set keyed by seed: the
+// part's rows are the whole set's rows base .. base + n - 1, so the
+// Philox counters and the words' indices are those global indices. d2 is
+// lowered in place against `center` (d float32 values; NULL: no center,
+// as step 0) and the step's words over the part go to out_d2 and out_w
+// (zeroed by the caller); the largest word of each kind over every part
+// is the one-call step's over the whole set.
+extern "C" int rt_kmeanspp_step_at(const void* x, int dtype, long long n,
+                                   int d, const float* w,
+                                   const long long* seed, int step,
+                                   long long base, const float* center,
+                                   float* d2, unsigned long long* out_d2,
+                                   unsigned long long* out_w, int sms,
+                                   void* stream) {
+  using namespace rt;
+  if (base < 0 || base + n > (1ll << 31)) return (int)cudaErrorInvalidValue;
+  return (int)seed_steps(x, dtype, n, d, w, seed, d2, step, 1, nullptr,
+                         nullptr, center, base, out_d2, out_w, sms,
+                         (cudaStream_t)stream);
 }

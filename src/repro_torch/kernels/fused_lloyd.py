@@ -13,12 +13,17 @@ which replace the kernels of ``repro/kernels/fused_lloyd.py``:
 * ``kmeans_plusplus_indices_cuda`` — a whole weighted k-means++ seeding
   on the same kernel with its Gumbel-max draw on: one C call launches the
   k steps back to back and returns the (k,) chosen rows, with nothing
-  read back (``kmeans_pp_step_cuda`` runs one step, for checks);
+  read back (``kmeans_pp_step_cuda`` runs one step, for checks;
+  ``kmeans_pp_step_at_cuda`` one step over a mesh rank's part of the
+  seeded set);
 * ``fused_assign_reduce_cuda`` — one Lloyd step at any number of centers:
   assignment, weighted (k, d) sums, (k,) counts and the cost in one sweep
   (``csrc/fused_assign.cu``; replaces ``fused_assign_reduce_pallas``, its
   pipelined big-n twin, ``fused_assign_reduce_chunked_pallas`` and its
-  two-walk fallback ``_fused_assign_reduce_chunked_twopass``).
+  two-walk fallback ``_fused_assign_reduce_chunked_twopass``);
+  ``fixed_bound_cuda`` and ``fused_assign_reduce_fixed_cuda`` run it
+  over a mesh rank's part of a point set, at the whole set's shifts, and
+  hand back the exact integer accumulators that the ranks add up.
 
 Float sums across blocks go through per-block partials reduced in a
 fixed order, and the Lloyd step's sums through fixed-point integer
@@ -56,9 +61,20 @@ KMEANS_PP_STEP = CudaKernel(
     "fused_lloyd.cu", "rt_kmeanspp_step",
     [_P, _I, _L, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
     counts=UPDATE_MIN_DIST)
+# one step over a part of a larger seeded set (a mesh rank's rows)
+KMEANS_PP_STEP_AT = CudaKernel(
+    "fused_lloyd.cu", "rt_kmeanspp_step_at",
+    [_P, _I, _L, _I, _P, _P, _I, _L, _P, _P, _P, _P, _I, _P],
+    counts=UPDATE_MIN_DIST)
 FUSED_ASSIGN_REDUCE = CudaKernel(
     "fused_assign.cu", "rt_fused_assign_reduce",
-    [_P, _I, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P])
+    [_P, _I, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _L, _P, _P,
+     _P])
+# the Lloyd step's bound pass alone, for a step over several parts; its
+# launches count as the Lloyd step's
+FIXED_BOUND = CudaKernel("fused_assign.cu", "rt_fixed_bound",
+                         [_P, _I, _L, _I, _P, _P, _P],
+                         counts=FUSED_ASSIGN_REDUCE)
 
 # The fixed-point accumulator entries (k·(d + 1)) up to which each warp
 # keeps its sums in shared memory (csrc/common.cuh: AccMode, GroupAcc);
@@ -225,6 +241,33 @@ def kmeans_pp_step_cuda(x: torch.Tensor, w: torch.Tensor, d2: torch.Tensor,
     return out
 
 
+def kmeans_pp_step_at_cuda(x: torch.Tensor, w: torch.Tensor,
+                           d2: torch.Tensor, center: Optional[torch.Tensor],
+                           step: int, seed: torch.Tensor, base: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One draw-on step over rows ``base .. base + n - 1`` of a larger
+    seeded set (a mesh rank's rows): ``d2`` ((n,) float32) lowered in
+    place against ``center`` ((d,) float32; None: no center, as step 0),
+    and the step's (D² word, w word) over the part as a (2,) int64 tensor,
+    keyed and indexed by the rows' global indices. Returns (d2, words)."""
+    wf = _seeding_args("kmeans_pp_step_at", x, w, seed)
+    n, d = x.shape
+    if d2.shape != (n,) or d2.dtype != torch.float32:
+        raise ValueError(f"kmeans_pp_step_at: d2 must be ({n},) float32")
+    if not (0 <= base and base + n <= 2 ** 31):
+        raise ValueError(f"kmeans_pp_step_at: rows {base}..{base + n} "
+                         f"outside [0, 2^31)")
+    cf = None
+    if center is not None:
+        cf = centers_f32("kmeans_pp_step_at", center.reshape(1, -1), d)
+    check_on_card("kmeans_pp_step_at", x, d2=d2, center=cf)
+    out = torch.zeros((2,), dtype=torch.int64, device=x.device)
+    KMEANS_PP_STEP_AT(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(seed), step,
+                      base, ptr(cf), ptr(d2), ptr(out), ptr(out[1:]),
+                      walk.sm_count(x.device), stream_of(x))
+    return d2, out
+
+
 def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,
                              c: torch.Tensor,
                              c_valid: Optional[torch.Tensor] = None, *,
@@ -264,6 +307,66 @@ def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((k * d + k + 1,), dtype=torch.float32, device=x.device)
     FUSED_ASSIGN_REDUCE(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(cf),
                         ptr(cv), k, ppt, slices, ACC_MODES[acc_mode(k, d)],
-                        sms, ptr(scratch), nbytes, ptr(assign_out), ptr(out),
-                        stream_of(x))
+                        sms, ptr(scratch), nbytes, None, 0, ptr(assign_out),
+                        ptr(out), stream_of(x))
     return out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k]
+
+
+def fixed_bound_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(2,) int32 bound words of the Lloyd step's fixed point over (x, w):
+    the float32 bits of max |w| and of max |x| over rows with w != 0 (as
+    ``ref.fixed_bound_ref``); the words of several parts combine by
+    max."""
+    if x.dim() != 2:
+        raise ValueError(f"fixed_bound: points must be (n, d), got "
+                         f"{tuple(x.shape)}")
+    n, d = x.shape
+    wf = vector_f32("fixed_bound", "w", w, n)
+    check_on_card("fixed_bound", x, w=wf)
+    bound = torch.empty((2,), dtype=torch.int32, device=x.device)
+    FIXED_BOUND(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(bound),
+                stream_of(x))
+    return bound
+
+
+def fused_assign_reduce_fixed_cuda(x: torch.Tensor, w: torch.Tensor,
+                                   c: torch.Tensor, bound: torch.Tensor,
+                                   n_total: int, *,
+                                   assign_out: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """The Lloyd step over one part of a larger point set: the part's
+    (k, d + 1) int64 fixed-point accumulators (sums of w·x, then of w) at
+    the shifts of the whole set's ``bound`` words (``fixed_bound_cuda``
+    over every part, combined by max) and row count ``n_total``. Summed
+    over the parts they are the accumulators one call over the whole set
+    takes, bit for bit (``exact.fixed_finalize`` rounds them).
+    ``assign_out``, an (n,) int32 CUDA tensor, receives the argmin, for
+    checks."""
+    if x.dim() != 2:
+        raise ValueError(f"fused_assign_reduce_fixed: points must be "
+                         f"(n, d), got {tuple(x.shape)}")
+    n, d = x.shape
+    if not n <= n_total:
+        raise ValueError(f"fused_assign_reduce_fixed: n_total={n_total} "
+                         f"below the part's {n} rows")
+    wf = vector_f32("fused_assign_reduce_fixed", "w", w, n)
+    cf = centers_f32("fused_assign_reduce_fixed", c, d)
+    k = cf.shape[0]
+    if bound.shape != (2,) or bound.dtype != torch.int32:
+        raise ValueError("fused_assign_reduce_fixed: bound must be (2,) "
+                         "int32")
+    check_on_card("fused_assign_reduce_fixed", x, w=wf, centers=cf,
+                  bound=bound, assign_out=assign_out)
+    ppt = points_per_thread(k, d)
+    sms = walk.sm_count(x.device)
+    slices = walk.center_slices(n, k, sms, ppt)
+    nbytes = scratch_bytes(n, d, k, ppt, slices)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
+    out = torch.empty((k * d + k + 1,), dtype=torch.float32, device=x.device)
+    FUSED_ASSIGN_REDUCE(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(cf), None,
+                        k, ppt, slices, ACC_MODES[acc_mode(k, d)], sms,
+                        ptr(scratch), nbytes, ptr(bound), n_total,
+                        ptr(assign_out), ptr(out), stream_of(x))
+    # the accumulators are the scratch's first bytes
+    # (csrc/common.cuh::scratch_layout)
+    return scratch[:k * (d + 1) * 8].view(torch.int64).view(k, d + 1)

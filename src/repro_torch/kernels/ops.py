@@ -30,6 +30,18 @@ JAX package's oracles):
 * ``truncated_cost(x, w, c, v, c_valid)`` — the weighted cost split at
   ``v``: kept cost (min-d2 <= v), tail mass and tail cost (> v).
 
+Over a mesh rank's part of a larger point set (the sharded coordinator
+on the mesh backend), two of them run part by part:
+
+* ``kmeans_pp_step_at(x, w, d2, center, step, seed, base)`` — one
+  seeding step keyed by global row indices (``update_min_dist``'s kernel
+  with its draw on): the part's draw words, whose maximum over the parts
+  is the whole set's draw;
+* ``fixed_bound(x, w)`` and ``fused_assign_reduce_fixed(x, w, c, bound,
+  n_total)`` — the Lloyd step at the whole set's fixed-point shifts: the
+  part's exact int64 accumulators, whose sum over the parts is the
+  one-call step's (``exact.fixed_finalize`` rounds them).
+
 All take float32, bfloat16 or float16 points and accumulate in float32.
 """
 from __future__ import annotations
@@ -39,12 +51,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.fused_lloyd import (FUSED_ASSIGN_REDUCE,
-                                             REMOVE_BELOW, UPDATE_MIN_DIST,
-                                             fused_assign_reduce_cuda,
-                                             kmeans_plusplus_indices_cuda,
-                                             remove_below_cuda,
-                                             update_min_dist_cuda)
+from repro_torch.kernels.fused_lloyd import (
+    FUSED_ASSIGN_REDUCE, REMOVE_BELOW, UPDATE_MIN_DIST, fixed_bound_cuda,
+    fused_assign_reduce_cuda, fused_assign_reduce_fixed_cuda,
+    kmeans_plusplus_indices_cuda, kmeans_pp_step_at_cuda, remove_below_cuda,
+    update_min_dist_cuda)
 from repro_torch.kernels.lloyd import LLOYD_REDUCE, lloyd_reduce_cuda
 from repro_torch.kernels.min_dist import MIN_DIST, min_dist_cuda
 from repro_torch.kernels.sensitivity import (SENSITIVITY_SCORES,
@@ -58,6 +69,12 @@ from repro_torch.kernels.truncated import (TRUNCATED_COST,
 ENTRY_POINTS = ("min_dist", "lloyd_reduce", "fused_assign_reduce",
                 "remove_below", "update_min_dist", "sensitivity_scores",
                 "truncated_cost", "kmeans_plusplus_indices")
+
+# a mesh rank's part-by-part steps over one part of a larger point set
+# (the sharded coordinator on the mesh backend): no reference
+# counterpart, held to the one-call entry points above
+PART_ENTRY_POINTS = ("kmeans_pp_step_at", "fixed_bound",
+                     "fused_assign_reduce_fixed")
 
 # CUDA kernel -> its wrapper's launch counter (for chip_smoke.py); the
 # seeding's launches count as update_min_dist's, whose kernel they run
@@ -179,3 +196,33 @@ def truncated_cost(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor, v,
             return kept[0], tmass[0], tcost[0]
         return truncated_cost_cuda(x, w, c, v, c_valid)
     return ref.truncated_cost_ref(x, w, c, v, c_valid)
+
+
+def kmeans_pp_step_at(x: torch.Tensor, w: torch.Tensor, d2: torch.Tensor,
+                      center: Optional[torch.Tensor], step: int,
+                      seed: torch.Tensor, base: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One seeding step over rows ``base .. base + n - 1`` of a larger set
+    seeded by ``seed``: ((n,) d2 lowered against the (d,) ``center``
+    (None: none, as step 0), (2,) int64 (D² word, w word) over the part).
+    On the card ``d2`` is updated in place."""
+    if _on_card(x):
+        return kmeans_pp_step_at_cuda(x, w, d2, center, step, seed, base)
+    return ref.kmeans_pp_step_at_ref(x, w, d2, center, step, seed, base)
+
+
+def fixed_bound(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(2,) int32 fixed-point bound words of the Lloyd step over (x, w)."""
+    if _on_card(x):
+        return fixed_bound_cuda(x, w)
+    return ref.fixed_bound_ref(x, w)
+
+
+def fused_assign_reduce_fixed(x: torch.Tensor, w: torch.Tensor,
+                              c: torch.Tensor, bound: torch.Tensor,
+                              n_total: int) -> torch.Tensor:
+    """A Lloyd step over one part of a larger set: the part's (k, d + 1)
+    int64 accumulators at the whole set's ``bound`` and ``n_total``."""
+    if _on_card(x):
+        return fused_assign_reduce_fixed_cuda(x, w, c, bound, n_total)
+    return ref.fused_assign_reduce_fixed_ref(x, w, c, bound, n_total)

@@ -255,6 +255,7 @@ def remove_below_ref(x: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 MASK32 = 0xFFFFFFFF
+NEG_INF_KEY = 0x007FFFFF   # a draw word's high half at a key of -inf
 # the most seeding steps whose bits are drawn at once, times n
 SEED_BATCH = 1 << 22
 
@@ -277,13 +278,14 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return x
 
 
-def seed_gumbel(seed: torch.Tensor, n: int, steps: range) -> torch.Tensor:
+def seed_gumbel(seed: torch.Tensor, n: int, steps: range,
+                base: int = 0) -> torch.Tensor:
     """(len(steps), n) float32 Gumbel noise g = -log(-log u) of the
-    seeding keyed by ``seed`` ((2,) int64), for points 0..n-1 at the given
-    steps: counter (point, step, 0, 0), word 0 r, u = (2·(r >> 9) + 1)·2^-24
-    (exact in float32, never 0 or 1)."""
+    seeding keyed by ``seed`` ((2,) int64), for points base..base + n - 1
+    at the given steps: counter (point, step, 0, 0), word 0 r,
+    u = (2·(r >> 9) + 1)·2^-24 (exact in float32, never 0 or 1)."""
     dev = seed.device
-    c0 = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
+    c0 = torch.arange(base, base + n, dtype=torch.int64, device=dev)[None, :]
     c1 = torch.as_tensor(list(steps), dtype=torch.int64, device=dev)[:, None]
     r = philox4x32_10(c0, c1, 0, 0, seed[0], seed[1])[0]
     u = ((r >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
@@ -360,3 +362,91 @@ def winner_from_words(words: torch.Tensor) -> torch.Tensor:
     above = ((words[0] >> 32) & MASK32) > 0x007FFFFF
     word = torch.where(above, words[0], words[1])
     return MASK32 - (word & MASK32)
+
+
+# ------------------------------------- a mesh rank's part of a larger set
+def word_of_key(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Draw words (int64 storage of the kernel's unsigned 64-bit words) of
+    float32 keys at global indices ``idx``: the key's order-preserving
+    bits above 0xFFFFFFFF - index (csrc/fused_lloyd.cu::key_word; -0 is
+    taken as +0)."""
+    key = torch.where(key == 0, torch.zeros_like(key), key)
+    b = key.contiguous().view(torch.int32).to(torch.int64) & MASK32
+    o = torch.where(b >= 0x80000000, MASK32 - b, b | 0x80000000)
+    return (o << 32) | (MASK32 - idx.to(torch.int64))
+
+
+def max_word(words: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The largest of int64-stored unsigned 64-bit words along ``dim``
+    (0 when ``words`` is empty), by flipping the sign bit."""
+    if words.shape[dim] == 0:
+        return torch.zeros(words.shape[:dim] + words.shape[dim + 1:],
+                           dtype=torch.int64, device=words.device)
+    flip = torch.iinfo(torch.int64).min
+    return torch.amax(words ^ flip, dim=dim) ^ flip
+
+
+def kmeans_pp_step_at_ref(x: torch.Tensor, w: torch.Tensor, d2: torch.Tensor,
+                          center: Optional[torch.Tensor], step: int,
+                          seed: torch.Tensor, base: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One seeding step over rows ``base .. base + n - 1`` of a larger
+    seeded set: ((n,) d2 lowered against ``center`` ((d,); None: none),
+    (2,) int64 (D² word, w word) over the part), the kernel's
+    ``rt_kmeanspp_step_at``. The largest words over every part are the
+    one-call step's over the whole set (``kmeans_plusplus_indices_ref``);
+    a word is 0 where no key of its kind exists."""
+    n = x.shape[0]
+    g = seed_gumbel(seed, n, range(step, step + 1), base)[0]
+    wf = w.float()
+    idx = torch.arange(base, base + n, dtype=torch.int64, device=x.device)
+    if center is not None:
+        d2 = torch.minimum(d2, min_dist_ref(x, center.reshape(1, -1))[0])
+        wd = max_word(word_of_key(gumbel_keys(wf * d2, g), idx))
+    else:
+        wd = torch.zeros((), dtype=torch.int64, device=x.device)
+    ww = max_word(word_of_key(gumbel_keys(wf, g), idx))
+    return d2, torch.stack([wd, ww])
+
+
+def fixed_bound_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(2,) int32: the float32 bits of max |w| and of max |x| over the rows
+    with w != 0 (0 without such rows), the Lloyd kernel's bound pass."""
+    xf, wf = x.float(), w.float()
+    mw = wf.abs().max() if wf.numel() else wf.new_zeros(())
+    live = wf != 0
+    mx = (xf[live].abs().max() if bool(live.any())
+          else xf.new_zeros(()))
+    return torch.stack([mw, mx]).view(torch.int32)
+
+
+def fixed_sums_ref(x: torch.Tensor, w: torch.Tensor, assign: torch.Tensor,
+                   k: int, bound: torch.Tensor, n_total: int
+                   ) -> torch.Tensor:
+    """(k, d + 1) int64 fixed-point accumulators of (x, w) by ``assign``
+    at the shifts of ``bound`` and ``n_total`` rows
+    (``fixed_point_reduce_ref``'s arithmetic with a given bound):
+    ``csrc/fused_assign.cu`` with ``bound_in``."""
+    from repro_torch.kernels.exact import fixed_shifts, pow2
+    n, d = x.shape
+    sx, sw = fixed_shifts(bound, n_total)
+    a = assign.long()
+    ok = (a >= 0) & (a < k) & (w.float() != 0)
+    a, wd = a[ok], w.float()[ok].double()
+    tx = torch.round(wd[:, None] * x.float()[ok].double()
+                     * pow2(sx)).long()
+    tw = torch.round(wd * pow2(sw)).long()
+    acc = torch.zeros((k, d + 1), dtype=torch.int64, device=x.device)
+    acc[:, :d].index_add_(0, a, tx)
+    acc[:, d].index_add_(0, a, tw)
+    return acc
+
+
+def fused_assign_reduce_fixed_ref(x: torch.Tensor, w: torch.Tensor,
+                                  c: torch.Tensor, bound: torch.Tensor,
+                                  n_total: int) -> torch.Tensor:
+    """The plain version of ``fused_assign_reduce_fixed_cuda``: the
+    nearest center of each row (``min_dist_ref``), then
+    ``fixed_sums_ref``."""
+    _, assign = min_dist_ref(x, c)
+    return fixed_sums_ref(x, w, assign, c.shape[0], bound, n_total)

@@ -62,11 +62,23 @@ def iter_jsonl_lines(summary: Dict[str, Any]) -> Iterable[str]:
         yield json.dumps({"kind": "event", **_jsonable(ev)})
 
 
+def writes_here() -> bool:
+    """Whether this process writes exporter files: every process but the
+    ranks other than 0 of an initialized process group (every rank of a
+    mesh fit holds the same trace)."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
 def write_jsonl(summaries, path: PathLike) -> pathlib.Path:
-    """Write one or more trace summaries to ``path`` as JSONL."""
+    """Write one or more trace summaries to ``path`` as JSONL (rank 0
+    alone under a process group, ``writes_here``)."""
     if isinstance(summaries, dict):
         summaries = [summaries]
     path = pathlib.Path(path)
+    if not writes_here():
+        return path
     with path.open("w") as fh:
         for summary in summaries:
             for line in iter_jsonl_lines(summary):
@@ -147,9 +159,12 @@ def chrome_trace_events(summary: Dict[str, Any],
 
 
 def write_chrome_trace(summaries, path: PathLike) -> pathlib.Path:
-    """Write Perfetto/chrome://tracing-loadable trace-event JSON."""
+    """Write Perfetto/chrome://tracing-loadable trace-event JSON (rank 0
+    alone under a process group, ``writes_here``)."""
     if isinstance(summaries, dict):
         summaries = [summaries]
+    if not writes_here():
+        return pathlib.Path(path)
     events: List[Dict[str, Any]] = []
     for pid, summary in enumerate(summaries):
         events.extend(chrome_trace_events(summary, pid=pid))

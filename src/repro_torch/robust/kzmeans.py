@@ -40,29 +40,38 @@ import torch
 
 from repro_torch.api.registry import register_algorithm
 from repro_torch.api.result import ClusterResult, uplink_bytes
-from repro_torch.core.comm import VirtualCluster, wire_tally
-from repro_torch.core.kmeans import kmeans_plusplus, pick_row
+from repro_torch.core.comm import wire_tally
+from repro_torch.core.kmeans import draw_seed, kmeans_plusplus, pick_row
 from repro_torch.core.sampling import gather_weighted
 from repro_torch.core.soccer import check_run_knobs
 from repro_torch.core.truncated_cost import trim_top_mass
-from repro_torch.coresets.sensitivity import (build_coreset,
+from repro_torch.coresets.sensitivity import (build_coreset, coreset_draws,
                                               default_coreset_size,
                                               machine_data)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.exact import exact_cumsum
+from repro_torch.kernels.exact import exact_cumsum, exact_row_sum
 from repro_torch.obs import trace as obs_trace
 
 # seedings drawn on the coordinator; the lowest trimmed cost is kept
 SEEDINGS = 4
 
 
-def _machine_summary(gen: torch.Generator, xp: torch.Tensor,
-                     wp: torch.Tensor, t: int, t_out: int, kb: int):
+def _summary_draws(gen: torch.Generator, t: int, t_out: int, device):
+    """One machine's random inputs to ``_machine_summary``, in the order
+    it consumes them: the ranking's bicriteria key (with candidates),
+    then the coreset's (``coreset_draws``)."""
+    ranking = (draw_seed(gen, device),) if t_out else ()
+    return ranking + coreset_draws(gen, t, device)
+
+
+def _machine_summary(xp: torch.Tensor, wp: torch.Tensor, t: int, t_out: int,
+                     kb: int, draws):
     """One machine's uplink block: ((t + t_out, d) rows, (t + t_out,)
-    weights), the coreset first and the outlier candidates last."""
+    weights), the coreset first and the outlier candidates last, from the
+    machine's ``_summary_draws``."""
     if t_out == 0:
-        return build_coreset(gen, xp, wp, t, kb)
+        return build_coreset(None, xp, wp, t, kb, draws=draws)
     # Rank by distance to a bicriteria fit, but peel a provisional
     # far-from-mean mass before fitting it: seeded on the raw shard, the
     # bicriteria would place centers on the outliers (their D² mass
@@ -73,12 +82,14 @@ def _machine_summary(gen: torch.Generator, xp: torch.Tensor,
                                                           min=1e-30)
     r2 = torch.sum((xf - mu) ** 2, dim=-1)
     _, idx0 = torch.topk(torch.where(wp > 0, r2, -torch.inf), t_out)
-    bi = kmeans_plusplus(gen, xp, wp.index_fill(0, idx0, 0.0), kb)
+    bi = kmeans_plusplus(None, xp, wp.index_fill(0, idx0, 0.0), kb,
+                         seed=draws[0])
     d2, _ = ops.min_dist(xp, bi)
     far = torch.where(wp > 0, d2, -torch.inf)     # dead rows never chosen
     _, idx = torch.topk(far, t_out)
     cand_w = torch.where(torch.isfinite(far[idx]), wp[idx], 0.0)
-    cpts, cw = build_coreset(gen, xp, wp.index_fill(0, idx, 0.0), t, kb)
+    cpts, cw = build_coreset(None, xp, wp.index_fill(0, idx, 0.0), t, kb,
+                             draws=draws[1:])
     return (torch.cat([cpts, xp[idx]], dim=0),
             torch.cat([cw, cand_w.to(torch.float32)], dim=0))
 
@@ -111,7 +122,7 @@ def realized_threshold(d2: torch.Tensor, w: torch.Tensor, z_mass
 
 
 @register_algorithm("kzmeans")
-def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
+def fit_kzmeans(x_parts, k: int, *, backend="virtual",
                 generator: Optional[torch.Generator] = None, w=None,
                 alive=None, seed: int = 0, outlier_frac: float = 0.0,
                 coreset_size: int = 0, bicriteria: int = 0,
@@ -137,8 +148,9 @@ def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
         raise ValueError(
             f"kzmeans always uploads coresets + outlier candidates; "
             f"uplink_mode={uplink_mode!r} is contradictory")
-    upload_dtype, wire = check_run_knobs(backend=backend, **run_knobs)
     m, p, d = x_parts.shape
+    bk, upload_dtype, wire = check_run_knobs(m, backend=backend,
+                                             **run_knobs)
     # clusterz sizing: all z global outliers could sit on one machine, so
     # each ships up to z candidates (capped by its shard)
     t_out = min(p, int(math.ceil(outlier_frac * m * p)))
@@ -148,8 +160,8 @@ def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
     kb = bicriteria or max(1, min(k, t))
 
     dev = resolve_device(device)
-    comm = VirtualCluster(m)
-    x, w_dev = machine_data(x_parts, w, alive, dev)
+    comm = bk.make_comm(m)
+    x, w_dev = machine_data(x_parts, w, alive, dev, bk)
     gen = (torch.Generator(dev).manual_seed(seed) if generator is None
            else generator)
     # candidate rows never seed (layout [t coreset | t_out candidates] per
@@ -159,12 +171,14 @@ def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
     trace = obs_trace.current_trace()
     sc = obs_trace.step_clock()
     with obs_trace.span("kzmeans.upload"), wire_tally() as tally:
-        blocks = [_machine_summary(gen, x[j], w_dev[j], t, t_out, kb)
-                  for j in range(m)]
+        draws = comm.machine_draws(
+            lambda: _summary_draws(gen, t, t_out, dev))
+        blocks = [_machine_summary(x[j], w_dev[j], t, t_out, kb, draws[j])
+                  for j in range(comm.local_m)]
         g_pts, g_w = gather_weighted(
             comm, torch.stack([b[0] for b in blocks]),
             torch.stack([b[1] for b in blocks]), upload_dtype, wire=wire)
-        n_mass = comm.psum(torch.sum(w_dev, dim=-1))  # population mass
+        n_mass = comm.psum(exact_row_sum(w_dev))      # population mass
         z_mass = n_mass * outlier_frac
         # best-of-4 seeding on the trimmed cost (outliers get no vote)
         seeds, costs = [], []
@@ -197,7 +211,7 @@ def fit_kzmeans(x_parts, k: int, *, backend: str = "virtual",
         trace.stop_reason = "one_shot"
     return ClusterResult(
         centers=centers.cpu().numpy(), k=k, algo="kzmeans",
-        backend="virtual", rounds=1, uplink_points=up,
+        backend=bk.name, rounds=1, uplink_points=up,
         uplink_bytes=uplink_bytes(up, d, dtype=upload_dtype),
         wire_bytes=np.asarray([tally.payload], np.int64),
         wire_meta_bytes=np.asarray([tally.meta], np.int64),

@@ -39,8 +39,11 @@ def main(argv=None) -> int:
                     help="CI-sized data (each cell a few seconds)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default="virtual",
-                    help="virtual | auto (mesh is not ported yet and "
-                         "raises)")
+                    help="virtual | mesh | auto (mesh: one machine per "
+                         "rank of the initialized process group main() "
+                         "runs under, e.g. in each rank of repro_torch."
+                         "launch.spawn_local; without one it raises "
+                         "ValueError)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where every fit runs (cpu: the kernels' plain "
                          "PyTorch versions)")
@@ -79,7 +82,8 @@ def main(argv=None) -> int:
     device = device_label(args.device)
     print(f"# sweep wall time: {clock() - t0:.0f}s  "
           f"({len(names)} scenarios x {len(algos)} algos on {device})")
-    if args.out:
+    from repro_torch.obs.export import writes_here
+    if args.out and writes_here():
         path = write_bench_json(rows, args.out, suite=args.suite,
                                 quick=args.quick, algos=algos,
                                 seed=args.seed, device=device)

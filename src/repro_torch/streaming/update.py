@@ -28,9 +28,10 @@ stream):
 The refine is ``core.sharded_kmeans.distributed_lloyd`` (one Lloyd
 launch over the flattened tree a step), ``core.metrics.distributed_cost``
 and the total weight: plain calls, where the reference caches one
-compiled body. Backends: None, "virtual" and "auto" run; "mesh" belongs
-to the multi-device backend (ROADMAP Queue 1 item 17) and raises, as
-``core.soccer.check_run_knobs`` does.
+compiled body. Backends: None, "virtual" and "auto" run; a mesh backend
+raises NotImplementedError with the reference's wording (its stream has
+no mesh leg either), and "mesh" without a process group raises
+``api.backends.resolve_backend``'s ValueError.
 """
 from __future__ import annotations
 
@@ -40,13 +41,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.api.backends import MeshBackend, resolve_backend
 from repro_torch.api.registry import get_algorithm
 from repro_torch.api.result import ClusterResult, uplink_bytes
 from repro_torch.core.comm import VirtualCluster
 from repro_torch.core.kmeans import kmeans
 from repro_torch.core.metrics import assignment_counts, distributed_cost
 from repro_torch.core.sharded_kmeans import distributed_lloyd
-from repro_torch.core.soccer import check_run_knobs, stopping_rule
+from repro_torch.core.soccer import stopping_rule
 from repro_torch.coresets.sensitivity import default_coreset_size
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import trace as obs_trace
@@ -137,8 +139,8 @@ def fit_update(result: ClusterResult, x_new, *, backend=None,
         state rides in ``result.extra["stream"]``; a plain batch-fit
         result initializes a fresh stream warm-started from its centers.
       x_new: (n_new, d) new points (any batch size).
-      backend: None/"virtual"/"auto" (all machines on one device); "mesh"
-        raises (ROADMAP Queue 1 item 17).
+      backend: None/"virtual"/"auto" (all machines on one device); a mesh
+        backend raises NotImplementedError, as in the reference.
       w: optional (n_new,) weights for the new points.
       m / seed / coreset_rows / bicriteria: stream-init knobs (ignored
         after the first update; the state carries them).
@@ -162,7 +164,6 @@ def fit_update(result: ClusterResult, x_new, *, backend=None,
         raise ValueError(
             f"unknown recluster mode {recluster!r}: expected 'auto', "
             f"'always' or 'never'")
-    check_run_knobs(backend="virtual" if backend is None else backend)
     t0 = obs_trace.clock()
     state: Optional[StreamState] = result.extra.get("stream")
     dev = resolve_device(device)
@@ -175,7 +176,12 @@ def fit_update(result: ClusterResult, x_new, *, backend=None,
     elif dev != state.device:
         raise ValueError(f"device={dev} conflicts with the carried stream "
                          f"state (on {state.device})")
-    comm = VirtualCluster(state.m)
+    bk = resolve_backend(backend, state.m)
+    if isinstance(bk, MeshBackend):
+        raise NotImplementedError(
+            "fit_update currently runs on the virtual/comm backends; the "
+            "mesh leg is the multi-host extension point (ROADMAP)")
+    comm = bk.make_comm(state.m)
     d = state.centers.shape[1]
 
     # --- 1. fold the batch into the per-machine trees (zero uplink)

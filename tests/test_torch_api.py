@@ -107,27 +107,28 @@ def test_fit_without_cuda_raises(monkeypatch, data):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(backend="mesh"), "item 17"),
+    (dict(backend="mesh"), "world size m=8"),
 ], ids=["backend_mesh"])
 def test_knobs_outside_the_slice_raise(data, kwargs, item):
-    """Each knob the port does not run raises, naming its ROADMAP item
-    (every SoccerParams knob, the uplink knobs and failure_plan run: see
+    """backend="mesh" with no process group raises ValueError naming the
+    world size it needs (the mesh runs: test_torch_mesh.py; every
+    SoccerParams knob, the uplink knobs and failure_plan: see
     test_torch_sharded.py, test_torch_minibatch.py, test_torch_uplink.py
-    and test_torch_failures.py; trace runs: test_torch_obs.py)."""
+    and test_torch_failures.py; trace: test_torch_obs.py)."""
     x, _ = data
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         api.fit(x[:800], 3, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(backend="mesh"), "item 17"),
+    (dict(backend="mesh"), "world size m=8"),
 ], ids=["backend_mesh"])
 @pytest.mark.parametrize("algo", ["kmeans_parallel", "eim11"])
 def test_baseline_run_knobs_raise(data, algo, kwargs, item):
-    """The baselines reject the run-condition options they do not run
-    through the same guard as SOCCER (core.soccer.check_run_knobs)."""
+    """The baselines resolve the backend through the same guard as SOCCER
+    (core.soccer.check_run_knobs): no process group, no mesh."""
     x, _ = data
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         api.fit(x[:800], 3, algo=algo, device="cpu", **kwargs)
 
 

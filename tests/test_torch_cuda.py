@@ -627,6 +627,42 @@ def test_cuda_fit_update_runs_and_repeats():
     assert outs[0].extra["stream"].device.type == "cuda"
 
 
+@pytest.mark.cuda
+def test_cuda_mesh_fit_two_ranks():
+    """``python -m repro_torch.launch --devices 2``: two ranks share the
+    card over gloo (one machine each) and their SOCCER fit gives the
+    virtual fit's rounds, uplink, wire bytes and cost on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from repro_torch.api import fit
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch", "--devices", "2",
+         "--algo", "soccer", "--k", "8", "--n", "20000", "--d", "8",
+         "--param", "eta_override=2000"], env=env, capture_output=True,
+        text=True, timeout=600)
+    assert cli.returncode == 0, cli.stderr[-3000:]
+    rep = json.loads(cli.stdout)
+    rng = np.random.default_rng(0)          # the CLI's data at --seed 0
+    centers = rng.normal(scale=4.0, size=(8, 8))
+    x = (centers[rng.integers(8, size=20000)]
+         + rng.normal(size=(20000, 8))).astype(np.float32)
+    virt = fit(x, 8, algo="soccer", m=2, seed=0, eta_override=2000)
+    assert rep["backend"] == "mesh" and rep["process_group"] == "gloo"
+    assert rep["rounds"] == virt.rounds >= 1
+    assert rep["uplink_points"] == [int(v) for v in virt.uplink_points]
+    assert rep["wire_bytes"] == [int(v) for v in virt.wire_bytes]
+    assert rep["wire_meta_bytes"] == [int(v) for v in virt.wire_meta_bytes]
+    assert rep["cost"] == virt.cost(x)
+
 def test_smoke_fused_tolerance_all_moved_center():
     """``chip_smoke.py``'s Lloyd-step check against the plain version
     where a whole duplicated location sits under two tied centers and the

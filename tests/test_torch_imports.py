@@ -65,7 +65,13 @@ def test_port_has_its_modules():
                 "repro_torch/scenarios/library.py",
                 "repro_torch/scenarios/sweep.py",
                 "repro_torch/scenarios/report.py",
-                "repro_torch/scenarios/run.py"):
+                "repro_torch/scenarios/run.py",
+                "repro_torch/api/backends.py",
+                "repro_torch/core/distributed.py",
+                "repro_torch/launch/__init__.py",
+                "repro_torch/launch/__main__.py",
+                "repro_torch/launch/cli.py",
+                "repro_torch/launch/mesh.py"):
         assert mod in names
     examples = {p.name for p in FILES if p.parent.name == "examples"}
     assert examples == {"quickstart_torch.py",
@@ -79,7 +85,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.robust, repro_torch.fit_profile, repro_torch.obs, "
             "repro_torch.obs.report, repro_torch.api.selfcheck, "
             "repro_torch.checkpoint.checkpointer, repro_torch.streaming, "
-            "repro_torch.scenarios, repro_torch.scenarios.run; "
+            "repro_torch.scenarios, repro_torch.scenarios.run, "
+            "repro_torch.api.backends, repro_torch.core.distributed, "
+            "repro_torch.launch, repro_torch.launch.cli, "
+            "repro_torch.launch.mesh; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")

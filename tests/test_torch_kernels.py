@@ -833,6 +833,46 @@ def test_build_is_keyed_on_sources():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_part_entry_points_equal_one_call(dt):
+    """The part-by-part entry points over 3 parts of one point set (bases
+    0, 300, 600) give the one-call entry points' results: the seeding's
+    rows (the largest words over the parts are the one call's draw), and
+    the Lloyd step's accumulators at the whole set's bound and row count
+    (summed, they round to fixed_point_reduce_ref's sums over the
+    set)."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(900, 7)).astype(np.float32)).to(dt)
+    w = torch.from_numpy(rng.random(900).astype(np.float32))
+    w[100:180] = 0.0
+    seed = torch.tensor([77, 91], dtype=torch.int64)
+    parts = [(x[j:j + 300], w[j:j + 300], j) for j in (0, 300, 600)]
+    d2s = [torch.full((300,), torch.inf) for _ in parts]
+    center, drawn = None, []
+    for step in range(12):
+        words = []
+        for i, (xp, wp, base) in enumerate(parts):
+            d2s[i], wd = ops.kmeans_pp_step_at(xp, wp, d2s[i], center, step,
+                                               seed, base)
+            words.append(wd)
+        win = tref.winner_from_words(tref.max_word(torch.stack(words), 0))
+        drawn.append(win)
+        center = x[win].float()
+    np.testing.assert_array_equal(
+        torch.stack(drawn).numpy(),
+        ops.kmeans_plusplus_indices(x, w, 12, seed).numpy())
+    c = x[torch.tensor([3, 350, 700, 820])].float()
+    bound = torch.stack([ops.fixed_bound(xp, wp)
+                         for xp, wp, _ in parts]).amax(0)
+    acc = sum(ops.fused_assign_reduce_fixed(xp, wp, c, bound, 900)
+              for xp, wp, _ in parts)
+    sums, counts = exact.fixed_finalize(acc, bound, 900)
+    _, assign = tref.min_dist_ref(x, c)
+    want_s, want_c = tref.fixed_point_reduce_ref(x, w, assign, 4)
+    assert torch.equal(sums, want_s) and torch.equal(counts, want_c)
+
+
 def test_every_entry_point_covered():
     """Adding a port entry point without coverage here fails."""
     public = {name for name, fn in vars(ops).items()
@@ -842,7 +882,11 @@ def test_every_entry_point_covered():
                "remove_below", "update_min_dist", "sensitivity_scores",
                "truncated_cost"}
     covered = kernels | {"kmeans_plusplus_indices"}
-    assert public == set(ops.ENTRY_POINTS) == covered
+    # a mesh rank's part-by-part steps: test_part_entry_points_equal_one_call
+    parts = {"kmeans_pp_step_at", "fixed_bound", "fused_assign_reduce_fixed"}
+    assert set(ops.ENTRY_POINTS) == covered
+    assert set(ops.PART_ENTRY_POINTS) == parts
+    assert public == covered | parts
     # the reference's seven, in its order, then the seeding loop (the
     # reference's lax.scan over update_min_dist; tests/test_torch_kmeans.py
     # holds it to its plain steps, and those to the JAX oracle below)

@@ -315,7 +315,7 @@ def test_run_cli_writes_its_own_file(tmp_path, monkeypatch, capsys):
     assert len(trace.read_text().splitlines()) > 0
     assert not (tmp_path / "BENCH_scenarios.json").exists()
     assert hashlib.sha256(bench.read_bytes()).hexdigest() == before
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="no process group"):
         run.main(["--suite", "adversarial_kmeanspar", "--quick",
                   "--device", "cpu", "--backend", "mesh", "--out", ""])
 

@@ -20,6 +20,7 @@ from repro.streaming import tree as jtree
 from repro.streaming.state import save_stream as jsave_stream
 from repro.streaming.update import _shard_stream_batch as j_shard
 from repro_torch.api import fit, fit_update
+from repro_torch.api.backends import MACHINE, REPLICATED, MeshBackend
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core.kmeans import kmeans
 from repro_torch.core.metrics import centralized_cost
@@ -188,8 +189,9 @@ def test_fit_update_validation_errors(monkeypatch):
     with pytest.raises(ValueError, match="d="):
         fit_update(res, rng.normal(size=(256, 7)).astype(np.float32),
                    m=4, coreset_rows=128, **CPU)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        fit_update(res, xb, m=4, backend="mesh", **CPU)
+    with pytest.raises(NotImplementedError,
+                       match="fit_update currently runs on the virtual"):
+        fit_update(res, xb, m=4, backend=MeshBackend(), **CPU)
     with pytest.raises(ValueError, match="backend"):
         fit_update(res, xb, m=4, backend="tpu", **CPU)
     res2 = fit_update(res, xb, m=4, coreset_rows=128, backend="auto", **CPU)
@@ -315,8 +317,8 @@ def test_snapshot_versions_are_monotone():
 def test_checkpointer_layout_matches_reference(tmp_path):
     """step-N/leaves.npz + manifest.json under the same a/b/0 keys: a tree
     the reference wrote restores in the port and the port's in the
-    reference; keep-k and the async writer work; shardings waits for the
-    multi-device backend."""
+    reference; keep-k and the async writer work; restore(shardings=)
+    places each leaf by a device or a placement mark."""
     tree = {"b": [np.arange(6.0, dtype=np.float32).reshape(2, 3),
                   np.zeros((4,), np.int32)],
             "a": np.arange(10.0), "c": {"d": np.float32(3.5)}}
@@ -343,8 +345,13 @@ def test_checkpointer_layout_matches_reference(tmp_path):
     with pytest.raises(ValueError, match="leaf a"):
         Checkpointer(str(tmp_path / "t")).restore({**template,
                                                    "a": np.zeros(3)})
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Checkpointer(str(tmp_path / "t")).restore(template, shardings={})
+    placed = Checkpointer(str(tmp_path / "t")).restore(
+        template, shardings={"a": "cpu", "b": [MACHINE, REPLICATED],
+                             "c": {"d": torch.device("cpu")}})
+    assert isinstance(placed["b"][0], torch.Tensor)
+    np.testing.assert_array_equal(placed["b"][0].numpy(), tree["b"][0])
+    np.testing.assert_array_equal(placed["a"].numpy(), tree["a"])
+    assert float(placed["c"]["d"]) == 3.5
 
     ck = Checkpointer(str(tmp_path / "k"), keep=2, use_async=True)
     for s in (1, 2, 3, 4):

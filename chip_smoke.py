@@ -2313,15 +2313,15 @@ def minibatch_bound(means_cost: float) -> float:
     return 4.0 * max(means_cost, 1e-6) + 1.0
 
 
-def sharded_buffer(gen, const):
+def sharded_buffer(gen, const, n: int = N_POINTS):
     """A sharded round's flattened P1 buffer at ``const``: (m·cap_sharded,
-    d) points whose first eta/m slots a machine weigh N/eta (the HT
+    d) points whose first eta/m slots a machine weigh n/eta (the HT
     weight of a balanced draw) and the rest 0, and k_plus centers drawn
     from its live rows."""
     cap, share = const.cap_sharded, const.eta // MACHINES
     x = torch.rand((MACHINES * cap, DIM), generator=gen, device="cuda")
     w = torch.zeros((MACHINES, cap), device="cuda")
-    w[:, :share] = N_POINTS / const.eta
+    w[:, :share] = n / const.eta
     live = (torch.arange(MACHINES, device="cuda")[:, None] * cap
             + torch.arange(share, device="cuda")[None, :]).reshape(-1)
     pick = torch.randperm(live.numel(), generator=gen, device="cuda")
@@ -3736,7 +3736,7 @@ def mesh_rank(rank: int, work: str) -> None:
     wall, collective seconds and kernel launches to rank<r>.json."""
     from repro_torch import api
     from repro_torch.core import comm as comm_mod
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import fused_lloyd, ops
     spent = [0.0]
     gather = comm_mod.MeshCluster._gather
 
@@ -3750,7 +3750,7 @@ def mesh_rank(rank: int, work: str) -> None:
 
     def one(x, k, algo, **kw):
         torch.cuda.synchronize()
-        for kern in ops.KERNELS.values():
+        for kern in (*ops.KERNELS.values(), fused_lloyd.FIXED_BOUND):
             kern.launches = 0
         spent[0] = 0.0
         t0 = time.perf_counter()
@@ -3761,7 +3761,8 @@ def mesh_rank(rank: int, work: str) -> None:
         return dict(digest=fit_digest(res), backend=res.backend, wall=wall,
                     fit_s=res.wall_time_s, collective_s=spent[0],
                     finite=bool(np.isfinite(res.centers).all()),
-                    launches={n: k.launches for n, k in ops.KERNELS.items()})
+                    launches={n: k.launches for n, k in ops.KERNELS.items()},
+                    bound_passes=fused_lloyd.FIXED_BOUND.launches)
 
     out = {}
     x = np.load(os.path.join(work, "x.npy"), mmap_mode="r")
@@ -3806,38 +3807,70 @@ def nccl_rank(rank: int, work: str) -> None:
 
 def mesh_kernel_phase(ops, ref, rows, params_cls) -> None:
     """The two kernels a mesh rank runs on its part of the sharded
-    coordinator's buffer (Table 2 row 1's 8 × cap_sharded slots, float32,
-    k_plus = 103): a seeding step keyed by global rows
+    coordinator's buffer (float32, k_plus = 103), at Table 2 row 1's
+    8 × cap_sharded slots and at the 1 M mesh sharded fit's
+    (``mesh_phase``): a seeding step keyed by global rows
     (``kmeans_pp_step_at``) and the Lloyd step at the whole buffer's
     shifts (``fixed_bound``, ``fused_assign_reduce_fixed``). The parts'
     seeding, emulated in one process, draws the flattened call's rows
-    and its d2 bit for bit; the parts' summed accumulators round to the
-    flattened Lloyd step's sums bit for bit; each part's step against its
-    plain version (the words' keys within KEY_ULPS, d2 within d2_tol; the
-    accumulators exact given the kernel's argmin); both timed beside
-    their plain versions and bounds."""
+    and its d2 bit for bit, and every step of every part is held to its
+    plain version (the filled word's key within 1e-4, d2 within d2_tol).
+    The parts' summed accumulators round to the flattened Lloyd step's
+    sums bit for bit; each part's accumulators equal the plain fixed-point
+    sums over the kernel's own argmin, and equal the plain version's
+    (``fused_assign_reduce_fixed_ref``, over ``min_dist_ref``'s argmin)
+    but for the points the two assign to different centers, each a
+    near-tie (within 2·d2_tol of the plain min), whose integer terms move
+    from one center's row to the other's exactly. Both kernels are timed
+    beside their plain versions and bounds at Table 2 row 1's shape."""
+    for n_points in (N_POINTS, MESH_N):
+        mesh_parts_check(ops, ref, params_cls, n_points,
+                         rows if n_points == N_POINTS else None)
+
+
+def mesh_parts_check(ops, ref, params_cls, n_points, rows) -> None:
+    """``mesh_kernel_phase`` at the sharded buffer of ``n_points``; times
+    the two kernels into ``rows`` unless it is None."""
     from repro_torch.core.soccer import derive_constants
     from repro_torch.kernels import exact, fused_lloyd as fl
     k, eps = TABLE2[0]
-    const = derive_constants(N_POINTS, N_POINTS // MACHINES,
+    const = derive_constants(n_points, n_points // MACHINES,
                              params_cls(k=k, epsilon=eps))
     gen = torch.Generator("cuda").manual_seed(23)
-    x, w, c = sharded_buffer(gen, const)
+    x, w, c = sharded_buffer(gen, const, n_points)
     cap, kp = const.cap_sharded, const.k_plus
     seed = torch.randint(0, 1 << 32, (2,), generator=gen, device="cuda")
     parts = [(x[j * cap:(j + 1) * cap], w[j * cap:(j + 1) * cap])
              for j in range(MACHINES)]
-    # the seeding, part by part, against one call over the buffer
+    tol = d2_tol(x, x)
+    # the seeding, part by part, against one call over the buffer and
+    # each part's step against its plain version
     idx = ops.kmeans_plusplus_indices(x, w, kp, seed)
     d2s = [torch.full((cap,), torch.inf, device="cuda") for _ in parts]
     d2_flat = torch.full((x.shape[0],), torch.inf, device="cuda")
     center, drawn, prev = None, [], None
+    d2_err = key_err = 0.0
     for step in range(kp):
         words = []
         for j, (xp, wp) in enumerate(parts):
+            before = d2s[j].clone()
             d2s[j], wd = ops.kmeans_pp_step_at(xp, wp, d2s[j], center, step,
                                                seed, j * cap)
             words.append(wd)
+            d2_p, wd_p = ref.kmeans_pp_step_at_ref(xp, wp, before, center,
+                                                   step, seed, j * cap)
+            if center is not None:
+                err = float((d2_p - d2s[j]).abs().max())
+                d2_err = max(d2_err, err)
+                check(err <= tol, f"mesh seeding n={n_points} step {step} "
+                      f"part {j}: d2 {err} from the plain version's > {tol}")
+            kind = 1 if center is None else 0    # the word a step fills
+            ka = float(ref.key_of_word(wd[kind]))
+            kb = float(ref.key_of_word(wd_p[kind]))
+            key_err = max(key_err, abs(ka - kb) / max(1.0, abs(kb)))
+            check(abs(ka - kb) <= 1e-4 * max(1.0, abs(kb)),
+                  f"mesh seeding n={n_points} step {step} part {j}: key "
+                  f"{ka!r} vs plain {kb!r}")
         best = ref.max_word(torch.stack(words), 0)
         win = ref.winner_from_words(best)
         flat_words = fl.kmeans_pp_step_cuda(x, w, d2_flat, prev, step, seed)
@@ -3849,32 +3882,17 @@ def mesh_kernel_phase(ops, ref, rows, params_cls) -> None:
         check(torch.equal(best[0], flat_words[0])
               and torch.equal(best[used], flat_words[used])
               and torch.equal(win, ref.winner_from_words(flat_words)),
-              f"mesh seeding step {step}: the parts' draw differs from the "
-              f"flattened step's")
-        if step < 2:
-            for j, (xp, wp) in enumerate(parts[:2]):
-                d2_p, wd_p = ref.kmeans_pp_step_at_ref(
-                    xp, wp, torch.full((cap,), torch.inf, device="cuda")
-                    if center is None else d2_before[j], center, step, seed,
-                    j * cap)
-                tol = d2_tol(xp, xp)
-                check(float((d2_p - d2s[j]).abs().max()) <= tol
-                      if center is not None else True,
-                      f"mesh seeding step {step} part {j}: d2 beyond {tol}")
-                kind = 1 if center is None else 0  # the word a step fills
-                ka = float(ref.key_of_word(words[j][kind]))
-                kb = float(ref.key_of_word(wd_p[kind]))
-                check(abs(ka - kb) <= 1e-4 * max(1.0, abs(kb)),
-                      f"mesh seeding step {step} part {j}: key {ka!r} vs "
-                      f"plain {kb!r}")
-        d2_before = [d.clone() for d in d2s]
+              f"mesh seeding n={n_points} step {step}: the parts' draw "
+              f"differs from the flattened step's")
         drawn.append(win)
         prev = win
         center = x[win].float()
     check(torch.equal(torch.stack(drawn), idx),
-          "mesh seeding: the parts drew other rows than the flattened call")
+          f"mesh seeding n={n_points}: the parts drew other rows than the "
+          f"flattened call")
     check(torch.equal(torch.cat(d2s), d2_flat),
-          "mesh seeding: the parts' d2 differ from the flattened step's")
+          f"mesh seeding n={n_points}: the parts' d2 differ from the "
+          f"flattened step's")
     # the Lloyd step, part by part
     n_all = x.shape[0]
     bounds = [ops.fixed_bound(xp, wp) for xp, wp in parts]
@@ -3883,19 +3901,53 @@ def mesh_kernel_phase(ops, ref, rows, params_cls) -> None:
               "mesh lloyd: fixed_bound differs from its plain version")
     bound = torch.stack(bounds).amax(0)
     acc = torch.zeros((kp, DIM + 1), dtype=torch.int64, device="cuda")
-    for xp, wp in parts:
+    tol_c = d2_tol(x, c)
+    moved_all = 0
+    for j, (xp, wp) in enumerate(parts):
         assign = torch.empty((cap,), dtype=torch.int32, device="cuda")
         a = fl.fused_assign_reduce_fixed_cuda(xp, wp, c, bound, n_all,
                                               assign_out=assign)
         check(torch.equal(a, ref.fixed_sums_ref(xp, wp, assign, kp, bound,
                                                 n_all)),
-              "mesh lloyd: a part's accumulators differ from the plain "
-              "fixed-point sums over the kernel's argmin")
+              f"mesh lloyd n={n_points} part {j}: the accumulators differ "
+              f"from the plain fixed-point sums over the kernel's argmin")
+        plain = ref.fused_assign_reduce_fixed_ref(xp, wp, c, bound, n_all)
+        d2_p, idx_p = ref.min_dist_ref(xp, c)
+        moved = (assign.long() != idx_p.long()).nonzero().squeeze(1)
+        moved_all += moved.numel()
+        shift = torch.zeros_like(a)
+        if moved.numel():
+            xm = xp[moved].float()
+            cm = c.float()[assign[moved].long()]
+            real = torch.clamp((xm * xm).sum(-1) - 2.0 * (xm * cm).sum(-1)
+                               + (cm * cm).sum(-1), min=0.0)
+            gap = float((real - d2_p[moved]).abs().max())
+            check(gap <= 2 * tol_c, f"mesh lloyd n={n_points} part {j}: a "
+                  f"point assigned apart from the plain version is {gap} "
+                  f"from its min > {2 * tol_c}")
+            shift = (ref.fixed_sums_ref(xp[moved], wp[moved], assign[moved],
+                                        kp, bound, n_all)
+                     - ref.fixed_sums_ref(xp[moved], wp[moved], idx_p[moved],
+                                          kp, bound, n_all))
+        check(torch.equal(a, plain + shift),
+              f"mesh lloyd n={n_points} part {j}: the accumulators differ "
+              f"from the plain version's beyond the {moved.numel()} "
+              f"near-tie points' terms")
         acc += a
     sums, counts = exact.fixed_finalize(acc, bound, n_all)
     fs, fc, _ = ops.fused_assign_reduce(x, w, c)
     check(torch.equal(sums, fs) and torch.equal(counts, fc),
-          "mesh lloyd: the parts' sums differ from the flattened step's")
+          f"mesh lloyd n={n_points}: the parts' sums differ from the "
+          f"flattened step's")
+    print(f"mesh kernels at n={n_points}: {kp} seeding steps over "
+          f"{MACHINES} parts of {cap} slots = the flattened call (rows, "
+          f"words, d2 bit for bit), each step of each part beside its plain "
+          f"version (d2 {d2_err!r} of {tol!r}, key {key_err!r} relative); "
+          f"the Lloyd step's parts sum to its bits, each part's "
+          f"accumulators = the plain version's but for {moved_all} near-tie "
+          f"points", flush=True)
+    if rows is None:
+        return
     xp, wp = parts[0]
     d2_0 = torch.full((cap,), torch.inf, device="cuda")
     ms = timed_ms(lambda: ops.kmeans_pp_step_at(xp, wp, d2_0, center, 1,
@@ -3915,12 +3967,10 @@ def mesh_kernel_phase(ops, ref, rows, params_cls) -> None:
         shape=f"n={cap} d={DIM} k={kp} part 1 of {MACHINES}", ms=ms_l,
         host_us=ms_l.host_us, plain_ms=plain_l, bound_ms=bnd_l,
         bound_by=by_l)
-    print(f"mesh kernels: {kp} seeding steps over {MACHINES} parts of "
-          f"{cap} slots = the flattened call (rows, words, d2 bit for "
-          f"bit); the Lloyd step's parts sum to its bits; a part's step "
-          f"{ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} {by}), a "
-          f"part's Lloyd step {ms_l:.4f} ms (plain {plain_l:.4f}, bound "
-          f"{bnd_l:.4f} {by_l})", flush=True)
+    print(f"mesh kernels timed at n={n_points}: a part's step {ms:.4f} ms "
+          f"(plain {plain:.4f}, bound {bnd:.4f} {by}), a part's Lloyd step "
+          f"{ms_l:.4f} ms (plain {plain_l:.4f}, bound {bnd_l:.4f} {by_l})",
+          flush=True)
 
 
 def mesh_phase(api, KERNELS, mesh_ref, per_fit, smi: str) -> None:
@@ -3940,7 +3990,7 @@ def mesh_phase(api, KERNELS, mesh_ref, per_fit, smi: str) -> None:
         res, wall, counts = run_fit(api, KERNELS, x1, 25, algo,
                                     MESH_FIT_KERNELS[name], **kw)
         virt[name] = dict(digest=fit_digest(res), wall=wall,
-                          fit_s=res.wall_time_s,
+                          fit_s=res.wall_time_s, launches=counts,
                           cost=cost_of(x1, res.centers))
     from repro_torch.scenarios import run as scen_run
     scen_virt = os.path.join(work, "scen_virtual.json")
@@ -3966,6 +4016,11 @@ def mesh_phase(api, KERNELS, mesh_ref, per_fit, smi: str) -> None:
                       f"from the virtual fit's")
         missing = [n for n in SOCCER_KERNELS if fit["launches"][n] == 0]
         check(not missing, f"mesh rank {r}: {missing} not launched")
+        check(fit["launches"] == per_fit["soccer_k25"]
+              and fit["bound_passes"] == 0,
+              f"mesh rank {r}: launches {fit['launches']} (bound passes "
+              f"{fit['bound_passes']}) differ from the virtual Table 2 row "
+              f"1 fit's {per_fit['soccer_k25']}")
         per_fit[f"mesh_soccer_k25_rank{r}"] = fit["launches"]
     for name in MESH_FITS:
         for r, got in enumerate(ranks):
@@ -3992,6 +4047,21 @@ def mesh_phase(api, KERNELS, mesh_ref, per_fit, smi: str) -> None:
         else:
             check(same, f"mesh {name}: differs from its virtual fit")
         per_fit[f"mesh_{name}_1M"] = ranks[0][name]["launches"]
+        mine, theirs = ranks[0][name]["launches"], virt[name]["launches"]
+        bounds = ranks[0][name]["bound_passes"]
+        if name == "soccer_sharded":
+            # a Lloyd step over the ranks' parts is its bound pass, counted
+            # apart, and one fused_assign_reduce launch, as the one-call
+            # step of the virtual fit
+            check(mine["fused_assign_reduce"]
+                  == theirs["fused_assign_reduce"] and bounds > 0,
+                  f"mesh {name}: {mine['fused_assign_reduce']} Lloyd "
+                  f"launches ({bounds} bound passes) against the virtual "
+                  f"fit's {theirs['fused_assign_reduce']}")
+        print(f"mesh {name} launches, rank 0 / virtual: "
+              + ", ".join(f"{n} {mine[n]}/{theirs[n]}" for n in mine
+                          if mine[n] or theirs[n])
+              + f"; bound passes over the parts {bounds}", flush=True)
         print(f"mesh {name} n={MESH_N}: {note}; with the collectives timed, "
               f"the fit's own wall (shard placement excluded) "
               f"{max(g[name]['fit_s'] for g in ranks):.3f} s (slowest rank; "

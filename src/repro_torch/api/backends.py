@@ -208,16 +208,10 @@ def resolve_backend(backend, m: int, uplink_dtype=None,
     ``uplink_wire`` (if given) set the upload precision and transport on
     the resolved backend; a constructed Backend is rebuilt with
     ``dataclasses.replace`` when a knob differs from its own. The final
-    (dtype, wire) pair is validated here.
+    (dtype, wire) pair is validated here, once.
     """
     ud = None if uplink_dtype is None else check_uplink_dtype(uplink_dtype)
-    uw = None
-    if uplink_wire is not None:
-        if uplink_wire not in UPLINK_WIRES:
-            raise ValueError(
-                f"unsupported uplink_wire {uplink_wire!r}: expected one "
-                f"of {', '.join(UPLINK_WIRES)}")
-        uw = uplink_wire
+    uw = uplink_wire
     knobs = dict(uplink_dtype=ud or "float32", uplink_wire=uw or "auto")
 
     def _check(bk):

@@ -17,10 +17,10 @@ its device, any other leaf as a numpy array. ``shardings``, a tree of
 the same structure, places each leaf instead, the counterpart of
 ``jax.device_put(a, sharding)``: a device (a name or ``torch.device``)
 puts the leaf there whole; a mark (``api.backends.MACHINE`` or
-``REPLICATED``) places it through the backend's ``put`` (``backend``;
-default: a ``MeshBackend`` when a process group is initialized, so each
-rank takes its own machine's row of a ``MACHINE`` leaf, else the virtual
-backend, which keeps the leaf whole).
+``REPLICATED``) places it through a backend's ``put``: a ``MeshBackend``
+when a process group is initialized, so each rank takes its own
+machine's row of a ``MACHINE`` leaf, else the virtual backend, which
+keeps the leaf whole.
 """
 from __future__ import annotations
 
@@ -74,14 +74,13 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _place_tree(tree: Any, shardings: Any, backend: Any) -> Any:
+def _place_tree(tree: Any, shardings: Any) -> Any:
     """Each leaf of ``tree`` placed as the same path of ``shardings``
-    says: a device, or a placement mark through ``backend.put``."""
+    says: a device, or a placement mark through the backend's ``put``."""
+    import torch.distributed as dist
     from repro_torch.api import backends
-    if backend is None:
-        import torch.distributed as dist
-        backend = (backends.MeshBackend() if dist.is_available()
-                   and dist.is_initialized() else backends.VirtualBackend())
+    backend = (backends.MeshBackend() if dist.is_available()
+               and dist.is_initialized() else backends.VirtualBackend())
     marks = (backends.MACHINE, backends.REPLICATED)
 
     def place(path: str, leaf):
@@ -157,7 +156,7 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                shardings: Any = None, backend: Any = None) -> Any:
+                shardings: Any = None) -> Any:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -177,4 +176,4 @@ class Checkpointer:
         out = _map(template, fill)
         if shardings is None:
             return out
-        return _place_tree(out, shardings, backend)
+        return _place_tree(out, shardings)

@@ -36,8 +36,9 @@ and the Lloyd step run part by part and give the virtual run's bits:
   fixed-point arithmetic and a virtual one is not.
 
 The per-machine float sums the threshold reads are exact row sums
-(``exact.exact_row_sum``), so a rank's (1, cap) block gives its row of the
-virtual (m, cap) buffer's bits.
+(``exact.exact_row_sum``; the bisection quantizes the weights once and
+sums a subset of their terms each step), so a rank's (1, cap) block
+gives its row of the virtual (m, cap) buffer's bits.
 
 Wire accounting counts every executed collective, so where the reference
 records a scanned or looped collective once a trace, the port records it
@@ -71,7 +72,8 @@ from repro_torch.core.sampling import (apportion, global_weighted_choice,
                                        scatter_selected)
 from repro_torch.core.truncated_cost import weighted_top_mass
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.exact import exact_row_sum, fixed_finalize
+from repro_torch.kernels.exact import (exact_row_sum, fixed_finalize,
+                                       row_terms, row_terms_sum)
 
 BISECT_STEPS = 32
 
@@ -240,15 +242,18 @@ def distributed_threshold(comm, pts: torch.Tensor, ws: torch.Tensor,
     else:
         hi = torch.max(comm.all_machines(torch.amax(d2, dim=1)))
         lo = torch.zeros_like(hi)
+        # the weights quantized once; each step sums a subset of them
+        qw, sw = row_terms(ws)
         for _ in range(BISECT_STEPS):
             mid = 0.5 * (lo + hi)
-            above = comm.psum(exact_row_sum(ws * (d2 > mid)))
+            above = comm.psum(row_terms_sum(torch.where(d2 > mid, qw, 0),
+                                            sw))
             up = above > trunc_mass
             lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid)
         tau = 0.5 * (lo + hi)
         over = d2 > tau
         above_sum = comm.psum(exact_row_sum(ws * d2 * over))
-        mass_above = comm.psum(exact_row_sum(ws * over))
+        mass_above = comm.psum(row_terms_sum(torch.where(over, qw, 0), sw))
         dropped = above_sum + torch.clamp(trunc_mass - mass_above,
                                           min=0.0) * tau
     psi = (2.0 / 3.0) * torch.clamp(total - dropped, min=0.0)

@@ -62,11 +62,24 @@ def exact_row_sum(v: torch.Tensor) -> torch.Tensor:
     """(r,) float32 sums of the rows of the (r, p) values ``v``, each row
     at its own fixed-point scale (a bool or integer ``v`` is summed as
     float32 too)."""
+    return row_terms_sum(*row_terms(v))
+
+
+def row_terms(v: torch.Tensor):
+    """The (r, p) int64 fixed-point terms of the (r, p) values ``v`` and
+    the (r, 1) float64 scale of each row (``exact_row_sum``'s). A subset
+    of a row's terms sums exactly too, so a loop that sums masked subsets
+    of one set of values quantizes them once: ``row_terms_sum(
+    torch.where(mask, q, 0), scale)``."""
     vd = v.double()
     if vd.shape[-1] == 0:
-        return vd.sum(dim=-1).float()
+        return vd.long(), vd.new_ones((*vd.shape[:-1], 1))
     scale = _fixed_scale(vd, dim=-1)
-    q = torch.round(vd * scale).long()
+    return torch.round(vd * scale).long(), scale
+
+
+def row_terms_sum(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(r,) float32 row sums of ``row_terms``' terms (or a subset)."""
     return (q.sum(dim=-1).double() / scale[..., 0]).float()
 
 

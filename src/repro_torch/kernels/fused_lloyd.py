@@ -70,11 +70,12 @@ FUSED_ASSIGN_REDUCE = CudaKernel(
     "fused_assign.cu", "rt_fused_assign_reduce",
     [_P, _I, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _L, _P, _P,
      _P])
-# the Lloyd step's bound pass alone, for a step over several parts; its
-# launches count as the Lloyd step's
+# the Lloyd step's bound pass alone, for a step over several parts; it
+# counts its own launches, so that a step over parts (this pass, then
+# fused_assign_reduce_fixed_cuda) adds one to the Lloyd step's count, as
+# the one-call step, whose C call runs its bound pass, does
 FIXED_BOUND = CudaKernel("fused_assign.cu", "rt_fixed_bound",
-                         [_P, _I, _L, _I, _P, _P, _P],
-                         counts=FUSED_ASSIGN_REDUCE)
+                         [_P, _I, _L, _I, _P, _P, _P])
 
 # The fixed-point accumulator entries (k·(d + 1)) up to which each warp
 # keeps its sums in shared memory (csrc/common.cuh: AccMode, GroupAcc);

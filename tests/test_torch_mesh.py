@@ -180,6 +180,38 @@ def _restore_check(rank: int, out: str) -> dict:
         and np.array_equal(got["c"].numpy(), tree["c"])))
 
 
+def _shim_checks(rank: int) -> dict:
+    """core/distributed.py's entry points: ``run_soccer_mesh`` gives the
+    virtual ``run_soccer``'s bits, and rounds driven one by one through
+    ``make_mesh_step`` give ``run_soccer_mesh``'s."""
+    from repro_torch.configs.soccer_paper import SoccerParams
+    from repro_torch.core import distributed, soccer
+    parts = _data().reshape(RANKS, -1, 6)
+    params = SoccerParams(k=K, epsilon=0.2, n_machines=RANKS, seed=4)
+    virt = soccer.run_soccer(parts, params, eta_override=900, device="cpu")
+    mesh = distributed.run_soccer_mesh(parts, params, eta_override=900,
+                                       device="cpu")
+    const = soccer.derive_constants(parts.shape[0] * parts.shape[1],
+                                    parts.shape[1], params, 900, m=RANKS)
+    state = soccer.init_state(
+        torch.from_numpy(parts[rank:rank + 1]), const,
+        torch.Generator().manual_seed(params.seed),
+        comm=distributed.mesh_cluster())
+    step = distributed.make_mesh_step(const)
+    for _ in range(mesh.rounds):
+        state = step(state)
+    state = distributed.make_mesh_step(const, finalize=True)(state)
+    return dict(
+        run_soccer_mesh_bits=bool(
+            mesh.backend == "mesh" and mesh.rounds == virt.rounds >= 2
+            and np.array_equal(mesh.n_hist, virt.n_hist)
+            and mesh.centers.tobytes() == virt.centers.tobytes()),
+        mesh_step_bits=bool(
+            soccer.flatten_centers(state).tobytes()
+            == mesh.centers.tobytes()
+            and np.array_equal(state.n_hist.numpy(), mesh.n_hist)))
+
+
 def _job(rank: int, out: str) -> None:
     x = _data()
     res = {}
@@ -196,7 +228,7 @@ def _job(rank: int, out: str) -> None:
                                wire_total=r.wire_bytes_total)
     res["traces"] = traces
     res["checks"] = {**_wire_checks(rank), **_part_checks(rank),
-                     **_restore_check(rank, out)}
+                     **_restore_check(rank, out), **_shim_checks(rank)}
     Path(out, f"rank{rank}.json").write_text(json.dumps(
         res, default=lambda v: v.item() if hasattr(v, "item") else str(v)))
 
@@ -337,6 +369,12 @@ def test_traces_equal_except_time(job):
 def test_every_rank_returns_the_same_result(job, name):
     first = job["ranks"][0][name]["mesh"]
     assert all(r[name]["mesh"] == first for r in job["ranks"][1:])
+
+
+@pytest.mark.parametrize("check", ["run_soccer_mesh_bits",
+                                   "mesh_step_bits"])
+def test_distributed_entry_points(job, check):
+    assert all(r["checks"][check] for r in job["ranks"])
 
 
 def test_restore_places_machine_rows(job):

@@ -226,6 +226,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 from cuda_timing import Ms, device_split, timed_ms  # noqa: E402
+from trace_overhead import measure as measure_overhead  # noqa: E402
+from trace_overhead import soccer_runner  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 N_POINTS, DIM, MACHINES = 10_000_000, 15, 8
@@ -2682,8 +2684,8 @@ def knob_profile_phase() -> None:
 
 # the smoke's traced fits: records of each follow obs.trace.ROUND_SCHEMA
 # and sum exactly to the fit's wire bytes
-OVERHEAD_PAIRS = 31           # plain/traced pairs of the overhead gate
-OVERHEAD_REPS = 10            # runs a block: its fastest and its median
+OVERHEAD_GROUPS = 62          # groups of the overhead gate
+OVERHEAD_REPS = 10            # plain/traced pairs a group
 OVERHEAD_LIMIT = 0.02         # benchmarks/check_regression.py's 2% gate
 
 
@@ -2777,63 +2779,42 @@ def trace_phase(api, KERNELS, x, soc, per_fit) -> None:
 
 def overhead_phase(x, smi: str) -> None:
     """The trace's overhead on SOCCER's host driver at Table 2 row 1, the
-    shards already on the card (no shard placement in the time):
-    OVERHEAD_PAIRS pairs of a plain and a traced block of OVERHEAD_REPS
-    back-to-back runs, in alternating order. A run takes ~15 ms, and
-    single runs spread by tens of percent on a shared host, upward
-    only (preemption, clock ramps). Two statistics of a block, each
-    held to OVERHEAD_LIMIT as the median of the pairs' traced-over-plain
-    deltas: its fastest run (the cost of the traced code path itself)
-    and its median run (which also sees overhead that shows up as
-    spread, such as allocation in traced rounds). ``x`` is the row's
-    data, placed as ``fit`` places it."""
+    shards already on the card (no shard placement in the time), by
+    ``scripts/trace_overhead.py``'s interleaved design: OVERHEAD_GROUPS
+    groups of OVERHEAD_REPS pairs of one plain and one traced run, the
+    order within a pair alternating. A run takes ~11-15 ms, and single
+    runs spread by tens of percent on a shared host, upward only
+    (preemption, clock ramps); the host's speed also shifts over tenths
+    of a second, which falls alike on both halves of a group. Two
+    statistics of a group, each held to OVERHEAD_LIMIT as the median of
+    the groups' traced-over-plain deltas: its fastest run (the cost of the
+    traced code path itself) and its median run (which also sees
+    overhead that shows up as spread, such as allocation in traced
+    rounds). ``x`` is the row's data, placed as ``fit`` places it."""
     from repro_torch.configs.soccer_paper import SoccerParams
-    from repro_torch.core.soccer import run_soccer
     from repro_torch.data.sharding import make_shards
-    from repro_torch.obs import trace as obs_trace
     parts, _, _ = make_shards(x, None, MACHINES, seed=0)
     parts = torch.from_numpy(parts).cuda()
-    params = SoccerParams(k=25, epsilon=0.05, delta=0.1, seed=0)
-
-    def block(traced: bool):
-        walls = []
-        for _ in range(OVERHEAD_REPS):
-            torch.cuda.synchronize()
-            t0 = obs_trace.clock()
-            if traced:
-                with obs_trace.run_trace(obs_trace.RunTrace("rounds")):
-                    run_soccer(parts, params, device=parts.device)
-            else:
-                run_soccer(parts, params, device=parts.device)
-            walls.append(obs_trace.clock() - t0)
-        return min(walls), float(np.median(walls))
-
-    block(False)
-    block(True)                               # warm both paths
-    best, mid = [], []                        # (plain, traced) a pair
-    for i in range(OVERHEAD_PAIRS):
-        order = (False, True) if i % 2 == 0 else (True, False)
-        t = {flag: block(flag) for flag in order}
-        best.append((t[False][0], t[True][0]))
-        mid.append((t[False][1], t[True][1]))
-    deltas = [b / a - 1.0 for a, b in best]
-    med = float(np.median(deltas))
-    med_mid = float(np.median([b / a - 1.0 for a, b in mid]))
+    r = measure_overhead(
+        soccer_runner(parts, SoccerParams(k=25, epsilon=0.05, delta=0.1,
+                                          seed=0)),
+        OVERHEAD_GROUPS, OVERHEAD_REPS)
+    med, med_mid = r["fastest"], r["median"]
     print(f"trace overhead on run_soccer, Table 2 row 1, shards on the "
-          f"card, {OVERHEAD_PAIRS} pairs alternating, blocks of "
-          f"{OVERHEAD_REPS} runs: median delta of the blocks' fastest runs "
+          f"card, {OVERHEAD_GROUPS} groups of {OVERHEAD_REPS} interleaved "
+          f"plain/traced pairs: median delta of the groups' fastest runs "
           f"{100 * med:+.3f}%, of their medians {100 * med_mid:+.3f}% "
           f"(limit {100 * OVERHEAD_LIMIT:.0f}% on each); plain fastest "
-          f"{1e3 * min(a for a, _ in best):.3f} ms, traced fastest "
-          f"{1e3 * min(b for _, b in best):.3f} ms, plain median "
-          f"{1e3 * float(np.median([a for a, _ in mid])):.3f} ms, traced "
-          f"median {1e3 * float(np.median([b for _, b in mid])):.3f} ms; "
-          f"deltas {[round(100 * d, 3) for d in deltas]} %; card {smi}",
+          f"{1e3 * r['plain_fastest_s']:.3f} ms, traced fastest "
+          f"{1e3 * r['traced_fastest_s']:.3f} ms, plain median "
+          f"{1e3 * r['plain_median_s']:.3f} ms, traced median "
+          f"{1e3 * r['traced_median_s']:.3f} ms; deltas "
+          f"{[round(100 * d, 3) for d in r['deltas']]} %; card {smi}",
           flush=True)
     check(med <= OVERHEAD_LIMIT, f"trace overhead {100 * med:.3f}% > "
-          f"{100 * OVERHEAD_LIMIT:.0f}% on the blocks' fastest runs")
+          f"{100 * OVERHEAD_LIMIT:.0f}% on the groups' fastest runs")
     check(med_mid <= OVERHEAD_LIMIT, f"trace overhead {100 * med_mid:.3f}% "
-          f"> {100 * OVERHEAD_LIMIT:.0f}% on the blocks' median runs")
+          f"> {100 * OVERHEAD_LIMIT:.0f}% on the groups' median runs")
     del parts
 
 

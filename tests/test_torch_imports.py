@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: nothing under ``src/repro_torch/``, no
-``examples/*_torch.py`` and nothing in ``chip_smoke.py`` imports JAX or
+``examples/*_torch.py``, nothing in ``chip_smoke.py`` and nothing in the
+scripts it imports (``cuda_timing``, ``trace_overhead``) imports JAX or
 the JAX package ``repro`` (only the tests import both)."""
 import ast
 import os
@@ -12,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 FILES = PORT + sorted((ROOT / "examples").glob("*_torch.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "cuda_timing.py",
+    ROOT / "scripts" / "trace_overhead.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

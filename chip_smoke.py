@@ -188,8 +188,31 @@ PyTorch built for CUDA. It
    (``examples/*_torch.py``) as subprocesses at their reference sizes
    (``--scenario-seeds`` runs only the round-1 states and the seeds);
    and
-16. runs ``repro_torch.api.selfcheck`` on the card; and
-17. holds the mesh backend to the virtual one: the seeding step
+16. runs ``repro_torch.api.selfcheck`` on the card;
+17. serves LMs through the port's entry points (``models.model``,
+   ``serve.decode``; ``lm_phase``): qwen2-1.5b at its published widths
+   and all 28 layers with seeded random weights, a 4 x 32 prefill and 32
+   greedy decode steps through the KV cache, in float32 with TF32 off
+   (every step's logits against ``lm_forward`` over the same tokens,
+   within 1e-4 of the largest logit; a TF32 forward must fail that gate)
+   and in the config's bfloat16 (held to the float32 run; the same model
+   with float8 weights must fail that gate), the prefill and decode
+   times beside their byte bounds; then chatglm3-6b, mistral-nemo-12b
+   and h2o-danube-3-4b at 2 layers, llama-3.2-vision-11b at 5 and
+   whisper-base whole, at published widths in float32, prefill + decode
+   against the forward (h2o-danube's 8,180-token prompt crosses the
+   flash length and its 4,096 window, and its decode wraps the ring);
+18. clusters qwen2-1.5b's whole 151,936 x 1,536 token-embedding table
+   (the bf16 table cast to float32, passed as a card tensor) with
+   ``fit(k=16, algo="soccer", m=8, epsilon=0.2)`` (``embedding_phase``):
+   every kernel of the path launched, Theorem 4.1's structure, the fit
+   repeated with every kernel call held to its plain version
+   (``KernelsAs`` "shadow") and equal bit for bit, its cost within 1.1x
+   of ``fit(algo="lloyd")``'s, and the four SOCCER kernels timed at the
+   fit's own largest calls (d = 1,536) beside their bounds
+   (``python3 chip_smoke.py --lm`` builds the kernels and runs only
+   these two phases); and
+19. holds the mesh backend to the virtual one: the seeding step
    and the Lloyd step over 8 parts of the sharded coordinator's buffer
    against the flattened calls, bit for bit, and against their plain
    versions (``mesh_kernel_phase``); then, last, 8 ranks sharing the card
@@ -225,7 +248,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
-from cuda_timing import Ms, device_split, timed_ms  # noqa: E402
+from cuda_timing import (Ms, device_busy_ms, device_split,  # noqa: E402
+                         timed_ms)
 from trace_overhead import measure as measure_overhead  # noqa: E402
 from trace_overhead import soccer_runner  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
@@ -445,15 +469,22 @@ def bound_ms(nbytes: float, flops: float):
 # largest term: TOL_ULPS float32 ulps of max(||x||^2) + max(||c||^2).
 # Where two centers (or a point and the threshold v) are closer than that,
 # the two may decide a tie differently; such points are counted as
-# ambiguous and their effect is allowed for explicitly.
+# ambiguous and their effect is allowed for explicitly. The 32 ulps hold
+# up to d = 513, the widest rows checked before the embedding table;
+# beyond, each sum has more terms and the rounding of a sum of d terms
+# grows as sqrt(d), so the ulps grow as sqrt(d / 513) (the embedding
+# fit's d = 1,536: 55 ulps; its first card run met 33 ulps at a seeding
+# step, over the 32 of d = 513).
 TOL_ULPS = 32
+TOL_WIDTH = 513
 EPS32 = float(torch.finfo(torch.float32).eps)
 
 
 def d2_tol(x: torch.Tensor, c: torch.Tensor) -> float:
     xf, cf = x.float(), c.float()
     scale = float((xf * xf).sum(-1).max()) + float((cf * cf).sum(-1).max())
-    return TOL_ULPS * EPS32 * max(scale, 1.0)
+    ulps = TOL_ULPS * max(1.0, (x.shape[-1] / TOL_WIDTH) ** 0.5)
+    return ulps * EPS32 * max(scale, 1.0)
 
 
 def check_min_dist(ops, ref, x, c, cv):
@@ -1596,10 +1627,17 @@ def check_seed_step(ops, ref, fl, x, w, d2, prev, step, seed, what):
     key_k = float(ref.key_of_word(words[0] if use_d2 else words[1]))
     key_t = float(keys[a])
     b = int(torch.argmax(keys))
-    check(abs(key_k - key_t) <= KEY_ULPS * ulp32(key_t)
-          and float(keys[b]) - key_t <= KEY_ULPS * ulp32(float(keys[b])),
-          f"{what}: the kernel drew {a} (key {key_k!r}, torch {key_t!r}), "
-          f"torch's argmax {b} (key {float(keys[b])!r})")
+    if float(keys[b]) == -torch.inf:
+        # no row has weight (SOCCER's final seeding after a round removed
+        # every point, as in the reference): every key is -inf and both
+        # draw torch's argmax, row 0
+        check(a == b, f"{what}: with every weight 0 the kernel drew {a}, "
+                      f"torch's argmax {b}")
+    else:
+        check(abs(key_k - key_t) <= KEY_ULPS * ulp32(key_t)
+              and float(keys[b]) - key_t <= KEY_ULPS * ulp32(float(keys[b])),
+              f"{what}: the kernel drew {a} (key {key_k!r}, torch "
+              f"{key_t!r}), torch's argmax {b} (key {float(keys[b])!r})")
     # against the plain step's own d2 and draw
     p = int(ref.draw_winner(kd_p, kw_p))
     agree = p == a
@@ -1646,7 +1684,8 @@ def check_seeding(ops, ref, x, w, k, seed, what, verbose: bool = True):
           f"{what}: the C loop's draws differ from the chained steps")
     check(torch.equal(idx, ops.kmeans_plusplus_indices(x, w, k, seed)),
           f"{what}: a repeat seeding gave other draws")
-    check(bool((w[idx] > 0).all()), f"{what}: drew a zero-weight row")
+    check(bool((w[idx] > 0).all()) or not bool((w > 0).any()),
+          f"{what}: drew a zero-weight row")
     if verbose:
         print(f"check {what}: draw-on d2 = update_min_dist's bit for bit "
               f"at {SEED_CHECKED + 2} checked steps, the C loop = the "
@@ -3657,6 +3696,478 @@ def scenario_phase(api, KERNELS, ops, ref, rows, per_fit, smi: str) -> None:
           f"{wall:.1f} s)", flush=True)
 
 
+# ------------------------------------------ LM serving and SOCCER on its
+# token-embedding table
+#
+# qwen2-1.5b served at its published widths and all 28 layers, through
+# the port's entry points (``models.model``, ``serve.decode``), with
+# random weights from a seeded generator; five more archs at published
+# widths with the depth cut to one period of their layer pattern; then
+# SOCCER over qwen2-1.5b's whole 151,936 x 1,536 embedding table.
+LM_ARCH = "qwen2-1.5b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 32, 32
+BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+# (arch, layers kept, (batch, prompt, decode steps)): the dense archs at
+# 2 layers, the vlm at 5 (4 self-attention + 1 cross), whisper-base
+# whole (6 + 6); h2o-danube's prompt crosses 2,048 keys (the flash path)
+# and its 4,096 window, and its decode crosses position 8,192, where the
+# ring's slot goes from 4,095 back to 0
+LM_CUTS = (("chatglm3-6b", 2, (2, 32, 8)),
+           ("mistral-nemo-12b", 2, (2, 32, 8)),
+           ("h2o-danube-3-4b", 2, (2, 8_180, 16)),
+           ("llama-3.2-vision-11b", 5, (2, 32, 8)),
+           ("whisper-base", None, (2, 32, 8)))
+# Tolerances, each as the largest |difference| over the largest |logit|
+# of the reference run (max_rel) or as the RMS of the difference over
+# the RMS of the reference (rms_rel):
+# - float32 (TF32 off), serving (prefill + decode through the cache)
+#   against the full forward over the same tokens: both compute the same
+#   float32 expressions and differ only in summation order (GEMMs of
+#   other shapes), a few float32 ulps a product, ~1e-6 of the logits;
+#   1e-4 leaves that room, and a TF32 forward (10-bit mantissa products,
+#   ~1e-3) fails it, which the phase shows on the card;
+# - bfloat16 serving against the float32 run: bf16 weights and
+#   activations, each rounding 2^-9 relative on average, through 28
+#   layers: the card measured rms_rel 0.0124 (PERF.md §6);
+#   0.03 leaves 2.4x that, and the same model with its weights rounded to
+#   float8 e4m3 (2^-4 relative; that run: 0.104) fails it, which the
+#   phase also shows.
+LM_F32_TOL = 1e-4
+LM_BF16_TOL = 0.03
+EMB_K, EMB_M, EMB_EPS = 16, 8, 0.2
+EMB_COST_RATIO = 1.1          # SOCCER's cost over the gather fit's
+EMB_TIMED = ("min_dist", "remove_below", "update_min_dist",
+             "fused_assign_reduce")
+
+
+def lm_rel_err(got: torch.Tensor, want: torch.Tensor):
+    """(max_rel, rms_rel) of ``got`` against ``want``."""
+    diff = (got.double() - want.double())
+    w = want.double()
+    return (float(diff.abs().max() / w.abs().max()),
+            float(diff.norm() / w.norm()))
+
+
+def lm_serve(lm, model, cfg, prompt, fe, steps, tokens=None):
+    """One serving run: the prefill of ``prompt``, then ``steps`` decode
+    steps through the KV cache, each fed the greedy token (``tokens``
+    None) or ``tokens[:, i]``. Returns the (B, steps + 1, V) float32
+    logits (the prompt's last position, then each step's) and the (B,
+    steps) tokens fed."""
+    last, cache = lm.lm_prefill(model, cfg, prompt, frontend=fe,
+                                max_len=prompt.shape[1] + steps + 1)
+    outs, fed = [last], []
+    for i in range(steps):
+        tok = (torch.argmax(outs[-1][:, -1], -1)[:, None] if tokens is None
+               else tokens[:, i:i + 1])
+        fed.append(tok)
+        logits, cache = lm.lm_decode_step(model, cfg, tok, cache)
+        outs.append(logits)
+    return torch.cat(outs, 1), torch.cat(fed, 1)
+
+
+def lm_full(lm, model, cfg, prompt, fed, fe):
+    """``lm_forward`` over the prompt and the fed tokens: the logits at the
+    positions ``lm_serve`` returns."""
+    seq = torch.cat([prompt, fed.to(prompt.dtype)], 1)
+    logits, _ = lm.lm_forward(model, cfg, seq, frontend=fe)
+    return logits[:, prompt.shape[1] - 1:].clone()
+
+
+def lm_model(lm, cfg, seed: int):
+    return lm.init_lm(cfg, generator=torch.Generator("cuda").manual_seed(seed),
+                      device="cuda")
+
+
+def lm_inputs(cfg, batch: int, prompt_len: int, seed: int):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device="cuda")
+    fe = None
+    if cfg.n_frontend_tokens:
+        fe = torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
+                         generator=gen, device="cuda") * 0.1
+    return prompt, fe
+
+
+def lm_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def lm_timing(lm, decode, model, cfg, prompt, steps: int, reps: int = 3):
+    """Serving times through ``decode.prefill`` and ``decode.serve_step``
+    (host clock around work that ends in a synchronize; the median of
+    ``reps`` runs after a warm-up): prefill ms, decode ms a step, a
+    decode step's device busy ms (``device_busy_ms``: the union of its
+    device events), its five costliest kernels (device µs summed by
+    name) and the KV cache's bytes."""
+    max_len = prompt.shape[1] + steps + 1
+    decode.generate(model, cfg, prompt, steps=2, max_len=max_len)
+    pre, step = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode.prefill(model, cfg, prompt, max_len=max_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        for _ in range(steps):
+            tok, cache = decode.serve_step(model, cfg, tok, cache)
+        torch.cuda.synchronize()
+        pre.append((t1 - t0) * 1e3)
+        step.append((time.perf_counter() - t1) * 1e3 / steps)
+    busy = device_busy_ms(lambda: lm.lm_decode_step(model, cfg, tok, cache))
+    split = device_split(lambda: lm.lm_decode_step(model, cfg, tok, cache),
+                         reps=3)
+    top = {name[:60]: us for name, us in
+           sorted(split.items(), key=lambda kv: -kv[1])[:5]}
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in cache["layers"].values())
+    return (float(np.median(pre)), float(np.median(step)), busy, top,
+            kv_bytes)
+
+
+def lm_phase(smi: str):
+    """qwen2-1.5b served at full width and depth in float32 (TF32 off) and
+    in its bfloat16, each step's logits held to the full forward's and the
+    bf16 run to the float32 run; the five other served archs at published
+    widths, depth cut, in float32. Returns qwen2-1.5b's bfloat16
+    token-embedding table (151,936 x 1,536) for ``embedding_phase``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as lm_attn
+    from repro_torch.models import model as lm
+    from repro_torch.serve import decode
+    t_phase = time.perf_counter()
+    matmul = torch.backends.cuda.matmul
+    saved = (matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction)
+    # float32 products stay float32, bfloat16 products sum in float32
+    # (the reference's preferred_element_type)
+    matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
+    cfg_bf = get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg_bf, param_dtype="float32",
+                                compute_dtype="float32")
+    check(cfg_bf.param_dtype == "bfloat16" and cfg_bf.n_layers == 28,
+          f"{LM_ARCH}: {cfg_bf}")
+    prompt, _ = lm_inputs(cfg32, LM_BATCH, LM_PROMPT, seed=1)
+
+    # run 1: float32
+    model = lm_model(lm, cfg32, seed=0)
+    serve32, fed = lm_serve(lm, model, cfg32, prompt, None, LM_STEPS)
+    full32 = lm_full(lm, model, cfg32, prompt, fed, None)
+    err32 = lm_rel_err(serve32, full32)
+    check(err32[0] <= LM_F32_TOL,
+          f"{LM_ARCH} float32: serving vs forward max_rel {err32[0]:.3g} > "
+          f"{LM_F32_TOL}")
+    matmul.allow_tf32 = True
+    tf32 = lm_full(lm, model, cfg32, prompt, fed, None)
+    matmul.allow_tf32 = False
+    err_tf32 = lm_rel_err(tf32, full32)
+    check(err_tf32[0] > LM_F32_TOL,
+          f"{LM_ARCH}: a TF32 forward passes the float32 gate "
+          f"({err_tf32[0]:.3g} <= {LM_F32_TOL})")
+    pre32, step32, dev32, _, _ = lm_timing(lm, decode, model, cfg32, prompt,
+                                           LM_STEPS)
+    bytes32 = lm_bytes(model)
+    del model, tf32
+    torch.cuda.empty_cache()
+    print(f"lm {LM_ARCH} float32 (28 layers, d={cfg32.d_model}, "
+          f"vocab={cfg32.vocab_size}, {bytes32 / 1e9:.3f} GB of weights): "
+          f"prefill {LM_BATCH}x{LM_PROMPT} + {LM_STEPS} greedy decode steps "
+          f"vs lm_forward over the same {LM_PROMPT + LM_STEPS} tokens: "
+          f"max_rel {err32[0]:.3g} rms_rel {err32[1]:.3g} (tol {LM_F32_TOL}"
+          f" max_rel); a TF32 forward: max_rel {err_tf32[0]:.3g} rms_rel "
+          f"{err_tf32[1]:.3g} (fails the gate); prefill {pre32:.3f} ms, "
+          f"decode {step32:.3f} ms a step (device busy {dev32:.3f} ms), "
+          f"tokens {fed[0, :8].tolist()}", flush=True)
+
+    # run 2: the config's bfloat16, fed run 1's tokens
+    model = lm_model(lm, cfg_bf, seed=0)
+    serve_bf, _ = lm_serve(lm, model, cfg_bf, prompt, None, LM_STEPS,
+                           tokens=fed)
+    full_bf = lm_full(lm, model, cfg_bf, prompt, fed, None)
+    err_bf = lm_rel_err(serve_bf, full32)
+    err_bf_fwd = lm_rel_err(full_bf, full32)
+    check(err_bf[1] <= LM_BF16_TOL,
+          f"{LM_ARCH} bfloat16 serving vs float32: rms_rel {err_bf[1]:.3g} > "
+          f"{LM_BF16_TOL}")
+    pre, step, dev, top, kv_bytes = lm_timing(lm, decode, model, cfg_bf,
+                                              prompt, LM_STEPS)
+    wbytes = lm_bytes(model)
+    n_emb = cfg_bf.vocab_size * cfg_bf.d_model
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = LM_BATCH * LM_PROMPT
+    # prefill: every weight read once; 2 FLOP a weight a token outside the
+    # embedding, the last position's unembedding, causal attention
+    hd, heads = cfg_bf.resolved_head_dim, cfg_bf.n_heads
+    pre_flops = (2.0 * tokens * (n_params - n_emb)
+                 + 2.0 * LM_BATCH * n_emb
+                 + 2.0 * LM_BATCH * LM_PROMPT ** 2 * heads * hd
+                 * cfg_bf.n_layers)
+    pre_bound = max(wbytes / HBM_BYTES_PER_S, pre_flops / BF16_FLOP_PER_S)
+    step_bound = (wbytes + kv_bytes) / HBM_BYTES_PER_S
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.to(torch.float8_e4m3fn).to(p.dtype))
+    fp8 = lm_full(lm, model, cfg_bf, prompt, fed, None)
+    err_fp8 = lm_rel_err(fp8, full32)
+    check(err_fp8[1] > LM_BF16_TOL,
+          f"{LM_ARCH}: float8 weights pass the bfloat16 gate "
+          f"({err_fp8[1]:.3g} <= {LM_BF16_TOL})")
+    del model, fp8, full_bf, serve_bf, serve32, full32
+    torch.cuda.empty_cache()
+    print(f"lm {LM_ARCH} bfloat16 (the config's dtypes; bf16 products "
+          f"summed in float32): serving vs the float32 run's forward "
+          f"max_rel {err_bf[0]:.3g} rms_rel {err_bf[1]:.3g} (tol "
+          f"{LM_BF16_TOL} rms_rel), its own forward vs float32 rms_rel "
+          f"{err_bf_fwd[1]:.3g}; weights rounded to float8 e4m3: rms_rel "
+          f"{err_fp8[1]:.3g} (fails the gate)", flush=True)
+    print(f"lm {LM_ARCH} bfloat16 serving on {smi}: batch {LM_BATCH}, "
+          f"prompt {LM_PROMPT}, {LM_STEPS} decode steps: prefill "
+          f"{pre:.3f} ms (bound {pre_bound * 1e3:.4f} ms: "
+          f"{wbytes / 1e9:.3f} GB of weights at 3.35 TB/s vs "
+          f"{pre_flops / 1e12:.3f} TFLOP at 989 TFLOP/s), decode "
+          f"{step:.3f} ms a step, {LM_BATCH * 1e3 / step:.1f} tokens/s "
+          f"(bound {step_bound * 1e3:.4f} ms a step: {wbytes / 1e9:.3f} GB "
+          f"of weights + {kv_bytes / 1e6:.2f} MB of KV cache at 3.35 "
+          f"TB/s; {100 * step_bound * 1e3 / step:.1f}% of it); a decode "
+          f"step's device busy time {dev:.3f} ms (idle "
+          f"{100 * max(0.0, 1 - dev / step):.1f}% of the step), its "
+          f"costliest kernels by name (us a step): {split_line(top)}",
+          flush=True)
+
+    # the other served archs, published widths, depth cut, float32
+    for name, layers, (b, plen, steps) in LM_CUTS:
+        base = get_config(name)
+        cut = {} if layers is None else dict(n_layers=layers)
+        cfg = dataclasses.replace(base, param_dtype="float32",
+                                  compute_dtype="float32", **cut)
+        if name == "h2o-danube-3-4b":
+            width = lm_attn.cache_width(cfg, plen + steps + 1)
+            check(plen > lm_attn._DENSE_MAX_KV and plen > cfg.window
+                  and width == cfg.window
+                  and (plen + steps - 1) // width > plen // width,
+                  f"{name}: the run must cross the flash length, the window "
+                  f"and the ring's wrap")
+        model = lm_model(lm, cfg, seed=2)
+        prompt_c, fe = lm_inputs(cfg, b, plen, seed=3)
+        t0 = time.perf_counter()
+        serve, fed_c = lm_serve(lm, model, cfg, prompt_c, fe, steps)
+        full = lm_full(lm, model, cfg, prompt_c, fed_c, fe)
+        err = lm_rel_err(serve, full)
+        torch.cuda.synchronize()
+        check(err[0] <= LM_F32_TOL,
+              f"{name} float32: serving vs forward max_rel {err[0]:.3g} > "
+              f"{LM_F32_TOL}")
+        depth = (f"{cfg.n_layers} of {base.n_layers} layers" if layers
+                 else f"all {cfg.n_layers} + {cfg.encoder_layers} layers")
+        print(f"lm {name} float32 (published widths d={cfg.d_model} "
+              f"vocab={cfg.vocab_size}, depth cut: {depth}; "
+              f"{lm_bytes(model) / 1e9:.3f} GB): prefill {b}x{plen} + "
+              f"{steps} decode steps vs lm_forward: max_rel {err[0]:.3g} "
+              f"rms_rel {err[1]:.3g} (tol {LM_F32_TOL}); "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        del model, serve, full, fe
+        torch.cuda.empty_cache()
+
+    model = lm_model(lm, cfg_bf, seed=0)
+    emb = model.embed.detach().clone()
+    del model
+    torch.cuda.empty_cache()
+    matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = saved
+    print(f"lm_phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return emb
+
+
+class LargestCalls:
+    """Wraps entry points of ``ops`` for a block and keeps each one's
+    bound arguments at its largest call (by the element count of its
+    first argument times its centers, the first such call), so a fit's
+    kernels can be timed at the shapes the fit gave them. The wrapped entry points run, and count their
+    launches, as before."""
+
+    def __init__(self, ops, names):
+        import inspect
+        self.ops = ops
+        self.real = {name: getattr(ops, name) for name in names}
+        self.sigs = {name: inspect.signature(fn)
+                     for name, fn in self.real.items()}
+        self.args = {}
+
+    def _wrap(self, name):
+        def call(*a, **kw):
+            bound = self.sigs[name].bind(*a, **kw)
+            bound.apply_defaults()
+            c = bound.arguments.get("c")
+            size = a[0].numel() * (1 if c is None else c.shape[0])
+            if name not in self.args or size > self.args[name][0]:
+                self.args[name] = (size, dict(bound.arguments))
+            return self.real[name](*a, **kw)
+        return call
+
+    def __enter__(self):
+        for name in self.real:
+            setattr(self.ops, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.ops, name, fn)
+
+
+def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
+    """The four SOCCER kernels timed at the embedding fit's own largest
+    calls (d = 1,536) beside their plain versions, ``torch.cdist`` and
+    their bounds; kept in ``rows[name]["d1536"]``. The bounds count what
+    these inputs need: the live points of the removal and the valid
+    centers."""
+    def valid(cv, k):
+        return k if cv is None else int(cv.sum())
+
+    a = calls["min_dist"]
+    x, c, cv = a["x"], a["c"], a["c_valid"]
+    n, d = x.shape
+    el = x.element_size()
+    cases = {"min_dist": (
+        lambda: ops.min_dist(x, c, cv), lambda: ref.min_dist_ref(x, c, cv),
+        lambda: torch.cdist(x.float(), c), n * d * el + c.numel() * 4
+        + n * 8, 2.0 * n * valid(cv, c.shape[0]) * d,
+        f"n={n} d={d} k={c.shape[0]}")}
+    a = calls["remove_below"]
+    x3, c3, alive, v, cv3 = (a["x"], a["c"], a["alive"], a["v"],
+                             a["c_valid"])
+    m, p, _ = x3.shape
+    live = int(alive.sum())
+    cases["remove_below"] = (
+        lambda: ops.remove_below(x3, c3, alive, v, cv3),
+        lambda: ref.remove_below_ref(x3, c3, alive, v, cv3),
+        lambda: torch.cdist(x3.reshape(-1, d).float(), c3),
+        live * d * el + 2 * m * p + c3.numel() * 4 + 4 + m * 4,
+        2.0 * live * valid(cv3, c3.shape[0]) * d,
+        f"m={m} p={p} live={live} d={d} k={c3.shape[0]}")
+    a = calls["fused_assign_reduce"]
+    xf, wf, cf, cvf = a["x"], a["w"], a["c"], a["c_valid"]
+    nf, kf = xf.shape[0], cf.shape[0]
+    cases["fused_assign_reduce"] = (
+        lambda: ops.fused_assign_reduce(xf, wf, cf, cvf),
+        lambda: ref.fused_assign_reduce_ref(xf, wf, cf, cvf),
+        lambda: torch.cdist(xf.float(), cf),
+        nf * d * xf.element_size() + nf * 4 + cf.numel() * 4
+        + (kf * d + kf + 1) * 4,
+        2.0 * nf * valid(cvf, kf) * d + 2.0 * nf * d,
+        f"n={nf} d={d} k={kf}")
+    a = calls["kmeans_plusplus_indices"]
+    xs, ws = a["x"], a["w"]
+    ns = xs.shape[0]
+    gen = torch.Generator("cuda").manual_seed(5)
+    d2 = torch.rand(ns, generator=gen, device="cuda") * float(d)
+    c1 = xs[:1].float()
+    cases["update_min_dist"] = (
+        lambda: ops.update_min_dist(xs, ws, c1, d2),
+        lambda: ref.update_min_dist_ref(xs, ws, c1, d2),
+        lambda: torch.cdist(xs.float(), c1),
+        ns * d * xs.element_size() + 3 * ns * 4 + d * 4 + 4,
+        2.0 * ns * d + 2.0 * ns, f"n={ns} d={d} kc=1 (a seeding step)")
+    for name in EMB_TIMED:
+        kern, plain, lib, nbytes, flops, shape = cases[name]
+        ms = timed_ms(kern)
+        plain_ms = timed_ms(plain, reps=5)
+        lib_ms = timed_ms(lib, reps=5)
+        bnd, by = bound_ms(nbytes, flops)
+        rows[name]["d1536"] = dict(ms=ms, host_us=ms.host_us,
+                                   plain_ms=plain_ms, bound_ms=bnd,
+                                   bound_by=by, library_ms=None,
+                                   yardstick="torch.cdist",
+                                   yardstick_ms=lib_ms, shape=shape)
+        print(f"time {name} embedding fit ({n_fit} rows) {shape} f32: "
+              f"kernel {ms:.4f} ms ({host_note(ms)}), plain "
+              f"{plain_ms:.4f} ms, torch.cdist {lib_ms:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)",
+              flush=True)
+
+
+def embedding_phase(api, ops, ref, rows, per_fit, emb, smi: str) -> None:
+    """``fit(emb, k=16, algo="soccer", m=8, epsilon=0.2, seed=0)`` on
+    qwen2-1.5b's whole token-embedding table cast to float32 (the
+    reference example's cast), passed as the card's tensor: its launches
+    counted; the same fit again with every kernel call held to its plain
+    version (``KernelsAs`` "shadow") and equal to the first bit for bit;
+    Theorem 4.1's structure; SOCCER's cost within EMB_COST_RATIO of
+    ``fit(algo="lloyd")``'s on the same table; then the four kernels
+    timed at the fit's own shapes."""
+    from repro_torch.data.sharding import make_shards
+    t_phase = time.perf_counter()
+    x = emb.float()
+    n, d = x.shape
+    check((n, d) == (151_936, 1_536), f"embedding table {tuple(x.shape)}")
+    t0 = time.perf_counter()
+    make_shards(x.cpu().numpy(), None, EMB_M, policy="shuffle", seed=0)
+    place = time.perf_counter() - t0
+    kw = dict(algo="soccer", m=EMB_M, epsilon=EMB_EPS, seed=0,
+              device="cuda")
+    torch.cuda.synchronize()
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    with LargestCalls(ops, ("min_dist", "remove_below",
+                            "fused_assign_reduce",
+                            "kmeans_plusplus_indices")) as rec:
+        res = api.fit(x, EMB_K, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: kern.launches for name, kern in ops.KERNELS.items()}
+    missing = [name for name in SOCCER_KERNELS if counts[name] == 0]
+    check(not missing, f"embedding fit: kernels of its path were not "
+                       f"launched: {missing} ({counts})")
+    per_fit["soccer_embedding"] = counts
+    const = res.extra["const"]
+    what = f"soccer on the {n} x {d} embedding table"
+    check(np.isfinite(res.centers).all() and res.centers.shape[1] == d,
+          f"{what}: centers not finite (c, {d})")
+    check(1 <= res.rounds <= const.max_rounds,
+          f"{what}: {res.rounds} rounds, max_rounds {const.max_rounds}")
+    check(all(res.uplink_points[r] <= 2 * const.eta
+              for r in range(res.rounds)),
+          f"{what}: a round's uplink > 2*eta ({res.uplink_points.tolist()})")
+    check_soccer_structure(res, EMB_K, what)
+    with KernelsAs(ops, ref, "shadow") as ka:
+        shadow = api.fit(x, EMB_K, **kw)
+    check(np.array_equal(shadow.centers, res.centers)
+          and np.array_equal(shadow.n_hist, res.n_hist),
+          f"{what}: the shadowed fit differs from the counted one")
+    check(all(ka.checked[name] > 0 for name in
+              ("min_dist", "fused_assign_reduce", "remove_below",
+               "kmeans_plusplus_indices")),
+          f"{what}: the shadow held too few calls {ka.checked}")
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
+    lres = api.fit(x, EMB_K, algo="lloyd", m=EMB_M, seed=0, device="cuda")
+    lcounts = {name: kern.launches for name, kern in ops.KERNELS.items()}
+    check(all(lcounts[name] > 0 for name in CENTRAL_KERNELS),
+          f"embedding lloyd fit: {lcounts}")
+    per_fit["lloyd_embedding"] = lcounts
+    cost, lcost = res.cost(x, device="cuda"), lres.cost(x, device="cuda")
+    check(cost <= EMB_COST_RATIO * lcost,
+          f"{what}: cost {cost} > {EMB_COST_RATIO}x the lloyd fit's {lcost}")
+    print(f"fit soccer embedding table {n}x{d} (qwen2-1.5b, bf16 cast to "
+          f"float32, a card tensor) k={EMB_K} m={EMB_M} eps={EMB_EPS} on "
+          f"{smi}: wall {wall:.3f} s (host shard placement alone "
+          f"{place:.3f} s), rounds {res.rounds} (max {const.max_rounds}), "
+          f"eta {const.eta}, k_plus {const.k_plus}, n_hist "
+          f"{res.n_hist.tolist()}, uplink {res.uplink_points.tolist()}, "
+          f"|C_out| {res.centers.shape[0]}, cost {cost:.6g} = "
+          f"{cost / lcost:.6f}x lloyd's {lcost:.6g} (limit "
+          f"{EMB_COST_RATIO}); every kernel call held to its plain "
+          f"version {ka.checked}; launches {counts}", flush=True)
+    embedding_times(ops, ref, rows, {k: v[1] for k, v in rec.args.items()},
+                    n)
+    del rec, x, res, shadow, lres
+    torch.cuda.empty_cache()
+    print(f"embedding_phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def selfcheck_phase() -> None:
     from repro_torch.api import selfcheck
     failed = selfcheck.main()
@@ -4175,6 +4686,9 @@ def main() -> None:
     stream_phase(api, ops.KERNELS, ops, ref, rows, per_fit)
     scenario_phase(api, ops.KERNELS, ops, ref, rows, per_fit, smi_line)
     selfcheck_phase()
+    emb = lm_phase(smi_line)
+    embedding_phase(api, ops, ref, rows, per_fit, emb, smi_line)
+    del emb
     mesh_phase(api, ops.KERNELS, mesh_ref, per_fit, smi_line)
 
     # launches: the fits together, each counted from 0;
@@ -4209,8 +4723,30 @@ def scenario_seeds_main() -> None:
     print(json.dumps(rows), flush=True)
 
 
+def lm_main() -> None:
+    """``--lm``: build the kernels, then run only ``lm_phase`` and
+    ``embedding_phase``."""
+    check(torch.cuda.is_available(), "needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"device: {smi_line}", flush=True)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import api
+    from repro_torch.kernels import build, ops, ref
+    print(f"build: {build.build_all():.2f} s", flush=True)
+    rows = {name: {"max_abs_err": 0.0} for name in ops.KERNELS}
+    per_fit = {}
+    emb = lm_phase(smi_line)
+    embedding_phase(api, ops, ref, rows, per_fit, emb, smi_line)
+    print(json.dumps({"rows": rows, "per_fit": per_fit}), flush=True)
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--stream-resume"]:
+    if sys.argv[1:2] == ["--lm"]:
+        lm_main()
+    elif sys.argv[1:2] == ["--stream-resume"]:
         stream_resume_main(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--scenario-seeds"]:
         scenario_seeds_main()

@@ -48,6 +48,18 @@ def _as_parts(x: np.ndarray, w, m: int, seed: int, policy):
     return make_shards(x, w, m, policy=policy, seed=seed)
 
 
+def _host_array(a) -> np.ndarray:
+    """``a`` as a host numpy array. A torch tensor, on the CPU or the
+    card, is read into host memory (bfloat16 widened to float32), as the
+    reference's ``np.asarray`` reads a ``jax.Array``."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach()
+        if a.dtype == torch.bfloat16:
+            a = a.float()
+        return a.cpu().numpy()
+    return np.asarray(a)
+
+
 def _check_plan_machines(plan: FailurePlan, m: int) -> None:
     """Validate every fail_at machine id up front: a bad id fails here,
     not rounds into the run."""
@@ -79,7 +91,9 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
     """Cluster ``x`` into ``k`` groups with a registered algorithm.
 
     Args:
-      x: ``(n, d)`` points or ``(m, p, d)`` machine-sharded points.
+      x: ``(n, d)`` points or ``(m, p, d)`` machine-sharded points: a
+        numpy array, or a torch tensor on the CPU or the card (read into
+        host memory for the shard placement; bfloat16 as float32).
       k: number of clusters.
       algo: registered algorithm name (``list_algorithms()``).
       backend: "virtual" (all machines on one device), "mesh" (one
@@ -123,7 +137,8 @@ def fit(x, k: int, algo: str = "soccer", backend="virtual", *,
       **algo_params: algorithm-specific knobs (e.g. ``epsilon``).
     """
     dev = resolve_device(device)
-    x = np.asarray(x)
+    x = _host_array(x)
+    w = None if w is None else _host_array(w)
     if x.ndim not in (2, 3):
         raise ValueError(f"x must be (n, d) or (m, p, d), got {x.shape}")
     if x.ndim == 3:

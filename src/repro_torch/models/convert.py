@@ -1,0 +1,97 @@
+"""Carry weights across from the reference's parameter pytree.
+
+The reference (``repro.models.model.init_lm``) keeps parameters in nested
+dicts whose homogeneous layers are stacked along a leading layer axis
+(``_vmap_init``): ``blocks/attn/wq`` is (L, d, H, hd), the VLM's
+``blocks`` are grouped (n_super, per, ...), and whisper's decoder layer
+carries its cross block as ``blocks/cross``. ``params_from_reference``
+unstacks such a pytree, given as numpy arrays (or anything ``np.asarray``
+takes), into the port's ``LM`` without changing a value; bfloat16 leaves
+(``ml_dtypes``) go through float32, which holds them exactly.
+``flat_arrays`` flattens either package's cache or parameters into
+``{"path/to/leaf": ndarray}`` for comparison: the two caches share one
+layout.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import LM, check_family
+
+
+def _reference_leaf(params, cfg, name: str):
+    """The reference leaf (stacked) and its layer index for port
+    parameter ``name`` (e.g. ``blocks.7.attn.wq``)."""
+    parts = name.split(".")
+    if parts[0] == "embed":
+        return params["embed"]["embedding"], ()
+    if parts[0] == "head":
+        return params["head"]["w"], ()
+    if parts[0] in ("final_norm", "enc_norm"):
+        return params[parts[0]][parts[1]], ()
+    group, i, path = parts[0], int(parts[1]), parts[2:]
+    if group == "cross_blocks" and cfg.family == "audio":
+        tree = params["blocks"]["cross"]
+    else:
+        tree = params[group]
+    for key in path:
+        tree = tree[key]
+    if group == "blocks" and cfg.family == "vlm":
+        per = cfg.cross_attn_every - 1
+        return tree, (i // per, i % per)
+    return tree, (i,)
+
+
+def _to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def params_from_reference(params, cfg, *, device: DeviceLike = "cuda") -> LM:
+    """The port's LM holding the reference pytree ``params``' values."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    model = LM(cfg, torch.Generator(dev).manual_seed(0))
+    used = set()
+    for name, p in model.named_parameters():
+        leaf, idx = _reference_leaf(params, cfg, name)
+        used.add(id(leaf))
+        val = _to_torch(np.asarray(leaf)[idx] if idx else leaf)
+        if tuple(val.shape) != tuple(p.shape) or val.dtype != p.dtype:
+            raise ValueError(f"{name}: reference {tuple(val.shape)} "
+                             f"{val.dtype}, port {tuple(p.shape)} {p.dtype}")
+        p.copy_(val)
+    n_ref = len(flat_arrays(params))
+    if len(used) != n_ref:
+        raise ValueError(f"{cfg.name}: the port took {len(used)} of the "
+                         f"reference's {n_ref} leaves")
+    return model
+
+
+def flat_arrays(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """``{"a/b/c": ndarray}`` of a nested dict (or list) of arrays or
+    tensors; bfloat16 leaves widened to float32."""
+    if isinstance(tree, dict):
+        out: Dict[str, np.ndarray] = {}
+        for key, val in tree.items():
+            out.update(flat_arrays(val, f"{prefix}{key}/"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, val in enumerate(tree):
+            out.update(flat_arrays(val, f"{prefix}{i}/"))
+        return out
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    else:
+        arr = np.asarray(tree)
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+    return {prefix.rstrip("/"): arr}

@@ -1,0 +1,383 @@
+"""Model assembly for the dense, vlm and audio families.
+
+The port of ``repro.models.model``'s serving path: dense GQA decoders
+(qwen2, chatglm3, mistral-nemo, h2o-danube with its sliding window), the
+VLM's cross-attention superblocks (llama-3.2-vision) and the
+encoder-decoder (whisper). The blocks and the LM are ``nn.Module``s with
+an ``nn.ModuleList`` of layers, walked by a Python loop where the
+reference scans a stacked layer axis; ``models/convert.py`` unstacks a
+reference pytree into them. Three entry points, as in the reference:
+
+  lm_forward(model, cfg, tokens, frontend=...)   no-cache forward
+  lm_prefill(model, cfg, tokens, ..., max_len)   fills the KV caches
+  lm_decode_step(model, cfg, token, cache)       one token (serve_step)
+
+Layouts: the VLM's decoder layers are ``blocks[s·per + i]`` for superblock
+``s`` and self-attention layer ``i < per = cross_attn_every - 1``, each
+superblock closed by ``cross_blocks[s]``; whisper's decoder layer ``l`` is
+``blocks[l]`` then ``cross_blocks[l]`` over the encoder's output. The
+cache keeps the reference's stacked layout (``init_cache``), written in
+place.
+
+The reference's ``sharding.activations.shard_bsd`` / ``shard_logits``
+constrain activations only under a device mesh and are no-ops without
+one; the port leaves those calls out (``sharding/`` comes with the
+dry-run and training slices, ROADMAP Queue 1 items 19c-19d). The moe,
+hybrid and ssm families need ``moe.py``, ``moe_sharded.py``,
+``mamba2.py`` and ``xlstm.py`` and raise ``NotImplementedError`` (item
+19b).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (MLP, Norm, embed_apply,
+                                       init_embedding, init_lm_head,
+                                       mlp_apply, norm_apply, sinusoid,
+                                       torch_dtype, unembed_apply)
+
+SERVED_FAMILIES = ("dense", "vlm", "audio")
+
+
+def check_family(cfg) -> None:
+    if cfg.family not in SERVED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
+            f"port serves {SERVED_FAMILIES}. The moe, hybrid and ssm "
+            f"families (moe.py, moe_sharded.py, mamba2.py, xlstm.py) are "
+            f"ROADMAP Queue 1 item 19b")
+
+
+# ------------------------------------------------------------ blocks
+# (the constructors are the reference's init_self_block / init_cross_block)
+class SelfBlock(nn.Module):
+    def __init__(self, cfg, gen: torch.Generator):
+        super().__init__()
+        self.ln1 = Norm(cfg, gen.device)
+        self.attn = attn.Attention(cfg, gen)
+        self.ln2 = Norm(cfg, gen.device)
+        self.mlp = MLP(cfg, gen)
+
+
+class CrossBlock(nn.Module):
+    def __init__(self, cfg, gen: torch.Generator):
+        super().__init__()
+        self.ln1 = Norm(cfg, gen.device)
+        self.attn = attn.Attention(cfg, gen, cross=True)
+        self.ln2 = Norm(cfg, gen.device)
+        self.mlp = MLP(cfg, gen)
+
+
+def _ffn_part(p, cfg, x):
+    h = mlp_apply(p.mlp, cfg, norm_apply(p.ln2, cfg, x))
+    return x + h, torch.zeros((), device=x.device)
+
+
+def self_block_fwd(p: SelfBlock, cfg, x, positions, *, causal=True,
+                   window=None, return_kv=False):
+    h = norm_apply(p.ln1, cfg, x)
+    q, k, v = attn.qkv_project(p.attn, cfg, h, q_positions=positions,
+                               kv_positions=positions)
+    o = attn.attention_core(q, k, v, q_pos=positions, kv_pos=positions,
+                            causal=causal,
+                            window=cfg.window if window is None else window,
+                            contiguous_kv=True)
+    x = x + attn.out_project(p.attn, o)
+    x, aux = _ffn_part(p, cfg, x)
+    if return_kv:
+        return x, aux, (k, v)
+    return x, aux
+
+
+def self_block_decode(p: SelfBlock, cfg, x, cache, t):
+    """x: (B,1,d); cache: one layer's {'k','v'} (written in place);
+    t: (B,) current position."""
+    h = norm_apply(p.ln1, cfg, x)
+    pos = t.reshape(-1, 1)
+    q, k_new, v_new = attn.qkv_project(p.attn, cfg, h, q_positions=pos,
+                                       kv_positions=pos)
+    cache = attn.cache_write_decode(cache, k_new, v_new, t)
+    width = cache["k"].shape[1]
+    kv_pos, kv_valid = attn.cache_positions(t, width, x.shape[0])
+    o = attn.attention_core(q, cache["k"], cache["v"], q_pos=pos,
+                            kv_pos=kv_pos, kv_valid=kv_valid, causal=True,
+                            window=cfg.window)
+    x = x + attn.out_project(p.attn, o)
+    x, _ = _ffn_part(p, cfg, x)
+    return x, cache
+
+
+def cross_block_kv(p: CrossBlock, cfg, kv_src):
+    """Cross-attention k/v from encoder or frontend states (no RoPE)."""
+    _, k, v = attn.qkv_project(p.attn, cfg, kv_src, kv_x=kv_src, rope=False)
+    return {"k": k, "v": v}
+
+
+def cross_block_core(p: CrossBlock, cfg, x, ck, cv):
+    b, skv = ck.shape[0], ck.shape[1]
+    h = norm_apply(p.ln1, cfg, x)
+    q = torch.einsum("bsd,dhk->bshk", h, p.attn.wq.to(h.dtype))
+    zeros = torch.zeros((), dtype=torch.int32, device=x.device)
+    o = attn.attention_core(q, ck, cv, q_pos=zeros.expand(b, x.shape[1]),
+                            kv_pos=zeros.expand(b, skv), causal=False,
+                            window=0, contiguous_kv=True)
+    x = x + attn.out_project(p.attn, o)
+    return _ffn_part(p, cfg, x)
+
+
+def cross_block_fwd(p: CrossBlock, cfg, x, kv_src):
+    kv = cross_block_kv(p, cfg, kv_src)
+    return cross_block_core(p, cfg, x, kv["k"], kv["v"])
+
+
+# ---------------------------------------------------------------- the LM
+class LM(nn.Module):
+    """Embedding, decoder layers, final norm and (untied) head; whisper
+    adds its encoder (``enc_blocks``, ``enc_norm``)."""
+
+    def __init__(self, cfg, gen: torch.Generator):
+        super().__init__()
+        check_family(cfg)
+        self.cfg = cfg
+        dev = gen.device
+        self.embed = init_embedding(gen, cfg)
+        self.final_norm = Norm(cfg, dev)
+        self.register_parameter("head", init_lm_head(gen, cfg))
+        if cfg.family == "dense":
+            n_self, n_cross = cfg.n_layers, 0
+        elif cfg.family == "vlm":
+            if cfg.n_layers % cfg.cross_attn_every:
+                raise ValueError(
+                    f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple "
+                    f"of cross_attn_every {cfg.cross_attn_every}")
+            n_super = cfg.n_layers // cfg.cross_attn_every
+            n_self, n_cross = n_super * (cfg.cross_attn_every - 1), n_super
+        else:   # audio
+            self.enc_blocks = nn.ModuleList(
+                SelfBlock(cfg, gen) for _ in range(cfg.encoder_layers))
+            self.enc_norm = Norm(cfg, dev)
+            n_self = n_cross = cfg.n_layers
+        self.blocks = nn.ModuleList(SelfBlock(cfg, gen) for _ in range(n_self))
+        self.cross_blocks = nn.ModuleList(
+            CrossBlock(cfg, gen) for _ in range(n_cross))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens, frontend=None):
+        return lm_forward(self, self.cfg, tokens, frontend=frontend)
+
+
+def init_lm(cfg, *, generator: Optional[torch.Generator] = None,
+            seed: int = 0, device: DeviceLike = "cuda") -> LM:
+    """A randomly initialized LM on ``device`` (default the card; raises
+    without CUDA), drawn from ``generator`` (default one seeded with
+    ``seed`` on ``device``)."""
+    dev = resolve_device(device)
+    gen = generator if generator is not None else \
+        torch.Generator(dev).manual_seed(seed)
+    if gen.device.type != dev.type:
+        raise ValueError(f"generator on {gen.device}, device {dev}")
+    return LM(cfg, gen)
+
+
+def _superblocks(params: LM, cfg):
+    """VLM: (self-attention blocks, cross block) of each superblock."""
+    per = cfg.cross_attn_every - 1
+    for s, cross in enumerate(params.cross_blocks):
+        yield s, params.blocks[s * per:(s + 1) * per], cross
+
+
+# -------------------------------------------------------------- forward
+def _as_tokens(params: LM, tokens) -> torch.Tensor:
+    return torch.as_tensor(tokens, device=params.device).long()
+
+
+def _frontend(params: LM, cfg, frontend):
+    if frontend is None:
+        raise ValueError(f"the {cfg.family} family needs stub frontend "
+                         f"embeddings")
+    return torch.as_tensor(frontend, device=params.device)
+
+
+def _embed_tokens(params: LM, cfg, tokens, positions):
+    x = embed_apply(params.embed, tokens)
+    x = x.to(torch_dtype(cfg.compute_dtype))
+    if cfg.pos == "abs":
+        x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def encoder_forward(params: LM, cfg, frames):
+    """Whisper's encoder over stub-frontend frame embeddings (B, T, d)."""
+    x = frames.to(torch_dtype(cfg.compute_dtype))
+    pos = _positions(frames.shape[0], frames.shape[1], frames.device)
+    x = x + sinusoid(pos, cfg.d_model).to(x.dtype)
+    for p_l in params.enc_blocks:
+        x, _ = self_block_fwd(p_l, cfg, x, pos, causal=False, window=0)
+    return norm_apply(params.enc_norm, cfg, x)
+
+
+def _logits(params: LM, cfg, x):
+    x = norm_apply(params.final_norm, cfg, x)
+    return unembed_apply(params.head, params.embed, cfg, x)
+
+
+def lm_forward(params: LM, cfg, tokens, *, frontend=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits (B,S,V) float32, aux loss)."""
+    check_family(cfg)
+    tokens = _as_tokens(params, tokens)
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    x = _embed_tokens(params, cfg, tokens, positions)
+    aux = torch.zeros((), device=x.device)
+    if cfg.family == "dense":
+        for p_l in params.blocks:
+            x, a = self_block_fwd(p_l, cfg, x, positions)
+            aux = aux + a
+    elif cfg.family == "vlm":
+        kv_src = _frontend(params, cfg, frontend).to(x.dtype)
+        for _, selfs, cross in _superblocks(params, cfg):
+            for p_i in selfs:
+                x, a = self_block_fwd(p_i, cfg, x, positions)
+                aux = aux + a
+            x, a = cross_block_fwd(cross, cfg, x, kv_src)
+            aux = aux + a
+    else:   # audio
+        enc = encoder_forward(params, cfg, _frontend(params, cfg, frontend))
+        for p_l, cross in zip(params.blocks, params.cross_blocks):
+            x, a = self_block_fwd(p_l, cfg, x, positions)
+            x, a2 = cross_block_fwd(cross, cfg, x, enc)
+            aux = aux + a + a2
+    return _logits(params, cfg, x), aux
+
+
+# ----------------------------------------------------------- caches
+def _layer(stack: Dict[str, torch.Tensor], *idx) -> Dict[str, torch.Tensor]:
+    """One layer's {'k', 'v'} views into a stacked cache."""
+    return {"k": stack["k"][idx], "v": stack["v"][idx]}
+
+
+def init_cache(cfg, batch: int, max_len: int, *,
+               n_frontend: Optional[int] = None,
+               device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """An (empty) cache with exactly the structure ``lm_prefill`` returns,
+    the reference's: ``t`` (B,) int32; ``layers`` {'k', 'v'} of
+    (L, B, width, KV, hd), the VLM's (n_super, per, B, width, KV, hd);
+    ``cross`` (vlm, audio) of (n_cross, B, n_frontend, KV, hd). width is
+    min(max_len, window) for sliding-window archs, else max_len;
+    n_frontend defaults to ``cfg.n_frontend_tokens``."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.compute_dtype)
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    width = attn.cache_width(cfg, max_len)
+    n_fe = cfg.n_frontend_tokens if n_frontend is None else n_frontend
+    cache: Dict[str, Any] = {
+        "t": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+    def stack(lead, length):
+        shp = tuple(lead) + (batch, length, kv, hd)
+        return {"k": torch.zeros(shp, dtype=dt, device=dev),
+                "v": torch.zeros(shp, dtype=dt, device=dev)}
+
+    if cfg.family == "dense":
+        cache["layers"] = stack((cfg.n_layers,), width)
+    elif cfg.family == "vlm":
+        n_super = cfg.n_layers // cfg.cross_attn_every
+        cache["layers"] = stack((n_super, cfg.cross_attn_every - 1), width)
+        cache["cross"] = stack((n_super,), n_fe)
+    else:   # audio
+        cache["layers"] = stack((cfg.n_layers,), width)
+        cache["cross"] = stack((cfg.n_layers,), n_fe)
+    return cache
+
+
+# ----------------------------------------------------------- prefill
+def lm_prefill(params: LM, cfg, tokens, *, frontend=None, max_len: int
+               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Forward pass that fills the caches. Returns (last-token logits
+    (B, 1, V) float32, cache)."""
+    check_family(cfg)
+    tokens = _as_tokens(params, tokens)
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    x = _embed_tokens(params, cfg, tokens, positions)
+    src = None
+    if cfg.family == "vlm":
+        src = _frontend(params, cfg, frontend).to(x.dtype)
+    elif cfg.family == "audio":
+        src = encoder_forward(params, cfg, _frontend(params, cfg, frontend))
+    cache = init_cache(cfg, b, max_len, device=x.device,
+                       n_frontend=None if src is None else src.shape[1])
+    cache["t"].fill_(s)
+
+    def self_layer(p_l, x, *idx):
+        x, _, (k, v) = self_block_fwd(p_l, cfg, x, positions, return_kv=True)
+        attn.cache_write_prefill(_layer(cache["layers"], *idx), k, v)
+        return x
+
+    def cross_layer(p_c, x, i):
+        ckv = cross_block_kv(p_c, cfg, src)
+        cache["cross"]["k"][i] = ckv["k"]
+        cache["cross"]["v"][i] = ckv["v"]
+        return cross_block_core(p_c, cfg, x, ckv["k"], ckv["v"])[0]
+
+    if cfg.family == "dense":
+        for i, p_l in enumerate(params.blocks):
+            x = self_layer(p_l, x, i)
+    elif cfg.family == "vlm":
+        for si, selfs, cross in _superblocks(params, cfg):
+            for i, p_i in enumerate(selfs):
+                x = self_layer(p_i, x, si, i)
+            x = cross_layer(cross, x, si)
+    else:   # audio
+        for i, (p_l, cross) in enumerate(zip(params.blocks,
+                                             params.cross_blocks)):
+            x = cross_layer(cross, self_layer(p_l, x, i), i)
+    return _logits(params, cfg, x[:, -1:]), cache
+
+
+# -------------------------------------------------------------- decode
+def lm_decode_step(params: LM, cfg, token, cache
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One serve step: token (B, 1) -> (logits (B, 1, V) float32, cache).
+    The new token's k/v go into the cache's buffers in place; the
+    returned cache holds the same buffers and ``t + 1``."""
+    check_family(cfg)
+    token = _as_tokens(params, token)
+    t = cache["t"]
+    x = _embed_tokens(params, cfg, token, t.reshape(-1, 1))
+
+    def self_layer(p_l, x, *idx):
+        return self_block_decode(p_l, cfg, x, _layer(cache["layers"], *idx),
+                                 t)[0]
+
+    def cross_layer(p_c, x, i):
+        return cross_block_core(p_c, cfg, x, cache["cross"]["k"][i],
+                                cache["cross"]["v"][i])[0]
+
+    if cfg.family == "dense":
+        for i, p_l in enumerate(params.blocks):
+            x = self_layer(p_l, x, i)
+    elif cfg.family == "vlm":
+        for si, selfs, cross in _superblocks(params, cfg):
+            for i, p_i in enumerate(selfs):
+                x = self_layer(p_i, x, si, i)
+            x = cross_layer(cross, x, si)
+    else:   # audio
+        for i, (p_l, cross) in enumerate(zip(params.blocks,
+                                             params.cross_blocks)):
+            x = cross_layer(cross, self_layer(p_l, x, i), i)
+    return _logits(params, cfg, x), {**cache, "t": t + 1}

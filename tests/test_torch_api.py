@@ -77,6 +77,28 @@ def test_seed_determinism(data):
     np.testing.assert_array_equal(a.n_hist, b.n_hist)
 
 
+def test_torch_tensor_input_same_result(data):
+    """A CPU tensor (and its weights as a tensor) gives the ClusterResult
+    of its numpy array bit for bit; a bfloat16 tensor that of its float32
+    widening (the reference's np.asarray reads a jax.Array the same way)."""
+    x, _ = data
+    x = x[:4000]
+    w = np.linspace(0.5, 1.5, x.shape[0], dtype=np.float32)
+    a = api.fit(x, 3, w=w, epsilon=0.2, seed=5, device="cpu")
+    b = api.fit(torch.from_numpy(x), 3, w=torch.from_numpy(w), epsilon=0.2,
+                seed=5, device="cpu")
+    for f in ("centers", "n_hist", "v_hist", "uplink_points", "uplink_bytes",
+              "wire_bytes", "wire_meta_bytes"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert (a.rounds, a.k, a.algo, a.backend) == \
+        (b.rounds, b.k, b.algo, b.backend)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    c = api.fit(xb, 3, epsilon=0.2, seed=5, device="cpu")
+    d = api.fit(xb.float().numpy(), 3, epsilon=0.2, seed=5, device="cpu")
+    np.testing.assert_array_equal(c.centers, d.centers)
+    np.testing.assert_array_equal(c.n_hist, d.n_hist)
+
+
 def test_presharded_input_and_weights(data):
     x, _ = data
     parts = x[:4000].reshape(8, 500, 15)

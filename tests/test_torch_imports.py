@@ -73,12 +73,23 @@ def test_port_has_its_modules():
                 "repro_torch/launch/__init__.py",
                 "repro_torch/launch/__main__.py",
                 "repro_torch/launch/cli.py",
-                "repro_torch/launch/mesh.py"):
+                "repro_torch/launch/mesh.py",
+                "repro_torch/configs/__init__.py",
+                "repro_torch/configs/base.py",
+                "repro_torch/configs/shapes.py",
+                "repro_torch/configs/qwen2_1_5b.py",
+                "repro_torch/models/layers.py",
+                "repro_torch/models/attention.py",
+                "repro_torch/models/model.py",
+                "repro_torch/models/convert.py",
+                "repro_torch/serve/decode.py"):
         assert mod in names
     examples = {p.name for p in FILES if p.parent.name == "examples"}
     assert examples == {"quickstart_torch.py",
                         "distributed_clustering_torch.py",
-                        "streaming_clustering_torch.py"}
+                        "streaming_clustering_torch.py",
+                        "serve_lm_torch.py",
+                        "embedding_clustering_torch.py"}
 
 
 def test_importing_the_port_loads_no_jax():
@@ -90,7 +101,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.scenarios, repro_torch.scenarios.run, "
             "repro_torch.api.backends, repro_torch.core.distributed, "
             "repro_torch.launch, repro_torch.launch.cli, "
-            "repro_torch.launch.mesh; "
+            "repro_torch.launch.mesh, repro_torch.configs, "
+            "repro_torch.models.model, repro_torch.models.convert, "
+            "repro_torch.serve.decode; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")

@@ -202,16 +202,26 @@ PyTorch built for CUDA. It
    whisper-base whole, at published widths in float32, prefill + decode
    against the forward (h2o-danube's 8,180-token prompt crosses the
    flash length and its 4,096 window, and its decode wraps the ring);
-18. clusters qwen2-1.5b's whole 151,936 x 1,536 token-embedding table
-   (the bf16 table cast to float32, passed as a card tensor) with
-   ``fit(k=16, algo="soccer", m=8, epsilon=0.2)`` (``embedding_phase``):
-   every kernel of the path launched, Theorem 4.1's structure, the fit
-   repeated with every kernel call held to its plain version
-   (``KernelsAs`` "shadow") and equal bit for bit, its cost within 1.1x
-   of ``fit(algo="lloyd")``'s, and the four SOCCER kernels timed at the
-   fit's own largest calls (d = 1,536) beside their bounds
-   (``python3 chip_smoke.py --lm`` builds the kernels and runs only
-   these two phases); and
+   then the moe, hybrid and ssm families at published widths
+   (``lm_family_phase``, ``LM_FAMILY_CUTS``): mixtral-8x22b at 2 layers
+   in float32 and bfloat16, kimi-k2-1t-a32b at 2 (its dense layer and
+   an MoE layer of 384 experts) in bfloat16, zamba2-2.7b whole (its
+   prompt across two SSD chunks) and xlstm-125m whole in float32 and
+   their own dtypes, each run's serving held to its forward, the MoE
+   archs drop-free over the tokens whose routing agrees and then at
+   their published capacity factor with the dropped share of slots
+   printed a call, the decode step timed beside its byte bound;
+18. clusters kimi-k2-1t-a32b's whole 163,840 x 7,168 token-embedding
+   table (built alone, as ``init_lm(cfg, seed=0)``'s first draw; the bf16
+   table cast to float32, passed as a card tensor) with ``fit(k=16,
+   algo="soccer", m=8, epsilon=0.2)`` (``embedding_phase``): every
+   kernel of the path launched, eta and k_plus, the rounds, n_hist and
+   Theorem 4.1's structure, the fit repeated with every kernel call held
+   to its plain version (``KernelsAs`` "shadow") and equal bit for bit,
+   its cost within 1.1x of ``fit(algo="lloyd")``'s, and the four SOCCER
+   kernels timed at the fit's own largest calls (d = 7,168) beside their
+   bounds (``python3 chip_smoke.py --lm`` builds the kernels and runs
+   only these three phases); and
 19. holds the mesh backend to the virtual one: the seeding step
    and the Lloyd step over 8 parts of the sharded coordinator's buffer
    against the flattened calls, bit for bit, and against their plain
@@ -3701,9 +3711,11 @@ def scenario_phase(api, KERNELS, ops, ref, rows, per_fit, smi: str) -> None:
 #
 # qwen2-1.5b served at its published widths and all 28 layers, through
 # the port's entry points (``models.model``, ``serve.decode``), with
-# random weights from a seeded generator; five more archs at published
-# widths with the depth cut to one period of their layer pattern; then
-# SOCCER over qwen2-1.5b's whole 151,936 x 1,536 embedding table.
+# random weights from a seeded generator; five more dense, vlm and audio
+# archs at published widths with the depth cut to one period of their
+# layer pattern, and the four moe, hybrid and ssm archs
+# (LM_FAMILY_CUTS); then SOCCER over kimi-k2-1t-a32b's whole 163,840 x
+# 7,168 embedding table.
 LM_ARCH = "qwen2-1.5b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 32, 32
 BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
@@ -3734,7 +3746,12 @@ LM_CUTS = (("chatglm3-6b", 2, (2, 32, 8)),
 #   phase also shows.
 LM_F32_TOL = 1e-4
 LM_BF16_TOL = 0.03
+EMB_ARCH = "kimi-k2-1t-a32b"
+EMB_SHAPE = (163_840, 7_168)
+# derive_constants at n = 163,840, k = 16, eps = 0.2, delta = 0.1, m = 8
+EMB_ETA, EMB_K_PLUS = 43_106, 78
 EMB_K, EMB_M, EMB_EPS = 16, 8, 0.2
+EMB_REPS = 5                  # timed calls a kernel (0.1-1 s each here)
 EMB_COST_RATIO = 1.1          # SOCCER's cost over the gather fit's
 EMB_TIMED = ("min_dist", "remove_below", "update_min_dist",
              "fused_assign_reduce")
@@ -3800,7 +3817,7 @@ def lm_timing(lm, decode, model, cfg, prompt, steps: int, reps: int = 3):
     ``reps`` runs after a warm-up): prefill ms, decode ms a step, a
     decode step's device busy ms (``device_busy_ms``: the union of its
     device events), its five costliest kernels (device µs summed by
-    name) and the KV cache's bytes."""
+    name) and the cache's bytes."""
     max_len = prompt.shape[1] + steps + 1
     decode.generate(model, cfg, prompt, steps=2, max_len=max_len)
     pre, step = [], []
@@ -3821,18 +3838,27 @@ def lm_timing(lm, decode, model, cfg, prompt, steps: int, reps: int = 3):
                          reps=3)
     top = {name[:60]: us for name, us in
            sorted(split.items(), key=lambda kv: -kv[1])[:5]}
-    kv_bytes = sum(t.numel() * t.element_size()
-                   for t in cache["layers"].values())
     return (float(np.median(pre)), float(np.median(step)), busy, top,
-            kv_bytes)
+            cache_bytes(cache))
 
 
-def lm_phase(smi: str):
+def cache_bytes(cache) -> int:
+    """Bytes of a serving cache's buffers (KV, cross, SSM and xLSTM
+    states; not the positions ``t``)."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            return sum(walk(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(walk(v) for v in tree)
+        return tree.numel() * tree.element_size()
+    return walk({k: v for k, v in cache.items() if k != "t"})
+
+
+def lm_phase(smi: str) -> None:
     """qwen2-1.5b served at full width and depth in float32 (TF32 off) and
     in its bfloat16, each step's logits held to the full forward's and the
-    bf16 run to the float32 run; the five other served archs at published
-    widths, depth cut, in float32. Returns qwen2-1.5b's bfloat16
-    token-embedding table (151,936 x 1,536) for ``embedding_phase``."""
+    bf16 run to the float32 run; the five other dense, vlm and audio
+    archs at published widths, depth cut, in float32."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import attention as lm_attn
@@ -3971,13 +3997,251 @@ def lm_phase(smi: str):
         del model, serve, full, fe
         torch.cuda.empty_cache()
 
-    model = lm_model(lm, cfg_bf, seed=0)
-    emb = model.embed.detach().clone()
-    del model
-    torch.cuda.empty_cache()
     matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = saved
     print(f"lm_phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return emb
+
+
+# The moe, hybrid and ssm families at published widths. (arch, layers
+# kept, dtypes run, (batch, prompt, decode steps)): mixtral-8x22b at 2 of
+# 56 layers (8 experts top-2, d = 6,144, ff 16,384; ~5.4 B parameters,
+# 21.6 GB in float32); kimi-k2-1t-a32b at 2 of 61, its one leading dense
+# layer and one MoE layer (384 experts top-8 and the shared expert; ~20.0
+# B parameters, 39.9 GB in bfloat16, so no float32 run); zamba2-2.7b
+# whole (54 Mamba2 layers and 9 applications of its 2 shared blocks,
+# 10.8 GB in float32), its 520-token prompt crossing two 256-step SSD
+# chunks; xlstm-125m whole (12 layers, sLSTM at 1 and 7), its 300-token
+# prompt crossing an mLSTM chunk, in float32 and then in its own dtypes
+# (float32 parameters, bfloat16 compute). "float32" is the arch with
+# both dtypes set to float32 (TF32 off); "config" is its own dtypes.
+LM_FAMILY_CUTS = (("mixtral-8x22b", 2, ("float32", "config"), (4, 32, 8)),
+                  ("kimi-k2-1t-a32b", 2, ("config",), (4, 32, 8)),
+                  ("zamba2-2.7b", None, ("float32", "config"), (2, 520, 8)),
+                  ("xlstm-125m", None, ("float32", "config"), (2, 300, 8)))
+# Tolerances of the families, in the terms of LM_F32_TOL / LM_BF16_TOL:
+# - float32 serving against the forward is held to LM_F32_TOL (max_rel)
+#   over the tokens whose routing agrees (all of them, where the family
+#   routes nothing): the SSD and mLSTM chunk carries sum in other orders
+#   than their one-step decodes, and the card measured max_rel 2.5e-6
+#   (zamba2, 54 layers) to 7.2e-6 (xlstm) (PERF.md §6);
+# - a bfloat16 run's serving against the float32 run's forward, and
+#   kimi-k2's bfloat16 serving (no float32 run) against its own bfloat16
+#   forward, are held to LM_BF16_TOL (rms_rel) over the tokens whose
+#   top-k choices agree in every MoE layer: a routing flip sends a token
+#   through other experts, a different function, not a rounding. (A
+#   bfloat16 run's serving and its own forward differ by more than
+#   roundings of one computation: the one-step decode convolves in
+#   float32, the full pass in the compute dtype, in Mamba2 and mLSTM
+#   alike, as in the reference.)
+# - xlstm-125m's bfloat16 compute against float32 is held to
+#   LM_FAMILY_BF16_TOL["ssm"] = 0.3 instead: its exponential gates
+#   (exp(log i - m), the sLSTM's hidden state fed back into them) carry
+#   bf16 rounding through every step, and the card measured rms_rel
+#   0.143 (the reference's own bf16 vs float32 forward: 0.205 at the
+#   reduced 12-layer config on the CPU); 0.3 leaves 2.1x that, and the
+#   same model with its weights rounded to float8 e4m3 fails it, which
+#   the phase shows.
+LM_FAMILY_BF16_TOL = {"ssm": 0.3}
+
+
+class MoERouting:
+    """Wraps ``models.moe.moe_apply`` for a block and keeps each call's
+    top-k experts ((T, k), sorted; recomputed by ``moe.route`` from the
+    call's input) and its share of slots dropped at its capacity."""
+
+    def __init__(self, moe):
+        self.moe, self.real, self.calls = moe, moe.moe_apply, []
+
+    def __enter__(self):
+        def call(p, cfg, x, *, capacity_factor=None):
+            t = x.shape[0] * x.shape[1]
+            _, _, eidx = self.moe.route(p, cfg, x.reshape(t, -1))
+            cf = (cfg.moe_capacity_factor if capacity_factor is None
+                  else capacity_factor)
+            cap = self.moe.capacity(cfg, t, cf)
+            load = torch.bincount(eidx.reshape(-1), minlength=cfg.n_experts)
+            dropped = int((load - cap).clamp_min(0).sum())
+            self.calls.append((eidx.sort(-1).values, dropped / eidx.numel(),
+                               t, cap))
+            return self.real(p, cfg, x, capacity_factor=capacity_factor)
+        self.moe.moe_apply = call
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.real
+
+    def positions(self, n_moe: int, batch: int, prompt: int, steps: int,
+                  forward: bool = False):
+        """(n_moe, B, prompt + steps, k) choices by sequence position,
+        from a serving run's calls (the prefill's, then each step's) or
+        a forward's."""
+        def layer(i):
+            calls = [i] if forward else \
+                [i] + [n_moe * (1 + j) + i for j in range(steps)]
+            c = [self.calls[n][0] for n in calls]
+            return torch.cat([e.reshape(batch, -1, e.shape[-1]) for e in c],
+                             1)
+        return torch.stack([layer(i) for i in range(n_moe)])
+
+
+def agreeing(a: torch.Tensor, b: torch.Tensor, prompt: int):
+    """(B, steps + 1) mask of the served positions (the prompt's last,
+    then each step's input) whose choices agree in every MoE layer, and
+    the count of differing choices over all positions."""
+    same = (a == b).all(-1).all(0)                     # (B, positions)
+    return same[:, prompt - 1:], int((a != b).sum())
+
+
+def lm_family_phase(smi: str) -> None:
+    """mixtral-8x22b, kimi-k2-1t-a32b, zamba2-2.7b and xlstm-125m served
+    at published widths (LM_FAMILY_CUTS) through ``lm_prefill`` and
+    greedy ``lm_decode_step``s, every run's logits held to the forward
+    over the same tokens; the MoE archs drop-free (capacity factor E / k)
+    and then once at their published factor (the dropped share of slots
+    printed a call); prefill and decode times beside the decode step's
+    byte bound."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe as lm_moe
+    from repro_torch.serve import decode
+    t_phase = time.perf_counter()
+    matmul = torch.backends.cuda.matmul
+    saved = (matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction)
+    matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
+    for name, layers, runs, (b, plen, steps) in LM_FAMILY_CUTS:
+        base = get_config(name)
+        cut = {} if layers is None else dict(n_layers=layers)
+        moe = base.family == "moe"
+        if moe:
+            cut["moe_capacity_factor"] = base.n_experts / \
+                base.experts_per_token
+        cfg_c = dataclasses.replace(base, **cut)
+        n_moe = cfg_c.n_layers - cfg_c.first_k_dense if moe else 0
+        depth = (f"{cfg_c.n_layers} of {base.n_layers} layers" if layers
+                 else f"all {cfg_c.n_layers} layers")
+        prompt, _ = lm_inputs(cfg_c, b, plen, seed=3)
+        fed = route32 = serve32 = full32 = None
+        for run in runs:
+            cfg = cfg_c if run == "config" else dataclasses.replace(
+                cfg_c, param_dtype="float32", compute_dtype="float32")
+            t0 = time.perf_counter()
+            model = lm_model(lm, cfg, seed=2)
+            nbytes = lm_bytes(model)
+            with MoERouting(lm_moe) as rs:
+                serve, fed_r = lm_serve(lm, model, cfg, prompt, None, steps,
+                                        tokens=fed)
+            with MoERouting(lm_moe) as rf:
+                full = lm_full(lm, model, cfg, prompt, fed_r, None)
+            fed = fed_r if fed is None else fed
+            mask = torch.ones(serve.shape[:2], dtype=torch.bool,
+                              device=serve.device)
+            routing = ""
+            if moe:
+                r_serve = rs.positions(n_moe, b, plen, steps)
+                mask, flips = agreeing(
+                    r_serve, rf.positions(n_moe, b, plen, steps,
+                                          forward=True), plen)
+                routing = (f" over {int(mask.sum())} of {mask.numel()} "
+                           f"positions ({flips} top-k choices differ "
+                           f"between serving and the forward)")
+            err = lm_rel_err(serve[mask], full[mask])
+            label = f"{name} {run} ({cfg.param_dtype} parameters, " \
+                f"{cfg.compute_dtype} compute)"
+            check(bool(torch.isfinite(serve).all()), f"{label}: not finite")
+            check(int(mask.sum()) * 2 >= mask.numel(),
+                  f"{label}: routing flips at {int((~mask).sum())} of "
+                  f"{mask.numel()} positions")
+            if cfg.compute_dtype == "float32":
+                check(err[0] <= LM_F32_TOL,
+                      f"{label}: serving vs forward max_rel {err[0]:.3g} > "
+                      f"{LM_F32_TOL}")
+                gate = f"tol {LM_F32_TOL} max_rel"
+                route32, serve32, full32 = \
+                    (r_serve if moe else None), serve, full
+            elif serve32 is None:
+                check(err[1] <= LM_BF16_TOL,
+                      f"{label}: serving vs forward rms_rel {err[1]:.3g} > "
+                      f"{LM_BF16_TOL}")
+                gate = f"tol {LM_BF16_TOL} rms_rel"
+            else:
+                gate = "gated against the float32 run below"
+            print(f"lm {label} (published widths d={cfg.d_model} "
+                  f"vocab={cfg.vocab_size}, depth cut: {depth}; "
+                  f"{nbytes / 1e9:.3f} GB of weights): prefill {b}x{plen} + "
+                  f"{steps} decode steps vs lm_forward over the same "
+                  f"tokens: max_rel {err[0]:.3g} rms_rel {err[1]:.3g} "
+                  f"({gate}){routing}; {time.perf_counter() - t0:.2f} s",
+                  flush=True)
+            if serve32 is not None and run == "config":
+                mask32, routing = torch.ones_like(mask), ""
+                if moe:
+                    mask32, flips32 = agreeing(r_serve, route32, plen)
+                    routing = (f" over {int(mask32.sum())} of "
+                               f"{mask32.numel()} positions ({flips32} "
+                               f"top-k choices differ from the float32 "
+                               f"run's)")
+                e_srv = lm_rel_err(serve[mask32], full32[mask32])
+                e_fwd = lm_rel_err(full[mask32], full32[mask32])
+                tol_bf = LM_FAMILY_BF16_TOL.get(base.family, LM_BF16_TOL)
+                check(e_srv[1] <= tol_bf,
+                      f"{label} vs float32: rms_rel {e_srv[1]:.3g} > "
+                      f"{tol_bf}")
+                print(f"lm {label} serving vs the float32 run's forward: "
+                      f"max_rel {e_srv[0]:.3g} rms_rel {e_srv[1]:.3g} (tol "
+                      f"{tol_bf} rms_rel), its own forward vs float32 "
+                      f"rms_rel {e_fwd[1]:.3g}{routing}", flush=True)
+            if run == "config":
+                cfg_t = cfg
+                if moe:
+                    cfg_t = dataclasses.replace(
+                        cfg, moe_capacity_factor=base.moe_capacity_factor)
+                    with MoERouting(lm_moe) as rp:
+                        pub, _ = lm_serve(lm, model, cfg_t, prompt, None,
+                                          steps, tokens=fed)
+                    check(bool(torch.isfinite(pub).all()),
+                          f"{name}: published capacity run not finite")
+                    shares = [round(c[1], 4) for c in rp.calls]
+                    caps = sorted({(c[2], c[3]) for c in rp.calls})
+                    print(f"lm {name} at its published capacity factor "
+                          f"{base.moe_capacity_factor}: (tokens, capacity) "
+                          f"of its calls {caps}; dropped share of slots a "
+                          f"call (prefill's {n_moe} MoE layers, then each "
+                          f"step's) {shares}", flush=True)
+                pre, step, dev, top, c_bytes = lm_timing(
+                    lm, decode, model, cfg_t, prompt, steps)
+                bound = (nbytes + c_bytes) / HBM_BYTES_PER_S
+                print(f"lm {name} {run} serving on {smi}: batch {b}, prompt "
+                      f"{plen}, {steps} decode steps: prefill {pre:.3f} ms, "
+                      f"decode {step:.3f} ms a step, {b * 1e3 / step:.1f} "
+                      f"tokens/s (bound {bound * 1e3:.4f} ms a step: "
+                      f"{nbytes / 1e9:.3f} GB of weights + "
+                      f"{c_bytes / 1e6:.2f} MB of cache at 3.35 TB/s; "
+                      f"{100 * bound * 1e3 / step:.1f}% of it); a decode "
+                      f"step's device busy time {dev:.3f} ms (idle "
+                      f"{100 * max(0.0, 1 - dev / step):.1f}% of the step),"
+                      f" its costliest kernels by name (us a step): "
+                      f"{split_line(top)}", flush=True)
+            if run == "config" and base.family in LM_FAMILY_BF16_TOL:
+                with torch.no_grad():
+                    for prm in model.parameters():
+                        prm.copy_(prm.to(torch.float8_e4m3fn).to(prm.dtype))
+                fp8 = lm_full(lm, model, cfg, prompt, fed, None)
+                e_fp8 = lm_rel_err(fp8, full32)
+                check(e_fp8[1] > tol_bf,
+                      f"{name}: float8 weights pass its bfloat16 gate "
+                      f"({e_fp8[1]:.3g} <= {tol_bf})")
+                print(f"lm {name} with its weights rounded to float8 e4m3: "
+                      f"rms_rel {e_fp8[1]:.3g} against the float32 run "
+                      f"(fails the {tol_bf} gate)", flush=True)
+                del fp8
+            del model, serve, full
+            torch.cuda.empty_cache()
+        del route32, serve32, full32
+        torch.cuda.empty_cache()
+    matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = saved
+    print(f"lm_family_phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 class LargestCalls:
@@ -4018,8 +4282,8 @@ class LargestCalls:
 
 def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
     """The four SOCCER kernels timed at the embedding fit's own largest
-    calls (d = 1,536) beside their plain versions, ``torch.cdist`` and
-    their bounds; kept in ``rows[name]["d1536"]``. The bounds count what
+    calls (d = 7,168) beside their plain versions, ``torch.cdist`` and
+    their bounds; kept in ``rows[name]["d7168"]``. The bounds count what
     these inputs need: the live points of the removal and the valid
     centers."""
     def valid(cv, k):
@@ -4071,11 +4335,11 @@ def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
         2.0 * ns * d + 2.0 * ns, f"n={ns} d={d} kc=1 (a seeding step)")
     for name in EMB_TIMED:
         kern, plain, lib, nbytes, flops, shape = cases[name]
-        ms = timed_ms(kern)
-        plain_ms = timed_ms(plain, reps=5)
-        lib_ms = timed_ms(lib, reps=5)
+        ms = timed_ms(kern, reps=EMB_REPS)
+        plain_ms = timed_ms(plain, reps=EMB_REPS)
+        lib_ms = timed_ms(lib, reps=EMB_REPS)
         bnd, by = bound_ms(nbytes, flops)
-        rows[name]["d1536"] = dict(ms=ms, host_us=ms.host_us,
+        rows[name][f"d{d}"] = dict(ms=ms, host_us=ms.host_us,
                                    plain_ms=plain_ms, bound_ms=bnd,
                                    bound_by=by, library_ms=None,
                                    yardstick="torch.cdist",
@@ -4087,20 +4351,27 @@ def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
               flush=True)
 
 
-def embedding_phase(api, ops, ref, rows, per_fit, emb, smi: str) -> None:
+def embedding_phase(api, ops, ref, rows, per_fit, smi: str) -> None:
     """``fit(emb, k=16, algo="soccer", m=8, epsilon=0.2, seed=0)`` on
-    qwen2-1.5b's whole token-embedding table cast to float32 (the
-    reference example's cast), passed as the card's tensor: its launches
-    counted; the same fit again with every kernel call held to its plain
-    version (``KernelsAs`` "shadow") and equal to the first bit for bit;
+    kimi-k2-1t-a32b's whole token-embedding table (163,840 x 7,168, the
+    first draw of ``init_lm(cfg, seed=0)``, built alone: the whole model
+    is 1 T parameters) cast to float32 (the reference example's cast),
+    passed as the card's tensor: its launches counted; the same fit again
+    with every kernel call held to its plain version (``KernelsAs``
+    "shadow") and equal to the first bit for bit; the rounds, n_hist and
     Theorem 4.1's structure; SOCCER's cost within EMB_COST_RATIO of
     ``fit(algo="lloyd")``'s on the same table; then the four kernels
     timed at the fit's own shapes."""
+    from repro_torch.configs import get_config
     from repro_torch.data.sharding import make_shards
+    from repro_torch.models.layers import init_embedding
     t_phase = time.perf_counter()
+    emb = init_embedding(torch.Generator("cuda").manual_seed(0),
+                         get_config(EMB_ARCH))
     x = emb.float()
+    del emb
     n, d = x.shape
-    check((n, d) == (151_936, 1_536), f"embedding table {tuple(x.shape)}")
+    check((n, d) == EMB_SHAPE, f"embedding table {tuple(x.shape)}")
     t0 = time.perf_counter()
     make_shards(x.cpu().numpy(), None, EMB_M, policy="shuffle", seed=0)
     place = time.perf_counter() - t0
@@ -4125,8 +4396,12 @@ def embedding_phase(api, ops, ref, rows, per_fit, emb, smi: str) -> None:
     what = f"soccer on the {n} x {d} embedding table"
     check(np.isfinite(res.centers).all() and res.centers.shape[1] == d,
           f"{what}: centers not finite (c, {d})")
+    check((const.eta, const.k_plus) == (EMB_ETA, EMB_K_PLUS),
+          f"{what}: eta {const.eta}, k_plus {const.k_plus}")
     check(1 <= res.rounds <= const.max_rounds,
           f"{what}: {res.rounds} rounds, max_rounds {const.max_rounds}")
+    check(res.n_hist[0] == n and res.n_hist[res.rounds] < n,
+          f"{what}: n_hist {res.n_hist.tolist()}")
     check(all(res.uplink_points[r] <= 2 * const.eta
               for r in range(res.rounds)),
           f"{what}: a round's uplink > 2*eta ({res.uplink_points.tolist()})")
@@ -4150,7 +4425,7 @@ def embedding_phase(api, ops, ref, rows, per_fit, emb, smi: str) -> None:
     cost, lcost = res.cost(x, device="cuda"), lres.cost(x, device="cuda")
     check(cost <= EMB_COST_RATIO * lcost,
           f"{what}: cost {cost} > {EMB_COST_RATIO}x the lloyd fit's {lcost}")
-    print(f"fit soccer embedding table {n}x{d} (qwen2-1.5b, bf16 cast to "
+    print(f"fit soccer embedding table {n}x{d} ({EMB_ARCH}, bf16 cast to "
           f"float32, a card tensor) k={EMB_K} m={EMB_M} eps={EMB_EPS} on "
           f"{smi}: wall {wall:.3f} s (host shard placement alone "
           f"{place:.3f} s), rounds {res.rounds} (max {const.max_rounds}), "
@@ -4686,9 +4961,9 @@ def main() -> None:
     stream_phase(api, ops.KERNELS, ops, ref, rows, per_fit)
     scenario_phase(api, ops.KERNELS, ops, ref, rows, per_fit, smi_line)
     selfcheck_phase()
-    emb = lm_phase(smi_line)
-    embedding_phase(api, ops, ref, rows, per_fit, emb, smi_line)
-    del emb
+    lm_phase(smi_line)
+    lm_family_phase(smi_line)
+    embedding_phase(api, ops, ref, rows, per_fit, smi_line)
     mesh_phase(api, ops.KERNELS, mesh_ref, per_fit, smi_line)
 
     # launches: the fits together, each counted from 0;
@@ -4724,8 +4999,8 @@ def scenario_seeds_main() -> None:
 
 
 def lm_main() -> None:
-    """``--lm``: build the kernels, then run only ``lm_phase`` and
-    ``embedding_phase``."""
+    """``--lm``: build the kernels, then run only ``lm_phase``,
+    ``lm_family_phase`` and ``embedding_phase``."""
     check(torch.cuda.is_available(), "needs a CUDA card")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4738,8 +5013,9 @@ def lm_main() -> None:
     print(f"build: {build.build_all():.2f} s", flush=True)
     rows = {name: {"max_abs_err": 0.0} for name in ops.KERNELS}
     per_fit = {}
-    emb = lm_phase(smi_line)
-    embedding_phase(api, ops, ref, rows, per_fit, emb, smi_line)
+    lm_phase(smi_line)
+    lm_family_phase(smi_line)
+    embedding_phase(api, ops, ref, rows, per_fit, smi_line)
     print(json.dumps({"rows": rows, "per_fit": per_fit}), flush=True)
 
 

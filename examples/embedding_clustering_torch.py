@@ -6,7 +6,11 @@ codebook / prototype construction), on the card.
         [--device cpu] [--full]
 
 Like the reference it clusters the ``.reduced()`` config's table unless
-``--full`` asks for the published widths (qwen2-1.5b: 151,936 x 1,536).
+``--full`` asks for the published widths (qwen2-1.5b: 151,936 x 1,536;
+``--arch kimi-k2-1t-a32b --full``: 163,840 x 7,168). It builds only the
+table, the first draw of ``init_lm(cfg, seed=0)``, so it equals that
+model's ``embed`` without the rest of it (kimi-k2's whole model would be
+1 T parameters).
 """
 import argparse
 
@@ -14,7 +18,8 @@ import torch
 
 from repro_torch.api import fit
 from repro_torch.configs import get_config
-from repro_torch.models.model import init_lm
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import init_embedding
 
 
 def main(argv=None):
@@ -29,8 +34,8 @@ def main(argv=None):
 
     cfg = get_config(args.arch)
     cfg = cfg if args.full else cfg.reduced()
-    model = init_lm(cfg, seed=0, device=args.device)
-    emb = model.embed                                 # (V, d)
+    gen = torch.Generator(resolve_device(args.device)).manual_seed(0)
+    emb = init_embedding(gen, cfg)                    # (V, d)
     x = emb.float()
 
     res = fit(x, k=args.k, algo="soccer", backend="virtual", m=args.m,

@@ -1,13 +1,14 @@
 """Batched serving on the PyTorch port: prefill a prompt batch, then
 decode greedily through the KV cache, on the card.
 
-    PYTHONPATH=src python examples/serve_lm_torch.py --arch qwen2-1.5b \
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch zamba2-2.7b \
         --steps 32 [--device cpu] [--full]
 
-The port serves the dense, vlm and audio families (the reference's
-default, zamba2-2.7b, is a hybrid, ROADMAP Queue 1 item 19b), so the
-default arch is qwen2-1.5b. Like the reference it runs ``.reduced()``
-unless ``--full`` asks for the published widths.
+``--arch`` takes any of the ten assigned architectures (the dense, moe,
+vlm, audio, hybrid and ssm families); the default is the reference's,
+zamba2-2.7b. Like the reference it runs ``.reduced()`` unless ``--full``
+asks for the published widths (kimi-k2-1t-a32b's whole model is 1 T
+parameters and fits no single card).
 """
 import argparse
 import time
@@ -26,7 +27,7 @@ def _sync(device: str) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--arch", default="zamba2-2.7b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=32)

@@ -1,2 +1,3 @@
-"""The LM stack's serving path: layers, attention, the dense, vlm and
-audio models, and the weights' conversion from the reference."""
+"""The LM stack's serving path: layers, attention, the MoE layer, the
+Mamba2 and xLSTM blocks, the ten architectures' models, and the weights'
+conversion from the reference."""

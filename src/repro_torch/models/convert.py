@@ -2,9 +2,14 @@
 
 The reference (``repro.models.model.init_lm``) keeps parameters in nested
 dicts whose homogeneous layers are stacked along a leading layer axis
-(``_vmap_init``): ``blocks/attn/wq`` is (L, d, H, hd), the VLM's
-``blocks`` are grouped (n_super, per, ...), and whisper's decoder layer
-carries its cross block as ``blocks/cross``. ``params_from_reference``
+(``_vmap_init``): ``blocks/attn/wq`` is (L, d, H, hd), the MoE family's
+leading dense layers are a stack of their own (``dense_blocks``) and its
+experts add an axis (``blocks/moe/wi_gate`` is (L, E, d, ff)), the VLM's
+and the hybrid's ``blocks`` are grouped (n_super, per, ...) and
+(n_groups, per, ...) beside the hybrid's ``shared_blocks`` (n_shared,
+...), whisper's decoder layer carries its cross block as
+``blocks/cross``, and xLSTM's ``blocks`` is a list of unstacked
+per-layer dicts. ``params_from_reference``
 unstacks such a pytree, given as numpy arrays (or anything ``np.asarray``
 takes), into the port's ``LM`` without changing a value; bfloat16 leaves
 (``ml_dtypes``) go through float32, which holds them exactly.
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import LM, check_family
+from repro_torch.models.model import LM
 
 
 def _reference_leaf(params, cfg, name: str):
@@ -36,12 +41,17 @@ def _reference_leaf(params, cfg, name: str):
     group, i, path = parts[0], int(parts[1]), parts[2:]
     if group == "cross_blocks" and cfg.family == "audio":
         tree = params["blocks"]["cross"]
+    elif cfg.family == "ssm":
+        tree = params[group][i]
     else:
         tree = params[group]
     for key in path:
         tree = tree[key]
-    if group == "blocks" and cfg.family == "vlm":
-        per = cfg.cross_attn_every - 1
+    if cfg.family == "ssm":
+        return tree, ()
+    if group == "blocks" and cfg.family in ("vlm", "hybrid"):
+        per = (cfg.cross_attn_every - 1 if cfg.family == "vlm"
+               else cfg.attn_every)
         return tree, (i // per, i % per)
     return tree, (i,)
 
@@ -55,7 +65,6 @@ def _to_torch(a) -> torch.Tensor:
 
 def params_from_reference(params, cfg, *, device: DeviceLike = "cuda") -> LM:
     """The port's LM holding the reference pytree ``params``' values."""
-    check_family(cfg)
     dev = resolve_device(device)
     model = LM(cfg, torch.Generator(dev).manual_seed(0))
     used = set()

@@ -37,9 +37,11 @@ def param(t: torch.Tensor) -> nn.Parameter:
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                scale: Optional[float] = None) -> nn.Parameter:
     """N(0, 1) * fan_in^-0.5 drawn in float32 on the generator's device,
-    then cast (the reference's ``_dense_init``)."""
+    then cast (the reference's ``_dense_init``); scaled in place, so a
+    draw holds one float32 copy beside its cast (kimi-k2's expert stacks
+    are 22.5 GB each in float32)."""
     scale = scale if scale is not None else shape[0] ** -0.5
-    x = torch.randn(shape, generator=gen, device=gen.device) * scale
+    x = torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
     return param(x.to(dtype))
 
 

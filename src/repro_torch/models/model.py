@@ -1,31 +1,35 @@
-"""Model assembly for the dense, vlm and audio families.
+"""Model assembly for the ten assigned architectures.
 
 The port of ``repro.models.model``'s serving path: dense GQA decoders
-(qwen2, chatglm3, mistral-nemo, h2o-danube with its sliding window), the
-VLM's cross-attention superblocks (llama-3.2-vision) and the
-encoder-decoder (whisper). The blocks and the LM are ``nn.Module``s with
-an ``nn.ModuleList`` of layers, walked by a Python loop where the
-reference scans a stacked layer axis; ``models/convert.py`` unstacks a
-reference pytree into them. Three entry points, as in the reference:
+(qwen2, chatglm3, mistral-nemo, h2o-danube with its sliding window), MoE
+decoders (kimi-k2 with its leading dense layer and shared expert,
+mixtral), the VLM's cross-attention superblocks (llama-3.2-vision), the
+encoder-decoder (whisper), the hybrid Mamba2 trunk with shared attention
+blocks (zamba2) and xLSTM's mLSTM/sLSTM stack. The blocks and the LM are
+``nn.Module``s with an ``nn.ModuleList`` of layers, walked by a Python
+loop where the reference scans a stacked layer axis;
+``models/convert.py`` unstacks a reference pytree into them. Three entry
+points, as in the reference:
 
   lm_forward(model, cfg, tokens, frontend=...)   no-cache forward
-  lm_prefill(model, cfg, tokens, ..., max_len)   fills the KV caches
+  lm_prefill(model, cfg, tokens, ..., max_len)   fills the KV/SSM caches
   lm_decode_step(model, cfg, token, cache)       one token (serve_step)
 
-Layouts: the VLM's decoder layers are ``blocks[s·per + i]`` for superblock
-``s`` and self-attention layer ``i < per = cross_attn_every - 1``, each
-superblock closed by ``cross_blocks[s]``; whisper's decoder layer ``l`` is
-``blocks[l]`` then ``cross_blocks[l]`` over the encoder's output. The
-cache keeps the reference's stacked layout (``init_cache``), written in
-place.
+Layouts: the MoE family's ``dense_blocks`` (``first_k_dense`` of them)
+come before its MoE ``blocks``; the VLM's decoder layers are
+``blocks[s·per + i]`` for superblock ``s`` and self-attention layer
+``i < per = cross_attn_every - 1``, each superblock closed by
+``cross_blocks[s]``; whisper's decoder layer ``l`` is ``blocks[l]`` then
+``cross_blocks[l]`` over the encoder's output; zamba2's group ``g`` is
+the Mamba2 layers ``blocks[g·per + i]`` (``per = attn_every``) followed
+by ``shared_blocks[g % n_shared_blocks]``; xLSTM's ``blocks[i]`` holds an
+sLSTM cell where ``i`` is in ``slstm_at``, else an mLSTM cell. The cache
+keeps the reference's stacked layout (``init_cache``), written in place.
 
 The reference's ``sharding.activations.shard_bsd`` / ``shard_logits``
 constrain activations only under a device mesh and are no-ops without
 one; the port leaves those calls out (``sharding/`` comes with the
-dry-run and training slices, ROADMAP Queue 1 items 19c-19d). The moe,
-hybrid and ssm families need ``moe.py``, ``moe_sharded.py``,
-``mamba2.py`` and ``xlstm.py`` and raise ``NotImplementedError`` (item
-19b).
+dry-run and training slices, ROADMAP Queue 1 items 19c-19d).
 """
 from __future__ import annotations
 
@@ -36,32 +40,28 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models.layers import (MLP, Norm, embed_apply,
                                        init_embedding, init_lm_head,
                                        mlp_apply, norm_apply, sinusoid,
                                        torch_dtype, unembed_apply)
 
-SERVED_FAMILIES = ("dense", "vlm", "audio")
-
-
-def check_family(cfg) -> None:
-    if cfg.family not in SERVED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port serves {SERVED_FAMILIES}. The moe, hybrid and ssm "
-            f"families (moe.py, moe_sharded.py, mamba2.py, xlstm.py) are "
-            f"ROADMAP Queue 1 item 19b")
+FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 
 
 # ------------------------------------------------------------ blocks
-# (the constructors are the reference's init_self_block / init_cross_block)
+# (the constructors are the reference's init_self_block, init_cross_block
+# and init_mamba_layer, and the xLSTM stack's per-layer dicts)
 class SelfBlock(nn.Module):
-    def __init__(self, cfg, gen: torch.Generator):
+    def __init__(self, cfg, gen: torch.Generator, *, use_moe: bool = False):
         super().__init__()
         self.ln1 = Norm(cfg, gen.device)
         self.attn = attn.Attention(cfg, gen)
         self.ln2 = Norm(cfg, gen.device)
-        self.mlp = MLP(cfg, gen)
+        if use_moe:
+            self.moe = moe.MoE(cfg, gen)
+        else:
+            self.mlp = MLP(cfg, gen)
 
 
 class CrossBlock(nn.Module):
@@ -73,9 +73,29 @@ class CrossBlock(nn.Module):
         self.mlp = MLP(cfg, gen)
 
 
+class MambaLayer(nn.Module):
+    def __init__(self, cfg, gen: torch.Generator):
+        super().__init__()
+        self.ln = Norm(cfg, gen.device)
+        self.m = mamba2.Mamba2(cfg, gen)
+
+
+class XLSTMLayer(nn.Module):
+    def __init__(self, cfg, gen: torch.Generator, *, slstm: bool):
+        super().__init__()
+        self.ln = Norm(cfg, gen.device)
+        if slstm:
+            self.slstm = xlstm.SLSTM(cfg, gen)
+        else:
+            self.mlstm = xlstm.MLSTM(cfg, gen)
+
+
 def _ffn_part(p, cfg, x):
-    h = mlp_apply(p.mlp, cfg, norm_apply(p.ln2, cfg, x))
-    return x + h, torch.zeros((), device=x.device)
+    h = norm_apply(p.ln2, cfg, x)
+    if hasattr(p, "moe"):
+        h, aux = moe.moe_apply(p.moe, cfg, h)
+        return x + h, aux
+    return x + mlp_apply(p.mlp, cfg, h), torch.zeros((), device=x.device)
 
 
 def self_block_fwd(p: SelfBlock, cfg, x, positions, *, causal=True,
@@ -135,36 +155,79 @@ def cross_block_fwd(p: CrossBlock, cfg, x, kv_src):
     return cross_block_core(p, cfg, x, kv["k"], kv["v"])
 
 
+def mamba_layer(p: MambaLayer, cfg, x, **kw):
+    """Pre-norm Mamba2 with its residual: (x + y, new state or None)."""
+    y, st = mamba2.mamba2_apply(p.m, cfg, norm_apply(p.ln, cfg, x), **kw)
+    return x + y, st
+
+
+def xlstm_layer(p: XLSTMLayer, cfg, x, **kw):
+    """Pre-norm sLSTM or mLSTM with its residual: (x + y, new state)."""
+    h = norm_apply(p.ln, cfg, x)
+    if hasattr(p, "slstm"):
+        y, st = xlstm.slstm_apply(p.slstm, cfg, h, **kw)
+    else:
+        y, st = xlstm.mlstm_apply(p.mlstm, cfg, h, **kw)
+    return x + y, st
+
+
+def _groups_of(cfg, what: str, every: int) -> int:
+    if cfg.n_layers % every:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"multiple of {what} {every}")
+    return cfg.n_layers // every
+
+
 # ---------------------------------------------------------------- the LM
 class LM(nn.Module):
-    """Embedding, decoder layers, final norm and (untied) head; whisper
-    adds its encoder (``enc_blocks``, ``enc_norm``)."""
+    """Embedding, the family's layers, final norm and (untied) head;
+    whisper adds its encoder (``enc_blocks``, ``enc_norm``)."""
 
     def __init__(self, cfg, gen: torch.Generator):
         super().__init__()
-        check_family(cfg)
+        fam = cfg.family
+        if fam not in FAMILIES:
+            raise ValueError(f"unknown family {fam}")
         self.cfg = cfg
         dev = gen.device
         self.embed = init_embedding(gen, cfg)
         self.final_norm = Norm(cfg, dev)
         self.register_parameter("head", init_lm_head(gen, cfg))
-        if cfg.family == "dense":
-            n_self, n_cross = cfg.n_layers, 0
-        elif cfg.family == "vlm":
-            if cfg.n_layers % cfg.cross_attn_every:
-                raise ValueError(
-                    f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple "
-                    f"of cross_attn_every {cfg.cross_attn_every}")
-            n_super = cfg.n_layers // cfg.cross_attn_every
+        n_self, n_cross = 0, 0
+        if fam == "dense":
+            n_self = cfg.n_layers
+        elif fam == "moe":
+            nd = cfg.first_k_dense
+            self.dense_blocks = nn.ModuleList(
+                SelfBlock(cfg, gen) for _ in range(nd))
+            self.blocks = nn.ModuleList(
+                SelfBlock(cfg, gen, use_moe=True)
+                for _ in range(cfg.n_layers - nd))
+        elif fam == "vlm":
+            n_super = _groups_of(cfg, "cross_attn_every",
+                                 cfg.cross_attn_every)
             n_self, n_cross = n_super * (cfg.cross_attn_every - 1), n_super
-        else:   # audio
+        elif fam == "audio":
             self.enc_blocks = nn.ModuleList(
                 SelfBlock(cfg, gen) for _ in range(cfg.encoder_layers))
             self.enc_norm = Norm(cfg, dev)
             n_self = n_cross = cfg.n_layers
-        self.blocks = nn.ModuleList(SelfBlock(cfg, gen) for _ in range(n_self))
-        self.cross_blocks = nn.ModuleList(
-            CrossBlock(cfg, gen) for _ in range(n_cross))
+        elif fam == "hybrid":
+            n_groups = _groups_of(cfg, "attn_every", cfg.attn_every)
+            self.blocks = nn.ModuleList(
+                MambaLayer(cfg, gen)
+                for _ in range(n_groups * cfg.attn_every))
+            self.shared_blocks = nn.ModuleList(
+                SelfBlock(cfg, gen) for _ in range(cfg.n_shared_blocks))
+        else:   # ssm
+            self.blocks = nn.ModuleList(
+                XLSTMLayer(cfg, gen, slstm=i in cfg.slstm_at)
+                for i in range(cfg.n_layers))
+        if fam in ("dense", "vlm", "audio"):
+            self.blocks = nn.ModuleList(
+                SelfBlock(cfg, gen) for _ in range(n_self))
+            self.cross_blocks = nn.ModuleList(
+                CrossBlock(cfg, gen) for _ in range(n_cross))
 
     @property
     def device(self) -> torch.device:
@@ -178,7 +241,9 @@ def init_lm(cfg, *, generator: Optional[torch.Generator] = None,
             seed: int = 0, device: DeviceLike = "cuda") -> LM:
     """A randomly initialized LM on ``device`` (default the card; raises
     without CUDA), drawn from ``generator`` (default one seeded with
-    ``seed`` on ``device``)."""
+    ``seed`` on ``device``). The embedding table is the first draw, so
+    ``layers.init_embedding`` on a generator seeded alike gives the same
+    table without the rest of the model."""
     dev = resolve_device(device)
     gen = generator if generator is not None else \
         torch.Generator(dev).manual_seed(seed)
@@ -192,6 +257,21 @@ def _superblocks(params: LM, cfg):
     per = cfg.cross_attn_every - 1
     for s, cross in enumerate(params.cross_blocks):
         yield s, params.blocks[s * per:(s + 1) * per], cross
+
+
+def _hybrid_groups(params: LM, cfg):
+    """Hybrid: (group, its Mamba2 layers, its shared block)."""
+    per = cfg.attn_every
+    for g in range(len(params.blocks) // per):
+        yield (g, params.blocks[g * per:(g + 1) * per],
+               params.shared_blocks[g % cfg.n_shared_blocks])
+
+
+def _self_stacks(params: LM, cfg):
+    """Dense and MoE: (cache key, blocks) in order."""
+    if cfg.family == "moe" and cfg.first_k_dense:
+        yield "dense_layers", params.dense_blocks
+    yield "layers", params.blocks
 
 
 # -------------------------------------------------------------- forward
@@ -235,18 +315,20 @@ def _logits(params: LM, cfg, x):
 
 def lm_forward(params: LM, cfg, tokens, *, frontend=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits (B,S,V) float32, aux loss)."""
-    check_family(cfg)
+    """Full-sequence forward. Returns (logits (B,S,V) float32, aux loss:
+    the MoE layers' load-balancing losses summed, else 0)."""
     tokens = _as_tokens(params, tokens)
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _embed_tokens(params, cfg, tokens, positions)
     aux = torch.zeros((), device=x.device)
-    if cfg.family == "dense":
-        for p_l in params.blocks:
-            x, a = self_block_fwd(p_l, cfg, x, positions)
-            aux = aux + a
-    elif cfg.family == "vlm":
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        for _, blocks in _self_stacks(params, cfg):
+            for p_l in blocks:
+                x, a = self_block_fwd(p_l, cfg, x, positions)
+                aux = aux + a
+    elif fam == "vlm":
         kv_src = _frontend(params, cfg, frontend).to(x.dtype)
         for _, selfs, cross in _superblocks(params, cfg):
             for p_i in selfs:
@@ -254,19 +336,35 @@ def lm_forward(params: LM, cfg, tokens, *, frontend=None
                 aux = aux + a
             x, a = cross_block_fwd(cross, cfg, x, kv_src)
             aux = aux + a
-    else:   # audio
+    elif fam == "audio":
         enc = encoder_forward(params, cfg, _frontend(params, cfg, frontend))
         for p_l, cross in zip(params.blocks, params.cross_blocks):
             x, a = self_block_fwd(p_l, cfg, x, positions)
             x, a2 = cross_block_fwd(cross, cfg, x, enc)
             aux = aux + a + a2
+    elif fam == "hybrid":
+        for _, layers, shared in _hybrid_groups(params, cfg):
+            for p_i in layers:
+                x, _ = mamba_layer(p_i, cfg, x)
+            x, a = self_block_fwd(shared, cfg, x, positions)
+            aux = aux + a
+    else:   # ssm
+        for p_l in params.blocks:
+            x, _ = xlstm_layer(p_l, cfg, x)
     return _logits(params, cfg, x), aux
 
 
 # ----------------------------------------------------------- caches
 def _layer(stack: Dict[str, torch.Tensor], *idx) -> Dict[str, torch.Tensor]:
-    """One layer's {'k', 'v'} views into a stacked cache."""
-    return {"k": stack["k"][idx], "v": stack["v"][idx]}
+    """One layer's views into a stacked cache ({'k', 'v'} or an SSM
+    state's {'conv', 'ssd'})."""
+    return {key: buf[idx] for key, buf in stack.items()}
+
+
+def _write_state(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]):
+    """A recurrent layer's new state into its cache buffers, in place."""
+    for key, buf in dst.items():
+        buf.copy_(src[key])
 
 
 def init_cache(cfg, batch: int, max_len: int, *,
@@ -274,11 +372,14 @@ def init_cache(cfg, batch: int, max_len: int, *,
                device: DeviceLike = "cuda") -> Dict[str, Any]:
     """An (empty) cache with exactly the structure ``lm_prefill`` returns,
     the reference's: ``t`` (B,) int32; ``layers`` {'k', 'v'} of
-    (L, B, width, KV, hd), the VLM's (n_super, per, B, width, KV, hd);
-    ``cross`` (vlm, audio) of (n_cross, B, n_frontend, KV, hd). width is
+    (L, B, width, KV, hd), the VLM's (n_super, per, B, width, KV, hd),
+    the MoE family's ``dense_layers`` for its leading dense layers
+    beside it, the hybrid's for its n_groups shared-block applications;
+    ``cross`` (vlm, audio) of (n_cross, B, n_frontend, KV, hd); the
+    hybrid's float32 ``ssm`` {'conv', 'ssd'} of (n_groups, per, B, ...);
+    xLSTM's ``xlstm``, a list of each layer's float32 state. width is
     min(max_len, window) for sliding-window archs, else max_len;
     n_frontend defaults to ``cfg.n_frontend_tokens``."""
-    check_family(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg.compute_dtype)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -292,15 +393,31 @@ def init_cache(cfg, batch: int, max_len: int, *,
         return {"k": torch.zeros(shp, dtype=dt, device=dev),
                 "v": torch.zeros(shp, dtype=dt, device=dev)}
 
-    if cfg.family == "dense":
-        cache["layers"] = stack((cfg.n_layers,), width)
-    elif cfg.family == "vlm":
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        nd = cfg.first_k_dense if fam == "moe" else 0
+        if nd:
+            cache["dense_layers"] = stack((nd,), width)
+        cache["layers"] = stack((cfg.n_layers - nd,), width)
+    elif fam == "vlm":
         n_super = cfg.n_layers // cfg.cross_attn_every
         cache["layers"] = stack((n_super, cfg.cross_attn_every - 1), width)
         cache["cross"] = stack((n_super,), n_fe)
-    else:   # audio
+    elif fam == "audio":
         cache["layers"] = stack((cfg.n_layers,), width)
         cache["cross"] = stack((cfg.n_layers,), n_fe)
+    elif fam == "hybrid":
+        n_groups = cfg.n_layers // cfg.attn_every
+        cache["ssm"] = {
+            key: buf.new_zeros((n_groups, cfg.attn_every) + buf.shape)
+            for key, buf in mamba2.init_ssm_state(cfg, batch,
+                                                  device=dev).items()}
+        cache["layers"] = stack((n_groups,), width)
+    else:   # ssm
+        cache["xlstm"] = [
+            (xlstm.init_slstm_state if i in cfg.slstm_at
+             else xlstm.init_mlstm_state)(cfg, batch, device=dev)
+            for i in range(cfg.n_layers)]
     return cache
 
 
@@ -309,7 +426,6 @@ def lm_prefill(params: LM, cfg, tokens, *, frontend=None, max_len: int
                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Forward pass that fills the caches. Returns (last-token logits
     (B, 1, V) float32, cache)."""
-    check_family(cfg)
     tokens = _as_tokens(params, tokens)
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
@@ -323,9 +439,9 @@ def lm_prefill(params: LM, cfg, tokens, *, frontend=None, max_len: int
                        n_frontend=None if src is None else src.shape[1])
     cache["t"].fill_(s)
 
-    def self_layer(p_l, x, *idx):
+    def self_layer(p_l, x, key, *idx):
         x, _, (k, v) = self_block_fwd(p_l, cfg, x, positions, return_kv=True)
-        attn.cache_write_prefill(_layer(cache["layers"], *idx), k, v)
+        attn.cache_write_prefill(_layer(cache[key], *idx), k, v)
         return x
 
     def cross_layer(p_c, x, i):
@@ -334,18 +450,31 @@ def lm_prefill(params: LM, cfg, tokens, *, frontend=None, max_len: int
         cache["cross"]["v"][i] = ckv["v"]
         return cross_block_core(p_c, cfg, x, ckv["k"], ckv["v"])[0]
 
-    if cfg.family == "dense":
-        for i, p_l in enumerate(params.blocks):
-            x = self_layer(p_l, x, i)
-    elif cfg.family == "vlm":
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        for key, blocks in _self_stacks(params, cfg):
+            for i, p_l in enumerate(blocks):
+                x = self_layer(p_l, x, key, i)
+    elif fam == "vlm":
         for si, selfs, cross in _superblocks(params, cfg):
             for i, p_i in enumerate(selfs):
-                x = self_layer(p_i, x, si, i)
+                x = self_layer(p_i, x, "layers", si, i)
             x = cross_layer(cross, x, si)
-    else:   # audio
+    elif fam == "audio":
         for i, (p_l, cross) in enumerate(zip(params.blocks,
                                              params.cross_blocks)):
-            x = cross_layer(cross, self_layer(p_l, x, i), i)
+            x = cross_layer(cross, self_layer(p_l, x, "layers", i), i)
+    elif fam == "hybrid":
+        for g, layers, shared in _hybrid_groups(params, cfg):
+            for i, p_i in enumerate(layers):
+                st_i = _layer(cache["ssm"], g, i)
+                x, st = mamba_layer(p_i, cfg, x, state=st_i)
+                _write_state(st_i, st)
+            x = self_layer(shared, x, "layers", g)
+    else:   # ssm
+        for p_l, st_l in zip(params.blocks, cache["xlstm"]):
+            x, st = xlstm_layer(p_l, cfg, x, state=st_l)
+            _write_state(st_l, st)
     return _logits(params, cfg, x[:, -1:]), cache
 
 
@@ -353,31 +482,43 @@ def lm_prefill(params: LM, cfg, tokens, *, frontend=None, max_len: int
 def lm_decode_step(params: LM, cfg, token, cache
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One serve step: token (B, 1) -> (logits (B, 1, V) float32, cache).
-    The new token's k/v go into the cache's buffers in place; the
-    returned cache holds the same buffers and ``t + 1``."""
-    check_family(cfg)
+    The new token's k/v and the recurrent layers' new states go into the
+    cache's buffers in place; the returned cache holds the same buffers
+    and ``t + 1``."""
     token = _as_tokens(params, token)
     t = cache["t"]
     x = _embed_tokens(params, cfg, token, t.reshape(-1, 1))
 
-    def self_layer(p_l, x, *idx):
-        return self_block_decode(p_l, cfg, x, _layer(cache["layers"], *idx),
-                                 t)[0]
+    def self_layer(p_l, x, key, *idx):
+        return self_block_decode(p_l, cfg, x, _layer(cache[key], *idx), t)[0]
 
     def cross_layer(p_c, x, i):
         return cross_block_core(p_c, cfg, x, cache["cross"]["k"][i],
                                 cache["cross"]["v"][i])[0]
 
-    if cfg.family == "dense":
-        for i, p_l in enumerate(params.blocks):
-            x = self_layer(p_l, x, i)
-    elif cfg.family == "vlm":
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        for key, blocks in _self_stacks(params, cfg):
+            for i, p_l in enumerate(blocks):
+                x = self_layer(p_l, x, key, i)
+    elif fam == "vlm":
         for si, selfs, cross in _superblocks(params, cfg):
             for i, p_i in enumerate(selfs):
-                x = self_layer(p_i, x, si, i)
+                x = self_layer(p_i, x, "layers", si, i)
             x = cross_layer(cross, x, si)
-    else:   # audio
+    elif fam == "audio":
         for i, (p_l, cross) in enumerate(zip(params.blocks,
                                              params.cross_blocks)):
-            x = cross_layer(cross, self_layer(p_l, x, i), i)
+            x = cross_layer(cross, self_layer(p_l, x, "layers", i), i)
+    elif fam == "hybrid":
+        for g, layers, shared in _hybrid_groups(params, cfg):
+            for i, p_i in enumerate(layers):
+                st_i = _layer(cache["ssm"], g, i)
+                x, st = mamba_layer(p_i, cfg, x, state=st_i, decode=True)
+                _write_state(st_i, st)
+            x = self_layer(shared, x, "layers", g)
+    else:   # ssm
+        for p_l, st_l in zip(params.blocks, cache["xlstm"]):
+            x, st = xlstm_layer(p_l, cfg, x, state=st_l, decode=True)
+            _write_state(st_l, st)
     return _logits(params, cfg, x), {**cache, "t": t + 1}

@@ -82,6 +82,9 @@ def test_port_has_its_modules():
                 "repro_torch/models/attention.py",
                 "repro_torch/models/model.py",
                 "repro_torch/models/convert.py",
+                "repro_torch/models/moe.py",
+                "repro_torch/models/mamba2.py",
+                "repro_torch/models/xlstm.py",
                 "repro_torch/serve/decode.py"):
         assert mod in names
     examples = {p.name for p in FILES if p.parent.name == "examples"}

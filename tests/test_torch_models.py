@@ -1,6 +1,6 @@
 """The port's LM serving path (``repro_torch.models``) against the JAX
-package, at the ``.reduced()`` configs of the six served architectures,
-in float32: weights in the reference's pytree layout, carried across by
+package, at the ``.reduced()`` configs of all ten architectures (the
+dense, moe, vlm, audio, hybrid and ssm families), in float32: weights in the reference's pytree layout, carried across by
 ``params_from_reference``, and inputs, all made from a numpy seed. The
 weights are random everywhere, norms' scales and biases included, so a
 term the port dropped shows (``tests/test_torch_serve.py`` converts the
@@ -34,9 +34,7 @@ torch.set_num_threads(1)
 
 ATOL = RTOL = 1e-4
 B, S = 2, 16
-SERVED = ("qwen2-1.5b", "chatglm3-6b", "mistral-nemo-12b", "h2o-danube-3-4b",
-          "llama-3.2-vision-11b", "whisper-base")
-UNPORTED = tuple(a for a in ASSIGNED_ARCHS if a not in SERVED)
+SERVED = ASSIGNED_ARCHS
 
 
 def _inputs(cfg, seed=0, s=S):
@@ -80,13 +78,15 @@ def arch(request):
     model = params_from_reference(jax.tree.map(np.asarray, params), cfg,
                                   device="cpu")
     tokens, fe = _inputs(cfg)
-    logits, _ = jmodel.lm_forward(params, jcfg, _j(tokens), frontend=_j(fe))
+    logits, aux = jmodel.lm_forward(params, jcfg, _j(tokens),
+                                   frontend=_j(fe))
     last, cache = jmodel.lm_prefill(params, jcfg, _j(tokens[:, :S - 1]),
                                     frontend=_j(fe), max_len=S + 4)
     step, _ = jmodel.lm_decode_step(params, jcfg, _j(tokens[:, S - 1:]),
                                     cache)
     return dict(name=name, cfg=cfg, jcfg=jcfg, params=params, model=model,
                 tokens=tokens, fe=fe, logits=np.asarray(logits),
+                aux=float(aux),
                 last=np.asarray(last),
                 cache=flat_arrays(jax.tree.map(np.asarray, cache)),
                 step=np.asarray(step))
@@ -109,9 +109,32 @@ def test_weights_carried_across(arch):
                                       ref[blk][1, 0])
         np.testing.assert_array_equal(m.cross_blocks[1].mlp.wo.numpy(),
                                       ref["cross_blocks/mlp/wo"][1])
+    elif cfg.family == "hybrid":
+        per = cfg.attn_every
+        np.testing.assert_array_equal(m.blocks[per + 1].m.in_proj.numpy(),
+                                      ref["blocks/m/in_proj"][1, 1])
+        np.testing.assert_array_equal(m.shared_blocks[1].attn.wq.numpy(),
+                                      ref["shared_blocks/attn/wq"][1])
+    elif cfg.family == "ssm":
+        i = cfg.slstm_at[0]
+        np.testing.assert_array_equal(m.blocks[i].slstm.r.numpy(),
+                                      ref[f"blocks/{i}/slstm/r"])
+        np.testing.assert_array_equal(m.blocks[-1].mlstm.wq.numpy(),
+                                      ref[f"blocks/{cfg.n_layers - 1}/mlstm/"
+                                          f"wq"])
     else:
         np.testing.assert_array_equal(m.blocks[-1].attn.wq.numpy(),
                                       ref[blk][-1])
+    if cfg.family == "moe":
+        np.testing.assert_array_equal(m.blocks[-1].moe.wo.numpy(),
+                                      ref["blocks/moe/wo"][-1])
+        if cfg.first_k_dense:
+            np.testing.assert_array_equal(
+                m.dense_blocks[0].mlp.wi_up.numpy(),
+                ref["dense_blocks/mlp/wi_up"][0])
+            np.testing.assert_array_equal(
+                m.blocks[0].moe.shared.wi_gate.numpy(),
+                ref["blocks/moe/shared/wi_gate"][0])
     if cfg.family == "audio":
         np.testing.assert_array_equal(m.cross_blocks[1].attn.wv.numpy(),
                                       ref["blocks/cross/attn/wv"][1])
@@ -126,7 +149,11 @@ def test_forward_matches_reference(arch):
                                     arch["tokens"], frontend=arch["fe"])
     assert logits.dtype == torch.float32
     assert logits.shape == (B, S, arch["cfg"].vocab_size)
-    assert float(aux) == 0.0
+    if arch["cfg"].family == "moe":
+        assert float(aux) > 0.0
+    else:
+        assert float(aux) == 0.0
+    _close(aux, arch["aux"])
     _close(logits, arch["logits"])
 
 
@@ -307,19 +334,6 @@ def test_cache_ring_positions_match_reference():
         for key in ("k", "v"):
             np.testing.assert_array_equal(cache[key].numpy(),
                                           np.asarray(jcache[key]))
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_families_raise(name):
-    """moe, hybrid and ssm are ROADMAP Queue 1 item 19b: every entry point
-    says so."""
-    cfg = get_config(name).reduced()
-    calls = (lambda: tmodel.init_lm(cfg, device="cpu"),
-             lambda: tmodel.init_cache(cfg, B, S, device="cpu"),
-             lambda: tmodel.lm_forward(None, cfg, np.zeros((B, S), int)))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 19b"):
-            call()
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -15,8 +15,9 @@ from repro.configs import get_config as jget_config
 from repro.models import model as jmodel
 from repro.serve import decode as jdecode
 from repro_torch.api import fit
-from repro_torch.configs import get_config
+from repro_torch.configs import ASSIGNED_ARCHS, get_config
 from repro_torch.models import model as tmodel
+from repro_torch.models.layers import init_embedding
 from repro_torch.models.convert import flat_arrays, params_from_reference
 from repro_torch.serve import decode as tdecode
 
@@ -30,7 +31,8 @@ torch.set_num_threads(1)
 # farther apart than this
 GAP_TOL = 1e-4
 B, PROMPT, STEPS = 2, 12, 5
-FAMILIES = ("qwen2-1.5b", "llama-3.2-vision-11b", "whisper-base")
+FAMILIES = ("qwen2-1.5b", "kimi-k2-1t-a32b", "llama-3.2-vision-11b",
+            "whisper-base", "zamba2-2.7b", "xlstm-125m")
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,13 +69,16 @@ def test_reference_init_carried_across(served):
     port = {name: p.numpy() for name, p in m.named_parameters()}
     assert sum(a.size for a in ref.values()) == \
         sum(a.size for a in port.values())
-    per = cfg.cross_attn_every - 1 if cfg.family == "vlm" else None
+    per = {"vlm": cfg.cross_attn_every - 1,
+           "hybrid": cfg.attn_every}.get(cfg.family)
     for name, val in port.items():
         parts = name.split(".")
         if len(parts) > 2 and parts[1].isdigit():
             group, i = parts[0], int(parts[1])
             if group == "cross_blocks" and cfg.family == "audio":
                 key, idx = "blocks/cross/" + "/".join(parts[2:]), (i,)
+            elif cfg.family == "ssm":
+                key, idx = f"blocks/{i}/" + "/".join(parts[2:]), ()
             else:
                 key = group + "/" + "/".join(parts[2:])
                 idx = (i // per, i % per) if (per and group == "blocks") \
@@ -115,14 +120,22 @@ def test_greedy_generate_matches_reference(served):
     assert decided.any()
 
 
+def _clone(tree):
+    """A copy of a cache whose buffers the decode step writes in place."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
+
+
 def test_serve_step_greedy_is_argmax(served):
     cfg, model = served["cfg"], served["model"]
     logits, cache = tdecode.prefill(model, cfg, served["prompt"],
                                     frontend=served["fe"], max_len=PROMPT + 2)
     tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-    ref_logits, _ = tmodel.lm_decode_step(
-        model, cfg, tok, {**cache, "layers": {
-            k: v.clone() for k, v in cache["layers"].items()}})
+    ref_logits, _ = tmodel.lm_decode_step(model, cfg, tok,
+                                          _clone(cache))
     nxt, cache = tdecode.serve_step(model, cfg, tok, cache)
     assert nxt.dtype == torch.int32 and nxt.shape == (B, 1)
     assert torch.equal(nxt[:, 0], torch.argmax(ref_logits[:, -1], -1).to(
@@ -168,6 +181,18 @@ def test_embedding_example_beside_reference():
     assert res.centers.shape == jres.centers.shape
     cost, jcost = res.cost(tx, device="cpu"), float(jres.cost(x))
     assert cost <= 1.1 * jcost and jcost <= 1.1 * cost
+
+
+@pytest.mark.parametrize("name", ASSIGNED_ARCHS)
+def test_embedding_table_alone_equals_init_lm(name):
+    """examples/embedding_clustering_torch.py builds only the table (a
+    full-width kimi-k2 would be 1 T parameters): ``init_embedding`` on a
+    generator seeded 0 equals ``init_lm(cfg, seed=0).embed`` bit for
+    bit, at the reduced config."""
+    cfg = get_config(name).reduced()
+    table = init_embedding(torch.Generator().manual_seed(0), cfg)
+    assert torch.equal(table, tmodel.init_lm(cfg, seed=0,
+                                             device="cpu").embed)
 
 
 def test_examples_run_on_the_cpu(capsys):

@@ -211,7 +211,22 @@ PyTorch built for CUDA. It
    archs drop-free over the tokens whose routing agrees and then at
    their published capacity factor with the dropped share of slots
    printed a call, the decode step timed beside its byte bound;
-18. clusters kimi-k2-1t-a32b's whole 163,840 x 7,168 token-embedding
+18. trains LMs through the port's entry points (``train.train_step``;
+   ``train_phase``): the flash backward (``attention._FlashAttention``)
+   against autograd through the dense path at qwen2-1.5b's heads and
+   4,096 keys (causal, a 1,024 window, a ring with holes; float32 with
+   TF32 off and bfloat16); qwen2-1.5b at published widths and all 28
+   layers in bfloat16 with AdamW at 1 x 4,096 tokens: 8 steps under
+   remat "selective" with a ``Checkpointer`` save at step 4 resumed into
+   a fresh model and held bit for bit to the uninterrupted run, step 1
+   under "none" and "full" held bit for bit to it, each mode's step
+   time, device busy share and peak memory beside the datasheet bound,
+   and microbatches 2 against 1 at 2 x 4,096 in bfloat16 and in float32
+   (``TRAIN_MB_*``); then mixtral-8x22b at 2 layers (Adafactor, its
+   moments' shapes held to the reference's rule), zamba2-2.7b and
+   xlstm-125m whole, a few steps each with finite losses
+   (``python3 chip_smoke.py --train`` runs only this phase);
+19. clusters kimi-k2-1t-a32b's whole 163,840 x 7,168 token-embedding
    table (built alone, as ``init_lm(cfg, seed=0)``'s first draw; the bf16
    table cast to float32, passed as a card tensor) with ``fit(k=16,
    algo="soccer", m=8, epsilon=0.2)`` (``embedding_phase``): every
@@ -221,8 +236,8 @@ PyTorch built for CUDA. It
    its cost within 1.1x of ``fit(algo="lloyd")``'s, and the four SOCCER
    kernels timed at the fit's own largest calls (d = 7,168) beside their
    bounds (``python3 chip_smoke.py --lm`` builds the kernels and runs
-   only these three phases); and
-19. holds the mesh backend to the virtual one: the seeding step
+   only phases 17 and 19); and
+20. holds the mesh backend to the virtual one: the seeding step
    and the Lloyd step over 8 parts of the sharded coordinator's buffer
    against the flattened calls, bit for bit, and against their plain
    versions (``mesh_kernel_phase``); then, last, 8 ranks sharing the card
@@ -246,6 +261,7 @@ before that line. Without CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
 import os
 import shutil
@@ -259,7 +275,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 from cuda_timing import (Ms, device_busy_ms, device_split,  # noqa: E402
-                         timed_ms)
+                         timed_ms, union_us)
 from trace_overhead import measure as measure_overhead  # noqa: E402
 from trace_overhead import soccer_runner  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
@@ -4244,6 +4260,552 @@ def lm_family_phase(smi: str) -> None:
           flush=True)
 
 
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_BATCH, TRAIN_SEQ = 1, 4_096       # train_4k's sequence; batch 256 cut
+TRAIN_STEPS, TRAIN_SAVE_AT = 8, 4
+TRAIN_TIMED = 3                         # steps of the none / full runs
+TRAIN_OPT = dict(lr_peak=3e-4, warmup_steps=2)
+# the flash backward's checks at qwen2-1.5b's head layout, 1 x 4,096:
+# (name, window, layout); "ring" is a 4,096-slot KV ring after 6,000
+# tokens (positions 1,904-5,999 in ring order) with 10% of its slots
+# invalid, queried by the last 4,096 positions
+FLASH_CASES = (("causal", 0, "contiguous"), ("window 1024", 1_024,
+                                              "contiguous"),
+               ("ring with holes", 0, "ring"))
+# Gates of the flash backward against autograd through _dense_attention:
+# - float32 (TF32 off): the reference's test_flash_equals_dense_fwd_bwd
+#   tolerances, |flash - dense| <= 1e-4 + 1e-3·|dense| elementwise; the
+#   two differ by float32 summation order only;
+# - bfloat16: rms_rel <= 0.03 each of dq, dk, dv: the dense path rounds
+#   its scores to bf16 (its first product's output dtype, as the
+#   reference's does) where the flash path keeps them float32, and both
+#   cast p and ds to bf16 (2^-9 relative each).
+FLASH_F32_RTOL, FLASH_F32_ATOL, FLASH_BF16_TOL = 1e-3, 1e-4, 0.03
+# microbatches 2 against 1 (batch 2 x 4,096), each in bf16 and in float32
+# (TF32 off): nll at the reference test's rtol 1e-4. The gradient norm in
+# float32 at 1e-5: the runs differ by summation order only, so a fault in
+# the accumulation (a lost or doubled split, a wrong divisor) fails it. In
+# bf16 at 2^-8: the runs' GEMMs have other shapes (4,096 rows against
+# 8,192), so their bf16 activations round apart and the 28 layers carry
+# that into the gradients; the bf16 run's own distance from the float32
+# run's norm is printed beside it (PERF.md §6)
+TRAIN_MB_NLL_RTOL, TRAIN_MB_GNORM_RTOL = 1e-4, 2.0 ** -8
+TRAIN_MB_F32_GNORM_RTOL = 1e-5
+# (arch, layers kept, (batch, sequence), steps): the other families at
+# published widths in their own dtypes, optimizers, remat and microbatches
+TRAIN_FAMILY = (("mixtral-8x22b", 2, (4, 512), 3),
+                ("zamba2-2.7b", None, (2, 1_024), 2),
+                ("xlstm-125m", None, (2, 512), 2))
+
+
+def train_batches(cfg, batch: int, seq: int, seed: int):
+    """The train example's Markov token stream, on the card."""
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", os.path.join(ROOT, "examples", "train_lm_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    for b in example.synthetic_batches(cfg, batch, seq, seed=seed):
+        yield {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+
+
+def flash_inputs(cfg, layout: str, dtype, seed: int):
+    """q (1, S, H, hd), k, v (1, S, KV, hd), dO, positions and validity."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    h, kv, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, \
+        TRAIN_SEQ
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = rnd(1, s, h, hd), rnd(1, s, kv, hd), rnd(1, s, kv, hd), \
+        rnd(1, s, h, hd)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")[None]
+    if layout == "contiguous":
+        return q, k, v, do, pos, pos, torch.ones_like(pos, dtype=torch.bool)
+    from repro_torch.models import attention as lm_attn
+    t = torch.tensor([5_999], device="cuda")
+    kv_pos, valid = lm_attn.cache_positions(t, s, 1)
+    holes = torch.rand((1, s), generator=gen, device="cuda") < 0.1
+    return q, k, v, do, pos + (6_000 - s), kv_pos, valid & ~holes
+
+
+def flash_grads(lm_attn, inputs, window, layout, force):
+    q, k, v, do, q_pos, kv_pos, valid = inputs
+    leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    o = lm_attn.attention_core(*leaves, q_pos=q_pos, kv_pos=kv_pos,
+                               kv_valid=valid, causal=True, window=window,
+                               force=force,
+                               contiguous_kv=layout == "contiguous")
+    return torch.autograd.grad(o, leaves, do)
+
+
+def flash_bwd_check(smi: str) -> None:
+    """dq, dk, dv of the flash ``Function`` against autograd through
+    ``_dense_attention`` at qwen2-1.5b's head layout and 4,096 keys."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as lm_attn
+    cfg = get_config(TRAIN_ARCH)
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, window, layout) in enumerate(FLASH_CASES):
+            inputs = flash_inputs(cfg, layout, dtype, seed=20 + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flash = flash_grads(lm_attn, inputs, window, layout, "flash")
+            torch.cuda.synchronize()
+            t_flash = (time.perf_counter() - t0) * 1e3
+            dense = flash_grads(lm_attn, inputs, window, layout, "dense")
+            errs = []
+            for what, a, b in zip("qkv", flash, dense):
+                check(bool(torch.isfinite(a).all()),
+                      f"flash backward {name} {dtype}: d{what} not finite")
+                rel = lm_rel_err(a, b)
+                if dtype == torch.float32:
+                    excess = float(((a - b).abs() - FLASH_F32_ATOL -
+                                    FLASH_F32_RTOL * b.abs()).max())
+                    check(excess <= 0, f"flash backward {name} float32: "
+                          f"d{what} outside rtol {FLASH_F32_RTOL} atol "
+                          f"{FLASH_F32_ATOL} by {excess:.3g}")
+                else:
+                    check(rel[1] <= FLASH_BF16_TOL,
+                          f"flash backward {name} bf16: d{what} rms_rel "
+                          f"{rel[1]:.3g} > {FLASH_BF16_TOL}")
+                errs.append(f"d{what} max_rel {rel[0]:.3g} rms_rel "
+                            f"{rel[1]:.3g}")
+            gate = (f"rtol {FLASH_F32_RTOL} atol {FLASH_F32_ATOL}"
+                    if dtype == torch.float32
+                    else f"rms_rel {FLASH_BF16_TOL}")
+            valid = int(inputs[-1].sum())
+            print(f"train flash backward {name} ({str(dtype)[6:]}, 1 x "
+                  f"{TRAIN_SEQ} tokens, {cfg.n_heads} heads / "
+                  f"{cfg.n_kv_heads} KV, hd {cfg.resolved_head_dim}, "
+                  f"{valid} valid keys) vs autograd through the dense path "
+                  f"({gate}): {'; '.join(errs)}; forward + backward "
+                  f"{t_flash:.1f} ms (first call) on {smi}", flush=True)
+            del inputs, flash, dense
+    matmul.allow_tf32 = saved
+    torch.cuda.empty_cache()
+
+
+class SavedProducts:
+    """Wraps ``models.model._selective_policy`` for a block and counts
+    what selective remat saves in forwards (not recomputes): the
+    products and their output bytes."""
+
+    def __init__(self, lm_model):
+        self.mod, self.real = lm_model, lm_model._selective_policy
+        self.products, self.bytes = 0, 0
+
+    def __enter__(self):
+        from torch.utils.checkpoint import CheckpointPolicy
+
+        def policy(ctx, op, *args, **kwargs):
+            out = self.real(ctx, op, *args, **kwargs)
+            if out == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                a, b = args[-2], args[-1]
+                self.products += 1
+                self.bytes += (a.shape[:-1].numel() * b.shape[-1] *
+                               a.element_size())
+            return out
+        self.mod._selective_policy = policy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._selective_policy = self.real
+
+
+def train_state_bytes(state) -> int:
+    model = state["params"]
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return sum(walk(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+    return n + walk(state["opt"])
+
+
+def device_profile(fn):
+    """One call of ``fn`` under torch.profiler's CUDA activity alone (no
+    host ops recorded, so it costs the step little): (fn's result, the
+    device's busy ms: the union of its kernels' and copies' ranges, and
+    the five costliest kernels by name, device ms summed). Reads the
+    profiler's raw events: ``prof.events()`` builds a Python object an
+    event, seconds for a train step's ~10^5."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ranges, by_name = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        start, dur = e.start_ns() / 1e3, e.duration_ns() / 1e3
+        ranges.append((start, start + dur))
+        name = e.name().split("(")[0].replace("void ", "")[:60]
+        by_name[name] = by_name.get(name, 0.0) + dur / 1e3
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    return out, union_us(ranges) / 1e3, top
+
+
+def train_run(ts, cfg, opt, batches, steps: int, *, save=None,
+              profile_last=False):
+    """``steps`` train steps from a fresh ``make_train_state(seed=5)``
+    over ``batches`` (a list). Returns (state, per-step metrics as
+    floats, per-step ms (host clock, each step ending in a
+    synchronize), the last step's (device busy ms, costliest kernels) or
+    None, peak bytes). ``save`` = (Checkpointer, step): saved after that
+    step (copied to the host, then written by the Checkpointer's thread
+    while the next steps run)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.make_train_state(cfg, opt, seed=5, device="cuda")
+    step_fn = ts.make_train_step(cfg, opt)
+    metrics, ms, busy = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profile_last and i == steps - 1:
+            (state, m), busy_ms, top = device_profile(
+                lambda: step_fn(state, batches[i]))
+            busy = (busy_ms, top)
+        else:
+            state, m = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if save is not None and i + 1 == save[1]:
+            save[0].save(i + 1, ts.state_tree(state))
+    return state, metrics, ms, busy, torch.cuda.max_memory_allocated()
+
+
+def train_tree(state) -> dict:
+    """{"name" or "opt/key/name": tensor} of a train state's parameters
+    and moments."""
+    out = {n: p.detach() for n, p in state["params"].named_parameters()}
+    todo = [("opt/", state["opt"])]
+    while todo:          # no recursive closure: its cycle would keep the
+        pre, tree = todo.pop()   # tensors alive until a collection
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                todo.append((f"{pre}{k}/", v))
+            else:
+                out[pre + k] = v.detach()
+    return out
+
+
+def train_max_diff(a: dict, b: dict) -> float:
+    """The largest |a - b| over two ``train_tree``s' parameters and
+    moments (0.0 when they are equal bit for bit)."""
+    if a.keys() != b.keys():
+        raise ValueError("train trees of other layouts")
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def train_qwen(smi: str) -> None:
+    """qwen2-1.5b at full width and depth in bf16 with AdamW: 8 steps
+    under remat "selective" (saved at step 4, resumed into a fresh state,
+    steps 5-8 held to the uninterrupted run), step 1 under "none" and
+    "full" held to it, and microbatches 2 against 1."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm_model
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as ts
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.n_layers == 28 and cfg.param_dtype == "bfloat16" and
+          cfg.optimizer == "adamw" and cfg.remat == "selective",
+          f"{TRAIN_ARCH}: {cfg}")
+    opt = topt.OptConfig(name=cfg.optimizer, decay_steps=TRAIN_STEPS,
+                         **TRAIN_OPT)
+    stream = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rows = {}
+    ckdir = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = Checkpointer(ckdir, keep=1)
+    t0 = time.perf_counter()
+    with SavedProducts(lm_model) as saved:
+        run_a, m_sel, ms_sel, busy, peak = train_run(
+            ts, cfg, opt, batches, TRAIN_STEPS, save=(ck, TRAIN_SAVE_AT),
+            profile_last=True)
+    t_run = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in run_a["params"].parameters())
+    attn_flop = 6 * TRAIN_BATCH * cfg.n_layers * cfg.n_heads * \
+        cfg.resolved_head_dim * TRAIN_SEQ ** 2
+    flop = 6 * n_params * tokens + attn_flop
+    bound_ms = flop / BF16_FLOP_PER_S * 1e3
+    state_gb = train_state_bytes(run_a) / 1e9
+    print(f"train {TRAIN_ARCH}: {n_params:,} parameters (bf16), AdamW, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens (train_4k's sequence; "
+          f"its global batch 256 cut to 1 for one card); bound "
+          f"{bound_ms:.2f} ms a step: 6 x params x tokens + causal "
+          f"attention's 6·B·L·H·hd·S² = {flop / 1e12:.2f} TFLOP at the "
+          f"H100 datasheet's bf16 dense 989 TFLOP/s (the datasheet's peak, "
+          f"not measured), on {smi}", flush=True)
+    for i, m in enumerate(m_sel):
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"{TRAIN_ARCH} step {i + 1}: loss {m['loss']} grad_norm "
+              f"{m['grad_norm']}")
+    print(f"train {TRAIN_ARCH} selective, {TRAIN_STEPS} steps on the Markov "
+          f"stream: loss {[round(m['loss'], 4) for m in m_sel]}, grad_norm "
+          f"{[round(m['grad_norm'], 4) for m in m_sel]}, accuracy "
+          f"{[round(m['accuracy'], 4) for m in m_sel]}, lr "
+          f"{[round(m['lr'], 7) for m in m_sel]}; state {state_gb:.2f} GB "
+          f"(params + AdamW moments); selective saved "
+          f"{saved.products // TRAIN_STEPS} weight products a step, "
+          f"{saved.bytes / TRAIN_STEPS / 1e9:.2f} GB;"
+          f" {t_run:.1f} s with the save's host copy, on {smi}",
+          flush=True)
+    # steps 2-4 timed: the checkpoint's writer thread shares the host
+    # with steps 5-8
+    rows["selective"] = (ms_sel[1:TRAIN_SAVE_AT], busy, ms_sel[-1], peak)
+
+    # resume: the step-4 checkpoint into a fresh model, then steps 5-8
+    t0 = time.perf_counter()
+    ck.wait()
+    fresh = ts.make_train_state(cfg, opt, seed=6, device="cuda")
+    fresh["opt"] = None
+    torch.cuda.empty_cache()
+    resumed = ts.load_state_tree(fresh, ck.restore(ts.state_tree(run_a)))
+    del fresh
+    check(int(resumed["step"]) == TRAIN_SAVE_AT, "resumed step")
+    step_fn = ts.make_train_step(cfg, opt)
+    m_res = []
+    for i in range(TRAIN_SAVE_AT, TRAIN_STEPS):
+        resumed, m = step_fn(resumed, batches[i])
+        m_res.append({k: float(v) for k, v in m.items()})
+    tree_a, tree_r = train_tree(run_a), train_tree(resumed)
+    same = (tree_a.keys() == tree_r.keys()
+            and all(torch.equal(tree_a[k], tree_r[k]) for k in tree_a)
+            and m_res == m_sel[TRAIN_SAVE_AT:])
+    diff = 0.0 if same else train_max_diff(tree_a, tree_r)
+    del resumed, tree_a, tree_r
+    verdict = "equal the uninterrupted run bit for bit (parameters, " \
+        "moments, metrics)"
+    if not same:
+        # float atomics on the card: a second uninterrupted run sets the
+        # spread the resumed run is held to
+        again, m_again, _, _, _ = train_run(ts, cfg, opt, batches,
+                                            TRAIN_STEPS)
+        spread = train_max_diff(train_tree(run_a), train_tree(again))
+        check(diff <= spread,
+              f"{TRAIN_ARCH} resumed run differs by {diff:.3g} from the "
+              f"uninterrupted one, two uninterrupted runs by {spread:.3g}")
+        verdict = (f"NOT bit for bit: largest parameter or moment "
+                   f"difference {diff:.3g}, two uninterrupted runs "
+                   f"{spread:.3g} (losses {[m['loss'] for m in m_again]})")
+        del again
+    shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"train {TRAIN_ARCH} saved at step {TRAIN_SAVE_AT} "
+          f"(Checkpointer, {state_gb:.2f} GB) and resumed into a fresh "
+          f"model: steps {TRAIN_SAVE_AT + 1}-{TRAIN_STEPS} {verdict}; "
+          f"{time.perf_counter() - t0:.1f} s on {smi}", flush=True)
+    del run_a
+
+    # step 1 under none and full (then timed) against selective's
+    first = {}
+    for mode in ("none", "full"):
+        st, m_mode, ms_mode, busy_m, peak_m = train_run(
+            ts, dataclasses.replace(cfg, remat=mode), opt, batches,
+            TRAIN_TIMED, profile_last=True)
+        del st
+        first[mode] = m_mode[0]
+        rows[mode] = (ms_mode[1:-1], busy_m, ms_mode[-1], peak_m)
+    for mode, m in first.items():
+        for k in ("loss", "grad_norm", "nll"):
+            check(m[k] == m_sel[0][k],
+                  f"{TRAIN_ARCH} step 1 {k}: remat {mode} {m[k]!r} vs "
+                  f"selective {m_sel[0][k]!r}")
+    print(f"train {TRAIN_ARCH} step 1 under remat none / selective / full:"
+          f" loss {first['none']['loss']!r} / {m_sel[0]['loss']!r} / "
+          f"{first['full']['loss']!r}, grad_norm "
+          f"{first['none']['grad_norm']!r} / {m_sel[0]['grad_norm']!r} / "
+          f"{first['full']['grad_norm']!r} (gate: bit for bit) on {smi}",
+          flush=True)
+    for mode in ("none", "selective", "full"):
+        steps_ms, (busy_m, top), prof_ms, peak_m = rows[mode]
+        step_ms = float(np.median(steps_ms))
+        idle = max(0.0, 1 - busy_m / step_ms)
+        print(f"train {TRAIN_ARCH} remat {mode} on {smi}: "
+              f"{step_ms:.1f} ms a step (median of steps "
+              f"{[round(x, 1) for x in steps_ms]}), "
+              f"{tokens * 1e3 / step_ms:.0f} tokens/s, device busy "
+              f"{busy_m:.1f} ms of a step ({100 * (1 - idle):.1f}% busy, "
+              f"{100 * idle:.1f}% idle; the profiled step {prof_ms:.1f} ms),"
+              f" peak {peak_m / 1e9:.2f} GB (max_memory_allocated), "
+              f"{100 * bound_ms / step_ms:.2f}% of the datasheet bound; "
+              f"costliest kernels (device ms a step): "
+              f"{', '.join(f'{k} {v:.1f}' for k, v in top.items())}",
+              flush=True)
+    peaks = [rows[m][3] / 1e9 for m in ("none", "selective", "full")]
+    print(f"train {TRAIN_ARCH} peak memory none > selective > full: "
+          f"{peaks[0] > peaks[1] > peaks[2]} "
+          f"({[round(p, 2) for p in peaks]} GB) on {smi}", flush=True)
+
+    # microbatches 2 against 1 at batch 2, in bf16 and then in float32
+    # with TF32 off (remat full there for memory: remat changes no value)
+    stream = train_batches(cfg, 2, TRAIN_SEQ, seed=1)
+    b2 = [next(stream)]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32", remat="full")
+    matmul = torch.backends.cuda.matmul
+    saved_tf32 = matmul.allow_tf32
+    res = {}
+    for tag, c in (("bf16", cfg), ("float32", cfg32)):
+        matmul.allow_tf32 = saved_tf32 if tag == "bf16" else False
+        for nmb in (1, 2):
+            st, m, ms, _, peak_m = train_run(
+                ts, dataclasses.replace(c, microbatches=nmb), opt, b2, 1)
+            res[tag, nmb] = (m[0], ms[0], peak_m)
+            del st
+    matmul.allow_tf32 = saved_tf32
+    for tag, g_tol in (("bf16", TRAIN_MB_GNORM_RTOL),
+                       ("float32", TRAIN_MB_F32_GNORM_RTOL)):
+        (m1, ms1, pk1), (m2, ms2, pk2) = res[tag, 1], res[tag, 2]
+        e_nll = abs(m2["nll"] - m1["nll"]) / abs(m1["nll"])
+        e_g = abs(m2["grad_norm"] - m1["grad_norm"]) / abs(m1["grad_norm"])
+        check(e_nll <= TRAIN_MB_NLL_RTOL,
+              f"microbatches {tag} nll rel {e_nll:.3g}")
+        check(e_g <= g_tol, f"microbatches {tag} grad_norm rel {e_g:.3g}")
+        print(f"train {TRAIN_ARCH} {tag} batch 2 x {TRAIN_SEQ}, microbatches"
+              f" 2 vs 1: nll {m2['nll']!r} vs {m1['nll']!r} (rel "
+              f"{e_nll:.3g}, tol {TRAIN_MB_NLL_RTOL}), grad_norm "
+              f"{m2['grad_norm']!r} vs {m1['grad_norm']!r} (rel {e_g:.3g}, "
+              f"tol {g_tol:.3g}); first step {ms2:.1f} / {ms1:.1f} ms, peak "
+              f"{pk2 / 1e9:.2f} / {pk1 / 1e9:.2f} GB on {smi}", flush=True)
+    g16 = res["bf16", 1][0]["grad_norm"]
+    g32 = res["float32", 1][0]["grad_norm"]
+    print(f"train {TRAIN_ARCH} batch 2 x {TRAIN_SEQ}, microbatches 1: the "
+          f"bf16 model's grad_norm {g16!r} against the float32 model's "
+          f"{g32!r} (the bf16 weights are the float32 draws rounded): rel "
+          f"{abs(g16 - g32) / abs(g32):.3g}, bf16's own distance, on {smi}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
+def expected_adafactor(topt, model, opt) -> dict:
+    """{name: {moment: shape}}: Adafactor's moments for each parameter of
+    ``model`` as the reference's ``init_opt_state`` gives them for its
+    stacked leaf (the shape ``leaf_shape`` reckons from the stack), its
+    rule written out here, sliced to the parameter."""
+    want = {}
+    for group in topt.leaf_groups(model).values():
+        leaf = topt.leaf_shape(model, group)
+        lead = len(leaf) - group[0][1].ndim
+        if (len(leaf) >= 2 and leaf[-1] >= opt.adafactor_min_dim
+                and leaf[-2] >= opt.adafactor_min_dim):
+            moments = {"vr": leaf[:-1], "vc": leaf[:-2] + leaf[-1:]}
+        else:
+            moments = {"v": leaf}
+        for name, _ in group:
+            want[name] = {k: v[lead:] for k, v in moments.items()}
+    return want
+
+
+class ChunkSums:
+    """Wraps ``models.mamba2._ssd_chunked`` for a block and keeps the
+    largest sum of -log_a = dt·exp(a_log) over one SSD chunk: the
+    upper triangle's exponent, which overflows float32's exp past ~88."""
+
+    def __init__(self, mamba2):
+        self.mod, self.real, self.largest = mamba2, mamba2._ssd_chunked, 0.0
+
+    def __enter__(self):
+        def call(x, b_in, c_in, log_a, dt, h0):
+            s = log_a.shape[1]
+            pad = -s % self.mod.CHUNK
+            la = torch.nn.functional.pad(-log_a.detach(), (0, 0, 0, pad))
+            sums = la.reshape(la.shape[0], -1, self.mod.CHUNK,
+                              la.shape[-1]).sum(2)
+            self.largest = max(self.largest, float(sums.max()))
+            return self.real(x, b_in, c_in, log_a, dt, h0)
+        self.mod._ssd_chunked = call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._ssd_chunked = self.real
+
+
+def train_family(smi: str) -> None:
+    """mixtral-8x22b (2 of 56 layers: Adafactor, remat full, 4
+    microbatches, the router's aux loss), zamba2-2.7b and xlstm-125m
+    whole, at published widths in their own dtypes, a few steps each."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2 as lm_mamba
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as ts
+    for name, layers, (b, s), steps in TRAIN_FAMILY:
+        base = get_config(name)
+        cfg = base if layers is None else dataclasses.replace(
+            base, n_layers=layers)
+        depth = (f"{cfg.n_layers} of {base.n_layers} layers" if layers
+                 else f"all {cfg.n_layers} layers")
+        opt = topt.OptConfig(name=cfg.optimizer, decay_steps=steps,
+                             **TRAIN_OPT)
+        stream = train_batches(cfg, b, s, seed=2)
+        batches = [next(stream) for _ in range(steps)]
+        t0 = time.perf_counter()
+        with ChunkSums(lm_mamba) as sums:
+            state, ms_, step_ms, _, peak = train_run(ts, cfg, opt, batches,
+                                                     steps)
+        for i, m in enumerate(ms_):
+            check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+                  f"{name} step {i + 1}: loss {m['loss']} grad_norm "
+                  f"{m['grad_norm']}")
+        extra = ""
+        if cfg.optimizer == "adafactor":
+            factored = 0
+            want = expected_adafactor(topt, state["params"], opt)
+            for pname, _ in state["params"].named_parameters():
+                got = {k: tuple(v.shape)
+                       for k, v in state["opt"]["v"][pname].items()}
+                check(got == want[pname], f"{name} {pname}: Adafactor "
+                      f"moments {got}, the reference's {want[pname]}")
+                factored += "vr" in got
+            wi = state["opt"]["v"]["blocks.0.moe.wi_gate"]
+            extra = (f"; Adafactor moments as the reference's leaves give "
+                     f"them, {factored} of "
+                     f"{len(state['opt']['v'])} parameters factored "
+                     f"(moe.wi_gate: vr {tuple(wi['vr'].shape)}, vc "
+                     f"{tuple(wi['vc'].shape)}); aux "
+                     f"{[round(m['aux'], 4) for m in ms_]}")
+        if cfg.family == "hybrid":
+            extra = (f"; largest SSD chunk sum of dt·exp(a_log) "
+                     f"{sums.largest:.2f} (the upper triangle's exp "
+                     f"overflows past ~88: "
+                     f"{'reached' if sums.largest > 88 else 'not reached'})")
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        print(f"train {name} ({cfg.param_dtype} parameters, "
+              f"{cfg.compute_dtype} compute, {cfg.optimizer}, remat "
+              f"{cfg.remat}, microbatches {cfg.microbatches}; published "
+              f"widths, depth: {depth}; {n_params:,} parameters) batch {b} x "
+              f"{s}: loss {[round(m['loss'], 4) for m in ms_]}, grad_norm "
+              f"{[round(m['grad_norm'], 4) for m in ms_]} (finite){extra}; "
+              f"{float(np.median(step_ms[1:])):.1f} ms a step after the "
+              f"first ({step_ms[0]:.1f}), peak {peak / 1e9:.2f} GB on {smi};"
+              f" {time.perf_counter() - t0:.1f} s", flush=True)
+        del state
+        torch.cuda.empty_cache()
+
+
+def train_phase(smi: str) -> None:
+    """Training through the port's entry points (``train.train_step``):
+    the flash backward at 4,096 keys, qwen2-1.5b at full width and depth,
+    then the moe, hybrid and ssm families."""
+    t_phase = time.perf_counter()
+    flash_bwd_check(smi)
+    train_qwen(smi)
+    train_family(smi)
+    print(f"train_phase: {time.perf_counter() - t_phase:.1f} s on {smi}",
+          flush=True)
+
+
 class LargestCalls:
     """Wraps entry points of ``ops`` for a block and keeps each one's
     bound arguments at its largest call (by the element count of its
@@ -4900,6 +5462,20 @@ def mesh_phase(api, KERNELS, mesh_ref, per_fit, smi: str) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+PHASE_SECONDS = {}
+
+
+def timed_phase(fn, *args):
+    """``fn(*args)``, its wall seconds printed and kept in
+    ``PHASE_SECONDS`` under its name."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sec = time.perf_counter() - t0
+    PHASE_SECONDS[fn.__name__] = PHASE_SECONDS.get(fn.__name__, 0.0) + sec
+    print(f"phase {fn.__name__}: {sec:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -4926,45 +5502,58 @@ def main() -> None:
     p = N_POINTS // MACHINES
     consts = [derive_constants(N_POINTS, p, SoccerParams(k=k, epsilon=e))
               for k, e in TABLE2]
-    rows = kernel_phase(ops, ref, consts)
-    width_phase(ops, ref, rows)
-    lloyd_phase(ops, ref, rows)
-    dispatch_phase(ops, ref, rows)
-    tier_phase(ops, ref, rows)
-    seeding_phase(ops, ref, rows)
-    knob_kernel_phase(ops, ref, rows, SoccerParams)
-    sync_phase(SoccerParams)
-    tier_sync_phase(SoccerParams)
-    kmpar_sync_phase()
-    knob_sync_phase(SoccerParams)
-    mesh_kernel_phase(ops, ref, rows, SoccerParams)
+    rows = timed_phase(kernel_phase, ops, ref, consts)
+    timed_phase(width_phase, ops, ref, rows)
+    timed_phase(lloyd_phase, ops, ref, rows)
+    timed_phase(dispatch_phase, ops, ref, rows)
+    timed_phase(tier_phase, ops, ref, rows)
+    timed_phase(seeding_phase, ops, ref, rows)
+    timed_phase(knob_kernel_phase, ops, ref, rows, SoccerParams)
+    timed_phase(sync_phase, SoccerParams)
+    timed_phase(tier_sync_phase, SoccerParams)
+    timed_phase(kmpar_sync_phase)
+    timed_phase(knob_sync_phase, SoccerParams)
+    timed_phase(mesh_kernel_phase, ops, ref, rows, SoccerParams)
     per_fit = {}
-    x, means, soc, soc_cost = table2_phase(api, ops.KERNELS, *TABLE2[0],
-                                           per_fit)
+    x, means, soc, soc_cost = timed_phase(
+        table2_phase, api, ops.KERNELS, *TABLE2[0], per_fit)
     for k, eps in TABLE2[1:]:
-        table2_phase(api, ops.KERNELS, k, eps, per_fit)
-    eim11_s, eim11_rounds = eim11_phase(api, ops.KERNELS, per_fit)
-    eim11_sweep_phase(ops, ref, rows, eim11_s, eim11_rounds)
-    eim11_bf16_phase(api, ops.KERNELS, per_fit)
-    repeat_phase(api)
-    coreset_phase(api, ops.KERNELS, x, means, soc, soc_cost, per_fit)
-    robust_phase(api, ops.KERNELS, x, means, per_fit)
-    central_kernel_phase(ops, ref, x, rows)
-    knob_fit_phase(api, ops.KERNELS, x, means, soc, soc_cost, per_fit)
-    trace_phase(api, ops.KERNELS, x, soc, per_fit)
-    overhead_phase(x, smi_line)
+        timed_phase(table2_phase, api, ops.KERNELS, k, eps, per_fit)
+    eim11_s, eim11_rounds = timed_phase(eim11_phase, api, ops.KERNELS,
+                                        per_fit)
+    timed_phase(eim11_sweep_phase, ops, ref, rows, eim11_s, eim11_rounds)
+    timed_phase(eim11_bf16_phase, api, ops.KERNELS, per_fit)
+    timed_phase(repeat_phase, api)
+    timed_phase(coreset_phase, api, ops.KERNELS, x, means, soc, soc_cost,
+                per_fit)
+    timed_phase(robust_phase, api, ops.KERNELS, x, means, per_fit)
+    timed_phase(central_kernel_phase, ops, ref, x, rows)
+    timed_phase(knob_fit_phase, api, ops.KERNELS, x, means, soc,
+                soc_cost, per_fit)
+    timed_phase(trace_phase, api, ops.KERNELS, x, soc, per_fit)
+    timed_phase(overhead_phase, x, smi_line)
     mesh_ref = mesh_reference(x, soc)
     del x, soc
-    wide_phase(api, ops.KERNELS, per_fit)
-    profile_phase(rows)
-    knob_profile_phase()
-    stream_phase(api, ops.KERNELS, ops, ref, rows, per_fit)
-    scenario_phase(api, ops.KERNELS, ops, ref, rows, per_fit, smi_line)
-    selfcheck_phase()
-    lm_phase(smi_line)
-    lm_family_phase(smi_line)
-    embedding_phase(api, ops, ref, rows, per_fit, smi_line)
-    mesh_phase(api, ops.KERNELS, mesh_ref, per_fit, smi_line)
+    timed_phase(wide_phase, api, ops.KERNELS, per_fit)
+    timed_phase(profile_phase, rows)
+    timed_phase(knob_profile_phase)
+    timed_phase(stream_phase, api, ops.KERNELS, ops, ref, rows,
+                per_fit)
+    timed_phase(scenario_phase, api, ops.KERNELS, ops, ref, rows,
+                per_fit, smi_line)
+    timed_phase(selfcheck_phase)
+    timed_phase(lm_phase, smi_line)
+    timed_phase(lm_family_phase, smi_line)
+    timed_phase(train_phase, smi_line)
+    timed_phase(embedding_phase, api, ops, ref, rows, per_fit,
+                smi_line)
+    timed_phase(mesh_phase, api, ops.KERNELS, mesh_ref, per_fit,
+                smi_line)
+
+    print("phase seconds: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in PHASE_SECONDS.items()) +
+        f"; {sum(PHASE_SECONDS.values()):.1f} in all, on {smi_line}",
+        flush=True)
 
     # launches: the fits together, each counted from 0;
     # launches_per_fit: each fit's own count
@@ -5019,9 +5608,24 @@ def lm_main() -> None:
     print(json.dumps({"rows": rows, "per_fit": per_fit}), flush=True)
 
 
+def train_main() -> None:
+    """``--train``: run only ``train_phase`` (it reaches no kernel of
+    ours, so nothing is built)."""
+    check(torch.cuda.is_available(), "needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"device: {smi_line}", flush=True)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    train_phase(smi_line)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--lm"]:
         lm_main()
+    elif sys.argv[1:2] == ["--train"]:
+        train_main()
     elif sys.argv[1:2] == ["--stream-resume"]:
         stream_resume_main(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--scenario-seeds"]:

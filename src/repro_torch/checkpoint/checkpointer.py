@@ -13,7 +13,10 @@ package reads the other's files.
 
 ``restore`` takes a *template* tree of the same structure and fills every
 leaf from the file: a tensor leaf comes back as a tensor of its dtype on
-its device, any other leaf as a numpy array. ``shardings``, a tree of
+its device, any other leaf as a numpy array. A bfloat16 leaf is written
+as its 2-byte words (numpy's ``|V2``, as numpy writes the reference's
+``ml_dtypes`` bfloat16 leaves) and read back into a bfloat16 template
+leaf bit for bit. ``shardings``, a tree of
 the same structure, places each leaf instead, the counterpart of
 ``jax.device_put(a, sharding)``: a device (a name or ``torch.device``)
 puts the leaf there whole; a mark (``api.backends.MACHINE`` or
@@ -70,8 +73,20 @@ def _map(tree: Any, fn: Callable[[str, Any], Any], prefix: str = ""):
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``arr`` as a tensor of ``like``'s dtype on its device; 2-byte
+    words (a bfloat16 leaf's) into a bfloat16 leaf bit for bit."""
+    if like.dtype == torch.bfloat16 and arr.dtype.kind == "V":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        return bits.view(torch.bfloat16).to(like.device)
+    return torch.as_tensor(arr, device=like.device).to(like.dtype)
 
 
 def _place_tree(tree: Any, shardings: Any) -> Any:
@@ -89,8 +104,9 @@ def _place_tree(tree: Any, shardings: Any) -> Any:
             spec = spec[key] if isinstance(spec, dict) else spec[int(key)]
         if isinstance(spec, str) and spec in marks:
             return backend.put(leaf, spec)
-        return torch.as_tensor(np.asarray(_host(leaf)),
-                               device=torch.device(spec))
+        if isinstance(leaf, torch.Tensor):
+            return leaf.to(torch.device(spec))
+        return torch.as_tensor(np.asarray(leaf), device=torch.device(spec))
 
     return _map(tree, place)
 
@@ -169,8 +185,7 @@ class Checkpointer:
                 raise ValueError(
                     f"checkpoint leaf {key}: {arr.shape} != {want}")
             if isinstance(leaf, torch.Tensor):
-                return torch.as_tensor(arr, device=leaf.device).to(
-                    leaf.dtype)
+                return _tensor(arr, leaf)
             return arr
 
         out = _map(template, fill)

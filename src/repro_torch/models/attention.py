@@ -1,14 +1,21 @@
 """GQA attention: dense and chunked (flash) paths, sliding window, cross
 attention, and the KV ring cache.
 
-The port of ``repro.models.attention``'s forward. Two numerically
-equivalent paths, held against each other by the tests:
+The port of ``repro.models.attention``. Two numerically equivalent
+paths, held against each other by the tests:
 
 * ``_dense_attention`` materializes the (Sq, Skv) float32 scores; used up
-  to ``_DENSE_MAX_KV`` keys.
+  to ``_DENSE_MAX_KV`` keys; its gradient is plain autograd's, as the
+  reference's is ``jax.grad``'s.
 * ``_flash_attention`` walks the keys in ``_FLASH_CHUNK``-key chunks with an
   online softmax (running max, denominator, accumulator), so memory is
-  O(Sq·chunk); a Python loop over chunks where the reference scans.
+  O(Sq·chunk); a Python loop over chunks where the reference scans. It
+  is a ``torch.autograd.Function`` (``_FlashAttention``) whose forward
+  also returns the logsumexp and saves the reference's residuals (q, k,
+  v, positions, validity, out, lse) and whose backward is the
+  reference's ``_flash_bwd_rule``: per chunk it recomputes the
+  probabilities from the logsumexp, carries dq and emits dk, dv, so the
+  backward too keeps O(Sq·chunk) memory.
 
 Both are plain PyTorch ops that mirror the reference's arithmetic (float32
 scores, the ``_NEG`` fill, probabilities cast to the values' dtype before
@@ -18,9 +25,6 @@ hold against the reference. Masks are built per chunk from (q_pos,
 kv_pos, kv_valid, causal, window), so ring-buffer (sliding-window) decode
 caches go through the same code: slot positions are reconstructed
 arithmetically, never stored.
-
-The reference's backward rule (``_flash_bwd_rule``) belongs to the
-training slice (ROADMAP Queue 1 item 19c).
 """
 from __future__ import annotations
 
@@ -116,11 +120,25 @@ def _chunk(a: torch.Tensor, j: int, chunk: int, fill=0) -> torch.Tensor:
     return c
 
 
+def _chunk_mask(q_pos, kv_pos, kv_valid, j, chunk, skv, causal, window,
+                contiguous):
+    """Chunk ``j``'s (B, Sq, chunk) mask: contiguous keys are at
+    j·chunk + iota and valid below skv; otherwise the chunk's positions
+    and validity (a padded slot is invalid)."""
+    if contiguous:
+        pos = (j * chunk + torch.arange(chunk, device=q_pos.device)
+               ).expand(q_pos.shape[0], chunk)
+        return _mask(q_pos, pos, pos < skv, causal, window)
+    return _mask(q_pos, _chunk(kv_pos, j, chunk),
+                 _chunk(kv_valid, j, chunk, False), causal, window)
+
+
 def _flash_fwd_scan(qg, k, v, kv_pos, kv_valid, q_pos, causal, window,
                     chunk, contiguous):
     """Online-softmax forward over (B, Sq, KV, G, hd) float32 queries
-    (already scaled). Returns o; the reference's logsumexp, which only
-    its backward reads, comes with the training slice."""
+    (already scaled). Returns (o, the logsumexp lse): a fully masked row's
+    lse is the reference's 0.7·3e38, so its probabilities recompute to 0
+    in the backward."""
     b, sq, kvh, g, hd = qg.shape
     skv = k.shape[1]
     nc = -(-skv // chunk)
@@ -135,13 +153,8 @@ def _flash_fwd_scan(qg, k, v, kv_pos, kv_valid, q_pos, causal, window,
         kj = _chunk(k, j, chunk).float()
         vj = _chunk(v, j, chunk)
         s = torch.einsum("bskgh,btkh->bskgt", qg_lo, kj)
-        if contiguous:   # kv positions are j·chunk + iota, valid below skv
-            pos = (j * chunk + torch.arange(chunk, device=qg.device)
-                   ).expand(b, chunk)
-            msk = _mask(q_pos, pos, pos < skv, causal, window)
-        else:
-            msk = _mask(q_pos, _chunk(kv_pos, j, chunk),
-                        _chunk(kv_valid, j, chunk, False), causal, window)
+        msk = _chunk_mask(q_pos, kv_pos, kv_valid, j, chunk, skv, causal,
+                          window, contiguous)
         s = torch.where(msk[:, :, None, None, :], s, _NEG)
         m_new = torch.maximum(m_run, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
@@ -152,18 +165,79 @@ def _flash_fwd_scan(qg, k, v, kv_pos, kv_valid, q_pos, causal, window,
         acc = acc * scale[..., None] + torch.einsum(
             "bskgt,btkh->bskgh", p.to(vj.dtype).float(), vj.float())
         m_run = m_new
-    return acc / torch.clamp(l_run, min=1e-30)[..., None]
+    o = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    lse = torch.where(l_run > 0,
+                      m_run + torch.log(torch.clamp(l_run, min=1e-30)),
+                      0.7 * 3.0e38)
+    return o, lse
+
+
+def _flash_bwd(q, k, v, q_pos, kv_pos, kv_valid, out, lse, do, causal,
+               window, chunk, contiguous):
+    """The reference's ``_flash_bwd_rule``, chunk by chunk: delta =
+    Σ(dO·O) in float32; each chunk's probabilities recomputed as
+    exp(s - lse) from the same masks; p and ds cast to k's dtype before
+    their products, which sum in float32; dq carried across chunks, dk
+    and dv emitted a chunk at a time and unpadded."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5
+    qg = q.reshape(b, sq, kvh, g, hd).float() * scale
+    dog = do.reshape(b, sq, kvh, g, hd).float()
+    og = out.reshape(b, sq, kvh, g, hd).float()
+    delta = (dog * og).sum(-1)                           # (b,sq,kv,g)
+    dogc = dog.to(k.dtype).float()
+    qg_lo = qg.to(k.dtype).float()
+    dq = torch.zeros((b, sq, kvh, g, hd), device=q.device)
+    dks, dvs = [], []
+    for j in range(-(-skv // chunk)):
+        kj = _chunk(k, j, chunk).float()
+        vj = _chunk(v, j, chunk).float()
+        s = torch.einsum("bskgh,btkh->bskgt", qg_lo, kj)
+        msk = _chunk_mask(q_pos, kv_pos, kv_valid, j, chunk, skv, causal,
+                          window, contiguous)
+        s = torch.where(msk[:, :, None, None, :], s, _NEG)
+        p = torch.exp(s - lse[..., None])                # true probs
+        pb = p.to(k.dtype).float()
+        dvs.append(torch.einsum("bskgt,bskgh->btkh", pb, dogc))
+        dp = torch.einsum("bskgh,btkh->bskgt", dogc, vj)
+        dsb = (p * (dp - delta[..., None])).to(k.dtype).float()
+        dq = dq + torch.einsum("bskgt,btkh->bskgh", dsb, kj)
+        dks.append(torch.einsum("bskgt,bskgh->btkh", dsb, qg_lo))
+    dq = (dq * scale).reshape(b, sq, h, hd).to(q.dtype)
+    dk = torch.cat(dks, 1)[:, :skv].to(k.dtype)
+    dv = torch.cat(dvs, 1)[:, :skv].to(v.dtype)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The chunked forward and the reference's custom backward; positions
+    and validity get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, kv_valid, causal, window,
+                chunk, contiguous):
+        b, sq, h, hd = q.shape
+        kvh = k.shape[2]
+        qg = (q.reshape(b, sq, kvh, h // kvh, hd) * (hd ** -0.5)).float()
+        o, lse = _flash_fwd_scan(qg, k, v, kv_pos, kv_valid, q_pos, causal,
+                                 window, chunk, contiguous)
+        out = o.reshape(b, sq, h, hd).to(q.dtype)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, kv_valid, out, lse)
+        ctx.args = (causal, window, chunk, contiguous)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _flash_attention(q, k, v, q_pos, kv_pos, kv_valid, causal, window,
                      chunk: int = _FLASH_CHUNK, contiguous: bool = False):
-    b, sq, h, hd = q.shape
-    kvh = k.shape[2]
-    g = h // kvh
-    qg = (q.reshape(b, sq, kvh, g, hd) * (hd ** -0.5)).float()
-    o = _flash_fwd_scan(qg, k, v, kv_pos, kv_valid, q_pos, causal, window,
-                        chunk, contiguous)
-    return o.reshape(b, sq, h, hd).to(q.dtype)
+    return _FlashAttention.apply(q, k, v, q_pos, kv_pos, kv_valid, causal,
+                                 window, chunk, contiguous)
 
 
 def attention_core(q, k, v, *, q_pos, kv_pos, kv_valid=None,

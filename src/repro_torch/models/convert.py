@@ -15,7 +15,10 @@ takes), into the port's ``LM`` without changing a value; bfloat16 leaves
 (``ml_dtypes``) go through float32, which holds them exactly.
 ``flat_arrays`` flattens either package's cache or parameters into
 ``{"path/to/leaf": ndarray}`` for comparison: the two caches share one
-layout.
+layout. ``train_state_from_reference`` carries a reference train state
+(``repro.train.train_step.make_train_state``'s) across the same way:
+its params, each optimizer moment unstacked by the parameter's leaf and
+index, and the step.
 """
 from __future__ import annotations
 
@@ -25,35 +28,17 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, reference_leaf_path
 
 
 def _reference_leaf(params, cfg, name: str):
     """The reference leaf (stacked) and its layer index for port
-    parameter ``name`` (e.g. ``blocks.7.attn.wq``)."""
-    parts = name.split(".")
-    if parts[0] == "embed":
-        return params["embed"]["embedding"], ()
-    if parts[0] == "head":
-        return params["head"]["w"], ()
-    if parts[0] in ("final_norm", "enc_norm"):
-        return params[parts[0]][parts[1]], ()
-    group, i, path = parts[0], int(parts[1]), parts[2:]
-    if group == "cross_blocks" and cfg.family == "audio":
-        tree = params["blocks"]["cross"]
-    elif cfg.family == "ssm":
-        tree = params[group][i]
-    else:
-        tree = params[group]
-    for key in path:
+    parameter ``name``."""
+    keys, idx = reference_leaf_path(cfg, name)
+    tree = params
+    for key in keys:
         tree = tree[key]
-    if cfg.family == "ssm":
-        return tree, ()
-    if group == "blocks" and cfg.family in ("vlm", "hybrid"):
-        per = (cfg.cross_attn_every - 1 if cfg.family == "vlm"
-               else cfg.attn_every)
-        return tree, (i // per, i % per)
-    return tree, (i,)
+    return tree, idx
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -104,3 +89,48 @@ def flat_arrays(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
         if arr.dtype.name == "bfloat16":
             arr = arr.astype(np.float32)
     return {prefix.rstrip("/"): arr}
+
+
+def _moment(tree, keys, idx, what: str) -> torch.Tensor:
+    for key in keys:
+        tree = tree[key]
+    a = np.asarray(tree[what] if what else tree)
+    return _to_torch(a[idx] if idx else a)
+
+
+def train_state_from_reference(state, cfg, opt=None, *,
+                               device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """The port's train state (``train.train_step.make_train_state``'s
+    layout) holding a reference train state's values: params through
+    ``params_from_reference`` (with gradients on), AdamW's ``m``/``v`` or
+    Adafactor's ``vr``/``vc``/``v`` per parameter, each the slice of its
+    reference leaf's moment at the parameter's stack index, and the
+    step. ``opt`` names the optimizer (default ``cfg.optimizer``)."""
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    dev = resolve_device(device)
+    opt = opt or OptConfig(name=cfg.optimizer)
+    model = params_from_reference(state["params"], cfg, device=dev)
+    model.requires_grad_(True)
+    ours = init_opt_state(model, opt)
+    ref = state["opt"]
+    for name, _ in model.named_parameters():
+        keys, idx = reference_leaf_path(cfg, name)
+        if opt.name == "adamw":
+            for what in ("m", "v"):
+                val = _moment(ref[what], keys, idx, None)
+                ours[what][name] = _checked(val, ours[what][name], name)
+        else:
+            for what, buf in ours["v"][name].items():
+                val = _moment(ref["v"], keys, idx, what)
+                ours["v"][name][what] = _checked(val, buf, name)
+    step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                        device=dev)
+    return {"params": model, "opt": ours, "step": step}
+
+
+def _checked(val: torch.Tensor, like: torch.Tensor, name: str):
+    if tuple(val.shape) != tuple(like.shape) or val.dtype != like.dtype:
+        raise ValueError(f"{name}: reference moment {tuple(val.shape)} "
+                         f"{val.dtype}, port {tuple(like.shape)} "
+                         f"{like.dtype}")
+    return val.to(like.device)

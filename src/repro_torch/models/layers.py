@@ -10,8 +10,10 @@ below mirrors the reference's expression by expression: norms in
 float32 and cast back, weights cast to the compute dtype before each
 product, logits in float32.
 
-Parameters are made with ``requires_grad=False``: this slice serves
-(ROADMAP Queue 1 item 19c ports training).
+Parameters are made with ``requires_grad=False``, so a served model
+builds no autograd graph; ``train.train_step.make_train_state`` (and
+``convert.train_state_from_reference``) turn gradients on for the model
+they train.
 """
 from __future__ import annotations
 

@@ -118,11 +118,15 @@ def _ssd_chunked(x, b_in, c_in, log_a, dt, h0):
         # inter-chunk: y_i += C_i · (decay_to_i · h_prev)
         y_inter = torch.einsum("bin,bhpn->bihp", cc, h_prev) * \
             torch.exp(cums)[..., None]
-        # intra-chunk quadratic; the upper triangle's exp may overflow to
-        # inf, and the where keeps it out
+        # intra-chunk quadratic. The upper triangle's exponent cums_i -
+        # cums_j (i < j) is positive and passes ~88 once a chunk's
+        # dt·exp(a_log) sums past it: masked before the exp (to -inf, so
+        # exp gives the reference's 0), its gradient stays finite where
+        # the reference's exp-then-where gives 0·inf = NaN (ROADMAP
+        # Queue 3); the forward's bits are the reference's
         scores = torch.einsum("bin,bjn->bij", cc, bc)     # (B,L,L)
-        decay = torch.exp(cums[:, :, None, :] - cums[:, None, :, :])
-        decay = torch.where(tri, decay, 0.0)              # (B,L,L,H)
+        diff = cums[:, :, None, :] - cums[:, None, :, :]
+        decay = torch.exp(torch.where(tri, diff, float("-inf")))  # (B,L,L,H)
         dtx = xc * dtc[..., None]                         # (B,L,H,P)
         y_intra = torch.einsum("bijh,bjhp->bihp", scores[..., None] * decay,
                                dtx)

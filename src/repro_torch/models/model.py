@@ -8,7 +8,9 @@ encoder-decoder (whisper), the hybrid Mamba2 trunk with shared attention
 blocks (zamba2) and xLSTM's mLSTM/sLSTM stack. The blocks and the LM are
 ``nn.Module``s with an ``nn.ModuleList`` of layers, walked by a Python
 loop where the reference scans a stacked layer axis;
-``models/convert.py`` unstacks a reference pytree into them. Three entry
+``reference_leaf_path`` maps a parameter to its place in the reference's
+stacks, by which ``models/convert.py`` unstacks a reference pytree into
+them and the optimizer groups Adafactor's leaves. Three entry
 points, as in the reference:
 
   lm_forward(model, cfg, tokens, frontend=...)   no-cache forward
@@ -26,17 +28,28 @@ by ``shared_blocks[g % n_shared_blocks]``; xLSTM's ``blocks[i]`` holds an
 sLSTM cell where ``i`` is in ``slstm_at``, else an mLSTM cell. The cache
 keeps the reference's stacked layout (``init_cache``), written in place.
 
+Training (``train/``) differentiates ``lm_forward``, which takes the
+reference's ``remat`` (``cfg.remat`` by default): ``_remat`` wraps what
+the reference scans, one step at a time (a layer for dense and moe, a
+superblock for the vlm, a decoder layer with its cross block for
+whisper, a group with its shared block for the hybrid; xLSTM's loop
+is not rematerialized, as in the reference), and whisper's encoder
+layers by ``cfg.remat``. ``lm_prefill`` and ``lm_decode_step`` run
+under ``torch.no_grad()``: serving builds no graph.
+
 The reference's ``sharding.activations.shard_bsd`` / ``shard_logits``
 constrain activations only under a device mesh and are no-ops without
 one; the port leaves those calls out (``sharding/`` comes with the
-dry-run and training slices, ROADMAP Queue 1 items 19c-19d).
+dry-run slice, ROADMAP Queue 1 item 19d).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
@@ -178,6 +191,70 @@ def _groups_of(cfg, what: str, every: int) -> int:
     return cfg.n_layers // every
 
 
+# ---------------------------------------------------------------- remat
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default)
+
+
+def _from_parameter(t) -> bool:
+    """Whether ``t`` is a parameter or reaches one through single-input
+    autograd nodes only (views, reshapes, casts): a weight operand."""
+    if not isinstance(t, torch.Tensor):
+        return False
+    if isinstance(t, nn.Parameter):
+        return True
+    fn = t.grad_fn
+    while fn is not None:
+        if type(fn).__name__ == "AccumulateGrad":
+            return isinstance(fn.variable, nn.Parameter)
+        nxt = [f for f, _ in fn.next_functions if f is not None]
+        if len(nxt) != 1:
+            return False
+        fn = nxt[0]
+    return False
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: save the
+    output of a product with no batch dimension, recompute the rest.
+    ``einsum`` lowers a weight projection to ``mm``/``addmm`` or to a
+    ``bmm`` with a batch of 1, attention's and the SSMs' batched products
+    to ``bmm``s of activations, and the MoE's grouped products to ``bmm``s
+    over E experts: so a product is saved when one operand is a weight
+    and it has no batch (a ``bmm``'s batch of 1)."""
+    save = (op in _PRODUCTS
+            and (op is not torch.ops.aten.bmm.default
+                 or args[0].shape[0] == 1)
+            and any(_from_parameter(a) for a in args))
+    return (ckpt.CheckpointPolicy.MUST_SAVE if save
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """``fn`` rematerialized as the reference's ``_remat``: "none" saves
+    every activation, "full" recomputes the whole step in the backward
+    (``nothing_saveable``), "selective" saves only the weight products'
+    outputs. With no graph to build (grad mode off, or a hidden state that
+    needs no gradient: a frozen model served) the step runs as it is."""
+    if mode not in ("none", "full", "selective"):
+        raise ValueError(f"unknown remat mode {mode!r}")
+    if mode == "none":
+        return fn
+
+    @functools.wraps(fn)
+    def step(*args):
+        if not (torch.is_grad_enabled() and args[0].requires_grad):
+            return fn(*args)
+        if mode == "full":
+            return ckpt.checkpoint(fn, *args, use_reentrant=False)
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts,
+                _selective_policy))
+    return step
+
+
 # ---------------------------------------------------------------- the LM
 class LM(nn.Module):
     """Embedding, the family's layers, final norm and (untied) head;
@@ -274,6 +351,30 @@ def _self_stacks(params: LM, cfg):
     yield "layers", params.blocks
 
 
+def reference_leaf_path(cfg, name: str):
+    """How the reference stacks port parameter ``name`` (e.g.
+    ``blocks.7.attn.wq``): (keys, idx), the path of its reference leaf in
+    the reference pytree (dict keys, and xLSTM's list index) and its index
+    along the leaf's leading stack axes (``()`` for an unstacked leaf)."""
+    parts = name.split(".")
+    if parts[0] == "embed":
+        return ("embed", "embedding"), ()
+    if parts[0] == "head":
+        return ("head", "w"), ()
+    if parts[0] in ("final_norm", "enc_norm"):
+        return (parts[0], parts[1]), ()
+    group, i, path = parts[0], int(parts[1]), tuple(parts[2:])
+    if group == "cross_blocks" and cfg.family == "audio":
+        return ("blocks", "cross") + path, (i,)
+    if cfg.family == "ssm":
+        return (group, i) + path, ()
+    if group == "blocks" and cfg.family in ("vlm", "hybrid"):
+        per = (cfg.cross_attn_every - 1 if cfg.family == "vlm"
+               else cfg.attn_every)
+        return (group,) + path, (i // per, i % per)
+    return (group,) + path, (i,)
+
+
 # -------------------------------------------------------------- forward
 def _as_tokens(params: LM, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params.device).long()
@@ -303,8 +404,12 @@ def encoder_forward(params: LM, cfg, frames):
     x = frames.to(torch_dtype(cfg.compute_dtype))
     pos = _positions(frames.shape[0], frames.shape[1], frames.device)
     x = x + sinusoid(pos, cfg.d_model).to(x.dtype)
+    # the reference remats the encoder by cfg.remat whatever lm_forward's
+    body = _remat(lambda x, p_l: self_block_fwd(p_l, cfg, x, pos,
+                                                causal=False, window=0),
+                  cfg.remat)
     for p_l in params.enc_blocks:
-        x, _ = self_block_fwd(p_l, cfg, x, pos, causal=False, window=0)
+        x, _ = body(x, p_l)
     return norm_apply(params.enc_norm, cfg, x)
 
 
@@ -313,10 +418,14 @@ def _logits(params: LM, cfg, x):
     return unembed_apply(params.head, params.embed, cfg, x)
 
 
-def lm_forward(params: LM, cfg, tokens, *, frontend=None
+def lm_forward(params: LM, cfg, tokens, *, frontend=None,
+               remat: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits (B,S,V) float32, aux loss:
-    the MoE layers' load-balancing losses summed, else 0)."""
+    the MoE layers' load-balancing losses summed, else 0). ``remat``
+    (default ``cfg.remat``) rematerializes each scanned step in the
+    backward; it changes no value."""
+    remat = cfg.remat if remat is None else remat
     tokens = _as_tokens(params, tokens)
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
@@ -324,31 +433,50 @@ def lm_forward(params: LM, cfg, tokens, *, frontend=None
     aux = torch.zeros((), device=x.device)
     fam = cfg.family
     if fam in ("dense", "moe"):
+        layer = _remat(lambda x, p_l: self_block_fwd(p_l, cfg, x, positions),
+                       remat)
         for _, blocks in _self_stacks(params, cfg):
             for p_l in blocks:
-                x, a = self_block_fwd(p_l, cfg, x, positions)
+                x, a = layer(x, p_l)
                 aux = aux + a
     elif fam == "vlm":
         kv_src = _frontend(params, cfg, frontend).to(x.dtype)
-        for _, selfs, cross in _superblocks(params, cfg):
+
+        def superblock(x, selfs, cross):
+            a_sum = torch.zeros((), device=x.device)
             for p_i in selfs:
                 x, a = self_block_fwd(p_i, cfg, x, positions)
-                aux = aux + a
+                a_sum = a_sum + a
             x, a = cross_block_fwd(cross, cfg, x, kv_src)
+            return x, a_sum + a
+
+        superblock = _remat(superblock, remat)
+        for _, selfs, cross in _superblocks(params, cfg):
+            x, a = superblock(x, selfs, cross)
             aux = aux + a
     elif fam == "audio":
         enc = encoder_forward(params, cfg, _frontend(params, cfg, frontend))
-        for p_l, cross in zip(params.blocks, params.cross_blocks):
+
+        def decoder_layer(x, p_l, cross):
             x, a = self_block_fwd(p_l, cfg, x, positions)
             x, a2 = cross_block_fwd(cross, cfg, x, enc)
-            aux = aux + a + a2
+            return x, a + a2
+
+        decoder_layer = _remat(decoder_layer, remat)
+        for p_l, cross in zip(params.blocks, params.cross_blocks):
+            x, a = decoder_layer(x, p_l, cross)
+            aux = aux + a
     elif fam == "hybrid":
-        for _, layers, shared in _hybrid_groups(params, cfg):
+        def group(x, layers, shared):
             for p_i in layers:
                 x, _ = mamba_layer(p_i, cfg, x)
-            x, a = self_block_fwd(shared, cfg, x, positions)
+            return self_block_fwd(shared, cfg, x, positions)
+
+        group = _remat(group, remat)
+        for _, layers, shared in _hybrid_groups(params, cfg):
+            x, a = group(x, layers, shared)
             aux = aux + a
-    else:   # ssm
+    else:   # ssm: a Python loop the reference does not remat
         for p_l in params.blocks:
             x, _ = xlstm_layer(p_l, cfg, x)
     return _logits(params, cfg, x), aux
@@ -422,6 +550,7 @@ def init_cache(cfg, batch: int, max_len: int, *,
 
 
 # ----------------------------------------------------------- prefill
+@torch.no_grad()
 def lm_prefill(params: LM, cfg, tokens, *, frontend=None, max_len: int
                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Forward pass that fills the caches. Returns (last-token logits
@@ -479,6 +608,7 @@ def lm_prefill(params: LM, cfg, tokens, *, frontend=None, max_len: int
 
 
 # -------------------------------------------------------------- decode
+@torch.no_grad()
 def lm_decode_step(params: LM, cfg, token, cache
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One serve step: token (B, 1) -> (logits (B, 1, V) float32, cache).

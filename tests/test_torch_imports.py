@@ -85,14 +85,19 @@ def test_port_has_its_modules():
                 "repro_torch/models/moe.py",
                 "repro_torch/models/mamba2.py",
                 "repro_torch/models/xlstm.py",
-                "repro_torch/serve/decode.py"):
+                "repro_torch/serve/decode.py",
+                "repro_torch/train/__init__.py",
+                "repro_torch/train/loss.py",
+                "repro_torch/train/optimizer.py",
+                "repro_torch/train/train_step.py"):
         assert mod in names
     examples = {p.name for p in FILES if p.parent.name == "examples"}
     assert examples == {"quickstart_torch.py",
                         "distributed_clustering_torch.py",
                         "streaming_clustering_torch.py",
                         "serve_lm_torch.py",
-                        "embedding_clustering_torch.py"}
+                        "embedding_clustering_torch.py",
+                        "train_lm_torch.py"}
 
 
 def test_importing_the_port_loads_no_jax():
@@ -106,7 +111,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch, repro_torch.launch.cli, "
             "repro_torch.launch.mesh, repro_torch.configs, "
             "repro_torch.models.model, repro_torch.models.convert, "
-            "repro_torch.serve.decode; "
+            "repro_torch.serve.decode, repro_torch.train.loss, "
+            "repro_torch.train.optimizer, repro_torch.train.train_step; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")

@@ -241,14 +241,23 @@ PyTorch built for CUDA. It
    and the Lloyd step over 8 parts of the sharded coordinator's buffer
    against the flattened calls, bit for bit, and against their plain
    versions (``mesh_kernel_phase``); then, last, 8 ranks sharing the card
-   over gloo run Table 2 row 1 at full width, three fits a rank, each
+   over gloo run Table 2 row 1 at full width, two fits a rank, each
    equal to the card's virtual fit bit for bit with every kernel of the
    path launched on every rank (counts under ``launches_per_fit``'s
    ``mesh_*`` keys), the other six algorithms and the sharded coordinator
    at 1 M equal to their virtual fits, the scenario CLI with ``--backend
    mesh``, the launch CLI on 8 ranks and NCCL at world size 1, with the
    mesh fits' walls beside the virtual ones' and their seconds in
-   collectives (``mesh_phase``).
+   collectives (``mesh_phase``);
+21. holds the LM on a device mesh to its one-device path: kimi-k2's MoE
+   layer at its published widths under ``moe_apply_sharded`` (NCCL at
+   world size 1, then 2 gloo ranks with 192 experts each) against
+   ``_moe_apply_dense``, and qwen2-1.5b whole through the mesh train
+   driver against ``train_qwen``'s ``make_train_step`` steps
+   (``mesh_lm_phase``); runs ``launch.cluster_dryrun`` at 256 and 512
+   machines in both coordinator modes with every kernel call held to its
+   plain version (``cluster_dryrun_phase``), and prints
+   ``roofline.hw.measured_peaks()`` (``peaks_phase``).
 
 Every kernel time is printed with the host's own microseconds a call
 beside the device's (``timed_ms``).
@@ -2727,14 +2736,18 @@ def eim11_bf16_phase(api, KERNELS, per_fit) -> None:
           "EIM11 bf16: bytes not at 2 a coordinate")
 
 
+# the knob fits fit_profile profiles: knob_fit_phase runs and checks all
+# five kinds (soccer_minibatch, soccer_int8, lloyd and minibatch were
+# profiled here too once; PERF.md §5 keeps their readings)
+KNOB_PROFILES = ("soccer_sharded",)
+
+
 def knob_profile_phase() -> None:
-    """fit_profile's wall, device busy time and idle share of the new
-    paths' fits at Table 2 row 1 (n = 10 M, k = 25): the sharded
-    coordinator, the mini-batch black box, the int8 codes uplink and the
-    centralized lloyd and minibatch."""
+    """fit_profile's wall, device busy time and idle share of a new
+    path's fit at Table 2 row 1 (n = 10 M, k = 25): the sharded
+    coordinator."""
     from repro_torch import fit_profile
-    for name in ("soccer_sharded", "soccer_minibatch", "soccer_int8",
-                 "lloyd", "minibatch"):
+    for name in KNOB_PROFILES:
         prof = fit_profile.profile_fit(25, N_POINTS, algo=name, top=8)
         check(prof["device_busy_s"] is not None,
               f"fit_profile {name}: the profiler saw no device time")
@@ -3444,11 +3457,15 @@ class KernelsAs:
             check(name in SHADOW_CHECKS, f"KernelsAs: no check for {name}")
             bound = self.sigs[name].bind(*a, **kw)
             bound.apply_defaults()
-            self._restore()          # the checks call the kernels
+            # the checks call the kernels; then what was installed (the
+            # shadows, or a recorder wrapped around them) goes back
+            outer = {n: getattr(self.ops, n) for n in self.real}
+            self._restore()
             try:
                 SHADOW_CHECKS[name](self.ops, self.ref, bound.arguments)
             finally:
-                self._install()
+                for n, fn in outer.items():
+                    setattr(self.ops, n, fn)
             self.checked[name] += 1
             return out
         return call
@@ -3767,7 +3784,7 @@ EMB_SHAPE = (163_840, 7_168)
 # derive_constants at n = 163,840, k = 16, eps = 0.2, delta = 0.1, m = 8
 EMB_ETA, EMB_K_PLUS = 43_106, 78
 EMB_K, EMB_M, EMB_EPS = 16, 8, 0.2
-EMB_REPS = 5                  # timed calls a kernel (0.1-1 s each here)
+EMB_REPS = 3                  # timed calls a kernel (0.1-1 s each here)
 EMB_COST_RATIO = 1.1          # SOCCER's cost over the gather fit's
 EMB_TIMED = ("min_dist", "remove_below", "update_min_dist",
              "fused_assign_reduce")
@@ -4262,7 +4279,7 @@ def lm_family_phase(smi: str) -> None:
 
 TRAIN_ARCH = "qwen2-1.5b"
 TRAIN_BATCH, TRAIN_SEQ = 1, 4_096       # train_4k's sequence; batch 256 cut
-TRAIN_STEPS, TRAIN_SAVE_AT = 8, 4
+TRAIN_STEPS, TRAIN_SAVE_AT = 6, 4
 TRAIN_TIMED = 3                         # steps of the none / full runs
 TRAIN_OPT = dict(lr_peak=3e-4, warmup_steps=2)
 # the flash backward's checks at qwen2-1.5b's head layout, 1 x 4,096:
@@ -4505,9 +4522,9 @@ def train_max_diff(a: dict, b: dict) -> float:
 
 
 def train_qwen(smi: str) -> None:
-    """qwen2-1.5b at full width and depth in bf16 with AdamW: 8 steps
+    """qwen2-1.5b at full width and depth in bf16 with AdamW: 6 steps
     under remat "selective" (saved at step 4, resumed into a fresh state,
-    steps 5-8 held to the uninterrupted run), step 1 under "none" and
+    steps 5-6 held to the uninterrupted run), step 1 under "none" and
     "full" held to it, and microbatches 2 against 1."""
     import dataclasses
     from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -4561,11 +4578,14 @@ def train_qwen(smi: str) -> None:
           f"{saved.bytes / TRAIN_STEPS / 1e9:.2f} GB;"
           f" {t_run:.1f} s with the save's host copy, on {smi}",
           flush=True)
+    TRAIN_QWEN_REF.update(cfg=cfg, opt=opt,
+                          batches=batches[:MESH_TRAIN_STEPS],
+                          metrics=m_sel[:MESH_TRAIN_STEPS])
     # steps 2-4 timed: the checkpoint's writer thread shares the host
-    # with steps 5-8
+    # with steps 5-6
     rows["selective"] = (ms_sel[1:TRAIN_SAVE_AT], busy, ms_sel[-1], peak)
 
-    # resume: the step-4 checkpoint into a fresh model, then steps 5-8
+    # resume: the step-4 checkpoint into a fresh model, then steps 5-6
     t0 = time.perf_counter()
     ck.wait()
     fresh = ts.make_train_state(cfg, opt, seed=6, device="cuda")
@@ -5097,7 +5117,6 @@ def mesh_rank(rank: int, work: str) -> None:
     x = np.load(os.path.join(work, "x.npy"), mmap_mode="r")
     # the first fit of a rank loads its libraries: its wall is kept apart
     out["soccer_k25_first"] = one(x, 25, "soccer", epsilon=0.05, delta=0.1)
-    out["soccer_k25"] = one(x, 25, "soccer", epsilon=0.05, delta=0.1)
     comm_mod.MeshCluster._gather = timed_gather
     out["soccer_k25_timed"] = one(x, 25, "soccer", epsilon=0.05, delta=0.1)
     del x
@@ -5335,11 +5354,11 @@ def mesh_phase(api, KERNELS, mesh_ref, per_fit, smi: str) -> None:
             ranks.append(json.load(fh))
     ref_d = mesh_ref["digest"]
     for r, got in enumerate(ranks):
-        fit = got["soccer_k25"]
+        fit = got["soccer_k25_timed"]
         check(fit["backend"] == "mesh" and fit["finite"],
               f"mesh rank {r}: not a finite mesh fit")
         for key in ref_d:
-            for run in ("soccer_k25_first", "soccer_k25", "soccer_k25_timed"):
+            for run in ("soccer_k25_first", "soccer_k25_timed"):
                 check(got[run]["digest"][key] == ref_d[key],
                       f"mesh rank {r}: Table 2 row 1 {key} ({run}) differs "
                       f"from the virtual fit's")
@@ -5418,21 +5437,20 @@ def mesh_phase(api, KERNELS, mesh_ref, per_fit, smi: str) -> None:
           f"{len(rows_of['mesh'])} rows = the virtual run's but for the "
           f"times; rank 0 alone wrote its JSON", flush=True)
     first = [g["soccer_k25_first"]["fit_s"] for g in ranks]
-    fit_s = [g["soccer_k25"]["fit_s"] for g in ranks]
-    calls = [g["soccer_k25"]["wall"] for g in ranks]
+    calls = [g["soccer_k25_timed"]["wall"] for g in ranks]
     timed = [g["soccer_k25_timed"]["fit_s"] for g in ranks]
     coll = [g["soccer_k25_timed"]["collective_s"] for g in ranks]
     print(f"mesh soccer k=25 n={N_POINTS} on {MACHINES} ranks (gloo, one "
-          f"card): = the virtual fit bit for bit on every rank, three fits "
+          f"card): = the virtual fit bit for bit on every rank, two fits "
           f"each (centers, rounds {ref_d['rounds']}, n_hist, uplink, wire "
-          f"bytes); the fit's own wall (shard placement excluded, slowest "
-          f"rank) {max(fit_s):.3f} s (rank 0 {fit_s[0]:.3f} s; a rank's "
-          f"first fit {max(first):.3f} s), virtual {mesh_ref['wall']:.3f} s "
-          f"(table2_phase's fit); with the collectives timed "
-          f"{max(timed):.3f} s, of it {max(coll):.3f} s in collectives "
-          f"(rank 0 {coll[0]:.3f} s); the fit call with each rank's "
-          f"placement of the 10 M points {max(calls):.3f} s; spawn and all "
-          f"fits {spawn_s:.1f} s [{smi}]", flush=True)
+          f"bytes); with the collectives timed, the fit's own wall (shard "
+          f"placement excluded, slowest rank) {max(timed):.3f} s (rank 0 "
+          f"{timed[0]:.3f} s; a rank's first fit {max(first):.3f} s), of it "
+          f"{max(coll):.3f} s in collectives (rank 0 {coll[0]:.3f} s), "
+          f"virtual {mesh_ref['wall']:.3f} s (table2_phase's fit); the fit "
+          f"call with each rank's placement of the 10 M points "
+          f"{max(calls):.3f} s; spawn and all fits {spawn_s:.1f} s [{smi}]",
+          flush=True)
     # the launch CLI on 8 ranks
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
@@ -5460,6 +5478,491 @@ def mesh_phase(api, KERNELS, mesh_ref, per_fit, smi: str) -> None:
     print("mesh NCCL world size 1: float and int8 gathered on the card "
           "with their bits", flush=True)
     shutil.rmtree(work, ignore_errors=True)
+
+
+# ------------------------------------------------- the LM on a device mesh
+
+MESH_MOE_ARCH = "kimi-k2-1t-a32b"
+MESH_MOE_TOKENS = (2, 256)      # (batch, sequence): a batch row a rank
+MESH_MOE_RANKS = 2              # gloo ranks sharing the card, E/2 each
+MESH_MOE_REPS = 3               # timed calls of each one-process path
+MESH_MOE_RANK_REPS = 1          # and of the gloo ranks' (~4 s a call)
+MESH_TRAIN_STEPS = 3            # the mesh driver's steps against train_qwen
+# the driver's sharded step on the card: qwen2-1.5b ("fsdp" policy) at
+# full width, depth cut to MESH_FSDP_LAYERS, float32 (TF32 off), on a
+# (2, 1) mesh of 2 gloo ranks sharing the card: a batch row a rank
+# (train_4k's 4,096 tokens in all), parameters and moments stored as
+# halves and gathered for the step, gradients averaged over the ranks
+MESH_FSDP_LAYERS = 2
+MESH_FSDP_SHAPE = (2, 2_048)    # (batch, sequence)
+MESH_FSDP_STEPS = 2
+MESH_FSDP_RANKS = MESH_MOE_RANKS    # the same spawned ranks
+# (machines, multi_pod) of the cluster dry run: 16 x 16 and 2 x 16 x 16
+CLUSTER_MESHES = ((256, False), (512, True))
+# train_qwen's draws, optimizer and first metrics, which the mesh driver's
+# steps are held to (mesh_lm_phase computes them if train_qwen did not run)
+TRAIN_QWEN_REF: dict = {}
+
+
+def kimi_moe_layer(cfg, experts=None):
+    """kimi-k2's MoE layer at its published widths in its dtype: the
+    float32 router, the shared expert and the experts ``experts`` (default
+    all, in order; expert e is drawn from its own seeds, so a rank draws
+    its own alone), and the (batch, sequence, d) bf16 input."""
+    from types import SimpleNamespace
+    from repro_torch.models.layers import dense_init, torch_dtype
+    dt = torch_dtype(cfg.param_dtype)
+    d, ff, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    sff = ff * cfg.n_shared_experts
+    g = torch.Generator("cuda").manual_seed(41)
+    router = dense_init(g, (d, e), torch.float32)
+    shared = SimpleNamespace(wi_gate=dense_init(g, (d, sff), dt),
+                             wi_up=dense_init(g, (d, sff), dt),
+                             wo=dense_init(g, (sff, d), dt))
+    x = torch.randn(MESH_MOE_TOKENS + (d,), generator=g,
+                    device="cuda").to(dt)
+    idx = list(range(e) if experts is None else experts)
+
+    def stack(kind, shape):
+        out = torch.empty((len(idx),) + shape, dtype=dt, device="cuda")
+        for j, ei in enumerate(idx):
+            ge = torch.Generator("cuda").manual_seed(1_000 * kind + ei)
+            out[j] = dense_init(ge, shape, dt)
+        return out
+
+    p = SimpleNamespace(router=router, shared=shared,
+                        wi_gate=stack(1, (d, ff)), wi_up=stack(2, (d, ff)),
+                        wo=stack(3, (ff, d)))
+    return p, x
+
+
+def moe_ms(fn, reps: int = MESH_MOE_REPS):
+    """(output of the last call, mean host-clock ms a call after one
+    warm-up, each call ending in a synchronize)."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def mesh_moe_rank(rank: int, work: str) -> None:
+    """One gloo rank of the sharded MoE check: its E/2 experts, its batch
+    row, ``moe_apply`` under the (2, 1) mesh; output, ms and its seconds
+    to disk."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding.activations import activation_mesh
+    t0 = time.perf_counter()
+    cfg = get_config(MESH_MOE_ARCH)
+    e_loc = cfg.n_experts // MESH_MOE_RANKS
+    p, x = kimi_moe_layer(cfg, range(rank * e_loc, (rank + 1) * e_loc))
+    rows = MESH_MOE_TOKENS[0] // MESH_MOE_RANKS
+    xl = x[rank * rows:(rank + 1) * rows]
+    cf = cfg.n_experts / cfg.experts_per_token
+    with activation_mesh(build_mesh((MESH_MOE_RANKS, 1))):
+        (out, aux), ms = moe_ms(
+            lambda: moe.moe_apply(p, cfg, xl, capacity_factor=cf),
+            MESH_MOE_RANK_REPS)
+    torch.save({"out": out.cpu(), "aux": float(aux), "ms": ms,
+                "s": time.perf_counter() - t0},
+               os.path.join(work, f"moe{rank}.pt"))
+
+
+def nccl_world_one(work: str) -> None:
+    from repro_torch.launch.mesh import initialize_multi_host
+    initialize_multi_host(num_processes=1, process_id=0, device="cuda",
+                          init_method=f"file://{work}/nccl-store")
+
+
+def mesh_moe_one(work: str) -> dict:
+    """(a), one process: ``moe_apply_sharded`` on kimi-k2's MoE layer at
+    its published widths, bf16, drop-free (capacity factor E/k), against
+    ``_moe_apply_dense`` on the same 512 tokens over NCCL at world size
+    1; returns the dense output (on the host) and readings for
+    ``mesh_moe_verify``, the layer freed."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding.activations import activation_mesh
+    cfg = get_config(MESH_MOE_ARCH)
+    check((cfg.d_model, cfg.n_experts, cfg.d_ff_expert,
+           cfg.experts_per_token, cfg.n_shared_experts,
+           cfg.param_dtype) == (7_168, 384, 2_048, 8, 1, "bfloat16"),
+          f"{MESH_MOE_ARCH} MoE widths: {cfg}")
+    cf = cfg.n_experts / cfg.experts_per_token      # drop-free
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p, x = kimi_moe_layer(cfg)
+    d = cfg.d_model
+    expert_gb = sum(w.numel() * w.element_size()
+                    for w in (p.wi_gate, p.wi_up, p.wo)) / 1e9
+    (want, aux_d), ms_dense = moe_ms(
+        lambda: moe._moe_apply_dense(p, cfg, x, cf))
+    _, _, eidx = moe.route(p, cfg, x.reshape(-1, d))
+    check(not dist.is_initialized(), "a process group is already running")
+    nccl_world_one(work)
+    try:
+        mesh = build_mesh((1, 1))
+        check(dist.get_backend() == "nccl", dist.get_backend())
+        with activation_mesh(mesh):
+            (got1, aux1), ms_one = moe_ms(
+                lambda: moe.moe_apply(p, cfg, x, capacity_factor=cf))
+    finally:
+        dist.destroy_process_group()
+    err1 = lm_rel_err(got1, want)
+    check(err1[1] <= LM_BF16_TOL and abs(float(aux1) - float(aux_d)) <=
+          1e-5 * abs(float(aux_d)),
+          f"sharded MoE (NCCL, world 1): rms_rel {err1[1]:.3g}, aux "
+          f"{float(aux1)!r} vs {float(aux_d)!r}")
+    out = dict(want=want.cpu(), eidx=eidx.cpu(), aux=float(aux_d),
+               err1=err1, aux1=float(aux1), ms_dense=ms_dense, ms_one=ms_one,
+               expert_gb=expert_gb, cf=cf,
+               peak=torch.cuda.max_memory_allocated())
+    # the ranks draw their own experts: the dense layer is freed first
+    del p, x, want, got1, eidx
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_moe_verify(work: str, smi: str, one: dict, spawn_s: float) -> None:
+    """(a), the ranks: the 2 gloo ranks' outputs (192 experts each)
+    against the dense layer, held to LM_BF16_TOL (rms_rel) over the
+    tokens whose top-k agrees."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MESH_MOE_ARCH)
+    d, cf, err1 = cfg.d_model, one["cf"], one["err1"]
+    want_h, eidx_h, aux_d = one["want"], one["eidx"], one["aux"]
+    ranks = [torch.load(os.path.join(work, f"moe{r}.pt"))
+             for r in range(MESH_MOE_RANKS)]
+    got2 = torch.cat([r["out"] for r in ranks])
+    # each rank's routing: the router on its own rows, as it ran
+    p0, x0 = kimi_moe_layer(cfg, experts=())
+    rows = MESH_MOE_TOKENS[0] // MESH_MOE_RANKS
+    e2 = torch.cat([moe.route(p0, cfg, x0[r * rows:(r + 1) * rows]
+                              .reshape(-1, d))[2].cpu()
+                    for r in range(MESH_MOE_RANKS)])
+    agree = (e2.sort(-1).values == eidx_h.sort(-1).values).all(-1)
+    del p0, x0
+    flat_g, flat_w = got2.reshape(-1, d), want_h.reshape(-1, d)
+    err2 = lm_rel_err(flat_g[agree], flat_w[agree])
+    aux2 = [r["aux"] for r in ranks]
+    check(float(agree.float().mean()) >= 0.99 and err2[1] <= LM_BF16_TOL
+          and all(abs(a - aux_d) <= 1e-5 * abs(aux_d) for a in aux2),
+          f"sharded MoE (2 gloo ranks): rms_rel {err2[1]:.3g} over "
+          f"{int(agree.sum())} agreeing tokens of {agree.numel()}, aux "
+          f"{aux2} vs {aux_d!r}")
+    t = MESH_MOE_TOKENS[0] * MESH_MOE_TOKENS[1]
+    print(f"mesh moe {MESH_MOE_ARCH} layer (d {d}, {cfg.n_experts} experts "
+          f"x ff {cfg.d_ff_expert}, top-{cfg.experts_per_token}, a shared "
+          f"expert; bf16, experts {one['expert_gb']:.1f} GB), {t} tokens, "
+          f"capacity "
+          f"factor {cf:g} (drop-free) on {smi}: _moe_apply_dense "
+          f"{one['ms_dense']:.2f} ms; moe_apply_sharded NCCL world 1 "
+          f"{one['ms_one']:.2f} ms, rms_rel {err1[1]:.3g} max_rel "
+          f"{err1[0]:.3g}; "
+          f"2 gloo ranks sharing the card (192 experts each, all_to_all "
+          f"staged through the host) {max(r['ms'] for r in ranks):.2f} ms "
+          f"a call (slowest rank, host clock), rms_rel {err2[1]:.3g} "
+          f"max_rel {err2[0]:.3g} over {int(agree.sum())}/{agree.numel()} "
+          f"tokens whose top-k agrees (tol {LM_BF16_TOL} rms_rel), aux "
+          f"{aux2} vs {aux_d!r}; the ranks' MoE part "
+          f"{max(r['s'] for r in ranks):.1f} s of the shared ranks' wall "
+          f"{spawn_s:.1f} s; peak {one['peak'] / 1e9:.1f} GB (dense layer "
+          f"and both paths)", flush=True)
+
+
+def qwen_train_reference():
+    """train_qwen's draws and optimizer, and make_train_step's metrics of
+    its first MESH_TRAIN_STEPS steps from make_train_state(seed=5)."""
+    if TRAIN_QWEN_REF:
+        return TRAIN_QWEN_REF
+    from repro_torch.configs import get_config
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as ts
+    cfg = get_config(TRAIN_ARCH)
+    opt = topt.OptConfig(name=cfg.optimizer, decay_steps=TRAIN_STEPS,
+                         **TRAIN_OPT)
+    stream = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [next(stream) for _ in range(MESH_TRAIN_STEPS)]
+    state, metrics, _, _, _ = train_run(ts, cfg, opt, batches,
+                                        MESH_TRAIN_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    TRAIN_QWEN_REF.update(cfg=cfg, opt=opt, batches=batches,
+                          metrics=metrics)
+    return TRAIN_QWEN_REF
+
+
+def mesh_train_check(work: str, smi: str) -> None:
+    """(b) the mesh train driver (``launch.train.train``) on qwen2-1.5b at
+    full width (28 layers, bf16, AdamW, remat selective), 1 × 4,096 as
+    train_qwen, on a (1, 1) mesh over NCCL, from the same seed and draws:
+    its metrics equal train_qwen's make_train_step metrics bit for bit,
+    or else within the float32 gates (nll rel TRAIN_MB_NLL_RTOL, grad
+    norm rel TRAIN_MB_F32_GNORM_RTOL)."""
+    import torch.distributed as dist
+    from repro_torch.launch.train import train
+    ref_run = qwen_train_reference()
+    cfg, want = ref_run["cfg"], ref_run["metrics"][:MESH_TRAIN_STEPS]
+    check(cfg.n_layers == 28 and cfg.param_dtype == "bfloat16",
+          f"{TRAIN_ARCH}: {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    nccl_world_one(work)
+    ms = []
+    try:
+        t_last = [time.perf_counter()]
+
+        def tick(step, m):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            ms.append((now - t_last[0]) * 1e3)
+            t_last[0] = now
+
+        got = train(cfg, steps=MESH_TRAIN_STEPS, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, mesh_shape="1,1", ckpt_every=10**9,
+                    ckpt_dir=os.path.join(work, "mesh-train-ckpt"),
+                    device="cuda", seed=5, opt=ref_run["opt"],
+                    batches=ref_run["batches"], log=lambda s: None,
+                    on_step=tick)
+    finally:
+        dist.destroy_process_group()
+    peak = torch.cuda.max_memory_allocated()
+    same = all(g[k] == w[k] for g, w in zip(got, want)
+               for k in ("loss", "nll", "grad_norm"))
+    verdict = "bit for bit"
+    if not same:
+        e_nll = max(abs(g["nll"] - w["nll"]) / abs(w["nll"])
+                    for g, w in zip(got, want))
+        e_g = max(abs(g["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+                  for g, w in zip(got, want))
+        check(e_nll <= TRAIN_MB_NLL_RTOL and e_g <= TRAIN_MB_F32_GNORM_RTOL,
+              f"mesh driver vs make_train_step: nll rel {e_nll:.3g}, "
+              f"grad_norm rel {e_g:.3g}")
+        verdict = f"NOT bit for bit: nll rel {e_nll:.3g}, grad_norm rel " \
+            f"{e_g:.3g} (gates {TRAIN_MB_NLL_RTOL}, " \
+            f"{TRAIN_MB_F32_GNORM_RTOL})"
+    step_ms = float(np.median(ms[1:])) if len(ms) > 1 else ms[0]
+    print(f"mesh train {TRAIN_ARCH} (launch.train.train, mesh 1,1 over "
+          f"NCCL, bf16, {TRAIN_BATCH} x {TRAIN_SEQ}) {MESH_TRAIN_STEPS} "
+          f"steps from make_train_state(seed=5) on train_qwen's draws: "
+          f"loss {[m['loss'] for m in got]}, grad_norm "
+          f"{[m['grad_norm'] for m in got]}; equal make_train_step's "
+          f"{verdict}; {step_ms:.1f} ms a step (median of steps 2-"
+          f"{MESH_TRAIN_STEPS}, host clock with the gathers and shards), "
+          f"peak {peak / 1e9:.2f} GB on {smi}", flush=True)
+
+
+def mesh_fsdp_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=MESH_FSDP_LAYERS,
+                               param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def mesh_fsdp_rank(rank: int, work: str, opt, batches) -> None:
+    """One gloo rank of the sharded train check: ``launch.train.train``
+    on the (2, 1) mesh; its metrics, per-step ms, seconds and peak to
+    disk."""
+    from repro_torch.launch.train import train
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    ms, t_last = [], [time.perf_counter()]
+
+    def tick(step, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        ms.append((now - t_last[0]) * 1e3)
+        t_last[0] = now
+
+    got = train(mesh_fsdp_cfg(), steps=MESH_FSDP_STEPS,
+                batch=MESH_FSDP_SHAPE[0], seq=MESH_FSDP_SHAPE[1],
+                mesh_shape=f"{MESH_FSDP_RANKS},1", ckpt_every=10**9,
+                ckpt_dir=os.path.join(work, "fsdp-ckpt"), device="cuda",
+                seed=5, opt=opt, batches=batches, log=lambda s: None,
+                on_step=tick)
+    torch.save({"metrics": got, "ms": ms, "s": time.perf_counter() - t0,
+                "peak": torch.cuda.max_memory_allocated()},
+               os.path.join(work, f"fsdp{rank}.pt"))
+
+
+def mesh_lm_rank(rank: int, work: str, opt, batches) -> None:
+    """A gloo rank of (a) and then of (b, sharded): one spawn for both."""
+    mesh_moe_rank(rank, work)
+    torch.cuda.empty_cache()
+    mesh_fsdp_rank(rank, work, opt, batches)
+
+
+def mesh_fsdp_one() -> dict:
+    """(b, sharded), one process: make_train_step's metrics on the
+    sharded check's draws (TF32 off), and the draws and optimizer."""
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as ts
+    cfg = mesh_fsdp_cfg()
+    check(cfg.d_model == 1_536 and cfg.d_ff == 8_960 and
+          cfg.vocab_size == 151_936, f"{TRAIN_ARCH} widths: {cfg}")
+    opt = topt.OptConfig(name=cfg.optimizer, decay_steps=TRAIN_STEPS,
+                         **TRAIN_OPT)
+    stream = train_batches(cfg, *MESH_FSDP_SHAPE, seed=2)
+    batches = [next(stream) for _ in range(MESH_FSDP_STEPS)]
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        state, want, ms, _, peak = train_run(ts, cfg, opt, batches,
+                                             MESH_FSDP_STEPS)
+    finally:
+        matmul.allow_tf32 = saved
+    del state
+    torch.cuda.empty_cache()
+    return dict(opt=opt, want=want, ms=ms, peak=peak,
+                batches=[{k: v.cpu() for k, v in b.items()}
+                         for b in batches])
+
+
+def mesh_fsdp_verify(work: str, smi: str, one: dict, spawn_s: float) -> None:
+    """(b, sharded) the mesh driver's own step on the card: qwen2-1.5b at
+    full width, MESH_FSDP_LAYERS layers, float32 with TF32 off, on 2 gloo
+    ranks sharing the card at (2, 1) (``shard``, the bucketed
+    ``unshard_all`` gathers and the gradient average all run), against
+    one process's make_train_step on the same global batches from the
+    same seed: each step's nll within TRAIN_MB_NLL_RTOL and grad norm
+    within TRAIN_MB_F32_GNORM_RTOL (the two differ by summation order
+    only), and both ranks report the same averaged metrics."""
+    from repro_torch.configs import get_config
+    want = one["want"]
+    ranks = [torch.load(os.path.join(work, f"fsdp{r}.pt"))
+             for r in range(MESH_FSDP_RANKS)]
+    got = ranks[0]["metrics"]
+    check(all(r["metrics"] == got for r in ranks),
+          f"the ranks' averaged metrics differ: "
+          f"{[r['metrics'] for r in ranks]}")
+    check(len(got) == MESH_FSDP_STEPS, f"{len(got)} sharded steps")
+    e_nll = max(abs(g["nll"] - w["nll"]) / abs(w["nll"])
+                for g, w in zip(got, want))
+    e_g = max(abs(g["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+              for g, w in zip(got, want))
+    check(e_nll <= TRAIN_MB_NLL_RTOL and e_g <= TRAIN_MB_F32_GNORM_RTOL,
+          f"sharded mesh driver vs make_train_step: nll rel {e_nll:.3g}, "
+          f"grad_norm rel {e_g:.3g}")
+    step_ms = [max(r["ms"][i] for r in ranks) for i in range(len(got))]
+    print(f"mesh train {TRAIN_ARCH} sharded (launch.train.train, mesh "
+          f"{MESH_FSDP_RANKS},1 over gloo, {MESH_FSDP_RANKS} ranks sharing "
+          f"the card; full width, {MESH_FSDP_LAYERS} of "
+          f"{get_config(TRAIN_ARCH).n_layers} layers, float32, TF32 off, "
+          f"{MESH_FSDP_SHAPE[0]} x {MESH_FSDP_SHAPE[1]}, a row a rank) "
+          f"{MESH_FSDP_STEPS} steps from make_train_state(seed=5): loss "
+          f"{[m['loss'] for m in got]} vs one process "
+          f"{[m['loss'] for m in want]}, grad_norm "
+          f"{[m['grad_norm'] for m in got]} vs "
+          f"{[m['grad_norm'] for m in want]}; nll rel {e_nll:.3g} (tol "
+          f"{TRAIN_MB_NLL_RTOL}), grad_norm rel {e_g:.3g} (tol "
+          f"{TRAIN_MB_F32_GNORM_RTOL}); steps "
+          f"{[round(t, 1) for t in step_ms]} ms (slowest rank, host "
+          f"clock, the gathers, the gradient all-reduce and the shards "
+          f"staged through the host) vs one process "
+          f"{[round(t, 1) for t in one['ms']]} ms; peak "
+          f"{max(r['peak'] for r in ranks) / 1e9:.2f} GB a rank vs "
+          f"{one['peak'] / 1e9:.2f} GB; the ranks' train part "
+          f"{max(r['s'] for r in ranks):.1f} s of the shared ranks' wall "
+          f"{spawn_s:.1f} s on {smi}", flush=True)
+
+
+def mesh_lm_phase(smi: str) -> None:
+    """(a) and (b): the expert-parallel MoE and the mesh train driver;
+    the gloo ranks of (a) and of (b, sharded) are one spawn."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_local
+    work = tempfile.mkdtemp(prefix="mesh-lm-", dir=os.path.join(ROOT,
+                                                                "build"))
+    try:
+        moe_one = mesh_moe_one(work)
+        fsdp_one = mesh_fsdp_one()
+        t0 = time.perf_counter()
+        spawn_local(mesh_lm_rank, MESH_MOE_RANKS,
+                    (work, fsdp_one["opt"], fsdp_one["batches"]),
+                    device="cuda", build_kernels=False)
+        spawn_s = time.perf_counter() - t0
+        mesh_moe_verify(work, smi, moe_one, spawn_s)
+        mesh_fsdp_verify(work, smi, fsdp_one, spawn_s)
+        mesh_train_check(work, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def cluster_dryrun_phase(ops, ref, smi: str) -> None:
+    """(c) ``launch.cluster_dryrun`` at 256 and 512 machines in both
+    coordinator modes (n = 10.24 M, d = 15, k = 100, ε = 0.1), every
+    kernel call of the fit held to its plain version (``KernelsAs``
+    "shadow", under the dry run's own recorder): the fit's per-round wire
+    bytes sum exactly to its ``wire_bytes_total``, each round's uplink ≤
+    2·η + m, and the first round's terms."""
+    from repro_torch.configs.soccer_paper import GaussianMixtureSpec
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.launch import cluster_dryrun
+    n, d, k = 10_240_000, 15, 100
+    x, _, _ = gaussian_mixture(GaussianMixtureSpec(n=n, dim=d, k=k,
+                                                   seed=17))
+    for m, multi in CLUSTER_MESHES:
+        for mode in ("gather", "sharded"):
+            t0 = time.perf_counter()
+            with KernelsAs(ops, ref, "shadow") as ka:
+                rec = cluster_dryrun.run(mode, multi, machines=m,
+                                         device="cuda", save=False, x=x)
+            wall = time.perf_counter() - t0
+            what = f"cluster_dryrun {mode} m={m}"
+            check(sum(rec["wire_bytes_by_round"]) == rec["wire_bytes_total"],
+                  f"{what}: per-round wire bytes {rec['wire_bytes_by_round']}"
+                  f" do not sum to {rec['wire_bytes_total']}")
+            eta = rec["const"]["eta"]
+            ups = rec["uplink_points_by_round"][:rec["rounds"]]
+            check(rec["rounds"] >= 1 and all(u <= 2 * eta + m for u in ups),
+                  f"{what}: rounds {rec['rounds']}, uplink {ups} vs 2*eta+m "
+                  f"{2 * eta + m}")
+            calls = rec["kernel_calls_round1"]
+            check(all(ka.checked[name] >= calls.get(name, 0) > 0 for name in
+                      ("min_dist", "remove_below", "fused_assign_reduce",
+                       "kmeans_plusplus_indices")),
+                  f"{what}: the shadow held {ka.checked}, round 1 called "
+                  f"{calls}")
+            r = rec["roofline"]
+            print(f"{what} (n {n}, d {d}, k {k}, eps 0.1, virtual backend) "
+                  f"on {smi}: rounds {rec['rounds']}, eta {eta}, k_plus "
+                  f"{rec['const']['k_plus']}, wire bytes by round "
+                  f"{rec['wire_bytes_by_round']} = {rec['wire_bytes_total']}"
+                  f", uplink {ups}; round 1 on the coordinator: "
+                  f"{r['flops_per_dev']:.6g} FLOP, {r['hbm_bytes_per_dev']:.6g}"
+                  f" B, wire {r['coll_bytes_per_dev']:.6g} B -> t_compute "
+                  f"{r['t_compute_s']:.4g} s, t_memory {r['t_memory_s']:.4g} "
+                  f"s, t_collective {r['t_collective_s']:.4g} s (datasheet "
+                  f"peaks), bottleneck {r['bottleneck']}, soccer_model_flops "
+                  f"{rec['soccer_model_flops']:.6g}; kernel calls round 1 "
+                  f"{calls}; every call of the fit held to its plain version "
+                  f"{ka.checked}; {wall:.1f} s", flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+
+def peaks_phase(smi: str) -> None:
+    """(d) ``roofline.hw.measured_peaks()`` beside the datasheet."""
+    from repro_torch.roofline import hw
+    pk = hw.measured_peaks()
+    print(f"measured peaks on {smi} ({pk.backend}): bf16 matmul 8192^3 "
+          f"{pk.flops / 1e12:.1f} TFLOP/s ({pk.flops / hw.PEAK_FLOPS_BF16:.3f}"
+          f" of the datasheet's {hw.PEAK_FLOPS_BF16 / 1e12:.0f}), copy of "
+          f"1 GiB float32 {pk.mem_bw / 1e12:.3f} TB/s "
+          f"({pk.mem_bw / hw.HBM_BW:.3f} of {hw.HBM_BW / 1e12:.2f})",
+          flush=True)
 
 
 PHASE_SECONDS = {}
@@ -5549,6 +6052,9 @@ def main() -> None:
                 smi_line)
     timed_phase(mesh_phase, api, ops.KERNELS, mesh_ref, per_fit,
                 smi_line)
+    timed_phase(mesh_lm_phase, smi_line)
+    timed_phase(cluster_dryrun_phase, ops, ref, smi_line)
+    timed_phase(peaks_phase, smi_line)
 
     print("phase seconds: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in PHASE_SECONDS.items()) +
@@ -5608,6 +6114,26 @@ def lm_main() -> None:
     print(json.dumps({"rows": rows, "per_fit": per_fit}), flush=True)
 
 
+def mesh_lm_main() -> None:
+    """``--mesh-lm``: build the kernels, then run only this slice's
+    phases (mesh_lm_phase computes train_qwen's first steps itself)."""
+    check(torch.cuda.is_available(), "needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"device: {smi_line}", flush=True)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build, ops, ref
+    print(f"build: {build.build_all():.2f} s", flush=True)
+    timed_phase(mesh_lm_phase, smi_line)
+    timed_phase(cluster_dryrun_phase, ops, ref, smi_line)
+    timed_phase(peaks_phase, smi_line)
+    print("phase seconds: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in PHASE_SECONDS.items()),
+        flush=True)
+
+
 def train_main() -> None:
     """``--train``: run only ``train_phase`` (it reaches no kernel of
     ours, so nothing is built)."""
@@ -5626,6 +6152,8 @@ if __name__ == "__main__":
         lm_main()
     elif sys.argv[1:2] == ["--train"]:
         train_main()
+    elif sys.argv[1:2] == ["--mesh-lm"]:
+        mesh_lm_main()
     elif sys.argv[1:2] == ["--stream-resume"]:
         stream_resume_main(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--scenario-seeds"]:

@@ -23,7 +23,8 @@ puts the leaf there whole; a mark (``api.backends.MACHINE`` or
 ``REPLICATED``) places it through a backend's ``put``: a ``MeshBackend``
 when a process group is initialized, so each rank takes its own
 machine's row of a ``MACHINE`` leaf, else the virtual backend, which
-keeps the leaf whole.
+keeps the leaf whole; a function places the leaf as it returns it
+(``launch/train.py`` takes each rank's shard so).
 """
 from __future__ import annotations
 
@@ -102,6 +103,8 @@ def _place_tree(tree: Any, shardings: Any) -> Any:
         spec = shardings
         for key in path.split("/") if path else ():
             spec = spec[key] if isinstance(spec, dict) else spec[int(key)]
+        if callable(spec):
+            return spec(leaf)
         if isinstance(spec, str) and spec in marks:
             return backend.put(leaf, spec)
         if isinstance(leaf, torch.Tensor):

@@ -12,6 +12,14 @@ a process group at import. The process-group backend follows one rule
 A failure to initialize raises; it never switches to the other backend.
 Every group is created with an explicit timeout, so a rank that stops
 answering fails the others instead of hanging them.
+
+The LM's device meshes (``make_production_mesh``, ``make_test_mesh``,
+``fsdp_axes``) are ``torch.distributed.device_mesh.DeviceMesh``es with the
+reference's axis names: ("data", "model") at 16 × 16, ("pod", "data",
+"model") at 2 × 16 × 16. A mesh needs a process group of its size: a
+real one (``spawn_local``) or, for the dry runs, the fake backend
+(``fake_process_group``), in which this process is rank 0 of a world
+that exists only as shapes.
 """
 from __future__ import annotations
 
@@ -98,6 +106,80 @@ def machine_mesh(m: Optional[int] = None):
     return dist.group.WORLD
 
 
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def mesh_names(shape: Sequence[int]) -> tuple:
+    """The reference's axis names for a mesh of 1, 2 or 3 dims."""
+    if len(shape) == 3:
+        return ("pod", "data", "model")
+    return ("data", "model")[:len(shape)]
+
+
+def build_mesh(shape: Sequence[int], names: Optional[Sequence[str]] = None,
+               device_type: Optional[str] = None):
+    """A ``DeviceMesh`` of ``shape`` over the initialized process group
+    (whose world size must be the mesh's size), named ``names`` (default
+    ``mesh_names(shape)``). ``device_type`` defaults to "cuda" when the
+    group runs NCCL, else "cpu"."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise ValueError("a device mesh needs an initialized process group")
+    shape = tuple(int(s) for s in shape)
+    names = tuple(names) if names is not None else mesh_names(shape)
+    size = 1
+    for s in shape:
+        size *= s
+    if size != dist.get_world_size():
+        raise ValueError(f"mesh {shape} needs {size} ranks, the group has "
+                         f"{dist.get_world_size()}")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def fake_process_group(world_size: int, rank: int = 0) -> None:
+    """Start the fake backend's group of ``world_size`` ranks, this
+    process being ``rank``: collectives return at once and move nothing,
+    so a step can be traced at a production mesh's size on one host. A
+    fake group of another size is replaced; a real group raises."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise ValueError(f"a {dist.get_backend()} group of "
+                             f"{dist.get_world_size()} ranks is running")
+        if dist.get_world_size() == world_size:
+            return
+        dist.destroy_process_group()
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", rank=rank, world_size=world_size,
+                            store=FakeStore())
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The 16 × 16 ("data", "model") mesh, or 2 × 16 × 16 ("pod",
+    "data", "model") with ``multi_pod``. Starts the fake backend's group
+    of 256 or 512 ranks when no group is running."""
+    shape, names = PRODUCTION_SHAPES[bool(multi_pod)]
+    size = 1
+    for s in shape:
+        size *= s
+    fake_process_group(size)
+    return build_mesh(shape, names, device_type="cpu")
+
+
+def make_test_mesh(n_data: int = 1, n_model: int = 1):
+    """An (n_data, n_model) ("data", "model") mesh over the running
+    process group."""
+    return build_mesh((n_data, n_model), ("data", "model"))
+
+
+def fsdp_axes(mesh) -> tuple:
+    return tuple(a for a in mesh.mesh_dim_names if a != "model")
+
+
 def _rank_main(rank: int, fn: Callable, nprocs: int, device: str,
                store: str, timeout_s: float, args: Sequence[Any]) -> None:
     import torch
@@ -115,14 +197,16 @@ def _rank_main(rank: int, fn: Callable, nprocs: int, device: str,
 
 def spawn_local(fn: Callable, nprocs: int, args: Sequence[Any] = (), *,
                 device: str = "cuda", store_dir: Optional[str] = None,
-                timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+                timeout_s: float = DEFAULT_TIMEOUT_S,
+                build_kernels: bool = True) -> None:
     """Run ``fn(rank, *args)`` on ``nprocs`` local ranks of one group
     (start method ``spawn``, a ``file://`` store under ``store_dir``,
     default a new temporary directory). ``fn`` must be importable by
     name. On the card the kernels are built here, once, before the ranks
-    start; a rank that fails fails the call."""
+    start (unless ``build_kernels`` is false: the LM reaches none); a
+    rank that fails fails the call."""
     import torch.multiprocessing as mp
-    if str(device).startswith("cuda"):
+    if str(device).startswith("cuda") and build_kernels:
         from repro_torch.kernels.build import build_all
         build_all()
     d = tempfile.mkdtemp(prefix="mesh-", dir=store_dir)

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.activations import from_model, to_model, tp_mlp
+
 
 def torch_dtype(name: str) -> torch.dtype:
     """A config's dtype name ("bfloat16", "float32") as a torch dtype."""
@@ -126,12 +128,21 @@ def _act(cfg, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh") if cfg.act == "gelu" else F.silu(x)
 
 
-def mlp_apply(p: MLP, cfg, x: torch.Tensor) -> torch.Tensor:
+def _mlp(p, cfg, x: torch.Tensor) -> torch.Tensor:
     # weights cast to the compute dtype; the activation's dtype pinned
     # after ``act``, as the reference pins jax.nn.gelu's float32 promotion
     h = _act(cfg, x @ p.wi_gate.to(x.dtype)).to(x.dtype) * \
         (x @ p.wi_up.to(x.dtype))
     return (h @ p.wo.to(x.dtype)).to(x.dtype)
+
+
+def mlp_apply(p: MLP, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The gated MLP; on a mesh whose "model" axis splits ``d_ff``, this
+    rank's columns and one all-reduce (``sharding.activations``)."""
+    tp = tp_mlp(p)
+    if tp is None:
+        return _mlp(p, cfg, x)
+    return from_model(_mlp(tp, cfg, to_model(x, tp.group)), tp.group)
 
 
 # ----------------------------------------------------------------- embeddings

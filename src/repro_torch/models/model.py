@@ -37,10 +37,15 @@ is not rematerialized, as in the reference), and whisper's encoder
 layers by ``cfg.remat``. ``lm_prefill`` and ``lm_decode_step`` run
 under ``torch.no_grad()``: serving builds no graph.
 
-The reference's ``sharding.activations.shard_bsd`` / ``shard_logits``
-constrain activations only under a device mesh and are no-ops without
-one; the port leaves those calls out (``sharding/`` comes with the
-dry-run slice, ROADMAP Queue 1 item 19d).
+On a device mesh (``sharding.activations.activation_mesh``) each rank
+runs these functions on its own slice of the batch, so the reference's
+``shard_bsd`` / ``shard_logits`` anchors have no counterpart here; the
+training forward's self-attention (``self_block_fwd`` without
+``return_kv``) and every gated MLP take their tensor-parallel split
+from ``sharding.activations`` (``tp_attention``, ``layers.mlp_apply``),
+and the MoE layer dispatches to ``models/moe_sharded.py``. Prefill and
+decode keep every KV head in their caches, so their attention runs
+whole on every model rank. Without a mesh nothing changes.
 """
 from __future__ import annotations
 
@@ -58,6 +63,8 @@ from repro_torch.models.layers import (MLP, Norm, embed_apply,
                                        init_embedding, init_lm_head,
                                        mlp_apply, norm_apply, sinusoid,
                                        torch_dtype, unembed_apply)
+from repro_torch.sharding.activations import (from_model, to_model,
+                                              tp_attention)
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 
@@ -114,13 +121,22 @@ def _ffn_part(p, cfg, x):
 def self_block_fwd(p: SelfBlock, cfg, x, positions, *, causal=True,
                    window=None, return_kv=False):
     h = norm_apply(p.ln1, cfg, x)
-    q, k, v = attn.qkv_project(p.attn, cfg, h, q_positions=positions,
+    # this model rank's heads on a mesh that splits them (never when the
+    # caller keeps the k/v: a cache holds every head)
+    tp = None if return_kv else tp_attention(p.attn, cfg)
+    pa = p.attn if tp is None else tp
+    if tp is not None:
+        h = to_model(h, tp.group)
+    q, k, v = attn.qkv_project(pa, cfg, h, q_positions=positions,
                                kv_positions=positions)
     o = attn.attention_core(q, k, v, q_pos=positions, kv_pos=positions,
                             causal=causal,
                             window=cfg.window if window is None else window,
                             contiguous_kv=True)
-    x = x + attn.out_project(p.attn, o)
+    o = attn.out_project(pa, o)
+    if tp is not None:
+        o = from_model(o, tp.group)
+    x = x + o
     x, aux = _ffn_part(p, cfg, x)
     if return_kv:
         return x, aux, (k, v)

@@ -11,11 +11,11 @@ reference's ``mode="drop"`` scatter and its appended zero row do, so its
 contribution is zero. The sort is stable, so the same slots drop as in
 the reference.
 
-The reference dispatches through ``moe_sharded.moe_apply_sharded`` (a
-manual ``shard_map`` with two ``all_to_all``s) only when an activation
-mesh is installed (``sharding.activations.current_mesh()``), and its
-``shard_moe_grouped`` constrains the grouped buffer only under such a
-mesh; both come with ``sharding/`` (ROADMAP Queue 1 item 19d).
+``moe_apply`` dispatches, as the reference does, to
+``moe_sharded.moe_apply_sharded`` (collectives on local tensors, two
+``all_to_all``s) when an activation mesh is installed
+(``sharding.activations.current_mesh()``), else to ``_moe_apply_dense``,
+the one-device path.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import _act, dense_init, torch_dtype
+from repro_torch.sharding.activations import current_mesh
 
 
 class SharedExpert(nn.Module):
@@ -89,11 +90,61 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, *,
               capacity_factor: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux load-balancing loss)."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.experts_per_token
-    t = b * s
     cf = cfg.moe_capacity_factor if capacity_factor is None \
         else capacity_factor
+    if current_mesh()[0] is not None:
+        from repro_torch.models.moe_sharded import moe_apply_sharded
+        return moe_apply_sharded(p, cfg, x, capacity_factor=cf)
+    return _moe_apply_dense(p, cfg, x, cf)
+
+
+def group_tokens(xf: torch.Tensor, eidx: torch.Tensor, n_experts: int,
+                 cap: int):
+    """The (T, d) tokens in the (E, C, d) capacity buffer by their (T, k)
+    experts (``dispatch``), and each flat slot's row there
+    (``dest_by_flat``: E·C for a dropped slot)."""
+    d, k = xf.shape[1], eidx.shape[1]
+    order, dest = dispatch(eidx, n_experts, cap)
+    src_tok = torch.div(order, k, rounding_mode="floor")
+    grouped = torch.zeros((n_experts * cap + 1, d), dtype=xf.dtype,
+                          device=xf.device)
+    grouped[dest] = xf[src_tok]
+    dest_by_flat = torch.empty_like(dest)
+    dest_by_flat[order] = dest
+    return grouped[:n_experts * cap].reshape(n_experts, cap, d), dest_by_flat
+
+
+def combine(yg: torch.Tensor, dest_by_flat: torch.Tensor,
+            gates: torch.Tensor) -> torch.Tensor:
+    """Each flat slot's expert output from the (E·C, d) outputs (zero if
+    dropped), weighted by its gate and summed over the k slots of a
+    token: (T, d)."""
+    (t, k), d = gates.shape, yg.shape[1]
+    contrib = torch.cat([yg, yg.new_zeros((1, d))])[dest_by_flat]
+    return torch.sum(contrib.reshape(t, k, d) *
+                     gates.to(yg.dtype)[..., None], dim=1)
+
+
+def expert_ffn(p, cfg, grouped: torch.Tensor) -> torch.Tensor:
+    """The experts' gated FFNs over an (E, C, d) grouped buffer."""
+    dt = grouped.dtype
+    h = _act(cfg, torch.bmm(grouped, p.wi_gate.to(dt))).to(dt)
+    h = h * torch.bmm(grouped, p.wi_up.to(dt))
+    return torch.bmm(h, p.wo.to(dt))
+
+
+def shared_ffn(sp, cfg, xf: torch.Tensor) -> torch.Tensor:
+    """The shared expert over (T, d) tokens."""
+    dt = xf.dtype
+    hs = _act(cfg, xf @ sp.wi_gate.to(dt)).to(dt) * (xf @ sp.wi_up.to(dt))
+    return hs @ sp.wo.to(dt)
+
+
+def _moe_apply_dense(p: MoE, cfg, x: torch.Tensor, capacity_factor: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, s, d = x.shape
+    e = cfg.n_experts
+    t = b * s
     xf = x.reshape(t, d)
     probs, gates, eidx = route(p, cfg, xf)
 
@@ -103,28 +154,11 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, *,
     aux = e * torch.sum(disp.mean(0) * me)
 
     # sort-based capacity-grouped dispatch
-    cap = capacity(cfg, t, cf)
-    order, dest = dispatch(eidx, e, cap)
-    src_tok = torch.div(order, k, rounding_mode="floor")
-    grouped = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    grouped[dest] = xf[src_tok]
-    grouped = grouped[:e * cap].reshape(e, cap, d)
-
-    h = _act(cfg, torch.bmm(grouped, p.wi_gate.to(x.dtype))).to(x.dtype)
-    h = h * torch.bmm(grouped, p.wi_up.to(x.dtype))
-    yg = torch.bmm(h, p.wo.to(x.dtype)).reshape(e * cap, d)
-
-    # combine: each flat slot's expert output (zero if dropped), weighted
-    # by its gate
-    dest_by_flat = torch.empty_like(dest)
-    dest_by_flat[order] = dest
-    contrib = torch.cat([yg, yg.new_zeros((1, d))])[dest_by_flat]
-    out = torch.sum(contrib.reshape(t, k, d) * gates.to(x.dtype)[..., None],
-                    dim=1)
+    cap = capacity(cfg, t, capacity_factor)
+    grouped, dest_by_flat = group_tokens(xf, eidx, e, cap)
+    yg = expert_ffn(p, cfg, grouped).reshape(e * cap, d)
+    out = combine(yg, dest_by_flat, gates)
 
     if p.shared is not None:
-        sp = p.shared
-        hs = _act(cfg, xf @ sp.wi_gate.to(x.dtype)).to(x.dtype) * (
-            xf @ sp.wi_up.to(x.dtype))
-        out = out + hs @ sp.wo.to(x.dtype)
+        out = out + shared_ffn(p.shared, cfg, xf)
     return out.reshape(b, s, d), aux

@@ -58,12 +58,15 @@ def _grads(model, cfg, tokens, targets, frontend):
     return {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(cfg, opt: Optional[OptConfig] = None):
+def make_train_step(cfg, opt: Optional[OptConfig] = None, *,
+                    grad_hook=None):
     """``train_step(state, batch)``; ``batch`` holds ``tokens`` and
     ``targets`` (B, S) and, for the vlm and audio families, ``frontend``
     (B, T, d). Metrics: the loss's (``nll``, ``z_loss``, ``accuracy``,
     ``tokens``), ``aux``, the total ``loss``, ``grad_norm`` and ``lr``,
-    0-d tensors on the model's device."""
+    0-d tensors on the model's device. ``grad_hook(metrics, grads) ->
+    (metrics, grads)`` runs between the gradients and the update (the
+    mesh driver averages both over its batch ranks there)."""
     opt = opt or OptConfig(name=cfg.optimizer)
     nmb = max(cfg.microbatches, 1)
 
@@ -96,6 +99,8 @@ def make_train_step(cfg, opt: Optional[OptConfig] = None):
                 for k in METRICS:
                     metrics[k] = metrics[k] + m[k] / nmb
                 del g
+        if grad_hook is not None:
+            metrics, grads = grad_hook(metrics, grads)
         new_opt, opt_metrics = apply_updates(model, grads, state["opt"], opt,
                                              state["step"])
         metrics = dict(metrics, **opt_metrics)

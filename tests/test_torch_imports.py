@@ -89,7 +89,17 @@ def test_port_has_its_modules():
                 "repro_torch/train/__init__.py",
                 "repro_torch/train/loss.py",
                 "repro_torch/train/optimizer.py",
-                "repro_torch/train/train_step.py"):
+                "repro_torch/train/train_step.py",
+                "repro_torch/sharding/partition.py",
+                "repro_torch/sharding/activations.py",
+                "repro_torch/models/moe_sharded.py",
+                "repro_torch/launch/input_specs.py",
+                "repro_torch/launch/train.py",
+                "repro_torch/launch/dryrun.py",
+                "repro_torch/launch/cluster_dryrun.py",
+                "repro_torch/roofline/hw.py",
+                "repro_torch/roofline/analysis.py",
+                "repro_torch/roofline/op_stats.py"):
         assert mod in names
     examples = {p.name for p in FILES if p.parent.name == "examples"}
     assert examples == {"quickstart_torch.py",
@@ -112,7 +122,13 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.mesh, repro_torch.configs, "
             "repro_torch.models.model, repro_torch.models.convert, "
             "repro_torch.serve.decode, repro_torch.train.loss, "
-            "repro_torch.train.optimizer, repro_torch.train.train_step; "
+            "repro_torch.train.optimizer, repro_torch.train.train_step, "
+            "repro_torch.sharding.partition, "
+            "repro_torch.sharding.activations, "
+            "repro_torch.models.moe_sharded, repro_torch.launch.input_specs, "
+            "repro_torch.launch.train, repro_torch.launch.dryrun, "
+            "repro_torch.launch.cluster_dryrun, repro_torch.roofline.hw, "
+            "repro_torch.roofline.analysis, repro_torch.roofline.op_stats; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")
@@ -121,3 +137,26 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_launch_scripts_run_without_jax():
+    """Run as scripts (their ``--help``), the dry runs and the mesh train
+    driver load nothing of JAX or the reference."""
+    code = ("import runpy, sys\n"
+            "for module in ('repro_torch.launch.dryrun', "
+            "'repro_torch.launch.cluster_dryrun', "
+            "'repro_torch.launch.train'):\n"
+            "    sys.argv = [module, '--help']\n"
+            "    try:\n"
+            "        runpy.run_module(module, run_name='__main__')\n"
+            "    except SystemExit:\n"
+            "        pass\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("clean")

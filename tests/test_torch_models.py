@@ -68,6 +68,14 @@ def reference_weights(jcfg, seed=0):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
+# the reference's entry points under jax.jit: the same functions, compiled
+# once a shape, where an eager call traces its scans anew each call
+_jfwd = jax.jit(jmodel.lm_forward, static_argnums=1)
+_jprefill = jax.jit(jmodel.lm_prefill, static_argnums=1,
+                    static_argnames=("max_len",))
+_jdecode = jax.jit(jmodel.lm_decode_step, static_argnums=1)
+
+
 @pytest.fixture(scope="module", params=SERVED)
 def arch(request):
     """Reference weights, the port's model holding them, inputs, and the
@@ -78,12 +86,10 @@ def arch(request):
     model = params_from_reference(jax.tree.map(np.asarray, params), cfg,
                                   device="cpu")
     tokens, fe = _inputs(cfg)
-    logits, aux = jmodel.lm_forward(params, jcfg, _j(tokens),
-                                   frontend=_j(fe))
-    last, cache = jmodel.lm_prefill(params, jcfg, _j(tokens[:, :S - 1]),
-                                    frontend=_j(fe), max_len=S + 4)
-    step, _ = jmodel.lm_decode_step(params, jcfg, _j(tokens[:, S - 1:]),
-                                    cache)
+    logits, aux = _jfwd(params, jcfg, _j(tokens), frontend=_j(fe))
+    last, cache = _jprefill(params, jcfg, _j(tokens[:, :S - 1]),
+                            frontend=_j(fe), max_len=S + 4)
+    step, _ = _jdecode(params, jcfg, _j(tokens[:, S - 1:]), cache)
     return dict(name=name, cfg=cfg, jcfg=jcfg, params=params, model=model,
                 tokens=tokens, fe=fe, logits=np.asarray(logits),
                 aux=float(aux),
@@ -238,13 +244,16 @@ def test_ring_cache_crosses_window(flash_everywhere, prompt):
     steps = 6
     tokens, _ = _inputs(cfg, seed=3, s=prompt + steps)
     full, _ = tmodel.lm_forward(model, cfg, tokens)
-    jfull, _ = jmodel.lm_forward(params, jcfg, _j(tokens))
+    # fresh jits over these weights: traced here, under the patched chunk
+    jfull, _ = jax.jit(functools.partial(jmodel.lm_forward, params, jcfg))(
+        _j(tokens))
     _close(full, jfull)
     max_len = prompt + steps + 4
     _, cache = tmodel.lm_prefill(model, cfg, tokens[:, :prompt],
                                  max_len=max_len)
-    _, jcache = jmodel.lm_prefill(params, jcfg, _j(tokens[:, :prompt]),
-                                  max_len=max_len)
+    _, jcache = jax.jit(functools.partial(
+        jmodel.lm_prefill, params, jcfg, max_len=max_len))(
+            _j(tokens[:, :prompt]))
     assert cache["layers"]["k"].shape[2] == cfg.window
     for key, want in flat_arrays(jax.tree.map(np.asarray, jcache)).items():
         _close(flat_arrays(cache)[key], want)

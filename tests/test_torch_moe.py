@@ -133,12 +133,16 @@ def test_lm_forward_drops_as_the_reference(name):
                                moe_capacity_factor=DROPPING)
     cfg = dataclasses.replace(get_config(name).reduced(),
                               moe_capacity_factor=DROPPING)
-    params = jmodel.init_lm(jax.random.PRNGKey(1), jcfg)
+    # the reference under jax.jit: compiled once, where eager calls trace
+    # its layer scans op by op
+    params = jax.jit(jmodel.init_lm, static_argnums=1)(
+        jax.random.PRNGKey(1), jcfg)
     model = params_from_reference(jax.tree.map(np.asarray, params), cfg,
                                   device="cpu")
     tokens = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
-    want, want_aux = jmodel.lm_forward(params, jcfg, jnp.asarray(tokens))
+    want, want_aux = jax.jit(jmodel.lm_forward, static_argnums=1)(
+        params, jcfg, jnp.asarray(tokens))
     got, aux = tmodel.lm_forward(model, cfg, tokens)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)

@@ -81,6 +81,15 @@ def _x(cfg, s, seed=1):
         (B, s, cfg.d_model)) * 0.5).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted(jfn, static):
+    """The reference's apply under ``jax.jit``, its config and its
+    ``static`` flags (``sequential``, ``decode``) static: the same
+    function, compiled once a shape, where an eager call traces its scans
+    anew each call."""
+    return jax.jit(jfn, static_argnums=1, static_argnames=static)
+
+
 def _apply(block, x, **kw):
     """(reference output, port output) of the block over x."""
     jfn = {"mamba2": jmamba.mamba2_apply, "mlstm": jxlstm.mlstm_apply,
@@ -88,7 +97,9 @@ def _apply(block, x, **kw):
     tfn = {"mamba2": tmamba.mamba2_apply, "mlstm": txlstm.mlstm_apply,
            "slstm": txlstm.slstm_apply}[block["kind"]]
     jstate, tstate = kw.pop("jstate", None), kw.pop("tstate", None)
-    want = jfn(block["jp"], block["jcfg"], jnp.asarray(x), state=jstate, **kw)
+    static = tuple(sorted(kw))
+    want = _jitted(jfn, static)(block["jp"], block["jcfg"], jnp.asarray(x),
+                                state=jstate, **kw)
     got = tfn(block["mod"], block["cfg"], torch.from_numpy(x), state=tstate,
               **kw)
     return want, got

@@ -35,6 +35,22 @@ FAMILIES = ("qwen2-1.5b", "kimi-k2-1t-a32b", "llama-3.2-vision-11b",
             "whisper-base", "zamba2-2.7b", "xlstm-125m")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jitted_reference_steps():
+    """The reference's ``prefill`` and ``serve_step`` under ``jax.jit``
+    while this module runs (``generate`` calls them by name): the same
+    functions, compiled once a shape, where an eager call traces its
+    scans anew every step."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jdecode, "prefill", jax.jit(
+        jdecode.prefill, static_argnums=1, static_argnames=("max_len",)))
+    mp.setattr(jdecode, "serve_step", jax.jit(
+        jdecode.serve_step, static_argnums=1,
+        static_argnames=("temperature",)))
+    yield
+    mp.undo()
+
+
 @functools.lru_cache(maxsize=None)
 def reference_init(name):
     """The reference's init_lm (jitted) at ``name``'s reduced config."""

@@ -2,7 +2,7 @@
 PYTHON ?= python
 export PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH))
 
-.PHONY: test test-all test-kernels test-mesh smoke bench-kernels bench scenarios lint autotune stream-demo trace-demo
+.PHONY: test test-all test-kernels test-mesh smoke bench-kernels bench scenarios lint autotune autotune-torch stream-demo trace-demo
 
 smoke:           ## quickstart example + one fit() per registered algorithm
 	$(PYTHON) examples/quickstart.py
@@ -30,6 +30,9 @@ bench:           ## all paper-table benchmarks at full CPU-feasible sizes
 
 autotune:        ## measure best kernel block sizes on THIS hardware
 	$(PYTHON) -m repro.kernels.autotune --quick
+
+autotune-torch:  ## the port's walk split on THIS card (needs CUDA) -> ~/.cache/repro_torch
+	$(PYTHON) -m repro_torch.kernels.autotune --quick
 
 scenarios:       ## quick paper-suite scenario sweep -> BENCH_scenarios.json
 	$(PYTHON) -m repro.scenarios.run --suite paper --quick

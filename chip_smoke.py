@@ -28,8 +28,9 @@ PyTorch built for CUDA. It
    k = 100; its single-walk regime) and 65,536 x 173,256 (EIM11's
    clustering; its two-walk regime), at k = 1025 and 2100, and at
    SOCCER's coordinator shapes and 1.25 M points x 4, 25, 831 and 1024
-   centers, and at 20,000 x 4,096 (min_dist's center axis split into 8
-   slices) — in the three dtypes, with invalid centers and zero weights:
+   centers, and at 20,000 x 4,096 (min_dist's center axis split: 8
+   slices by the rule, 13 by the card's measured table) — in the three
+   dtypes, with invalid centers and zero weights:
    its argmin equals min_dist's and its sums and counts equal the plain
    fixed-point emulation (``ref.fixed_point_reduce_ref``) over that
    argmin bit for bit, its cost is within FUSED_RTOL of a float64 sum,
@@ -216,10 +217,11 @@ PyTorch built for CUDA. It
    against autograd through the dense path at qwen2-1.5b's heads and
    4,096 keys (causal, a 1,024 window, a ring with holes; float32 with
    TF32 off and bfloat16); qwen2-1.5b at published widths and all 28
-   layers in bfloat16 with AdamW at 1 x 4,096 tokens: 8 steps under
-   remat "selective" with a ``Checkpointer`` save at step 4 resumed into
-   a fresh model and held bit for bit to the uninterrupted run, step 1
-   under "none" and "full" held bit for bit to it, each mode's step
+   layers in bfloat16 with AdamW at 1 x 4,096 tokens: 5 steps under
+   remat "selective" (and, at 2 of the 28 layers, 6 steps with a
+   ``Checkpointer`` save at step 4 resumed into a fresh model and held
+   bit for bit to the uninterrupted run), step 1 under "none" and
+   "full" held bit for bit to it, each mode's step
    time, device busy share and peak memory beside the datasheet bound,
    and microbatches 2 against 1 at 2 x 4,096 in bfloat16 and in float32
    (``TRAIN_MB_*``); then mixtral-8x22b at 2 layers (Adafactor, its
@@ -253,11 +255,18 @@ PyTorch built for CUDA. It
    layer at its published widths under ``moe_apply_sharded`` (NCCL at
    world size 1, then 2 gloo ranks with 192 experts each) against
    ``_moe_apply_dense``, and qwen2-1.5b whole through the mesh train
-   driver against ``train_qwen``'s ``make_train_step`` steps
-   (``mesh_lm_phase``); runs ``launch.cluster_dryrun`` at 256 and 512
+   driver against ``train_qwen``'s ``make_train_step`` steps, and its
+   sharded step (per-block gathers, the optimizer on the shards) on 2
+   gloo ranks against one process (``mesh_lm_phase``); runs ``launch.cluster_dryrun`` at 256 and 512
    machines in both coordinator modes with every kernel call held to its
    plain version (``cluster_dryrun_phase``), and prints
-   ``roofline.hw.measured_peaks()`` (``peaks_phase``).
+   ``roofline.hw.measured_peaks()`` (``peaks_phase``); and
+22. (run after phase 4's kernel checks) measures the walk's center split
+   on the card with ``kernels.autotune``'s quick sweep into
+   ``chiprun_out/`` (``tuning_phase``): each key's rule and best ms, the
+   best split's ``min_dist`` and Lloyd outputs equal to the rule's bit
+   for bit, and the written table's lookups (``python3 chip_smoke.py
+   --tuning`` builds the kernels and runs only this phase).
 
 Every kernel time is printed with the host's own microseconds a call
 beside the device's (``timed_ms``).
@@ -326,7 +335,8 @@ REGIME_REPLACES = {"resident": "src/repro/kernels/fused_lloyd.py:138",
 # machine's 1.25 M points, 1 + 5·166 rows), row 2's at k = 100 (1 + 5·616
 # rows), EIM11's clustering at n = 1 M (12·14,438 rows) on a point subset,
 # the conformance grid's k beyond 1024, and a shape where min_dist splits
-# the center axis into 8 slices (n <= 20,000, k >= 4,096).
+# the center axis (n <= 20,000, k >= 4,096: 8 slices by the rule, 13 by
+# the H100's measured table, kernels/tuned/).
 LLOYD_SHAPES = ((1_250_000, DIM, 831), (1_250_000, DIM, 3_081),
                 (65_536, DIM, 173_256), (20_000, DIM, 1025), (20_000, 33, 2100),
                 (20_000, DIM, 4_096))
@@ -977,7 +987,8 @@ def min_dist_launch(n: int, d: int, k: int) -> str:
     from repro_torch.kernels import walk
     ppt = walk.points_per_thread(d)
     sms = walk.sm_count(torch.device("cuda"))
-    return f"ppt={ppt} slices={walk.center_slices(n, k, sms, ppt)}"
+    return (f"ppt={ppt} slices="
+            f"{walk.center_slices(n, k, sms, ppt, device='cuda', d=d)}")
 
 
 def time_lloyd(ops, x32, c):
@@ -996,8 +1007,9 @@ def time_lloyd(ops, x32, c):
     ms = timed_ms(lambda: ops.fused_assign_reduce(x32, ones, c))
     md_ms = timed_ms(lambda: ops.min_dist(x32, c))
     ppt = fl.points_per_thread(k, d)
-    launch = (f"ppt={ppt} acc={fl.acc_mode(k, d)} slices="
-              f"{walk.center_slices(n, k, walk.sm_count(x32.device), ppt)}")
+    slices = walk.center_slices(n, k, walk.sm_count(x32.device), ppt,
+                                device=x32.device, d=d)
+    launch = f"ppt={ppt} acc={fl.acc_mode(k, d)} slices={slices}"
     bnd, by = lloyd_bound(n, d, k)
     md_bnd, md_by = min_dist_bound(n, d, k)
     print(f"time fused_assign_reduce n={n} k={k} ({regime(k, d)}) f32: "
@@ -1462,8 +1474,9 @@ def tier_phase(ops, ref, rows) -> None:
         cv[0] = True
         w = rand(m, p)
         w[:, : p // 5] = 0.0
-        slices = truncated.launch_shape(m, p, d, k, sms)[2]
         for dt in DTYPES:
+            slices = truncated.launch_shape(m, p, d, k, sms, device=dev,
+                                            dtype=dt)[2]
             x = x32.to(dt)
             # machine 1's rows begin off a 16-byte boundary
             off = (x.data_ptr() + p * d * x.element_size()) % 16
@@ -4280,6 +4293,10 @@ def lm_family_phase(smi: str) -> None:
 TRAIN_ARCH = "qwen2-1.5b"
 TRAIN_BATCH, TRAIN_SEQ = 1, 4_096       # train_4k's sequence; batch 256 cut
 TRAIN_STEPS, TRAIN_SAVE_AT = 6, 4
+# the save-and-resume check runs at published widths with the depth cut
+# to this many of the 28 layers: a 3.3 GB state through the Checkpointer
+# (15.4 GB at full depth)
+TRAIN_RESUME_LAYERS = 2
 TRAIN_TIMED = 3                         # steps of the none / full runs
 TRAIN_OPT = dict(lr_peak=3e-4, warmup_steps=2)
 # the flash backward's checks at qwen2-1.5b's head layout, 1 x 4,096:
@@ -4522,10 +4539,11 @@ def train_max_diff(a: dict, b: dict) -> float:
 
 
 def train_qwen(smi: str) -> None:
-    """qwen2-1.5b at full width and depth in bf16 with AdamW: 6 steps
-    under remat "selective" (saved at step 4, resumed into a fresh state,
-    steps 5-6 held to the uninterrupted run), step 1 under "none" and
-    "full" held to it, and microbatches 2 against 1."""
+    """qwen2-1.5b at full width and depth in bf16 with AdamW: 5 steps
+    under remat "selective"; at TRAIN_RESUME_LAYERS layers 6 steps saved
+    at step 4, resumed into a fresh state and steps 5-6 held to the
+    uninterrupted run; step 1 under "none" and "full" held to the
+    selective run, and microbatches 2 against 1."""
     import dataclasses
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs import get_config
@@ -4545,11 +4563,11 @@ def train_qwen(smi: str) -> None:
     ckdir = os.path.join(ROOT, "build", "train_ckpt")
     shutil.rmtree(ckdir, ignore_errors=True)
     ck = Checkpointer(ckdir, keep=1)
+    n_sel = TRAIN_SAVE_AT + 1
     t0 = time.perf_counter()
     with SavedProducts(lm_model) as saved:
         run_a, m_sel, ms_sel, busy, peak = train_run(
-            ts, cfg, opt, batches, TRAIN_STEPS, save=(ck, TRAIN_SAVE_AT),
-            profile_last=True)
+            ts, cfg, opt, batches, n_sel, profile_last=True)
     t_run = time.perf_counter() - t0
     n_params = sum(p.numel() for p in run_a["params"].parameters())
     attn_flop = 6 * TRAIN_BATCH * cfg.n_layers * cfg.n_heads * \
@@ -4568,41 +4586,46 @@ def train_qwen(smi: str) -> None:
         check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
               f"{TRAIN_ARCH} step {i + 1}: loss {m['loss']} grad_norm "
               f"{m['grad_norm']}")
-    print(f"train {TRAIN_ARCH} selective, {TRAIN_STEPS} steps on the Markov "
+    print(f"train {TRAIN_ARCH} selective, {n_sel} steps on the Markov "
           f"stream: loss {[round(m['loss'], 4) for m in m_sel]}, grad_norm "
           f"{[round(m['grad_norm'], 4) for m in m_sel]}, accuracy "
           f"{[round(m['accuracy'], 4) for m in m_sel]}, lr "
           f"{[round(m['lr'], 7) for m in m_sel]}; state {state_gb:.2f} GB "
           f"(params + AdamW moments); selective saved "
-          f"{saved.products // TRAIN_STEPS} weight products a step, "
-          f"{saved.bytes / TRAIN_STEPS / 1e9:.2f} GB;"
-          f" {t_run:.1f} s with the save's host copy, on {smi}",
+          f"{saved.products // n_sel} weight products a step, "
+          f"{saved.bytes / n_sel / 1e9:.2f} GB;"
+          f" {t_run:.1f} s, on {smi}",
           flush=True)
     TRAIN_QWEN_REF.update(cfg=cfg, opt=opt,
                           batches=batches[:MESH_TRAIN_STEPS],
                           metrics=m_sel[:MESH_TRAIN_STEPS])
-    # steps 2-4 timed: the checkpoint's writer thread shares the host
-    # with steps 5-6
+    # steps 2-4 timed, step 5 profiled
     rows["selective"] = (ms_sel[1:TRAIN_SAVE_AT], busy, ms_sel[-1], peak)
+    del run_a
 
-    # resume: the step-4 checkpoint into a fresh model, then steps 5-6
+    # resume, at TRAIN_RESUME_LAYERS layers: the step-4 checkpoint into a
+    # fresh model, then steps 5-6 against the uninterrupted run
     t0 = time.perf_counter()
+    cfg_r = dataclasses.replace(cfg, n_layers=TRAIN_RESUME_LAYERS)
+    run_r, m_run, _, _, _ = train_run(ts, cfg_r, opt, batches, TRAIN_STEPS,
+                                      save=(ck, TRAIN_SAVE_AT))
+    state_gb = train_state_bytes(run_r) / 1e9
     ck.wait()
-    fresh = ts.make_train_state(cfg, opt, seed=6, device="cuda")
+    fresh = ts.make_train_state(cfg_r, opt, seed=6, device="cuda")
     fresh["opt"] = None
     torch.cuda.empty_cache()
-    resumed = ts.load_state_tree(fresh, ck.restore(ts.state_tree(run_a)))
+    resumed = ts.load_state_tree(fresh, ck.restore(ts.state_tree(run_r)))
     del fresh
     check(int(resumed["step"]) == TRAIN_SAVE_AT, "resumed step")
-    step_fn = ts.make_train_step(cfg, opt)
+    step_fn = ts.make_train_step(cfg_r, opt)
     m_res = []
     for i in range(TRAIN_SAVE_AT, TRAIN_STEPS):
         resumed, m = step_fn(resumed, batches[i])
         m_res.append({k: float(v) for k, v in m.items()})
-    tree_a, tree_r = train_tree(run_a), train_tree(resumed)
+    tree_a, tree_r = train_tree(run_r), train_tree(resumed)
     same = (tree_a.keys() == tree_r.keys()
             and all(torch.equal(tree_a[k], tree_r[k]) for k in tree_a)
-            and m_res == m_sel[TRAIN_SAVE_AT:])
+            and m_res == m_run[TRAIN_SAVE_AT:])
     diff = 0.0 if same else train_max_diff(tree_a, tree_r)
     del resumed, tree_a, tree_r
     verdict = "equal the uninterrupted run bit for bit (parameters, " \
@@ -4610,9 +4633,9 @@ def train_qwen(smi: str) -> None:
     if not same:
         # float atomics on the card: a second uninterrupted run sets the
         # spread the resumed run is held to
-        again, m_again, _, _, _ = train_run(ts, cfg, opt, batches,
+        again, m_again, _, _, _ = train_run(ts, cfg_r, opt, batches,
                                             TRAIN_STEPS)
-        spread = train_max_diff(train_tree(run_a), train_tree(again))
+        spread = train_max_diff(train_tree(run_r), train_tree(again))
         check(diff <= spread,
               f"{TRAIN_ARCH} resumed run differs by {diff:.3g} from the "
               f"uninterrupted one, two uninterrupted runs by {spread:.3g}")
@@ -4621,11 +4644,13 @@ def train_qwen(smi: str) -> None:
                    f"{spread:.3g} (losses {[m['loss'] for m in m_again]})")
         del again
     shutil.rmtree(ckdir, ignore_errors=True)
-    print(f"train {TRAIN_ARCH} saved at step {TRAIN_SAVE_AT} "
+    print(f"train {TRAIN_ARCH} at {TRAIN_RESUME_LAYERS} of {cfg.n_layers} "
+          f"layers, published widths, saved at step {TRAIN_SAVE_AT} "
           f"(Checkpointer, {state_gb:.2f} GB) and resumed into a fresh "
           f"model: steps {TRAIN_SAVE_AT + 1}-{TRAIN_STEPS} {verdict}; "
-          f"{time.perf_counter() - t0:.1f} s on {smi}", flush=True)
-    del run_a
+          f"{time.perf_counter() - t0:.1f} s with the uninterrupted run, "
+          f"on {smi}", flush=True)
+    del run_r
 
     # step 1 under none and full (then timed) against selective's
     first = {}
@@ -5492,11 +5517,18 @@ MESH_TRAIN_STEPS = 3            # the mesh driver's steps against train_qwen
 # full width, depth cut to MESH_FSDP_LAYERS, float32 (TF32 off), on a
 # (2, 1) mesh of 2 gloo ranks sharing the card: a batch row a rank
 # (train_4k's 4,096 tokens in all), parameters and moments stored as
-# halves and gathered for the step, gradients averaged over the ranks
+# halves, each block gathered around its use, its gradients averaged
+# over the ranks into the halves, AdamW on the halves
 MESH_FSDP_LAYERS = 2
 MESH_FSDP_SHAPE = (2, 2_048)    # (batch, sequence)
 MESH_FSDP_STEPS = 2
 MESH_FSDP_RANKS = MESH_MOE_RANKS    # the same spawned ranks
+# the same check's recorded step seconds (the ranks' first and second
+# step, slowest rank) and peak GB a rank when the driver gathered the
+# whole model, its moments and its gradients a step, on
+# "NVIDIA H100 80GB HBM3, 700.00 W": printed beside this run's
+MESH_FSDP_WHOLE_GATHER = {"steps_s": ((16.66, 7.82), (18.99, 9.86)),
+                          "peak_gb": 12.87}
 # (machines, multi_pod) of the cluster dry run: 16 x 16 and 2 x 16 x 16
 CLUSTER_MESHES = ((256, False), (512, True))
 # train_qwen's draws, optimizer and first metrics, which the mesh driver's
@@ -5772,7 +5804,7 @@ def mesh_fsdp_rank(rank: int, work: str, opt, batches) -> None:
     """One gloo rank of the sharded train check: ``launch.train.train``
     on the (2, 1) mesh; its metrics, per-step ms, seconds and peak to
     disk."""
-    from repro_torch.launch.train import train
+    from repro_torch.launch import train as lt
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
@@ -5784,14 +5816,15 @@ def mesh_fsdp_rank(rank: int, work: str, opt, batches) -> None:
         ms.append((now - t_last[0]) * 1e3)
         t_last[0] = now
 
-    got = train(mesh_fsdp_cfg(), steps=MESH_FSDP_STEPS,
-                batch=MESH_FSDP_SHAPE[0], seq=MESH_FSDP_SHAPE[1],
-                mesh_shape=f"{MESH_FSDP_RANKS},1", ckpt_every=10**9,
-                ckpt_dir=os.path.join(work, "fsdp-ckpt"), device="cuda",
-                seed=5, opt=opt, batches=batches, log=lambda s: None,
-                on_step=tick)
+    got = lt.train(mesh_fsdp_cfg(), steps=MESH_FSDP_STEPS,
+                   batch=MESH_FSDP_SHAPE[0], seq=MESH_FSDP_SHAPE[1],
+                   mesh_shape=f"{MESH_FSDP_RANKS},1", ckpt_every=10**9,
+                   ckpt_dir=os.path.join(work, "fsdp-ckpt"), device="cuda",
+                   seed=5, opt=opt, batches=batches, log=lambda s: None,
+                   on_step=tick)
     torch.save({"metrics": got, "ms": ms, "s": time.perf_counter() - t0,
-                "peak": torch.cuda.max_memory_allocated()},
+                "peak": torch.cuda.max_memory_allocated(),
+                "routes": dict(lt.SCATTER_ROUTES)},
                os.path.join(work, f"fsdp{rank}.pt"))
 
 
@@ -5832,8 +5865,9 @@ def mesh_fsdp_one() -> dict:
 def mesh_fsdp_verify(work: str, smi: str, one: dict, spawn_s: float) -> None:
     """(b, sharded) the mesh driver's own step on the card: qwen2-1.5b at
     full width, MESH_FSDP_LAYERS layers, float32 with TF32 off, on 2 gloo
-    ranks sharing the card at (2, 1) (``shard``, the bucketed
-    ``unshard_all`` gathers and the gradient average all run), against
+    ranks sharing the card at (2, 1) (``shard``, each block's bucketed
+    gathers inside the rematerialized step, the gradients reduced to the
+    shards in the backward, AdamW on the shards), against
     one process's make_train_step on the same global batches from the
     same seed: each step's nll within TRAIN_MB_NLL_RTOL and grad norm
     within TRAIN_MB_F32_GNORM_RTOL (the two differ by summation order
@@ -5855,6 +5889,10 @@ def mesh_fsdp_verify(work: str, smi: str, one: dict, spawn_s: float) -> None:
           f"sharded mesh driver vs make_train_step: nll rel {e_nll:.3g}, "
           f"grad_norm rel {e_g:.3g}")
     step_ms = [max(r["ms"][i] for r in ranks) for i in range(len(got))]
+    routes = ranks[0]["routes"]
+    check(sum(routes.values()) > 0, f"no gradient reduced to the shards: "
+          f"{routes}")
+    whole = MESH_FSDP_WHOLE_GATHER
     print(f"mesh train {TRAIN_ARCH} sharded (launch.train.train, mesh "
           f"{MESH_FSDP_RANKS},1 over gloo, {MESH_FSDP_RANKS} ranks sharing "
           f"the card; full width, {MESH_FSDP_LAYERS} of "
@@ -5867,12 +5905,14 @@ def mesh_fsdp_verify(work: str, smi: str, one: dict, spawn_s: float) -> None:
           f"{[m['grad_norm'] for m in want]}; nll rel {e_nll:.3g} (tol "
           f"{TRAIN_MB_NLL_RTOL}), grad_norm rel {e_g:.3g} (tol "
           f"{TRAIN_MB_F32_GNORM_RTOL}); steps "
-          f"{[round(t, 1) for t in step_ms]} ms (slowest rank, host "
-          f"clock, the gathers, the gradient all-reduce and the shards "
-          f"staged through the host) vs one process "
-          f"{[round(t, 1) for t in one['ms']]} ms; peak "
-          f"{max(r['peak'] for r in ranks) / 1e9:.2f} GB a rank vs "
-          f"{one['peak'] / 1e9:.2f} GB; the ranks' train part "
+          f"{[round(t / 1e3, 2) for t in step_ms]} s (slowest rank, host "
+          f"clock, the per-block gathers and the gradients' reductions "
+          f"{routes} staged through the host) vs one process "
+          f"{[round(t / 1e3, 3) for t in one['ms']]} s and the whole-model "
+          f"gather's recorded {whole['steps_s']} s; peak "
+          f"{[round(r['peak'] / 1e9, 2) for r in ranks]} GB by rank vs "
+          f"the whole-model gather's recorded {whole['peak_gb']} GB and one "
+          f"process's {one['peak'] / 1e9:.2f} GB; the ranks' train part "
           f"{max(r['s'] for r in ranks):.1f} s of the shared ranks' wall "
           f"{spawn_s:.1f} s on {smi}", flush=True)
 
@@ -5965,6 +6005,86 @@ def peaks_phase(smi: str) -> None:
           flush=True)
 
 
+TUNING_OUT = os.path.join(ROOT, "chiprun_out", "tuned_smoke.json")
+
+
+def tuning_phase(smi: str) -> None:
+    """(e) the walk's center split measured on this card:
+    ``kernels.autotune``'s quick sweep (every float32 key of
+    ``autotune.SHAPES``) into TUNING_OUT, never the user cache; each
+    key's rule and best ms; at every swept key whose best candidate
+    splits otherwise, ``min_dist``'s d2 and argmin and the Lloyd
+    kernel's sums, counts and cost under that candidate's shape equal
+    those under the rule's bit for bit (zero weights and invalid
+    centers among the inputs); and a lookup with the written table
+    returns each entry's normalized pair."""
+    import pathlib
+    from repro_torch.kernels import autotune, fused_lloyd, min_dist, tuning
+    card = tuning.card_of("cuda")
+    t0 = time.perf_counter()
+    payload = autotune.sweep(quick=True, card=card, device="cuda")
+    autotune.save_table(payload, TUNING_OUT)
+    sweep_s = time.perf_counter() - t0
+    checked = 0
+    for key, rec in payload["keys"].items():
+        n, k, d = rec["shape"]
+        best = rec["best"]
+        print(f"tuning {key} ({rec['name']}, {n} x {k} x {d}, float32) on "
+              f"{smi}: rule {tuple(rec['rule'])} slices "
+              f"{tuple(rec['rule_slices'])} {min(rec['rule_ms']):.4f} ms "
+              f"(min_dist + the Lloyd kernel; {len(rec['rule_ms'])} timings "
+              f"{[round(t, 4) for t in rec['rule_ms']]}, spread "
+              f"{rec['spread_ms']:.4f}), best "
+              + (f"({best['min_slice']}, {best['fill_per_sm']}) slices "
+                 f"{tuple(best['slices'])} {best['ms']:.4f} ms"
+                 if best else "none (every candidate splits as the rule)")
+              + f"; {rec['timed']} shapes timed, {rec['skipped']} over the "
+              f"scratch budget; "
+              + ("entry written" if rec["entry"] else "the rule kept"),
+              flush=True)
+        if best is None:
+            continue
+        x, w, c = autotune._inputs(n, k, d, torch.float32, "cuda")
+        w[::7] = 0.0
+        cv = torch.ones((k,), dtype=torch.bool, device="cuda")
+        cv[::11] = False
+        got = {}
+        for tag, pair in (("rule", tuning.rule()),
+                          ("best", (best["min_slice"], best["fill_per_sm"]))):
+            with tuning.candidate(pair):
+                d2, idx = min_dist.min_dist_cuda(x, c, cv)
+                sums, counts, cost = fused_lloyd.fused_assign_reduce_cuda(
+                    x, w, c, cv)
+            got[tag] = (d2, idx, sums, counts, cost)
+        names = ("d2", "argmin", "sums", "counts", "cost")
+        for name, a, b in zip(names, got["rule"], got["best"]):
+            check(torch.equal(a, b), f"tuning {key}: {name} under "
+                  f"{tuple(best['slices'])} slices differs from the rule's "
+                  f"{tuple(rec['rule_slices'])}")
+        checked += 1
+        del x, w, c, got
+    saved = tuning.package_table_path, tuning.cache_table_path
+    tuning.package_table_path = lambda card: pathlib.Path(TUNING_OUT)
+    tuning.cache_table_path = lambda card: pathlib.Path(TUNING_OUT + ".none")
+    tuning.invalidate()
+    try:
+        for key, e in payload["entries"].items():
+            n, k, d = e["shape"]
+            want = tuning.normalize(e["min_slice"], e["fill_per_sm"])
+            got = tuning.split_params("cuda", d, k, torch.float32)
+            check(got == want, f"tuning {key}: the written table's lookup "
+                  f"{got}, its entry {want}")
+    finally:
+        tuning.package_table_path, tuning.cache_table_path = saved
+        tuning.invalidate()
+    torch.cuda.empty_cache()
+    print(f"tuning on {smi}: {len(payload['entries'])} entries of "
+          f"{len(payload['keys'])} keys written to {TUNING_OUT} "
+          f"({sweep_s:.1f} s of sweep); {checked} keys' best splits equal "
+          f"the rule's bit for bit; the table's lookups return its "
+          f"entries", flush=True)
+
+
 PHASE_SECONDS = {}
 
 
@@ -6009,6 +6129,7 @@ def main() -> None:
     timed_phase(width_phase, ops, ref, rows)
     timed_phase(lloyd_phase, ops, ref, rows)
     timed_phase(dispatch_phase, ops, ref, rows)
+    timed_phase(tuning_phase, smi_line)
     timed_phase(tier_phase, ops, ref, rows)
     timed_phase(seeding_phase, ops, ref, rows)
     timed_phase(knob_kernel_phase, ops, ref, rows, SoccerParams)
@@ -6134,6 +6255,20 @@ def mesh_lm_main() -> None:
         flush=True)
 
 
+def tuning_main() -> None:
+    """``--tuning``: build the kernels, then run only ``tuning_phase``."""
+    check(torch.cuda.is_available(), "needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"device: {smi_line}", flush=True)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build
+    print(f"build: {build.build_all():.2f} s", flush=True)
+    timed_phase(tuning_phase, smi_line)
+
+
 def train_main() -> None:
     """``--train``: run only ``train_phase`` (it reaches no kernel of
     ours, so nothing is built)."""
@@ -6154,6 +6289,8 @@ if __name__ == "__main__":
         train_main()
     elif sys.argv[1:2] == ["--mesh-lm"]:
         mesh_lm_main()
+    elif sys.argv[1:2] == ["--tuning"]:
+        tuning_main()
     elif sys.argv[1:2] == ["--stream-resume"]:
         stream_resume_main(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--scenario-seeds"]:

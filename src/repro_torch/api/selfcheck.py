@@ -68,7 +68,8 @@ def _telemetry_screen(x, k: int, m: int, device: str) -> List[str]:
     print(f"wire_bytes_total={wire}  Omega(mk) floor={omega}  "
           f"ratio={wire / max(omega, 1):.1f}x")
     lines = REGISTRY.summary_lines("core.comm.active_tallies",
-                                   "kernels.launches")
+                                   "kernels.launches",
+                                   "kernels.tuning.autotune")
     print("metrics: " + "; ".join(lines))
     out = []
     if t["wire_payload_bytes"] + t["wire_meta_bytes"] != wire:

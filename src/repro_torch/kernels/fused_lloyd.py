@@ -302,7 +302,8 @@ def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,
                          f"int32")
     ppt = points_per_thread(k, d)
     sms = walk.sm_count(x.device)
-    slices = walk.center_slices(n, k, sms, ppt)
+    slices = walk.center_slices(n, k, sms, ppt, device=x.device, d=d,
+                                dtype=x.dtype)
     nbytes = scratch_bytes(n, d, k, ppt, slices)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
     out = torch.empty((k * d + k + 1,), dtype=torch.float32, device=x.device)
@@ -360,7 +361,8 @@ def fused_assign_reduce_fixed_cuda(x: torch.Tensor, w: torch.Tensor,
                   bound=bound, assign_out=assign_out)
     ppt = points_per_thread(k, d)
     sms = walk.sm_count(x.device)
-    slices = walk.center_slices(n, k, sms, ppt)
+    slices = walk.center_slices(n, k, sms, ppt, device=x.device, d=d,
+                                dtype=x.dtype)
     nbytes = scratch_bytes(n, d, k, ppt, slices)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
     out = torch.empty((k * d + k + 1,), dtype=torch.float32, device=x.device)

@@ -62,7 +62,8 @@ def min_dist_cuda(x: torch.Tensor, c: torch.Tensor,
     check_on_card("min_dist", x, centers=cf, c_valid=cv)
     k = cf.shape[0]
     ppt = walk.points_per_thread(d)
-    slices = walk.center_slices(n, k, walk.sm_count(x.device), ppt)
+    slices = walk.center_slices(n, k, walk.sm_count(x.device), ppt,
+                                device=x.device, d=d, dtype=x.dtype)
     scratch = None
     if slices > 1:
         scratch = torch.empty((walk.split_scratch_bytes(n, ppt, slices),),

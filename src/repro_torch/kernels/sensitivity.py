@@ -54,7 +54,8 @@ def sensitivity_scores_cuda(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("sensitivity_scores: no centers")
     dev = x.device
     ppt = walk.points_per_thread(d)
-    slices = walk.center_slices(n, k, walk.sm_count(dev), ppt)
+    slices = walk.center_slices(n, k, walk.sm_count(dev), ppt, device=dev,
+                                d=d, dtype=x.dtype)
     nbytes = scratch_bytes(n, 0, k, ppt, slices)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     scores = torch.empty((n,), dtype=torch.float32, device=dev)

@@ -33,15 +33,17 @@ TRUNCATED_COST = CudaKernel(
     [_P, _I, _I, _L, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _L, _P, _P])
 
 
-def launch_shape(m: int, p: int, d: int, k: int, sms: int
-                 ) -> Tuple[int, int, int]:
+def launch_shape(m: int, p: int, d: int, k: int, sms: int, *, device=None,
+                 dtype=torch.float32) -> Tuple[int, int, int]:
     """(points a thread, point tiles a machine, center slices) of a call
-    over (m, p, d) shards against k centers: ``walk.py``'s rules, the
-    slices from the m·tiles point tiles of the whole launch (a tile never
+    over (m, p, d) shards against k centers: ``walk.py``'s rules (on a
+    CUDA ``device``, its tuned split for ``dtype`` points), the slices
+    from the m·tiles point tiles of the whole launch (a tile never
     straddles two machines)."""
     ppt = walk.points_per_thread(d)
     tiles = walk.point_tiles(p, ppt)
-    return ppt, tiles, walk.slices_for_tiles(m * tiles, k, sms)
+    return ppt, tiles, walk.slices_for_tiles(m * tiles, k, sms,
+                                             device=device, d=d, dtype=dtype)
 
 
 def scratch_bytes(m: int, p: int, ppt: int, slices: int) -> int:
@@ -80,7 +82,8 @@ def truncated_cost_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     check_on_card("truncated_cost", x, w=wf, centers=cf, c_valid=cv, v=vt)
     dev = x.device
     sms = walk.sm_count(dev)
-    ppt, _, slices = launch_shape(m, p, d, k, sms)
+    ppt, _, slices = launch_shape(m, p, d, k, sms, device=dev,
+                                  dtype=x.dtype)
     nbytes = scratch_bytes(m, p, ppt, slices)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     out = torch.empty((m, 3), dtype=torch.float32, device=dev)

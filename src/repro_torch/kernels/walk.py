@@ -8,16 +8,20 @@ its tiles over every machine of one launch): each thread owns P points,
 and when the point tiles cannot fill the card the center axis is split
 over blocks. Only the seeding step walks one point a thread. The
 wrappers decide the launch shape here, on the host, by these rules;
-nothing here touches the card but the cached SM count.
+nothing here touches the card but the cached SM count. The center
+split's two constants are the rule's; on a card whose measured table
+(``kernels/tuning.py``) has an entry for the call's width, k and dtype,
+the split reads that entry's instead.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import tuning
 from repro_torch.kernels.build import BLOCK_POINTS
 
-# The fewest centers a slice of the center axis takes; the point tiles
-# (blocks an SM, times the SMs) below which the center axis is split.
+# The rule: the fewest centers a slice of the center axis takes; the point
+# tiles (blocks an SM, times the SMs) below which the center axis is split.
 MIN_SLICE = 512
 FILL_PER_SM = 4
 
@@ -35,21 +39,28 @@ def point_tiles(n: int, ppt: int) -> int:
     return max(-(-n // (BLOCK_POINTS * ppt)), 1)
 
 
-def center_slices(n: int, k: int, sms: int, ppt: int) -> int:
+def center_slices(n: int, k: int, sms: int, ppt: int, *, device=None,
+                  d: int = 0, dtype=torch.float32) -> int:
     """Slices of the center axis over the point tiles of ``n`` points
     (``slices_for_tiles``; EIM11's 65,536 × 173,256 at 4 points a thread:
     64 tiles, 10 slices)."""
-    return slices_for_tiles(point_tiles(n, ppt), k, sms)
+    return slices_for_tiles(point_tiles(n, ppt), k, sms, device=device, d=d,
+                            dtype=dtype)
 
 
-def slices_for_tiles(tiles: int, k: int, sms: int) -> int:
+def slices_for_tiles(tiles: int, k: int, sms: int, *, device=None,
+                     d: int = 0, dtype=torch.float32) -> int:
     """Slices of the center axis for a launch of ``tiles`` point tiles: 1
-    when they reach FILL_PER_SM blocks an SM; else, from the fewest slices
-    that do up to twice as many, the count whose blocks fill their last
-    wave of ``sms`` best, each slice of at least MIN_SLICE centers."""
+    when they reach ``fill_per_sm`` blocks an SM; else, from the fewest
+    slices that do up to twice as many, the count whose blocks fill their
+    last wave of ``sms`` best, each slice of at least ``min_slice``
+    centers. The pair is the rule's (MIN_SLICE, FILL_PER_SM), or on a CUDA
+    ``device`` ``tuning.split_params``' for d-wide ``dtype`` points."""
+    min_slice, fill = (MIN_SLICE, FILL_PER_SM) if device is None else \
+        tuning.split_params(device, d, k, dtype)
     tiles = max(tiles, 1)
-    want = FILL_PER_SM * sms
-    top = k // MIN_SLICE
+    want = fill * sms
+    top = k // min_slice
     if tiles >= want or top < 2:
         return 1
     lo = -(-want // tiles)

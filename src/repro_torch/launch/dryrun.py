@@ -8,11 +8,12 @@ step itself as rank 0 of the fake backend's group
 every tensor has its local shape and no storage, and every collective
 returns at once. The train cells run ``launch/train.py``'s
 ``MeshTrainer.step`` (parameters and optimizer state stored as the
-specs' shards, gathered for the step, the "2d" tensor-parallel split
-and the sharded MoE inside); the prefill and decode cells store the
-parameters alike and run ``lm_prefill`` / ``serve_step`` on the rank's
-rows of the batch (a decode cache holds the rank's rows and every
-head). Each cell records:
+specs' shards, each block gathered around its use and its gradients
+reduced to the shards, the update on the shards, the "2d"
+tensor-parallel split and the sharded MoE inside); the prefill and
+decode cells store the parameters alike, gather them whole for the
+step and run ``lm_prefill`` / ``serve_step`` on the rank's rows of the
+batch (a decode cache holds the rank's rows and every head). Each cell records:
 
 * ``memory``: ``argument_bytes``, the bytes a device holds of the cell's
   arguments under the specs (``launch/input_specs.py``), and

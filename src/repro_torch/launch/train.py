@@ -10,16 +10,25 @@ itself when no group is running. A rank:
   (``launch/input_specs.py``: "fsdp" archs over every axis, "2d" archs
   FSDP × TP) and installs ``sharding.activations.activation_mesh``;
 * stores the parameters and the optimizer state as its shards of those
-  specs (``shard``); each step gathers them whole (``unshard``, one
-  all-gather over the axes of each split dim) into the model, runs
+  specs (``shard``); the model itself holds no weights. A step runs
   ``train/train_step.py::make_train_step`` on the rank's slice of the
-  batch, averages the gradients and metrics over the batch ranks (its
-  ``grad_hook``), updates, and keeps its shards again; between steps the
-  model holds no weights. Inside the step the "2d" archs split heads
-  and ``d_ff`` over "model" where the specs shard them
-  (``sharding.activations``), and the MoE layers go through
-  ``models/moe_sharded.py``; a leaf whose rule falls back is only
-  stored split;
+  batch with ``sharding.activations.param_gather`` installed: each block
+  of the layer loops (and the embedding, final norm and head around
+  their use) gathers its parameters whole from the shards (``_Whole``:
+  bucketed all-gathers), and in the backward its gradients are summed
+  over the batch ranks, averaged and cut to this rank's shards
+  (a reduce-scatter where a leaf splits over the batch axes alone, else
+  an all-reduce and a ``narrow``), so no leaf is whole outside its
+  block. Under remat the gather sits inside the rematerialized step and
+  runs again in the backward. The optimizer updates the shards
+  (``optimizer.apply_updates``' ``shards``), and only the metrics are
+  averaged after the backward (its ``grad_hook``). Inside the step the
+  "2d" archs split heads and ``d_ff`` over "model" where the specs shard
+  them (``sharding.activations``), and the MoE layers go through
+  ``models/moe_sharded.py``, whose expert-parallel path takes the
+  rank's own experts: an expert stack split over the batch axes stays
+  local (only its other split dims are gathered, and its gradient needs
+  no sum). A leaf whose rule falls back is only stored split;
 * saves the whole state through ``checkpoint.Checkpointer`` from rank 0
   (the reference's on-disk layout) and restores it on every rank through
   ``Checkpointer.restore``'s placement, each rank taking its shards.
@@ -33,10 +42,11 @@ full-width one); the CLI is the reference's, always reduced.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import tempfile
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +54,7 @@ import torch.distributed as dist
 
 from repro_torch.sharding.activations import (activation_mesh, axis_group,
                                               axis_index, gather_cat,
+                                              param_gather, reduce_scatter,
                                               reduce_sum)
 from repro_torch.sharding.partition import Spec, axes_tuple, mesh_sizes
 
@@ -143,14 +154,49 @@ def local_rows(mesh, part, global_batch: int) -> slice:
 
 
 # ------------------------------------------------------------ trainer
+# the MoE expert stacks (reference leaf's last two keys), which
+# moe_sharded.py's expert-parallel path uses as the rank's own experts
+_EXPERT_LEAVES = {("moe", "wi_gate"), ("moe", "wi_up"), ("moe", "wo")}
+
+# which route each backward's gradient sums took ("reduce_scatter",
+# "all_reduce": an all-reduce then a narrow), counted per executed call
+SCATTER_ROUTES: Dict[str, int] = {}
+
+
+def _cat(parts, dim: int) -> torch.Tensor:
+    """``torch.cat``, with no copy of a single part."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+class _Whole(torch.autograd.Function):
+    """Parameters ``names`` whole from this rank's ``shards``; the
+    backward returns their gradients summed over the batch ranks,
+    averaged and cut to the shards (``MeshTrainer._scatter``)."""
+    gathers_parameters = True       # a weight operand (models/model.py)
+
+    @staticmethod
+    def forward(ctx, trainer, names, *shards):
+        ctx.trainer, ctx.names = trainer, names
+        full = unshard_all(dict(zip(names, shards)),
+                           {n: trainer.gather_specs[n] for n in names},
+                           trainer.mesh)
+        return tuple(full[n] for n in names)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + ctx.trainer._scatter(ctx.names, grads)
+
+
 class MeshTrainer:
-    """A train state stored as this rank's shards, stepped whole."""
+    """A train state stored as this rank's shards; a step gathers each
+    block whole around its use and updates the shards."""
 
     def __init__(self, cfg, mesh, opt=None, *, seed: int = 0,
                  device="cuda"):
         from repro_torch.launch.input_specs import (make_partitioner,
                                                     opt_shardings,
                                                     tp_axis_of)
+        from repro_torch.models.model import reference_leaf_path
         from repro_torch.train.optimizer import OptConfig
         from repro_torch.train.train_step import (make_train_state,
                                                   make_train_step)
@@ -158,6 +204,14 @@ class MeshTrainer:
         self.opt = opt or OptConfig(name=cfg.optimizer)
         self.part = make_partitioner(mesh, cfg)
         self.tp_axis = tp_axis_of(cfg)
+        sizes = mesh_sizes(mesh)
+        self.batch_axes = axes_tuple(self.part.batch_spec())
+        self.n_batch = math.prod(sizes[a] for a in self.batch_axes)
+        self.batch_group = (axis_group(mesh, self.batch_axes)
+                            if self.n_batch > 1 else None)
+        self.world = math.prod(sizes.values())
+        self.world_group = (axis_group(mesh, tuple(sizes))
+                            if self.world > 1 else None)
         state = make_train_state(cfg, self.opt, seed=seed, device=device)
         self.model = state["params"]
         self.specs = self.part.specs(self.model)
@@ -168,46 +222,158 @@ class MeshTrainer:
                        for n, p in self.model.named_parameters()}
         self.shapes.update({k: tuple(v.shape)
                             for k, v in _flatten(state["opt"]).items()})
-        self.params = self._shards(
-            {n: p.detach() for n, p in self.model.named_parameters()},
-            self.specs)
-        self.opt_state = self._shards(_flatten(state["opt"]),
-                                      self.opt_specs)
+        # a leaf is gathered over its split dims but an expert stack's
+        # batch-axes split; its gradient is summed over the batch axes
+        # it is not kept local on
+        self.gather_specs, self.reduce_axes = {}, {}
+        for n, spec in self.specs.items():
+            keys, _ = reference_leaf_path(cfg, n)
+            local = (tuple(k for k in keys if isinstance(k, str))[-2:]
+                     in _EXPERT_LEAVES
+                     and axes_tuple(spec[0]) == self.batch_axes)
+            self.gather_specs[n] = (None,) + tuple(spec[1:]) if local \
+                else tuple(spec)
+            self.reduce_axes[n] = () if local else self.batch_axes
+        with torch.no_grad():
+            self.params = self._shards(
+                {n: p.detach() for n, p in self.model.named_parameters()},
+                self.specs)
+            self.opt_state = self._shards(_flatten(state["opt"]),
+                                          self.opt_specs)
+        for t in self.params.values():
+            t.requires_grad_(True)
         self.step_no = 0
         del state
-        self._release()
-        sizes = mesh_sizes(mesh)
-        self.batch_axes = axes_tuple(self.part.batch_spec())
-        self.n_batch = math.prod(sizes[a] for a in self.batch_axes)
-        self.batch_group = (axis_group(mesh, self.batch_axes)
-                            if self.n_batch > 1 else None)
+        for p in self.model.parameters():
+            p.data = p.data.new_empty((0,))
+        # "qualified name." of every module, for _whole
+        self._prefix = {id(m): (f"{name}." if name else "")
+                        for name, m in self.model.named_modules()}
+        self.scatter_route = self._probe_reduce_scatter()
         self.step_fn = make_train_step(cfg, self.opt,
-                                       grad_hook=self._average)
+                                       grad_hook=self._average, shards=self)
 
     def _shards(self, full, specs):
         return {k: shard(t, specs[k], self.mesh) for k, t in full.items()}
 
-    # the model holds its weights only inside a step
-    def _release(self):
-        for p in self.model.parameters():
-            p.data = p.data.new_empty((0,))
+    def _probe_reduce_scatter(self) -> str:
+        """"reduce_scatter" when the batch group's backend has it, else
+        "all_reduce" (an all-reduce then a ``narrow``: the same sums)."""
+        if self.batch_group is None:
+            return "all_reduce"
+        try:
+            reduce_scatter(torch.zeros((self.n_batch, 1),
+                                       device=self.model.device),
+                           self.batch_group)
+        except (RuntimeError, NotImplementedError):
+            return "all_reduce"
+        return "reduce_scatter"
 
-    def _load(self):
-        full = unshard_all(self.params, self.specs, self.mesh)
-        for n, p in self.model.named_parameters():
-            p.data = full[n]
+    # ------------------------------------------------ the per-block gather
+    @contextlib.contextmanager
+    def _whole(self, *items):
+        """``sharding.activations.param_gather``'s function: the
+        parameters of ``items`` (modules, or (module, name) pairs) whole
+        inside, as ``_Whole``'s outputs, and empty again after."""
+        slots = []
+        for it in items:
+            if isinstance(it, tuple):
+                mod, attr = it
+                if mod._parameters.get(attr) is not None:
+                    slots.append((mod, attr, self._prefix[id(mod)] + attr))
+                continue
+            for sub in it.modules():
+                for attr, p in sub._parameters.items():
+                    if p is not None:
+                        slots.append((sub, attr, self._prefix[id(sub)] + attr))
+        names = tuple(q for _, _, q in slots)
+        fulls = _Whole.apply(self, names, *(self.params[n] for n in names))
+        kept = [m._parameters[a] for m, a, _ in slots]
+        for (m, a, _), t in zip(slots, fulls):
+            m._parameters[a] = t
+        try:
+            yield
+        finally:
+            for (m, a, _), p in zip(slots, kept):
+                m._parameters[a] = p
+
+    def _scatter(self, names, grads) -> tuple:
+        """Each gradient (of a gathered leaf, whole) in float32, summed
+        over its reduce axes (one reduce-scatter of the leaves split over
+        the batch axes alone, one all-reduce of the rest), cut to this
+        rank's shard, divided by the batch ranks and cast to the shard's
+        dtype, each a tensor of its own."""
+        sizes = mesh_sizes(self.mesh)
+        out: Dict[str, torch.Tensor] = {}
+        scatter, summed = [], []
+        for n, g in zip(names, grads):
+            g = g.float()
+            axes = self.reduce_axes[n]
+            split = [(d, axes_tuple(a)) for d, a in
+                     enumerate(self.gather_specs[n])
+                     if math.prod(sizes[x] for x in axes_tuple(a)) > 1]
+            if self.batch_group is None or not axes:
+                out[n] = shard(g, self.gather_specs[n], self.mesh)
+            elif self.scatter_route == "reduce_scatter" and \
+                    [a for _, a in split] == [axes]:
+                scatter.append((n, split[0][0], g))
+            else:
+                summed.append((n, g))
+        if scatter:
+            blocks = [g.movedim(d, 0) for _, d, g in scatter]
+            flat = _cat([b.reshape(self.n_batch, -1) for b in blocks], 1)
+            part = reduce_scatter(flat, self.batch_group)
+            SCATTER_ROUTES["reduce_scatter"] = \
+                SCATTER_ROUTES.get("reduce_scatter", 0) + 1
+            off = 0
+            for (n, d, _), b in zip(scatter, blocks):
+                size = b.numel() // self.n_batch
+                out[n] = part[off:off + size].view(
+                    (b.shape[0] // self.n_batch,) + tuple(b.shape[1:])
+                ).movedim(0, d).contiguous()
+                off += size
+        if summed:
+            flat = reduce_sum(_cat([g.reshape(-1) for _, g in summed], 0),
+                              self.batch_group)
+            SCATTER_ROUTES["all_reduce"] = \
+                SCATTER_ROUTES.get("all_reduce", 0) + 1
+            for (n, g), part in zip(summed, flat.split(
+                    [g.numel() for _, g in summed])):
+                out[n] = shard(part.view(g.shape), self.gather_specs[n],
+                               self.mesh)
+        # fresh tensors: a view would keep the whole bucket (or the
+        # engine's gradient) alive until the update
+        return tuple((out[n] / self.n_batch if self.n_batch > 1
+                      else out[n].clone()).to(self.params[n].dtype)
+                     for n in names)
+
+    # ------------------------------------------ what the optimizer reads
+    def shape(self, name: str) -> Tuple[int, ...]:
+        return self.shapes[name]
+
+    def split(self, name: str, dim: int) -> bool:
+        spec = self.specs[name]
+        axes = axes_tuple(spec[dim % len(spec)])
+        return math.prod(mesh_sizes(self.mesh)[a] for a in axes) > 1
+
+    def sum(self, name: str, dim: int, t: torch.Tensor) -> torch.Tensor:
+        spec = self.specs[name]
+        return reduce_sum(t, axis_group(self.mesh, spec[dim % len(spec)]))
+
+    def replicas(self, name: str) -> int:
+        sizes = mesh_sizes(self.mesh)
+        return self.world // math.prod(sizes[a] for ax in self.specs[name]
+                                       for a in axes_tuple(ax))
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.world_group is None else \
+            reduce_sum(t, self.world_group)
 
     def _average(self, metrics, grads):
-        """The gradients (in float32, as the optimizer reads them) and
-        the metrics averaged over the batch ranks, one all-reduce each."""
+        """The metrics averaged over the batch ranks, one all-reduce (the
+        gradients were averaged in the backward)."""
         if self.batch_group is None:
             return metrics, grads
-        flat = reduce_sum(torch.cat([g.float().reshape(-1)
-                                     for g in grads.values()]),
-                          self.batch_group).div_(self.n_batch)
-        parts = flat.split([g.numel() for g in grads.values()])
-        grads = {n: part.view(g.shape)
-                 for (n, g), part in zip(grads.items(), parts)}
         keys = sorted(metrics)
         vec = torch.stack([metrics[k].float().reshape(()) for k in keys])
         vec = reduce_sum(vec, self.batch_group) / self.n_batch
@@ -217,28 +383,22 @@ class MeshTrainer:
 
     def step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One train step on this rank's ``batch`` (its rows); returns
-        the metrics averaged over the batch ranks."""
-        self._load()
-        opt_full = _unflatten(unshard_all(self.opt_state, self.opt_specs,
-                                          self.mesh))
-        state = {"params": self.model, "opt": opt_full,
+        the metrics averaged over the batch ranks. The shards and the
+        moments are updated in place."""
+        state = {"params": self.model, "opt": _unflatten(self.opt_state),
                  "step": torch.tensor(self.step_no, dtype=torch.int32,
                                       device=self.model.device)}
-        with activation_mesh(self.mesh, tp_axis=self.tp_axis):
-            state, metrics = self.step_fn(state, batch)
-        self.params = self._shards(
-            {n: p.detach() for n, p in self.model.named_parameters()},
-            self.specs)
-        self.opt_state = self._shards(_flatten(state["opt"]),
-                                      self.opt_specs)
+        with activation_mesh(self.mesh, tp_axis=self.tp_axis), \
+                param_gather(self._whole):
+            _, metrics = self.step_fn(state, batch)
         self.step_no += 1
-        self._release()
         return metrics
 
     # ------------------------------------------------------ checkpoints
+    @torch.no_grad()
     def state_tree(self) -> Dict[str, Any]:
         """The whole state in ``train_step.state_tree``'s layout (every
-        rank takes part in the gathers)."""
+        rank takes part in the gathers; a save, not a step)."""
         return {"params": unshard_all(self.params, self.specs, self.mesh),
                 "opt": _unflatten(unshard_all(self.opt_state,
                                               self.opt_specs, self.mesh)),
@@ -269,7 +429,8 @@ class MeshTrainer:
                                      for k, s in self.opt_specs.items()}),
                   "step": lambda leaf: leaf}
         tree = ckpt.restore(template, shardings=places)
-        self.params = tree["params"]
+        self.params = {n: t.requires_grad_(True)
+                       for n, t in tree["params"].items()}
         self.opt_state = _flatten(tree["opt"])
         self.step_no = int(tree["step"])
         return self.step_no

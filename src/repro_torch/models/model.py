@@ -45,7 +45,10 @@ training forward's self-attention (``self_block_fwd`` without
 from ``sharding.activations`` (``tp_attention``, ``layers.mlp_apply``),
 and the MoE layer dispatches to ``models/moe_sharded.py``. Prefill and
 decode keep every KV head in their caches, so their attention runs
-whole on every model rank. Without a mesh nothing changes.
+whole on every model rank. The loops ask for each step's weights whole
+(``sharding.activations.whole``) inside what ``_remat`` wraps, and for
+the embedding, final norm and head around their use: the mesh driver
+gathers them there and nowhere else. Without a mesh nothing changes.
 """
 from __future__ import annotations
 
@@ -64,7 +67,7 @@ from repro_torch.models.layers import (MLP, Norm, embed_apply,
                                        mlp_apply, norm_apply, sinusoid,
                                        torch_dtype, unembed_apply)
 from repro_torch.sharding.activations import (from_model, to_model,
-                                              tp_attention)
+                                              tp_attention, whole)
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 
@@ -213,14 +216,19 @@ _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
 
 
 def _from_parameter(t) -> bool:
-    """Whether ``t`` is a parameter or reaches one through single-input
-    autograd nodes only (views, reshapes, casts): a weight operand."""
+    """Whether ``t`` is a parameter, or reaches one or a gathered whole
+    parameter (an autograd function that sets ``gathers_parameters``)
+    through single-input autograd nodes only (views, reshapes, casts): a
+    weight operand."""
     if not isinstance(t, torch.Tensor):
         return False
     if isinstance(t, nn.Parameter):
         return True
     fn = t.grad_fn
     while fn is not None:
+        if getattr(type(fn), "_forward_cls", None) is not None and \
+                getattr(type(fn)._forward_cls, "gathers_parameters", False):
+            return True
         if type(fn).__name__ == "AccumulateGrad":
             return isinstance(fn.variable, nn.Parameter)
         nxt = [f for f, _ in fn.next_functions if f is not None]
@@ -404,7 +412,8 @@ def _frontend(params: LM, cfg, frontend):
 
 
 def _embed_tokens(params: LM, cfg, tokens, positions):
-    x = embed_apply(params.embed, tokens)
+    with whole((params, "embed")):
+        x = embed_apply(params.embed, tokens)
     x = x.to(torch_dtype(cfg.compute_dtype))
     if cfg.pos == "abs":
         x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
@@ -421,17 +430,22 @@ def encoder_forward(params: LM, cfg, frames):
     pos = _positions(frames.shape[0], frames.shape[1], frames.device)
     x = x + sinusoid(pos, cfg.d_model).to(x.dtype)
     # the reference remats the encoder by cfg.remat whatever lm_forward's
-    body = _remat(lambda x, p_l: self_block_fwd(p_l, cfg, x, pos,
-                                                causal=False, window=0),
-                  cfg.remat)
+    def body(x, p_l):
+        with whole(p_l):
+            return self_block_fwd(p_l, cfg, x, pos, causal=False, window=0)
+
+    body = _remat(body, cfg.remat)
     for p_l in params.enc_blocks:
         x, _ = body(x, p_l)
-    return norm_apply(params.enc_norm, cfg, x)
+    with whole(params.enc_norm):
+        return norm_apply(params.enc_norm, cfg, x)
 
 
 def _logits(params: LM, cfg, x):
-    x = norm_apply(params.final_norm, cfg, x)
-    return unembed_apply(params.head, params.embed, cfg, x)
+    w = (params, "embed") if cfg.tie_embeddings else (params, "head")
+    with whole(params.final_norm, w):
+        x = norm_apply(params.final_norm, cfg, x)
+        return unembed_apply(params.head, params.embed, cfg, x)
 
 
 def lm_forward(params: LM, cfg, tokens, *, frontend=None,
@@ -449,8 +463,11 @@ def lm_forward(params: LM, cfg, tokens, *, frontend=None,
     aux = torch.zeros((), device=x.device)
     fam = cfg.family
     if fam in ("dense", "moe"):
-        layer = _remat(lambda x, p_l: self_block_fwd(p_l, cfg, x, positions),
-                       remat)
+        def layer(x, p_l):
+            with whole(p_l):
+                return self_block_fwd(p_l, cfg, x, positions)
+
+        layer = _remat(layer, remat)
         for _, blocks in _self_stacks(params, cfg):
             for p_l in blocks:
                 x, a = layer(x, p_l)
@@ -460,10 +477,11 @@ def lm_forward(params: LM, cfg, tokens, *, frontend=None,
 
         def superblock(x, selfs, cross):
             a_sum = torch.zeros((), device=x.device)
-            for p_i in selfs:
-                x, a = self_block_fwd(p_i, cfg, x, positions)
-                a_sum = a_sum + a
-            x, a = cross_block_fwd(cross, cfg, x, kv_src)
+            with whole(*selfs, cross):
+                for p_i in selfs:
+                    x, a = self_block_fwd(p_i, cfg, x, positions)
+                    a_sum = a_sum + a
+                x, a = cross_block_fwd(cross, cfg, x, kv_src)
             return x, a_sum + a
 
         superblock = _remat(superblock, remat)
@@ -474,8 +492,9 @@ def lm_forward(params: LM, cfg, tokens, *, frontend=None,
         enc = encoder_forward(params, cfg, _frontend(params, cfg, frontend))
 
         def decoder_layer(x, p_l, cross):
-            x, a = self_block_fwd(p_l, cfg, x, positions)
-            x, a2 = cross_block_fwd(cross, cfg, x, enc)
+            with whole(p_l, cross):
+                x, a = self_block_fwd(p_l, cfg, x, positions)
+                x, a2 = cross_block_fwd(cross, cfg, x, enc)
             return x, a + a2
 
         decoder_layer = _remat(decoder_layer, remat)
@@ -484,9 +503,10 @@ def lm_forward(params: LM, cfg, tokens, *, frontend=None,
             aux = aux + a
     elif fam == "hybrid":
         def group(x, layers, shared):
-            for p_i in layers:
-                x, _ = mamba_layer(p_i, cfg, x)
-            return self_block_fwd(shared, cfg, x, positions)
+            with whole(*layers, shared):
+                for p_i in layers:
+                    x, _ = mamba_layer(p_i, cfg, x)
+                return self_block_fwd(shared, cfg, x, positions)
 
         group = _remat(group, remat)
         for _, layers, shared in _hybrid_groups(params, cfg):
@@ -494,7 +514,8 @@ def lm_forward(params: LM, cfg, tokens, *, frontend=None,
             aux = aux + a
     else:   # ssm: a Python loop the reference does not remat
         for p_l in params.blocks:
-            x, _ = xlstm_layer(p_l, cfg, x)
+            with whole(p_l):
+                x, _ = xlstm_layer(p_l, cfg, x)
     return _logits(params, cfg, x), aux
 
 

@@ -57,6 +57,11 @@ def moe_apply_sharded(p, cfg, x: torch.Tensor, *, capacity_factor: float
     n_model = shape[tp] if tp else 1
     t_loc_all = b * s
     if t_loc_all % n_model:
+        if p.wi_gate.shape[0] != e:
+            raise ValueError(f"{t_loc_all} tokens do not split over "
+                             f"{n_model} model ranks, and the dense "
+                             f"fallback needs all {e} experts, not this "
+                             f"rank's {p.wi_gate.shape[0]}")
         return moe._moe_apply_dense(p, cfg, x, capacity_factor)
     ep = e % n_data == 0 and e >= n_data
     e_loc = e // n_data if ep else e

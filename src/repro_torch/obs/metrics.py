@@ -4,16 +4,17 @@ The port of ``repro.obs.metrics``. Everything registers here:
 
 * **adopted sources** — the port's module-level counters, wrapped by name
   with *lazy* resolvers: ``core.comm.active_tallies`` (the depth of
-  ``core.comm``'s wire-tally stack, whose reset clears a leaked entry)
-  and ``kernels.launches`` (each CUDA kernel's launch count,
-  ``kernels.ops.KERNELS``);
+  ``core.comm``'s wire-tally stack, whose reset clears a leaked entry),
+  ``kernels.launches`` (each CUDA kernel's launch count,
+  ``kernels.ops.KERNELS``) and ``kernels.tuning.autotune`` (the walk's
+  split lookups, ``kernels.tuning.TUNE_COUNTS``: measured hits, misses
+  and rule-only lookups, one a kernel call on the card);
 * **owned metrics** — ``Counter``/``Gauge``/``Histogram``/``EventLog``
   created through the registry (serving latency, drift re-clusters).
 
 The reference also adopts ``*.trace_counts`` (how often JAX traced a
-jitted body) and ``kernels.tuning.autotune`` (its measured launch-shape
-table). Eager PyTorch traces nothing and the port's launch shape is a
-rule (``kernels/walk.py``), so neither has a counterpart here.
+jitted body); eager PyTorch traces nothing, so they have no counterpart
+here.
 
 ``read()`` returns one JSON-clean snapshot, ``reset()`` zeroes
 everything (or a named subset), and ``scope()`` yields a delta-reader so
@@ -293,6 +294,15 @@ def _adopt_defaults(reg: MetricsRegistry) -> None:
               read=lambda: {name: kern.launches
                             for name, kern in _kernels().items()},
               reset=_zero_launches)
+
+    def _tune():
+        return importlib.import_module(
+            "repro_torch.kernels.tuning").TUNE_COUNTS
+
+    # the walk's split lookups (none on the CPU, where no launch shape is
+    # decided)
+    reg.adopt("kernels.tuning.autotune", read=lambda: dict(_tune()),
+              reset=lambda: _tune().clear())
 
 
 _adopt_defaults(REGISTRY)

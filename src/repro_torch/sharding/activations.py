@@ -29,13 +29,20 @@ Gradients follow one convention, which ``launch/train.py`` completes:
 activations and parameters outside a split region are replicated over
 "model" and their gradients are equal on every model rank; a rank's
 gradient sums over its own batch slice, and the driver averages them
-over the batch axes. The autograd collectives below are written to it:
+over the batch axes (in each block's backward, into its shards). The
+autograd collectives below are written to it:
 ``to_model`` (identity, all-reduce of the gradient over "model"),
 ``from_model`` (all-reduce, identity), ``gather_model`` (all-gather,
 the rank's own slice of the gradient), ``pmean`` (a mean over the batch
 axes or over "model"), ``all_to_all`` (its reverse in the backward) and
 ``take`` (a slice, the gradient padded to the full shape and summed over
 "model").
+
+The parameters themselves are stored split (``launch/train.py``): the
+model code asks for a block's weights whole through ``whole(...)``
+around each block of its layer loops (and around the embedding, the
+final norm and the head), and the driver installs what that does with
+``param_gather``. With nothing installed ``whole`` does nothing.
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ import torch.distributed as dist
 
 from repro_torch.sharding.partition import mesh_sizes
 
-_CTX: dict = {"mesh": None, "fsdp": None, "tp": None}
+_CTX: dict = {"mesh": None, "fsdp": None, "tp": None, "whole": None}
 
 
 @contextlib.contextmanager
@@ -67,6 +74,26 @@ def activation_mesh(mesh, tp_axis: str = "model"):
     finally:
         _CTX.clear()
         _CTX.update(prev)
+
+
+@contextlib.contextmanager
+def param_gather(fn):
+    """Install ``fn(*items)``, a context manager in which the parameters
+    of ``items`` (modules, or (module, parameter name) pairs) are whole;
+    ``whole`` calls it."""
+    prev = _CTX["whole"]
+    _CTX["whole"] = fn
+    try:
+        yield
+    finally:
+        _CTX["whole"] = prev
+
+
+def whole(*items):
+    """A context in which the parameters of ``items`` are whole: the
+    installed ``param_gather`` function's, else a no-op."""
+    fn = _CTX["whole"]
+    return contextlib.nullcontext() if fn is None else fn(*items)
 
 
 def _names(axes) -> Tuple[str, ...]:
@@ -178,6 +205,17 @@ def gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=group)
     return out.to(x.device).movedim(0, dim)
+
+
+def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """Row ``i`` of the sum over ``group``'s ranks of ``x`` (n, L), on
+    rank ``i`` of the group."""
+    src = x.contiguous()
+    if _staged(src, group):
+        src = src.cpu()
+    out = src.new_empty(src.shape[1:])
+    dist.reduce_scatter_tensor(out, src.reshape(-1), group=group)
+    return out.to(x.device)
 
 
 def exchange(x: torch.Tensor, group) -> torch.Tensor:

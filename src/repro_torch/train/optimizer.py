@@ -17,6 +17,13 @@ port's parameters are grouped by their reference leaf
 (``models.model.reference_leaf_path``); every other step of both
 optimizers is elementwise or reduces over a parameter's last two dims
 only, so it runs per parameter.
+
+On a mesh (``launch/train.py::MeshTrainer``) ``apply_updates`` runs on
+this rank's blocks of the parameters, their gradients and moments
+(``shards``): every elementwise step is the same, and the sums that
+cross blocks (the global norm, Adafactor's row and column means over a
+split dim, its RMS per reference leaf) add the blocks' partial sums
+over the ranks that hold them, one all-reduce each.
 """
 from __future__ import annotations
 
@@ -110,20 +117,44 @@ def init_opt_state(model, opt: OptConfig) -> Dict[str, dict]:
     return {"v": v}
 
 
-def _global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-    sq = sum(g.float().square().sum() for g in grads.values())
+def _global_norm(grads: Dict[str, torch.Tensor], shards=None) -> torch.Tensor:
+    if shards is None:
+        sq = sum(g.float().square().sum() for g in grads.values())
+    else:
+        sq = shards.total(sum(g.float().square().sum() / shards.replicas(n)
+                              for n, g in grads.items()))
     return torch.sqrt(sq)
+
+
+def _mean(t: torch.Tensor, dim: int, name: str, pdim: int, shards,
+          keepdim: bool = False) -> torch.Tensor:
+    """``t.mean(dim)``, where ``t``'s ``dim`` is parameter ``name``'s
+    dim ``pdim``: over the whole dim when ``shards`` splits it."""
+    if shards is None or not shards.split(name, pdim):
+        return t.mean(dim, keepdim=keepdim)
+    return shards.sum(name, pdim, t.sum(dim, keepdim=keepdim)) / \
+        shards.shape(name)[pdim]
 
 
 @torch.no_grad()
 def apply_updates(model, grads: Dict[str, torch.Tensor], state, opt,
-                  step: torch.Tensor):
+                  step: torch.Tensor, shards=None):
     """Clip ``grads`` ({name: gradient}) by their global norm, then update
     ``model``'s parameters and ``state``'s moments in place (the
     reference's donated buffers: no second copy of the moments is ever
     held) by AdamW or Adafactor at ``schedule(opt, step)``. Returns
-    (state, {"grad_norm", "lr"})."""
-    gnorm = _global_norm(grads)
+    (state, {"grad_norm", "lr"}).
+
+    ``shards`` (the mesh driver's) holds this rank's blocks instead:
+    ``shards.params`` {name: block} are updated, and ``grads`` and
+    ``state`` hold the same blocks; ``shards.shape(name)`` is the whole
+    shape, ``shards.split(name, dim)`` whether a dim is split,
+    ``shards.sum(name, dim, t)`` the sum of ``t`` over the ranks holding
+    that dim's other blocks, ``shards.replicas(name)`` the ranks holding
+    each block and ``shards.total(t)`` the sum over every rank."""
+    params = dict(model.named_parameters()) if shards is None \
+        else shards.params
+    gnorm = _global_norm(grads, shards)
     scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(opt, step.to(gnorm.device))
@@ -136,7 +167,7 @@ def apply_updates(model, grads: Dict[str, torch.Tensor], state, opt,
         p.copy_((p.float() - lr * delta).to(p.dtype))
 
     if opt.name == "adamw":
-        for name, p in model.named_parameters():
+        for name, p in params.items():
             g = clipped(name)
             # b·m + (1 - b)·g, each product rounded, as out of place
             m = state["m"][name].mul_(opt.b1).add_((1 - opt.b1) * g)
@@ -151,15 +182,17 @@ def apply_updates(model, grads: Dict[str, torch.Tensor], state, opt,
     decay = 1.0 - t ** -0.8
     for group in leaf_groups(model).values():
         updates, sq, count = [], 0.0, 0
-        for name, p in group:
+        for name, _ in group:
             g = clipped(name)
             g2 = g.square() + 1e-30
             st = state["v"][name]
             if "vr" in st:
-                vr = st["vr"].mul_(decay).add_((1 - decay) * g2.mean(-1))
-                vc = st["vc"].mul_(decay).add_((1 - decay) * g2.mean(-2))
-                r_factor = vr / torch.clamp(vr.mean(-1, keepdim=True),
-                                            min=1e-30)
+                vr = st["vr"].mul_(decay).add_(
+                    (1 - decay) * _mean(g2, -1, name, -1, shards))
+                vc = st["vc"].mul_(decay).add_(
+                    (1 - decay) * _mean(g2, -2, name, -2, shards))
+                r_factor = vr / torch.clamp(
+                    _mean(vr, -1, name, -2, shards, keepdim=True), min=1e-30)
                 precond = torch.rsqrt(torch.clamp(
                     r_factor[..., None] * vc[..., None, :], min=1e-30))
             else:
@@ -167,11 +200,18 @@ def apply_updates(model, grads: Dict[str, torch.Tensor], state, opt,
                 precond = torch.rsqrt(torch.clamp(vf, min=1e-30))
             update = g * precond
             updates.append(update)
-            sq = sq + update.square().sum()
-            count += update.numel()
+            if shards is None:
+                sq = sq + update.square().sum()
+                count += update.numel()
+            else:
+                sq = sq + update.square().sum() / shards.replicas(name)
+                count += math.prod(shards.shape(name))
+        if shards is not None:
+            sq = shards.total(sq)
         # update clipping (Shazeer & Stern): RMS <= 1 over the whole leaf
         rms = torch.sqrt(sq / count + 1e-30)
-        for (name, p), update in zip(group, updates):
+        for (name, _), update in zip(group, updates):
+            p = params[name]
             update = update / torch.clamp(rms, min=1.0)
             write(p, update + opt.weight_decay * p.float())
     return state, {"grad_norm": gnorm, "lr": lr}

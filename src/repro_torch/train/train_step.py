@@ -47,10 +47,12 @@ def _loss_fn(model, cfg, tokens, targets, frontend):
     return total, dict(metrics, aux=aux, loss=total)
 
 
-def _grads(model, cfg, tokens, targets, frontend):
-    """(metrics, {name: gradient}) of the total loss; a parameter the
-    loss does not reach gets zeros."""
-    names, params = zip(*model.named_parameters())
+def _grads(model, cfg, tokens, targets, frontend, leaves=None):
+    """(metrics, {name: gradient}) of the total loss with respect to
+    ``leaves`` ({name: tensor}, default the model's parameters); a leaf
+    the loss does not reach gets zeros."""
+    leaves = dict(model.named_parameters()) if leaves is None else leaves
+    names, params = zip(*leaves.items())
     total, metrics = _loss_fn(model, cfg, tokens, targets, frontend)
     grads = torch.autograd.grad(total, params, allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
@@ -59,14 +61,18 @@ def _grads(model, cfg, tokens, targets, frontend):
 
 
 def make_train_step(cfg, opt: Optional[OptConfig] = None, *,
-                    grad_hook=None):
+                    grad_hook=None, shards=None):
     """``train_step(state, batch)``; ``batch`` holds ``tokens`` and
     ``targets`` (B, S) and, for the vlm and audio families, ``frontend``
     (B, T, d). Metrics: the loss's (``nll``, ``z_loss``, ``accuracy``,
     ``tokens``), ``aux``, the total ``loss``, ``grad_norm`` and ``lr``,
     0-d tensors on the model's device. ``grad_hook(metrics, grads) ->
     (metrics, grads)`` runs between the gradients and the update (the
-    mesh driver averages both over its batch ranks there)."""
+    mesh driver averages the metrics over its batch ranks there).
+    ``shards`` (the mesh driver's, see ``optimizer.apply_updates``):
+    the gradients are taken with respect to this rank's blocks
+    ``shards.params``, accumulated over the microbatches at their size,
+    and the update runs on them."""
     opt = opt or OptConfig(name=cfg.optimizer)
     nmb = max(cfg.microbatches, 1)
 
@@ -78,8 +84,10 @@ def make_train_step(cfg, opt: Optional[OptConfig] = None, *,
         frontend = batch.get("frontend")
         if frontend is not None:
             frontend = torch.as_tensor(frontend, device=dev)
+        leaves = None if shards is None else shards.params
         if nmb == 1:
-            metrics, grads = _grads(model, cfg, tokens, targets, frontend)
+            metrics, grads = _grads(model, cfg, tokens, targets, frontend,
+                                    leaves)
         else:
             b = tokens.shape[0]
             if b % nmb:
@@ -88,12 +96,14 @@ def make_train_step(cfg, opt: Optional[OptConfig] = None, *,
             mb = b // nmb
             grads = {n: torch.zeros(p.shape, dtype=torch.float32,
                                     device=dev)
-                     for n, p in model.named_parameters()}
+                     for n, p in (model.named_parameters() if leaves is None
+                                  else leaves.items())}
             metrics = {k: torch.zeros((), device=dev) for k in METRICS}
             for i in range(nmb):
                 rows = slice(i * mb, (i + 1) * mb)
                 m, g = _grads(model, cfg, tokens[rows], targets[rows],
-                              None if frontend is None else frontend[rows])
+                              None if frontend is None else frontend[rows],
+                              leaves)
                 for n, gi in g.items():
                     grads[n] = grads[n] + gi.float() / nmb
                 for k in METRICS:
@@ -102,7 +112,7 @@ def make_train_step(cfg, opt: Optional[OptConfig] = None, *,
         if grad_hook is not None:
             metrics, grads = grad_hook(metrics, grads)
         new_opt, opt_metrics = apply_updates(model, grads, state["opt"], opt,
-                                             state["step"])
+                                             state["step"], shards)
         metrics = dict(metrics, **opt_metrics)
         return ({"params": model, "opt": new_opt,
                  "step": state["step"] + 1}, metrics)

@@ -99,7 +99,9 @@ def test_port_has_its_modules():
                 "repro_torch/launch/cluster_dryrun.py",
                 "repro_torch/roofline/hw.py",
                 "repro_torch/roofline/analysis.py",
-                "repro_torch/roofline/op_stats.py"):
+                "repro_torch/roofline/op_stats.py",
+                "repro_torch/kernels/tuning.py",
+                "repro_torch/kernels/autotune.py"):
         assert mod in names
     examples = {p.name for p in FILES if p.parent.name == "examples"}
     assert examples == {"quickstart_torch.py",
@@ -128,7 +130,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.moe_sharded, repro_torch.launch.input_specs, "
             "repro_torch.launch.train, repro_torch.launch.dryrun, "
             "repro_torch.launch.cluster_dryrun, repro_torch.roofline.hw, "
-            "repro_torch.roofline.analysis, repro_torch.roofline.op_stats; "
+            "repro_torch.roofline.analysis, repro_torch.roofline.op_stats, "
+            "repro_torch.kernels.tuning, repro_torch.kernels.autotune; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")
@@ -160,3 +163,15 @@ def test_launch_scripts_run_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("clean")
+
+
+@pytest.mark.parametrize("name", ["tuning.py", "autotune.py"])
+def test_tuning_reads_no_environment(name):
+    """The walk's tuning is set by a function and the CLI: its modules
+    read no environment variable."""
+    tree = ast.parse((ROOT / "src" / "repro_torch" / "kernels" /
+                      name).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in ("environ", "getenv", "environb"), \
+                f"{name} reads the environment"

@@ -200,13 +200,15 @@ def test_registry_mechanics():
 
 
 def test_default_registry_adoptions():
-    """The global registry reads the port's own sources (wire tallies and
-    kernel launches; the reference's trace and autotune counters have no
-    eager counterpart), a scope over a fit reads cleanly, and reset()
-    clears a leaked wire tally."""
+    """The global registry reads the port's own sources (wire tallies,
+    kernel launches and the walk's split lookups; the reference's trace
+    counters have no eager counterpart), a scope over a fit reads
+    cleanly, and reset() clears a leaked wire tally and the lookups."""
     from repro_torch.core import comm
+    from repro_torch.kernels import tuning
     snap = REGISTRY.read()
-    assert {"core.comm.active_tallies", "kernels.launches"} <= set(snap)
+    assert {"core.comm.active_tallies", "kernels.launches",
+            "kernels.tuning.autotune"} <= set(snap)
     assert set(snap["kernels.launches"]) == set(
         __import__("repro_torch.kernels.ops",
                    fromlist=["KERNELS"]).KERNELS)
@@ -215,6 +217,14 @@ def test_default_registry_adoptions():
     delta = sc.delta()
     assert delta["core.comm.active_tallies"] == {"value": 0}
     assert set(delta["kernels.launches"].values()) == {0}   # plain on CPU
+    # no launch shape is decided on the CPU
+    assert not any(delta["kernels.tuning.autotune"].values())
+    tuning.TUNE_COUNTS["measured_miss"] += 1
+    assert REGISTRY.read("kernels.tuning.autotune")[
+        "kernels.tuning.autotune"]["measured_miss"] >= 1
+    REGISTRY.reset("kernels.tuning.autotune")
+    assert REGISTRY.read("kernels.tuning.autotune")[
+        "kernels.tuning.autotune"] == {}
     comm._TALLY_STACK.append(comm.WireTally())               # a leak
     assert REGISTRY.read()["core.comm.active_tallies"] == {"value": 1}
     REGISTRY.reset("core.comm.active_tallies")

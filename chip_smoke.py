@@ -16,8 +16,12 @@ PyTorch built for CUDA. It
    the closest PyTorch call (``torch.cdist``, which computes the whole
    distance matrix rather than the same function); then holds them
    against their plain versions off the main path's shape too: d = 37
-   and d = 513 (the any-width kernel variant, several center tiles) and
-   k = 1024 at d = 15 (two tiles). ``remove_below``'s mask equals
+   and d = 513 (min_dist and the Lloyd kernel on the tiled walk, the
+   other kernels on the register-blocked walk's any-width variant,
+   several center tiles; there min_dist's (d2, argmin) and the Lloyd
+   kernel's argmin equal ``sensitivity_scores``' at w = 1 and its sums
+   and counts ``ref.fixed_point_reduce_ref``'s over that argmin, bit for
+   bit) and k = 1024 at d = 15 (two tiles). ``remove_below``'s mask equals
    ``alive & (min_dist's d2 > v)`` and its counts the mask's row sums,
    bit for bit, at every shape, dtype and mask (the two share the
    register-blocked walk), and with no valid center ``min_dist`` gives
@@ -43,7 +47,9 @@ PyTorch built for CUDA. It
    recorded times of the kernels they replaced beside them; it prints
    ``nvcc -Xptxas -v``'s registers and spills of the kernels on the
    register-blocked walk (the Lloyd kernel, min_dist, remove_below,
-   sensitivity_scores) and of lloyd_reduce, from the build's own log;
+   sensitivity_scores), of lloyd_reduce and of the tiled walk's three
+   (min_dist's, the Lloyd step's walk and its column reduce), from the
+   build's own log;
 5. holds the robust and coreset tier's kernels against their plain
    versions at that tier's shapes, in the three dtypes, with invalid
    centers and zero weights, with a same-bits repeat, and times them:
@@ -235,10 +241,13 @@ PyTorch built for CUDA. It
    kernel of the path launched, eta and k_plus, the rounds, n_hist and
    Theorem 4.1's structure, the fit repeated with every kernel call held
    to its plain version (``KernelsAs`` "shadow") and equal bit for bit,
-   its cost within 1.1x of ``fit(algo="lloyd")``'s, and the four SOCCER
-   kernels timed at the fit's own largest calls (d = 7,168) beside their
-   bounds (``python3 chip_smoke.py --lm`` builds the kernels and runs
-   only phases 17 and 19); and
+   its cost within 1.1x of ``fit(algo="lloyd")``'s, the sha256 of its
+   centers and n_hist printed (``scripts/embedding_fit_digest.py`` gives
+   any tree's), min_dist and the Lloyd kernel at the fit's own largest
+   calls held to the register-blocked walk bit for bit (as at d = 37 and
+   513), and the four SOCCER kernels timed there (d = 7,168) beside
+   their bounds (``python3 chip_smoke.py --lm`` builds the kernels and
+   runs only phases 17 and 19); and
 20. holds the mesh backend to the virtual one: the seeding step
    and the Lloyd step over 8 parts of the sharded coordinator's buffer
    against the flattened calls, bit for bit, and against their plain
@@ -296,6 +305,7 @@ from cuda_timing import (Ms, device_busy_ms, device_split,  # noqa: E402
                          timed_ms, union_us)
 from trace_overhead import measure as measure_overhead  # noqa: E402
 from trace_overhead import soccer_runner  # noqa: E402
+from embedding_fit_digest import fit_sha256  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 N_POINTS, DIM, MACHINES = 10_000_000, 15, 8
@@ -442,28 +452,36 @@ WALK_KERNELS = (("fused_assign.cu", "fused_assign_kernel"),
                 ("truncated.cu", "truncated_kernel"))
 
 
-# ... lloyd_reduce's kernel (the Lloyd step's reduce without the walk) and
-# the seeding kernel, whose third template argument is its draw
+# ... lloyd_reduce's kernel (the Lloyd step's reduce without the walk), the
+# seeding kernel, whose third template argument is its draw, and the
+# tiled walk's kernels at d > 16 (min_dist's, the Lloyd step's walk and
+# its column reduce), whose one template argument is the point type
+TILED_KERNELS = (("min_dist.cu", "tiled_min_dist_kernel"),
+                 ("fused_assign.cu", "tiled_assign_kernel"),
+                 ("fused_assign.cu", "column_reduce_kernel"))
 PTXAS_KERNELS = WALK_KERNELS + (("lloyd.cu", "lloyd_reduce_kernel"),
-                                ("fused_lloyd.cu", "seed_step_kernel"))
+                                ("fused_lloyd.cu", "seed_step_kernel")) \
+    + TILED_KERNELS
 
 
 def print_ptxas(log: str, kernel: str) -> int:
     """One line a variant of ``kernel`` (one of PTXAS_KERNELS) from ``nvcc
-    -Xptxas -v``: (point type, register row length DR, points a thread P
-    or the draw on/off), registers, spill stores and loads. Returns the
-    number of variants printed."""
+    -Xptxas -v``: (point type, and on the register-blocked walk the
+    register row length DR and points a thread P or the draw on/off),
+    registers, spill stores and loads. Returns the number of variants
+    printed."""
     import re
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     name, printed = None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN2rt\d+" + kernel
-                      + r"I(f|13__nv_bfloat16|6__half)Li(\d+)EL([ib])(\d+)E",
-                      line)
+                      + r"I(f|13__nv_bfloat16|6__half)"
+                      r"(?:Li(\d+)EL([ib])(\d+))?E", line)
         if m:
-            third = "P" if m.group(3) == "i" else "draw"
-            name = (f"{types[m.group(1)]} DR={m.group(2)} "
-                    f"{third}={m.group(4)}")
+            name = types[m.group(1)]
+            if m.group(2) is not None:
+                third = "P" if m.group(3) == "i" else "draw"
+                name += f" DR={m.group(2)} {third}={m.group(4)}"
             spills = "spills not reported"
             continue
         if name is None:
@@ -548,6 +566,35 @@ def check_min_dist(ops, ref, x, c, cv):
     if cv is not None:
         check(bool(cv[idx_k.long()].all()), "min_dist chose an invalid center")
     return max(err, arg_err), tol
+
+
+def check_old_walk(ops, ref, x, w, c, cv, what: str) -> None:
+    """Bit for bit against the register-blocked walk: ``min_dist``'s (d2,
+    argmin) and the Lloyd kernel's argmin (``assign_out``) against
+    ``sensitivity_scores`` at w = 1 (its scores are 1·d2, exact, and its
+    walk is the register-blocked one at every d), and the Lloyd kernel's
+    sums and counts against ``ref.fixed_point_reduce_ref`` over that
+    argmin, on the card. At d > 16 min_dist and the Lloyd kernel run the
+    tiled walk (csrc/common.cuh: tiled_nearest), so this holds the two
+    walks to each other."""
+    from repro_torch.kernels.fused_lloyd import fused_assign_reduce_cuda
+    n, k = x.shape[0], c.shape[0]
+    d2, idx = ops.min_dist(x, c, cv)
+    sc, asg, _, _ = ops.sensitivity_scores(
+        x, torch.ones(n, device=x.device), c, cv)
+    check(torch.equal(d2, sc) and torch.equal(idx, asg),
+          f"{what}: min_dist's (d2, argmin) differ from the register-"
+          f"blocked walk's ({int((d2 != sc).sum())} d2, "
+          f"{int((idx != asg).sum())} argmin)")
+    own = torch.empty_like(idx)
+    s_k, n_k, _ = fused_assign_reduce_cuda(x, w, c, cv, assign_out=own)
+    check(torch.equal(own, asg),
+          f"{what}: the Lloyd kernel's argmin differs from the register-"
+          f"blocked walk's at {int((own != asg).sum())} points")
+    s_e, n_e = ref.fixed_point_reduce_ref(x, w, asg, k)
+    check(torch.equal(s_k, s_e) and torch.equal(n_k, n_e),
+          f"{what}: the Lloyd kernel's sums or counts differ from "
+          f"fixed_point_reduce_ref over the register-blocked argmin")
 
 
 def check_update_min_dist(ops, ref, x, w, c, d2, cv):
@@ -915,9 +962,11 @@ def kernel_phase(ops, ref, consts):
     return rows
 
 
-# (n, d, k) off the main path's shape: d = 37 and 513 run the any-width
-# variant (the row re-read from L1) with several center tiles (221 and 15
-# centers a tile), and k = 1024 at d = 15 takes two tiles of 512.
+# (n, d, k) off the main path's shape: at d = 37 and 513 min_dist and the
+# Lloyd kernel run the tiled walk (4 and 3 center tiles of 80) and the
+# other kernels the register-blocked walk's any-width variant (the row
+# re-read from L1; 221 and 15 centers a tile), and k = 1024 at d = 15
+# takes two tiles of 512.
 WIDTH_SHAPES = ((20_000, 37, 300), (20_000, 513, 190), (20_000, 15, 1024))
 
 
@@ -948,13 +997,17 @@ def width_phase(ops, ref, rows) -> None:
                 v = torch.median(d2)
                 errs["remove_below"] = check_remove_below(
                     ops, ref, x.reshape(2, n // 2, d), c, alive, v, mask)[0]
+                check_old_walk(ops, ref, x, w, c, mask,
+                               f"widths n={n} d={d} k={k} {dt} "
+                               f"mask={mask is not None}")
                 for name, err in errs.items():
                     rows[name]["max_abs_err"] = max(
                         rows[name]["max_abs_err"], err)
                 print(f"check widths n={n} d={d} k={k} {dt} mask="
                       f"{mask is not None} max_abs_err="
-                      + " ".join(f"{nm}:{e:.3g}" for nm, e in errs.items()),
-                      flush=True)
+                      + " ".join(f"{nm}:{e:.3g}" for nm, e in errs.items())
+                      + "; min_dist and the Lloyd kernel = the register-"
+                      "blocked walk bit for bit", flush=True)
     torch.cuda.synchronize()
 
 
@@ -985,6 +1038,8 @@ def min_dist_bound(n: int, d: int, k: int):
 
 def min_dist_launch(n: int, d: int, k: int) -> str:
     from repro_torch.kernels import walk
+    if walk.tiled(d):
+        return f"tiled walk, {walk.tiled_tiles(n)} tiles"
     ppt = walk.points_per_thread(d)
     sms = walk.sm_count(torch.device("cuda"))
     return (f"ppt={ppt} slices="
@@ -1007,8 +1062,8 @@ def time_lloyd(ops, x32, c):
     ms = timed_ms(lambda: ops.fused_assign_reduce(x32, ones, c))
     md_ms = timed_ms(lambda: ops.min_dist(x32, c))
     ppt = fl.points_per_thread(k, d)
-    slices = walk.center_slices(n, k, walk.sm_count(x32.device), ppt,
-                                device=x32.device, d=d)
+    slices = fl.launch_slices(n, k, d, walk.sm_count(x32.device),
+                              x32.device, x32.dtype)
     launch = f"ppt={ppt} acc={fl.acc_mode(k, d)} slices={slices}"
     bnd, by = lloyd_bound(n, d, k)
     md_bnd, md_by = min_dist_bound(n, d, k)
@@ -4900,6 +4955,16 @@ def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
     x, c, cv = a["x"], a["c"], a["c_valid"]
     n, d = x.shape
     el = x.element_size()
+    a = calls["fused_assign_reduce"]
+    xf, wf, cf, cvf = a["x"], a["w"], a["c"], a["c_valid"]
+    for what, args in (("min_dist", (x, torch.ones(n, device=x.device), c,
+                                     cv)),
+                       ("fused_assign_reduce", (xf, wf, cf, cvf))):
+        check_old_walk(ops, ref, *args, f"the embedding fit's {what} call")
+        print(f"check embedding fit's {what} call {tuple(args[0].shape)} x "
+              f"{args[2].shape[0]}: min_dist and the Lloyd kernel = the "
+              f"register-blocked walk bit for bit", flush=True)
+    torch.cuda.empty_cache()
     cases = {"min_dist": (
         lambda: ops.min_dist(x, c, cv), lambda: ref.min_dist_ref(x, c, cv),
         lambda: torch.cdist(x.float(), c), n * d * el + c.numel() * 4
@@ -4917,8 +4982,6 @@ def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
         live * d * el + 2 * m * p + c3.numel() * 4 + 4 + m * 4,
         2.0 * live * valid(cv3, c3.shape[0]) * d,
         f"m={m} p={p} live={live} d={d} k={c3.shape[0]}")
-    a = calls["fused_assign_reduce"]
-    xf, wf, cf, cvf = a["x"], a["w"], a["c"], a["c_valid"]
     nf, kf = xf.shape[0], cf.shape[0]
     cases["fused_assign_reduce"] = (
         lambda: ops.fused_assign_reduce(xf, wf, cf, cvf),
@@ -5013,6 +5076,9 @@ def embedding_phase(api, ops, ref, rows, per_fit, smi: str) -> None:
               for r in range(res.rounds)),
           f"{what}: a round's uplink > 2*eta ({res.uplink_points.tolist()})")
     check_soccer_structure(res, EMB_K, what)
+    print(f"fit soccer embedding table digest: sha256 of the centers "
+          f"(float32) and n_hist (int64) {fit_sha256(res)} "
+          f"(scripts/embedding_fit_digest.py gives any tree's)", flush=True)
     with KernelsAs(ops, ref, "shadow") as ka:
         shadow = api.fit(x, EMB_K, **kw)
     check(np.array_equal(shadow.centers, res.centers)

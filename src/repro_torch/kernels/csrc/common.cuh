@@ -2,11 +2,18 @@
 //
 // Every kernel here answers "which valid center is nearest to this point",
 // with the center set streamed through shared memory in tiles, on one
-// per-point arithmetic (bit for bit), in one of two walks:
+// per-point arithmetic (bit for bit), in one of three walks:
+//   tiled_nearest    d > 16 in min_dist and the Lloyd step (min_dist.cu,
+//                    fused_assign.cu): a tile of points against a tile of
+//                    centers a block, both staged through shared memory
+//                    by cp.async, a register tile of (point, center)
+//                    pairs a thread;
 //   nearest_split    P points a thread (nearest_blocked), the center axis
-//                    optionally split over blocks: the Lloyd step
-//                    (fused_assign.cu), min_dist, remove_below,
-//                    sensitivity_scores and truncated_cost;
+//                    optionally split over blocks: min_dist and the Lloyd
+//                    step at d <= 16 (each point's row in registers), and
+//                    remove_below, sensitivity_scores and truncated_cost
+//                    at every d (past 16 each row re-read for every
+//                    center);
 //   seed_walk        one point a thread, no argmin: the seeding step
 //                    (fused_lloyd.cu: seed_walk, seed_step_kernel).
 // The per-point arithmetic: ||x||^2 and each x.c are fmaf chains over
@@ -14,8 +21,9 @@
 // x.c, ||c||^2) with ||c||^2 from the same chain, the least t over
 // ascending centers by a strict <, and d2 = clamp0(t + ||x||^2).
 // truncated_cost and the seeding step read their rows from tiles staged
-// in shared memory by TMA bulk copies (smem_addr .. stage_offset below);
-// the others read them from device memory.
+// in shared memory by TMA bulk copies (smem_addr .. stage_offset below),
+// the tiled walk from stages filled by cp.async; the others read them
+// from device memory.
 // Sums by center are exact fixed-point sums, grouped by center within
 // each warp before they touch memory (WarpGroups, GroupAcc, put_point):
 // the Lloyd step's, lloyd_reduce's and sensitivity_scores' masses.
@@ -39,6 +47,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -370,6 +379,269 @@ __device__ __forceinline__ bool nearest_split(
     }
   }
   return true;
+}
+
+// ------------------------------------------------ the tiled walk (d > 16)
+// Past the register rows a block owns a tile of kTilePoints points
+// against a tile of kTileCenters centers, and each thread a kTiledPPT ×
+// kTiledCPT tile of float32 accumulators: points ty + 16·i and centers
+// tx + 16·m of the two tiles (tx = threadIdx.x % 16, ty = threadIdx.x /
+// 16). Both operands stream through two shared-memory stages of
+// kTileDepth coordinates each, as point-major rows kTilePitch floats
+// apart (float4 reads without bank conflicts): a point row is read from
+// device memory once per center tile and a center row once per block and
+// center tile, every read coalesced; a stage is filled while the one
+// before is walked. Float32 rows (the centers always, float32 points) are
+// copied by cp.async: 16 bytes a copy where d % 4 == 0 and the base is
+// 16-byte aligned, else 4 bytes. bfloat16 and float16 point rows go
+// through registers and are widened once, as they are stored: at odd d a
+// 2-byte row has no 4-byte-aligned start for cp.async. The stages are
+// zero past d, n and k.
+//
+// Per (point, center) the arithmetic is the walk's above, to the bit: the
+// dot is one fmaf chain over q = 0 .. d-1 in ascending order (the zeros
+// past d add fmaf(0, 0, dot) = dot, up to the sign of a zero, which t
+// cannot see since ||c||^2 is never -0); ||x||^2 and ||c||^2 are the same
+// chains, carried across the stages by threads 0-127 (a point each, on
+// the first center tile) and 128-207 (a center each); t = fmaf(-2, dot,
+// ||c||^2) with +inf for an invalid or padding center; the least t over
+// ascending centers by a strict <: within a thread over its 5 centers in
+// order, over the 16 lanes of a point as the least (t, index) pair (the
+// first index of the least t: the sequential walk's choice), and across
+// center tiles by a strict <. The d axis is never split; no tensor cores.
+constexpr int kTiledPPT = 8;         // points of a thread's tile
+constexpr int kTiledCPT = 5;         // centers of a thread's tile
+constexpr int kTiledRows = kThreads / 16;       // point groups (ty)
+constexpr int kTilePoints = kTiledRows * kTiledPPT;   // points a tile
+constexpr int kTileCenters = 16 * kTiledCPT;   // centers a center tile
+constexpr int kTileDepth = 32;       // coordinates a stage
+constexpr int kTilePitch = kTileDepth + 4;   // floats a staged row
+static_assert(kTilePoints + kTileCenters <= kThreads && kTiledPPT <= 16,
+              "a norm chain a thread, and a point a lane of each group");
+
+struct TiledSmem {
+  float xs[2][kTilePoints * kTilePitch];     // the two point stages
+  float cs[2][kTileCenters * kTilePitch];    // the two center stages
+  float x2[kTilePoints];                     // ||x||^2 of the point tile
+  float c2[2][kTileCenters];                 // ||c||^2 or +inf, by tile parity
+  float part[kTilePoints];                   // a per-point epilogue value
+};
+
+// Block tiles of the tiled walk over n points (at least 1).
+inline long long tiled_tiles(long long n) {
+  const long long t = (n + kTilePoints - 1) / kTilePoints;
+  return t > 1 ? t : 1;
+}
+
+// cp.async of 4 or 16 bytes into shared memory, zero-filled when !in
+// (src is then not read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + kRows) of the (nrows, d) float32 matrix a, coordinates
+// [q0, q0 + kTileDepth), copied into a stage; zero past d and nrows.
+template <int kRows>
+__device__ __forceinline__ void stage_f32(const float* __restrict__ a,
+                                          long long nrows, int d,
+                                          long long r0, int q0, bool vec,
+                                          float* dst) {
+  if (vec) {
+    constexpr int kSegs = kTileDepth / 4;
+#pragma unroll
+    for (int e = threadIdx.x; e < kRows * kSegs; e += kThreads) {
+      const int r = e / kSegs;
+      const int q = q0 + 4 * (e - r * kSegs);
+      const bool in = r0 + r < nrows && q < d;
+      cp_async16(dst + r * kTilePitch + (q - q0),
+                 a + (in ? (r0 + r) * d + q : 0), in);
+    }
+  } else {
+#pragma unroll
+    for (int e = threadIdx.x; e < kRows * kTileDepth; e += kThreads) {
+      const int r = e / kTileDepth;
+      const int q = q0 + (e - r * kTileDepth);
+      const bool in = r0 + r < nrows && q < d;
+      cp_async4(dst + r * kTilePitch + (q - q0),
+                a + (in ? (r0 + r) * d + q : 0), in);
+    }
+  }
+}
+
+// A 2-byte point's bits widened to float32, exactly.
+template <typename T>
+__device__ __forceinline__ float widen_bits(unsigned short u) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __uint_as_float((unsigned)u << 16);
+  } else {
+    return __half2float(__ushort_as_half(u));
+  }
+}
+
+// The nearest valid center of each point of the block tile that starts at
+// row p0: on return every lane of a point group ty holds (best[i],
+// arg[i]) of point p0 + ty + kTiledRows·i (+inf and 0 with no valid
+// center; best is the least t, so d2 = clamp0(best + ||x||^2)), and
+// sm.x2 holds the tile's ||x||^2. xvec and cvec: 16-byte copies of the
+// point and center rows. Every thread of the block must call this.
+template <typename T>
+__device__ __forceinline__ void tiled_nearest(
+    const T* __restrict__ x, long long n, int d, const float* __restrict__ c,
+    const uint8_t* __restrict__ cv, int k, long long p0, bool xvec,
+    bool cvec, TiledSmem& sm, float (&best)[kTiledPPT],
+    int (&arg)[kTiledPPT]) {
+  constexpr bool kAsync = std::is_same<T, float>::value;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int nq = (d + kTileDepth - 1) / kTileDepth;
+  const int nct = k > kTileCenters ? (k + kTileCenters - 1) / kTileCenters
+                                   : 1;
+  const int steps = nq * nct;
+
+  // step it = (center tile it / nq, stage of coordinates it % nq): its
+  // copies are issued before the step before it is walked; 2-byte point
+  // rows are loaded, widened and stored after it (no registers held
+  // across the walk)
+  auto issue = [&](int it, int s) {
+    const int ct = it / nq;
+    const int q0 = (it - ct * nq) * kTileDepth;
+    if constexpr (kAsync) {
+      stage_f32<kTilePoints>(reinterpret_cast<const float*>(x), n, d, p0,
+                             q0, xvec, sm.xs[s]);
+    }
+    stage_f32<kTileCenters>(c, k, d, (long long)ct * kTileCenters, q0, cvec,
+                            sm.cs[s]);
+  };
+  auto land = [&](int it, int s) {
+    if constexpr (!kAsync) {
+      const int q0 = (it - it / nq * nq) * kTileDepth;
+      const unsigned short* xb = reinterpret_cast<const unsigned short*>(x);
+#pragma unroll 4
+      for (int e = tid; e < kTilePoints * kTileDepth; e += kThreads) {
+        const int r = e / kTileDepth;
+        const int q = q0 + (e - r * kTileDepth);
+        sm.xs[s][r * kTilePitch + (q - q0)] =
+            (p0 + r < n && q < d) ? widen_bits<T>(xb[(p0 + r) * d + q])
+                                  : 0.f;
+      }
+    }
+    cp_async_wait_all();
+  };
+
+#pragma unroll
+  for (int i = 0; i < kTiledPPT; ++i) {
+    best[i] = INFINITY;
+    arg[i] = 0;
+  }
+  float acc[kTiledPPT][kTiledCPT];
+  // ||x||^2 of point tid (tid < kTilePoints, on the first center tile),
+  // or ||c||^2 of center tid - kTilePoints
+  float chain = 0.f;
+  const int jl = tid - kTilePoints;
+  issue(0, 0);
+  land(0, 0);
+  __syncthreads();
+  for (int it = 0; it < steps; ++it) {
+    const int s = it & 1;
+    const int ct = it / nq;
+    const int ch = it - ct * nq;
+    if (it + 1 < steps) issue(it + 1, s ^ 1);
+    if (ch == 0) {
+#pragma unroll
+      for (int i = 0; i < kTiledPPT; ++i) {
+#pragma unroll
+        for (int m = 0; m < kTiledCPT; ++m) acc[i][m] = 0.f;
+      }
+      if (jl >= 0) chain = 0.f;
+    }
+    const float* xs = sm.xs[s];
+    const float* cs = sm.cs[s];
+#pragma unroll
+    for (int q4 = 0; q4 < kTileDepth / 4; ++q4) {
+      float4 cr[kTiledCPT];
+#pragma unroll
+      for (int m = 0; m < kTiledCPT; ++m) {
+        cr[m] = *reinterpret_cast<const float4*>(
+            cs + (tx + 16 * m) * kTilePitch + 4 * q4);
+      }
+#pragma unroll
+      for (int i = 0; i < kTiledPPT; ++i) {
+        const float4 xv = *reinterpret_cast<const float4*>(
+            xs + (ty + kTiledRows * i) * kTilePitch + 4 * q4);
+#pragma unroll
+        for (int m = 0; m < kTiledCPT; ++m) {
+          acc[i][m] = fmaf(xv.x, cr[m].x, acc[i][m]);
+          acc[i][m] = fmaf(xv.y, cr[m].y, acc[i][m]);
+          acc[i][m] = fmaf(xv.z, cr[m].z, acc[i][m]);
+          acc[i][m] = fmaf(xv.w, cr[m].w, acc[i][m]);
+        }
+      }
+    }
+    const int lim = min(kTileDepth, d - ch * kTileDepth);
+    const bool last = ch == nq - 1;
+    if (jl < 0) {
+      if (ct == 0) {
+        const float* row = xs + tid * kTilePitch;
+        for (int q = 0; q < lim; ++q) chain = fmaf(row[q], row[q], chain);
+        if (last) sm.x2[tid] = chain;
+      }
+    } else if (jl < kTileCenters) {
+      const float* row = cs + jl * kTilePitch;
+      for (int q = 0; q < lim; ++q) chain = fmaf(row[q], row[q], chain);
+      if (last) {
+        const int j = ct * kTileCenters + jl;
+        sm.c2[ct & 1][jl] =
+            (j < k && (cv == nullptr || cv[j])) ? chain : INFINITY;
+      }
+    }
+    if (it + 1 < steps) land(it + 1, s ^ 1);
+    __syncthreads();
+    if (!last) continue;
+    const float* c2 = sm.c2[ct & 1];
+#pragma unroll
+    for (int i = 0; i < kTiledPPT; ++i) {
+      float bt = INFINITY;
+      int bj = INT_MAX;
+#pragma unroll
+      for (int m = 0; m < kTiledCPT; ++m) {
+        const float t = fmaf(-2.f, acc[i][m], c2[tx + 16 * m]);
+        if (t < bt) {
+          bt = t;
+          bj = ct * kTileCenters + tx + 16 * m;
+        }
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) {
+        const float ot = __shfl_xor_sync(0xffffffffu, bt, o, 16);
+        const int oj = __shfl_xor_sync(0xffffffffu, bj, o, 16);
+        if (ot < bt || (ot == bt && oj < bj)) {
+          bt = ot;
+          bj = oj;
+        }
+      }
+      if (bt < best[i]) {
+        best[i] = bt;
+        arg[i] = bj;
+      }
+    }
+  }
 }
 
 inline size_t round8(size_t b) { return (b + 7) / 8 * 8; }
@@ -799,14 +1071,15 @@ __global__ void __launch_bounds__(kThreads)
 // wrapper allocates one buffer of `total` bytes (kernels/fused_lloyd.py::
 // scratch_bytes mirrors it), and the first `zeroed` bytes are set to 0 by
 // one memset: the (k, d + 1) int64 accumulators, the bound, the tile
-// counters; then the tile cost partials and, with more than one center
-// slice, the (slices, n) per-slice best and arg.
+// counters; then the tile cost partials, with more than one center slice
+// the (slices, n) per-slice best and arg, and `assign_rows` int32 of
+// argmin (the tiled Lloyd step's, read back by its column reduce).
 struct Scratch {
-  size_t acc, bound, done, zeroed, part, best, arg, total;
+  size_t acc, bound, done, zeroed, part, best, arg, assign, total;
 };
 
 inline Scratch scratch_layout(long long n, int d, int k, long long tiles,
-                              int slices) {
+                              int slices, long long assign_rows = 0) {
   Scratch s;
   s.acc = 0;
   s.bound = s.acc + (size_t)k * (d + 1) * 8;
@@ -816,7 +1089,8 @@ inline Scratch scratch_layout(long long n, int d, int k, long long tiles,
   s.best = s.part + round8((size_t)tiles * 4);
   const size_t ws = slices > 1 ? round8((size_t)slices * n * 4) : 0;
   s.arg = s.best + ws;
-  s.total = s.arg + ws;
+  s.assign = s.arg + ws;
+  s.total = s.assign + round8((size_t)assign_rows * 4);
   return s;
 }
 

@@ -18,6 +18,7 @@ which replace the kernels of ``repro/kernels/fused_lloyd.py``:
   seeded set);
 * ``fused_assign_reduce_cuda`` — one Lloyd step at any number of centers:
   assignment, weighted (k, d) sums, (k,) counts and the cost in one sweep
+  at d <= 16, and at d > 16 in the tiled walk and a reduce by column
   (``csrc/fused_assign.cu``; replaces ``fused_assign_reduce_pallas``, its
   pipelined big-n twin, ``fused_assign_reduce_chunked_pallas`` and its
   two-walk fallback ``_fused_assign_reduce_chunked_twopass``);
@@ -93,22 +94,62 @@ def acc_mode(k: int, d: int) -> str:
 
 
 def points_per_thread(k: int, d: int) -> int:
-    """The walk's points a thread (``walk.points_per_thread``) beyond the
-    warp accumulators, else 2: with few centers the reduce dominates."""
+    """The Lloyd step's points a thread: the tiled walk's at d > 16;
+    else the register-blocked walk's (``walk.points_per_thread``) beyond
+    the warp accumulators, and 2 within them (with few centers the reduce
+    dominates)."""
+    if walk.tiled(d):
+        return walk.TILED_PPT
     return walk.points_per_thread(d) if acc_mode(k, d) == "global" else 2
+
+
+def launch_slices(n: int, k: int, d: int, sms: int, device, dtype) -> int:
+    """The Lloyd step's center slices: one on the tiled walk (d > 16),
+    else ``walk.center_slices`` at its points a thread."""
+    if walk.tiled(d):
+        return 1
+    return walk.center_slices(n, k, sms, points_per_thread(k, d),
+                              device=device, d=d, dtype=dtype)
 
 
 def scratch_bytes(n: int, d: int, k: int, ppt: int, slices: int) -> int:
     """Bytes of the one scratch buffer of a walk with fixed-point sums (the
     Lloyd step; with d = 0, ``sensitivity_scores``), laid out as
     ``csrc/common.cuh::scratch_layout``: (k, d + 1) int64 accumulators,
-    the bound, the tile counters, the tile cost partials and, with more
-    than one slice, the (slices, n) per-slice (best, arg)."""
+    the bound, the tile counters, the tile cost partials, with more than
+    one slice the (slices, n) per-slice (best, arg) and, on the tiled
+    walk (d > 16: ``walk.tiled_tiles`` tiles), the (n,) int32 argmin its
+    column reduce reads back."""
     def r8(b):
         return -(-b // 8) * 8
-    tiles = walk.point_tiles(n, ppt)
+    tiled = walk.tiled(d)
+    tiles = walk.tiled_tiles(n) if tiled else walk.point_tiles(n, ppt)
     ws = r8(slices * n * 4) if slices > 1 else 0
-    return k * (d + 1) * 8 + 8 + 2 * r8(tiles * 4) + 2 * ws
+    asg = r8(n * 4) if tiled else 0
+    return k * (d + 1) * 8 + 8 + 2 * r8(tiles * 4) + 2 * ws + asg
+
+
+# The tiled Lloyd step's column reduce (csrc/fused_assign.cu: kColSlab,
+# kRangeCenters, kSplitMin): columns a block, centers a block's range at
+# most, points a split at least.
+REDUCE_SLAB = 1024
+REDUCE_RANGE = 8
+REDUCE_SPLIT_MIN = 1024
+
+
+def reduce_grid(n: int, d: int, k: int, sms: int) -> Tuple[int, int, int,
+                                                            int, int]:
+    """(slabs, ranges, centers a range, splits, points a split) of the
+    column reduce, as ``csrc/fused_assign.cu::column_grid``: slabs of
+    REDUCE_SLAB over the d + 1 columns, even ranges of at most
+    REDUCE_RANGE centers, and the fewest splits of at least
+    REDUCE_SPLIT_MIN points that bring the blocks to 4 an SM."""
+    slabs = -(-(d + 1) // REDUCE_SLAB)
+    ranges = -(-k // REDUCE_RANGE)
+    kr = -(-k // ranges)
+    cells = slabs * ranges
+    splits = max(min(-(-4 * sms // cells), -(-n // REDUCE_SPLIT_MIN)), 1)
+    return slabs, ranges, kr, splits, -(-n // splits)
 
 
 # Bytes of rows in one staged tile of the seeding kernel, at most
@@ -302,8 +343,7 @@ def fused_assign_reduce_cuda(x: torch.Tensor, w: torch.Tensor,
                          f"int32")
     ppt = points_per_thread(k, d)
     sms = walk.sm_count(x.device)
-    slices = walk.center_slices(n, k, sms, ppt, device=x.device, d=d,
-                                dtype=x.dtype)
+    slices = launch_slices(n, k, d, sms, x.device, x.dtype)
     nbytes = scratch_bytes(n, d, k, ppt, slices)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
     out = torch.empty((k * d + k + 1,), dtype=torch.float32, device=x.device)
@@ -361,8 +401,7 @@ def fused_assign_reduce_fixed_cuda(x: torch.Tensor, w: torch.Tensor,
                   bound=bound, assign_out=assign_out)
     ppt = points_per_thread(k, d)
     sms = walk.sm_count(x.device)
-    slices = walk.center_slices(n, k, sms, ppt, device=x.device, d=d,
-                                dtype=x.dtype)
+    slices = launch_slices(n, k, d, sms, x.device, x.dtype)
     nbytes = scratch_bytes(n, d, k, ppt, slices)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
     out = torch.empty((k * d + k + 1,), dtype=torch.float32, device=x.device)

@@ -1,13 +1,16 @@
 """CUDA kernel: fused pairwise min squared distance (+ argmin).
 
 Replaces ``repro/kernels/min_dist.py::min_dist_pallas``. The kernel
-(``csrc/min_dist.cu``) walks the center set through shared memory with
-P points a thread, the register-blocked walk it shares with the Lloyd
-step, ``remove_below`` and ``sensitivity_scores``
-(``csrc/common.cuh::nearest_split``), and
-splits the center axis over blocks when the point tiles cannot fill the
-card (``kernels/walk.py`` decides both), so the (n, k) distance matrix
-never exists; its note says what bounds it on the card. The plain
+(``csrc/min_dist.cu``) walks the center set through shared memory, so
+the (n, k) distance matrix never exists: at d <= 16 with P points a
+thread, the register-blocked walk it shares with the Lloyd step,
+``remove_below`` and ``sensitivity_scores``
+(``csrc/common.cuh::nearest_split``), splitting the center axis over
+blocks when the point tiles cannot fill the card; at d > 16 on the tiled
+walk it shares with the Lloyd step (``csrc/common.cuh::tiled_nearest``:
+tiles of points against tiles of centers, both staged through shared
+memory). ``kernels/walk.py`` decides the launch shape; the kernel's note
+says what bounds it on the card. The plain
 version is ``kernels.ref.min_dist_ref``; ``kernels.ops.min_dist`` picks
 between the two by the device of the points.
 """
@@ -61,9 +64,12 @@ def min_dist_cuda(x: torch.Tensor, c: torch.Tensor,
     cv = center_mask("min_dist", c_valid, cf.shape[0])
     check_on_card("min_dist", x, centers=cf, c_valid=cv)
     k = cf.shape[0]
-    ppt = walk.points_per_thread(d)
-    slices = walk.center_slices(n, k, walk.sm_count(x.device), ppt,
-                                device=x.device, d=d, dtype=x.dtype)
+    if walk.tiled(d):
+        ppt, slices = walk.TILED_PPT, 1
+    else:
+        ppt = walk.points_per_thread(d)
+        slices = walk.center_slices(n, k, walk.sm_count(x.device), ppt,
+                                    device=x.device, d=d, dtype=x.dtype)
     scratch = None
     if slices > 1:
         scratch = torch.empty((walk.split_scratch_bytes(n, ppt, slices),),

@@ -2,17 +2,20 @@
 
 The port of ``repro.kernels.tuning``. The reference hands its Pallas
 kernels panel sizes; the port's counterpart is the launch shape of the
-register-blocked walk (``kernels/walk.py``), which ``min_dist``, the
-Lloyd step, ``sensitivity_scores`` and ``truncated_cost`` share. Its
-points a thread are the kernel's compiled ``P`` (``csrc/min_dist.cu``
-refuses any other), so the one thing tuned at run time is the split of
-the center axis: ``walk.slices_for_tiles``' two constants, the fewest
+register-blocked walk (``kernels/walk.py``), which ``min_dist`` and the
+Lloyd step take at d <= 16 and ``remove_below``, ``sensitivity_scores``
+and ``truncated_cost`` at every d (the tiled walk that ``min_dist`` and
+the Lloyd step take at d > 16 never splits its center axis, so it looks
+nothing up). Its points a thread are the kernel's compiled ``P``
+(``csrc/min_dist.cu`` refuses any other), so the one thing tuned at run
+time is the split of the center axis: ``walk.slices_for_tiles``' two constants, the fewest
 centers a slice takes (``min_slice``, the rule's ``walk.MIN_SLICE``) and
 the blocks an SM below which the center axis is split (``fill_per_sm``,
 the rule's ``walk.FILL_PER_SM``).
 
 A lookup is keyed by the width variant (d <= 16 in registers, else any
-width), a bucket of k (``K_BUCKETS``: EIM11's 173,256 centers, its
+width: the register-blocked walk's, whose d > 16 callers are
+``remove_below``, ``sensitivity_scores`` and ``truncated_cost``), a bucket of k (``K_BUCKETS``: EIM11's 173,256 centers, its
 86,628-center sample, the smoke's 4,096 and SOCCER k = 1000's 1,111 each
 fall into a bucket of their own) and the point dtype, and resolved in
 this order:
@@ -100,8 +103,8 @@ def normalize(min_slice, fill_per_sm) -> Tuple[int, int]:
 
 
 def width(d: int) -> str:
-    """The walk's width variant: "regs" (d <= 16, rows in registers) or
-    "any"."""
+    """The register-blocked walk's width variant: "regs" (d <= 16, rows in
+    registers) or "any"."""
     return "regs" if d <= 16 else "any"
 
 

@@ -663,6 +663,51 @@ def test_cuda_mesh_fit_two_ranks():
     assert rep["wire_meta_bytes"] == [int(v) for v in virt.wire_meta_bytes]
     assert rep["cost"] == virt.cost(x)
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,d,k,offset", [
+    (2_001, 17, 161, 0), (3_001, 37, 300, 0), (1_501, 513, 190, 0),
+    (1_001, 7_168, 81, 0), (1_001, 7_168, 78, 1), (130, 20, 3, 1)],
+    ids=["d17", "d37", "d513", "d7168", "d7168_unaligned", "d20_unaligned"])
+def test_cuda_tiled_walk_is_the_blocked_walk(n, d, k, offset, dt):
+    """min_dist and the Lloyd kernel at d > 16 run the tiled walk
+    (csrc/common.cuh: tiled_nearest); sensitivity_scores still runs the
+    register-blocked walk, and at w = 1 its scores are 1·d2, exact. So
+    min_dist's d2 and argmin and the Lloyd kernel's argmin (assign_out)
+    equal sensitivity_scores' bit for bit, and the Lloyd kernel's sums and
+    counts equal ref.fixed_point_reduce_ref over that argmin: at n not a
+    multiple of the 128-point tile, k past the 80-center tile (but 78),
+    with and without a center mask and with no valid center (+inf and
+    index 0), and with the points' base 4 bytes off 16-byte alignment
+    (``offset``: the 4-byte copies where d % 4 == 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    from repro_torch.kernels.fused_lloyd import fused_assign_reduce_cuda
+    g, x, c, cv, w = _inputs(8, n, d, k, dt)
+    if offset:
+        flat = torch.empty(n * d + offset, dtype=dt, device="cuda")
+        flat[offset:] = x.reshape(-1)
+        x = flat[offset:].view(n, d)
+    ones = torch.ones(n, device="cuda")
+    none = torch.zeros(k, dtype=torch.bool, device="cuda")
+    for mask in (None, cv, none):
+        d2, idx = ops.min_dist(x, c, mask)
+        sc, asg, _, _ = ops.sensitivity_scores(x, ones, c, mask)
+        assert torch.equal(d2, sc) and torch.equal(idx, asg)
+        own = torch.empty_like(idx)
+        s, cnt, cost = fused_assign_reduce_cuda(x, w, c, mask,
+                                                assign_out=own)
+        assert torch.equal(own, asg)
+        s_e, cnt_e = ref.fixed_point_reduce_ref(x, w, asg, k)
+        assert torch.equal(s, s_e) and torch.equal(cnt, cnt_e)
+        if mask is none:
+            assert bool(torch.isinf(d2).all()) and int(idx.abs().max()) == 0
+        else:
+            c64 = float((w.double() * d2.double()).sum())
+            assert abs(float(cost) - c64) <= 1e-5 * abs(c64)
+
+
 def test_smoke_fused_tolerance_all_moved_center():
     """``chip_smoke.py``'s Lloyd-step check against the plain version
     where a whole duplicated location sits under two tied centers and the

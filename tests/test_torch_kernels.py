@@ -51,6 +51,9 @@ POINT_SHAPES = [
     ("k_at_max", 72, 9, 1024),
 ] + CHUNKED_SHAPES
 IDS = [s[0] for s in POINT_SHAPES]
+# kimi-k2's embedding width, which the tiled walk takes on the card (d > 16)
+WIDE_SHAPES = [("d_embedding", 40, 7168, 5)]
+WIDE_IDS = IDS + [s[0] for s in WIDE_SHAPES]
 MP_SHAPES = [("tiny", 2, 40, 7, 5), ("n_over_block", 3, 129, 16, 33),
              ("d_wide", 1, 40, 513, 5)]
 MP_IDS = [s[0] for s in MP_SHAPES]
@@ -86,7 +89,8 @@ def _data(n, d, k, jdt, tdt, seed):
             xt, torch.from_numpy(w), ct, torch.from_numpy(valid))
 
 
-@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES, ids=IDS)
+@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES + WIDE_SHAPES,
+                         ids=WIDE_IDS)
 @pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
 def test_min_dist_matches_reference(name, n, d, k, jdt, tdt):
     xj, _, cj, vj, xt, _, ct, vt = _data(n, d, k, jdt, tdt, seed=n + d + k)
@@ -105,7 +109,8 @@ def test_min_dist_matches_reference(name, n, d, k, jdt, tdt):
         np.testing.assert_allclose(d2_at.numpy(), d2_r, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES, ids=IDS)
+@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES + WIDE_SHAPES,
+                         ids=WIDE_IDS)
 @pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
 def test_fused_assign_reduce_matches_reference(name, n, d, k, jdt, tdt):
     xj, wj, cj, vj, xt, wt, ct, vt = _data(n, d, k, jdt, tdt,
@@ -575,13 +580,14 @@ def test_fixed_point_sums_match_reference_under_ht_weights(k, jdt, tdt):
 
 def test_lloyd_launch_shape_rules():
     """The CUDA wrapper's launch shape, decided on the host: 4 points a
-    thread where the walk dominates, 2 with few centers or d > 16; warp
-    accumulators up to 1,024 entries; the center axis split only when the
-    point tiles cannot fill the card, into slices of >= 512 centers that
-    fill the last wave; one scratch buffer laid out as the kernel's."""
+    thread where the walk dominates, 2 with few centers, the tiled walk's
+    at d > 16; warp accumulators up to 1,024 entries; the center axis
+    split only when the point tiles cannot fill the card, into slices of
+    >= 512 centers that fill the last wave; one scratch buffer laid out as
+    the kernel's."""
     assert tfused.points_per_thread(831, 15) == 4
     assert tfused.points_per_thread(25, 15) == 2
-    assert tfused.points_per_thread(831, 37) == 2
+    assert tfused.points_per_thread(831, 37) == twalk.TILED_PPT
     assert tfused.acc_mode(63, 15) == "warp"
     assert tfused.acc_mode(65, 15) == "global"
     # lloyd_reduce takes the same rule (kzmeans' k = 25: 400 entries) and
@@ -611,7 +617,7 @@ def test_lloyd_launch_shape_rules():
     assert twalk.center_slices(125_000, 1_111, 132, 4) == 2
     assert ttrunc.launch_shape(8, 12_501, 15, 1_111, 132) == (4, 13, 2)
     for n, d, k, p, sl in ((65_536, 15, 173_256, 4, 10), (0, 15, 3, 2, 1),
-                           (3_000, 33, 2_100, 2, 4)):
+                           (3_000, 16, 2_100, 2, 4)):
         tiles = twalk.point_tiles(n, p)
         ws = 2 * (-(-sl * n * 4 // 8) * 8) if sl > 1 else 0
         assert tfused.scratch_bytes(n, d, k, p, sl) == (
@@ -629,14 +635,14 @@ def test_lloyd_launch_shape_rules():
 ], ids=["coordinator", "weighing", "eim11_x", "eim11_s2", "split",
         "split_any_width", "one_slice_small_k"])
 def test_walk_launch_shape_rules(n, d, k, ppt, slices):
-    """min_dist's launch shape (kernels/walk.py, the rules the Lloyd step
-    uses; remove_below takes the same P): 4 points a thread at d <= 16,
-    else 2; the
-    center axis split into slices of >= 512 centers only when the point
-    tiles cannot reach 4 blocks an SM of 132, filling the last wave (or
-    into as many slices as k allows); the
-    split scratch holds the tile counters and the (slices, n) best and
-    arg, and nothing with one slice."""
+    """The register-blocked walk's launch shape (kernels/walk.py:
+    min_dist's and the Lloyd step's at d <= 16, remove_below's,
+    sensitivity_scores' and truncated_cost's at every d): 4 points a
+    thread at d <= 16, else 2; the center axis split into slices of
+    >= 512 centers only when the point tiles cannot reach 4 blocks an SM
+    of 132, filling the last wave (or into as many slices as k allows);
+    the split scratch holds the tile counters and the (slices, n) best
+    and arg, and nothing with one slice."""
     assert twalk.points_per_thread(d) == ppt
     got = twalk.center_slices(n, k, 132, ppt)
     assert got == slices
@@ -652,9 +658,11 @@ def test_walk_launch_shape_rules(n, d, k, ppt, slices):
                 or slices == k // twalk.MIN_SLICE)
         assert twalk.split_scratch_bytes(n, ppt, slices) == (
             -(-tiles * 4 // 8) * 8 + 2 * (-(-slices * n * 4 // 8) * 8))
-    # the Lloyd step beyond its warp accumulators takes the same shape
+    # the Lloyd step beyond its warp accumulators takes the same shape at
+    # d <= 16, and the tiled walk's past it
     if k * (d + 1) > tfused.WARP_ACC_ENTRIES:
-        assert tfused.points_per_thread(k, d) == ppt
+        assert tfused.points_per_thread(k, d) == (
+            twalk.TILED_PPT if twalk.tiled(d) else ppt)
     # truncated_cost: one machine of n points takes min_dist's shape; its
     # scratch is the (3, tiles) partials, then min_dist's split scratch
     # less the argmin (truncated_cost keeps none)

@@ -454,11 +454,17 @@ WALK_KERNELS = (("fused_assign.cu", "fused_assign_kernel"),
 
 # ... lloyd_reduce's kernel (the Lloyd step's reduce without the walk), the
 # seeding kernel, whose third template argument is its draw, and the
-# tiled walk's kernels at d > 16 (min_dist's, the Lloyd step's walk and
-# its column reduce), whose one template argument is the point type
+# kernels at d > 16: the tiled walk's (min_dist's, the Lloyd step's walk
+# and its column reduce, remove_below's, the draw-off seeding step's
+# against several centers), whose one template argument is the point
+# type, and the seeding step's against one center, whose second is its
+# draw
 TILED_KERNELS = (("min_dist.cu", "tiled_min_dist_kernel"),
                  ("fused_assign.cu", "tiled_assign_kernel"),
-                 ("fused_assign.cu", "column_reduce_kernel"))
+                 ("fused_assign.cu", "column_reduce_kernel"),
+                 ("fused_lloyd.cu", "tiled_remove_below_kernel"),
+                 ("fused_lloyd.cu", "tiled_update_kernel"),
+                 ("fused_lloyd.cu", "tiled_seed_kernel"))
 PTXAS_KERNELS = WALK_KERNELS + (("lloyd.cu", "lloyd_reduce_kernel"),
                                 ("fused_lloyd.cu", "seed_step_kernel")) \
     + TILED_KERNELS
@@ -467,21 +473,23 @@ PTXAS_KERNELS = WALK_KERNELS + (("lloyd.cu", "lloyd_reduce_kernel"),
 def print_ptxas(log: str, kernel: str) -> int:
     """One line a variant of ``kernel`` (one of PTXAS_KERNELS) from ``nvcc
     -Xptxas -v``: (point type, and on the register-blocked walk the
-    register row length DR and points a thread P or the draw on/off),
-    registers, spill stores and loads. Returns the number of variants
-    printed."""
+    register row length DR and points a thread P or the draw on/off; the
+    one-center seeding step's draw), registers, spill stores and loads.
+    Returns the number of variants printed."""
     import re
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     name, printed = None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN2rt\d+" + kernel
                       + r"I(f|13__nv_bfloat16|6__half)"
-                      r"(?:Li(\d+)EL([ib])(\d+))?E", line)
+                      r"(?:Li(\d+)E)?(?:L([ib])(\d+)E)?E", line)
         if m:
             name = types[m.group(1)]
             if m.group(2) is not None:
+                name += f" DR={m.group(2)}"
+            if m.group(3) is not None:
                 third = "P" if m.group(3) == "i" else "draw"
-                name += f" DR={m.group(2)} {third}={m.group(4)}"
+                name += f" {third}={m.group(4)}"
             spills = "spills not reported"
             continue
         if name is None:
@@ -595,6 +603,40 @@ def check_old_walk(ops, ref, x, w, c, cv, what: str) -> None:
     check(torch.equal(s_k, s_e) and torch.equal(n_k, n_e),
           f"{what}: the Lloyd kernel's sums or counts differ from "
           f"fixed_point_reduce_ref over the register-blocked argmin")
+
+
+def check_old_walk_removal(ops, x3, c, alive, v, cv, what: str) -> None:
+    """``remove_below``'s mask and counts against ``alive & (scores >
+    v)``, the scores ``sensitivity_scores``' at w = 1 (the register-blocked
+    walk at every d), bit for bit; at d > 16 remove_below runs the tiled
+    walk."""
+    m, p, d = x3.shape
+    x = x3.reshape(m * p, d)
+    sc = ops.sensitivity_scores(x, torch.ones(m * p, device=x.device), c,
+                                cv)[0]
+    keep, live = ops.remove_below(x3, c, alive, v, cv)
+    want = alive & (sc.view(m, p) > v)
+    check(torch.equal(keep, want)
+          and torch.equal(live, want.sum(1, dtype=torch.int32)),
+          f"{what}: remove_below's mask or counts differ from alive & "
+          f"(the register-blocked walk's d2 > v) at "
+          f"{int((keep != want).sum())} points")
+
+
+def check_old_walk_seeding(ops, x, w, c, d2, cv, what: str) -> None:
+    """The draw-off seeding step's d2 against ``min(d2, scores)`` at the k
+    centers c and at c's first, the scores ``sensitivity_scores``' at
+    w = 1, bit for bit; at d > 16 the step runs its point stages against
+    one center and the tiled walk against several."""
+    ones = torch.ones(x.shape[0], device=x.device)
+    for cc, cm in ((c, cv), (c[:1], None if cv is None else cv[:1])):
+        sc = ops.sensitivity_scores(x, ones, cc, cm)[0]
+        u, _ = ops.update_min_dist(x, w, cc, d2, cm)
+        want = torch.where(sc < d2, sc, d2)
+        check(torch.equal(u, want),
+              f"{what}: update_min_dist's d2 at {cc.shape[0]} centers "
+              f"differs from min(d2, the register-blocked walk's d2) at "
+              f"{int((u != want).sum())} points")
 
 
 def check_update_min_dist(ops, ref, x, w, c, d2, cv):
@@ -962,18 +1004,22 @@ def kernel_phase(ops, ref, consts):
     return rows
 
 
-# (n, d, k) off the main path's shape: at d = 37 and 513 min_dist and the
-# Lloyd kernel run the tiled walk (4 and 3 center tiles of 80) and the
-# other kernels the register-blocked walk's any-width variant (the row
-# re-read from L1; 221 and 15 centers a tile), and k = 1024 at d = 15
-# takes two tiles of 512.
+# (n, d, k) off the main path's shape: at d = 37 and 513 min_dist, the
+# Lloyd kernel and remove_below run the tiled walk (4 and 3 center tiles
+# of 80), the seeding step its point stages (against several centers the
+# tiled walk), and sensitivity_scores and truncated_cost the
+# register-blocked walk's any-width variant (the row re-read from L1;
+# 221 and 15 centers a tile); k = 1024 at d = 15 takes two tiles of 512.
 WIDTH_SHAPES = ((20_000, 37, 300), (20_000, 513, 190), (20_000, 15, 1024))
 
 
 def width_phase(ops, ref, rows) -> None:
     """Every kernel against its plain version at the WIDTH_SHAPES, with the
     same tolerances as at the main path's shapes; the errors join each
-    kernel's max_abs_err in ``rows``."""
+    kernel's max_abs_err in ``rows``. Then, also with no valid center, the
+    kernels that leave the register-blocked walk at d > 16 held to it bit
+    for bit (``check_old_walk``, ``check_old_walk_removal``,
+    ``check_old_walk_seeding``)."""
     gen = torch.Generator("cuda").manual_seed(2)
     for n, d, k in WIDTH_SHAPES:
         x32 = torch.rand((n, d), generator=gen, device="cuda")
@@ -997,17 +1043,29 @@ def width_phase(ops, ref, rows) -> None:
                 v = torch.median(d2)
                 errs["remove_below"] = check_remove_below(
                     ops, ref, x.reshape(2, n // 2, d), c, alive, v, mask)[0]
-                check_old_walk(ops, ref, x, w, c, mask,
-                               f"widths n={n} d={d} k={k} {dt} "
-                               f"mask={mask is not None}")
+                what = (f"widths n={n} d={d} k={k} {dt} "
+                        f"mask={mask is not None}")
+                check_old_walk(ops, ref, x, w, c, mask, what)
+                check_old_walk_removal(ops, x.reshape(2, n // 2, d), c,
+                                       alive, v, mask, what)
+                check_old_walk_seeding(ops, x, w, c, d2_0, mask, what)
                 for name, err in errs.items():
                     rows[name]["max_abs_err"] = max(
                         rows[name]["max_abs_err"], err)
                 print(f"check widths n={n} d={d} k={k} {dt} mask="
                       f"{mask is not None} max_abs_err="
                       + " ".join(f"{nm}:{e:.3g}" for nm, e in errs.items())
-                      + "; min_dist and the Lloyd kernel = the register-"
-                      "blocked walk bit for bit", flush=True)
+                      + "; min_dist, the Lloyd kernel, remove_below and "
+                      "update_min_dist = the register-blocked walk bit for "
+                      "bit", flush=True)
+            none = torch.zeros_like(cv)
+            what = f"widths n={n} d={d} k={k} {dt} no valid center"
+            check_old_walk(ops, ref, x, w, c, none, what)
+            check_old_walk_removal(ops, x.reshape(2, n // 2, d), c, alive,
+                                   v, none, what)
+            check_old_walk_seeding(ops, x, w, c, d2_0, none, what)
+            print(f"check {what}: the four = the register-blocked walk bit "
+                  f"for bit", flush=True)
     torch.cuda.synchronize()
 
 
@@ -3856,6 +3914,11 @@ EMB_REPS = 3                  # timed calls a kernel (0.1-1 s each here)
 EMB_COST_RATIO = 1.1          # SOCCER's cost over the gather fit's
 EMB_TIMED = ("min_dist", "remove_below", "update_min_dist",
              "fused_assign_reduce")
+# the any-width walk's ms at the fit's own calls before the tiled walk
+# took them (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W), printed on
+# lines of their own, never in the JSON line
+EMB_BEFORE_MS = {"min_dist": 151.7217, "remove_below": 446.3630,
+                 "update_min_dist": 18.0407, "fused_assign_reduce": 159.8791}
 
 
 def lm_rel_err(got: torch.Tensor, want: torch.Tensor):
@@ -4975,6 +5038,12 @@ def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
                              a["c_valid"])
     m, p, _ = x3.shape
     live = int(alive.sum())
+    check_old_walk_removal(ops, x3, c3, alive, v, cv3,
+                           "the embedding fit's remove_below call")
+    print(f"check embedding fit's remove_below call {tuple(x3.shape)} x "
+          f"{c3.shape[0]}: mask and counts = alive & (the register-blocked "
+          f"walk's d2 > v) bit for bit", flush=True)
+    torch.cuda.empty_cache()
     cases["remove_below"] = (
         lambda: ops.remove_below(x3, c3, alive, v, cv3),
         lambda: ref.remove_below_ref(x3, c3, alive, v, cv3),
@@ -4997,6 +5066,12 @@ def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
     gen = torch.Generator("cuda").manual_seed(5)
     d2 = torch.rand(ns, generator=gen, device="cuda") * float(d)
     c1 = xs[:1].float()
+    check_old_walk_seeding(ops, xs, ws, cf, d2, cvf,
+                           "the embedding fit's seeding rows")
+    print(f"check embedding fit's seeding rows {tuple(xs.shape)}: "
+          f"update_min_dist's d2 at {cf.shape[0]} centers and at one = "
+          f"min(d2, the register-blocked walk's d2) bit for bit", flush=True)
+    torch.cuda.empty_cache()
     cases["update_min_dist"] = (
         lambda: ops.update_min_dist(xs, ws, c1, d2),
         lambda: ref.update_min_dist_ref(xs, ws, c1, d2),
@@ -5018,6 +5093,9 @@ def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
               f"kernel {ms:.4f} ms ({host_note(ms)}), plain "
               f"{plain_ms:.4f} ms, torch.cdist {lib_ms:.4f} ms, bound "
               f"{bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)",
+              flush=True)
+        print(f"before: {name} at the same call on the any-width walk "
+              f"{EMB_BEFORE_MS[name]:.4f} ms (PERF.md §6)",
               flush=True)
 
 

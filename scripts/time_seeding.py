@@ -43,8 +43,10 @@ import torch
 from cuda_timing import device_busy_ms, timed_ms
 
 # (n, d, k): SOCCER k = 1000's coordinator seeding (eta rows, k_plus
-# centers), then Table 2 rows 1 and 2's (PERF.md §4)
-SHAPES = ((991_418, 15, 1_111), (17_353, 15, 103), (80_585, 15, 190))
+# centers), then Table 2 rows 1 and 2's, then the kimi-k2 table fit's
+# (PERF.md §4)
+SHAPES = ((991_418, 15, 1_111), (17_353, 15, 103), (80_585, 15, 190),
+          (43_106, 7_168, 78))
 
 
 def time_draw_off(ops, x: torch.Tensor, w: torch.Tensor, reps: int = 50):

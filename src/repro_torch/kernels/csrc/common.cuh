@@ -3,19 +3,22 @@
 // Every kernel here answers "which valid center is nearest to this point",
 // with the center set streamed through shared memory in tiles, on one
 // per-point arithmetic (bit for bit), in one of three walks:
-//   tiled_nearest    d > 16 in min_dist and the Lloyd step (min_dist.cu,
-//                    fused_assign.cu): a tile of points against a tile of
-//                    centers a block, both staged through shared memory
-//                    by cp.async, a register tile of (point, center)
-//                    pairs a thread;
+//   tiled_nearest    d > 16 in min_dist, the Lloyd step and remove_below
+//                    (min_dist.cu, fused_assign.cu, fused_lloyd.cu), and
+//                    in the draw-off seeding step against more than one
+//                    center: a tile of points against a tile of centers a
+//                    block, both staged through shared memory by
+//                    cp.async, a register tile of (point, center) pairs a
+//                    thread;
 //   nearest_split    P points a thread (nearest_blocked), the center axis
-//                    optionally split over blocks: min_dist and the Lloyd
-//                    step at d <= 16 (each point's row in registers), and
-//                    remove_below, sensitivity_scores and truncated_cost
-//                    at every d (past 16 each row re-read for every
-//                    center);
-//   seed_walk        one point a thread, no argmin: the seeding step
-//                    (fused_lloyd.cu: seed_walk, seed_step_kernel).
+//                    optionally split over blocks: min_dist, the Lloyd
+//                    step and remove_below at d <= 16 (each point's row
+//                    in registers), and sensitivity_scores and
+//                    truncated_cost at every d (past 16 each row re-read
+//                    for every center);
+//   one center       one point a thread, no argmin: the seeding step
+//                    (fused_lloyd.cu: seed_walk on register rows at
+//                    d <= 16; tiled_seed_kernel's point stages past 16).
 // The per-point arithmetic: ||x||^2 and each x.c are fmaf chains over
 // q = 0 .. DR-1 (the row zero-padded past d) or 0 .. d-1, t = fmaf(-2,
 // x.c, ||c||^2) with ||c||^2 from the same chain, the least t over
@@ -455,6 +458,25 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// The thread's copies issued since the last commit form one group; wait
+// until at most N of its groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Whether rows of d elements from `a` take 16-byte copies: float32, d a
+// multiple of 4 and the base 16-byte aligned (every row then is too).
+template <typename T>
+inline bool copies16(const void* a, int d) {
+  return std::is_same<T, float>::value && d % 4 == 0 &&
+         (uintptr_t)a % 16 == 0;
+}
+
 // Rows [r0, r0 + kRows) of the (nrows, d) float32 matrix a, coordinates
 // [q0, q0 + kTileDepth), copied into a stage; zero past d and nrows.
 template <int kRows>
@@ -491,6 +513,38 @@ __device__ __forceinline__ float widen_bits(unsigned short u) {
     return __uint_as_float((unsigned)u << 16);
   } else {
     return __half2float(__ushort_as_half(u));
+  }
+}
+
+// stage_f32's rows of a 2-byte matrix, loaded through registers and
+// widened as they are stored (at odd d a 2-byte row has no 4-byte-aligned
+// start for cp.async).
+template <typename T, int kRows>
+__device__ __forceinline__ void stage_widened(const T* __restrict__ a,
+                                              long long nrows, int d,
+                                              long long r0, int q0,
+                                              float* dst) {
+  const unsigned short* ab = reinterpret_cast<const unsigned short*>(a);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kRows * kTileDepth; e += kThreads) {
+    const int r = e / kTileDepth;
+    const int q = q0 + (e - r * kTileDepth);
+    dst[r * kTilePitch + (q - q0)] =
+        (r0 + r < nrows && q < d) ? widen_bits<T>(ab[(r0 + r) * d + q])
+                                  : 0.f;
+  }
+}
+
+// stage_f32 for float32 rows, stage_widened for 2-byte ones.
+template <typename T, int kRows>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ a,
+                                           long long nrows, int d,
+                                           long long r0, int q0, bool vec,
+                                           float* dst) {
+  if constexpr (std::is_same<T, float>::value) {
+    stage_f32<kRows>(a, nrows, d, r0, q0, vec, dst);
+  } else {
+    stage_widened<T, kRows>(a, nrows, d, r0, q0, dst);
   }
 }
 
@@ -531,16 +585,9 @@ __device__ __forceinline__ void tiled_nearest(
   };
   auto land = [&](int it, int s) {
     if constexpr (!kAsync) {
-      const int q0 = (it - it / nq * nq) * kTileDepth;
-      const unsigned short* xb = reinterpret_cast<const unsigned short*>(x);
-#pragma unroll 4
-      for (int e = tid; e < kTilePoints * kTileDepth; e += kThreads) {
-        const int r = e / kTileDepth;
-        const int q = q0 + (e - r * kTileDepth);
-        sm.xs[s][r * kTilePitch + (q - q0)] =
-            (p0 + r < n && q < d) ? widen_bits<T>(xb[(p0 + r) * d + q])
-                                  : 0.f;
-      }
+      stage_widened<T, kTilePoints>(x, n, d, p0,
+                                    (it - it / nq * nq) * kTileDepth,
+                                    sm.xs[s]);
     }
     cp_async_wait_all();
   };

@@ -353,9 +353,8 @@ cudaError_t launch_tiled(const T* x, long long n, int d, const float* w,
                          long long n_shift, int sms, unsigned char* base,
                          const Scratch& sc, long long tiles, int* assign_out,
                          cudaStream_t s) {
-  const bool xvec = std::is_same<T, float>::value && d % 4 == 0 &&
-                    (uintptr_t)x % 16 == 0;
-  const bool cvec = d % 4 == 0 && (uintptr_t)c % 16 == 0;
+  const bool xvec = copies16<T>(x, d);
+  const bool cvec = copies16<float>(c, d);
   int* assign = assign_out != nullptr ? assign_out
                                       : (int*)(base + sc.assign);
   cudaError_t e = launch(tiled_assign_kernel<T>, dim3((unsigned)tiles),

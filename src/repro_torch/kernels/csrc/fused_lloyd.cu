@@ -23,18 +23,23 @@ namespace rt {
 // float32) against k_plus = 103 centers at d = 15: ~31 GFLOP of float32
 // FMAs against 0.6 GB, about 50 flop/byte, so it is bound by float32
 // operations (0.46 ms at 67 TFLOP/s) rather than by the 0.18 ms the bytes
-// need. Design: min_dist's register-blocked walk (common.cuh:
-// nearest_split, one slice: the 10 M points fill the card in every
-// cell) over a grid of (point tile, machine), P points a thread; the
-// threshold v is read through a device pointer, so the host never waits
-// for it; each block counts its survivors (one __syncthreads_count per
-// point slot of the thread, summed) and adds them to its machine's int32
-// count with one atomicAdd. The (m, p) distance array never exists. Each
-// point's d2 is min_dist's to the bit, so the mask is exactly
-// alive & (min_dist's d2 > v). Blocks an SM, from ptxas: 110 registers
-// at P = 4 (d <= 16), so 2; 72 at P = 2 (any d), so 3.
+// need; at kimi-k2's embedding table (8 × 20,480 × 78 centers × 7,168)
+// by the same operations, 2.73 ms. Design: min_dist's walks over a grid
+// of (point tile, machine): at d <= 16 the register-blocked walk
+// (common.cuh: nearest_split, one slice: the 10 M points fill the card in
+// every cell), 4 points a thread; past 16 the tiled walk (common.cuh:
+// tiled_nearest), 128 points a block against 80 centers at a time, both
+// staged through shared memory (the register-blocked walk re-read each
+// row for every center there: 0.6% of the bound at d = 7,168, PERF.md
+// §6). The threshold v is read through a device pointer, so the host
+// never waits for it; each block counts its survivors
+// (__syncthreads_count) and adds them to its machine's int32 count with
+// one atomicAdd. The (m, p) distance array never exists. Each point's d2
+// is min_dist's to the bit, so the mask is exactly alive & (min_dist's
+// d2 > v). Blocks an SM: 2 on both walks (ptxas: 110 registers at P = 4;
+// the tiled walk's 40 accumulators).
 template <typename T, int DR, int P>
-__global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads, 2)
     remove_below_kernel(const T* __restrict__ x, long long p, int d,
                         const float* __restrict__ c,
                         const uint8_t* __restrict__ cv, int k, int kt,
@@ -66,6 +71,44 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
   if (threadIdx.x == 0 && n_keep) atomicAdd(live + blockIdx.y, n_keep);
 }
 
+// d > 16: machine blockIdx.y's rows x[base .. base + p) on the tiled walk,
+// a block a tile of kTilePoints; lane tx = i of point group ty owns point
+// ty + kTiledRows·i, so a thread decides at most one point.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    tiled_remove_below_kernel(const T* __restrict__ x, long long p, int d,
+                              const float* __restrict__ c,
+                              const uint8_t* __restrict__ cv, int k,
+                              bool xvec, bool cvec,
+                              const float* __restrict__ v,
+                              const uint8_t* __restrict__ alive,
+                              uint8_t* __restrict__ alive_new,
+                              int* __restrict__ live) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TiledSmem& sm = *reinterpret_cast<TiledSmem*>(smem_raw);
+  const long long base = (long long)blockIdx.y * p;
+  const long long p0 = (long long)blockIdx.x * kTilePoints;
+  float best[kTiledPPT];
+  int arg[kTiledPPT];
+  tiled_nearest<T>(x + base * d, p, d, c, cv, k, p0, xvec, cvec, sm, best,
+                   arg);
+  const float vv = *v;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  int keep = 0;
+#pragma unroll
+  for (int i = 0; i < kTiledPPT; ++i) {
+    const int r = ty + kTiledRows * i;         // the point in the tile
+    if (tx == i && p0 + r < p) {
+      const long long row = base + p0 + r;
+      keep = alive[row] && clamp0(best[i] + sm.x2[r]) > vv;   // strict >
+      alive_new[row] = (uint8_t)keep;
+    }
+  }
+  const int n_keep = __syncthreads_count(keep);
+  if (threadIdx.x == 0 && n_keep) atomicAdd(live + blockIdx.y, n_keep);
+}
+
 
 // ------------------------------------------------------- D² seeding step
 // Replaces repro/kernels/fused_lloyd.py::update_min_dist_pallas
@@ -74,7 +117,7 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
 // categorical draw that repro/core/kmeans.py:28-31 and :56-58 make after
 // each call (XLA fuses it into the lax.scan step there).
 //
-// One template, two modes:
+// Two modes, on each width's kernel (the design by width is below):
 //  * draw off (rt_update_min_dist, ops.update_min_dist): d2_new =
 //    min(d2, d2 to k centers) and one partial of sum w·d2_new a tile
 //    (not a block), added up by the fixed-order reduce_rows pass, so the
@@ -100,11 +143,12 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
 //    needs no mass and no second launch. Step 0 has no center and draws
 //    on the w key alone (kmeans.py:48).
 //
-// Per point the arithmetic is common.cuh's (seed_walk on the point's
-// Rows<T, DR, 1>): the same fmaf chains for ||x||^2 and x.c, t = fmaf(-2,
-// x.c, ||c||^2), clamp0(t + ||x||^2) and a strict <. So both modes give
-// the same d2 for the same center, bit for bit, and it is min_dist's d2
-// for a one-center block.
+// Per point the arithmetic is common.cuh's: the same fmaf chains for
+// ||x||^2 and x.c over ascending q, ||c||^2 by load_centers' chain (the
+// tiled walk's past 16 centers), t = fmaf(-2, x.c, ||c||^2),
+// clamp0(t + ||x||^2) and a strict <. So both modes give the same d2 for
+// the same center, bit for bit, and it is min_dist's d2 for a one-center
+// block.
 //
 // Random bits: Philox4x32-10, written out below (no cuRAND). The key is a
 // 64-bit seed that the wrapper draws once a seeding from the caller's
@@ -118,38 +162,51 @@ __global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
 // (the winning row, gathered from the rank that holds it): the largest
 // word over the parts is then the whole set's, bit for bit.
 //
-// Bound: bytes. A step at SOCCER k = 1000's coordinator (991,418 x 15,
-// float32) reads x (59.5 MB), w and d2 and writes d2: 71.4 MB, 21.3 us at
-// 3.35 TB/s; its 2·15 FMAs and one Philox block a point are far below the
-// card's rates. Design, in both modes: one wave of blocks (the occupancy
-// query's blocks an SM times the SMs), each walking a grid-stride loop over
-// tiles of contiguous rows (256 rows while they fit kStageMax bytes), staged
-// into shared memory by TMA bulk copies (one thread issues a tile's rows, w
-// and d2 against the stage's mbarrier) and double-buffered: tile t + grid is
-// in flight while tile t is computed, so no load waits on the compute path,
-// and no thread spends instructions on addresses. Each step after the first
-// is a programmatic dependent launch of the one before: its blocks start as
-// the step before's leave the SMs and put their first tile's rows and w in
-// flight before they wait for it, so the launch gap and the first load
-// overlap the step before's tail. That early read is safe because no step
-// writes x or w; the first step of a C call waits for everything before it
-// (an ordinary launch), so x and w are whatever the stream wrote before the
-// call. The w keys are computed only where they can be read (step 0, and a
-// block with no D² key above -inf). The staging helpers (bulk copies
-// aligned down to 16 bytes, mbarriers) are common.cuh's, shared with
-// truncated_cost. One C call (rt_kmeanspp)
-// launches the k steps of a seeding back to back, then one small kernel that
-// writes the k chosen indices, so the host does nothing a step and reads
-// nothing back.
+// Bound: bytes. A step reads x, w and d2 and writes d2 for 2·d FMAs and
+// one Philox block a point, far below the card's rates: at SOCCER
+// k = 1000's coordinator (991,418 x 15, float32) 71.4 MB, 21.3 us at
+// 3.35 TB/s; at kimi-k2's table fit (43,106 x 7,168) 1.24 GB, 0.369 ms.
+// Each step after the first is a programmatic dependent launch of the one
+// before: its blocks start as the step before's leave the SMs and put
+// their first rows in flight before they wait for it, so the launch gap
+// and the first load overlap the step before's tail. That early read is
+// safe because no step writes x or w; the first step of a C call waits for
+// everything before it (an ordinary launch), so x and w are whatever the
+// stream wrote before the call. The w keys are computed only where they
+// can be read (step 0, and a block with no D² key above -inf). One C call
+// (rt_kmeanspp) launches the k steps of a seeding back to back, then one
+// small kernel that writes the k chosen indices, so the host does nothing
+// a step and reads nothing back. Design, by width:
+//  * d <= 16 (seed_step_kernel, the rows in registers): one wave of blocks
+//    (the occupancy query's blocks an SM times the SMs), each walking a
+//    grid-stride loop over tiles of 256 contiguous rows, staged into
+//    shared memory by TMA bulk copies (one thread issues a tile's rows, w
+//    and d2 against the stage's mbarrier; common.cuh's helpers, shared
+//    with truncated_cost) and double-buffered: tile t + grid is in flight
+//    while tile t is computed.
+//  * d > 16 (tiled_seed_kernel): a block a tile of the tiled walk's 128
+//    points, a thread a point (threads 0-127; thread 128 carries the
+//    center's ||c||^2 chain). The tile's rows and the center's matching
+//    coordinates stream through a ring of kSeedStages stages of 32
+//    coordinates (common.cuh: stage_rows; cp.async for float32, 2-byte
+//    rows widened through registers), kSeedStages - 1 of them in flight
+//    while one is walked, so neither a row nor the center is ever held
+//    whole in shared memory. A thread reads its row from its stage as
+//    float4s at a pitch of 36 floats (no bank conflict). The draw-off
+//    call against more than one center (tiled_update_kernel) takes
+//    tiled_nearest and the same epilogue. One tile a block: 337 blocks at
+//    the table fit's 43,106 rows, all resident at 3 blocks an SM. On the
+//    H100 at 43,106 x 7,168 (PERF.md §6) this runs at 80% of the byte
+//    bound; 256-point tiles (169 blocks) ran 11% slower, and 2 or 4
+//    stages within 0.5% of 3.
 
-constexpr int kStageMax = 48 * 1024;       // bytes of rows a stage, at most
 constexpr uint32_t kNegInfKey = 0x007FFFFFu;   // key_word's bits of -inf
+constexpr int kSeedStages = 3;   // point stages a block at d > 16
 
-// Rows of a staged tile: kThreads, or as many as kStageMax holds.
-__host__ __device__ inline int seed_tile_rows(int d, int itemsize) {
-  const long long row = (long long)(d > 0 ? d : 1) * itemsize;
-  const long long r = kStageMax / row;
-  return (int)(r >= kThreads ? kThreads : (r > 1 ? r : 1));
+// Rows of a tile: kThreads on the register rows, the tiled walk's
+// kTilePoints past them (kernels/fused_lloyd.py::seed_tiles mirrors it).
+__host__ __device__ inline int seed_tile_rows(int d) {
+  return d <= 16 ? kThreads : kTilePoints;
 }
 
 // Philox4x32-10 (Salmon et al., SC'11; Random123's round and key
@@ -226,7 +283,7 @@ __device__ __forceinline__ unsigned long long block_max(
 }
 
 // The centers [t0, t0 + rows) into the shared tile, laid out as
-// common.cuh's load_center_tile lays it out (rows `stride` floats apart,
+// common.cuh's load_center_tile lays it out (rows DR floats apart,
 // zero-padded past d, then kt
 // ||c||^2, +inf for an invalid center). Draw on, the one center is row
 // `win` of x, widened; draw off, rows of the float32 centers c. Every
@@ -236,7 +293,7 @@ __device__ __forceinline__ void load_centers(
     const T* __restrict__ x, long long win, const float* __restrict__ c,
     const uint8_t* __restrict__ cv, int d, int t0, int rows, int kt,
     float* sc) {
-  const int stride = DR > 0 ? DR : d;
+  constexpr int stride = DR;
   float* sc2 = sc + (size_t)kt * stride;
   __syncthreads();                             // last tile fully consumed
   for (int e = threadIdx.x; e < rows * stride; e += blockDim.x) {
@@ -265,29 +322,23 @@ __device__ __forceinline__ void load_centers(
 }
 
 // best = min(best, t) over the `rows` centers of the shared tile, for
-// the one point of r: the per-point arithmetic of common.cuh with no
-// argmin.
+// the one point of r (its row in registers): the per-point arithmetic of
+// common.cuh with no argmin.
 template <typename T, int DR>
 __device__ __forceinline__ void seed_walk(const Rows<T, DR, 1>& r,
                                           const float* sc, const float* sc2,
-                                          int rows, int d, float& best) {
-  const int stride = DR > 0 ? DR : d;
+                                          int rows, float& best) {
+  static_assert(DR > 0, "past the register rows: tiled_seed_kernel");
   for (int j = 0; j < rows; ++j) {
     float dot = 0.f;
-    if (DR > 0) {
-      const float4* cr =
-          reinterpret_cast<const float4*>(sc + (size_t)j * stride);
+    const float4* cr = reinterpret_cast<const float4*>(sc + (size_t)j * DR);
 #pragma unroll
-      for (int q = 0; q < Rows<T, DR, 1>::kRegs / 4; ++q) {
-        const float4 v = cr[q];
-        dot = fmaf(r.xr[0][4 * q], v.x, dot);
-        dot = fmaf(r.xr[0][4 * q + 1], v.y, dot);
-        dot = fmaf(r.xr[0][4 * q + 2], v.z, dot);
-        dot = fmaf(r.xr[0][4 * q + 3], v.w, dot);
-      }
-    } else {
-      const float* cr = sc + (size_t)j * stride;
-      for (int q = 0; q < d; ++q) dot = fmaf(widen(r.row[0][q]), cr[q], dot);
+    for (int q = 0; q < DR / 4; ++q) {
+      const float4 v = cr[q];
+      dot = fmaf(r.xr[0][4 * q], v.x, dot);
+      dot = fmaf(r.xr[0][4 * q + 1], v.y, dot);
+      dot = fmaf(r.xr[0][4 * q + 2], v.z, dot);
+      dot = fmaf(r.xr[0][4 * q + 3], v.w, dot);
     }
     const float t = fmaf(-2.f, dot, sc2[j]);
     if (t < best) best = t;
@@ -364,7 +415,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) unsigned char smem_u8[];
   unsigned char* stage[2] = {smem_u8, smem_u8 + sbytes};
   float* sc = reinterpret_cast<float*>(smem_u8 + 2 * (size_t)sbytes);
-  const float* sc2 = sc + (size_t)kt * (DR > 0 ? DR : d);
+  const float* sc2 = sc + (size_t)kt * DR;
 
   int kc = k;                                  // centers this step walks
   if constexpr (kDraw) kc = (prev_w != nullptr || c != nullptr) ? 1 : 0;
@@ -432,12 +483,12 @@ __global__ void __launch_bounds__(kThreads)
                              d, i);
       float best = INFINITY;
       if (resident) {
-        if (active) seed_walk(r, sc, sc2, kc, d, best);
+        if (active) seed_walk(r, sc, sc2, kc, best);
       } else {
         for (int t0 = 0; t0 < kc; t0 += kt) {
           const int rows_c = min(kt, kc - t0);
           load_centers<T, DR, kDraw>(x, win, c, cv, d, t0, rows_c, kt, sc);
-          if (active) seed_walk(r, sc, sc2, rows_c, d, best);
+          if (active) seed_walk(r, sc, sc2, rows_c, best);
         }
       }
       if (active) {
@@ -497,6 +548,219 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------ the step past d = 16
+// The stages of tiled_seed_kernel: kSeedStages of the point tile's rows,
+// each beside the center's matching coordinates, and ||c||^2.
+struct SeedSmem {
+  float xs[kSeedStages][kTilePoints * kTilePitch];
+  float cs[kSeedStages][kTilePitch];
+  float c2;
+};
+static_assert(kTilePoints < kThreads && kSeedStages >= 2,
+              "a thread past the points carries ||c||^2");
+
+// One seeding step at d > 16 against one center (draw off: row 0 of c,
+// cv; draw on: row `win` of x widened, or `center`, or none at step 0),
+// a block a tile of kTilePoints points, thread i < kTilePoints owning
+// point p0 + i: the arguments and outputs of seed_step_kernel's modes
+// (part[tile] the tile's sum of w·d2_out, draw off; the step's words into
+// win_d2 and win_w, draw on, d2 updated in place).
+template <typename T, bool kDraw>
+__global__ void __launch_bounds__(kThreads, 3)
+    tiled_seed_kernel(const T* __restrict__ x, long long n, int d,
+                      bool xvec, const float* __restrict__ w,
+                      const float* d2_in,
+                      float* d2_out, const float* __restrict__ c,
+                      const uint8_t* __restrict__ cv,
+                      float* __restrict__ part,
+                      const unsigned long long* prev_d2,
+                      const unsigned long long* prev_w,
+                      unsigned long long* win_d2, unsigned long long* win_w,
+                      const long long* __restrict__ seed, int step,
+                      long long base) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SeedSmem& sm = *reinterpret_cast<SeedSmem*>(smem_raw);
+  const int tid = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * kTilePoints;
+  const long long i = p0 + tid;
+  const bool active = tid < kTilePoints && i < n;
+  const bool centered = !kDraw || prev_w != nullptr || c != nullptr;
+  const int nq = centered ? (d + kTileDepth - 1) / kTileDepth : 0;
+
+  // The first point stages are in flight before the wait for the step
+  // before (no step writes x), the center's after it; one copy group a
+  // stage from here on.
+#pragma unroll
+  for (int s = 0; s + 1 < kSeedStages; ++s) {
+    if (s < nq) {
+      stage_rows<T, kTilePoints>(x, n, d, p0, s * kTileDepth, xvec,
+                                 sm.xs[s]);
+    }
+    cp_async_commit();
+  }
+  long long win = 0;
+  uint32_t k0 = 0u, k1 = 0u;
+  if constexpr (kDraw) {
+    launch_dependents();
+    wait_prerequisites();
+    if (prev_w != nullptr) win = winner_of(__ldcg(prev_d2), __ldcg(prev_w));
+    k0 = (uint32_t)seed[0];
+    k1 = (uint32_t)seed[1];
+  }
+  auto stage_center = [&](int s, int q0) {
+    if constexpr (kDraw) {
+      if (c == nullptr) {
+        stage_rows<T, 1>(x + win * d, 1, d, 0, q0, false, sm.cs[s]);
+        return;
+      }
+    }
+    stage_rows<float, 1>(c, 1, d, 0, q0, false, sm.cs[s]);
+  };
+  for (int s = 0; s + 1 < kSeedStages && s < nq; ++s) {
+    stage_center(s, s * kTileDepth);
+  }
+  const float wi = active ? w[i] : 0.f;
+  float nd = (active && centered) ? d2_in[i] : 0.f;   // step 0: d2 alone
+
+  // thread i < kTilePoints: its point's ||x||^2 and x.c; thread
+  // kTilePoints: ||c||^2; each an fmaf chain over ascending q (the zeros
+  // past d add nothing a sign of zero can show)
+  float x2 = 0.f, dot = 0.f, c2 = 0.f;
+  for (int it = 0; it < nq; ++it) {
+    if (it == 0) {
+      cp_async_wait_all();
+    } else {
+      cp_async_wait_group<kSeedStages - 2>();
+    }
+    __syncthreads();           // stage it landed, stage it - 1 walked
+    const int next = it + kSeedStages - 1;
+    if (next < nq) {
+      const int sn = next % kSeedStages;
+      stage_rows<T, kTilePoints>(x, n, d, p0, next * kTileDepth, xvec,
+                                 sm.xs[sn]);
+      stage_center(sn, next * kTileDepth);
+    }
+    cp_async_commit();
+    const int s = it % kSeedStages;
+    const float4* cr = reinterpret_cast<const float4*>(sm.cs[s]);
+    if (tid < kTilePoints) {
+      const float4* xr =
+          reinterpret_cast<const float4*>(sm.xs[s] + tid * kTilePitch);
+#pragma unroll
+      for (int q4 = 0; q4 < kTileDepth / 4; ++q4) {
+        const float4 a = xr[q4];
+        const float4 b = cr[q4];
+        x2 = fmaf(a.x, a.x, x2);
+        dot = fmaf(a.x, b.x, dot);
+        x2 = fmaf(a.y, a.y, x2);
+        dot = fmaf(a.y, b.y, dot);
+        x2 = fmaf(a.z, a.z, x2);
+        dot = fmaf(a.z, b.z, dot);
+        x2 = fmaf(a.w, a.w, x2);
+        dot = fmaf(a.w, b.w, dot);
+      }
+    } else if (tid == kTilePoints) {
+#pragma unroll
+      for (int q4 = 0; q4 < kTileDepth / 4; ++q4) {
+        const float4 b = cr[q4];
+        c2 = fmaf(b.x, b.x, c2);
+        c2 = fmaf(b.y, b.y, c2);
+        c2 = fmaf(b.z, b.z, c2);
+        c2 = fmaf(b.w, b.w, c2);
+      }
+      if (it == nq - 1) {
+        sm.c2 = (kDraw || cv == nullptr || cv[0]) ? c2 : INFINITY;
+      }
+    }
+  }
+  if (nq > 0) {
+    __syncthreads();                           // sm.c2 written
+    if (active) {
+      float best = INFINITY;
+      const float t = fmaf(-2.f, dot, sm.c2);
+      if (t < best) best = t;
+      const float cand = clamp0(best + x2);
+      nd = cand < nd ? cand : nd;
+    }
+  }
+  if constexpr (kDraw) {
+    unsigned long long best_d = 0ull, best_w = 0ull;
+    float g = 0.f;
+    if (active) {
+      if (centered) d2_out[i] = nd;            // in place: this thread's
+      const long long gi = base + i;           // the point's global index
+      g = gumbel(philox_word0((uint32_t)gi, (uint32_t)step, k0, k1));
+      if (centered) {
+        best_d = key_word(gumbel_key(wi * nd, g), gi);
+      } else {
+        best_w = key_word(gumbel_key(wi, g), gi);
+      }
+    }
+    __shared__ int fallback;
+    best_d = block_max(best_d);
+    if (tid == 0) fallback = (uint32_t)(best_d >> 32) <= kNegInfKey;
+    __syncthreads();
+    if (centered && fallback && active) {
+      best_w = key_word(gumbel_key(wi, g), base + i);
+    }
+    best_w = block_max(best_w);
+    if (tid == 0) {
+      if (best_d) atomicMax(win_d2, best_d);
+      if (fallback && best_w) atomicMax(win_w, best_w);
+    }
+  } else {
+    float contrib = 0.f;
+    if (active) {
+      d2_out[i] = nd;
+      contrib = wi * nd;
+    }
+    const float sum = block_sum(contrib);
+    if (tid == 0) part[blockIdx.x] = sum;
+  }
+}
+
+// The draw-off step at d > 16 against k != 1 centers: tiled_nearest over
+// the block's tile, then tiled_seed_kernel's epilogue, each point's w·d2
+// summed in the same thread order (through sm.part), so the partials
+// take the same bits as the one-center kernel's for the same d2.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    tiled_update_kernel(const T* __restrict__ x, long long n, int d,
+                        const float* __restrict__ c,
+                        const uint8_t* __restrict__ cv, int k, bool xvec,
+                        bool cvec, const float* __restrict__ w,
+                        const float* __restrict__ d2_in,
+                        float* __restrict__ d2_out,
+                        float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TiledSmem& sm = *reinterpret_cast<TiledSmem*>(smem_raw);
+  const long long p0 = (long long)blockIdx.x * kTilePoints;
+  float best[kTiledPPT];
+  int arg[kTiledPPT];
+  tiled_nearest<T>(x, n, d, c, cv, k, p0, xvec, cvec, sm, best, arg);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < kTiledPPT; ++i) {
+    const int r = ty + kTiledRows * i;         // the point in the tile
+    if (tx == i) {
+      float contrib = 0.f;
+      if (p0 + r < n) {
+        const float cand = clamp0(best[i] + sm.x2[r]);
+        const float nd0 = d2_in[p0 + r];
+        const float nd = cand < nd0 ? cand : nd0;
+        d2_out[p0 + r] = nd;
+        contrib = w[p0 + r] * nd;
+      }
+      sm.part[r] = contrib;
+    }
+  }
+  __syncthreads();
+  const float sum = block_sum(
+      (int)threadIdx.x < kTilePoints ? sm.part[threadIdx.x] : 0.f);
+  if (threadIdx.x == 0) part[blockIdx.x] = sum;
+}
+
 // idx[i] = the winner of step i, for i < k.
 __global__ void __launch_bounds__(kThreads)
     seed_indices_kernel(const unsigned long long* __restrict__ win_d2,
@@ -506,9 +770,9 @@ __global__ void __launch_bounds__(kThreads)
   if (i < k) idx[i] = winner_of(win_d2[i], win_w[i]);
 }
 
-// Launch shape of a seeding step: rows a tile, bytes a stage (the rows,
-// w and d2), dynamic shared memory (two stages and a center tile of kt
-// rows) and tiles.
+// Launch shape of a seeding step on the register rows (d <= 16): rows a
+// tile, bytes a stage (the rows, w and d2), dynamic shared memory (two
+// stages and a center tile of kt rows) and tiles.
 struct SeedShape {
   int tile_rows;
   int sbytes;
@@ -519,7 +783,7 @@ struct SeedShape {
 inline SeedShape seed_shape(long long n, int d, int itemsize, int kt,
                             int stride) {
   SeedShape s;
-  s.tile_rows = seed_tile_rows(d, itemsize);
+  s.tile_rows = seed_tile_rows(d);
   s.sbytes = stage_bytes(s.tile_rows, d, itemsize) +
              2 * stage_bytes(s.tile_rows, 1, 4);
   s.smem = 2 * (size_t)s.sbytes + ((size_t)kt * stride + kt) * sizeof(float);
@@ -558,37 +822,51 @@ inline cudaError_t seed_steps(const void* x, int dtype, long long n, int d,
   return dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int DR = decltype(dr)::value;
-    const SeedShape ss =
-        seed_shape(n, d, (int)sizeof(T), 1, DR > 0 ? DR : d);
-    auto kern = seed_step_kernel<T, DR, true>;
-    long long grid = 0;
-    cudaError_t e = one_wave(kern, ss.smem, sms, ss.tiles, &grid);
-    if (e != cudaSuccess) return e;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)grid);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = ss.smem;
-    cfg.stream = s;
-    cfg.attrs = attr;
     const T* xt = (const T*)x;
-    const float* none_f = nullptr;
     const uint8_t* none_u8 = nullptr;
     float* no_part = nullptr;
-    for (int i = 0; i < count; ++i) {
-      cfg.numAttrs = i ? 1 : 0;                // the first waits for all
-      const unsigned long long* pd = i ? win_d2 + i - 1 : prev_d2;
-      const unsigned long long* pw = i ? win_w + i - 1 : prev_w;
-      const float* ci = i ? none_f : center;
-      e = cudaLaunchKernelEx(&cfg, kern, xt, n, d, ss.tile_rows, ss.sbytes,
-                             w, (const float*)d2, d2, ci, none_u8, 1, 1,
-                             no_part, pd, pw, win_d2 + i, win_w + i, seed,
-                             first + i, base);
+    if constexpr (DR == 0) {
+      const dim3 grid((unsigned)((n + kTilePoints - 1) / kTilePoints));
+      for (int i = 0; i < count; ++i) {
+        const cudaError_t e = launch_ex(
+            i > 0, tiled_seed_kernel<T, true>, grid, sizeof(SeedSmem), s,
+            xt, n, d, copies16<T>(x, d), w, (const float*)d2, d2,
+            i ? nullptr : center,
+            none_u8, no_part, i ? win_d2 + i - 1 : prev_d2,
+            i ? win_w + i - 1 : prev_w, win_d2 + i, win_w + i, seed,
+            first + i, base);
+        if (e != cudaSuccess) return e;
+      }
+      return cudaSuccess;
+    } else {
+      const SeedShape ss = seed_shape(n, d, (int)sizeof(T), 1, DR);
+      auto kern = seed_step_kernel<T, DR, true>;
+      long long grid = 0;
+      cudaError_t e = one_wave(kern, ss.smem, sms, ss.tiles, &grid);
       if (e != cudaSuccess) return e;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+      attr[0].val.programmaticStreamSerializationAllowed = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3((unsigned)grid);
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = ss.smem;
+      cfg.stream = s;
+      cfg.attrs = attr;
+      const float* none_f = nullptr;
+      for (int i = 0; i < count; ++i) {
+        cfg.numAttrs = i ? 1 : 0;                // the first waits for all
+        const unsigned long long* pd = i ? win_d2 + i - 1 : prev_d2;
+        const unsigned long long* pw = i ? win_w + i - 1 : prev_w;
+        const float* ci = i ? none_f : center;
+        e = cudaLaunchKernelEx(&cfg, kern, xt, n, d, ss.tile_rows, ss.sbytes,
+                               w, (const float*)d2, d2, ci, none_u8, 1, 1,
+                               no_part, pd, pw, win_d2 + i, win_w + i, seed,
+                               first + i, base);
+        if (e != cudaSuccess) return e;
+      }
+      return cudaSuccess;
     }
-    return cudaSuccess;
   });
 }
 
@@ -605,19 +883,27 @@ extern "C" int rt_remove_below(const void* x, int dtype, int m, long long p,
   return (int)dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int DR = decltype(dr)::value;
-    // min_dist's points a thread: rows in registers, or re-read
-    constexpr int P = DR > 0 ? 4 : 2;
-    const TileShape ts = tile_shape(d, DR, k);
     if (m == 0 || p == 0) return cudaGetLastError();
-    const dim3 grid((unsigned)point_tiles(p, P), (unsigned)m);
-    return launch(remove_below_kernel<T, DR, P>, grid, ts.smem, s,
-                  (const T*)x, p, d, c, cv, k, ts.kt, v, alive, alive_new,
-                  live);
+    if constexpr (DR == 0) {                   // the tiled walk
+      return launch(tiled_remove_below_kernel<T>,
+                    dim3((unsigned)tiled_tiles(p), (unsigned)m),
+                    sizeof(TiledSmem), s, (const T*)x, p, d, c, cv, k,
+                    copies16<T>(x, d), copies16<float>(c, d), v, alive,
+                    alive_new, live);
+    } else {
+      constexpr int P = 4;                     // min_dist's points a thread
+      const TileShape ts = tile_shape(d, DR, k);
+      const dim3 grid((unsigned)point_tiles(p, P), (unsigned)m);
+      return launch(remove_below_kernel<T, DR, P>, grid, ts.smem, s,
+                    (const T*)x, p, d, c, cv, k, ts.kt, v, alive, alive_new,
+                    live);
+    }
   });
 }
 
-// Draw off. part holds nb floats, at least one a tile (seed_shape; the
-// wrapper's kernels/fused_lloyd.py::seed_tiles); sms is the card's SMs.
+// Draw off. part holds nb floats, at least one a tile (seed_tile_rows;
+// the wrapper's kernels/fused_lloyd.py::seed_tiles); sms is the card's
+// SMs.
 extern "C" int rt_update_min_dist(const void* x, int dtype, long long n,
                                   int d, const float* w, const float* d2,
                                   const float* c, const uint8_t* cv, int k,
@@ -629,20 +915,36 @@ extern "C" int rt_update_min_dist(const void* x, int dtype, long long n,
   cudaError_t e = dispatch(dtype, d, [&](auto tag, auto dr) -> cudaError_t {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int DR = decltype(dr)::value;
-    const int kt = tile_shape(d, DR, k).kt;
-    const SeedShape ss = seed_shape(n, d, (int)sizeof(T), kt,
-                                    DR > 0 ? DR : d);
-    tiles = ss.tiles;
-    if (tiles > nb) return cudaErrorInvalidValue;
-    if (n == 0) return cudaGetLastError();
-    auto kern = seed_step_kernel<T, DR, false>;
-    long long grid = 0;
-    const cudaError_t e = one_wave(kern, ss.smem, sms, tiles, &grid);
-    if (e != cudaSuccess) return e;
-    kern<<<(unsigned)grid, kThreads, ss.smem, s>>>(
-        (const T*)x, n, d, ss.tile_rows, ss.sbytes, w, d2, d2_new, c, cv, k,
-        kt, part, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0ll);
-    return cudaGetLastError();
+    if constexpr (DR == 0) {
+      tiles = (n + kTilePoints - 1) / kTilePoints;
+      if (tiles > nb) return cudaErrorInvalidValue;
+      if (n == 0) return cudaGetLastError();
+      const T* xt = (const T*)x;
+      if (k == 1) {
+        return launch(tiled_seed_kernel<T, false>, dim3((unsigned)tiles),
+                      sizeof(SeedSmem), s, xt, n, d, copies16<T>(x, d), w,
+                      d2, d2_new, c, cv, part, nullptr, nullptr, nullptr,
+                      nullptr, nullptr, 0, 0ll);
+      }
+      return launch(tiled_update_kernel<T>, dim3((unsigned)tiles),
+                    sizeof(TiledSmem), s, xt, n, d, c, cv, k,
+                    copies16<T>(x, d), copies16<float>(c, d), w, d2, d2_new,
+                    part);
+    } else {
+      const int kt = tile_shape(d, DR, k).kt;
+      const SeedShape ss = seed_shape(n, d, (int)sizeof(T), kt, DR);
+      tiles = ss.tiles;
+      if (tiles > nb) return cudaErrorInvalidValue;
+      if (n == 0) return cudaGetLastError();
+      auto kern = seed_step_kernel<T, DR, false>;
+      long long grid = 0;
+      const cudaError_t e = one_wave(kern, ss.smem, sms, tiles, &grid);
+      if (e != cudaSuccess) return e;
+      kern<<<(unsigned)grid, kThreads, ss.smem, s>>>(
+          (const T*)x, n, d, ss.tile_rows, ss.sbytes, w, d2, d2_new, c, cv, k,
+          kt, part, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0ll);
+      return cudaGetLastError();
+    }
   });
   if (e != cudaSuccess) return (int)e;
   return (int)reduce_rows(part, tiles, 1, mass, s);

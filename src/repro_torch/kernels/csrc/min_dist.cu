@@ -128,9 +128,8 @@ extern "C" int rt_min_dist(const void* x, int dtype, long long n, int d,
     if constexpr (DR == 0) {
       if (ppt != kTiledPPT || slices != 1) return cudaErrorInvalidValue;
       if (n == 0) return cudaGetLastError();
-      const bool xvec = std::is_same<T, float>::value && d % 4 == 0 &&
-                        (uintptr_t)x % 16 == 0;
-      const bool cvec = d % 4 == 0 && (uintptr_t)c % 16 == 0;
+      const bool xvec = copies16<T>(x, d);
+      const bool cvec = copies16<float>(c, d);
       return launch(tiled_min_dist_kernel<T>, dim3((unsigned)tiled_tiles(n)),
                     sizeof(TiledSmem), s, (const T*)x, n, d, c, cv, k, xvec,
                     cvec, d2, idx);

@@ -5,11 +5,14 @@ which replace the kernels of ``repro/kernels/fused_lloyd.py``:
 
 * ``remove_below_cuda`` — SOCCER's removal over (m, p, d) shards: min-d2,
   the strict ``> v`` compare, the alive-mask update and per-machine live
-  counts in one sweep, on ``min_dist``'s register-blocked walk (replaces
-  ``remove_below_pallas`` and ``remove_below_chunked_pallas``);
+  counts in one sweep, on ``min_dist``'s walks (the register-blocked one
+  at d <= 16, the tiled one past it; replaces ``remove_below_pallas`` and
+  ``remove_below_chunked_pallas``);
 * ``update_min_dist_cuda`` — one D²-seeding step: ``min(d2, d2(x, c))``
   and the weighted mass ``sum w·d2_new`` (replaces
-  ``update_min_dist_pallas`` and its pipelined big-n twin);
+  ``update_min_dist_pallas`` and its pipelined big-n twin); past d = 16 a
+  block streams the tiled walk's tile of points through shared memory
+  against one center, or takes the tiled walk against several;
 * ``kmeans_plusplus_indices_cuda`` — a whole weighted k-means++ seeding
   on the same kernel with its Gumbel-max draw on: one C call launches the
   k steps back to back and returns the (k,) chosen rows, with nothing
@@ -152,16 +155,12 @@ def reduce_grid(n: int, d: int, k: int, sms: int) -> Tuple[int, int, int,
     return slabs, ranges, kr, splits, -(-n // splits)
 
 
-# Bytes of rows in one staged tile of the seeding kernel, at most
-# (csrc/fused_lloyd.cu: kStageMax).
-SEED_STAGE_MAX = 48 * 1024
-
-
-def seed_tiles(n: int, d: int, itemsize: int) -> int:
-    """Tiles of the seeding kernel over ``n`` rows: BLOCK_POINTS rows a
-    tile, or as many as SEED_STAGE_MAX bytes hold (csrc/fused_lloyd.cu::
-    seed_tile_rows); at least 1, so scratch sized by it is never empty."""
-    rows = min(BLOCK_POINTS, max(1, SEED_STAGE_MAX // (max(d, 1) * itemsize)))
+def seed_tiles(n: int, d: int) -> int:
+    """Tiles of the seeding step over ``n`` rows (csrc/fused_lloyd.cu::
+    seed_tile_rows): BLOCK_POINTS rows a tile at d <= 16, the tiled walk's
+    ``walk.TILED_POINTS`` past it; at least 1, so scratch sized by it is
+    never empty."""
+    rows = walk.TILED_POINTS if walk.tiled(d) else BLOCK_POINTS
     return max(-(-n // rows), 1)
 
 
@@ -209,7 +208,7 @@ def update_min_dist_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     cv = center_mask("update_min_dist", c_valid, cf.shape[0])
     check_on_card("update_min_dist", x, w=wf, d2=d2f, centers=cf, c_valid=cv)
     d2_new = torch.empty((n,), dtype=torch.float32, device=x.device)
-    nb = seed_tiles(n, d, x.element_size())
+    nb = seed_tiles(n, d)
     part = torch.empty((nb,), dtype=torch.float32, device=x.device)
     mass = torch.empty((), dtype=torch.float32, device=x.device)
     UPDATE_MIN_DIST(ptr(x), dtype_code(x), n, d, ptr(wf), ptr(d2f), ptr(cf),

@@ -3,22 +3,26 @@
 Two walks answer "which valid center is nearest" on the card, to the same
 bits (``csrc/common.cuh``):
 
-* the tiled walk, for every d > 16 in ``min_dist`` (``csrc/min_dist.cu``)
-  and the Lloyd step (``csrc/fused_assign.cu``): a block owns a tile of
-  ``TILED_POINTS`` points against ``TILED_CENTERS`` centers at a time,
-  each thread ``TILED_PPT`` × 5 (point, center) pairs, both operands
-  staged through shared memory; its grid is ``tiled_tiles`` blocks, and
-  the center axis is never split (no workload of the repo at d > 16 has
-  too few point tiles to fill the card);
-* the register-blocked walk ``csrc/common.cuh::nearest_split``: the two
-  kernels above at d <= 16, and ``remove_below`` (``csrc/fused_lloyd.cu``),
-  ``sensitivity_scores`` (``csrc/sensitivity.cu``) and ``truncated_cost``
-  (``csrc/truncated.cu``, its tiles over every machine of one launch) at
-  every d: each thread owns P points, and when the point tiles cannot fill
-  the card the center axis is split over blocks.
+* the tiled walk, for every d > 16 in ``min_dist`` (``csrc/min_dist.cu``),
+  the Lloyd step (``csrc/fused_assign.cu``) and ``remove_below``
+  (``csrc/fused_lloyd.cu``, over a grid of ``tiled_tiles`` by the
+  machines): a block owns a tile of ``TILED_POINTS`` points against
+  ``TILED_CENTERS`` centers at a time, each thread ``TILED_PPT`` × 5
+  (point, center) pairs, both operands staged through shared memory; its
+  grid is ``tiled_tiles`` blocks, and the center axis is never split (no
+  workload of the repo at d > 16 has too few point tiles to fill the
+  card);
+* the register-blocked walk ``csrc/common.cuh::nearest_split``: the three
+  kernels above at d <= 16, and ``sensitivity_scores``
+  (``csrc/sensitivity.cu``) and ``truncated_cost`` (``csrc/truncated.cu``,
+  its tiles over every machine of one launch) at every d: each thread
+  owns P points, and when the point tiles cannot fill the card the center
+  axis is split over blocks.
 
-Only the seeding step walks one point a thread. The wrappers decide the
-launch shape here, on the host, by these rules; nothing here touches the
+Only the seeding step walks one point a thread against one center (past
+d = 16 over the tiled walk's tiles: ``fused_lloyd.seed_tiles``). The
+wrappers decide the launch shape here, on the host, by these rules;
+nothing here touches the
 card but the cached SM count. The center split's two constants are the
 rule's; on a card whose measured table (``kernels/tuning.py``) has an
 entry for the call's width, k and dtype, the split reads that entry's
@@ -46,8 +50,9 @@ _SMS: dict = {}
 
 
 def tiled(d: int) -> bool:
-    """Whether d-wide points take the tiled walk in ``min_dist`` and the
-    Lloyd step (d > 16: past the register rows)."""
+    """Whether d-wide points take the tiled walk in ``min_dist``, the
+    Lloyd step and ``remove_below``, and the seeding step its tiles (d > 16:
+    past the register rows)."""
     return d > 16
 
 
@@ -60,8 +65,8 @@ def tiled_tiles(n: int) -> int:
 def points_per_thread(d: int) -> int:
     """Points a thread of the register-blocked walk where the walk
     dominates: 4 at d <= 16 (the rows in registers), else 2 (each row
-    re-read from L1 for every center; ``remove_below``,
-    ``sensitivity_scores`` and ``truncated_cost``)."""
+    re-read from L1 for every center; ``sensitivity_scores`` and
+    ``truncated_cost``)."""
     return 4 if d <= 16 else 2
 
 

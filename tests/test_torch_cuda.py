@@ -708,6 +708,78 @@ def test_cuda_tiled_walk_is_the_blocked_walk(n, d, k, offset, dt):
             assert abs(float(cost) - c64) <= 1e-5 * abs(c64)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,d,k,offset", [
+    (2_001, 17, 161, 0), (3_001, 37, 300, 0), (1_501, 513, 190, 0),
+    (1_001, 7_168, 81, 0), (1_001, 7_168, 78, 1), (130, 20, 3, 1)],
+    ids=["d17", "d37", "d513", "d7168", "d7168_unaligned", "d20_unaligned"])
+def test_cuda_tiled_removal_and_seeding_are_the_blocked_walk(n, d, k, offset,
+                                                             dt):
+    """remove_below and the seeding step at d > 16 (the tiled walk, and
+    the seeding's point stages against one center) against
+    sensitivity_scores at w = 1 (the register-blocked walk, exact): the
+    mask and counts are ``alive & (scores > v)`` and the draw-off d2 is
+    ``min(d2, scores)``, at k centers and at one, bit for bit, with and
+    without a center mask and with no valid center; a draw-on step's d2 is
+    the draw-off call's at the same center, the step over two parts
+    (``kmeans_pp_step_at``) gives the one-call step's d2 and words, and a
+    seeding repeats and equals its chained steps. ``offset``: the points'
+    base 4 bytes (one float32, two 2-byte values) off 16-byte
+    alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build only there")
+    from repro_torch.kernels import fused_lloyd as fl
+    g, x, c, cv, w = _inputs(9, n, d, k, dt)
+    if offset:
+        flat = torch.empty(n * d + offset, dtype=dt, device="cuda")
+        flat[offset:] = x.reshape(-1)
+        x = flat[offset:].view(n, d)
+    ones = torch.ones(n, device="cuda")
+    d2 = torch.rand(n, device="cuda", generator=g) * d
+    p = n // 2
+    alive = torch.rand((2, p), device="cuda", generator=g) > 0.2
+    none = torch.zeros(k, dtype=torch.bool, device="cuda")
+    for mask in (None, cv, none):
+        sc, _, _, _ = ops.sensitivity_scores(x, ones, c, mask)
+        v = torch.nan_to_num(torch.median(sc), posinf=1.0)
+        keep, live = ops.remove_below(x[:2 * p].view(2, p, d), c, alive, v,
+                                      mask)
+        want = alive & (sc[:2 * p].view(2, p) > v)
+        assert torch.equal(keep, want)
+        assert torch.equal(live, want.sum(1, dtype=torch.int32))
+        for cc, mm, s in ((c, mask, sc), (c[:1], None if mask is None
+                                          else mask[:1], None)):
+            if s is None:
+                s, _, _, _ = ops.sensitivity_scores(x, ones, cc, mm)
+            u, mass = ops.update_min_dist(x, w, cc, d2, mm)
+            assert torch.equal(u, torch.where(s < d2, s, d2))
+            again = ops.update_min_dist(x, w, cc, d2, mm)
+            assert torch.equal(u, again[0]) and torch.equal(mass, again[1])
+    seed = torch.randint(0, 1 << 32, (2,), generator=g, device="cuda")
+    run = torch.full((n,), torch.inf, device="cuda")
+    prev, chain, cut = None, [], n // 3
+    for step in range(5):
+        center = None if prev is None else x[prev].float()
+        off = None if center is None else ops.update_min_dist(
+            x, w, center.reshape(1, -1), run)[0]
+        parts = [fl.kmeans_pp_step_at_cuda(x[lo:hi], w[lo:hi],
+                                           run[lo:hi].clone(), center, step,
+                                           seed, lo)
+                 for lo, hi in ((0, cut), (cut, n))]
+        words = fl.kmeans_pp_step_cuda(x, w, run, prev, step, seed)
+        if off is not None:
+            assert torch.equal(run, off)
+        assert torch.equal(torch.cat([q for q, _ in parts]), run)
+        assert torch.equal(ref.max_word(torch.stack([wd for _, wd in parts]),
+                                        0), words)
+        prev = ref.winner_from_words(words)
+        chain.append(prev)
+    idx = ops.kmeans_plusplus_indices(x, w, 5, seed)
+    assert torch.equal(idx, torch.stack(chain))
+    assert torch.equal(idx, ops.kmeans_plusplus_indices(x, w, 5, seed))
+
 def test_smoke_fused_tolerance_all_moved_center():
     """``chip_smoke.py``'s Lloyd-step check against the plain version
     where a whole duplicated location sits under two tied centers and the

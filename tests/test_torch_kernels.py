@@ -55,7 +55,7 @@ IDS = [s[0] for s in POINT_SHAPES]
 WIDE_SHAPES = [("d_embedding", 40, 7168, 5)]
 WIDE_IDS = IDS + [s[0] for s in WIDE_SHAPES]
 MP_SHAPES = [("tiny", 2, 40, 7, 5), ("n_over_block", 3, 129, 16, 33),
-             ("d_wide", 1, 40, 513, 5)]
+             ("d_wide", 1, 40, 513, 5), ("d_embedding", 1, 40, 7168, 5)]
 MP_IDS = [s[0] for s in MP_SHAPES]
 
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16),
@@ -184,7 +184,8 @@ def test_min_dist_walks_center_panels(masked):
         assert bool(torch.from_numpy(cv)[idx_o.long()].all())
 
 
-@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES, ids=IDS)
+@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES + WIDE_SHAPES,
+                         ids=WIDE_IDS)
 @pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
 def test_update_min_dist_matches_reference(name, n, d, k, jdt, tdt):
     kc = min(k, 37)                       # the new-center block is small
@@ -200,7 +201,8 @@ def test_update_min_dist_matches_reference(name, n, d, k, jdt, tdt):
         assert bool((d2_o <= torch.from_numpy(d2) + 1e-6).all())
 
 
-@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES, ids=IDS)
+@pytest.mark.parametrize("name,n,d,k", POINT_SHAPES + WIDE_SHAPES,
+                         ids=WIDE_IDS)
 @pytest.mark.parametrize("jdt,tdt", DTYPES, ids=DT_IDS)
 def test_seeding_step_d2_matches_reference(name, n, d, k, jdt, tdt):
     """The plain seeding step's d2 (the D² update against the row drawn
@@ -816,15 +818,15 @@ def test_wrappers_check_shapes():
             torch.zeros(2, dtype=torch.int64))
 
 
-@pytest.mark.parametrize("n,d,itemsize,tiles", [
-    (991_418, 15, 4, 3_873), (17_353, 15, 2, 68), (3_000, 37, 4, 12),
-    (3_000, 513, 4, 131), (0, 15, 4, 1)])
-def test_seed_tile_rule(n, d, itemsize, tiles):
+@pytest.mark.parametrize("n,d,tiles", [
+    (991_418, 15, 3_873), (17_353, 15, 68), (3_000, 37, 24),
+    (3_000, 513, 24), (0, 15, 1), (43_106, 7_168, 337)])
+def test_seed_tile_rule(n, d, tiles):
     """The seeding kernel's tiles (csrc/fused_lloyd.cu::seed_tile_rows):
-    256 rows a tile while 256 rows fit SEED_STAGE_MAX bytes (d <= 48 in
-    float32), else as many rows as fit; the draw-off wrapper sizes its
+    256 rows a tile on the register rows (d <= 16), the tiled walk's 128
+    past them, whatever the point type; the draw-off wrapper sizes its
     per-tile partials by this count."""
-    assert tfused.seed_tiles(n, d, itemsize) == tiles
+    assert tfused.seed_tiles(n, d) == tiles
 
 
 def test_build_is_keyed_on_sources():

@@ -1,10 +1,12 @@
 """The tiled walk's launch shape (d > 16), decided on the host.
 
-``min_dist`` and the Lloyd step walk d > 16 on the tiled walk
-(``csrc/common.cuh::tiled_nearest``); ``kernels/walk.py`` and
-``kernels/fused_lloyd.py`` decide its tiles, its points a thread, the
-column reduce's grid and the scratch the Lloyd wrapper allocates, and
-mirror the C constants and layout. Here, on the CPU: the rules at
+``min_dist``, the Lloyd step and ``remove_below`` walk d > 16 on the
+tiled walk (``csrc/common.cuh::tiled_nearest``), and the seeding step
+takes its tiles of points there (``csrc/fused_lloyd.cu::
+tiled_seed_kernel``); ``kernels/walk.py`` and ``kernels/fused_lloyd.py``
+decide its tiles, its points a thread, the column reduce's grid, the
+seeding's per-tile partials and the scratch the Lloyd wrapper allocates,
+and mirror the C constants and layout. Here, on the CPU: the rules at
 d = 17, 37, 513, 1,536 and 7,168 (tiles >= 1 and under the grid limits),
 the mirrors against the constants in the C sources, and the wrappers'
 arguments to the C entry points (the launch recorded, not run: the
@@ -16,6 +18,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import fused_lloyd as tfused
 from repro_torch.kernels import min_dist as tmin
 from repro_torch.kernels import tuning
@@ -66,6 +69,30 @@ def test_mirrors_match_the_c_constants():
     assert "const bool tiled = d > 16;" in \
         (CSRC / "fused_assign.cu").read_text()
     assert not twalk.tiled(16) and twalk.tiled(17)
+    # remove_below and the seeding step: by_width's d > 16 instance takes
+    # the tiled kernels, the seeding's tiles the tiled walk's points
+    fl = (CSRC / "fused_lloyd.cu").read_text()
+    assert tbuild.BLOCK_POINTS == threads
+    assert "return d <= 16 ? kThreads : kTilePoints;" in fl
+    assert int(_constexpr("fused_lloyd.cu", "kSeedStages")) >= 2
+    for entry, kernels in (
+            ("rt_remove_below", ["tiled_remove_below_kernel<T>",
+                                 "dim3((unsigned)tiled_tiles(p), "
+                                 "(unsigned)m)"]),
+            ("rt_update_min_dist", ["tiled_seed_kernel<T, false>",
+                                    "tiled_update_kernel<T>",
+                                    "(n + kTilePoints - 1) / kTilePoints"]),
+            ("seed_steps", ["tiled_seed_kernel<T, true>",
+                            "(n + kTilePoints - 1) / kTilePoints"])):
+        body = fl[fl.index(f" {entry}("):]
+        body = body[:body.index("\n}\n")]
+        route = body[body.index("if constexpr (DR == 0)"):]
+        for name in kernels:
+            assert name in route, (entry, name)
+    # the any-width instances are gone: no DR = 0 seeding kernel or walk,
+    # and remove_below's register-blocked kernel only at P = 4
+    assert "DR > 0 ? DR : d" not in fl
+    assert "constexpr int P = 4;" in fl and "P = DR > 0 ? 4 : 2" not in fl
 
 
 @pytest.mark.parametrize("d", WIDTHS)
@@ -107,6 +134,22 @@ def test_tiled_rules(n, d, k):
         k * 8 + 8 + 2 * _r8(twalk.point_tiles(n, 2) * 4))
 
 
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("n,k", SIZES)
+def test_removal_and_seeding_tiles(n, d, k):
+    """Past 16 the seeding step's tiles are the tiled walk's (at least
+    one), the draw-off wrapper's per-tile partials one a tile, and
+    remove_below's grid (tiled_tiles(p), m) stays under the grid's limits
+    for the n points split over m = 8 machines, or held by one."""
+    tiles = tfused.seed_tiles(n, d)
+    assert tiles == twalk.tiled_tiles(n)
+    assert tiles * twalk.TILED_POINTS >= n and 1 <= tiles <= GRID_X
+    for m in (1, 8):
+        p = -(-n // m)
+        assert 1 <= twalk.tiled_tiles(p) <= GRID_X and m <= GRID_YZ
+        assert twalk.tiled_tiles(p) * twalk.TILED_POINTS >= p
+
+
 class _Recorder:
     """Stands in for a CudaKernel: records the C call's arguments."""
 
@@ -128,6 +171,10 @@ def on_card(monkeypatch):
     rec = {"min_dist": _Recorder(), "fused": _Recorder()}
     monkeypatch.setattr(tmin, "MIN_DIST", rec["min_dist"])
     monkeypatch.setattr(tfused, "FUSED_ASSIGN_REDUCE", rec["fused"])
+    for name in ("REMOVE_BELOW", "UPDATE_MIN_DIST", "KMEANS_PP",
+                 "KMEANS_PP_STEP", "KMEANS_PP_STEP_AT"):
+        rec[name] = _Recorder()
+        monkeypatch.setattr(tfused, name, rec[name])
     return rec
 
 
@@ -158,3 +205,34 @@ def test_wrappers_take_the_tiled_walk(on_card, d, tiled):
     if tiled:
         assert nbytes == (k * (d + 1) * 8 + 8 + 2 * _r8(
             twalk.tiled_tiles(n) * 4) + _r8(n * 4))
+
+
+@pytest.mark.parametrize("d,tiled", [(15, False), (16, False), (17, True),
+                                     (513, True), (7_168, True)])
+def test_removal_and_seeding_take_the_tiled_walk(on_card, d, tiled):
+    """remove_below and the four seeding wrappers hand their C entry
+    points the points' width, on which the C side routes d > 16 to the
+    tiled kernels (``test_mirrors_match_the_c_constants``), and the
+    draw-off wrapper sizes its per-tile partials by the walk's tiles: the
+    tiled walk's at d > 16, 256 rows a tile at d <= 16."""
+    m, p, k = 2, 300, 3
+    n = m * p
+    assert twalk.tiled(d) == tiled
+    x = torch.zeros((n, d))
+    w = torch.ones(n)
+    seed = torch.tensor([1, 2])
+    tfused.remove_below_cuda(x.view(m, p, d), torch.zeros((k, d)),
+                             torch.ones((m, p), dtype=torch.bool), 0.5)
+    assert on_card["REMOVE_BELOW"].args[2:5] == (m, p, d)
+    tfused.update_min_dist_cuda(x, w, torch.zeros((1, d)), torch.ones(n))
+    args = on_card["UPDATE_MIN_DIST"].args
+    assert args[2:4] == (n, d) and args[8] == 1
+    assert args[11] == (twalk.tiled_tiles(n) if tiled
+                        else -(-n // tbuild.BLOCK_POINTS))
+    tfused.kmeans_plusplus_indices_cuda(x, w, 4, seed)
+    assert on_card["KMEANS_PP"].args[2:4] == (n, d)
+    tfused.kmeans_pp_step_cuda(x, w, torch.ones(n), torch.tensor(7), 1, seed)
+    assert on_card["KMEANS_PP_STEP"].args[2:4] == (n, d)
+    tfused.kmeans_pp_step_at_cuda(x[:p], w[:p], torch.ones(p),
+                                  torch.zeros(d), 1, seed, p)
+    assert on_card["KMEANS_PP_STEP_AT"].args[2:4] == (p, d)

@@ -15,13 +15,16 @@ PyTorch built for CUDA. It
    invalid centers and zero weights, and times kernel, plain version and
    the closest PyTorch call (``torch.cdist``, which computes the whole
    distance matrix rather than the same function); then holds them
-   against their plain versions off the main path's shape too: d = 37
-   and d = 513 (min_dist and the Lloyd kernel on the tiled walk, the
-   other kernels on the register-blocked walk's any-width variant,
-   several center tiles; there min_dist's (d2, argmin) and the Lloyd
-   kernel's argmin equal ``sensitivity_scores``' at w = 1 and its sums
-   and counts ``ref.fixed_point_reduce_ref``'s over that argmin, bit for
-   bit) and k = 1024 at d = 15 (two tiles). ``remove_below``'s mask equals
+   against their plain versions off the main path's shape too: d = 37,
+   513, 1,536 and 7,168 (every walk kernel on the tiled walk,
+   several center tiles at 37, 513 and 7,168; there min_dist's d2 and
+   ``sensitivity_scores``' at w = 1 equal the walk oracle's
+   (``scripts/walk_oracle.py``: the one-center seeding step folded over
+   the valid centers), their argmin its by realized distance, the Lloyd
+   kernel's argmin theirs and its sums and counts
+   ``ref.fixed_point_reduce_ref``'s over it, ``truncated_cost``'s tail
+   count at w = 1 the oracle's, bit for bit) and k = 1024 at d = 15
+   (two tiles). ``remove_below``'s mask equals
    ``alive & (min_dist's d2 > v)`` and its counts the mask's row sums,
    bit for bit, at every shape, dtype and mask (the two share the
    register-blocked walk), and with no valid center ``min_dist`` gives
@@ -47,8 +50,8 @@ PyTorch built for CUDA. It
    recorded times of the kernels they replaced beside them; it prints
    ``nvcc -Xptxas -v``'s registers and spills of the kernels on the
    register-blocked walk (the Lloyd kernel, min_dist, remove_below,
-   sensitivity_scores), of lloyd_reduce and of the tiled walk's three
-   (min_dist's, the Lloyd step's walk and its column reduce), from the
+   sensitivity_scores, truncated_cost), of lloyd_reduce, of the seeding
+   step and of the kernels at d > 16 (``TILED_KERNELS``), from the
    build's own log;
 5. holds the robust and coreset tier's kernels against their plain
    versions at that tier's shapes, in the three dtypes, with invalid
@@ -243,11 +246,17 @@ PyTorch built for CUDA. It
    to its plain version (``KernelsAs`` "shadow") and equal bit for bit,
    its cost within 1.1x of ``fit(algo="lloyd")``'s, the sha256 of its
    centers and n_hist printed (``scripts/embedding_fit_digest.py`` gives
-   any tree's), min_dist and the Lloyd kernel at the fit's own largest
-   calls held to the register-blocked walk bit for bit (as at d = 37 and
-   513), and the four SOCCER kernels timed there (d = 7,168) beside
-   their bounds (``python3 chip_smoke.py --lm`` builds the kernels and
-   runs only phases 17 and 19); and
+   any tree's), min_dist, sensitivity_scores, the Lloyd kernel,
+   remove_below and the seeding step at the fit's own largest calls held
+   to the walk oracle bit for bit (as at d = 37, 513, 1,536 and 7,168),
+   and the four SOCCER kernels timed there (d = 7,168) beside their
+   bounds; then ``fit(k=16, algo="kzmeans", m=8, outlier_frac=0.02,
+   coreset_size=34,216)`` on the same table: ``sensitivity_scores`` and
+   ``truncated_cost`` launched at d = 7,168, their largest calls held to
+   the walk oracle and to their plain versions (float32, the fit's),
+   kzmeans' identities, a second fit the same bits, and the two kernels
+   and ``lloyd_reduce`` timed there (``python3 chip_smoke.py --lm``
+   builds the kernels and runs only phases 17 and 19); and
 20. holds the mesh backend to the virtual one: the seeding step
    and the Lloyd step over 8 parts of the sharded coordinator's buffer
    against the flattened calls, bit for bit, and against their plain
@@ -306,6 +315,7 @@ from cuda_timing import (Ms, device_busy_ms, device_split,  # noqa: E402
 from trace_overhead import measure as measure_overhead  # noqa: E402
 from trace_overhead import soccer_runner  # noqa: E402
 from embedding_fit_digest import fit_sha256  # noqa: E402
+import walk_oracle  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 N_POINTS, DIM, MACHINES = 10_000_000, 15, 8
@@ -456,15 +466,17 @@ WALK_KERNELS = (("fused_assign.cu", "fused_assign_kernel"),
 # seeding kernel, whose third template argument is its draw, and the
 # kernels at d > 16: the tiled walk's (min_dist's, the Lloyd step's walk
 # and its column reduce, remove_below's, the draw-off seeding step's
-# against several centers), whose one template argument is the point
-# type, and the seeding step's against one center, whose second is its
-# draw
+# against several centers, sensitivity_scores' and truncated_cost's),
+# whose one template argument is the point type, and the seeding step's
+# against one center, whose second is its draw
 TILED_KERNELS = (("min_dist.cu", "tiled_min_dist_kernel"),
                  ("fused_assign.cu", "tiled_assign_kernel"),
                  ("fused_assign.cu", "column_reduce_kernel"),
                  ("fused_lloyd.cu", "tiled_remove_below_kernel"),
                  ("fused_lloyd.cu", "tiled_update_kernel"),
-                 ("fused_lloyd.cu", "tiled_seed_kernel"))
+                 ("fused_lloyd.cu", "tiled_seed_kernel"),
+                 ("sensitivity.cu", "tiled_sensitivity_kernel"),
+                 ("truncated.cu", "tiled_truncated_kernel"))
 PTXAS_KERNELS = WALK_KERNELS + (("lloyd.cu", "lloyd_reduce_kernel"),
                                 ("fused_lloyd.cu", "seed_step_kernel")) \
     + TILED_KERNELS
@@ -576,66 +588,103 @@ def check_min_dist(ops, ref, x, c, cv):
     return max(err, arg_err), tol
 
 
-def check_old_walk(ops, ref, x, w, c, cv, what: str) -> None:
-    """Bit for bit against the register-blocked walk: ``min_dist``'s (d2,
-    argmin) and the Lloyd kernel's argmin (``assign_out``) against
-    ``sensitivity_scores`` at w = 1 (its scores are 1·d2, exact, and its
-    walk is the register-blocked one at every d), and the Lloyd kernel's
-    sums and counts against ``ref.fixed_point_reduce_ref`` over that
-    argmin, on the card. At d > 16 min_dist and the Lloyd kernel run the
-    tiled walk (csrc/common.cuh: tiled_nearest), so this holds the two
-    walks to each other."""
+def close64(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Where ``got`` is within FUSED_RTOL of the float64 ``want`` (plus
+    1e-6), or equal to it (an infinite sum)."""
+    g = got.double()
+    return (g == want) | ((g - want).abs() <= FUSED_RTOL * want.abs() + 1e-6)
+
+
+def check_walk(ops, ref, x, w, c, cv, what: str):
+    """The walk kernels against the walk oracle (``scripts/walk_oracle.py``:
+    the draw-off seeding step folded over the valid centers one at a
+    time, which runs no walk), bit for bit: ``min_dist``'s d2 and
+    ``sensitivity_scores``' scores at w = 1 (1·d2, exact) equal its least
+    d2, and their argmin its by realized distance; the two argmins and the
+    Lloyd kernel's (``assign_out``) are one; ``sensitivity_scores`` at w
+    gives the scores w·d2 and the masses ``exact_index_add``'s over that
+    argmin, the Lloyd kernel the sums and counts of
+    ``ref.fixed_point_reduce_ref`` over it. Returns the oracle's pair for
+    ``check_walk_removal`` and ``check_walk_seeding``."""
+    from repro_torch.kernels.exact import exact_index_add
     from repro_torch.kernels.fused_lloyd import fused_assign_reduce_cuda
     n, k = x.shape[0], c.shape[0]
+    orc = walk_oracle.nearest(ops, x, c, cv)
     d2, idx = ops.min_dist(x, c, cv)
     sc, asg, _, _ = ops.sensitivity_scores(
         x, torch.ones(n, device=x.device), c, cv)
-    check(torch.equal(d2, sc) and torch.equal(idx, asg),
-          f"{what}: min_dist's (d2, argmin) differ from the register-"
-          f"blocked walk's ({int((d2 != sc).sum())} d2, "
-          f"{int((idx != asg).sum())} argmin)")
+    for name, got, arg in (("min_dist", d2, idx),
+                           ("sensitivity_scores", sc, asg)):
+        bad = walk_oracle.misses(*orc, got, arg)
+        check(bad == (0, 0),
+              f"{what}: {name}'s (d2, argmin) differ from the walk "
+              f"oracle's at {bad[0]} d2 and {bad[1]} argmin")
+    check(torch.equal(asg, idx),
+          f"{what}: sensitivity_scores' argmin differs from min_dist's at "
+          f"{int((asg != idx).sum())} points")
+    sw, aw, mass, _ = ops.sensitivity_scores(x, w, c, cv)
+    check(torch.equal(aw, idx) and walk_oracle.equal_nan(sw, w * d2)
+          and torch.equal(mass, exact_index_add(w, idx, k)),
+          f"{what}: sensitivity_scores at w: argmin, scores w·d2 or masses "
+          f"= exact_index_add's differ")
     own = torch.empty_like(idx)
     s_k, n_k, _ = fused_assign_reduce_cuda(x, w, c, cv, assign_out=own)
-    check(torch.equal(own, asg),
-          f"{what}: the Lloyd kernel's argmin differs from the register-"
-          f"blocked walk's at {int((own != asg).sum())} points")
-    s_e, n_e = ref.fixed_point_reduce_ref(x, w, asg, k)
+    check(torch.equal(own, idx),
+          f"{what}: the Lloyd kernel's argmin differs from min_dist's at "
+          f"{int((own != idx).sum())} points")
+    s_e, n_e = ref.fixed_point_reduce_ref(x, w, idx, k)
     check(torch.equal(s_k, s_e) and torch.equal(n_k, n_e),
           f"{what}: the Lloyd kernel's sums or counts differ from "
-          f"fixed_point_reduce_ref over the register-blocked argmin")
+          f"fixed_point_reduce_ref over its argmin")
+    return orc
 
 
-def check_old_walk_removal(ops, x3, c, alive, v, cv, what: str) -> None:
-    """``remove_below``'s mask and counts against ``alive & (scores >
-    v)``, the scores ``sensitivity_scores``' at w = 1 (the register-blocked
-    walk at every d), bit for bit; at d > 16 remove_below runs the tiled
-    walk."""
+def check_walk_removal(ops, x3, c, alive, v, cv, orc, what: str) -> None:
+    """``remove_below``'s mask and counts against ``alive & (d2 > v)``,
+    and ``truncated_cost``'s tail mass at w = 1 against the count of
+    ``d2 > v`` a machine, exactly, d2 the walk oracle's ``orc`` (from
+    ``check_walk`` on the (m·p, d) rows); its kept and tail cost within
+    FUSED_RTOL of float64 sums over that d2."""
     m, p, d = x3.shape
-    x = x3.reshape(m * p, d)
-    sc = ops.sensitivity_scores(x, torch.ones(m * p, device=x.device), c,
-                                cv)[0]
+    d2 = orc[0].view(m, p)
     keep, live = ops.remove_below(x3, c, alive, v, cv)
-    want = alive & (sc.view(m, p) > v)
+    want = alive & (d2 > v)
     check(torch.equal(keep, want)
           and torch.equal(live, want.sum(1, dtype=torch.int32)),
           f"{what}: remove_below's mask or counts differ from alive & "
-          f"(the register-blocked walk's d2 > v) at "
-          f"{int((keep != want).sum())} points")
+          f"(the walk oracle's d2 > v) at {int((keep != want).sum())} "
+          f"points")
+    kept, tmass, tcost = ops.truncated_cost(
+        x3, torch.ones((m, p), device=x3.device), c, v, cv)
+    tail = d2 > v
+    check(torch.equal(tmass, tail.sum(1).float()),
+          f"{what}: truncated_cost's tail mass at w = 1 "
+          f"{tmass.tolist()} != the walk oracle's count of d2 > v "
+          f"{tail.sum(1).tolist()}")
+    dd = d2.double()
+    for name, got, want64 in (
+            ("kept", kept, torch.where(tail, 0.0, dd).sum(1)),
+            ("tail cost", tcost, torch.where(tail, dd, 0.0).sum(1))):
+        check(bool(close64(got, want64).all()),
+              f"{what}: truncated_cost's {name} at w = 1 {got.tolist()} "
+              f"off a float64 sum over the walk oracle's d2 "
+              f"{want64.tolist()}")
 
 
-def check_old_walk_seeding(ops, x, w, c, d2, cv, what: str) -> None:
-    """The draw-off seeding step's d2 against ``min(d2, scores)`` at the k
-    centers c and at c's first, the scores ``sensitivity_scores``' at
-    w = 1, bit for bit; at d > 16 the step runs its point stages against
-    one center and the tiled walk against several."""
-    ones = torch.ones(x.shape[0], device=x.device)
-    for cc, cm in ((c, cv), (c[:1], None if cv is None else cv[:1])):
-        sc = ops.sensitivity_scores(x, ones, cc, cm)[0]
+def check_walk_seeding(ops, x, w, c, d2, cv, orc, what: str) -> None:
+    """The draw-off seeding step's d2 against ``min(d2, oracle)`` at the k
+    centers c and at c's first, bit for bit (``orc``: ``check_walk``'s);
+    at d > 16 the step runs the tiled walk against several centers."""
+    first = orc[1][0]
+    if cv is not None and not bool(cv[0]):
+        first = torch.full_like(first, torch.inf)
+    for cc, cm, od2 in ((c, cv, orc[0]),
+                        (c[:1], None if cv is None else cv[:1], first)):
         u, _ = ops.update_min_dist(x, w, cc, d2, cm)
-        want = torch.where(sc < d2, sc, d2)
+        want = torch.where(od2 < d2, od2, d2)
         check(torch.equal(u, want),
               f"{what}: update_min_dist's d2 at {cc.shape[0]} centers "
-              f"differs from min(d2, the register-blocked walk's d2) at "
+              f"differs from min(d2, the walk oracle's d2) at "
               f"{int((u != want).sum())} points")
 
 
@@ -1004,22 +1053,23 @@ def kernel_phase(ops, ref, consts):
     return rows
 
 
-# (n, d, k) off the main path's shape: at d = 37 and 513 min_dist, the
-# Lloyd kernel and remove_below run the tiled walk (4 and 3 center tiles
-# of 80), the seeding step its point stages (against several centers the
-# tiled walk), and sensitivity_scores and truncated_cost the
-# register-blocked walk's any-width variant (the row re-read from L1;
-# 221 and 15 centers a tile); k = 1024 at d = 15 takes two tiles of 512.
-WIDTH_SHAPES = ((20_000, 37, 300), (20_000, 513, 190), (20_000, 15, 1024))
+# (n, d, k) off the main path's shape: at d = 37, 513, 1,536 and 7,168
+# every walk kernel (min_dist, the Lloyd kernel, remove_below,
+# sensitivity_scores, truncated_cost) runs the tiled walk (4, 3, 1 and 2
+# center tiles of 80; 1,536 is qwen2-1.5b's table width, 7,168
+# kimi-k2's), the seeding step its point stages (against several centers
+# the tiled walk); k = 1024 at d = 15 takes the register-blocked walk's
+# two tiles of 512.
+WIDTH_SHAPES = ((20_000, 37, 300), (20_000, 513, 190), (6_000, 1_536, 78),
+                (4_000, 7_168, 81), (20_000, 15, 1024))
 
 
 def width_phase(ops, ref, rows) -> None:
     """Every kernel against its plain version at the WIDTH_SHAPES, with the
     same tolerances as at the main path's shapes; the errors join each
     kernel's max_abs_err in ``rows``. Then, also with no valid center, the
-    kernels that leave the register-blocked walk at d > 16 held to it bit
-    for bit (``check_old_walk``, ``check_old_walk_removal``,
-    ``check_old_walk_seeding``)."""
+    walk kernels and the seeding step held to the walk oracle bit for bit
+    (``check_walk``, ``check_walk_removal``, ``check_walk_seeding``)."""
     gen = torch.Generator("cuda").manual_seed(2)
     for n, d, k in WIDTH_SHAPES:
         x32 = torch.rand((n, d), generator=gen, device="cuda")
@@ -1032,40 +1082,44 @@ def width_phase(ops, ref, rows) -> None:
         alive = torch.rand((2, n // 2), generator=gen, device="cuda") > 0.1
         for dt in DTYPES:
             x = x32.to(dt)
+            x3 = x.reshape(2, n // 2, d)
             for mask in (None, cv):
                 errs = {
                     "min_dist": check_min_dist(ops, ref, x, c, mask)[0],
                     "update_min_dist": check_update_min_dist(
                         ops, ref, x, w, c, d2_0, mask)[0],
                     "fused_assign_reduce": max(check_fused(
-                        ops, ref, x, w, c, mask)[0].values())}
+                        ops, ref, x, w, c, mask)[0].values()),
+                    "sensitivity_scores": check_sensitivity(
+                        ops, ref, x, w, c, mask)[0]}
                 d2, _ = ref.min_dist_ref(x, c, mask)
                 v = torch.median(d2)
                 errs["remove_below"] = check_remove_below(
-                    ops, ref, x.reshape(2, n // 2, d), c, alive, v, mask)[0]
+                    ops, ref, x3, c, alive, v, mask)[0]
+                errs["truncated_cost"] = check_truncated(
+                    ops, ref, x3, w.reshape(2, n // 2), c, mask, v)[0]
                 what = (f"widths n={n} d={d} k={k} {dt} "
                         f"mask={mask is not None}")
-                check_old_walk(ops, ref, x, w, c, mask, what)
-                check_old_walk_removal(ops, x.reshape(2, n // 2, d), c,
-                                       alive, v, mask, what)
-                check_old_walk_seeding(ops, x, w, c, d2_0, mask, what)
+                orc = check_walk(ops, ref, x, w, c, mask, what)
+                check_walk_removal(ops, x3, c, alive, v, mask, orc, what)
+                check_walk_seeding(ops, x, w, c, d2_0, mask, orc, what)
                 for name, err in errs.items():
-                    rows[name]["max_abs_err"] = max(
-                        rows[name]["max_abs_err"], err)
+                    row = rows.setdefault(name, {"max_abs_err": 0.0})
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
                 print(f"check widths n={n} d={d} k={k} {dt} mask="
                       f"{mask is not None} max_abs_err="
                       + " ".join(f"{nm}:{e:.3g}" for nm, e in errs.items())
-                      + "; min_dist, the Lloyd kernel, remove_below and "
-                      "update_min_dist = the register-blocked walk bit for "
-                      "bit", flush=True)
+                      + "; min_dist, sensitivity_scores, the Lloyd kernel, "
+                      "remove_below, truncated_cost's tail count and "
+                      "update_min_dist = the walk oracle bit for bit",
+                      flush=True)
             none = torch.zeros_like(cv)
             what = f"widths n={n} d={d} k={k} {dt} no valid center"
-            check_old_walk(ops, ref, x, w, c, none, what)
-            check_old_walk_removal(ops, x.reshape(2, n // 2, d), c, alive,
-                                   v, none, what)
-            check_old_walk_seeding(ops, x, w, c, d2_0, none, what)
-            print(f"check {what}: the four = the register-blocked walk bit "
-                  f"for bit", flush=True)
+            orc = check_walk(ops, ref, x, w, c, none, what)
+            check_walk_removal(ops, x3, c, alive, v, none, orc, what)
+            check_walk_seeding(ops, x, w, c, d2_0, none, orc, what)
+            print(f"check {what}: the six = the walk oracle bit for bit",
+                  flush=True)
     torch.cuda.synchronize()
 
 
@@ -3910,7 +3964,7 @@ EMB_SHAPE = (163_840, 7_168)
 # derive_constants at n = 163,840, k = 16, eps = 0.2, delta = 0.1, m = 8
 EMB_ETA, EMB_K_PLUS = 43_106, 78
 EMB_K, EMB_M, EMB_EPS = 16, 8, 0.2
-EMB_REPS = 3                  # timed calls a kernel (0.1-1 s each here)
+EMB_REPS = 2                  # timed calls a kernel
 EMB_COST_RATIO = 1.1          # SOCCER's cost over the gather fit's
 EMB_TIMED = ("min_dist", "remove_below", "update_min_dist",
              "fused_assign_reduce")
@@ -3919,6 +3973,12 @@ EMB_TIMED = ("min_dist", "remove_below", "update_min_dist",
 # lines of their own, never in the JSON line
 EMB_BEFORE_MS = {"min_dist": 151.7217, "remove_below": 446.3630,
                  "update_min_dist": 18.0407, "fused_assign_reduce": 159.8791}
+# kzmeans on the same table (PERF.md §4's kzmeans cell at the table's
+# scale): per machine 1,000 coreset rows and ceil(0.02 · 163,840) = 3,277
+# candidate rows, 8 · 4,277 = 34,216 uplink rows
+EMB_KZ = dict(algo="kzmeans", m=EMB_M, outlier_frac=0.02,
+              coreset_size=34_216, seed=0, device="cuda")
+EMB_KZ_ROWS = (1_000, 3_277)
 
 
 def lm_rel_err(got: torch.Tensor, want: torch.Tensor):
@@ -3975,7 +4035,7 @@ def lm_bytes(model) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def lm_timing(lm, decode, model, cfg, prompt, steps: int, reps: int = 3):
+def lm_timing(lm, decode, model, cfg, prompt, steps: int, reps: int = 2):
     """Serving times through ``decode.prefill`` and ``decode.serve_step``
     (host clock around work that ends in a synchronize; the median of
     ``reps`` runs after a warm-up): prefill ms, decode ms a step, a
@@ -5023,10 +5083,10 @@ def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
     for what, args in (("min_dist", (x, torch.ones(n, device=x.device), c,
                                      cv)),
                        ("fused_assign_reduce", (xf, wf, cf, cvf))):
-        check_old_walk(ops, ref, *args, f"the embedding fit's {what} call")
+        check_walk(ops, ref, *args, f"the embedding fit's {what} call")
         print(f"check embedding fit's {what} call {tuple(args[0].shape)} x "
-              f"{args[2].shape[0]}: min_dist and the Lloyd kernel = the "
-              f"register-blocked walk bit for bit", flush=True)
+              f"{args[2].shape[0]}: min_dist, sensitivity_scores and the "
+              f"Lloyd kernel = the walk oracle bit for bit", flush=True)
     torch.cuda.empty_cache()
     cases = {"min_dist": (
         lambda: ops.min_dist(x, c, cv), lambda: ref.min_dist_ref(x, c, cv),
@@ -5038,11 +5098,14 @@ def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
                              a["c_valid"])
     m, p, _ = x3.shape
     live = int(alive.sum())
-    check_old_walk_removal(ops, x3, c3, alive, v, cv3,
-                           "the embedding fit's remove_below call")
+    what = "the embedding fit's remove_below call"
+    orc = walk_oracle.nearest(ops, x3.reshape(m * p, d), c3, cv3)
+    check_walk_removal(ops, x3, c3, alive, v, cv3, orc, what)
+    del orc
     print(f"check embedding fit's remove_below call {tuple(x3.shape)} x "
-          f"{c3.shape[0]}: mask and counts = alive & (the register-blocked "
-          f"walk's d2 > v) bit for bit", flush=True)
+          f"{c3.shape[0]}: mask and counts = alive & (the walk oracle's "
+          f"d2 > v), truncated_cost's tail count at w = 1 its count, bit "
+          f"for bit", flush=True)
     torch.cuda.empty_cache()
     cases["remove_below"] = (
         lambda: ops.remove_below(x3, c3, alive, v, cv3),
@@ -5066,11 +5129,12 @@ def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
     gen = torch.Generator("cuda").manual_seed(5)
     d2 = torch.rand(ns, generator=gen, device="cuda") * float(d)
     c1 = xs[:1].float()
-    check_old_walk_seeding(ops, xs, ws, cf, d2, cvf,
-                           "the embedding fit's seeding rows")
+    check_walk_seeding(ops, xs, ws, cf, d2, cvf,
+                       walk_oracle.nearest(ops, xs, cf, cvf),
+                       "the embedding fit's seeding rows")
     print(f"check embedding fit's seeding rows {tuple(xs.shape)}: "
           f"update_min_dist's d2 at {cf.shape[0]} centers and at one = "
-          f"min(d2, the register-blocked walk's d2) bit for bit", flush=True)
+          f"min(d2, the walk oracle's d2) bit for bit", flush=True)
     torch.cuda.empty_cache()
     cases["update_min_dist"] = (
         lambda: ops.update_min_dist(xs, ws, c1, d2),
@@ -5099,6 +5163,174 @@ def embedding_times(ops, ref, rows, calls, n_fit: int) -> None:
               flush=True)
 
 
+def embedding_kzmeans(api, ops, ref, x, rows, per_fit, smi: str) -> None:
+    """``fit(x, 16, **EMB_KZ)`` on the table ``x``: its launches counted
+    (``sensitivity_scores`` and ``truncated_cost`` at d = 7,168, on the
+    tiled walk); their largest calls, in the three dtypes, held to the
+    walk oracle (``check_walk``, ``check_walk_removal``) and to their
+    plain versions and float64 sums (``check_sensitivity``,
+    ``check_truncated``) in the fit's float32 (``width_phase`` holds the
+    three dtypes at d = 7,168); kzmeans' identities (§2 of PERF.md: the uplink's
+    rows and bytes, kz cost + trimmed cost = the full cost, the trimmed
+    mass = the rows beyond v and >= z/2); a second fit equal to the first
+    bit for bit; then
+    the two kernels and ``lloyd_reduce`` (still reading d > 16 rows in
+    place) timed at the fit's largest calls, kept in
+    ``rows[name]["d7168"]``."""
+    n, d = x.shape
+    names = ("sensitivity_scores", "truncated_cost", "lloyd_reduce")
+    torch.cuda.synchronize()
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    with LargestCalls(ops, names) as rec:
+        res = api.fit(x, EMB_K, **EMB_KZ)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    place = wall - res.wall_time_s      # the host copy and the shards
+    counts = {name: kern.launches for name, kern in ops.KERNELS.items()}
+    missing = [name for name in KZMEANS_KERNELS if counts[name] == 0]
+    check(not missing, f"embedding kzmeans fit: kernels of its path were "
+                       f"not launched: {missing} ({counts})")
+    per_fit["kzmeans_embedding"] = counts
+    calls = {k: v[1] for k, v in rec.args.items()}
+    del rec
+    check(all(calls[name]["x"].shape[-1] == d for name in names[:2]),
+          "embedding kzmeans fit: sensitivity_scores or truncated_cost "
+          "not at the table's width")
+    what = f"kzmeans on the {n} x {d} embedding table"
+    e = res.extra
+    budget = EMB_KZ["coreset_size"]
+    check(np.isfinite(res.centers).all()
+          and res.centers.shape == (EMB_K, d),
+          f"{what}: centers not finite ({EMB_K}, {d})")
+    check(res.rounds == 1 and res.uplink_points.tolist() == [budget]
+          and res.uplink_bytes.tolist() == [budget * d * 4],
+          f"{what}: rounds {res.rounds}, uplink {res.uplink_points.tolist()}"
+          f" rows {res.uplink_bytes.tolist()} bytes, not 1, [{budget}], "
+          f"[{budget * d * 4}]")
+    check((e["coreset_rows_per_machine"], e["candidate_rows_per_machine"])
+          == EMB_KZ_ROWS, f"{what}: rows a machine "
+          f"{e['coreset_rows_per_machine']} + "
+          f"{e['candidate_rows_per_machine']}")
+    total = res.cost(x, device="cuda")
+    check(abs(e["kz_cost"] + e["trimmed_cost"] - total) <= 1e-4 * total,
+          f"{what}: kz_cost + trimmed_cost = "
+          f"{e['kz_cost'] + e['trimmed_cost']} != the full cost {total}")
+    # the trimmed mass is the count of rows beyond v (unit weights), on
+    # min_dist's walk; tests/test_kzmeans.py bounds it by z/2 and z + 1 on
+    # data whose outliers lie far out. On this table, which has none, the
+    # upper bound is not an identity: both packages land within ~8% of z
+    # on either side (tests/test_torch_kzmeans.py::
+    # test_kzmeans_trimmed_mass_without_outliers; ROADMAP Queue 3), so it
+    # is printed here, not asserted.
+    z = EMB_KZ["outlier_frac"] * n
+    beyond = int((ops.min_dist(x, torch.as_tensor(
+        res.centers, device=x.device))[0] > e["trim_threshold"]).sum())
+    check(e["trimmed_mass"] == beyond and 0.5 * z <= e["trimmed_mass"],
+          f"{what}: trimmed mass {e['trimmed_mass']} != the {beyond} rows "
+          f"beyond v, or under z/2 = {0.5 * z}")
+    again = api.fit(x, EMB_K, **EMB_KZ)
+    check(np.array_equal(again.centers, res.centers)
+          and again.extra == res.extra,
+          f"{what}: a second fit at the same seed gave other centers or "
+          f"extras")
+    check_same_fit(res, again, f"repeat {what}")
+    print(f"fit kzmeans embedding table {n}x{d} k={EMB_K} m={EMB_M} "
+          f"outlier_frac={EMB_KZ['outlier_frac']} coreset_size={budget} on "
+          f"{smi}: wall {wall:.3f} s (host copy and shard placement "
+          f"{place:.3f} s), rows a machine {EMB_KZ_ROWS[0]} coreset + "
+          f"{EMB_KZ_ROWS[1]} candidates, kz_cost {e['kz_cost']:.6g} + "
+          f"trimmed_cost {e['trimmed_cost']:.6g} = full cost {total:.6g}, "
+          f"trimmed mass {e['trimmed_mass']:.6g} = the rows beyond v "
+          f"{e['trim_threshold']:.6g} (z {z:.1f}: {e['trimmed_mass'] / z:.4f}"
+          f" z; test_kzmeans.py's z + 1 "
+          f"{'met' if e['trimmed_mass'] <= z + 1 else 'not met'}); a second "
+          f"fit the same bits; launches {counts}", flush=True)
+    del res, again
+
+    a = calls["sensitivity_scores"]
+    xs, ws, cs, cvs = a["x"], a["w"], a["c"], a["c_valid"]
+    a = calls["truncated_cost"]
+    x3, w3, c3, v3, cv3 = a["x"], a["w"], a["c"], a["v"], a["c_valid"]
+    m, p, _ = x3.shape
+    alive = torch.ones((m, p), dtype=torch.bool, device=x3.device)
+    what = "the embedding kzmeans fit's calls"
+    check_walk(ops, ref, xs, ws, cs, cvs, what)
+    orc = walk_oracle.nearest(ops, x3.reshape(m * p, d), c3, cv3)
+    check_walk_removal(ops, x3, c3, alive, v3, cv3, orc, what)
+    del orc
+    errs = {"sensitivity_scores": check_sensitivity(
+                ops, ref, xs, ws, cs, cvs)[0],
+            "truncated_cost": check_truncated(
+                ops, ref, x3, w3, c3, cv3, v3)[0]}
+    for name, err in errs.items():
+        row = rows.setdefault(name, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    print(f"check {what}: sensitivity_scores {tuple(xs.shape)} x "
+          f"{cs.shape[0]}, truncated_cost {tuple(x3.shape)} x "
+          f"{c3.shape[0]} ({xs.dtype}): d2, argmin and the tail count at "
+          f"w = 1 = the walk oracle bit for bit, masses = "
+          f"exact_index_add's; max_abs_err against plain " + " ".join(
+              f"{nm}:{er:.3g}" for nm, er in errs.items()), flush=True)
+    torch.cuda.empty_cache()
+
+    def valid(cv, k):
+        return k if cv is None else int(cv.sum())
+
+    ns, ks, el = xs.shape[0], cs.shape[0], xs.element_size()
+    a = calls["lloyd_reduce"]
+    xl, wl, al, kl = a["x"], a["w"], a["assign"], a["k"]
+    nl = xl.shape[0]
+    wxl = xl * wl[:, None]
+    all_ = al.long()
+    cases = {
+        "sensitivity_scores": (
+            lambda: ops.sensitivity_scores(xs, ws, cs, cvs),
+            lambda: ref.sensitivity_scores_ref(xs, ws, cs, cvs),
+            lambda: torch.cdist(xs.float(), cs), "torch.cdist",
+            ns * d * el + ns * 4 + cs.numel() * 4 + 2 * ns * 4
+            + (ks + 1) * 4, 2.0 * ns * valid(cvs, ks) * d,
+            f"n={ns} d={d} k={ks}"),
+        "truncated_cost": (
+            lambda: ops.truncated_cost(x3, w3, c3, v3, cv3),
+            lambda: ref.truncated_cost_ref(x3, w3, c3, v3, cv3),
+            lambda: torch.cdist(x3.reshape(-1, d).float(), c3),
+            "torch.cdist",
+            m * p * d * el + m * p * 4 + c3.numel() * 4 + 4 + 3 * m * 4,
+            2.0 * m * p * valid(cv3, c3.shape[0]) * d,
+            f"m={m} p={p} d={d} k={c3.shape[0]}"),
+        "lloyd_reduce": (
+            lambda: ops.lloyd_reduce(xl, wl, al, kl),
+            lambda: ref.lloyd_reduce_ref(xl, wl, al, kl),
+            lambda: (torch.zeros((kl, d), device=xl.device).index_add_(
+                0, all_, wxl), torch.bincount(all_, weights=wl,
+                                              minlength=kl)),
+            "index_add_+bincount",
+            nl * d * 4 + 2 * nl * 4 + (kl * d + kl) * 4, 2.0 * nl * d + nl,
+            f"n={nl} d={d} k={kl} (rows read in place)")}
+    for name, (kern, plain, lib, lib_name, nbytes, flops,
+               shape) in cases.items():
+        ms = timed_ms(kern, reps=EMB_REPS)
+        plain_ms = timed_ms(plain, reps=EMB_REPS)
+        lib_ms = timed_ms(lib, reps=EMB_REPS)
+        bnd, by = bound_ms(nbytes, flops)
+        row = dict(ms=ms, host_us=ms.host_us, plain_ms=plain_ms,
+                   bound_ms=bnd, bound_by=by, shape=shape)
+        if lib_name == "torch.cdist":
+            row.update(library_ms=None, yardstick=lib_name,
+                       yardstick_ms=lib_ms)
+        else:
+            row.update(library_ms=lib_ms, library=lib_name)
+        rows.setdefault(name, {"max_abs_err": 0.0})["d7168"] = row
+        print(f"time {name} embedding kzmeans fit ({n} rows) {shape} f32: "
+              f"kernel {ms:.4f} ms ({host_note(ms)}), plain "
+              f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)",
+              flush=True)
+    del calls, xs, ws, x3, w3, xl, wl, al, wxl, all_, cases
+
+
 def embedding_phase(api, ops, ref, rows, per_fit, smi: str) -> None:
     """``fit(emb, k=16, algo="soccer", m=8, epsilon=0.2, seed=0)`` on
     kimi-k2-1t-a32b's whole token-embedding table (163,840 x 7,168, the
@@ -5109,9 +5341,9 @@ def embedding_phase(api, ops, ref, rows, per_fit, smi: str) -> None:
     "shadow") and equal to the first bit for bit; the rounds, n_hist and
     Theorem 4.1's structure; SOCCER's cost within EMB_COST_RATIO of
     ``fit(algo="lloyd")``'s on the same table; then the four kernels
-    timed at the fit's own shapes."""
+    timed at the fit's own shapes; then kzmeans on the same table
+    (``embedding_kzmeans``)."""
     from repro_torch.configs import get_config
-    from repro_torch.data.sharding import make_shards
     from repro_torch.models.layers import init_embedding
     t_phase = time.perf_counter()
     emb = init_embedding(torch.Generator("cuda").manual_seed(0),
@@ -5120,9 +5352,6 @@ def embedding_phase(api, ops, ref, rows, per_fit, smi: str) -> None:
     del emb
     n, d = x.shape
     check((n, d) == EMB_SHAPE, f"embedding table {tuple(x.shape)}")
-    t0 = time.perf_counter()
-    make_shards(x.cpu().numpy(), None, EMB_M, policy="shuffle", seed=0)
-    place = time.perf_counter() - t0
     kw = dict(algo="soccer", m=EMB_M, epsilon=EMB_EPS, seed=0,
               device="cuda")
     torch.cuda.synchronize()
@@ -5135,6 +5364,7 @@ def embedding_phase(api, ops, ref, rows, per_fit, smi: str) -> None:
         res = api.fit(x, EMB_K, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    place = wall - res.wall_time_s      # the host copy and the shards
     counts = {name: kern.launches for name, kern in ops.KERNELS.items()}
     missing = [name for name in SOCCER_KERNELS if counts[name] == 0]
     check(not missing, f"embedding fit: kernels of its path were not "
@@ -5178,8 +5408,9 @@ def embedding_phase(api, ops, ref, rows, per_fit, smi: str) -> None:
           f"{what}: cost {cost} > {EMB_COST_RATIO}x the lloyd fit's {lcost}")
     print(f"fit soccer embedding table {n}x{d} ({EMB_ARCH}, bf16 cast to "
           f"float32, a card tensor) k={EMB_K} m={EMB_M} eps={EMB_EPS} on "
-          f"{smi}: wall {wall:.3f} s (host shard placement alone "
-          f"{place:.3f} s), rounds {res.rounds} (max {const.max_rounds}), "
+          f"{smi}: wall {wall:.3f} s (host copy and shard placement, the "
+          f"wall less the fit's own clock, {place:.3f} s), rounds "
+          f"{res.rounds} (max {const.max_rounds}), "
           f"eta {const.eta}, k_plus {const.k_plus}, n_hist "
           f"{res.n_hist.tolist()}, uplink {res.uplink_points.tolist()}, "
           f"|C_out| {res.centers.shape[0]}, cost {cost:.6g} = "
@@ -5188,7 +5419,10 @@ def embedding_phase(api, ops, ref, rows, per_fit, smi: str) -> None:
           f"version {ka.checked}; launches {counts}", flush=True)
     embedding_times(ops, ref, rows, {k: v[1] for k, v in rec.args.items()},
                     n)
-    del rec, x, res, shadow, lres
+    del rec, res, shadow, lres
+    torch.cuda.empty_cache()
+    embedding_kzmeans(api, ops, ref, x, rows, per_fit, smi)
+    del x
     torch.cuda.empty_cache()
     print(f"embedding_phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
@@ -5656,7 +5890,7 @@ MESH_MOE_TOKENS = (2, 256)      # (batch, sequence): a batch row a rank
 MESH_MOE_RANKS = 2              # gloo ranks sharing the card, E/2 each
 MESH_MOE_REPS = 3               # timed calls of each one-process path
 MESH_MOE_RANK_REPS = 1          # and of the gloo ranks' (~4 s a call)
-MESH_TRAIN_STEPS = 3            # the mesh driver's steps against train_qwen
+MESH_TRAIN_STEPS = 2            # the mesh driver's steps against train_qwen
 # the driver's sharded step on the card: qwen2-1.5b ("fsdp" policy) at
 # full width, depth cut to MESH_FSDP_LAYERS, float32 (TF32 off), on a
 # (2, 1) mesh of 2 gloo ranks sharing the card: a batch row a rank

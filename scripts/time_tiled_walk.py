@@ -1,8 +1,11 @@
 """Time the kernels that take the tiled walk at d > 16 on one CUDA card
-(``min_dist``, the Lloyd step, ``remove_below`` and the seeding step),
-and check their bits against the register-blocked walk.
+(``min_dist``, the Lloyd step, ``remove_below``, ``sensitivity_scores``,
+``truncated_cost`` and the seeding step), check their bits against the
+walk oracle, and print digests of their outputs to compare two trees.
 
     python3 scripts/time_tiled_walk.py [--src DIR] [--reps 5] [--check]
+        [--digest] [--kernels min_dist,lloyd,remove_below,seeding,
+                              sensitivity,truncated]
 
 Loads ``repro_torch.kernels.ops`` from ``DIR`` (default: this checkout's
 ``src``), so the same script times two trees in one call (the parent's
@@ -14,24 +17,36 @@ the Lloyd step (``fused_assign_reduce``), of their plain versions
 points and centers (a yardstick only), each kernel beside its bound, and
 the Lloyd step's device µs by kernel (``torch.profiler``), where the
 profiler sees device time. Then ``remove_below`` at REMOVE_SHAPES (every
-point alive, v the median d2) and, at SEED_SHAPES, the seeding step
-against one center (a row of x): the draw-off ``update_min_dist`` call
-(its mass pass included) and a draw-on step (``kmeans_pp_step_cuda``,
-d2 lowered in place), each beside its plain version, ``torch.cdist`` and
-its bound.
+point alive, v the median d2), ``sensitivity_scores`` at SENS_SHAPES and
+``truncated_cost`` at TRUNC_SHAPES (v the median d2) the same way, and,
+at SEED_SHAPES, the seeding step against one center (a row of x): the
+draw-off ``update_min_dist`` call (its mass pass included) and a draw-on
+step (``kmeans_pp_step_cuda``, d2 lowered in place), each beside its
+plain version, ``torch.cdist`` and its bound. ``--kernels`` keeps some
+of these timings (none with an empty list).
 
 With ``--check`` it first holds, in float32, bfloat16 and float16, with
-and without a center mask and with no valid center, at CHECK_SHAPES:
-``min_dist``'s (d2, argmin) and the Lloyd step's ``assign_out`` against
-``sensitivity_scores`` at w = 1 (its scores are 1·d2, exact, and its
-argmin is the register-blocked walk's), bit for bit, and the Lloyd
-step's sums and counts against ``ref.fixed_point_reduce_ref`` over that
-argmin, bit for bit; ``remove_below``'s mask and counts against
-``alive & (scores > v)`` over two machines, and ``update_min_dist``'s d2
-against ``min(d2, scores)`` at k centers and at one, bit for bit; then,
-unmasked, a draw-on step's d2 against the draw-off call's at the same
-center, ``kmeans_pp_step_at`` over two parts against the one-call step's
-words, and a whole seeding against its chained steps and its repeat.
+and without a center mask and with no valid center, at CHECK_SHAPES,
+every walk kernel to the walk oracle (``walk_oracle.py``: the one-center
+seeding step folded over the valid centers, which runs no walk), bit for
+bit: ``min_dist``'s d2 and ``sensitivity_scores``' scores at w = 1 equal
+its least d2 and their argmin its by realized distance, the Lloyd
+step's ``assign_out`` equals that argmin and its sums and counts
+``ref.fixed_point_reduce_ref``'s over it, ``sensitivity_scores`` at w
+gives w·d2 and ``exact_index_add``'s masses; over two machines
+``remove_below``'s mask and counts are ``alive & (d2 > v)`` and
+``truncated_cost``'s tail mass at w = 1 the count of ``d2 > v``;
+``update_min_dist``'s d2 is ``min(d2, oracle)`` at k centers and at one;
+then, unmasked, a draw-on step's d2 against the draw-off call's at the
+same center, ``kmeans_pp_step_at`` over two parts against the one-call
+step's words, and a whole seeding against its chained steps and its
+repeat.
+
+With ``--digest`` it prints, at each shape of DIGEST_SHAPES in the three
+dtypes, unmasked, masked and with no valid center, a sha256 of
+``sensitivity_scores``' (scores, argmin, masses) at weights with zeros,
+and of ``truncated_cost``'s tail masses at w = 1 over 8 machines: two
+trees whose lines match give those outputs bit for bit.
 
 The last line is one JSON object with the numbers and the card's name
 and power limit. Timing: ``cuda_timing.py``.
@@ -39,6 +54,7 @@ and power limit. Timing: ``cuda_timing.py``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -47,22 +63,34 @@ import sys
 import torch
 
 from cuda_timing import device_split, timed_ms
+from walk_oracle import equal_nan, misses, nearest
 
 # (n, k, d): kimi-k2's embedding-table fit (its coordinator's η rows
 # against k_plus centers, PERF.md §4), qwen2-1.5b's, and chip_smoke.py's
 # WIDTH_SHAPES at d = 37 and 513
 SHAPES = ((43_106, 78, 7_168), (42_460, 78, 1_536), (20_000, 300, 37),
           (20_000, 190, 513))
+# sensitivity_scores: SHAPES and the kzmeans table fit's machine shard
+# (20,480 rows against its 16 bicriteria centers)
+SENS_SHAPES = SHAPES + ((20_480, 16, 7_168),)
 # (m, p, k, d): the tables' removals, every row alive (PERF.md §6 row 2)
 REMOVE_SHAPES = ((8, 20_480, 78, 7_168), (8, 18_992, 78, 1_536))
+# truncated_cost: the removals' shapes, WIDTH_SHAPES' 20,000 rows over 8
+# machines and the kzmeans table fit's scoring call (16 centers)
+TRUNC_SHAPES = REMOVE_SHAPES + ((8, 2_500, 300, 37), (8, 2_500, 190, 513),
+                                (8, 20_480, 16, 7_168))
 # (n, d): the tables' coordinator seedings, one center a step
 SEED_SHAPES = ((43_106, 7_168), (42_460, 1_536))
 SEED_STEPS = 6              # steps of the seeding checked by --check
 # (n, k, d): ragged n, more centers than a center tile, odd d
 CHECK_SHAPES = ((1_001, 78, 7_168), (3_001, 300, 37), (2_000, 190, 513),
-                (129, 81, 17), (500, 5, 1_536))
+                (129, 81, 17), (500, 5, 1_536), (2_050, 16, 7_168))
+DIGEST_SHAPES = SENS_SHAPES
+KERNELS = ("min_dist", "lloyd", "remove_below", "sensitivity", "truncated",
+           "seeding")
 PEAK_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # HBM3
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -107,6 +135,7 @@ def check_seeding(ops, ref, x, w, seed, what: str) -> None:
 
 def check(ops, ref) -> int:
     """The bit checks of --check; returns the number of cases held."""
+    from repro_torch.kernels.exact import exact_index_add
     from repro_torch.kernels.fused_lloyd import fused_assign_reduce_cuda
     held = 0
     for n, k, d in CHECK_SHAPES:
@@ -122,44 +151,53 @@ def check(ops, ref) -> int:
         d2_0 = torch.rand(n, generator=g, device="cuda") * d
         alive = torch.rand((2, n // 2), generator=g, device="cuda") > 0.2
         seed = torch.randint(0, 1 << 32, (2,), generator=g, device="cuda")
-        for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for dt in DTYPES:
             x = x32.to(dt)
             for mask in (None, cv, none):
+                what = f"n={n} k={k} d={d} {dt} mask={mask is not None}"
+                od2, each = nearest(ops, x, c, mask)
                 d2, idx = ops.min_dist(x, c, mask)
                 sc, asg, _, _ = ops.sensitivity_scores(x, ones, c, mask)
+                sw, aw, mass, _ = ops.sensitivity_scores(x, w, c, mask)
                 own = torch.empty_like(idx)
                 s, cnt, _ = fused_assign_reduce_cuda(x, w, c, mask,
                                                      assign_out=own)
-                s_e, cnt_e = ref.fixed_point_reduce_ref(x, w, asg, k)
-                what = f"n={n} k={k} d={d} {dt} mask={mask is not None}"
-                ok = (torch.equal(d2, sc) and torch.equal(idx, asg)
-                      and torch.equal(own, asg) and torch.equal(s, s_e)
-                      and torch.equal(cnt, cnt_e))
-                if not ok:
-                    sys.exit(f"check failed at {what}: d2 "
-                             f"{torch.equal(d2, sc)} argmin "
-                             f"{torch.equal(idx, asg)} assign_out "
-                             f"{torch.equal(own, asg)} sums "
-                             f"{torch.equal(s, s_e)} counts "
-                             f"{torch.equal(cnt, cnt_e)}")
-                # remove_below over two machines, v the median score
+                s_e, cnt_e = ref.fixed_point_reduce_ref(x, w, idx, k)
+                ok = {"min_dist = oracle": misses(od2, each, d2, idx)
+                      == (0, 0),
+                      "sensitivity_scores = oracle": misses(
+                          od2, each, sc, asg) == (0, 0),
+                      "one argmin": torch.equal(asg, idx)
+                      and torch.equal(aw, idx) and torch.equal(own, idx),
+                      "scores w·d2": equal_nan(sw, w * d2),
+                      "masses": torch.equal(mass,
+                                            exact_index_add(w, idx, k)),
+                      "Lloyd sums and counts": torch.equal(s, s_e)
+                      and torch.equal(cnt, cnt_e)}
+                # remove_below and truncated_cost over two machines, v the
+                # median d2
                 p = n // 2
-                v = torch.nan_to_num(torch.median(sc), posinf=1.0)
-                keep, live = ops.remove_below(x[:2 * p].view(2, p, d), c,
-                                              alive, v, mask)
-                want = alive & (sc[:2 * p].view(2, p) > v)
+                v = torch.nan_to_num(torch.median(od2), posinf=1.0)
+                x3, o3 = x[:2 * p].view(2, p, d), od2[:2 * p].view(2, p)
+                keep, live = ops.remove_below(x3, c, alive, v, mask)
+                want = alive & (o3 > v)
+                _, tmass, _ = ops.truncated_cost(
+                    x3, torch.ones((2, p), device="cuda"), c, v, mask)
+                ok["remove_below's mask and counts"] = torch.equal(
+                    keep, want) and torch.equal(
+                    live, want.sum(1, dtype=torch.int32))
+                ok["truncated_cost's tail count"] = torch.equal(
+                    tmass, (o3 > v).sum(1).float())
                 # the draw-off step at k centers and at the first one
-                up, _ = ops.update_min_dist(x, w, c, d2_0, mask)
                 one = None if mask is None else mask[:1]
+                first = each[0] if one is None or bool(one[0]) else \
+                    torch.full_like(od2, torch.inf)
+                up, _ = ops.update_min_dist(x, w, c, d2_0, mask)
                 up1, _ = ops.update_min_dist(x, w, c[:1], d2_0, one)
-                sc1, _, _, _ = ops.sensitivity_scores(x, ones, c[:1], one)
-                ok = {"remove_below's mask and counts": torch.equal(
-                          keep, want) and torch.equal(
-                          live, want.sum(1, dtype=torch.int32)),
-                      "update_min_dist's d2": torch.equal(
-                          up, torch.where(sc < d2_0, sc, d2_0)),
-                      "its d2 at one center": torch.equal(
-                          up1, torch.where(sc1 < d2_0, sc1, d2_0))}
+                ok["update_min_dist's d2"] = torch.equal(
+                    up, torch.where(od2 < d2_0, od2, d2_0))
+                ok["its d2 at one center"] = torch.equal(
+                    up1, torch.where(first < d2_0, first, d2_0))
                 if not all(ok.values()):
                     sys.exit(f"check failed at {what}: {ok}")
                 held += 1
@@ -168,15 +206,60 @@ def check(ops, ref) -> int:
     return held
 
 
+def sha(*ts) -> str:
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def digests(ops) -> int:
+    """The digest lines of --digest; returns their number."""
+    lines = 0
+    for n, k, d in DIGEST_SHAPES:
+        g = torch.Generator("cuda").manual_seed(n + k + d + 1)
+        x32 = torch.randn((n, d), generator=g, device="cuda")
+        c = torch.randn((k, d), generator=g, device="cuda")
+        w = torch.rand(n, generator=g, device="cuda")
+        w[: n // 5] = 0.0
+        cv = torch.rand(k, generator=g, device="cuda") > 0.3
+        cv[-1] = True
+        p = n // 8
+        ones = torch.ones((8, p), device="cuda")
+        for dt in DTYPES:
+            x = x32.to(dt)
+            for name, mask in (("all", None), ("masked", cv),
+                               ("none", torch.zeros_like(cv))):
+                sc, asg, mass, _ = ops.sensitivity_scores(x, w, c, mask)
+                d2, _ = ops.min_dist(x, c, mask)
+                v = torch.nan_to_num(torch.median(d2), posinf=1.0)
+                _, tmass, _ = ops.truncated_cost(x[:8 * p].view(8, p, d),
+                                                 ones, c, v, mask)
+                print(f"digest n={n} k={k} d={d} {dt} {name}: "
+                      f"sensitivity_scores (scores, argmin, masses) "
+                      f"{sha(sc, asg, mass)}; truncated_cost tail counts "
+                      f"{sha(tmass)}", flush=True)
+                lines += 1
+        del x32, x, c
+        torch.cuda.empty_cache()
+    return lines
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--src", default=os.path.join(root, "src"))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--digest", action="store_true")
+    ap.add_argument("--kernels", default=",".join(KERNELS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_tiled_walk.py needs a CUDA card")
+    timed = {k for k in args.kernels.split(",") if k}
+    if timed - set(KERNELS):
+        sys.exit(f"--kernels: not in {KERNELS}: "
+                 f"{sorted(timed - set(KERNELS))}")
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.kernels import ops, ref
 
@@ -185,10 +268,13 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(f"device: {smi} src: {args.src}", flush=True)
     if args.check:
-        print(f"check: {check(ops, ref)} cases bit for bit against "
-              f"sensitivity_scores and fixed_point_reduce_ref", flush=True)
+        print(f"check: {check(ops, ref)} cases bit for bit against the "
+              f"walk oracle, exact_index_add and fixed_point_reduce_ref",
+              flush=True)
+    if args.digest:
+        print(f"digest: {digests(ops)} lines", flush=True)
     out = []
-    for n, k, d in SHAPES:
+    for n, k, d in SHAPES if timed & {"min_dist", "lloyd"} else ():
         g = torch.Generator("cuda").manual_seed(n + k + d)
         x = torch.randn((n, d), generator=g, device="cuda")
         c = torch.randn((k, d), generator=g, device="cuda")
@@ -218,7 +304,25 @@ def main() -> None:
                         lloyd_bound_ms=fl_b[0], lloyd_split_us=split))
         del x, c, w
         torch.cuda.empty_cache()
-    for m, p, k, d in REMOVE_SHAPES:
+    for n, k, d in SENS_SHAPES if "sensitivity" in timed else ():
+        g = torch.Generator("cuda").manual_seed(n + k + d)
+        x = torch.randn((n, d), generator=g, device="cuda")
+        c = torch.randn((k, d), generator=g, device="cuda")
+        w = torch.ones(n, device="cuda")
+        ms = timed_ms(lambda: ops.sensitivity_scores(x, w, c), args.reps)
+        ms_p = timed_ms(lambda: ref.sensitivity_scores_ref(x, w, c),
+                        args.reps)
+        cd = timed_ms(lambda: torch.cdist(x, c), args.reps)
+        b = bound_ms(n * d * 4 + n * 4 + k * d * 4 + 2 * n * 4
+                     + (k + 1) * 4, 2.0 * n * k * d)
+        print(f"sensitivity_scores n={n} k={k} d={d} f32: {ms:.4f} ms "
+              f"(bound {b[0]:.4f} {b[1]}, {100 * b[0] / ms:.1f}%), plain "
+              f"{ms_p:.4f} ms, torch.cdist {cd:.4f} ms", flush=True)
+        out.append(dict(kernel="sensitivity_scores", n=n, k=k, d=d, ms=ms,
+                        plain_ms=ms_p, cdist_ms=cd, bound_ms=b[0]))
+        del x, c, w
+        torch.cuda.empty_cache()
+    for m, p, k, d in REMOVE_SHAPES if "remove_below" in timed else ():
         g = torch.Generator("cuda").manual_seed(m + p + k + d)
         x = torch.randn((m, p, d), generator=g, device="cuda")
         c = torch.randn((k, d), generator=g, device="cuda")
@@ -237,8 +341,27 @@ def main() -> None:
                         plain_ms=rb_p, cdist_ms=cd, bound_ms=b[0]))
         del x, c, alive
         torch.cuda.empty_cache()
+    for m, p, k, d in TRUNC_SHAPES if "truncated" in timed else ():
+        g = torch.Generator("cuda").manual_seed(m + p + k + d)
+        x = torch.randn((m, p, d), generator=g, device="cuda")
+        c = torch.randn((k, d), generator=g, device="cuda")
+        w = torch.ones((m, p), device="cuda")
+        v = torch.median(ops.min_dist(x.view(m * p, d), c)[0])
+        tc = timed_ms(lambda: ops.truncated_cost(x, w, c, v), args.reps)
+        tc_p = timed_ms(lambda: ref.truncated_cost_ref(x, w, c, v),
+                        args.reps)
+        cd = timed_ms(lambda: torch.cdist(x.view(m * p, d), c), args.reps)
+        b = bound_ms(m * p * d * 4 + m * p * 4 + k * d * 4 + 4 + 3 * m * 4,
+                     2.0 * m * p * k * d)
+        print(f"truncated_cost m={m} p={p} k={k} d={d} f32: {tc:.4f} ms "
+              f"(bound {b[0]:.4f} {b[1]}, {100 * b[0] / tc:.1f}%), plain "
+              f"{tc_p:.4f} ms, torch.cdist {cd:.4f} ms", flush=True)
+        out.append(dict(kernel="truncated_cost", m=m, p=p, k=k, d=d, ms=tc,
+                        plain_ms=tc_p, cdist_ms=cd, bound_ms=b[0]))
+        del x, c, w
+        torch.cuda.empty_cache()
     from repro_torch.kernels import fused_lloyd as tfl
-    for n, d in SEED_SHAPES:
+    for n, d in SEED_SHAPES if "seeding" in timed else ():
         g = torch.Generator("cuda").manual_seed(n + d)
         x = torch.randn((n, d), generator=g, device="cuda")
         w = torch.ones(n, device="cuda")

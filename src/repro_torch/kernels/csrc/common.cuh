@@ -3,19 +3,17 @@
 // Every kernel here answers "which valid center is nearest to this point",
 // with the center set streamed through shared memory in tiles, on one
 // per-point arithmetic (bit for bit), in one of three walks:
-//   tiled_nearest    d > 16 in min_dist, the Lloyd step and remove_below
-//                    (min_dist.cu, fused_assign.cu, fused_lloyd.cu), and
-//                    in the draw-off seeding step against more than one
-//                    center: a tile of points against a tile of centers a
-//                    block, both staged through shared memory by
-//                    cp.async, a register tile of (point, center) pairs a
-//                    thread;
-//   nearest_split    P points a thread (nearest_blocked), the center axis
-//                    optionally split over blocks: min_dist, the Lloyd
-//                    step and remove_below at d <= 16 (each point's row
-//                    in registers), and sensitivity_scores and
-//                    truncated_cost at every d (past 16 each row re-read
-//                    for every center);
+//   tiled_nearest    every d > 16: min_dist, the Lloyd step, remove_below,
+//                    sensitivity_scores and truncated_cost (min_dist.cu,
+//                    fused_assign.cu, fused_lloyd.cu, sensitivity.cu,
+//                    truncated.cu), and the draw-off seeding step against
+//                    more than one center: a tile of points against a tile
+//                    of centers a block, both staged through shared memory
+//                    by cp.async, a register tile of (point, center) pairs
+//                    a thread;
+//   nearest_split    d <= 16, the same five: P points a thread
+//                    (nearest_blocked), each point's row in registers, the
+//                    center axis optionally split over blocks;
 //   one center       one point a thread, no argmin: the seeding step
 //                    (fused_lloyd.cu: seed_walk on register rows at
 //                    d <= 16; tiled_seed_kernel's point stages past 16).
@@ -175,12 +173,14 @@ __host__ __device__ inline int stage_bytes(int rows, int d, int itemsize) {
 // min_dist's argmin and min-d2, bit for bit.
 //
 // Rows<T, DR, P> holds the thread's P points: their rows in registers
-// (DR > 0, zero-padded past d) or their row pointers (DR == 0, any d,
-// re-read for every center), and ||x||^2. Point p of the thread is row
-// first + p·blockDim.x of the n rows; a row past n is inactive and reads
-// row lo. The rows are read from `rows`, which holds rows lo, lo + 1, ...
-// of the points: the points themselves (lo = 0), or a tile of them staged
-// in shared memory (lo = the tile's first row).
+// (DR > 0, zero-padded past d), and ||x||^2. With DR == 0 it holds only
+// the row pointers, read in place: lloyd_reduce's rows at d > 16
+// (lloyd.cu, through put_point), which has no walk and reads each row
+// once; no walk takes DR == 0. Point p of the thread is row first +
+// p·blockDim.x of the n rows; a row past n is inactive and reads row lo.
+// The rows are read from `rows`, which holds rows lo, lo + 1, ... of the
+// points: the points themselves (lo = 0), or a tile of them staged in
+// shared memory (lo = the tile's first row).
 template <typename T, int DR, int P>
 struct Rows {
   static constexpr int kRegs = DR > 0 ? DR : 1;
@@ -219,7 +219,8 @@ struct Rows {
 };
 
 // Centers [t0, t0 + rows) of c into the shared tile: kt rows of `stride`
-// floats (DR, or d; zero-padded past d), then kt ||c||^2, +inf for an
+// floats (the register rows' DR, zero-padded past d), then kt ||c||^2,
+// +inf for an
 // invalid center. Every thread of the block must call this (it holds
 // __syncthreads on both sides: the tile before is consumed, this one is
 // ready).
@@ -253,38 +254,26 @@ __device__ __forceinline__ void load_center_tile(
 // chosen: no validity array and no branch in the walk.
 template <typename T, int DR, int P, bool kArg>
 __device__ __forceinline__ void scan_center_tile(
-    const Rows<T, DR, P>& r, int d, int t0, int rows, int kt,
-    const float* smem, float (&best)[P], int (&arg)[P]) {
-  const int stride = DR > 0 ? DR : d;
+    const Rows<T, DR, P>& r, int t0, int rows, int kt, const float* smem,
+    float (&best)[P], int (&arg)[P]) {
+  static_assert(DR > 0, "the register rows; past d = 16 tiled_nearest");
   const float* sc = smem;
-  const float* sc2 = sc + (size_t)kt * stride;
+  const float* sc2 = sc + (size_t)kt * DR;
 #pragma unroll 4
   for (int j = 0; j < rows; ++j) {
     float dot[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) dot[p] = 0.f;
-    if (DR > 0) {
-      const float4* cr =
-          reinterpret_cast<const float4*>(sc + (size_t)j * stride);
+    const float4* cr = reinterpret_cast<const float4*>(sc + (size_t)j * DR);
 #pragma unroll
-      for (int q = 0; q < Rows<T, DR, P>::kRegs / 4; ++q) {
-        const float4 v = cr[q];
+    for (int q = 0; q < DR / 4; ++q) {
+      const float4 v = cr[q];
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          dot[p] = fmaf(r.xr[p][4 * q], v.x, dot[p]);
-          dot[p] = fmaf(r.xr[p][4 * q + 1], v.y, dot[p]);
-          dot[p] = fmaf(r.xr[p][4 * q + 2], v.z, dot[p]);
-          dot[p] = fmaf(r.xr[p][4 * q + 3], v.w, dot[p]);
-        }
-      }
-    } else {
-      const float* cr = sc + (size_t)j * stride;
-      for (int q = 0; q < d; ++q) {
-        const float v = cr[q];
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          dot[p] = fmaf(widen(r.row[p][q]), v, dot[p]);
-        }
+      for (int p = 0; p < P; ++p) {
+        dot[p] = fmaf(r.xr[p][4 * q], v.x, dot[p]);
+        dot[p] = fmaf(r.xr[p][4 * q + 1], v.y, dot[p]);
+        dot[p] = fmaf(r.xr[p][4 * q + 2], v.z, dot[p]);
+        dot[p] = fmaf(r.xr[p][4 * q + 3], v.w, dot[p]);
       }
     }
     const float c2 = sc2[j];
@@ -318,9 +307,9 @@ __device__ __forceinline__ void nearest_blocked(
   }
   for (int t0 = j_lo; t0 < j_hi; t0 += kt) {
     const int rows = min(kt, j_hi - t0);
-    load_center_tile(c, cv, d, DR > 0 ? DR : d, t0, rows, kt, smem);
+    load_center_tile(c, cv, d, DR, t0, rows, kt, smem);
     if (any_active) {
-      scan_center_tile<T, DR, P, kArg>(r, d, t0, rows, kt, smem, best, arg);
+      scan_center_tile<T, DR, P, kArg>(r, t0, rows, kt, smem, best, arg);
     }
   }
 }
@@ -1025,7 +1014,9 @@ struct GroupAcc {
 // scw, each rounded once to an int64, summed over the warp's lanes of the
 // same key (WarpGroups) and put by each group's leader into row `key`
 // (d + 1 entries, w last) of the accumulators; key < 0 adds nothing. The
-// point is point p of r. All 32 lanes of the warp call this together.
+// point is point p of r: its register row (DR > 0), or at DR == 0 its row
+// read in place, a coordinate at a time (lloyd_reduce at d > 16, the one
+// caller of that branch). All 32 lanes of the warp call this together.
 template <typename T, int DR, int P>
 __device__ __forceinline__ void put_point(const Rows<T, DR, P>& r, int p,
                                           int key, float wi, int d,
@@ -1147,23 +1138,24 @@ inline unsigned grid_for(long long items) {
   return (unsigned)(b < 1 ? 1 : (b > 4096 ? 4096 : b));
 }
 
-// Shared-memory tile shape for a given d and register row length DR.
+// Shared-memory center tile of the register-blocked walk (load_center_tile)
+// for register rows of dr floats and k centers.
 struct TileShape {
   int kt;
   size_t smem;
 };
 
-inline TileShape tile_shape(int d, int dr, int k) {
-  const int stride = dr > 0 ? dr : d;
-  int kt = kTileFloats / (stride > 0 ? stride : 1);
+inline TileShape tile_shape(int dr, int k) {
+  int kt = kTileFloats / dr;
   kt = kt < k ? kt : k;
   kt = kt > 1 ? kt : 1;
-  return {kt, (size_t)kt * stride * sizeof(float) + (size_t)kt * 8};
+  return {kt, (size_t)kt * dr * sizeof(float) + (size_t)kt * 8};
 }
 
 // Calls f(T*{}, integral_constant<int, DR>{}) for the point dtype and the
-// register row length that covers d: 16 for the paper's d = 15, else 0
-// (any d).
+// register row length that covers d: 16 for the paper's d = 15 (the
+// register-blocked walk), else 0 (past 16: the tiled walk's kernels, and
+// lloyd_reduce's rows read in place).
 template <typename T, typename F>
 cudaError_t by_width(int d, F&& f) {
   if (d <= 16) return f((T*)nullptr, std::integral_constant<int, 16>());

@@ -145,7 +145,7 @@ cudaError_t launch_walk(const T* x, long long n, int d, const float* w,
                         unsigned char* base, const Scratch& sc,
                         long long tiles, int* assign_out, cudaStream_t s) {
   const int slice = (k + slices - 1) / slices;
-  const TileShape ts = tile_shape(d, DR, slice);
+  const TileShape ts = tile_shape(DR, slice);
   const size_t smem = acc_smem(mode, k, d + 1) + ts.smem;
   auto kern = fused_assign_kernel<T, DR, P>;
   int per_sm = 0;
@@ -405,7 +405,7 @@ extern "C" int rt_fused_assign_reduce(const void* x, int dtype, long long n,
                                       void* stream) {
   using namespace rt;
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool tiled = d > 16;                   // by_width's any-d variant
+  const bool tiled = d > 16;                   // by_width's DR = 0 instance
   if ((tiled ? (ppt != kTiledPPT || slices != 1)
              : (ppt != 2 && ppt != 4)) ||
       slices < 1 || k < 1 || sms < 1 ||

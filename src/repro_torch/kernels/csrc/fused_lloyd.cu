@@ -892,7 +892,7 @@ extern "C" int rt_remove_below(const void* x, int dtype, int m, long long p,
                     alive_new, live);
     } else {
       constexpr int P = 4;                     // min_dist's points a thread
-      const TileShape ts = tile_shape(d, DR, k);
+      const TileShape ts = tile_shape(DR, k);
       const dim3 grid((unsigned)point_tiles(p, P), (unsigned)m);
       return launch(remove_below_kernel<T, DR, P>, grid, ts.smem, s,
                     (const T*)x, p, d, c, cv, k, ts.kt, v, alive, alive_new,
@@ -931,7 +931,7 @@ extern "C" int rt_update_min_dist(const void* x, int dtype, long long n,
                     copies16<T>(x, d), copies16<float>(c, d), w, d2, d2_new,
                     part);
     } else {
-      const int kt = tile_shape(d, DR, k).kt;
+      const int kt = tile_shape(DR, k).kt;
       const SeedShape ss = seed_shape(n, d, (int)sizeof(T), kt, DR);
       tiles = ss.tiles;
       if (tiles > nb) return cudaErrorInvalidValue;

@@ -139,7 +139,7 @@ extern "C" int rt_min_dist(const void* x, int dtype, long long n, int d,
       if (n == 0) return cudaGetLastError();
       const long long tiles = point_tiles(n, P);
       const int slice = (k + slices - 1) / slices;
-      const TileShape ts = tile_shape(d, DR, slice);
+      const TileShape ts = tile_shape(DR, slice);
       unsigned* done = nullptr;
       float* ws_best = nullptr;
       int* ws_arg = nullptr;

@@ -115,21 +115,27 @@ def launch_slices(n: int, k: int, d: int, sms: int, device, dtype) -> int:
                               device=device, d=d, dtype=dtype)
 
 
-def scratch_bytes(n: int, d: int, k: int, ppt: int, slices: int) -> int:
-    """Bytes of the one scratch buffer of a walk with fixed-point sums (the
-    Lloyd step; with d = 0, ``sensitivity_scores``), laid out as
-    ``csrc/common.cuh::scratch_layout``: (k, d + 1) int64 accumulators,
-    the bound, the tile counters, the tile cost partials, with more than
-    one slice the (slices, n) per-slice (best, arg) and, on the tiled
-    walk (d > 16: ``walk.tiled_tiles`` tiles), the (n,) int32 argmin its
-    column reduce reads back."""
+def layout_bytes(n: int, d: int, k: int, tiles: int, slices: int,
+                 assign_rows: int = 0) -> int:
+    """Bytes of ``csrc/common.cuh::scratch_layout(n, d, k, tiles, slices,
+    assign_rows)``: (k, d + 1) int64 accumulators, the bound, the tile
+    counters, the tile cost partials, with more than one slice the
+    (slices, n) per-slice (best, arg), then ``assign_rows`` int32, each
+    rounded up to 8 bytes."""
     def r8(b):
         return -(-b // 8) * 8
-    tiled = walk.tiled(d)
-    tiles = walk.tiled_tiles(n) if tiled else walk.point_tiles(n, ppt)
     ws = r8(slices * n * 4) if slices > 1 else 0
-    asg = r8(n * 4) if tiled else 0
-    return k * (d + 1) * 8 + 8 + 2 * r8(tiles * 4) + 2 * ws + asg
+    return k * (d + 1) * 8 + 8 + 2 * r8(tiles * 4) + 2 * ws + r8(
+        assign_rows * 4)
+
+
+def scratch_bytes(n: int, d: int, k: int, ppt: int, slices: int) -> int:
+    """Bytes of the Lloyd step's one scratch buffer (``layout_bytes``) at
+    its walk's tiles: on the tiled walk (d > 16: ``walk.tiled_tiles``)
+    with the (n,) int32 argmin its column reduce reads back."""
+    if walk.tiled(d):
+        return layout_bytes(n, d, k, walk.tiled_tiles(n), slices, n)
+    return layout_bytes(n, d, k, walk.point_tiles(n, ppt), slices)
 
 
 # The tiled Lloyd step's column reduce (csrc/fused_assign.cu: kColSlab,

@@ -6,13 +6,15 @@ machine's points gives its kept cost (min-d2 ``<= v``), tail weight mass
 and tail cost (``> v``); rows of weight 0 fall on neither side. The grid
 covers every machine, so one launch returns the (m,) triples that kzmeans
 psums; ``kernels.ops.truncated_cost`` also serves the reference's (n, d)
-contract through it. The kernel walks ``min_dist``'s register-blocked
-walk (``csrc/common.cuh::nearest_split``) on point tiles staged in shared
-memory by TMA bulk copies, with the launch shape of ``launch_shape``
-(``kernels/walk.py``'s rules over the tiles of every machine), so each
-point's d2 and side of v are ``min_dist``'s bit for bit. The sums go
-through one partial a point tile added in a fixed order: the same bits
-on every run. The plain version is ``kernels.ref.truncated_cost_ref``.
+contract through it. The kernel walks ``min_dist``'s walks: at d <= 16
+the register-blocked walk (``csrc/common.cuh::nearest_split``) on point
+tiles staged in shared memory by TMA bulk copies, past 16 the tiled walk
+(``csrc/common.cuh::tiled_nearest``) over a grid of tiles by machines,
+with the launch shape of ``launch_shape`` (``kernels/walk.py``'s rules
+over the tiles of every machine), so each point's d2 and side of v are
+``min_dist``'s bit for bit. The sums go through one partial a point tile
+added in a fixed order: the same bits on every run. The plain version is
+``kernels.ref.truncated_cost_ref``.
 """
 from __future__ import annotations
 
@@ -36,24 +38,27 @@ TRUNCATED_COST = CudaKernel(
 def launch_shape(m: int, p: int, d: int, k: int, sms: int, *, device=None,
                  dtype=torch.float32) -> Tuple[int, int, int]:
     """(points a thread, point tiles a machine, center slices) of a call
-    over (m, p, d) shards against k centers: ``walk.py``'s rules (on a
-    CUDA ``device``, its tuned split for ``dtype`` points), the slices
-    from the m·tiles point tiles of the whole launch (a tile never
+    over (m, p, d) shards against k centers: the tiled walk's (TILED_PPT,
+    ``tiled_tiles(p)``, one slice) at d > 16; else ``walk.py``'s rules
+    (on a CUDA ``device``, its tuned split for ``dtype`` points), the
+    slices from the m·tiles point tiles of the whole launch (a tile never
     straddles two machines)."""
+    if walk.tiled(d):
+        return walk.TILED_PPT, walk.tiled_tiles(p), 1
     ppt = walk.points_per_thread(d)
     tiles = walk.point_tiles(p, ppt)
     return ppt, tiles, walk.slices_for_tiles(m * tiles, k, sms,
                                              device=device, d=d, dtype=dtype)
 
 
-def scratch_bytes(m: int, p: int, ppt: int, slices: int) -> int:
-    """Bytes of a call's scratch (``csrc/truncated.cu::trunc_scratch``):
-    the (m, 3, tiles) tile partials, then, with more than one slice, the
-    m·tiles tile counters and the (m, slices, p) per-slice best (no
-    argmin), each rounded up to 8 bytes."""
+def scratch_bytes(m: int, p: int, tiles: int, slices: int) -> int:
+    """Bytes of a call's scratch (``csrc/truncated.cu::trunc_scratch``) at
+    ``tiles`` point tiles a machine: the (m, 3, tiles) tile partials,
+    then, with more than one slice, the m·tiles tile counters and the
+    (m, slices, p) per-slice best (no argmin), each rounded up to 8
+    bytes."""
     def r8(b):
         return -(-b // 8) * 8
-    tiles = walk.point_tiles(p, ppt)
     part = r8(m * 3 * tiles * 4)
     if slices == 1:
         return part
@@ -82,9 +87,9 @@ def truncated_cost_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     check_on_card("truncated_cost", x, w=wf, centers=cf, c_valid=cv, v=vt)
     dev = x.device
     sms = walk.sm_count(dev)
-    ppt, _, slices = launch_shape(m, p, d, k, sms, device=dev,
-                                  dtype=x.dtype)
-    nbytes = scratch_bytes(m, p, ppt, slices)
+    ppt, tiles, slices = launch_shape(m, p, d, k, sms, device=dev,
+                                      dtype=x.dtype)
+    nbytes = scratch_bytes(m, p, tiles, slices)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     out = torch.empty((m, 3), dtype=torch.float32, device=dev)
     TRUNCATED_COST(ptr(x), dtype_code(x), m, p, d, ptr(wf), ptr(cf), ptr(cv),

@@ -1,23 +1,24 @@
 """Launch shapes of the two center walks.
 
 Two walks answer "which valid center is nearest" on the card, to the same
-bits (``csrc/common.cuh``):
+bits (``csrc/common.cuh``), by the points' width:
 
-* the tiled walk, for every d > 16 in ``min_dist`` (``csrc/min_dist.cu``),
-  the Lloyd step (``csrc/fused_assign.cu``) and ``remove_below``
-  (``csrc/fused_lloyd.cu``, over a grid of ``tiled_tiles`` by the
-  machines): a block owns a tile of ``TILED_POINTS`` points against
-  ``TILED_CENTERS`` centers at a time, each thread ``TILED_PPT`` × 5
-  (point, center) pairs, both operands staged through shared memory; its
-  grid is ``tiled_tiles`` blocks, and the center axis is never split (no
-  workload of the repo at d > 16 has too few point tiles to fill the
-  card);
-* the register-blocked walk ``csrc/common.cuh::nearest_split``: the three
-  kernels above at d <= 16, and ``sensitivity_scores``
-  (``csrc/sensitivity.cu``) and ``truncated_cost`` (``csrc/truncated.cu``,
-  its tiles over every machine of one launch) at every d: each thread
-  owns P points, and when the point tiles cannot fill the card the center
-  axis is split over blocks.
+* d > 16, the tiled walk (``csrc/common.cuh::tiled_nearest``), in
+  ``min_dist`` (``csrc/min_dist.cu``), the Lloyd step
+  (``csrc/fused_assign.cu``), ``remove_below`` (``csrc/fused_lloyd.cu``),
+  ``sensitivity_scores`` (``csrc/sensitivity.cu``) and ``truncated_cost``
+  (``csrc/truncated.cu``; the last two with ``remove_below`` over a grid
+  of ``tiled_tiles`` by the machines): a block owns a tile of
+  ``TILED_POINTS`` points against ``TILED_CENTERS`` centers at a time,
+  each thread ``TILED_PPT`` × 5 (point, center) pairs, both operands
+  staged through shared memory; its grid is ``tiled_tiles`` blocks, and
+  the center axis is never split (no workload of the repo at d > 16 has
+  too few point tiles to fill the card);
+* d <= 16, the register-blocked walk ``csrc/common.cuh::nearest_split``
+  in the same five kernels: each thread owns P points, their rows in
+  registers, and when the point tiles cannot fill the card the center
+  axis is split over blocks (``truncated_cost``'s tiles over every
+  machine of one launch).
 
 Only the seeding step walks one point a thread against one center (past
 d = 16 over the tiled walk's tiles: ``fused_lloyd.seed_tiles``). The
@@ -50,9 +51,10 @@ _SMS: dict = {}
 
 
 def tiled(d: int) -> bool:
-    """Whether d-wide points take the tiled walk in ``min_dist``, the
-    Lloyd step and ``remove_below``, and the seeding step its tiles (d > 16:
-    past the register rows)."""
+    """Whether d-wide points take the tiled walk in every walk kernel
+    (``min_dist``, the Lloyd step, ``remove_below``,
+    ``sensitivity_scores``, ``truncated_cost``), and the seeding step its
+    tiles (d > 16: past the register rows)."""
     return d > 16
 
 
@@ -63,11 +65,10 @@ def tiled_tiles(n: int) -> int:
 
 
 def points_per_thread(d: int) -> int:
-    """Points a thread of the register-blocked walk where the walk
-    dominates: 4 at d <= 16 (the rows in registers), else 2 (each row
-    re-read from L1 for every center; ``sensitivity_scores`` and
-    ``truncated_cost``)."""
-    return 4 if d <= 16 else 2
+    """Points a thread of the walk that d-wide points take where the walk
+    dominates: 4 at d <= 16 (the register-blocked walk, the rows in
+    registers), else the tiled walk's TILED_PPT."""
+    return 4 if d <= 16 else TILED_PPT
 
 
 def point_tiles(n: int, ppt: int) -> int:

@@ -27,8 +27,8 @@ from repro_torch.kernels import ops, ref
                               "two_tiles"])
 def test_cuda_kernels_match_plain(d, k, dt):
     """Every kernel against its plain version, at the main path's d = 15
-    (register rows, one center tile), at d = 37 and 513 (any width,
-    several tiles) and at k = 1024 (two tiles). The tolerance is
+    (register rows, one center tile), at d = 37 and 513 (the tiled walk,
+    several center tiles) and at k = 1024 (two tiles). The tolerance is
     chip_smoke.py's: 32 float32 ulps of max ||x||^2 + max ||c||^2, the
     error of the expanded form in another summation order."""
     if not torch.cuda.is_available():
@@ -145,8 +145,12 @@ def _inputs(seed, n, d, k, dt):
 
 
 def _d2_tol(x, c):
+    """chip_smoke.py's d2_tol: 32 float32 ulps of max ||x||^2 +
+    max ||c||^2 up to d = 513, growing as sqrt(d / 513) past it (a sum of
+    d terms rounds as sqrt(d))."""
     xf = x.float()
-    return 32 * torch.finfo(torch.float32).eps * float(
+    ulps = 32 * max(1.0, (x.shape[-1] / 513) ** 0.5)
+    return ulps * torch.finfo(torch.float32).eps * float(
         (xf * xf).sum(-1).max() + (c * c).sum(-1).max())
 
 
@@ -201,9 +205,11 @@ def test_cuda_lloyd_reduce_matches_plain(d, k, dt):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
                                 torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("d,k", [(15, 25), (37, 300), (15, 1024),
-                                 (15, 1111)],
+                                 (15, 1111), (513, 190), (1_536, 78),
+                                 (7_168, 81)],
                          ids=["bicriteria", "any_width", "two_tiles",
-                              "soccer_k1000"])
+                              "soccer_k1000", "tiled_d513", "tiled_d1536",
+                              "tiled_d7168"])
 def test_cuda_sensitivity_scores_matches_plain(d, k, dt):
     """sensitivity_scores (one kernel at every k) against min_dist's own d2
     and argmin (the kernels share the walk), its masses against
@@ -211,7 +217,7 @@ def test_cuda_sensitivity_scores_matches_plain(d, k, dt):
     version; invalid centers get no mass; a repeat call gives the same
     bits. At k = 1024 and 1111 the 3,000 points (3 tiles of 1,024) split
     the center axis over 2 slices; k = 1111 takes the global
-    accumulators."""
+    accumulators; at d > 16 (37 to 7,168) the tiled walk, one slice."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels build only there")
     from repro_torch.kernels.exact import exact_index_add
@@ -247,9 +253,11 @@ def test_cuda_sensitivity_scores_matches_plain(d, k, dt):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
                                 torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("d,k", [(15, 25), (37, 300), (15, 1111),
-                                 (60, 100)],
+                                 (60, 100), (513, 190), (1_536, 78),
+                                 (7_168, 16)],
                          ids=["kzmeans", "any_width", "beyond_resident",
-                              "rows_in_place"])
+                              "rows_in_place", "tiled_d513", "tiled_d1536",
+                              "kzmeans_d7168"])
 @pytest.mark.parametrize("p", [1000, 1001, 5000],
                          ids=["p1000", "unaligned_p1001", "tiles_p5000"])
 def test_cuda_truncated_cost_matches_plain(p, d, k, dt):
@@ -259,9 +267,10 @@ def test_cuda_truncated_cost_matches_plain(p, d, k, dt):
     gives the one-machine triple; a repeat call gives the same bits. At
     p = 1001 a machine's base is not 16-byte aligned for the bulk copy of
     its tiles; at p = 5000 a machine spans several point tiles, and at
-    1,111 centers the center axis is split; at d = 60 a float32 tile is
-    too wide to stage and is read in place. Zero weights fall on no side,
-    and with no valid center every point falls in the tail."""
+    1,111 centers the center axis is split; at d > 16 (37 to 7,168; 16
+    centers: the kzmeans table fit's) the tiled walk over a grid of
+    128-point tiles by machines. Zero weights fall on no side, and with
+    no valid center every point falls in the tail."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels build only there")
     m = 3
@@ -663,27 +672,47 @@ def test_cuda_mesh_fit_two_ranks():
     assert rep["wire_meta_bytes"] == [int(v) for v in virt.wire_meta_bytes]
     assert rep["cost"] == virt.cost(x)
 
+def _walk_oracle():
+    """``scripts/walk_oracle.py``: the walk oracle, which runs no walk."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / "walk_oracle.py"
+    spec = importlib.util.spec_from_file_location("walk_oracle", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# n not a multiple of the 128-point tile, k past the 80-center tile (but
+# 78), d from 17 to kimi-k2's 7,168 (qwen2-1.5b's 1,536 between), the
+# points' base 4 bytes off 16-byte alignment (``offset``: the 4-byte
+# copies where d % 4 == 0; one float32, two 2-byte values)
+WALK_CASES = [(2_001, 17, 161, 0), (3_001, 37, 300, 0), (1_501, 513, 190, 0),
+              (1_001, 7_168, 81, 0), (1_001, 7_168, 78, 1), (130, 20, 3, 1),
+              (1_201, 1_536, 78, 0)]
+WALK_IDS = ["d17", "d37", "d513", "d7168", "d7168_unaligned",
+            "d20_unaligned", "d1536"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
                                 torch.float16], ids=["f32", "bf16", "f16"])
-@pytest.mark.parametrize("n,d,k,offset", [
-    (2_001, 17, 161, 0), (3_001, 37, 300, 0), (1_501, 513, 190, 0),
-    (1_001, 7_168, 81, 0), (1_001, 7_168, 78, 1), (130, 20, 3, 1)],
-    ids=["d17", "d37", "d513", "d7168", "d7168_unaligned", "d20_unaligned"])
-def test_cuda_tiled_walk_is_the_blocked_walk(n, d, k, offset, dt):
-    """min_dist and the Lloyd kernel at d > 16 run the tiled walk
-    (csrc/common.cuh: tiled_nearest); sensitivity_scores still runs the
-    register-blocked walk, and at w = 1 its scores are 1·d2, exact. So
-    min_dist's d2 and argmin and the Lloyd kernel's argmin (assign_out)
-    equal sensitivity_scores' bit for bit, and the Lloyd kernel's sums and
-    counts equal ref.fixed_point_reduce_ref over that argmin: at n not a
-    multiple of the 128-point tile, k past the 80-center tile (but 78),
-    with and without a center mask and with no valid center (+inf and
-    index 0), and with the points' base 4 bytes off 16-byte alignment
-    (``offset``: the 4-byte copies where d % 4 == 0)."""
+@pytest.mark.parametrize("n,d,k,offset", WALK_CASES, ids=WALK_IDS)
+def test_cuda_walk_kernels_are_the_walk_oracle(n, d, k, offset, dt):
+    """min_dist, sensitivity_scores and the Lloyd kernel at d > 16 run the
+    tiled walk (csrc/common.cuh: tiled_nearest); the walk oracle
+    (scripts/walk_oracle.py) folds the one-center seeding step over the
+    valid centers and runs no walk. min_dist's d2 and sensitivity_scores'
+    scores at w = 1 (1·d2, exact) equal the oracle's least d2 bit for bit
+    and their argmin the oracle's by realized distance; the two argmins
+    and the Lloyd kernel's (assign_out) are one; at w, the scores are
+    w·d2, the masses exact_index_add's over that argmin and the Lloyd
+    kernel's sums and counts ref.fixed_point_reduce_ref's, with and
+    without a center mask and with no valid center (+inf and index 0);
+    the two costs within 1e-5 of float64 sums."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels build only there")
+    from repro_torch.kernels.exact import exact_index_add
     from repro_torch.kernels.fused_lloyd import fused_assign_reduce_cuda
+    oracle = _walk_oracle()
     g, x, c, cv, w = _inputs(8, n, d, k, dt)
     if offset:
         flat = torch.empty(n * d + offset, dtype=dt, device="cuda")
@@ -692,67 +721,83 @@ def test_cuda_tiled_walk_is_the_blocked_walk(n, d, k, offset, dt):
     ones = torch.ones(n, device="cuda")
     none = torch.zeros(k, dtype=torch.bool, device="cuda")
     for mask in (None, cv, none):
+        orc = oracle.nearest(ops, x, c, mask)
         d2, idx = ops.min_dist(x, c, mask)
         sc, asg, _, _ = ops.sensitivity_scores(x, ones, c, mask)
-        assert torch.equal(d2, sc) and torch.equal(idx, asg)
+        assert oracle.misses(*orc, d2, idx) == (0, 0)
+        assert oracle.misses(*orc, sc, asg) == (0, 0)
+        assert torch.equal(asg, idx)
+        sw, aw, mass, s_cost = ops.sensitivity_scores(x, w, c, mask)
+        assert torch.equal(aw, idx) and oracle.equal_nan(sw, w * d2)
+        assert torch.equal(mass, exact_index_add(w, idx, k))
         own = torch.empty_like(idx)
         s, cnt, cost = fused_assign_reduce_cuda(x, w, c, mask,
                                                 assign_out=own)
-        assert torch.equal(own, asg)
-        s_e, cnt_e = ref.fixed_point_reduce_ref(x, w, asg, k)
+        assert torch.equal(own, idx)
+        s_e, cnt_e = ref.fixed_point_reduce_ref(x, w, idx, k)
         assert torch.equal(s, s_e) and torch.equal(cnt, cnt_e)
         if mask is none:
             assert bool(torch.isinf(d2).all()) and int(idx.abs().max()) == 0
         else:
             c64 = float((w.double() * d2.double()).sum())
             assert abs(float(cost) - c64) <= 1e-5 * abs(c64)
+            assert abs(float(s_cost) - c64) <= 1e-5 * abs(c64)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
                                 torch.float16], ids=["f32", "bf16", "f16"])
-@pytest.mark.parametrize("n,d,k,offset", [
-    (2_001, 17, 161, 0), (3_001, 37, 300, 0), (1_501, 513, 190, 0),
-    (1_001, 7_168, 81, 0), (1_001, 7_168, 78, 1), (130, 20, 3, 1)],
-    ids=["d17", "d37", "d513", "d7168", "d7168_unaligned", "d20_unaligned"])
-def test_cuda_tiled_removal_and_seeding_are_the_blocked_walk(n, d, k, offset,
-                                                             dt):
-    """remove_below and the seeding step at d > 16 (the tiled walk, and
-    the seeding's point stages against one center) against
-    sensitivity_scores at w = 1 (the register-blocked walk, exact): the
-    mask and counts are ``alive & (scores > v)`` and the draw-off d2 is
-    ``min(d2, scores)``, at k centers and at one, bit for bit, with and
-    without a center mask and with no valid center; a draw-on step's d2 is
-    the draw-off call's at the same center, the step over two parts
+@pytest.mark.parametrize("n,d,k,offset", WALK_CASES, ids=WALK_IDS)
+def test_cuda_removal_truncation_and_seeding_are_the_walk_oracle(
+        n, d, k, offset, dt):
+    """remove_below and truncated_cost at d > 16 (the tiled walk over a
+    grid of tiles by machines) and the seeding step (the tiled walk
+    against several centers, its point stages against one) against the
+    walk oracle's d2 (scripts/walk_oracle.py): the mask and counts are
+    ``alive & (d2 > v)``, truncated_cost's tail mass at w = 1 the count of
+    ``d2 > v`` a machine exactly and its kept and tail cost within 1e-5
+    of float64 sums, and the draw-off d2 is ``min(d2, oracle)``, at k
+    centers and at one, bit for bit, with and without a center mask and
+    with no valid center (every point in the tail); a draw-on step's d2
+    is the draw-off call's at the same center, the step over two parts
     (``kmeans_pp_step_at``) gives the one-call step's d2 and words, and a
-    seeding repeats and equals its chained steps. ``offset``: the points'
-    base 4 bytes (one float32, two 2-byte values) off 16-byte
-    alignment."""
+    seeding repeats and equals its chained steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels build only there")
     from repro_torch.kernels import fused_lloyd as fl
+    oracle = _walk_oracle()
     g, x, c, cv, w = _inputs(9, n, d, k, dt)
     if offset:
         flat = torch.empty(n * d + offset, dtype=dt, device="cuda")
         flat[offset:] = x.reshape(-1)
         x = flat[offset:].view(n, d)
-    ones = torch.ones(n, device="cuda")
     d2 = torch.rand(n, device="cuda", generator=g) * d
     p = n // 2
     alive = torch.rand((2, p), device="cuda", generator=g) > 0.2
     none = torch.zeros(k, dtype=torch.bool, device="cuda")
     for mask in (None, cv, none):
-        sc, _, _, _ = ops.sensitivity_scores(x, ones, c, mask)
-        v = torch.nan_to_num(torch.median(sc), posinf=1.0)
-        keep, live = ops.remove_below(x[:2 * p].view(2, p, d), c, alive, v,
-                                      mask)
-        want = alive & (sc[:2 * p].view(2, p) > v)
+        od2, each = oracle.nearest(ops, x, c, mask)
+        v = torch.nan_to_num(torch.median(od2), posinf=1.0)
+        x3, o3 = x[:2 * p].view(2, p, d), od2[:2 * p].view(2, p)
+        keep, live = ops.remove_below(x3, c, alive, v, mask)
+        want = alive & (o3 > v)
         assert torch.equal(keep, want)
         assert torch.equal(live, want.sum(1, dtype=torch.int32))
-        for cc, mm, s in ((c, mask, sc), (c[:1], None if mask is None
-                                          else mask[:1], None)):
-            if s is None:
-                s, _, _, _ = ops.sensitivity_scores(x, ones, cc, mm)
+        kept, tmass, tcost = ops.truncated_cost(
+            x3, torch.ones((2, p), device="cuda"), c, v, mask)
+        tail = o3 > v
+        assert torch.equal(tmass, tail.sum(1).float())
+        dd = o3.double()
+        for got, want64 in ((kept, torch.where(tail, 0.0, dd).sum(1)),
+                            (tcost, torch.where(tail, dd, 0.0).sum(1))):
+            g64 = got.double()
+            assert bool(((g64 == want64) | ((g64 - want64).abs() <= 1e-5
+                                            * want64.abs() + 1e-6)).all())
+        first = each[0] if mask is None or bool(mask[0]) else \
+            torch.full_like(od2, torch.inf)
+        for cc, mm, s in ((c, mask, od2),
+                          (c[:1], None if mask is None else mask[:1],
+                           first)):
             u, mass = ops.update_min_dist(x, w, cc, d2, mm)
             assert torch.equal(u, torch.where(s < d2, s, d2))
             again = ops.update_min_dist(x, w, cc, d2, mm)

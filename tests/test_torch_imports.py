@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: nothing under ``src/repro_torch/``, no
 ``examples/*_torch.py``, nothing in ``chip_smoke.py`` and nothing in the
-scripts it imports (``cuda_timing``, ``trace_overhead``) imports JAX or
-the JAX package ``repro`` (only the tests import both)."""
+scripts it imports (``cuda_timing``, ``trace_overhead``, ``walk_oracle``)
+imports JAX or the JAX package ``repro`` (only the tests import both)."""
 import ast
 import os
 import subprocess
@@ -14,7 +14,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 FILES = PORT + sorted((ROOT / "examples").glob("*_torch.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "cuda_timing.py",
-    ROOT / "scripts" / "trace_overhead.py"]
+    ROOT / "scripts" / "trace_overhead.py",
+    ROOT / "scripts" / "walk_oracle.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

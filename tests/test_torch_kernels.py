@@ -632,20 +632,41 @@ def test_lloyd_launch_shape_rules():
     (1_000_000, 15, 86_628, 4, 1),  # EIM11's largest sweep of x
     (14_438, 15, 86_628, 4, 44),    # EIM11's largest s2 sweep: 15 tiles
     (20_000, 15, 4_096, 4, 8),      # n <= 20,000, k >= 4,096
-    (20_000, 37, 4_096, 2, 8),      # any width: 2 points a thread
-    (3_000, 513, 1_023, 2, 1),      # too few centers for two slices
+    # past d = 16 every walk kernel takes the tiled walk, never split
+    # (the ids name the register-blocked walk's cases they were)
+    (20_000, 37, 4_096, twalk.TILED_PPT, 1),
+    (3_000, 513, 1_023, twalk.TILED_PPT, 1),
 ], ids=["coordinator", "weighing", "eim11_x", "eim11_s2", "split",
         "split_any_width", "one_slice_small_k"])
 def test_walk_launch_shape_rules(n, d, k, ppt, slices):
-    """The register-blocked walk's launch shape (kernels/walk.py:
-    min_dist's and the Lloyd step's at d <= 16, remove_below's,
-    sensitivity_scores' and truncated_cost's at every d): 4 points a
-    thread at d <= 16, else 2; the center axis split into slices of
-    >= 512 centers only when the point tiles cannot reach 4 blocks an SM
-    of 132, filling the last wave (or into as many slices as k allows);
-    the split scratch holds the tile counters and the (slices, n) best
-    and arg, and nothing with one slice."""
+    """The walks' launch shapes (kernels/walk.py), the same for min_dist,
+    the Lloyd step, sensitivity_scores and truncated_cost. At d <= 16 the
+    register-blocked walk: 4 points a thread, the center axis split into
+    slices of >= 512 centers only when the point tiles cannot reach 4
+    blocks an SM of 132, filling the last wave (or into as many slices as
+    k allows); the split scratch holds the tile counters and the
+    (slices, n) best and arg, and nothing with one slice. Past 16 the
+    tiled walk: TILED_PPT points a thread, tiles of TILED_POINTS, one
+    slice; sensitivity_scores' and truncated_cost's scratch at those
+    tiles."""
+    def r8(b):
+        return -(-b // 8) * 8
+
     assert twalk.points_per_thread(d) == ppt
+    pm = -(-n // 8)
+    if twalk.tiled(d):
+        tiles, tm = twalk.tiled_tiles(n), twalk.tiled_tiles(pm)
+        assert slices == 1 and tiles == max(-(-n // 128), 1)
+        assert tfused.points_per_thread(k, d) == ppt
+        assert tfused.launch_slices(n, k, d, 132, None, torch.float32) == 1
+        assert tsens.launch_shape(n, d, k, 132) == (ppt, tiles, 1)
+        assert tfused.layout_bytes(n, 0, k, tiles, 1) == (
+            k * 8 + 8 + 2 * r8(tiles * 4))
+        assert ttrunc.launch_shape(1, n, d, k, 132) == (ppt, tiles, 1)
+        assert ttrunc.scratch_bytes(1, n, tiles, 1) == r8(3 * tiles * 4)
+        assert ttrunc.launch_shape(8, pm, d, k, 132) == (ppt, tm, 1)
+        assert ttrunc.scratch_bytes(8, pm, tm, 1) == r8(8 * 3 * tm * 4)
+        return
     got = twalk.center_slices(n, k, 132, ppt)
     assert got == slices
     tiles = twalk.point_tiles(n, ppt)
@@ -660,30 +681,32 @@ def test_walk_launch_shape_rules(n, d, k, ppt, slices):
                 or slices == k // twalk.MIN_SLICE)
         assert twalk.split_scratch_bytes(n, ppt, slices) == (
             -(-tiles * 4 // 8) * 8 + 2 * (-(-slices * n * 4 // 8) * 8))
-    # the Lloyd step beyond its warp accumulators takes the same shape at
-    # d <= 16, and the tiled walk's past it
+    # the Lloyd step beyond its warp accumulators takes the same shape
     if k * (d + 1) > tfused.WARP_ACC_ENTRIES:
-        assert tfused.points_per_thread(k, d) == (
-            twalk.TILED_PPT if twalk.tiled(d) else ppt)
+        assert tfused.points_per_thread(k, d) == ppt
+    # sensitivity_scores: min_dist's shape, the Lloyd step's scratch
+    # layout with one fixed-point column (d = 0)
+    assert tsens.launch_shape(n, d, k, 132) == (ppt, tiles, slices)
+    assert tfused.layout_bytes(n, 0, k, tiles, slices) == tfused.scratch_bytes(
+        n, 0, k, ppt, slices)
     # truncated_cost: one machine of n points takes min_dist's shape; its
     # scratch is the (3, tiles) partials, then min_dist's split scratch
     # less the argmin (truncated_cost keeps none)
     assert ttrunc.launch_shape(1, n, d, k, 132) == (ppt, tiles, slices)
-    assert ttrunc.scratch_bytes(1, n, ppt, slices) == (
+    assert ttrunc.scratch_bytes(1, n, tiles, slices) == (
         -(-3 * tiles * 4 // 8) * 8
         + twalk.split_scratch_bytes(n, ppt, slices)
         - (-(-slices * n * 4 // 8) * 8 if slices > 1 else 0))
     # over 8 machines of n/8 points the slices come from the tiles of
     # every machine (a tile never straddles two), the scratch holds each
     # machine's partials, counters and (slices, p) best
-    pm = -(-n // 8)
     ppt8, tm, got8 = ttrunc.launch_shape(8, pm, d, k, 132)
     assert (ppt8, tm) == (ppt, twalk.point_tiles(pm, ppt))
     assert got8 == twalk.slices_for_tiles(8 * tm, k, 132)
     assert (got8 == 1) == (8 * tm >= twalk.FILL_PER_SM * 132
                            or k < 2 * twalk.MIN_SLICE)
     ws = -(-got8 * 8 * pm * 4 // 8) * 8 if got8 > 1 else 0
-    assert ttrunc.scratch_bytes(8, pm, ppt, got8) == (
+    assert ttrunc.scratch_bytes(8, pm, tm, got8) == (
         -(-8 * 3 * tm * 4 // 8) * 8
         + ((-(-8 * tm * 4 // 8) * 8) if got8 > 1 else 0) + ws)
 

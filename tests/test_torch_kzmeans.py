@@ -315,3 +315,78 @@ def test_kzmeans_claims_at_the_smoke_proportions(capsys):
               f"{j:.1f}")
     assert r < p
     assert j / 3.0 <= r <= 3.0 * j, (r, j)
+
+
+def test_kzmeans_past_the_register_rows(monkeypatch):
+    """kzmeans at d = 37 (on the card: ``sensitivity_scores`` and
+    ``truncated_cost`` on the tiled walk; here their plain versions), 2%
+    outliers, 2,000 points, k = 4, m = 4, on the same numpy inputs as the
+    reference's fit: both kernels reached at the points' width, the
+    reference's uplink rows, bytes and wire bytes exactly, tests/
+    test_kzmeans.py's accounting (kz cost + trimmed cost = the full cost,
+    z/2 <= trimmed mass <= z + 1) in both packages, robust beats plain on
+    the inliers, and the port's inlier cost within 3x the reference's."""
+    m, k = 4, 4
+    x, _, means = gaussian_mixture(JSpec(n=2_000, dim=37, k=k, sigma=0.001,
+                                         seed=5))
+    xc, mask = contaminate(x, frac=FRAC, scale=50.0, seed=3)
+    widths = {}
+    for name in ("sensitivity_scores", "truncated_cost"):
+        real = getattr(ops, name)
+
+        def record(xx, *a, _name=name, _real=real, **kw):
+            widths.setdefault(_name, set()).add(xx.shape[-1])
+            return _real(xx, *a, **kw)
+        monkeypatch.setattr(ops, name, record)
+    kw = dict(algo="kzmeans", m=m, coreset_size=400, lloyd_iters=10, seed=0)
+    ours = {f: api.fit(xc, k, outlier_frac=f, device="cpu", **kw)
+            for f in (0.0, FRAC)}
+    theirs = jfit(xc, k, backend="virtual", outlier_frac=FRAC, **kw)
+    assert widths == {"sensitivity_scores": {37}, "truncated_cost": {37}}
+    res = ours[FRAC]
+    for f in ("uplink_points", "uplink_bytes", "wire_bytes",
+              "wire_meta_bytes"):
+        np.testing.assert_array_equal(getattr(res, f), getattr(theirs, f))
+    assert np.array_equal(res.uplink_bytes, [400 * 37 * 4])
+    z_mass = FRAC * xc.shape[0]
+    for r in (res, theirs):
+        e = r.extra
+        np.testing.assert_allclose(e["kz_cost"] + e["trimmed_cost"],
+                                   _cost(xc, r.centers), rtol=1e-4)
+        assert 0.5 * z_mass <= e["trimmed_mass"] <= z_mass + 1.0
+    inl = {f: _cost(xc[mask], r.centers) for f, r in ours.items()}
+    assert inl[FRAC] < inl[0.0]
+    j = _cost(xc[mask], theirs.centers)
+    assert j / 3.0 <= inl[FRAC] <= 3.0 * j, (inl[FRAC], j)
+
+
+def test_kzmeans_trimmed_mass_without_outliers():
+    """tests/test_kzmeans.py bounds the trimmed mass by z/2 and z + 1 on
+    data whose outliers lie far out. On a table without outliers (the
+    smoke's kimi-k2 embedding fit: Gaussian rows) the upper bound is not
+    an identity: the candidates are each machine's farthest rows from its
+    own bicriteria, and rows beyond the realized threshold that no machine
+    shipped add to the mass. Here, at 16,384 × 64 Gaussian rows, k = 16,
+    m = 8, 100 coreset + 328 candidate rows a machine, the reference
+    itself trims more than z + 1; both packages trim at least z/2 and
+    within 15% of z, the port's trimmed mass is the count of rows beyond
+    v, and kz cost + trimmed cost is the full cost in both."""
+    n, d, m, k = 16_384, 64, 8, 16
+    x = (np.random.default_rng(0).standard_normal((n, d))
+         * 0.02).astype(np.float32)
+    kw = dict(algo="kzmeans", m=m, outlier_frac=FRAC,
+              coreset_size=m * (100 + 328), seed=0)
+    ours = api.fit(x, k, device="cpu", **kw)
+    theirs = jfit(x, k, backend="virtual", **kw)
+    z = FRAC * n
+    assert theirs.extra["trimmed_mass"] > z + 1.0
+    for r in (ours, theirs):
+        e = r.extra
+        assert (e["coreset_rows_per_machine"],
+                e["candidate_rows_per_machine"]) == (100, 328)
+        assert 0.5 * z <= e["trimmed_mass"] <= 1.15 * z, e["trimmed_mass"]
+        np.testing.assert_allclose(e["kz_cost"] + e["trimmed_cost"],
+                                   _cost(x, r.centers), rtol=1e-4)
+    d2, _ = ops.min_dist(torch.as_tensor(x), torch.as_tensor(ours.centers))
+    assert ours.extra["trimmed_mass"] == int(
+        (d2 > ours.extra["trim_threshold"]).sum())

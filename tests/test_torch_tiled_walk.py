@@ -1,12 +1,14 @@
 """The tiled walk's launch shape (d > 16), decided on the host.
 
-``min_dist``, the Lloyd step and ``remove_below`` walk d > 16 on the
-tiled walk (``csrc/common.cuh::tiled_nearest``), and the seeding step
-takes its tiles of points there (``csrc/fused_lloyd.cu::
-tiled_seed_kernel``); ``kernels/walk.py`` and ``kernels/fused_lloyd.py``
-decide its tiles, its points a thread, the column reduce's grid, the
-seeding's per-tile partials and the scratch the Lloyd wrapper allocates,
-and mirror the C constants and layout. Here, on the CPU: the rules at
+``min_dist``, the Lloyd step, ``remove_below``, ``sensitivity_scores``
+and ``truncated_cost`` walk d > 16 on the tiled walk
+(``csrc/common.cuh::tiled_nearest``), and the seeding step takes its
+tiles of points there (``csrc/fused_lloyd.cu::tiled_seed_kernel``);
+``kernels/walk.py``, ``kernels/fused_lloyd.py``,
+``kernels/sensitivity.py`` and ``kernels/truncated.py`` decide its
+tiles, its points a thread, the column reduce's grid, the seeding's
+per-tile partials and the scratch the wrappers allocate, and mirror the
+C constants and layout. Here, on the CPU: the rules at
 d = 17, 37, 513, 1,536 and 7,168 (tiles >= 1 and under the grid limits),
 the mirrors against the constants in the C sources, and the wrappers'
 arguments to the C entry points (the launch recorded, not run: the
@@ -21,6 +23,8 @@ import torch
 from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import fused_lloyd as tfused
 from repro_torch.kernels import min_dist as tmin
+from repro_torch.kernels import sensitivity as tsens
+from repro_torch.kernels import truncated as ttrunc
 from repro_torch.kernels import tuning
 from repro_torch.kernels import walk as twalk
 
@@ -93,6 +97,32 @@ def test_mirrors_match_the_c_constants():
     # and remove_below's register-blocked kernel only at P = 4
     assert "DR > 0 ? DR : d" not in fl
     assert "constexpr int P = 4;" in fl and "P = DR > 0 ? 4 : 2" not in fl
+    # sensitivity_scores and truncated_cost: by_width's d > 16 instance
+    # takes their tiled kernels, one block a tile (truncated_cost's grid
+    # by machines too), the tiles the wrappers' (tiled_tiles), one slice
+    for source, entry, kernel, grid in (
+            ("sensitivity.cu", "rt_sensitivity_scores",
+             "tiled_sensitivity_kernel<T>", "dim3((unsigned)tiles)"),
+            ("truncated.cu", "rt_truncated_cost", "tiled_truncated_kernel<T>",
+             "dim3((unsigned)tiles, (unsigned)m)")):
+        text = (CSRC / source).read_text()
+        body = text[text.index(f" {entry}("):]
+        body = body[:body.index("\n}\n")]
+        assert "const bool tiled = d > 16;" in body
+        assert "(tiled && (ppt != kTiledPPT || slices != 1))" in body
+        assert "tiled ? tiled_tiles(" in body
+        route = body[body.index("if constexpr (DR == 0)"):]
+        route = route[:route.index("} else {")]
+        assert kernel in route and grid in route, (entry, kernel)
+        # no any-width instance: the register-blocked kernel at P = 4 only
+        assert "P = DR > 0 ? 4 : 2" not in text
+        assert "constexpr int P = 4;" in text
+    # no walk reads its rows in place or re-reads them for every center:
+    # scan_center_tile takes the register rows only, and truncated_kernel
+    # stages every tile (no kStageMax fallback)
+    common = (CSRC / "common.cuh").read_text()
+    assert "static_assert(DR > 0," in common
+    assert "kStageMax" not in (CSRC / "truncated.cu").read_text()
 
 
 @pytest.mark.parametrize("d", WIDTHS)
@@ -163,7 +193,7 @@ class _Recorder:
 @pytest.fixture
 def on_card(monkeypatch):
     """The wrappers run on CPU tensors with their launch recorded."""
-    for mod in (tmin, tfused):
+    for mod in (tmin, tfused, tsens, ttrunc):
         monkeypatch.setattr(mod, "check_on_card", lambda *a, **k: None)
         monkeypatch.setattr(mod, "stream_of", lambda t: None)
     monkeypatch.setattr(twalk, "sm_count", lambda device: 132)
@@ -175,6 +205,10 @@ def on_card(monkeypatch):
                  "KMEANS_PP_STEP", "KMEANS_PP_STEP_AT"):
         rec[name] = _Recorder()
         monkeypatch.setattr(tfused, name, rec[name])
+    for mod, name in ((tsens, "SENSITIVITY_SCORES"),
+                      (ttrunc, "TRUNCATED_COST")):
+        rec[name] = _Recorder()
+        monkeypatch.setattr(mod, name, rec[name])
     return rec
 
 
@@ -236,3 +270,108 @@ def test_removal_and_seeding_take_the_tiled_walk(on_card, d, tiled):
     tfused.kmeans_pp_step_at_cuda(x[:p], w[:p], torch.ones(p),
                                   torch.zeros(d), 1, seed, p)
     assert on_card["KMEANS_PP_STEP_AT"].args[2:4] == (p, d)
+
+
+def _c_scratch_layout(n, d, k, tiles, slices, assign_rows=0):
+    """``csrc/common.cuh::scratch_layout``'s total, line by line."""
+    acc = 0
+    bound = acc + k * (d + 1) * 8
+    done = bound + 8
+    part = done + _r8(tiles * 4)
+    best = part + _r8(tiles * 4)
+    ws = _r8(slices * n * 4) if slices > 1 else 0
+    return best + ws + ws + _r8(assign_rows * 4)
+
+
+def _c_trunc_scratch(m, p, tiles, slices):
+    """``csrc/truncated.cu::trunc_scratch``'s total, line by line."""
+    done = _r8(m * 3 * tiles * 4)
+    split = slices > 1
+    best = done + (_r8(m * tiles * 4) if split else 0)
+    return best + (_r8(slices * m * p * 4) if split else 0)
+
+
+def test_scratch_mirrors_the_c_layout():
+    """The sources still lay their scratch out as ``_c_scratch_layout``
+    and ``_c_trunc_scratch`` transcribe them."""
+    common = (CSRC / "common.cuh").read_text()
+    for line in ("s.bound = s.acc + (size_t)k * (d + 1) * 8;",
+                 "s.done = s.bound + 8;",
+                 "s.zeroed = s.done + round8((size_t)tiles * 4);",
+                 "s.best = s.part + round8((size_t)tiles * 4);",
+                 "const size_t ws = slices > 1 ? round8((size_t)slices * n "
+                 "* 4) : 0;",
+                 "s.arg = s.best + ws;", "s.assign = s.arg + ws;",
+                 "s.total = s.assign + round8((size_t)assign_rows * 4);"):
+        assert line in common, line
+    trunc = (CSRC / "truncated.cu").read_text()
+    for line in ("s.done = round8((size_t)m * 3 * tiles * 4);",
+                 "s.best = s.done + (split ? round8((size_t)m * tiles * 4) "
+                 ": 0);",
+                 "s.total = s.best + (split ? round8((size_t)slices * m * p "
+                 "* 4) : 0);"):
+        assert line in trunc, line
+    sens = (CSRC / "sensitivity.cu").read_text()
+    assert "scratch_layout(n, 0, k, tiles, slices)" in sens
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("n,k", SIZES)
+def test_sensitivity_and_truncation_shapes(n, d, k):
+    """Past 16 sensitivity_scores takes the tiled walk's shape (TILED_PPT,
+    ``tiled_tiles(n)``, one slice) and truncated_cost the same a machine
+    over m = 1 or 8 machines, under the grid's limits; their scratch is
+    the C layout's at those tiles (``scratch_layout(n, 0, k, tiles, 1)``,
+    ``trunc_scratch(m, p, tiles, 1)``)."""
+    tiles = twalk.tiled_tiles(n)
+    assert tsens.launch_shape(n, d, k, 132) == (twalk.TILED_PPT, tiles, 1)
+    assert 1 <= tiles <= GRID_X
+    assert tfused.layout_bytes(n, 0, k, tiles, 1) == _c_scratch_layout(
+        n, 0, k, tiles, 1)
+    for m in (1, 8):
+        p = -(-n // m)
+        tm = twalk.tiled_tiles(p)
+        assert ttrunc.launch_shape(m, p, d, k, 132) == (twalk.TILED_PPT, tm,
+                                                        1)
+        assert 1 <= tm <= GRID_X and m <= GRID_YZ
+        assert ttrunc.scratch_bytes(m, p, tm, 1) == _c_trunc_scratch(
+            m, p, tm, 1)
+
+
+@pytest.mark.parametrize("d", [15, 16] + WIDTHS)
+def test_sensitivity_and_truncation_take_the_tiled_walk(on_card, d):
+    """sensitivity_scores and truncated_cost hand their C entry points the
+    tiled walk's points a thread, one slice and a scratch of the C
+    layout at ``tiled_tiles`` tiles at d > 16 (the C side refuses any
+    other shape there), and the register-blocked walk's 4 points a
+    thread, the rule's slices and its tiles at d <= 16."""
+    n, k, m, p = 300, 90, 3, 257
+    sens = on_card["SENSITIVITY_SCORES"]
+    tsens.sensitivity_scores_cuda(torch.zeros((n, d)), torch.ones(n),
+                                  torch.zeros((k, d)))
+    args = sens.args
+    assert args[2:4] == (n, d) and args[7] == k
+    ppt, slices, nbytes = args[8], args[9], args[12]
+    if twalk.tiled(d):
+        tiles = twalk.tiled_tiles(n)
+        assert (ppt, slices) == (twalk.TILED_PPT, 1)
+    else:
+        tiles = twalk.point_tiles(n, 4)
+        assert ppt == 4
+        assert slices == twalk.center_slices(n, k, 132, 4)
+    assert nbytes == _c_scratch_layout(n, 0, k, tiles, slices)
+    assert args[10] == tfused.ACC_MODES[tfused.acc_mode(k, 0)]
+    trunc = on_card["TRUNCATED_COST"]
+    ttrunc.truncated_cost_cuda(torch.zeros((m, p, d)), torch.ones((m, p)),
+                               torch.zeros((k, d)), 0.5)
+    args = trunc.args
+    assert args[2:5] == (m, p, d) and args[8] == k
+    ppt, slices, nbytes = args[10], args[11], args[14]
+    if twalk.tiled(d):
+        tiles = twalk.tiled_tiles(p)
+        assert (ppt, slices) == (twalk.TILED_PPT, 1)
+    else:
+        tiles = twalk.point_tiles(p, 4)
+        assert ppt == 4
+        assert slices == twalk.slices_for_tiles(m * tiles, k, 132)
+    assert nbytes == _c_trunc_scratch(m, p, tiles, slices)
